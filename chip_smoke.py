@@ -5,16 +5,24 @@
 
 1. needs a CUDA device (exits non-zero without one) and prints the card's
    name and power limit;
-2. builds the CUDA kernels from csrc/ with nvcc and prints the build time;
-3. runs every kernel of the main path at 256^3 and 512^3 on the card,
-   holds each against its plain PyTorch version on the same inputs, with
-   the tolerance printed, and times both (median of 5, CUDA events);
-4. runs the main path (run_pipeline) at 256^3, 1 Mpc/h cells, with the
-   launch counters reset just before it, and checks its outputs: catalogs
-   and mass functions at 4 redshifts with halos, FmaxPDF, histories, the
-   cosmology table, every kernel launched, no jax imported;
-5. runs the main path at 64^3 on the card and on the CPU (the plain
-   versions) and holds the halo catalogs to each other;
+2. builds the CUDA kernels from csrc/ with nvcc (one process per source, in
+   parallel) and prints the build time;
+3. runs every kernel at 256^3 and 512^3 on the card, holds each against its
+   plain PyTorch version on the same inputs, with the tolerance printed, and
+   times both (median of 5, CUDA events);
+4. drives each path through run_pipeline, with the launch counters reset
+   just before it and read just after, and checks its outputs (catalogs and
+   mass functions at 4 redshifts with halos, FmaxPDF, histories, the
+   cosmology table), its own launch set (every kernel of the path launched,
+   none of another path's) and that no jax was imported:
+     classic     the main path: classic ellipsoid, 256^3, 1 Mpc/h cells;
+     tabulated   TABULATED_CT with the bicubic lookup, 256^3;
+     scaledep    f(R) scale-dependent growth with RECOMPUTE_DISPLACEMENTS,
+                 256^3;
+     tabulated_trilinear, tabulated_bilinear   the other two lookups, 128^3;
+5. runs the classic path at 48^3 and the tabulated and scaledep paths at
+   64^3 on the card and on the CPU (the plain versions) and holds the halo
+   catalogs to each other;
 6. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
 """
@@ -33,9 +41,31 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SIZES = (256, 512)
 PIPELINE_N = 256
-REFERENCE_N = 64
 OUTPUT_Z = [2.0, 1.0, 0.5, 0.0]
 REPS = 5
+FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
+          recompute_displacements=True, MaxMemPerParticle=400)
+# the kernels every path launches, then each path's own
+COMMON = {"ic_kdensity", "kspace_hessian", "lpt_sources_pointwise",
+          "lpt_src32_accumulate", "gather_rows", "pdf_hist"}
+# name -> (grid size, Params switches, kernels of the path besides COMMON)
+PATHS = {
+    "classic": (PIPELINE_N, {}, {"collapse_update", "kspace_gradient"}),
+    "tabulated": (PIPELINE_N, dict(ell_model="tabulated",
+                                   ct_interp="bicubic"),
+                  {"collapse_update_table_bicubic", "kspace_gradient"}),
+    "scaledep": (PIPELINE_N, FR, {"collapse_update", "kspace_gradient_tab"}),
+    "tabulated_trilinear": (128, dict(ell_model="tabulated",
+                                      ct_interp="trilinear"),
+                            {"collapse_update_table_trilinear",
+                             "kspace_gradient"}),
+    "tabulated_bilinear": (128, dict(ell_model="tabulated",
+                                     ct_interp="bilinear"),
+                           {"collapse_update_table_bilinear",
+                            "kspace_gradient"}),
+}
+# card-vs-CPU checks: path -> grid size
+REFERENCE = {"classic": 48, "tabulated": 64, "scaledep": 64}
 
 
 class CheckFailed(RuntimeError):
@@ -63,10 +93,10 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def params_for(N):
+def params_for(N, **kw):
     from pinocchio_tpu.config import Params
     return Params(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
-                  norad=True, plc_enabled=False)
+                  norad=True, plc_enabled=False, **kw)
 
 
 def kernel_phases(N, dev, report):
@@ -77,7 +107,8 @@ def kernel_phases(N, dev, report):
     from pinocchio_tpu.cosmology import Cosmology
     from pinocchio_tpu_torch import fmax, ic
     from pinocchio_tpu_torch.grids import Grid, irfft3, rfft3
-    from pinocchio_tpu_torch.ops import collapse, derivatives, lpt
+    from pinocchio_tpu_torch.ops import (collapse, compact, derivatives, lpt,
+                                         tabulated)
 
     p = params_for(N)
     cosmo = Cosmology(p)
@@ -174,7 +205,90 @@ def kernel_phases(N, dev, report):
         sd, Ft, Rt, 1, pack))
     phase("collapse_update", dF.max().item(), math.inf, ms, plain_ms,
           extra="(F, fraction criteria above) ")
-    del sd, F0, R0, Fk, Rk, Fp, Rp, Ft, Rt, dF
+    del Fk, Rk, Fp, Rp, Ft, Rt, dF
+
+    # ---- K7: the three table lookups on the same stack and state, with
+    # the port's classic tables of the two radii ----
+    keep = [0, sm.n // 2]
+    sub = fmax.Smoothing(radii=sm.radii[keep], variance=sm.variance[keep])
+    ct = tabulated.build_ct_tables_all(cosmo, sub)
+    tabs = fmax.load_jax_state({k: ct[k] for k in ("tables", "tables2", "dv",
+                                                   "idx_map")}, dev)
+    targs = (tabs["tables"][1], tabs["tables2"][1], tabs["dv"],
+             tabs["idx_map"], float(ct["ampl"][1]))
+    for interp in tabulated.INTERP:
+        name = f"collapse_update_table_{interp}"
+        Fk, Rk = F0.clone(), R0.clone()
+        mk = collapse.collapse_update_table(sd, Fk, Rk, 1, *targs, interp)
+        Fp, Rp = F0.clone(), R0.clone()
+        mp = collapse.collapse_update_table_plain(sd, Fp, Rp, 1, *targs,
+                                                  interp)
+        dF = (Fk - Fp).abs()
+        okF = (dF <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)).double().mean()
+        exact = (Fk == Fp).double().mean().item()
+        okR = (Rk == Rp).double().mean().item()
+        rel = abs(mk[1].item() / mp[1].item() - 1.0)
+        print(f"  [{N}^3] {name}: F equal on {100 * exact:.4f}% (need >= "
+              f"99.99%), within 1e-4*max(1,|F|) on {100 * okF.item():.4f}% "
+              f"(need 100%), Rmax equal on {100 * okR:.4f}% (need >= "
+              f"99.99%), mean delta^2 rel err {rel:.2e} (need <= 1e-5)",
+              flush=True)
+        need(okF.item() == 1.0 and exact >= 0.9999 and okR >= 0.9999
+             and rel <= 1e-5, f"{name} at {N}^3 disagrees with its plain "
+             "version")
+        Ft, Rt = F0.clone(), R0.clone()
+        ms = time_ms(lambda: collapse.collapse_update_table(
+            sd, Ft, Rt, 1, *targs, interp))
+        Ft, Rt = F0.clone(), R0.clone()
+        plain_ms = time_ms(lambda: collapse.collapse_update_table_plain(
+            sd, Ft, Rt, 1, *targs, interp))
+        phase(name, dF.max().item(), math.inf, ms, plain_ms,
+              extra="(F, fraction criteria above) ")
+        del Fk, Rk, Fp, Rp, Ft, Rt, dF
+    del tabs, targs
+
+    # ---- K6a and K6b: the needed rows of four stacks, and the FmaxPDF
+    # histogram, of the state after the mid radius ----
+    collapse.collapse_update_plain(sd, F0, R0, 1, pack)
+    idx = compact.needed_order(F0, p.Flast)
+    stacks = [sd[i:i + 3] for i in (0, 3, 1, 2)]
+    size = compact.packed_size(idx.numel(), len(stacks), True)
+    got = torch.empty(size, device=dev)
+    want = torch.empty(size, device=dev)
+    compact.gather_rows(idx, stacks, got, F=F0)
+    compact.gather_rows_plain(idx, stacks, want, F=F0)
+    need(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+         f"gather_rows at {N}^3 is not identical to its plain version")
+    phase("gather_rows", (got - want).abs().max().item(), 0.0,
+          time_ms(lambda: compact.gather_rows(idx, stacks, got, F=F0)),
+          time_ms(lambda: compact.gather_rows_plain(idx, stacks, want,
+                                                    F=F0)),
+          extra=f"identical, {idx.numel()} rows of 4 stacks, ")
+    del got, want, stacks
+    got = compact.pdf_hist(F0)
+    want = compact.pdf_hist_plain(F0)
+    need(torch.equal(got, want), f"pdf_hist at {N}^3 is not identical to "
+         "its plain version")
+    phase("pdf_hist", (got - want).abs().max().item(), 0.0,
+          time_ms(lambda: compact.pdf_hist(F0)),
+          time_ms(lambda: compact.pdf_hist_plain(F0)), extra="identical, ")
+    del sd, F0, R0, idx
+
+    # ---- K8: tabulated growth (an f(R) cosmology, so that the growth
+    # varies with k) on delta ----
+    cosmo_fr = Cosmology(params_for(N, **FR))
+    gtabs, glo, gdx = fmax.growth_k_tables(cosmo_fr, 0.0, N, dev)
+    got = derivatives.gradient_kspace_tab(delta, gtabs[0], glo, gdx, N)
+    ref = derivatives.gradient_kspace_tab_plain(delta, gtabs[0], glo, gdx, N)
+    need(torch.equal(torch.view_as_real(got), torch.view_as_real(ref)),
+         f"kspace_gradient_tab at {N}^3 is not identical to its plain "
+         "version")
+    phase("kspace_gradient_tab", (got - ref).abs().max().item(), 0.0,
+          time_ms(lambda: derivatives.gradient_kspace_tab(
+              delta, gtabs[0], glo, gdx, N)),
+          time_ms(lambda: derivatives.gradient_kspace_tab_plain(
+              delta, gtabs[0], glo, gdx, N)), extra="identical, ")
+    del got, ref
 
     # ---- K4: the two LPT passes on the R=0 stack ----
     sd = derivatives.second_derivatives(delta, 0.0, N)
@@ -230,15 +344,18 @@ def c2r_check(dev):
          "the CPU transform")
 
 
-def main_path(dev):
-    """run_pipeline at PIPELINE_N^3; returns (launch counts, timings)."""
+def run_path(dev, name):
+    """Drive one path through run_pipeline with the launch counts set to 0
+    just before it; returns (launch counts, timings)."""
     import numpy as np
     import torch
     from pinocchio_tpu_torch import kernels
     from pinocchio_tpu_torch.run import run_pipeline
 
-    p = params_for(PIPELINE_N)
+    N, kw, own = PATHS[name]
+    p = params_for(N, **kw)
     with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -248,7 +365,7 @@ def main_path(dev):
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         files = set(os.listdir(out))
-        print(f"  main path {PIPELINE_N}^3: {wall:.2f} s wall, peak device "
+        print(f"  {name} path {N}^3: {wall:.2f} s wall, peak device "
               f"memory {peak / 2**30:.2f} GiB", flush=True)
         print("  phases: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(res["timings"].items())),
@@ -256,16 +373,16 @@ def main_path(dev):
         for snap in res["frag"].catalogs:
             nh = int((snap.mass >= p.MinHaloMass).sum())
             print(f"  z={snap.z:g}: {nh} halos", flush=True)
-            need(nh > 0, f"no halos at z={snap.z}")
+            need(nh > 0, f"{name}: no halos at z={snap.z}")
             for kind in ("catalog", "mf"):
                 fn = f"pinocchio.{snap.z:6.4f}.{p.RunFlag}.{kind}.out"
-                need(fn in files, f"missing {fn}")
+                need(fn in files, f"{name}: missing {fn}")
         for fn in (f"pinocchio.{p.RunFlag}.FmaxPDF.out",
                    f"pinocchio.{p.RunFlag}.histories.out",
                    f"pinocchio.{p.RunFlag}.cosmology.out"):
-            need(fn in files, f"missing {fn}")
+            need(fn in files, f"{name}: missing {fn}")
         need(len(res["frag"].catalogs) == len(OUTPUT_Z),
-             "catalogs missing for some output redshifts")
+             f"{name}: catalogs missing for some output redshifts")
         # HMF residual against the analytic fit (bench.py's formula)
         mf = np.loadtxt(os.path.join(
             out, f"pinocchio.{OUTPUT_Z[-1]:6.4f}.{p.RunFlag}.mf.out"))
@@ -275,24 +392,35 @@ def main_path(dev):
               f"{resid:.4f} ({int(sel.sum())} bins)", flush=True)
         sv = res["fmax"].smoothing.true_variance
         need(np.all(np.isfinite(sv)) and sv[-1] > 0,
-             "non-finite grid variance")
-    print(f"  launches on the main path: {launches}", flush=True)
-    missing = [k for k, v in launches.items() if v <= 0]
-    need(not missing, f"kernels not launched on the main path: {missing}")
+             f"{name}: non-finite grid variance")
+        if p.recompute_displacements:
+            segs = res["fmax"].host_products.segments
+            need(segs is not None and len(segs) == len(OUTPUT_Z),
+                 f"{name}: one displacement set per output redshift "
+                 "expected")
+    print(f"  launches on the {name} path: {launches}", flush=True)
+    expected = COMMON | own
+    missing = sorted(k for k in expected if launches[k] <= 0)
+    stray = sorted(k for k, v in launches.items()
+                   if v > 0 and k not in expected)
+    need(not missing, f"kernels of the {name} path not launched: {missing}")
+    need(not stray, f"kernels of other paths launched on the {name} path: "
+         f"{stray}")
     need("jax" not in sys.modules, "jax was imported")
     return launches, res["timings"]
 
 
-def reference_check(dev):
-    """The main path at REFERENCE_N^3 on the card against the same run on
-    the CPU, where every kernel is its plain PyTorch version (the versions
-    the CPU tests hold to the JAX package).  The tolerance family of those
-    tests: halo counts per output within max(5, 0.5 %), more than 97 % of
-    the final halos identical in name and mass."""
+def reference_check(dev, name):
+    """A path at a small size on the card against the same run on the CPU,
+    where every kernel is its plain PyTorch version (the versions the CPU
+    tests hold to the JAX package).  The tolerance family of those tests:
+    halo counts per output within max(5, 0.5 %), more than 97 % of the
+    final halos identical in name and mass."""
     import torch
     from pinocchio_tpu_torch.run import run_pipeline
 
-    p = params_for(REFERENCE_N)
+    N = REFERENCE[name]
+    p = params_for(N, **PATHS[name][1])
     cats = []
     for d in (dev, torch.device("cpu")):
         with tempfile.TemporaryDirectory() as out:
@@ -302,17 +430,17 @@ def reference_check(dev):
     for g, c in zip(card, host):
         ng = int((g.mass >= p.MinHaloMass).sum())
         nc = int((c.mass >= p.MinHaloMass).sum())
-        print(f"  [{REFERENCE_N}^3] z={g.z:g}: {ng} halos on the card, {nc} "
+        print(f"  [{name} {N}^3] z={g.z:g}: {ng} halos on the card, {nc} "
               f"on the CPU (tolerance max(5, 0.5 %))", flush=True)
         need(nc > 0 and abs(ng - nc) <= max(5, 0.005 * nc),
-             f"halo count at z={g.z} differs from the CPU run")
+             f"{name}: halo count at z={g.z} differs from the CPU run")
     g, c = card[-1], host[-1]
     on_cpu = dict(zip(c.name.tolist(), c.mass.tolist()))
     same = sum(1 for nm, ms in zip(g.name.tolist(), g.mass.tolist())
                if on_cpu.get(nm) == ms) / max(len(c.name), 1)
-    print(f"  [{REFERENCE_N}^3] final halos identical in name and mass: "
+    print(f"  [{name} {N}^3] final halos identical in name and mass: "
           f"{100 * same:.2f} % (need > 97 %)", flush=True)
-    need(same > 0.97, "final halos differ from the CPU run")
+    need(same > 0.97, f"{name}: final halos differ from the CPU run")
 
 
 def main() -> int:
@@ -331,8 +459,8 @@ def main() -> int:
                          text=True, timeout=60)
     card = smi.stdout.strip()
     print(card, flush=True)
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}",
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}",
           flush=True)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -350,29 +478,36 @@ def main() -> int:
             print(f"kernel phases at {N}^3:", flush=True)
             kernel_phases(N, dev, report)
         c2r_check(dev)
-        print(f"main path at {PIPELINE_N}^3:", flush=True)
-        launches, _ = main_path(dev)
-        print(f"main path at {REFERENCE_N}^3 on the card and on the CPU:",
-              flush=True)
-        reference_check(dev)
+        paths = {}
+        for path in PATHS:
+            print(f"{path} path at {PATHS[path][0]}^3:", flush=True)
+            paths[path] = run_path(dev, path)[0]
+        for path in REFERENCE:
+            print(f"{path} path at {REFERENCE[path]}^3 on the card and on "
+                  "the CPU:", flush=True)
+            reference_check(dev, path)
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # each kernel's launches: on the first path (in PATHS order) that owns
+    # it; the shared kernels on the main path
     rows = []
     for kname, (route, source, replaces) in kernels.KERNELS.items():
+        owner = next(nm for nm, (_, _, own) in PATHS.items()
+                     if kname in COMMON | own)
         r = report[PIPELINE_N][kname]
         big = report[max(KERNEL_SIZES)][kname]
         rows.append(dict(name=kname, route=route, source=source,
-                         replaces=replaces, launches=launches[kname],
-                         max_abs_err=r["max_abs_err"], ms=r["ms"],
-                         plain_ms=r["plain_ms"],
+                         replaces=replaces, launches=paths[owner][kname],
+                         path=owner, max_abs_err=r["max_abs_err"],
+                         ms=r["ms"], plain_ms=r["plain_ms"],
                          shape=f"{PIPELINE_N}^3",
                          ms_512=big["ms"], plain_ms_512=big["plain_ms"],
                          max_abs_err_512=big["max_abs_err"]))
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,9 +1,13 @@
-// k-space derivative multipliers (K2 and K5).
+// k-space derivative multipliers (K2, K5 and K8).
 //
 // Replaces, in pinocchio_tpu/ops/derivatives.py:
-//   kspace_hessian  <- smoothed_potential + the per-pair multiply of the FFT
-//                      branch of second_derivatives (lines 120-147)
-//   kspace_gradient <- the multiply of first_derivatives (lines 150-165)
+//   kspace_hessian      <- smoothed_potential + the per-pair multiply of the
+//                          FFT branch of second_derivatives (lines 120-147)
+//   kspace_gradient     <- the multiply of first_derivatives (lines 150-165)
+//   kspace_gradient_tab <- the multiply of first_derivatives_tab (168-185):
+//                          the growth factor of each mode is interpolated
+//                          linearly from a table over log10 |k| (|k| in grid
+//                          units, a quirk of the reference kept as is)
 // The c2r transforms that follow stay torch.fft (cuFFT), as the JAX package
 // leaves them to XLA's FFT.
 //
@@ -16,6 +20,9 @@
 // tables), with consecutive threads on consecutive kz so that loads and
 // each of the output planes are coalesced.  The float operations keep the
 // JAX order: base = delta * (smooth * inv_k2), then base * (k_a * k_b).
+// The tabulated-growth mode adds a log10f and a two-entry table read per
+// mode (still far below the memory line); its table (512 floats) is copied
+// to shared memory by each block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +92,32 @@ __global__ void gradient_kernel(const float2* __restrict__ src,
   out[2 * nmodes + idx] = cscale(base, k.kz);
 }
 
+__global__ void gradient_tab_kernel(const float2* __restrict__ src,
+                                    float2* __restrict__ out, int N, int Nh,
+                                    int64_t nmodes,
+                                    const float* __restrict__ gtab, int ntab,
+                                    float glo, float gdx, float tmax) {
+  extern __shared__ float s_tab[];
+  for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = gtab[i];
+  __syncthreads();
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nmodes) return;
+  const KMode k = kmode(N, Nh, idx);
+  const float logk = __fmul_rn(0.5f, log10f(fmaxf(k.k2, 1e-12f)));
+  float t = __fdiv_rn(__fsub_rn(logk, glo), gdx);
+  t = t < 0.0f ? 0.0f : (t > tmax ? tmax : t);
+  const int i = (int)t;
+  const float w = __fsub_rn(t, (float)i);
+  const float growth = __fadd_rn(__fmul_rn(s_tab[i], __fsub_rn(1.0f, w)),
+                                 __fmul_rn(s_tab[i + 1], w));
+  const float2 d = __ldg(src + idx);
+  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
+  base = cscale(base, k.inv_k2);
+  out[idx] = cscale(base, k.kx);
+  out[nmodes + idx] = cscale(base, k.ky);
+  out[2 * nmodes + idx] = cscale(base, k.kz);
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -106,5 +139,20 @@ extern "C" int kspace_gradient(const void* src, void* out, int N,
   const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
   gradient_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float2*)src, (float2*)out, N, Nh, nmodes, growth);
+  return (int)cudaGetLastError();
+}
+
+// gtab: [ntab] growth over log10 |k| from glo in steps of gdx; tmax: the
+// float32 clip of the table coordinate, ntab - 1.001
+extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
+                                   const void* gtab, int ntab, float glo,
+                                   float gdx, float tmax, void* stream) {
+  const int Nh = N / 2 + 1;
+  const int64_t nmodes = (int64_t)N * N * Nh;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
+                        (cudaStream_t)stream>>>(
+      (const float2*)src, (float2*)out, N, Nh, nmodes, (const float*)gtab,
+      ntab, glo, gdx, tmax);
   return (int)cudaGetLastError();
 }

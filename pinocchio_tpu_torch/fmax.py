@@ -2,11 +2,16 @@
 (counterpart of pinocchio_tpu/fmax.py, dense single-device engine).
 
 For each radius of the variance ladder, the 6 smoothed second derivatives
-(K2 + one batched c2r) feed the collapse update (K3), which keeps each
-cell's earliest collapse time in Fmax; the last radius is R=0, and its
-Hessian stack feeds the LPT sources (K4) and the four displacement fields
-(K5 + c2r).  The needed particles (Fmax >= Flast) are then compacted on the
-device in the sweep's (-F, cell) order and handed to the host in one copy.
+(K2 + one batched c2r) feed the collapse update, which keeps each cell's
+earliest collapse time in Fmax: the classic ellipsoid solve (K3), or, with
+ell_model 'tabulated' or 'sng', a lookup in the radius's collapse-time table
+(K7).  The last radius is R=0, and its Hessian stack feeds the LPT sources
+(K4) and the four displacement fields (K5, or K8 with scale-dependent
+growth, + c2r).  The needed particles (Fmax >= Flast) are sorted on the
+device in the sweep's (-F, cell) order; their rows of every displacement
+set (one set, or one per output redshift with RECOMPUTE_DISPLACEMENTS) are
+gathered into one packed buffer (K6a) and handed to the host in one copy,
+with the FmaxPDF histogram (K6b).
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -24,11 +29,13 @@ from pinocchio_tpu.cosmology import Cosmology
 
 from .grids import Grid
 from .ic import generate_kdensity
-from .ops import collapse, derivatives, lpt
+from .ops import collapse, compact, derivatives, lpt, tabulated
+from .ops.compact import PDF_BINS
 
 NSIGMA = 6.0
 STEP_VAR = 0.3          # spacing of the variance ladder (pinocchio.h:69)
-PDF_BINS = 210
+# growth-factor index of each displacement field (D1, D2, D31, D32)
+GROWTH_INDEX = {"v1": 0, "v2": 1, "v31": 2, "v32": 3}
 
 
 @dataclass
@@ -83,6 +90,9 @@ class SparseProducts:
     F: np.ndarray                      # float32 per needed particle
     vel: Dict[str, np.ndarray]         # key -> [n, 3] float32
     sorted_by: str = "F"
+    # RECOMPUTE_DISPLACEMENTS: one displacement set per output redshift,
+    # rows aligned with vel (segments[0] is vel itself); None otherwise
+    segments: List[Dict[str, np.ndarray]] = None
 
 
 @dataclass
@@ -95,36 +105,54 @@ class FmaxResult:
     timings: Dict[str, float] = field(default_factory=dict)
 
 
-def inverse_growth_packs(cosmo: Cosmology, sm: Smoothing) -> np.ndarray:
-    """Per-radius inverse-growing-mode polynomial fits [nsmooth, 23]
-    (scale-independent growth: one fit repeated)."""
+def inverse_growth_packs(cosmo: Cosmology, sm: Smoothing,
+                         scaledep_gm=None) -> np.ndarray:
+    """Per-radius inverse-growing-mode polynomial fits [nsmooth, 23]: one
+    fit repeated, or with scale-dependent growth the inverse of each
+    radius's smoothed-density growth (InverseGrowingMode,
+    cosmo.c:1822-1832)."""
+    if scaledep_gm is not None:
+        return np.stack([collapse.fit_inverse_growth(
+            scaledep_gm.invgrow_logD[i], scaledep_gm.loga_grid)
+            for i in range(sm.n)])
     return np.tile(collapse.make_inverse_growth_fit(cosmo)[None, :],
                    (sm.n, 1))
 
 
+_STATE_DTYPES = dict(
+    kdensity=np.complex64, Fmax=np.float32, Rmax=np.int32, v1=np.float32,
+    v2=np.float32, v31=np.float32, v32=np.float32, packs=np.float32,
+    tables=np.float32, tables2=np.float32, dv=np.float32,
+    idx_map=np.int32, ampl=np.float32, gtabs=np.float32, glo=np.float32,
+    gdx=np.float32)
+
+
 def load_jax_state(arrays: dict, device) -> dict:
     """The JAX package's arrays (numpy, as fetched with np.asarray from a
-    JAX FmaxResult or ic.generate_kdensity) as the port's tensors on
-    ``device``: kdensity complex64, Fmax float32, Rmax int32, v1/v2/v31/v32
-    float32 [3, N, N, N], packs float32 [nsmooth, 23]."""
-    dtypes = dict(kdensity=np.complex64, Fmax=np.float32, Rmax=np.int32,
-                  v1=np.float32, v2=np.float32, v31=np.float32,
-                  v32=np.float32, packs=np.float32)
+    JAX FmaxResult, ic.generate_kdensity, prepare_ct_tables or
+    growth_k_tables), or the port's own numpy arrays of the same names, as
+    the port's tensors on ``device``: kdensity complex64; Fmax float32;
+    Rmax int32; v1/v2/v31/v32 float32 [3, N, N, N]; packs float32
+    [nsmooth, 23]; the CT tables and tables2 float32 [nsmooth, NXY, NXY,
+    ND], dv float32 [ND], idx_map int32 [AUX_N], ampl float32 [nsmooth];
+    the growth tables gtabs float32 [4, ntab] with the float32 scalars glo
+    and gdx."""
     out = {}
     for k, v in arrays.items():
-        if k not in dtypes:
+        if k not in _STATE_DTYPES:
             raise KeyError(f"load_jax_state: unknown array {k!r}")
-        arr = np.array(v, dtypes[k], order="C", copy=True)
+        arr = np.array(v, _STATE_DTYPES[k], order="C", copy=True)
         out[k] = torch.from_numpy(arr).to(device)
     return out
 
 
-def fmax_loop(kdensity, radii_grid: np.ndarray, packs: np.ndarray, N: int):
-    """The smoothing-radius cycle (fmax.c:66-150) as a host loop over radii.
-
-    Fmax and Rmax are updated in place by the collapse kernel.  Returns
-    (Fmax, Rmax, stats [nsmooth, 2] float64 device tensor of (mean delta,
-    mean delta^2), sd) with sd the last radius's (R=0) Hessian stack."""
+def _radius_cycle(kdensity, radii_grid: np.ndarray, N: int, update):
+    """The smoothing-radius cycle (fmax.c:66-150) as a host loop over radii:
+    the Hessian stack of each radius, then update(sd, Fmax, Rmax, ism),
+    which updates Fmax and Rmax in place and returns the radius's
+    statistics.  Returns (Fmax, Rmax, stats [nsmooth, 2] float64 device
+    tensor of (mean delta, mean delta^2), sd) with sd the last radius's
+    (R=0) Hessian stack."""
     dev = kdensity.device
     Fmax = torch.full((N, N, N), -10.0, dtype=torch.float32, device=dev)
     Rmax = torch.full((N, N, N), -1, dtype=torch.int32, device=dev)
@@ -133,60 +161,141 @@ def fmax_loop(kdensity, radii_grid: np.ndarray, packs: np.ndarray, N: int):
     for ism, R in enumerate(radii_grid):
         sd = None                      # free the previous stack first
         sd = derivatives.second_derivatives(kdensity, float(R), N)
-        stats.append(collapse.collapse_update(sd, Fmax, Rmax, ism,
-                                              packs[ism]))
+        stats.append(update(sd, Fmax, Rmax, ism))
     return Fmax, Rmax, torch.stack(stats), sd
 
 
-def displacement_stage(kdensity, sd, growths, N: int, order: int):
-    """LPT sources + displacement stacks (compute_displacements,
-    fmax.c:292-367), in the order v2, v31, v32, v1.  growths = (D1, D2,
-    D31, D32) at the storage redshift."""
-    out = {}
+def fmax_loop(kdensity, radii_grid: np.ndarray, packs: np.ndarray, N: int):
+    """The cycle with the classic ellipsoid (K3); packs [nsmooth, 23] the
+    per-radius inverse-growth fits.  Returns as _radius_cycle."""
+    return _radius_cycle(
+        kdensity, radii_grid, N, lambda sd, Fmax, Rmax, ism:
+        collapse.collapse_update(sd, Fmax, Rmax, ism, packs[ism]))
+
+
+def fmax_loop_tab(kdensity, radii_grid: np.ndarray, ct: dict, N: int,
+                  interp: str = "trilinear"):
+    """The cycle with collapse times looked up in the per-radius
+    TABULATED_CT / ELL_SNG tables (interpolate_collapse_time,
+    collapse_times.c:1139-1231; K7) in the variant ``interp``.  ct: tables
+    [nsmooth, NXY, NXY, ND], tables2 (their delta-spline second
+    derivatives; needed by the spline variants), dv and idx_map as tensors
+    on kdensity's device (load_jax_state), ampl [nsmooth].  Returns as
+    _radius_cycle."""
+    tables2 = ct.get("tables2")
+    if tables2 is None and interp != "trilinear":
+        # zero second derivatives would silently degrade the delta splines
+        # to piecewise-linear
+        raise ValueError(f"interp={interp!r} needs the spline "
+                         "second-derivative tables: pass ct['tables2'] "
+                         "(prepare_ct_tables provides them)")
+    return _radius_cycle(
+        kdensity, radii_grid, N, lambda sd, Fmax, Rmax, ism:
+        collapse.collapse_update_table(
+            sd, Fmax, Rmax, ism, ct["tables"][ism],
+            None if tables2 is None else tables2[ism], ct["dv"],
+            ct["idx_map"], float(ct["ampl"][ism]), interp))
+
+
+def prepare_ct_tables(params: Params, cosmo: Cosmology, sm: Smoothing,
+                      verbose: bool = True) -> dict:
+    """Per-radius TABULATED_CT / ELL_SNG collapse tables (numpy, see
+    tabulated.build_ct_tables_all): read from CTtableFile when it is there
+    and its header fits this run (collapse_times.c:1235-1345), else built
+    and, with a CTtableFile set, written there."""
+    model = "sng" if params.ell_model == "sng" else "classic"
+    cached = params.CTtableFile not in ("none", "")
+    if cached:
+        try:
+            tabs = tabulated.read_ct_table_file(params.CTtableFile, params,
+                                                sm)
+        except (OSError, ValueError):
+            tabs = None
+        if tabs is not None:
+            dv64 = tabulated.delta_sampling()
+            dv = dv64.astype(np.float32)
+            if verbose:
+                print(f"  collapse tables read from {params.CTtableFile}")
+            return dict(tables=tabs, tables2=tabulated.spline_d2(tabs, dv64),
+                        dv=dv, idx_map=tabulated.aux_index_map(dv),
+                        ampl=np.sqrt(sm.variance).astype(np.float32))
+    if verbose:
+        print(f"  building {model} collapse tables for {sm.n} radii")
+    ct = tabulated.build_ct_tables_all(cosmo, sm, model=model)
+    if cached:
+        tabulated.write_ct_table_file(params.CTtableFile, params, sm,
+                                      ct["tables"])
+    return ct
+
+
+def growth_k_tables(cosmo: Cosmology, z0: float, N: int, device,
+                    ntab: int = 512):
+    """Per-order growth D_i(z0, k) tables [4, ntab] float32 on ``device``
+    over a uniform log10 |k| grid in grid units (the reference's grid-unit
+    k in the growth switch, fmax-pfft.c:340-364), with the grid's start glo
+    and step gdx as float32 values."""
+    lo = math.log10(2.0 * math.pi / N) - 2.0
+    hi = math.log10(math.pi * math.sqrt(3.0)) + 0.1
+    logk = np.linspace(lo, hi, ntab)
+    k = 10.0 ** logk
+    tabs = np.stack([
+        np.asarray(cosmo.GrowingMode(z0, k), np.float32),
+        np.asarray(cosmo.GrowingMode_2LPT(z0, k), np.float32),
+        np.asarray(cosmo.GrowingMode_3LPT_1(z0, k), np.float32),
+        np.asarray(cosmo.GrowingMode_3LPT_2(z0, k), np.float32)])
+    return (torch.from_numpy(tabs).to(device), float(np.float32(lo)),
+            float(np.float32(logk[1] - logk[0])))
+
+
+def displacement_sources(kdensity, sd, N: int, order: int) -> dict:
+    """The k-space sources of the displacement fields, keyed like them, in
+    the order v2, v31, v32 (the LPT sources of the R=0 Hessian stack sd)
+    and v1 (delta itself).  They do not depend on z, so a RECOMPUTE run
+    makes them once for all its displacement sets."""
+    src = {}
     if order >= 2:
         kvec2, kvec31, kvec32 = lpt.lpt_sources(sd, N)
-        out["v2"] = derivatives.first_derivatives(kvec2, growths[1], N)
-        del kvec2
+        src["v2"] = kvec2
         if order >= 3:
-            out["v31"] = derivatives.first_derivatives(kvec31, growths[2], N)
-            out["v32"] = derivatives.first_derivatives(kvec32, growths[3], N)
-        del kvec31, kvec32
-    out["v1"] = derivatives.first_derivatives(kdensity, growths[0], N)
+            src["v31"] = kvec31
+            src["v32"] = kvec32
+        del kvec2, kvec31, kvec32
+    src["v1"] = kdensity
+    return src
+
+
+def displacement_fields(sources: dict, growths, N: int,
+                        scaledep: bool = False) -> dict:
+    """One displacement set: a [3, N, N, N] stack per source.  growths:
+    scalars (D1, D2, D31, D32) at the set's redshift, or with scaledep the
+    growth_k_tables triple (gtabs [4, ntab], glo, gdx)."""
+    out = {}
+    for key, kvec in sources.items():
+        i = GROWTH_INDEX[key]
+        if scaledep:
+            gtabs, glo, gdx = growths
+            out[key] = derivatives.first_derivatives_tab(kvec, gtabs[i],
+                                                         glo, gdx, N)
+        else:
+            out[key] = derivatives.first_derivatives(kvec, growths[i], N)
     return out
 
 
-def needed_products(Fmax, vel: dict, Flast: float) -> SparseProducts:
-    """Needed-particle compaction on the device: the cells with
-    F >= Flast sorted by descending F, ties by ascending cell index
-    (stable sort on the key where(F >= Flast, -F, +inf)), their F and
-    displacement rows, packed into one buffer and copied to the host once.
-    """
-    N = Fmax.shape[0]
-    Ff = Fmax.reshape(-1)
-    mask = Ff >= Flast
-    key = torch.where(mask, -Ff, float("inf"))
-    order = torch.sort(key, stable=True).indices
-    count = int(mask.sum())                         # device sync
-    idx = order[:count]
-    keys = sorted(vel)
-    parts = [idx.to(torch.int32).view(torch.float32), Ff[idx]]
-    for k in keys:
-        parts.append(vel[k].reshape(3, -1)[:, idx].T.reshape(-1))
-    host = torch.cat(parts).cpu().numpy()
+def _unpack(host: np.ndarray, N: int, count: int, keys, nsets: int):
+    """SparseProducts from the packed host copy: cell indices and F, then
+    the rows of each displacement set (compact.gather_rows layout)."""
     ci = host[:count].view(np.int32).astype(np.int64)
     F = host[count:2 * count]
-    rows = {}
-    for i, k in enumerate(keys):
-        off = (2 + 3 * i) * count
-        rows[k] = host[off:off + 3 * count].reshape(count, 3)
-    return SparseProducts(N=N, ci=ci, F=F, vel=rows, sorted_by="F")
-
-
-def pdf_hist(Fmax) -> np.ndarray:
-    """The FmaxPDF histogram on the device: PDF_BINS bins of 0.1 in F."""
-    b = torch.clamp((Fmax.reshape(-1) * 10.0).to(torch.int32), 0,
-                    PDF_BINS - 1)
-    return torch.bincount(b.long(), minlength=PDF_BINS).cpu().numpy()
+    off = 2 * count
+    sets = []
+    for _ in range(nsets):
+        rows = {}
+        for k in keys:
+            rows[k] = host[off:off + 3 * count].reshape(count, 3)
+            off += 3 * count
+        sets.append(rows)
+    return SparseProducts(N=N, ci=ci, F=F, vel=sets[0], sorted_by="F",
+                          segments=sets if nsets > 1 else None)
 
 
 def _sync(device):
@@ -195,11 +304,14 @@ def _sync(device):
 
 
 def run_fmax(params: Params, cosmo: Cosmology, device,
-             kdensity=None, verbose: bool = False) -> FmaxResult:
+             kdensity=None, scaledep_gm=None,
+             verbose: bool = False) -> FmaxResult:
     """Collapse times, displacements and the needed-particle products on
     ``device``.  kdensity: an optional complex64 [N, N, N//2+1] tensor
     (e.g. the JAX package's, through load_jax_state) used instead of
-    generating the initial conditions."""
+    generating the initial conditions.  scaledep_gm: the per-radius
+    effective growth of a scale-dependent cosmology
+    (pinocchio_tpu.scaledep.set_scaledep_gm)."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     sm = Smoothing.build(params, cosmo)
@@ -215,9 +327,16 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     timings["dens"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    packs = inverse_growth_packs(cosmo, sm)
     radii_grid = (sm.radii / grid.CellSize).astype(np.float32)
-    Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
+    if params.ell_model != "classic":
+        ct = prepare_ct_tables(params, cosmo, sm, verbose=verbose)
+        timings["ct_tables"] = time.perf_counter() - t0
+        Fmax, Rmax, stats, sd = fmax_loop_tab(
+            kdensity, radii_grid, load_jax_state(ct, device), N,
+            interp=params.ct_interp)
+    else:
+        packs = inverse_growth_packs(cosmo, sm, scaledep_gm)
+        Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
     sm.true_variance[:] = stats[:, 1].cpu().numpy()      # device sync
     timings["fmax_loop"] = time.perf_counter() - t0
     if verbose:
@@ -227,25 +346,58 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                   f"computed "
                   f"{math.sqrt(max(sm.true_variance[ism], 0.0)):7.4f}")
 
+    # the needed particles in the sweep's order (one sort, used by every
+    # displacement set)
     t0 = time.perf_counter()
-    z0 = params.zlast
-    growths = (float(cosmo.GrowingMode(z0)),
-               float(cosmo.GrowingMode_2LPT(z0)),
-               float(cosmo.GrowingMode_3LPT_1(z0)),
-               float(cosmo.GrowingMode_3LPT_2(z0)))
-    vel = displacement_stage(kdensity, sd, growths, N, params.lpt_order)
+    idx = compact.needed_order(Fmax, params.Flast)
+    t_sort = time.perf_counter() - t0
+
+    # displacements at R=0 (fmax.c:152-169, LPT.c): stored at output_z[0]
+    # under RECOMPUTE_DISPLACEMENTS, with one further set per output
+    # redshift (compute_displacements per segment, fragment.c:398-429),
+    # else at the last redshift
+    t0 = time.perf_counter()
+    zs = (list(params.output_z) if params.recompute_displacements
+          else [params.zlast])
+    scaledep = bool(getattr(cosmo, "scale_dep", False))
+
+    def growths_at(z):
+        if scaledep:
+            return growth_k_tables(cosmo, z, N, device)
+        return (float(cosmo.GrowingMode(z)),
+                float(cosmo.GrowingMode_2LPT(z)),
+                float(cosmo.GrowingMode_3LPT_1(z)),
+                float(cosmo.GrowingMode_3LPT_2(z)))
+
+    sources = displacement_sources(kdensity, sd, N, params.lpt_order)
     del sd
+    keys = sorted(sources)
+    count = idx.numel()
+    sizes = [compact.packed_size(count, len(keys), s == 0)
+             for s in range(len(zs))]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    off = 0
+    for s, z in enumerate(zs):
+        vel = displacement_fields(sources, growths_at(z), N, scaledep)
+        # the needed rows of this set, then its stacks are freed
+        compact.gather_rows(idx, [vel[k] for k in keys],
+                            buf[off:off + sizes[s]],
+                            F=Fmax if s == 0 else None)
+        off += sizes[s]
+        del vel
+    del sources
     _sync(device)
     timings["lpt"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sp = needed_products(Fmax, vel, params.Flast)
-    del vel
-    hist = pdf_hist(Fmax)
-    timings["products"] = time.perf_counter() - t0
+    sp = _unpack(buf.cpu().numpy(), N, count, keys, len(zs))
+    del buf
+    hist = compact.pdf_hist(Fmax).cpu().numpy()
+    timings["products"] = t_sort + time.perf_counter() - t0
     if verbose:
-        print(f"  products: {len(sp.ci)}/{N ** 3} needed particles "
-              f"({100.0 * len(sp.ci) / N ** 3:.1f}%)")
+        print(f"  products: {count}/{N ** 3} needed particles "
+              f"({100.0 * count / N ** 3:.1f}%), {len(zs)} displacement "
+              f"set(s)")
     return FmaxResult(products=Products(Fmax=Fmax, Rmax=Rmax), smoothing=sm,
                       grid=grid, host_products=sp, pdf_hist=hist,
                       timings=timings)

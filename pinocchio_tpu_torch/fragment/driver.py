@@ -6,8 +6,10 @@ The products arrive from the device already sorted in the sweep's order
 module builds the growth-weight tables and the ctypes structs and runs the
 native group sweep (pinocchio_tpu/native/groupsweep.c, loaded through the
 jax-free ``pinocchio_tpu.native``).  One periodic sub-box spans the grid
-(set_subboxes with nbox=1: pbc on, safe=0); there is no PLC, no
-displacement segments and no streaming watermark.
+(set_subboxes with nbox=1: pbc on, safe=0); there is no PLC and no
+streaming watermark.  Scale-dependent growth adds the sweep's (log10 k,
+log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its per-segment
+displacement sets and weights.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 
 from pinocchio_tpu import native
 from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu.cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
 from ..fmax import FmaxResult
 
@@ -41,7 +43,7 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 class _SweepInput(ctypes.Structure):
     # field layout of groupsweep.c's SweepInput (the scale-dependent and
-    # segment blocks stay zero on this path)
+    # segment blocks stay zero unless those features are on)
     _fields_ = [
         ("n", ctypes.c_int64),
         ("Fmax", _f32p), ("pos", _i32p),
@@ -118,14 +120,20 @@ def fragment_parameters(order: int, use_sim_params: bool = False):
                 f_200=f_200, sigmaD0=sigmaD0)
 
 
-def growth_tables(params: Params, cosmo: Cosmology, n: int = 8192,
-                  Fhi: float = 1500.0):
-    """Uniform-log10(F) tables of the displacement weights, velocity growth
-    factors and D(z) used inside the sweep (set_weight / set_obj_vel,
-    build_groups.c:1411-1460)."""
+def _logF_grid(params: Params, n: int, Fhi: float):
     lo = math.log10(params.Flast) - 1e-4
     logF = np.linspace(lo, math.log10(Fhi), n)
-    z = 10.0 ** logF - 1.0
+    return lo, logF, 10.0 ** logF - 1.0
+
+
+def growth_tables(params: Params, cosmo: Cosmology, n: int = 8192,
+                  Fhi: float = 1500.0, k_dens: float = None):
+    """Uniform-log10(F) tables of the displacement weights, velocity growth
+    factors and D(z) used inside the sweep (set_weight / set_obj_vel,
+    build_groups.c:1411-1460).  k_dens: the wavenumber of D(z) (with
+    scale-dependent growth, the smoothed density's effective scale at the
+    last radius); the Nyquist k_for_GM when None."""
+    lo, logF, z = _logF_grid(params, n, Fhi)
     zl = params.zlast
     k = params.k_for_GM
     fac = cosmo.Hubble(z) / (1.0 + z) * params.InterPartDist
@@ -137,9 +145,61 @@ def growth_tables(params: Params, cosmo: Cosmology, n: int = 8192,
         dv1=fac * cosmo.fomega(z, k), dv2=fac * cosmo.fomega_2LPT(z, k),
         dv31=fac * cosmo.fomega_3LPT_1(z, k),
         dv32=fac * cosmo.fomega_3LPT_2(z, k),
-        D1=cosmo.GrowingMode(z, k))
+        D1=cosmo.GrowingMode(z, k_dens if k_dens is not None else k))
     return lo, logF[1] - logF[0], {
         k_: np.ascontiguousarray(v, np.float64) for k_, v in arrs.items()}
+
+
+def growth_tables_2d(params: Params, cosmo: Cosmology, n: int = 8192,
+                     Fhi: float = 1500.0):
+    """Scale-dependent variant: [NK_BINS, n] tables of the weights and
+    velocity factors over the (log10 k, log10 F) grid, which the sweep
+    interpolates bilinearly (set_weight + InterpolateGrowth,
+    build_groups.c:1411-1444, cosmo.c:1728-1755)."""
+    _, _, z = _logF_grid(params, n, Fhi)
+    zl = params.zlast
+    fac = cosmo.Hubble(z) / (1.0 + z) * params.InterPartDist
+    out = {nm: np.zeros((NK_BINS, n)) for nm in
+           ("w1", "w2", "w31", "w32", "dv1", "dv2", "dv31", "dv32")}
+    ks = 10.0 ** (LOGKMIN + DELTALOGK * np.arange(NK_BINS))
+    for j, k in enumerate(ks):
+        for nm, grow, fom in (
+                ("1", cosmo.GrowingMode, cosmo.fomega),
+                ("2", cosmo.GrowingMode_2LPT, cosmo.fomega_2LPT),
+                ("31", cosmo.GrowingMode_3LPT_1, cosmo.fomega_3LPT_1),
+                ("32", cosmo.GrowingMode_3LPT_2, cosmo.fomega_3LPT_2)):
+            out["w" + nm][j] = grow(z, k) / grow(zl, k)
+            out["dv" + nm][j] = fac * fom(z, k)
+    return {k_: np.ascontiguousarray(v, np.float64) for k_, v in out.items()}
+
+
+def _segment_weight_tables(params: Params, cosmo: Cosmology, scaledep_gm,
+                           n: int = 8192, Fhi: float = 1500.0):
+    """Per-segment displacement weights over log10 F (and the NK_BINS
+    log10 k grid when scale-dependent), set_weight's two branches
+    (build_groups.c:1414-1442): segment 0 is D(z)/D(z_0), segment s
+    (D(z) - D(z_{s-1})) / (D(z_s) - D(z_{s-1}))."""
+    _, _, z = _logF_grid(params, n, Fhi)
+    zs = params.output_z
+    nseg = len(zs)
+    if scaledep_gm is not None:
+        ks = 10.0 ** (LOGKMIN + DELTALOGK * np.arange(NK_BINS))
+    else:
+        ks = [params.k_for_GM]
+    out = {nm: np.zeros((nseg, len(ks), n))
+           for nm in ("w1", "w2", "w31", "w32")}
+    fns = dict(w1=cosmo.GrowingMode, w2=cosmo.GrowingMode_2LPT,
+               w31=cosmo.GrowingMode_3LPT_1, w32=cosmo.GrowingMode_3LPT_2)
+    for j, k in enumerate(ks):
+        for nm, fn in fns.items():
+            D = fn(z, k)
+            out[nm][0, j] = D / fn(zs[0], k)
+            for s in range(1, nseg):
+                D0 = fn(zs[s - 1], k)
+                out[nm][s, j] = (D - D0) / (fn(zs[s], k) - D0)
+    if scaledep_gm is None:
+        out = {k_: v[:, 0, :] for k_, v in out.items()}
+    return {k_: np.ascontiguousarray(v, np.float64) for k_, v in out.items()}
 
 
 @dataclass
@@ -191,8 +251,12 @@ def _sweep_lib():
 
 
 def run_fragmentation(params: Params, cosmo: Cosmology,
-                      fmax_result: FmaxResult, verbose: bool = True,
+                      fmax_result: FmaxResult, scaledep_gm=None,
+                      verbose: bool = True,
                       _maxg_override: int = None) -> FragmentResult:
+    """The group sweep over the needed particles.  scaledep_gm: the
+    per-radius effective scales of a scale-dependent cosmology
+    (pinocchio_tpu.scaledep.set_scaledep_gm), None otherwise."""
     t_all = time.perf_counter()
     timings = {}
     sp = fmax_result.host_products
@@ -205,17 +269,26 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     n = len(sp.ci)
     Fs = np.ascontiguousarray(sp.F, np.float32)
     pos = np.ascontiguousarray(sp.ci, np.int32)
-    vel = {k: (np.ascontiguousarray(sp.vel[k], np.float32)
-               if k in sp.vel else None)
-           for k in ("v1", "v2", "v31", "v32")}
+    keys = ("v1", "v2", "v31", "v32")
+
+    def rows(vs):
+        return {k: (np.ascontiguousarray(vs[k], np.float32)
+                    if k in vs else None) for k in keys}
+
+    vel = rows(sp.vel)
+    # RECOMPUTE_DISPLACEMENTS: one set per output redshift, rows aligned
+    # with vel (the sweep reads them with the same row index)
+    segments = ([rows(vs) for vs in sp.segments]
+                if sp.segments is not None else None)
     loc = np.full(ncells, -1, np.int32)
     loc[pos] = np.arange(n, dtype=np.int32)
     timings["sort"] = time.perf_counter() - t0
 
     # ---- guard rails (fragment.c:258-283, build_groups.c:350-357) ----
     nfields = {1: 1, 2: 2, 3: 4}[params.lpt_order]
+    nseg = len(segments) if segments is not None else 1
     bytes_per_stored = (8 + 4 + 3 * nfields * 4) \
-        + (4 + 4 + 3 * nfields * 4 + 4 + 4)
+        + (4 + 4 + 3 * nfields * 4 * nseg + 4 + 4)
     nalloc = int(ncells * max(0.0, params.MaxMemPerParticle - 8)
                  / bytes_per_stored)
     if n > nalloc:
@@ -239,7 +312,9 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     # ---- tables and parameters ----
     fpar = fragment_parameters(min(2, params.lpt_order),
                                params.use_sim_params)
-    tab_lo, tab_dlog, tabs = growth_tables(params, cosmo)
+    tab_lo, tab_dlog, tabs = growth_tables(
+        params, cosmo, k_dens=(scaledep_gm.k_GM_dens[-1]
+                               if scaledep_gm is not None else None))
     # the grid's own delta variance at R=0, from the collapse kernel's
     # delta^2 statistic
     sigma_grid = math.sqrt(float(fmax_result.smoothing.true_variance[-1]))
@@ -295,6 +370,43 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
         tab_D1=p(tabs["D1"], _f64p),
         nout=nout, outF=p(outF, _f64p), maxg=maxg,
         rows_ready=_i64p())
+    # arrays the sweep reads through si's pointers, kept alive until it ends
+    keepalive = []
+
+    if scaledep_gm is not None:
+        sd_tabs = growth_tables_2d(params, cosmo, n=len(tabs["w1"]))
+        logk_displ = np.ascontiguousarray(
+            np.log10(scaledep_gm.k_GM_displ), np.float64)
+        keepalive += [sd_tabs, logk_displ]
+        si.sd_nk = NK_BINS
+        si.sd_logk_lo = LOGKMIN
+        si.sd_dlogk = DELTALOGK
+        for nm in ("w1", "w2", "w31", "w32", "dv1", "dv2", "dv31", "dv32"):
+            setattr(si, "sd_" + nm, p(sd_tabs[nm], _f64p))
+        si.sd_rad_gm0 = float(scaledep_gm.Rad_GM[0])
+        si.sd_nsmooth = len(logk_displ)
+        si.sd_logk_displ = p(logk_displ, _f64p)
+        si.sd_logk_part = float(logk_displ[-1])
+        si.sd_ipd = params.InterPartDist
+
+    if segments is not None:
+        # segment plumbing (build_groups.c:1578-1592); nseg == len(output_z)
+        segF = np.ascontiguousarray(params.output_F, np.float64)
+        if len(segments) != len(segF):
+            raise ValueError(f"{len(segments)} displacement sets for "
+                             f"{len(segF)} output redshifts")
+        segw = _segment_weight_tables(params, cosmo, scaledep_gm,
+                                      n=len(tabs["w1"]))
+        keepalive += [segF, segw]
+        si.nseg = len(segments)
+        si.segF = p(segF, _f64p)
+        for k in keys:
+            arr_t = (_f32p * len(segments))(
+                *[p(vs[k], _f32p) for vs in segments])
+            keepalive.append(arr_t)
+            setattr(si, "seg_" + k, arr_t)
+            setattr(si, "seg_w" + k[1:], p(segw["w" + k[1:]], _f64p))
+
     cb = _CaptureBuffers(name=p(cap_name, _u64p), mass=p(cap_mass, _i32p),
                          q=p(cap_q, _f32p), x=p(cap_x, _f32p),
                          v=p(cap_v, _f32p), count=p(cap_count, _i32p))
@@ -320,7 +432,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
         if verbose:
             print(f"  group capacity {maxg} overflowed, retrying x2")
         return run_fragmentation(params, cosmo, fmax_result,
-                                 verbose=verbose,
+                                 scaledep_gm=scaledep_gm, verbose=verbose,
                                  _maxg_override=2 * maxg + 8192)
     if rc != 0:
         raise RuntimeError(f"group sweep failed with code {rc} "

@@ -2,10 +2,11 @@
 
 The CUDA C++ sources in ``pinocchio_tpu_torch/csrc`` are compiled by nvcc
 into one shared library with a plain C interface, at first use, and loaded
-with ctypes (no PyTorch headers: the build takes seconds).  The library name
-carries a hash of the sources and flags, so an edited source is rebuilt.  The
-Triton kernels live in ``lpt_triton.py`` and are imported only by the
-function that launches them.
+with ctypes (no PyTorch headers: the build takes seconds).  Each source is
+compiled by its own nvcc process, all started together, and the objects are
+linked into the library.  The library name carries a hash of the sources
+and flags, so an edited source is rebuilt.  The Triton kernels live in
+``lpt_triton.py`` and are imported only by the function that launches them.
 
 Every wrapper adds one to its entry in ``LAUNCHES`` where it launches its
 kernel, and nowhere else; a run resets the counts with ``reset_launches``
@@ -24,28 +25,39 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu")
+SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds op for
 # op as its plain PyTorch version does (explicit fmaf stays fused)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC"]
 
+_COLLAPSE = "pinocchio_tpu_torch/csrc/collapse.cu"
+_KSPACE = "pinocchio_tpu_torch/csrc/kspace.cu"
+_COMPACT = "pinocchio_tpu_torch/csrc/compact.cu"
+_LPT = "pinocchio_tpu_torch/kernels/lpt_triton.py"
 # kernel name -> (route, source in the repo, JAX function it replaces)
 KERNELS = {
     "ic_kdensity": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
                     "pinocchio_tpu/ic.py:50"),
-    "kspace_hessian": ("cuda", "pinocchio_tpu_torch/csrc/kspace.cu",
+    "kspace_hessian": ("cuda", _KSPACE,
                        "pinocchio_tpu/ops/derivatives.py:120"),
-    "kspace_gradient": ("cuda", "pinocchio_tpu_torch/csrc/kspace.cu",
+    "kspace_gradient": ("cuda", _KSPACE,
                         "pinocchio_tpu/ops/derivatives.py:151"),
-    "collapse_update": ("cuda", "pinocchio_tpu_torch/csrc/collapse.cu",
+    "kspace_gradient_tab": ("cuda", _KSPACE,
+                            "pinocchio_tpu/ops/derivatives.py:169"),
+    "collapse_update": ("cuda", _COLLAPSE,
                         "pinocchio_tpu/ops/collapse.py:282"),
-    "lpt_sources_pointwise": (
-        "triton", "pinocchio_tpu_torch/kernels/lpt_triton.py",
-        "pinocchio_tpu/ops/lpt.py:34"),
-    "lpt_src32_accumulate": (
-        "triton", "pinocchio_tpu_torch/kernels/lpt_triton.py",
-        "pinocchio_tpu/ops/lpt.py:34"),
+    "collapse_update_table_trilinear": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
+    "collapse_update_table_bilinear": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
+    "collapse_update_table_bicubic": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
+    "lpt_sources_pointwise": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
+    "lpt_src32_accumulate": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
+    "gather_rows": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
+    "pdf_hist": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:110"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -57,6 +69,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     # out, logk, logpk, ntab, kp0, kp1, ka0, ka1, logkf, fac, N, fixed,
     # paired, stream
@@ -65,9 +78,20 @@ _SIGNATURES = {
     "kspace_hessian": [_P, _P, _I, _F, _P],
     # src, out, N, growth, stream
     "kspace_gradient": [_P, _P, _I, _F, _P],
+    # src, out, N, gtab, ntab, glo, gdx, tmax, stream
+    "kspace_gradient_tab": [_P, _P, _I, _P, _I, _F, _F, _F, _P],
     # derivs, Fmax, Rmax, ncell, ismooth, pack[23] (host), partials,
     # nblocks, means, stream
-    "collapse_update": [_P, _P, _P, ctypes.c_int64, _I, _P, _P, _I, _P, _P],
+    "collapse_update": [_P, _P, _P, _L, _I, _P, _P, _I, _P, _P],
+    # derivs, Fmax, Rmax, ncell, ismooth, tab, tab2, dv, idx_map, ampl,
+    # interp, partials, nblocks, means, stream
+    "collapse_update_table": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _F, _I,
+                              _P, _I, _P, _P],
+    # idx, count, F (or null), stacks[nstack] (host), nstack, ncell, out,
+    # stream
+    "gather_rows": [_P, _L, _P, _P, _I, _L, _P, _P],
+    # F, n, counts, stream
+    "pdf_hist": [_P, _L, _P, _P],
 }
 
 
@@ -104,13 +128,28 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [os.path.join(CSRC, s) for s in SOURCES])
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}"
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    cmds = [[nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    link = [nvcc] + ARCH + ["-shared", "-o", f"{tmp}.so"] + objs
+    res = subprocess.run(link, capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, path)
+        raise RuntimeError(f"nvcc failed:\n{' '.join(link)}\n{res.stderr}")
+    os.replace(f"{tmp}.so", path)
     return path
 
 

@@ -2,9 +2,11 @@
 pinocchio_tpu/ops/collapse.py).
 
 The plain PyTorch functions below are the branch-free math of the JAX
-package, op for op.  ``collapse_update`` is the wrapper of the CUDA kernel
-``csrc/collapse.cu``: on a CUDA tensor it launches the kernel, on a CPU
-tensor it runs ``collapse_update_plain``.
+package, op for op.  ``collapse_update`` (classic ellipsoid, K3) and
+``collapse_update_table`` (TABULATED_CT / ELL_SNG table lookups, K7) are
+the wrappers of the CUDA kernel ``csrc/collapse.cu``: on a CUDA tensor they
+launch the kernel, on a CPU tensor they run ``collapse_update_plain`` and
+``collapse_update_table_plain``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import tabulated
 
 SMALL = 1e-20
 BIG = 1e10
@@ -205,18 +208,39 @@ def collapse_F(derivs, pack):
     return torch.where(fail, -10.0, F)
 
 
-def collapse_update_plain(derivs, Fmax, Rmax, ismooth: int, pack):
-    """Plain version of the kernel: updates Fmax and Rmax IN PLACE (strict
-    running max, a tie keeps the earlier radius) and returns the float64
-    tensor [mean delta, mean delta^2] (sums taken in float64)."""
+def _running_max(F, derivs, Fmax, Rmax, ismooth: int):
+    """Strict running max of F into Fmax/Rmax IN PLACE (a tie keeps the
+    earlier radius); returns the float64 tensor [mean delta, mean delta^2]
+    (sums taken in float64)."""
     delta = derivs[0] + derivs[1] + derivs[2]
-    F = collapse_F(derivs, pack)
     upd = Fmax < F
     Fmax.copy_(torch.where(upd, F, Fmax))
     Rmax.copy_(torch.where(upd, ismooth, Rmax))
     dd = delta * delta
     n = delta.numel()
     return torch.stack([delta.double().sum() / n, dd.double().sum() / n])
+
+
+def collapse_update_plain(derivs, Fmax, Rmax, ismooth: int, pack):
+    """Plain version of the K3 kernel: updates Fmax and Rmax IN PLACE and
+    returns [mean delta, mean delta^2]."""
+    return _running_max(collapse_F(derivs, pack), derivs, Fmax, Rmax,
+                        ismooth)
+
+
+def collapse_update_table_plain(derivs, Fmax, Rmax, ismooth: int, tab,
+                                tab2, dv, idx_map, ampl: float,
+                                interp: str):
+    """Plain version of the K7 kernel (collapse_update_table, JAX
+    ops/collapse.py:254-271): F looked up in the radius's table in the
+    variant ``interp``, -10 where the eigenvalues fail, then the running
+    max and the statistics as in collapse_update_plain."""
+    l1, l2, l3, fail = eigenvalues_descending(derivs)
+    # a 0-dim tensor on the device: a true division on every backend
+    amp = torch.tensor(float(ampl), dtype=torch.float32, device=derivs.device)
+    F = tabulated.interp_F(interp, tab, tab2, dv, idx_map, amp, l1, l2, l3)
+    F = torch.where(fail, -10.0, F)
+    return _running_max(F, derivs, Fmax, Rmax, ismooth)
 
 
 # grid of the reduction: a fixed block count keeps the per-block partials
@@ -253,4 +277,57 @@ def collapse_update(derivs, Fmax, Rmax, ismooth: int, pack):
         COLLAPSE_BLOCKS, means.data_ptr(), kernels.stream_ptr(derivs.device))
     kernels.check("collapse_update", err)
     kernels.LAUNCHES["collapse_update"] += 1
+    return means
+
+
+TABLE_SHAPE = (tabulated.CT_NBINS_XY, tabulated.CT_NBINS_XY,
+               tabulated.CT_NBINS_D)
+
+
+def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
+                          idx_map, ampl: float, interp: str):
+    """One smoothing radius of the TABULATED_CT / ELL_SNG collapse update:
+    F from the radius's table tab [NXY, NXY, ND] float32 (tab2 its
+    delta-spline second derivatives, needed by the spline variants; dv the
+    float32 delta grid, idx_map the int32 aux map, ampl the radius's sqrt
+    variance) in the variant ``interp``; running max into Fmax/Rmax IN
+    PLACE; returns the [mean delta, mean delta^2] float64 tensor."""
+    if interp not in tabulated.INTERP:
+        raise ValueError(f"unknown interpolation variant {interp!r}")
+    if tab2 is None:
+        if interp != "trilinear":
+            raise ValueError(f"interp={interp!r} needs the spline "
+                             "second-derivative table tab2")
+        tab2 = tab                     # not read by the trilinear lookup
+    name = f"collapse_update_table_{interp}"
+    if not kernels.plain_or_kernel(name, derivs):
+        return collapse_update_table_plain(derivs, Fmax, Rmax, ismooth, tab,
+                                           tab2, dv, idx_map, ampl, interp)
+    kernels.require_cuda(name, derivs, Fmax, Rmax, tab, tab2, dv, idx_map)
+    n = Fmax.numel()
+    if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
+            or Rmax.dtype != torch.int32 or derivs.shape[0] != 6
+            or derivs[0].numel() != n or Rmax.numel() != n):
+        raise ValueError(f"{name}: derivs f32[6, *S], Fmax f32[*S], "
+                         "Rmax i32[*S] expected")
+    if (tuple(tab.shape) != TABLE_SHAPE or tuple(tab2.shape) != TABLE_SHAPE
+            or tab.dtype != torch.float32 or tab2.dtype != torch.float32
+            or tuple(dv.shape) != (tabulated.CT_NBINS_D,)
+            or dv.dtype != torch.float32
+            or tuple(idx_map.shape) != (tabulated.AUX_N,)
+            or idx_map.dtype != torch.int32):
+        raise ValueError(f"{name}: tab/tab2 f32{list(TABLE_SHAPE)}, dv "
+                         f"f32[{tabulated.CT_NBINS_D}], idx_map "
+                         f"i32[{tabulated.AUX_N}] expected")
+    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
+                           device=derivs.device)
+    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
+    err = kernels.lib().collapse_update_table(
+        derivs.data_ptr(), Fmax.data_ptr(), Rmax.data_ptr(),
+        ctypes.c_int64(n), int(ismooth), tab.data_ptr(), tab2.data_ptr(),
+        dv.data_ptr(), idx_map.data_ptr(), float(np.float32(ampl)),
+        tabulated.INTERP.index(interp), partials.data_ptr(), COLLAPSE_BLOCKS,
+        means.data_ptr(), kernels.stream_ptr(derivs.device))
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
     return means

@@ -1,0 +1,116 @@
+"""Needed-particle hand-off on the device (counterpart of the compaction
+helpers of pinocchio_tpu/fmax.py: _compact_idx, _gather_rows, the segment
+gathers of displacement_stage_fetch and _pdf_bincount).
+
+``needed_order`` sorts with ``torch.sort`` (a library call, as the JAX
+package calls XLA's sort).  ``gather_rows`` and ``pdf_hist`` are the
+wrappers of the two kernels of ``csrc/compact.cu``: on a CUDA tensor they
+launch the kernel, on a CPU tensor they run the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+PDF_BINS = 210
+MAX_STACKS = 8
+
+
+def needed_order(Fmax, Flast: float):
+    """The cells with F >= Flast in the sweep's order, descending F with
+    ties by ascending cell index (stable sort on the key
+    where(F >= Flast, -F, +inf)): int64 indices [count]."""
+    Ff = Fmax.reshape(-1)
+    mask = Ff >= Flast
+    key = torch.where(mask, -Ff, float("inf"))
+    order = torch.sort(key, stable=True).indices
+    count = int(mask.sum())                         # device sync
+    return order[:count]
+
+
+def packed_size(count: int, nstack: int, with_F: bool) -> int:
+    """Floats a gather_rows call writes: (cell index, F) per row when F is
+    given, then 3 per row and stack."""
+    return (2 * count if with_F else 0) + 3 * nstack * count
+
+
+def gather_rows_plain(idx, stacks, out, F=None):
+    """Plain version of K6a: see gather_rows."""
+    count = idx.numel()
+    off = 0
+    if F is not None:
+        out[:count] = idx.to(torch.int32).view(torch.float32)
+        out[count:2 * count] = F.reshape(-1)[idx]
+        off = 2 * count
+    for v in stacks:
+        out[off:off + 3 * count] = v.reshape(3, -1)[:, idx].T.reshape(-1)
+        off += 3 * count
+    return out
+
+
+def gather_rows(idx, stacks, out, F=None):
+    """Write the needed rows into the packed host-bound buffer ``out``
+    (float32, 1-D, packed_size floats): when F (the Fmax grid) is given,
+    first the cell indices as int32 bits and F[idx], then for each
+    [3, N, N, N] float32 stack its [count, 3] rows at idx (int64, from
+    needed_order)."""
+    if not kernels.plain_or_kernel("gather_rows", idx):
+        return gather_rows_plain(idx, stacks, out, F)
+    tensors = [idx, out] + list(stacks) + ([F] if F is not None else [])
+    kernels.require_cuda("gather_rows", *tensors)
+    count = idx.numel()
+    ncell = (stacks[0].numel() // 3 if stacks
+             else (F.numel() if F is not None else 0))
+    if (idx.dtype != torch.int64 or out.dtype != torch.float32
+            or out.dim() != 1 or len(stacks) > MAX_STACKS
+            or any(v.dtype != torch.float32 or v.numel() != 3 * ncell
+                   for v in stacks)
+            or (F is not None and (F.dtype != torch.float32
+                                   or F.numel() != ncell))
+            or out.numel() != packed_size(count, len(stacks),
+                                          F is not None)):
+        raise ValueError("gather_rows: idx i64[count], stacks f32[3, *S] "
+                         f"(at most {MAX_STACKS}), F f32[*S] and a 1-D f32 "
+                         "out of packed_size floats expected")
+    ptrs = np.array([v.data_ptr() for v in stacks] + [0], np.uint64)
+    err = kernels.lib().gather_rows(
+        idx.data_ptr(), ctypes.c_int64(count),
+        F.data_ptr() if F is not None else None,
+        ptrs.ctypes.data_as(ctypes.c_void_p), len(stacks),
+        ctypes.c_int64(ncell), out.data_ptr(),
+        kernels.stream_ptr(idx.device))
+    kernels.check("gather_rows", err)
+    kernels.LAUNCHES["gather_rows"] += 1
+    return out
+
+
+def pdf_hist_plain(Fmax):
+    """Plain version of K6b: see pdf_hist."""
+    x = torch.nan_to_num(Fmax.reshape(-1) * 10.0, nan=0.0)
+    b = torch.clamp(x, 0.0, PDF_BINS - 1.0).to(torch.int64)
+    return torch.bincount(b, minlength=PDF_BINS)
+
+
+def pdf_hist(Fmax):
+    """The FmaxPDF histogram on the device: int64 counts of
+    clamp(int(F * 10), 0, 209), PDF_BINS bins of 0.1 in F.  The clamp is
+    taken before the truncation (NaN gives bin 0): for every float that is
+    the JAX package's clip of XLA's saturating float-to-int conversion."""
+    if not kernels.plain_or_kernel("pdf_hist", Fmax):
+        return pdf_hist_plain(Fmax)
+    kernels.require_cuda("pdf_hist", Fmax)
+    if Fmax.dtype != torch.float32:
+        raise ValueError("pdf_hist: float32 Fmax expected")
+    counts = torch.zeros(PDF_BINS, dtype=torch.int64, device=Fmax.device)
+    err = kernels.lib().pdf_hist(Fmax.data_ptr(),
+                                 ctypes.c_int64(Fmax.numel()),
+                                 counts.data_ptr(),
+                                 kernels.stream_ptr(Fmax.device))
+    kernels.check("pdf_hist", err)
+    kernels.LAUNCHES["pdf_hist"] += 1
+    return counts

@@ -7,14 +7,16 @@ Conventions (greens_function, fmax-pfft.c:444-456):
 with k in grid units 2*pi*m/N and the smoothing radius in cell units.
 Hessian component order ('ider'): xx yy zz xy xz yz.
 
-``hessian_kspace`` and ``gradient_kspace`` are the wrappers of the two
-entry points of the CUDA kernel ``csrc/kspace.cu``; on a CPU tensor they
-run the plain PyTorch multiply.  The c2r transforms are ``torch.fft``
-(cuFFT on the card) in the two-step decomposition of ``grids.irfft3``.
+``hessian_kspace``, ``gradient_kspace`` and ``gradient_kspace_tab`` are the
+wrappers of the three entry points of the CUDA kernels ``csrc/kspace.cu``;
+on a CPU tensor they run the plain PyTorch multiply.  The c2r transforms are
+``torch.fft`` (cuFFT on the card) in the two-step decomposition of
+``grids.irfft3``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -42,6 +44,28 @@ def gradient_kspace_plain(kvector, growth: float, N: int):
     kx, ky, kz, _, inv_k2 = inverse_k2(N, kvector.device)
     g = float(torch.tensor(growth, dtype=torch.float32))
     base = kvector * complex(0.0, g) * inv_k2
+    return torch.stack([base * kx, base * ky, base * kz])
+
+
+def _scalar(x, device):
+    """A float32 0-dim tensor on ``device``: dividing by it is a true
+    division on every backend (PyTorch's CUDA division by a Python or CPU
+    scalar multiplies by the reciprocal), as for the JAX package's traced
+    scalars."""
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
+def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int):
+    kx, ky, kz, k2, inv_k2 = inverse_k2(N, kvector.device)
+    logk = 0.5 * torch.log10(torch.clamp(k2, min=1e-12))
+    t = torch.clamp((logk - _scalar(glo, kvector.device))
+                    / _scalar(gdx, kvector.device), 0.0,
+                    gtab.shape[0] - 1.001)
+    i = t.to(torch.int32)
+    w = t - i.float()
+    i = i.long()
+    growth = gtab[i] * (1.0 - w) + gtab[i + 1] * w
+    base = kvector * (1j * growth) * inv_k2
     return torch.stack([base * kx, base * ky, base * kz])
 
 
@@ -86,6 +110,30 @@ def gradient_kspace(kvector, growth: float, N: int):
     return out
 
 
+def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
+    """i k_a / k^2 * growth(|k|) applied to a k-space source, the growth
+    interpolated linearly in a table gtab [ntab] float32 over log10 |k|
+    (|k| in grid units) from glo in steps of gdx: complex64
+    [3, N, N, N//2+1]."""
+    if not kernels.plain_or_kernel("kspace_gradient_tab", kvector):
+        return gradient_kspace_tab_plain(kvector, gtab, glo, gdx, N)
+    _check_kspace("kspace_gradient_tab", kvector, N)
+    kernels.require_cuda("kspace_gradient_tab", kvector, gtab)
+    if gtab.dtype != torch.float32 or gtab.dim() != 1 or gtab.numel() < 2:
+        raise ValueError("kspace_gradient_tab: gtab must be f32[ntab], "
+                         "ntab >= 2")
+    ntab = gtab.numel()
+    out = torch.empty((3,) + tuple(kvector.shape), dtype=torch.complex64,
+                      device=kvector.device)
+    err = kernels.lib().kspace_gradient_tab(
+        kvector.data_ptr(), out.data_ptr(), N, gtab.data_ptr(), ntab,
+        float(np.float32(glo)), float(np.float32(gdx)),
+        float(np.float32(ntab - 1.001)), kernels.stream_ptr(kvector.device))
+    kernels.check("kspace_gradient_tab", err)
+    kernels.LAUNCHES["kspace_gradient_tab"] += 1
+    return out
+
+
 def second_derivatives(kdensity, R_grid: float, N: int):
     """All 6 second derivatives of the smoothed inverse-Laplacian
     potential: float32 [6, N, N, N] in ider order (one batched c2r)."""
@@ -96,3 +144,9 @@ def first_derivatives(kvector, growth: float, N: int):
     """The 3 first derivatives i k_a/k^2 of a k-space source scaled by a
     scalar growth factor: one displacement field float32 [3, N, N, N]."""
     return irfft3(gradient_kspace(kvector, growth, N), N)
+
+
+def first_derivatives_tab(kvector, gtab, glo: float, gdx: float, N: int):
+    """first_derivatives with a per-mode growth factor from a table over
+    log10 |k| (scale-dependent growth, fmax-pfft.c:344-364)."""
+    return irfft3(gradient_kspace_tab(kvector, gtab, glo, gdx, N), N)

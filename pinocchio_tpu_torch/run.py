@@ -1,5 +1,9 @@
 """End-to-end pipeline driver on one CUDA device: parameter file ->
-catalogs (counterpart of pinocchio_tpu/run.py, single-device main path).
+catalogs (counterpart of pinocchio_tpu/run.py, single-device path).
+
+The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
+scale-independent or scale-dependent growth, with or without
+RECOMPUTE_DISPLACEMENTS; one sub-box, no PLC.
 
   initialization -> fmax (collapse times + displacements, on the device)
   -> fragmentation (host C sweep) -> catalogs / mass functions / histories
@@ -22,9 +26,9 @@ from pinocchio_tpu.config import Params, read_parameter_file
 from pinocchio_tpu.cosmology import Cosmology
 
 
-def check_supported(params: Params, cosmo: Cosmology = None) -> None:
+def check_supported(params: Params) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a feature
-    outside the ported main path."""
+    outside the ported paths."""
     def no(feature, item):
         raise NotImplementedError(
             f"{feature} is not ported to pinocchio_tpu_torch yet "
@@ -32,11 +36,6 @@ def check_supported(params: Params, cosmo: Cosmology = None) -> None:
 
     if params.plc_enabled and params.StartingzForPLC >= 0.0:
         no("the past light cone (PLC)", 8)
-    if params.ell_model != "classic":
-        no(f"ell_model={params.ell_model!r}", 6)
-    if params.scale_dependent or params.recompute_displacements \
-            or (cosmo is not None and getattr(cosmo, "scale_dep", False)):
-        no("scale-dependent growth / RECOMPUTE_DISPLACEMENTS", 7)
     if params.subbox_tasks > 1:
         no("fragmentation over several sub-boxes", 9)
     if params.ooc == "on":
@@ -61,8 +60,8 @@ def resolve_device(device) -> torch.device:
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  verbose: bool = True, write_outputs: bool = True):
-    """The single-device main path.  Returns dict(cosmo, fmax, frag,
-    timings, files)."""
+    """The single-device run.  Returns dict(cosmo, fmax, frag, timings,
+    files)."""
     from .fmax import fmax_pdf, run_fmax
     from .fragment.driver import run_fragmentation
     from .io import catalogs as io_cat
@@ -75,7 +74,6 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         greetings(params, dev)
     t0 = time.perf_counter()
     cosmo = Cosmology(params)
-    check_supported(params, cosmo)
     timings["init"] = time.perf_counter() - t0
     if verbose:
         print(f"[init] cosmology ready in {timings['init']:.2f}s "
@@ -83,11 +81,26 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     if write_outputs:
         cosmo.write_cosmology_file(outdir)
 
-    fmax_res = run_fmax(params, cosmo, dev, verbose=verbose)
+    # per-radius effective growth scales of a scale-dependent cosmology
+    # (set_scaledep_GM, host numpy in the shared jax-free module)
+    scaledep_gm = None
+    if getattr(cosmo, "scale_dep", False):
+        from pinocchio_tpu.scaledep import set_scaledep_gm
+
+        from .fmax import Smoothing
+        t0 = time.perf_counter()
+        scaledep_gm = set_scaledep_gm(
+            params, cosmo, Smoothing.build(params, cosmo),
+            io_cat.largest_halo_mass(params, cosmo), verbose=verbose)
+        timings["scaledep"] = time.perf_counter() - t0
+
+    fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
+                        verbose=verbose)
     timings.update({"fmax_" + k: v for k, v in fmax_res.timings.items()})
 
     t_frag = time.perf_counter()
-    frag_res = run_fragmentation(params, cosmo, fmax_res, verbose=verbose)
+    frag_res = run_fragmentation(params, cosmo, fmax_res,
+                                 scaledep_gm=scaledep_gm, verbose=verbose)
     timings.update({"frag_" + k: v for k, v in frag_res.timings.items()})
     timings["frag_wall"] = time.perf_counter() - t_frag
     if verbose and frag_res.best_pred_peak_factor:
@@ -122,10 +135,17 @@ def greetings(params: Params, device: torch.device):
     """Run banner with the active feature set (greetings,
     initialization.c:2030)."""
     feats = [f"{params.lpt_order}LPT", f"ELL_{params.ell_model.upper()}"]
+    if params.ell_model != "classic":
+        feats.append(f"TABULATED_CT({params.ct_interp})")
     if params.norad:
         feats.append("NORADIATION")
     for flag, name in ((params.FixedIC, "FixedIC"),
                        (params.PairedIC, "PairedIC"),
+                       (params.scale_dependent, "SCALE_DEPENDENT"),
+                       (params.mod_grav_fr,
+                        f"MOD_GRAV_FR(fR0={params.fr0:g})"),
+                       (params.recompute_displacements,
+                        "RECOMPUTE_DISPLACEMENTS"),
                        (params.use_sim_params, "USE_SIMULATION_PARAMS")):
         if flag:
             feats.append(name)
@@ -153,8 +173,10 @@ def write_cputimes(t: dict):
     fd.write("\nCPU TIMES\n")
     line("total", "total")
     line("initialization", "init", 1)
+    line("scale-dependent growth", "scaledep", 1)
     line("density in k-space", "fmax_dens", 1)
     line("collapse cycle (FFTs+ell)", "fmax_fmax_loop", 1)
+    line("collapse tables", "fmax_ct_tables", 2)
     line("LPT displacements", "fmax_lpt", 1)
     line("needed-particle products", "fmax_products", 1)
     line("fragmentation", "frag_total", 1)

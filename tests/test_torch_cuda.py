@@ -13,7 +13,11 @@ is not a multiple of the 256-thread CUDA blocks, 50^3 cells not one of the
 1e-5 of max|delta| with identical draws, K2/K5 within 1e-6 of the maximum,
 K3 |dF| <= 1e-4 max(1, |F|) on 99.99 % of cells with Rmax equal on 99.9 %,
 K4 within 1e-5 of the maximum.  On the Hessians that reach K3's rare
-branches (tests/torch_hessians.py) F and Rmax must be exactly equal.
+branches (tests/torch_hessians.py) F and Rmax must be exactly equal.  K7
+(the three table lookups) is exactly equal to its plain version on those
+batches and on cells far beyond the table, and within the K3 criteria on
+Gaussian Hessians; K8 (tabulated growth), K6a (row gather) and K6b (the
+FmaxPDF histogram) are exactly equal.
 """
 
 import numpy as np
@@ -24,7 +28,8 @@ from pinocchio_tpu.config import Params
 from pinocchio_tpu.cosmology import Cosmology
 from pinocchio_tpu_torch import fmax, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
-from pinocchio_tpu_torch.ops import collapse, derivatives, lpt
+from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
+from pinocchio_tpu_torch.ops import tabulated
 from torch_hessians import SPECIAL, special_hessians
 
 torch.set_num_threads(2)
@@ -208,10 +213,127 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, setup):
         lpt.sources_pointwise(sd.double())
 
 
+@pytest.fixture(scope="module")
+def tables(setup):
+    """The port's classic CT tables of two radii, on the card."""
+    p, cosmo = setup
+    sm = fmax.Smoothing.build(p, cosmo)
+    keep = [sm.n // 2, sm.n - 1]
+    sm.radii, sm.variance = sm.radii[keep], sm.variance[keep]
+    ct = tabulated.build_ct_tables_all(cosmo, sm)
+    return ct["ampl"], fmax.load_jax_state(
+        {k: ct[k] for k in ("tables", "tables2", "dv", "idx_map")},
+        torch.device("cuda", 0))
+
+
+def _table_pair(tables, interp, sd, F0, R0, ism=0, rstep=3):
+    """K7 and its plain version from the same state; returns both."""
+    ampl, t = tables
+    args = (t["tables"][ism], t["tables2"][ism], t["dv"], t["idx_map"],
+            float(ampl[ism]), interp)
+    Fk, Rk, Fp, Rp = F0.clone(), R0.clone(), F0.clone(), R0.clone()
+    mk = _launched(f"collapse_update_table_{interp}",
+                   lambda: collapse.collapse_update_table(sd, Fk, Rk, rstep,
+                                                          *args))
+    mp = collapse.collapse_update_table_plain(sd, Fp, Rp, rstep, *args)
+    return (Fk, Rk, mk), (Fp, Rp, mp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", tabulated.INTERP)
+def test_collapse_update_table(dev, tables, interp):
+    sd = _hessians(dev)
+    rng = np.random.default_rng(1)
+    F0 = torch.from_numpy(rng.uniform(-10.0, 4.0, (N, N, N))
+                          .astype(np.float32)).to(dev)
+    R0 = torch.from_numpy(rng.integers(-1, 5, (N, N, N))
+                          .astype(np.int32)).to(dev)
+    (Fk, Rk, mk), (Fp, Rp, mp) = _table_pair(tables, interp, sd, F0, R0)
+    ok = (Fk - Fp).abs() <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)
+    assert ok.all()
+    assert (Fk == Fp).double().mean() >= 0.9999
+    assert (Rk == Rp).double().mean() >= 0.9999
+    assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", tabulated.INTERP)
+def test_collapse_update_table_special_and_far_cells(dev, tables, interp):
+    """Exactly equal on the rare-branch batches and on Hessians far
+    beyond the table in delta, x and y (every index clamped, the edge
+    patches of the bicubic variant, extrapolation)."""
+    rng = np.random.default_rng(8)
+    special = special_hessians(rng)
+    far = rng.standard_normal((6, 4096)) * np.array(
+        [30.0, 30.0, 30.0, 20.0, 20.0, 20.0])[:, None]
+    edge = rng.standard_normal((6, 4096)) * np.array(
+        [3.0, 3.0, 3.0, 0.2, 0.2, 0.2])[:, None]
+    batches = [special[k] for k in SPECIAL] + [far, edge]
+    sd = torch.from_numpy(np.concatenate(batches, axis=1)
+                          .astype(np.float32)).to(dev)
+    m = sd.shape[1]
+    for F0 in (torch.full((m,), -20.0, device=dev), torch.from_numpy(
+            rng.choice([-10.0, 0.0, 1.0, 3.0], m).astype(np.float32))
+            .to(dev)):
+        R0 = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        for ism in (0, 1):
+            (Fk, Rk, _), (Fp, Rp, _) = _table_pair(tables, interp, sd, F0,
+                                                   R0, ism=ism)
+            assert torch.equal(Fk, Fp), _mismatch(Fk, Fp)
+            assert torch.equal(Rk, Rp), _mismatch(Rk, Rp)
+
+
+@pytest.mark.cuda
+def test_kspace_gradient_tab(dev):
+    # f(R) gravity: the growth tables vary with k
+    p = Params(GridSize=N, BoxSize=float(N), output_z=[0.0], norad=True,
+               plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
+               scale_dependent=True)
+    src = rfft3(_hessians(dev)[1])
+    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(p), 0.5, N, dev)
+    for order in range(4):
+        got = _launched("kspace_gradient_tab",
+                        lambda: derivatives.gradient_kspace_tab(
+                            src, gtabs[order], glo, gdx, N))
+        want = derivatives.gradient_kspace_tab_plain(src, gtabs[order], glo,
+                                                     gdx, N)
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+
+
+@pytest.mark.cuda
+def test_gather_rows_and_pdf_hist(dev):
+    rng = np.random.default_rng(9)
+    F = torch.from_numpy(rng.choice(
+        np.arange(-10.0, 30.0, 0.1, dtype=np.float32), (N, N, N))).to(dev)
+    F.view(-1)[:4] = torch.tensor([0.0, 20.95, 1e6, float("inf")])
+    stacks = [_hessians(dev, seed=s)[:3].contiguous() for s in range(4)]
+    idx = compact.needed_order(F, 1.0)
+    count = idx.numel()
+    assert count > 0
+    for with_F in (True, False):
+        size = compact.packed_size(count, len(stacks), with_F)
+        got = torch.empty(size, device=dev)
+        want = torch.empty(size, device=dev)
+        Fa = F if with_F else None
+        _launched("gather_rows",
+                  lambda: compact.gather_rows(idx, stacks, got, F=Fa))
+        compact.gather_rows_plain(idx, stacks, want, F=Fa)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    got = _launched("pdf_hist", lambda: compact.pdf_hist(F))
+    assert torch.equal(got, compact.pdf_hist_plain(F))
+    assert int(got.sum()) == N ** 3
+
+
 @pytest.mark.parametrize("name,fn", [
     ("kspace_hessian", lambda t: derivatives.hessian_kspace(t, 0.0, 4)),
     ("collapse_update", lambda t: collapse.collapse_update(t, t, t, 0, [])),
     ("lpt_sources_pointwise", lambda t: lpt.sources_pointwise(t)),
+    ("collapse_update_table_bicubic", lambda t: collapse.collapse_update_table(
+        t, t, t, 0, t, t, t, t, 1.0, "bicubic")),
+    ("kspace_gradient_tab", lambda t: derivatives.gradient_kspace_tab(
+        t, t, 0.0, 1.0, 4)),
+    ("gather_rows", lambda t: compact.gather_rows(t, [t], t)),
+    ("pdf_hist", lambda t: compact.pdf_hist(t)),
 ])
 def test_wrappers_refuse_other_devices(name, fn):
     """A wrapper takes the plain version only for a CPU tensor: any other

@@ -147,13 +147,19 @@ def test_sparse_products_are_sweep_ordered(runs):
 
 
 def test_port_imports_no_jax(tmp_path):
+    """The three paths (classic; tabulated bicubic; f(R) growth with
+    RECOMPUTE_DISPLACEMENTS) run without importing jax."""
     code = (
         "import sys\n"
         "from pinocchio_tpu.config import Params\n"
         "from pinocchio_tpu_torch.run import run_pipeline\n"
-        "p = Params(GridSize=16, BoxSize=16.0, output_z=[0.0], norad=True,"
-        " plc_enabled=False)\n"
-        f"run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
+        "for kw in ({}, dict(ell_model='tabulated', ct_interp='bicubic'),\n"
+        "           dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,\n"
+        "                recompute_displacements=True,"
+        " MaxMemPerParticle=400)):\n"
+        "    p = Params(GridSize=16, BoxSize=16.0, output_z=[1.0, 0.0],"
+        " norad=True, plc_enabled=False, **kw)\n"
+        f"    run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('NOJAX')\n")
@@ -174,11 +180,18 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     assert not any(f.endswith(".out") for f in os.listdir(tmp_path))
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(ell_model="sng"), dict(ell_model="tabulated", ct_interp="bilinear"),
+    dict(scale_dependent=True), dict(recompute_displacements=True)])
+def test_features_in_the_slice_are_accepted(overrides):
+    p = _params(16)
+    for k, v in overrides.items():
+        setattr(p, k, v)
+    check_supported(p)
+
+
 @pytest.mark.parametrize("overrides,item", [
     (dict(StartingzForPLC=1.0), "item 8"),
-    (dict(ell_model="sng"), "item 6"),
-    (dict(scale_dependent=True), "item 7"),
-    (dict(recompute_displacements=True), "item 7"),
     (dict(subbox_tasks=4), "item 9"),
     (dict(ooc="on"), "item 11"),
     (dict(DumpProducts=True), "item 8"),

@@ -7,23 +7,39 @@
    name and power limit;
 2. builds the CUDA kernels from csrc/ with nvcc (one process per source, in
    parallel) and prints the build time;
-3. runs every kernel at 256^3 and 512^3 on the card, holds each against its
-   plain PyTorch version on the same inputs, with the tolerance printed, and
-   times both (median of 5, CUDA events);
+3. runs every kernel at 256^3 and 512^3 on the card at the shapes its path
+   gives it, holds each against its plain PyTorch version on the same
+   inputs, with the tolerance printed, and times the kernel, the plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function (median of 5, CUDA events); each kernel's bound is the
+   larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
+   (float32 outside the tensor cores);
 4. drives each path through run_pipeline, with the launch counters reset
    just before it and read just after, and checks its outputs (catalogs and
    mass functions at 4 redshifts with halos, FmaxPDF, histories, the
    cosmology table), its own launch set (every kernel of the path launched,
-   none of another path's) and that no jax was imported:
+   none of another path's) and the planner's predicted peak against the
+   measured one:
      classic     the main path: classic ellipsoid, 256^3, 1 Mpc/h cells;
      tabulated   TABULATED_CT with the bicubic lookup, 256^3;
      scaledep    f(R) scale-dependent growth with RECOMPUTE_DISPLACEMENTS,
                  256^3;
      tabulated_trilinear, tabulated_bilinear   the other two lookups, 128^3;
+     ooc         the out-of-core engine (ooc='on'), 512^3;
 5. runs the classic path at 48^3 and the tabulated and scaledep paths at
    64^3 on the card and on the CPU (the plain versions) and holds the halo
    catalogs to each other;
-6. prints one JSON line of the kernels, then {"ok": true, "device": ...}
+6. holds the out-of-core engine to the dense engine at 256^3, the dense one
+   fed the delta assembled from the engine's kz planes (Fmax, variances, the
+   needed set, displacement rows, halo counts), with each engine's peak
+   memory beside the planner's;
+7. runs the out-of-core fmax phase at 512^3 (ooc='on') and at 1024^3
+   under ooc='auto', where the planner must choose the out-of-core engine;
+   prints its map, each phase's measured peak beside the predicted one, the
+   host's free memory beside the planner's host estimate, the needed count
+   and the phase times;
+8. checks that neither jax nor any module of the JAX package was imported;
+9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
 """
 
@@ -43,26 +59,58 @@ KERNEL_SIZES = (256, 512)
 PIPELINE_N = 256
 OUTPUT_Z = [2.0, 1.0, 0.5, 0.0]
 REPS = 5
+GiB = float(2 ** 30)
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
+# memory bytes per second, float32 operations per second outside the tensor
+# cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# operations per element of each kernel, counted from its source: a mode
+# (K1, K9: two threefry2x32 evaluations of 20 rounds, six transcendentals,
+# a 12-step table search; K2/K5/K8/K10: the mode's k, one exponential or
+# table read, a few multiplies per output), a cell (K3/K7/K11: the
+# eigenvalues with acos and cos, the ellipsoid root, the growth fit, the
+# running max; K4: the products of its expression) or a row (K6a, K12)
+OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
+       "kspace_gradient": 20, "kspace_gradient_tab": 40,
+       "ooc_factors_hessian": 40, "ooc_factors_gradient": 20,
+       "ooc_factors_pair": 20, "collapse_update": 400,
+       "collapse_update_slab": 400, "collapse_update_table_trilinear": 330,
+       "collapse_update_table_bilinear": 450,
+       "collapse_update_table_bicubic": 900, "lpt_sources_pointwise": 35,
+       "lpt_src32_accumulate": 18, "gather_rows": 0, "pdf_hist": 5,
+       "vrows_slab": 1}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
           recompute_displacements=True, MaxMemPerParticle=400)
-# the kernels every path launches, then each path's own
-COMMON = {"ic_kdensity", "kspace_hessian", "lpt_sources_pointwise",
-          "lpt_src32_accumulate", "gather_rows", "pdf_hist"}
-# name -> (grid size, Params switches, kernels of the path besides COMMON)
+# each path's launch set: the dense engine's shared kernels, then each
+# path's own; the out-of-core engine's
+DENSE = {"ic_kdensity", "kspace_hessian", "lpt_sources_pointwise",
+         "lpt_src32_accumulate", "gather_rows", "pdf_hist"}
+OOC = {"ic_kdensity_planes", "ooc_factors_hessian", "ooc_factors_gradient",
+       "ooc_factors_pair", "collapse_update_slab", "vrows_slab",
+       "lpt_sources_pointwise", "lpt_src32_accumulate", "pdf_hist"}
+OOC_N = 512
+OOC_CHECK_N = 256
+BIG_N = 1024
+# name -> (grid size, Params switches, the path's launch set)
 PATHS = {
-    "classic": (PIPELINE_N, {}, {"collapse_update", "kspace_gradient"}),
+    "classic": (PIPELINE_N, {}, DENSE | {"collapse_update",
+                                         "kspace_gradient"}),
     "tabulated": (PIPELINE_N, dict(ell_model="tabulated",
                                    ct_interp="bicubic"),
-                  {"collapse_update_table_bicubic", "kspace_gradient"}),
-    "scaledep": (PIPELINE_N, FR, {"collapse_update", "kspace_gradient_tab"}),
+                  DENSE | {"collapse_update_table_bicubic",
+                           "kspace_gradient"}),
+    "scaledep": (PIPELINE_N, FR, DENSE | {"collapse_update",
+                                          "kspace_gradient_tab"}),
     "tabulated_trilinear": (128, dict(ell_model="tabulated",
                                       ct_interp="trilinear"),
-                            {"collapse_update_table_trilinear",
-                             "kspace_gradient"}),
+                            DENSE | {"collapse_update_table_trilinear",
+                                     "kspace_gradient"}),
     "tabulated_bilinear": (128, dict(ell_model="tabulated",
                                      ct_interp="bilinear"),
-                           {"collapse_update_table_bilinear",
-                            "kspace_gradient"}),
+                           DENSE | {"collapse_update_table_bilinear",
+                                    "kspace_gradient"}),
+    "ooc": (OOC_N, dict(ooc="on"), OOC),
 }
 # card-vs-CPU checks: path -> grid size
 REFERENCE = {"classic": 48, "tabulated": 64, "scaledep": 64}
@@ -93,19 +141,29 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def bound(name, nbytes, nelem):
+    """(bound_ms, bound_by) of a call that must move nbytes and does
+    OPS[name] operations on each of its nelem elements."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = OPS[name] * nelem / PEAK_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def params_for(N, **kw):
-    from pinocchio_tpu.config import Params
+    from pinocchio_tpu_torch.config import Params
     return Params(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
                   norad=True, plc_enabled=False, **kw)
 
 
 def kernel_phases(N, dev, report):
-    """Every kernel at N^3 against its plain version; fills report[name]
-    with max_abs_err, ms and plain_ms of this size."""
+    """Every kernel at N^3 against its plain version; fills report[N][name]
+    with max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms of
+    this size."""
     import numpy as np
     import torch
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu_torch import fmax, ic
+    from pinocchio_tpu_torch import fmax, fmax_ooc, ic
+    from pinocchio_tpu_torch.cosmology import Cosmology
     from pinocchio_tpu_torch.grids import Grid, irfft3, rfft3
     from pinocchio_tpu_torch.ops import (collapse, compact, derivatives, lpt,
                                          tabulated)
@@ -114,16 +172,27 @@ def kernel_phases(N, dev, report):
     cosmo = Cosmology(p)
     grid = Grid(N, p.BoxSize_htrue)
     sm = fmax.Smoothing.build(p, cosmo)
+    Nh = N // 2 + 1
+    modes, cells = N * N * Nh, N ** 3
     rec = {}
 
-    def phase(name, err, tol, ms, plain_ms, extra=""):
+    def phase(name, err, tol, ms, plain_ms, nbytes, nelem, library_ms=None,
+              extra=""):
         ok = err <= tol
+        bms, by = bound(name, nbytes, nelem)
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
         print(f"  [{N}^3] {name:<22s} max_abs_err {err:.3e} "
               f"(tolerance {tol:.3e}) {extra}kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms -> {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"plain {plain_ms:.3f} ms{lib}, bound {bms:.3f} ms ({by}) "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
         need(ok, f"{name} at {N}^3 disagrees with its plain version")
-        rec[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+        rec[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+    def same(a, b):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        return torch.equal(a, b)
 
     # ---- K1: initial conditions.  delta must equal the plain version's
     # bit for bit, which needs bit-identical phase and amplitude draws ----
@@ -136,12 +205,12 @@ def kernel_phases(N, dev, report):
     delta = ic.kdensity(*args)
     ref = ic.kdensity_plain(*args)
     err = (delta - ref).abs().max().item()
-    need(torch.equal(torch.view_as_real(delta), torch.view_as_real(ref)),
+    need(same(delta, ref),
          f"ic_kdensity at {N}^3 is not identical to its plain version")
     phase("ic_kdensity", err, 1e-5 * ref.abs().max().item(),
           time_ms(lambda: ic.kdensity(*args)),
           time_ms(lambda: ic.kdensity_plain(*args)),
-          extra="identical, ")
+          8 * modes + 8 * logk.numel(), modes, extra="identical, ")
     del ref
 
     # ---- K2: Hessian multiply (a mid radius and R=0) ----
@@ -155,7 +224,8 @@ def kernel_phases(N, dev, report):
             phase("kspace_hessian", err, tol,
                   time_ms(lambda: derivatives.hessian_kspace(delta, R, N)),
                   time_ms(lambda: derivatives.hessian_kspace_plain(
-                      delta, R, N)), extra=f"R={R:g} ")
+                      delta, R, N)), 56 * modes, modes,
+                  extra=f"R={R:g} ")
         else:
             need(err <= tol, f"kspace_hessian at R={R} disagrees")
             print(f"  [{N}^3] kspace_hessian R={R:.4f}: max_abs_err "
@@ -169,7 +239,8 @@ def kernel_phases(N, dev, report):
     phase("kspace_gradient", (got - ref).abs().max().item(),
           1e-6 * ref.abs().max().item(),
           time_ms(lambda: derivatives.gradient_kspace(delta, D1, N)),
-          time_ms(lambda: derivatives.gradient_kspace_plain(delta, D1, N)))
+          time_ms(lambda: derivatives.gradient_kspace_plain(delta, D1, N)),
+          32 * modes, modes)
     del got, ref
 
     # ---- K3: collapse update on the mid-radius stack, from a state
@@ -204,7 +275,7 @@ def kernel_phases(N, dev, report):
     plain_ms = time_ms(lambda: collapse.collapse_update_plain(
         sd, Ft, Rt, 1, pack))
     phase("collapse_update", dF.max().item(), math.inf, ms, plain_ms,
-          extra="(F, fraction criteria above) ")
+          40 * cells, cells, extra="(F, fraction criteria above) ")
     del Fk, Rk, Fp, Rp, Ft, Rt, dF
 
     # ---- K7: the three table lookups on the same stack and state, with
@@ -216,6 +287,8 @@ def kernel_phases(N, dev, report):
                                                    "idx_map")}, dev)
     targs = (tabs["tables"][1], tabs["tables2"][1], tabs["dv"],
              tabs["idx_map"], float(ct["ampl"][1]))
+    table_bytes = 8 * targs[0].numel() + 4 * (targs[2].numel()
+                                              + targs[3].numel())
     for interp in tabulated.INTERP:
         name = f"collapse_update_table_{interp}"
         Fk, Rk = F0.clone(), R0.clone()
@@ -243,6 +316,7 @@ def kernel_phases(N, dev, report):
         plain_ms = time_ms(lambda: collapse.collapse_update_table_plain(
             sd, Ft, Rt, 1, *targs, interp))
         phase(name, dF.max().item(), math.inf, ms, plain_ms,
+              40 * cells + table_bytes, cells,
               extra="(F, fraction criteria above) ")
         del Fk, Rk, Fp, Rp, Ft, Rt, dF
     del tabs, targs
@@ -251,28 +325,124 @@ def kernel_phases(N, dev, report):
     # histogram, of the state after the mid radius ----
     collapse.collapse_update_plain(sd, F0, R0, 1, pack)
     idx = compact.needed_order(F0, p.Flast)
+    count = idx.numel()
     stacks = [sd[i:i + 3] for i in (0, 3, 1, 2)]
-    size = compact.packed_size(idx.numel(), len(stacks), True)
+    size = compact.packed_size(count, len(stacks), True)
     got = torch.empty(size, device=dev)
     want = torch.empty(size, device=dev)
     compact.gather_rows(idx, stacks, got, F=F0)
     compact.gather_rows_plain(idx, stacks, want, F=F0)
     need(torch.equal(got.view(torch.int32), want.view(torch.int32)),
          f"gather_rows at {N}^3 is not identical to its plain version")
+    Fflat = F0.reshape(-1)
+    flat = [v.reshape(3, -1) for v in stacks]
     phase("gather_rows", (got - want).abs().max().item(), 0.0,
           time_ms(lambda: compact.gather_rows(idx, stacks, got, F=F0)),
           time_ms(lambda: compact.gather_rows_plain(idx, stacks, want,
                                                     F=F0)),
-          extra=f"identical, {idx.numel()} rows of 4 stacks, ")
-    del got, want, stacks
+          count * (8 + 12 + 24 * len(stacks)), count,
+          library_ms=time_ms(lambda: [Fflat.index_select(0, idx)] + [
+              v.index_select(1, idx) for v in flat]),
+          extra=f"identical, {count} rows of 4 stacks, ")
+    del got, want, stacks, flat
     got = compact.pdf_hist(F0)
     want = compact.pdf_hist_plain(F0)
     need(torch.equal(got, want), f"pdf_hist at {N}^3 is not identical to "
          "its plain version")
+    bins = torch.clamp(torch.nan_to_num(Fflat * 10.0, nan=0.0), 0.0,
+                       209.0).to(torch.int64)
     phase("pdf_hist", (got - want).abs().max().item(), 0.0,
           time_ms(lambda: compact.pdf_hist(F0)),
-          time_ms(lambda: compact.pdf_hist_plain(F0)), extra="identical, ")
-    del sd, F0, R0, idx
+          time_ms(lambda: compact.pdf_hist_plain(F0)),
+          4 * cells + 8 * compact.PDF_BINS, cells,
+          library_ms=time_ms(lambda: torch.bincount(
+              bins, minlength=compact.PDF_BINS)),
+          extra="identical (library: bincount of the bins), ")
+    del bins
+
+    # ---- the out-of-core engine's kernels at the shapes of its path: a kz
+    # batch of planes, an x-slab ----
+    B = min(fmax_ooc.KZ_BATCH, Nh)
+    Bx = fmax_ooc.divisor_batch(N, fmax_ooc.X_SLAB)
+    gen = ic.PlaneGenerator(grid, cosmo, p.RandomSeed, dev)
+    planes = gen(0, B)
+    ref = ic.kdensity_planes_plain(N, gen.logk, gen.logpk, gen.keys, 0, B,
+                                   gen.logkf, gen.fac, False, False)
+    need(same(planes, ref), f"ic_kdensity_planes at {N}^3 is not identical "
+         "to its plain version")
+    phase("ic_kdensity_planes", (planes - ref).abs().max().item(), 0.0,
+          time_ms(lambda: gen(0, B)),
+          time_ms(lambda: ic.kdensity_planes_plain(
+              N, gen.logk, gen.logpk, gen.keys, 0, B, gen.logkf, gen.fac,
+              False, False)), 8 * B * N * N + 16 * B + 8 * gen.logk.numel(),
+          B * N * N, extra=f"identical, [{B}, {N}, {N}], ")
+    del ref
+    spec = delta[:, :, 1:1 + B].permute(2, 0, 1)      # a strided batch
+    kz_cases = (
+        ("ooc_factors_hessian", lambda f: f(planes, 0, R_mid, N),
+         derivatives.ooc_hessian, derivatives.ooc_hessian_plain, 56),
+        ("ooc_factors_gradient", lambda f: f(spec, 1, D1, N),
+         derivatives.ooc_gradient, derivatives.ooc_gradient_plain, 32),
+        ("ooc_factors_pair", lambda f: f(planes, spec, 0, 0, 1, N),
+         derivatives.ooc_pair, derivatives.ooc_pair_plain, 32))
+    for name, call, kern, plain, per_mode in kz_cases:
+        got, ref = call(kern), call(plain)
+        ident = same(got, ref)
+        phase(name, (got - ref).abs().max().item(),
+              1e-6 * ref.abs().max().item(), time_ms(lambda: call(kern)),
+              time_ms(lambda: call(plain)), per_mode * B * N * N, B * N * N,
+              extra=("identical, " if ident else ""))
+        del got, ref
+    del planes, spec
+
+    # K11 on the first x-slab of the mid-radius stack, from an empty state;
+    # K3 on the same slab must give the same F
+    sd_slab = sd[:, :Bx].contiguous()
+    F_slab = torch.full((Bx, N, N), -10.0, device=dev)
+    Fk, Fp, F3 = F_slab.clone(), F_slab.clone(), F_slab.clone()
+    mk = collapse.collapse_update_slab(sd_slab, Fk, pack)
+    mp = collapse.collapse_update_slab_plain(sd_slab, Fp, pack)
+    R3 = torch.zeros_like(F3, dtype=torch.int32)
+    collapse.collapse_update(sd_slab, F3, R3, 1, pack)
+    dF = (Fk - Fp).abs()
+    okF = (dF <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)).double().mean().item()
+    rel = abs(mk[1].item() / mp[1].item() - 1.0)
+    print(f"  [{N}^3] collapse_update_slab [6, {Bx}, {N}, {N}]: F equal to "
+          f"K3's on the slab: {torch.equal(Fk, F3)}, equal to the plain "
+          f"version on {100 * (Fk == Fp).double().mean().item():.4f}%, "
+          f"within 1e-4*max(1,|F|) on {100 * okF:.4f}% (need >= 99.99%), "
+          f"mean delta^2 rel err {rel:.2e} (need <= 1e-5)", flush=True)
+    need(torch.equal(Fk, F3) and okF >= 0.9999 and rel <= 1e-5,
+         f"collapse_update_slab at {N}^3 disagrees")
+    Ft = F_slab.clone()
+    ms = time_ms(lambda: collapse.collapse_update_slab(sd_slab, Ft, pack))
+    Ft = F_slab.clone()
+    plain_ms = time_ms(lambda: collapse.collapse_update_slab_plain(
+        sd_slab, Ft, pack))
+    phase("collapse_update_slab", dF.max().item(), math.inf, ms, plain_ms,
+          32 * sd_slab[0].numel(), sd_slab[0].numel(),
+          extra="(F, fraction criteria above) ")
+    del Fk, Fp, F3, R3, Ft, dF, F_slab
+
+    # K12: the needed rows of the first x-slab of a displacement-like
+    # stack, into the rows buffer of all needed cells
+    rank = compact.needed_rank(idx, cells)
+    n_slab = Bx * N * N
+    rk = rank[:n_slab]
+    comps = sd[:3, :Bx].reshape(3, -1).contiguous()
+    got = torch.zeros((count, 3), device=dev)
+    want = torch.zeros((count, 3), device=dev)
+    compact.vrows_slab(rk, comps, got)
+    compact.vrows_slab_plain(rk, comps, want)
+    need(torch.equal(got, want), f"vrows_slab at {N}^3 is not identical to "
+         "its plain version")
+    in_slab = int((rk >= 0).sum())
+    phase("vrows_slab", (got - want).abs().max().item(), 0.0,
+          time_ms(lambda: compact.vrows_slab(rk, comps, got)),
+          time_ms(lambda: compact.vrows_slab_plain(rk, comps, want)),
+          16 * n_slab + 12 * in_slab, n_slab,
+          extra=f"identical, {in_slab} rows of a [3, {Bx}, {N}, {N}] slab, ")
+    del got, want, rank, rk, comps, sd_slab, idx, F0, R0
 
     # ---- K8: tabulated growth (an f(R) cosmology, so that the growth
     # varies with k) on delta ----
@@ -280,17 +450,18 @@ def kernel_phases(N, dev, report):
     gtabs, glo, gdx = fmax.growth_k_tables(cosmo_fr, 0.0, N, dev)
     got = derivatives.gradient_kspace_tab(delta, gtabs[0], glo, gdx, N)
     ref = derivatives.gradient_kspace_tab_plain(delta, gtabs[0], glo, gdx, N)
-    need(torch.equal(torch.view_as_real(got), torch.view_as_real(ref)),
-         f"kspace_gradient_tab at {N}^3 is not identical to its plain "
-         "version")
+    need(same(got, ref), f"kspace_gradient_tab at {N}^3 is not identical to "
+         "its plain version")
     phase("kspace_gradient_tab", (got - ref).abs().max().item(), 0.0,
           time_ms(lambda: derivatives.gradient_kspace_tab(
               delta, gtabs[0], glo, gdx, N)),
           time_ms(lambda: derivatives.gradient_kspace_tab_plain(
-              delta, gtabs[0], glo, gdx, N)), extra="identical, ")
+              delta, gtabs[0], glo, gdx, N)),
+          32 * modes + 4 * gtabs[0].numel(), modes, extra="identical, ")
     del got, ref
 
-    # ---- K4: the two LPT passes on the R=0 stack ----
+    # ---- K4: the two LPT passes on the R=0 stack, and the accumulation of
+    # one component pair on an x-slab (the out-of-core fold) ----
     sd = derivatives.second_derivatives(delta, 0.0, N)
     got = lpt.sources_pointwise(sd)
     ref = lpt.sources_pointwise_plain(sd)
@@ -298,7 +469,8 @@ def kernel_phases(N, dev, report):
     tol = 1e-5 * max(b.abs().max().item() for b in ref)
     phase("lpt_sources_pointwise", err, tol,
           time_ms(lambda: lpt.sources_pointwise(sd)),
-          time_ms(lambda: lpt.sources_pointwise_plain(sd)))
+          time_ms(lambda: lpt.sources_pointwise_plain(sd)), 36 * cells,
+          cells)
     src32 = ref[2]
     phi2 = irfft3(derivatives.hessian_kspace(rfft3(ref[0]), 0.0, N), N)
     del got, ref
@@ -309,8 +481,30 @@ def kernel_phases(N, dev, report):
     scratch = src32.clone()
     phase("lpt_src32_accumulate", err, tol,
           time_ms(lambda: lpt.src32_accumulate(phi2, sd, scratch)),
-          time_ms(lambda: lpt.src32_accumulate_plain(phi2, sd, src32)))
-    del sd, phi2, src32, want, acc, scratch, delta
+          time_ms(lambda: lpt.src32_accumulate_plain(phi2, sd, src32)),
+          56 * cells, cells)
+    a = phi2[3:4, :Bx].contiguous()
+    b = sd[3:4, :Bx].contiguous()
+    s_slab = src32[:Bx].contiguous()
+    w = (lpt.PHI2_WEIGHTS[3],)
+    want = lpt.src32_accumulate_plain(a, b, s_slab, w)
+    acc = lpt.src32_accumulate(a, b, s_slab.clone(), weights=w)
+    err = (acc - want).abs().max().item()
+    tol = 1e-5 * want.abs().max().item()
+    scratch = s_slab.clone()
+    ms = time_ms(lambda: lpt.src32_accumulate(a, b, scratch, weights=w))
+    plain_ms = time_ms(lambda: lpt.src32_accumulate_plain(a, b, s_slab, w))
+    # one pair: 16 B and 3 of the six-pair pass's 18 operations per cell
+    pb, pby = bound("lpt_src32_accumulate", 16 * s_slab.numel(),
+                    s_slab.numel() / 6)
+    print(f"  [{N}^3] lpt_src32_accumulate, one pair on a [{Bx}, {N}, {N}] "
+          f"slab: max_abs_err {err:.3e} (tolerance {tol:.3e}) kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {pb:.3f} ms ({pby}) "
+          f"-> {'ok' if err <= tol else 'FAIL'}", flush=True)
+    need(err <= tol, f"lpt_src32_accumulate (one pair) at {N}^3 disagrees")
+    rec["lpt_src32_accumulate"].update(pair_ms=ms, pair_plain_ms=plain_ms,
+                                       pair_bound_ms=pb)
+    del sd, phi2, src32, want, acc, scratch, delta, a, b, s_slab
     torch.cuda.empty_cache()
     report[N] = rec
 
@@ -321,7 +515,7 @@ def c2r_check(dev):
     the card against the same on the CPU (pocketfft, the JAX package's
     convention), and torch.fft.irfftn on the card for information."""
     import torch
-    from pinocchio_tpu.cosmology import Cosmology
+    from pinocchio_tpu_torch.cosmology import Cosmology
     from pinocchio_tpu_torch import ic
     from pinocchio_tpu_torch.grids import Grid, irfft3
     from pinocchio_tpu_torch.ops import derivatives
@@ -349,7 +543,7 @@ def run_path(dev, name):
     just before it; returns (launch counts, timings)."""
     import numpy as np
     import torch
-    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch import kernels, planner
     from pinocchio_tpu_torch.run import run_pipeline
 
     N, kw, own = PATHS[name]
@@ -365,8 +559,13 @@ def run_path(dev, name):
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         files = set(os.listdir(out))
-        print(f"  {name} path {N}^3: {wall:.2f} s wall, peak device "
-              f"memory {peak / 2**30:.2f} GiB", flush=True)
+        pred = res["plan"]["device_bytes"]
+        print(f"  {name} path {N}^3: {wall:.2f} s wall, {res['plan']['engine']}"
+              f" engine, peak device memory {peak / GiB:.2f} GiB, planner "
+              f"{pred / GiB:.2f} GiB ({res['plan']['ooc' if res['plan']['use_ooc'] else 'dense']['phase']}; "
+              f"measured/predicted {peak / pred:.3f})", flush=True)
+        need(res["plan"]["use_ooc"] == (p.ooc == "on"),
+             f"{name}: the planner chose the {res['plan']['engine']} engine")
         print("  phases: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(res["timings"].items())),
             flush=True)
@@ -398,15 +597,15 @@ def run_path(dev, name):
             need(segs is not None and len(segs) == len(OUTPUT_Z),
                  f"{name}: one displacement set per output redshift "
                  "expected")
-    print(f"  launches on the {name} path: {launches}", flush=True)
-    expected = COMMON | own
+    print(f"  launches on the {name} path: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    expected = own
     missing = sorted(k for k in expected if launches[k] <= 0)
     stray = sorted(k for k, v in launches.items()
                    if v > 0 and k not in expected)
     need(not missing, f"kernels of the {name} path not launched: {missing}")
     need(not stray, f"kernels of other paths launched on the {name} path: "
          f"{stray}")
-    need("jax" not in sys.modules, "jax was imported")
     return launches, res["timings"]
 
 
@@ -443,6 +642,183 @@ def reference_check(dev, name):
     need(same > 0.97, f"{name}: final halos differ from the CPU run")
 
 
+def _phase_table(peaks, predicted):
+    """Lines of each phase's measured peak beside the planner's."""
+    lines = []
+    for ph, meas in peaks.items():
+        pred = sum(predicted[ph].values()) if ph in predicted else None
+        lines.append(f"    {ph:<12s} measured {meas / GiB:8.3f} GiB, planner "
+                     + ("-" if pred is None else
+                        f"{pred / GiB:8.3f} GiB (measured/predicted "
+                        f"{meas / pred:.3f})"))
+    return "\n".join(lines)
+
+
+# the engine's phases (fmax_ooc timings) -> the planner's
+OOC_PHASES = {"fmax_loop": "cycle", "sources": "sources", "fold": "fold",
+              "spectra": "fold", "products": "needed sort",
+              "lpt_rows": "v-streams"}
+
+
+def ooc_peaks(res):
+    """The out-of-core run's per-phase peaks under the planner's names."""
+    out = {}
+    for ph, b in res.peaks.items():
+        key = OOC_PHASES[ph]
+        out[key] = max(out.get(key, 0), b)
+    return out
+
+
+def ooc_dense_check(dev):
+    """The out-of-core engine against the dense engine at 256^3, the dense
+    one fed the delta assembled from the engine's kz planes: Fmax (|dF| >
+    0.01 on < 0.1 % of cells, median |dF| < 1e-4), variances within rtol
+    1e-4, the needed set equal up to max(2, 0.1 %) borderline cells, the
+    rows of the common cells within rtol = atol = 3e-3, halo counts per
+    output within 1 %; each engine's peak memory beside the planner's."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax, fmax_ooc, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.driver import run_fragmentation
+    from pinocchio_tpu_torch.grids import Grid
+    from pinocchio_tpu_torch.ic import PlaneGenerator
+
+    N = OOC_CHECK_N
+    p = params_for(N)
+    cosmo = Cosmology(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kd = PlaneGenerator(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
+                        dev).assemble()
+    t0 = time.perf_counter()
+    dense = fmax.run_fmax(p, cosmo, dev, kdensity=kd)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    peak_dense = torch.cuda.max_memory_allocated()
+    del kd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, trace_memory=True)
+    t_ooc = time.perf_counter() - t0
+    frac = planner.collapsed_fraction(p, cosmo)
+    pd = planner.device_peak(p, False, frac=frac)
+    po = planner.device_peak(p, True, frac=frac)
+    print(f"  dense fmax {t_dense:.2f} s, peak {peak_dense / GiB:.3f} GiB, "
+          f"planner {pd['peak'] / GiB:.3f} GiB ({pd['phase']}; "
+          f"measured/predicted {peak_dense / pd['peak']:.3f})", flush=True)
+    peaks = ooc_peaks(ooc)
+    print(f"  out-of-core fmax {t_ooc:.2f} s, peak "
+          f"{max(peaks.values()) / GiB:.3f} GiB, planner "
+          f"{po['peak'] / GiB:.3f} GiB ({po['phase']}):\n"
+          + _phase_table(peaks, po["phases"]), flush=True)
+    d = (ooc.products.Fmax - dense.products.Fmax).abs()
+    big = (d > 0.01).double().mean().item()
+    med = d.median().item()
+    exact = (d == 0).double().mean().item()
+    rv = np.abs(ooc.smoothing.true_variance / dense.smoothing.true_variance
+                - 1.0).max()
+    print(f"  Fmax: equal on {100 * exact:.4f}% of cells, |dF| > 0.01 on "
+          f"{100 * big:.5f}% (need < 0.1%), median |dF| {med:.2e} (need < "
+          f"1e-4); variances rel err {rv:.2e} (need <= 1e-4)", flush=True)
+    need(big < 1e-3 and med < 1e-4 and rv <= 1e-4,
+         "out-of-core Fmax disagrees with the dense engine")
+    so, sd = ooc.host_products, dense.host_products
+    sym = len(np.setxor1d(so.ci, sd.ci))
+    print(f"  needed: {len(so.ci)} out-of-core, {len(sd.ci)} dense, {sym} "
+          f"in one set only (need <= {max(2, int(1e-3 * len(sd.ci)))}); "
+          f"same order: {np.array_equal(so.ci, sd.ci)}", flush=True)
+    need(sym <= max(2, 1e-3 * len(sd.ci)), "the needed sets differ")
+    _, io, idn = np.intersect1d(so.ci, sd.ci, return_indices=True)
+    for k in so.vel:
+        a, b = so.vel[k][io], sd.vel[k][idn]
+        err = float(np.abs(a - b).max())
+        ok = bool(np.allclose(a, b, rtol=3e-3, atol=3e-3))
+        print(f"  rows {k}: max |d| {err:.3e} of max {np.abs(b).max():.3e} "
+              f"(rtol = atol = 3e-3) -> {'ok' if ok else 'FAIL'}", flush=True)
+        need(ok, f"out-of-core rows {k} disagree with the dense engine")
+    fo = run_fragmentation(p, cosmo, ooc, verbose=False)
+    fd = run_fragmentation(p, cosmo, dense, verbose=False)
+    for a, b in zip(fd.catalogs, fo.catalogs):
+        na = int((a.mass >= p.MinHaloMass).sum())
+        nb = int((b.mass >= p.MinHaloMass).sum())
+        print(f"  z={a.z:g}: {nb} halos out-of-core, {na} dense (tolerance "
+              "1 %)", flush=True)
+        need(na > 0 and abs(na - nb) <= 0.01 * na,
+             f"halo counts at z={a.z} differ between the engines")
+    del ooc, dense, fo, fd, d
+    torch.cuda.empty_cache()
+
+
+def meminfo():
+    """Host memory in bytes from /proc/meminfo: (MemTotal, MemAvailable)."""
+    vals = {}
+    with open("/proc/meminfo") as fd:
+        for line in fd:
+            k, v = line.split(":", 1)
+            vals[k] = float(v.split()[0]) * 1024.0
+    return vals.get("MemTotal", 0.0), vals.get("MemAvailable", 0.0)
+
+
+def ooc_fmax_phase(dev, N, ooc):
+    """The out-of-core fmax phase at N^3 with the planner's choice under
+    ``ooc`` ('auto' at 1024^3, where the planner must choose the
+    out-of-core engine): each phase's peak beside the planner's, the overall
+    peak under the card's memory, the host's memory beside the planner's
+    host estimate."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    p = params_for(N, ooc=ooc)
+    cosmo = Cosmology(p)
+    rep = planner.plan(p, dev, cosmo)
+    print(planner.format_memory_map(rep), flush=True)
+    need(rep["use_ooc"], f"the planner chose the {rep['engine']} engine at "
+         f"{N}^3 under ooc={ooc!r}")
+    total, avail = meminfo()
+    print(f"  host: MemTotal {total / GiB:.2f} GiB, MemAvailable "
+          f"{avail / GiB:.2f} GiB; planner's estimate for the sweep "
+          f"{rep['host_bytes'] / GiB:.2f} GiB (not run here)",
+          flush=True)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=N >= BIG_N,
+                                trace_memory=True)
+    wall = time.perf_counter() - t0
+    peaks = ooc_peaks(res)
+    peak = max(peaks.values())
+    sp = res.host_products
+    count = len(sp.ci)
+    print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall; phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
+          flush=True)
+    print(f"  peak device memory {peak / GiB:.3f} GiB of the card's "
+          f"{card / GiB:.2f} GiB; planner {rep['device_bytes'] / GiB:.3f} "
+          f"GiB:\n" + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
+    print(f"  needed cells {count} of {N ** 3} "
+          f"({100.0 * count / N ** 3:.2f}%, planner "
+          f"{100.0 * rep['frac']:.2f}%); host after the run: MemAvailable "
+          f"{meminfo()[1] / GiB:.2f} GiB", flush=True)
+    print(f"  launches: { {k: v for k, v in kernels.LAUNCHES.items() if v} }",
+          flush=True)
+    need(peak < card, "the out-of-core peak exceeds the card's memory")
+    need(0.3 < count / N ** 3 < 0.9, "implausible needed fraction")
+    sv = res.smoothing.true_variance
+    need(np.all(np.isfinite(sv)) and sv[-1] > 0, "non-finite grid variance")
+    need(np.all(np.isfinite(sp.F[::997])) and all(
+        np.all(np.isfinite(v[::997])) for v in sp.vel.values()),
+        "non-finite products")
+    need(np.all(np.diff(sp.F[::997]) <= 0), "products not in -F order")
+    missing = sorted(k for k in OOC if not kernels.LAUNCHES[k])
+    need(not missing, f"kernels not launched at {N}^3: {missing}")
+    del res, sp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pinocchio_tpu_torch")):
         print("chip_smoke.py: pinocchio_tpu_torch not found next to this "
@@ -472,20 +848,37 @@ def main() -> int:
     print(f"kernels built with nvcc in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    t_start = time.perf_counter()
+
+    def section(title):
+        print(f"{title} [{time.perf_counter() - t_start:.0f} s]", flush=True)
+
     try:
         report = {}
         for N in KERNEL_SIZES:
-            print(f"kernel phases at {N}^3:", flush=True)
+            section(f"kernel phases at {N}^3:")
             kernel_phases(N, dev, report)
         c2r_check(dev)
         paths = {}
         for path in PATHS:
-            print(f"{path} path at {PATHS[path][0]}^3:", flush=True)
+            section(f"{path} path at {PATHS[path][0]}^3:")
             paths[path] = run_path(dev, path)[0]
         for path in REFERENCE:
-            print(f"{path} path at {REFERENCE[path]}^3 on the card and on "
-                  "the CPU:", flush=True)
+            section(f"{path} path at {REFERENCE[path]}^3 on the card and on "
+                    "the CPU:")
             reference_check(dev, path)
+        section(f"out-of-core against dense at {OOC_CHECK_N}^3:")
+        ooc_dense_check(dev)
+        section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
+        ooc_fmax_phase(dev, OOC_N, "on")
+        section(f"fmax phase at {BIG_N}^3 under ooc='auto':")
+        ooc_fmax_phase(dev, BIG_N, "auto")
+        jaxish = sorted(m for m in sys.modules if m == "jax"
+                        or m.startswith("jax.") or m == "pinocchio_tpu"
+                        or m.startswith("pinocchio_tpu."))
+        need(not jaxish, f"modules of jax or the JAX package imported: "
+             f"{jaxish[:5]}")
+        section("no module of jax or of the JAX package was imported;")
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
@@ -494,17 +887,22 @@ def main() -> int:
     # it; the shared kernels on the main path
     rows = []
     for kname, (route, source, replaces) in kernels.KERNELS.items():
-        owner = next(nm for nm, (_, _, own) in PATHS.items()
-                     if kname in COMMON | own)
+        owner = next(nm for nm, (_, _, own) in PATHS.items() if kname in own)
         r = report[PIPELINE_N][kname]
         big = report[max(KERNEL_SIZES)][kname]
         rows.append(dict(name=kname, route=route, source=source,
                          replaces=replaces, launches=paths[owner][kname],
                          path=owner, max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"],
+                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         library_ms=r["library_ms"],
                          shape=f"{PIPELINE_N}^3",
                          ms_512=big["ms"], plain_ms_512=big["plain_ms"],
-                         max_abs_err_512=big["max_abs_err"]))
+                         bound_ms_512=big["bound_ms"],
+                         library_ms_512=big["library_ms"],
+                         max_abs_err_512=big["max_abs_err"],
+                         **{k: r[k] for k in ("pair_ms", "pair_plain_ms",
+                                              "pair_bound_ms") if k in r}))
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

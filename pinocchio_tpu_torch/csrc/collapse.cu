@@ -5,6 +5,12 @@
 // eval_inverse_growth (240-251), the strict running max into Fmax/Rmax and
 // the _safe_mean statistics of delta and delta^2 (274-278).
 //
+// K11 replaces pinocchio_tpu/fmax_ooc.py:OocEngine.cycle_slab (506-535): the
+// classic update of one x-slab of the out-of-core engine, from the slab's six
+// real Hessian components into its rows of Fmax, with no Rmax (the JAX
+// engine keeps none) and the slab's delta and delta^2 means.  It is the K3
+// kernel launched on the slab with a null Rmax.
+//
 // K7 replaces collapse.py:collapse_update_table (254-271) with the lookups
 // of pinocchio_tpu/ops/tabulated.py (_locate 130-145, interpolate_F 148-172,
 // _d_spline_at 221, interpolate_F_bilinear 233, interpolate_F_bicubic 246):
@@ -402,7 +408,7 @@ collapse_kernel(const float* __restrict__ derivs, float* __restrict__ Fmax,
     const float F = cell_F<MODE>(d, pack, table, s_dv, s_idx);
     if (Fmax[i] < F) {  // strict: a tie keeps the earlier radius
       Fmax[i] = F;
-      Rmax[i] = ismooth;
+      if (Rmax != nullptr) Rmax[i] = ismooth;
     }
     s1 += (double)delta;
     s2 += (double)(delta * delta);
@@ -473,6 +479,15 @@ extern "C" int collapse_update(const void* derivs, void* Fmax, void* Rmax,
   mean_kernel<<<1, kThreads, 0, s>>>((const double*)partials, nblocks, n,
                                      (double*)means);
   return (int)cudaGetLastError();
+}
+
+// K11: derivs [6, n] of one slab, Fmax its n cells; no Rmax
+extern "C" int collapse_update_slab(const void* derivs, void* Fmax,
+                                    int64_t n, const void* pack_host,
+                                    void* partials, int nblocks, void* means,
+                                    void* stream) {
+  return collapse_update(derivs, Fmax, nullptr, n, 0, pack_host, partials,
+                         nblocks, means, stream);
 }
 
 // interp: 0 trilinear, 1 bilinear spline, 2 bicubic

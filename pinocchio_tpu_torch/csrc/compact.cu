@@ -1,5 +1,5 @@
 // Needed-particle hand-off (K6): the row gather (K6a) and the FmaxPDF
-// histogram (K6b).  The (-F, cell) ordering itself stays torch.sort, as the
+// histogram (K6b); and the out-of-core engine's slab row scatter (K12).  The (-F, cell) ordering itself stays torch.sort, as the
 // JAX package leaves it to XLA's sort.
 //
 // gather_rows replaces pinocchio_tpu/fmax.py:_gather_rows (152-161), its
@@ -13,6 +13,15 @@
 // are contiguous.  Design: one thread per row reads its index once and
 // copies every stack's three components; the stack pointers are a kernel
 // argument, so one launch serves all stacks of a displacement set.
+//
+// vrows_slab (K12) replaces pinocchio_tpu/fmax_ooc.py:OocEngine.vrows_slab
+// (934-948): the needed rows of one x-slab of a displacement field.  rank[i]
+// is the slab cell's position in the sweep's (-F, cell) order, or -1 when
+// the cell is not needed; the kernel writes the cell's three components
+// straight to that row of the field's [count, 3] rows buffer.  What bounds
+// it: the slab's bytes (4 B of rank and 12 B of components read per cell,
+// coalesced), then the scattered 12-byte row writes of the needed cells.
+// Design: one thread per slab cell.
 //
 // pdf_hist replaces fmax.py:_pdf_bincount (110-112): counts of
 // clamp(int(F * 10), 0, 209) over the grid.  What bounds it: atomic
@@ -56,6 +65,19 @@ __global__ void gather_kernel(const int64_t* __restrict__ idx, int64_t count,
   }
 }
 
+__global__ void vrows_kernel(const int* __restrict__ rank,
+                             const float* __restrict__ comps, int64_t n,
+                             float* __restrict__ rows) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = __ldg(rank + i);
+  if (r < 0) return;
+  float* row = rows + 3 * (int64_t)r;
+  row[0] = __ldg(comps + i);
+  row[1] = __ldg(comps + n + i);
+  row[2] = __ldg(comps + 2 * n + i);
+}
+
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const float* __restrict__ F, int64_t n,
             unsigned long long* __restrict__ counts) {
@@ -96,6 +118,16 @@ extern "C" int gather_rows(const void* idx, int64_t count, const void* F,
   gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int64_t*)idx, count, (const float*)F, stacks, nstack, ncell,
       (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// rank [n] int32, comps [3, n] float32 of one slab, rows [count, 3]
+extern "C" int vrows_slab(const void* rank, const void* comps, int64_t n,
+                          void* rows, void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  vrows_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)rank, (const float*)comps, n, (float*)rows);
   return (int)cudaGetLastError();
 }
 

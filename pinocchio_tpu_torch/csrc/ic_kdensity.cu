@@ -1,6 +1,8 @@
-// Initial conditions: delta(k) on the rfftn grid [N, N, N/2+1] (K1).
+// Initial conditions: delta(k) on the rfftn grid [N, N, N/2+1] (K1), and a
+// batch of kz planes of the out-of-core engine's realization (K9).
 //
-// Replaces pinocchio_tpu/ic.py:_kdensity_jit (lines 49-104).  JAX draws the
+// K1 replaces pinocchio_tpu/ic.py:_kdensity_jit (lines 49-104), K9
+// kdensity_plane_fn.plane (lines 128-178).  JAX draws the
 // phase and amplitude of every mode with the counter-based threefry2x32
 // generator (jax_threefry_partitionable), so each thread derives its own
 // bits from (key, flat mode index) and the field is bit-for-bit the same
@@ -16,9 +18,12 @@
 // What bounds it on the H100: arithmetic, not bytes (8 B written per mode):
 // two 20-round threefry evaluations, a 12-step binary search in a 16 KB
 // table that stays in L1, and powf, logf, sqrtf, sinf, cosf, log10f.  One
-// thread per mode, consecutive threads on consecutive kz, so the complex64
-// stores are coalesced.  The scale-and-offset of the uniform is written
-// with __fmul_rn/__fadd_rn so that it is not contracted into an FMA.
+// thread per mode, consecutive threads on consecutive kz (K1) or iy (K9),
+// so the complex64 stores are coalesced.  K9 reads its plane's four key
+// words from a small table (computed on the host: fold_in, then split), so
+// it does no more threefry work per mode than K1.  The scale-and-offset of
+// the uniform is written with __fmul_rn/__fadd_rn so that it is not
+// contracted into an FMA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +87,28 @@ __device__ __forceinline__ float interp(float x, const float* __restrict__ xp,
   return __fadd_rn(f0, __fmul_rn(__fdiv_rn(__fsub_rn(x, x0), dx), df));
 }
 
+// delta of one mode from its integer |m|^2, its draw counter, the sign of
+// its imaginary part and the phase and amplitude keys (shared by K1 and K9)
+__device__ __forceinline__ float2 mode_value(
+    int m2, bool alive, uint64_t draw, float sign, uint32_t kp0, uint32_t kp1,
+    uint32_t ka0, uint32_t ka1, const float* __restrict__ logk,
+    const float* __restrict__ logpk, int ntab, float logkf, float fac,
+    int fixed, int paired) {
+  const float amin = 1.1754944e-38f;
+  // phase in [0, float32(2 pi)), amplitude draw in [amin, 1)
+  float phase = draw_uniform(kp0, kp1, draw, 0.0f, 6.2831855f);
+  const float ampl = draw_uniform(ka0, ka1, draw, amin, 1.0f);
+
+  const float logkm = __fadd_rn(
+      logkf, __fmul_rn(0.5f, log10f((float)(m2 > 1 ? m2 : 1))));
+  float pofk = powf(10.0f, interp(logkm, logk, logpk, ntab));
+  if (!fixed) pofk = __fmul_rn(pofk, -logf(ampl));
+  if (paired) phase = __fadd_rn(phase, 3.14159274f);  // float32(pi)
+  const float amp = alive ? __fmul_rn(fac, sqrtf(pofk)) : 0.0f;
+  return make_float2(__fmul_rn(amp, cosf(phase)),
+                     __fmul_rn(__fmul_rn(sign, amp), sinf(phase)));
+}
+
 __global__ void kdensity_kernel(float2* __restrict__ out,
                                 const float* __restrict__ logk,
                                 const float* __restrict__ logpk, int ntab,
@@ -110,19 +137,44 @@ __global__ void kdensity_kernel(float2* __restrict__ out,
     draw = ((int64_t)mix * N + miy) * Nh;
     sign = -1.0f;
   }
-  const float amin = 1.1754944e-38f;
-  // phase in [0, float32(2 pi)), amplitude draw in [amin, 1)
-  float phase = draw_uniform(kp0, kp1, (uint64_t)draw, 0.0f, 6.2831855f);
-  const float ampl = draw_uniform(ka0, ka1, (uint64_t)draw, amin, 1.0f);
+  out[idx] = mode_value(m2, alive, (uint64_t)draw, sign, kp0, kp1, ka0, ka1,
+                        logk, logpk, ntab, logkf, fac, fixed, paired);
+}
 
-  const float logkm = __fadd_rn(
-      logkf, __fmul_rn(0.5f, log10f((float)(m2 > 1 ? m2 : 1))));
-  float pofk = powf(10.0f, interp(logkm, logk, logpk, ntab));
-  if (!fixed) pofk = __fmul_rn(pofk, -logf(ampl));
-  if (paired) phase = __fadd_rn(phase, 3.14159274f);  // float32(pi)
-  const float amp = alive ? __fmul_rn(fac, sqrtf(pofk)) : 0.0f;
-  out[idx] = make_float2(__fmul_rn(amp, cosf(phase)),
-                         __fmul_rn(__fmul_rn(sign, amp), sinf(phase)));
+// K9: the kz planes kz0..kz0+B-1, out [B, N, N] (x, y within a plane).  The
+// draws of plane kz use its own keys (keys[kz] = phase key, amplitude key,
+// from fold_in(seed key, kz) and a split) at the counter ix * N + iy, the
+// mirrored mode's counter on the dependent half of the kz=0 plane.
+__global__ void kdensity_planes_kernel(float2* __restrict__ out,
+                                       const float* __restrict__ logk,
+                                       const float* __restrict__ logpk,
+                                       int ntab,
+                                       const uint32_t* __restrict__ keys,
+                                       int kz0, float logkf, float fac, int N,
+                                       int64_t nmodes, int fixed,
+                                       int paired) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nmodes) return;
+  const int iy = (int)(idx % N);
+  const int64_t rest = idx / N;
+  const int ix = (int)(rest % N);
+  const int kz = kz0 + (int)(rest / N);
+  const int half = N / 2;
+  const int mx = ix <= half ? ix : ix - N;
+  const int my = iy <= half ? iy : iy - N;
+  const int m2 = mx * mx + my * my + kz * kz;
+  const bool alive = !(abs(mx) == half || abs(my) == half || kz == half) &&
+                     m2 > 0 && m2 <= half * half;
+  int64_t draw = (int64_t)ix * N + iy;
+  float sign = 1.0f;
+  if (kz == 0 && (ix > half || (ix == 0 && iy > half))) {
+    draw = (int64_t)((N - ix) % N) * N + (N - iy) % N;
+    sign = -1.0f;
+  }
+  const uint32_t* k = keys + 4 * kz;
+  out[idx] = mode_value(m2, alive, (uint64_t)draw, sign, __ldg(k),
+                        __ldg(k + 1), __ldg(k + 2), __ldg(k + 3), logk, logpk,
+                        ntab, logkf, fac, fixed, paired);
 }
 
 }  // namespace
@@ -137,5 +189,20 @@ extern "C" int ic_kdensity(void* out, const void* logk, const void* logpk,
   kdensity_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (float2*)out, (const float*)logk, (const float*)logpk, ntab, kp0, kp1,
       ka0, ka1, logkf, fac, N, Nh, nmodes, fixed, paired);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ic_kdensity_planes(void* out, const void* logk,
+                                  const void* logpk, int ntab,
+                                  const void* keys, int kz0, int B,
+                                  float logkf, float fac, int N, int fixed,
+                                  int paired, void* stream) {
+  const int64_t nmodes = (int64_t)B * N * N;
+  if (nmodes == 0) return 0;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  kdensity_planes_kernel<<<(unsigned)blocks, kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (float2*)out, (const float*)logk, (const float*)logpk, ntab,
+      (const uint32_t*)keys, kz0, logkf, fac, N, nmodes, fixed, paired);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// k-space derivative multipliers (K2, K5 and K8).
+// k-space derivative multipliers (K2, K5 and K8), and the out-of-core
+// engine's per-kz-batch factors (K10).
 //
 // Replaces, in pinocchio_tpu/ops/derivatives.py:
 //   kspace_hessian      <- smoothed_potential + the per-pair multiply of the
@@ -8,6 +9,11 @@
 //                          the growth factor of each mode is interpolated
 //                          linearly from a table over log10 |k| (|k| in grid
 //                          units, a quirk of the reference kept as is)
+// and, in pinocchio_tpu/fmax_ooc.py, K10's three modes:
+//   ooc_factors_hessian  <- OocEngine.build_hessian_batch (lines 421-434)
+//   ooc_factors_gradient <- OocEngine.build_first_batch (438-465), constant
+//                           growth
+//   ooc_factors_pair     <- OocEngine.build_pair_batch (469-501)
 // The c2r transforms that follow stay torch.fft (cuFFT), as the JAX package
 // leaves them to XLA's FFT.
 //
@@ -22,7 +28,13 @@
 // JAX order: base = delta * (smooth * inv_k2), then base * (k_a * k_b).
 // The tabulated-growth mode adds a log10f and a two-entry table read per
 // mode (still far below the memory line); its table (512 floats) is copied
-// to shared memory by each block.
+// to shared memory by each block.  K10 works on one batch of B kz planes
+// ([B, N, N], a few MB) and is bound the same way: 8 B (16 B in pair mode)
+// read and 48, 24 or 16 B written per mode.  Its source is read through
+// strides, so a batch of a resident [N, N, Nh] spectrum needs no copy: there
+// consecutive threads read 8 B apart by Nh (one sector each), which makes
+// the gradient and pair modes on a spectrum slower than the hessian mode on
+// K9's contiguous planes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,11 +51,7 @@ __device__ __forceinline__ float kunit(int N, int m) {
   return (float)(6.283185307179586 / (double)N * (double)m);
 }
 
-__device__ __forceinline__ KMode kmode(int N, int Nh, int64_t idx) {
-  const int iz = (int)(idx % Nh);
-  const int64_t rest = idx / Nh;
-  const int iy = (int)(rest % N);
-  const int ix = (int)(rest / N);
+__device__ __forceinline__ KMode kmode_at(int N, int ix, int iy, int iz) {
   const int half = N / 2;
   KMode k;
   k.kx = kunit(N, ix <= half ? ix : ix - N);
@@ -53,6 +61,12 @@ __device__ __forceinline__ KMode kmode(int N, int Nh, int64_t idx) {
                    __fmul_rn(k.kz, k.kz));
   k.inv_k2 = k.k2 > 0.0f ? __fdiv_rn(1.0f, k.k2) : 0.0f;
   return k;
+}
+
+__device__ __forceinline__ KMode kmode(int N, int Nh, int64_t idx) {
+  const int iz = (int)(idx % Nh);
+  const int64_t rest = idx / Nh;
+  return kmode_at(N, (int)(rest / N), (int)(rest % N), iz);
 }
 
 __device__ __forceinline__ float2 cscale(float2 a, float s) {
@@ -118,6 +132,84 @@ __global__ void gradient_tab_kernel(const float2* __restrict__ src,
   out[2 * nmodes + idx] = cscale(base, k.kz);
 }
 
+// ---- K10: the out-of-core engine's factors on one batch of kz planes ----
+// A source batch is [B, N, N] in (kz, x, y) order: K9's planes, or the
+// planes kz0..kz0+B-1 of a resident [N, N, Nh] spectrum, read through its
+// strides (element (b, ix, iy) at src[b * sb + ix * sx + iy * sy]).  The
+// output is the contiguous [ncomp, B, N, N] input of one batched ifft2.
+// Each mode's factor is computed as in K2, K5 and the R=0 Hessian, op for
+// op, so a half transform holds the dense engine's values.
+
+struct Batch {
+  const float2* p;
+  int64_t sb, sx, sy;
+};
+
+__device__ __forceinline__ float2 batch_at(const Batch& s, int b, int ix,
+                                           int iy) {
+  return __ldg(s.p + b * s.sb + ix * s.sx + iy * s.sy);
+}
+
+__device__ __forceinline__ void batch_mode(int64_t idx, int N, int kz0,
+                                           int& b, int& ix, int& iy,
+                                           KMode& k) {
+  iy = (int)(idx % N);
+  const int64_t rest = idx / N;
+  ix = (int)(rest % N);
+  b = (int)(rest / N);
+  k = kmode_at(N, ix, iy, kz0 + b);
+}
+
+__global__ void ooc_hessian_kernel(Batch src, float2* __restrict__ out,
+                                   int N, int kz0, int64_t n, float R) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int b, ix, iy;
+  KMode k;
+  batch_mode(idx, N, kz0, b, ix, iy, k);
+  const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
+  const float s = __fmul_rn(expf(arg), k.inv_k2);
+  const float2 base = cscale(batch_at(src, b, ix, iy), s);
+  out[idx] = cscale(base, __fmul_rn(k.kx, k.kx));
+  out[n + idx] = cscale(base, __fmul_rn(k.ky, k.ky));
+  out[2 * n + idx] = cscale(base, __fmul_rn(k.kz, k.kz));
+  out[3 * n + idx] = cscale(base, __fmul_rn(k.kx, k.ky));
+  out[4 * n + idx] = cscale(base, __fmul_rn(k.kx, k.kz));
+  out[5 * n + idx] = cscale(base, __fmul_rn(k.ky, k.kz));
+}
+
+__global__ void ooc_gradient_kernel(Batch src, float2* __restrict__ out,
+                                    int N, int kz0, int64_t n,
+                                    float growth) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int b, ix, iy;
+  KMode k;
+  batch_mode(idx, N, kz0, b, ix, iy, k);
+  const float2 d = batch_at(src, b, ix, iy);
+  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
+  base = cscale(base, k.inv_k2);
+  out[idx] = cscale(base, k.kx);
+  out[n + idx] = cscale(base, k.ky);
+  out[2 * n + idx] = cscale(base, k.kz);
+}
+
+// the 3LPT-b fold operands of one Hessian component (a, b): k_a k_b / k^2
+// on two sources (the density and the 2LPT source spectrum)
+__global__ void ooc_pair_kernel(Batch src0, Batch src1,
+                                float2* __restrict__ out, int N, int kz0,
+                                int64_t n, int ia, int ib) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int b, ix, iy;
+  KMode k;
+  batch_mode(idx, N, kz0, b, ix, iy, k);
+  const float kv[3] = {k.kx, k.ky, k.kz};
+  const float f = __fmul_rn(kv[ia], kv[ib]);
+  out[idx] = cscale(cscale(batch_at(src0, b, ix, iy), k.inv_k2), f);
+  out[n + idx] = cscale(cscale(batch_at(src1, b, ix, iy), k.inv_k2), f);
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -154,5 +246,46 @@ extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
                         (cudaStream_t)stream>>>(
       (const float2*)src, (float2*)out, N, Nh, nmodes, (const float*)gtab,
       ntab, glo, gdx, tmax);
+  return (int)cudaGetLastError();
+}
+
+// K10 entry points: src* and its strides s*b, s*x, s*y (in complex
+// elements); out [ncomp, B, N, N]
+extern "C" int ooc_factors_hessian(const void* src, int64_t sb, int64_t sx,
+                                   int64_t sy, void* out, int N, int kz0,
+                                   int B, float R_grid, void* stream) {
+  const int64_t n = (int64_t)B * N * N;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  ooc_hessian_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n, R_grid);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ooc_factors_gradient(const void* src, int64_t sb, int64_t sx,
+                                    int64_t sy, void* out, int N, int kz0,
+                                    int B, float growth, void* stream) {
+  const int64_t n = (int64_t)B * N * N;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  ooc_gradient_kernel<<<(unsigned)blocks, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n, growth);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ooc_factors_pair(const void* src0, int64_t s0b, int64_t s0x,
+                                int64_t s0y, const void* src1, int64_t s1b,
+                                int64_t s1x, int64_t s1y, void* out, int N,
+                                int kz0, int B, int ia, int ib,
+                                void* stream) {
+  const int64_t n = (int64_t)B * N * N;
+  if (n == 0) return 0;
+  if (ia < 0 || ia > 2 || ib < 0 || ib > 2) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  ooc_pair_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      Batch{(const float2*)src0, s0b, s0x, s0y},
+      Batch{(const float2*)src1, s1b, s1x, s1y}, (float2*)out, N, kz0, n, ia,
+      ib);
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from .config import Params
+from .cosmology import Cosmology
 
 from .grids import Grid
 from .ic import generate_kdensity
@@ -103,6 +103,8 @@ class FmaxResult:
     host_products: SparseProducts
     pdf_hist: np.ndarray               # FmaxPDF counts, PDF_BINS bins
     timings: Dict[str, float] = field(default_factory=dict)
+    # peak device bytes per phase (the out-of-core engine's trace_memory)
+    peaks: Dict[str, int] = field(default_factory=dict)
 
 
 def inverse_growth_packs(cosmo: Cosmology, sm: Smoothing,
@@ -311,7 +313,7 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     (e.g. the JAX package's, through load_jax_state) used instead of
     generating the initial conditions.  scaledep_gm: the per-radius
     effective growth of a scale-dependent cosmology
-    (pinocchio_tpu.scaledep.set_scaledep_gm)."""
+    (scaledep.set_scaledep_gm)."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     sm = Smoothing.build(params, cosmo)

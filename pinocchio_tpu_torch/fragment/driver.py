@@ -4,8 +4,8 @@
 The products arrive from the device already sorted in the sweep's order
 (descending Fmax, ties by ascending cell index, fragment.c:484-520), so this
 module builds the growth-weight tables and the ctypes structs and runs the
-native group sweep (pinocchio_tpu/native/groupsweep.c, loaded through the
-jax-free ``pinocchio_tpu.native``).  One periodic sub-box spans the grid
+native group sweep (the port's copy of the C sweep, native/groupsweep.c,
+loaded through ``native``).  One periodic sub-box spans the grid
 (set_subboxes with nbox=1: pbc on, safe=0); there is no PLC and no
 streaming watermark.  Scale-dependent growth adds the sweep's (log10 k,
 log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its per-segment
@@ -22,9 +22,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from pinocchio_tpu import native
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
+from .. import native
+from ..config import Params
+from ..cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
 from ..fmax import FmaxResult
 
@@ -256,7 +256,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
                       _maxg_override: int = None) -> FragmentResult:
     """The group sweep over the needed particles.  scaledep_gm: the
     per-radius effective scales of a scale-dependent cosmology
-    (pinocchio_tpu.scaledep.set_scaledep_gm), None otherwise."""
+    (scaledep.set_scaledep_gm), None otherwise."""
     t_all = time.perf_counter()
     timings = {}
     sp = fmax_result.host_products

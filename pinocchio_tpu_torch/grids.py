@@ -74,3 +74,19 @@ def irfft3(k, n: int):
     if n % 2 == 0:
         u[..., n // 2].imag.zero_()
     return torch.fft.irfft(u, n=n, dim=-1)
+
+
+def k_batch(N: int, kz0: int, B: int, device):
+    """(kx, ky, kz, k^2, 1/k^2 with k=0 set to 0) in grid units, float32,
+    broadcastable to a [B, N, N] batch of the kz planes kz0..kz0+B-1 in
+    (kz, x, y) order (the out-of-core engine's plane batches)."""
+    k1 = (2.0 * np.pi / N) * signed_modes(N)
+    kz = (2.0 * np.pi / N) * np.arange(kz0, kz0 + B)
+    f32 = dict(dtype=torch.float32, device=device)
+    kx = torch.tensor(k1, **f32).reshape(1, N, 1)
+    ky = torch.tensor(k1, **f32).reshape(1, 1, N)
+    kz = torch.tensor(kz, **f32).reshape(B, 1, 1)
+    k2 = kx * kx + ky * ky + kz * kz
+    inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
+                         0.0)
+    return kx, ky, kz, k2, inv_k2

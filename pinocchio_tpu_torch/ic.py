@@ -118,6 +118,14 @@ def kdensity_plain(N, logk, logpk, kp, ka, logkf, fac, fixed, paired):
 
     phase = uniform(kp, draw, 0.0, 2.0 * np.pi).reshape(N, N, Nh)
     ampl = uniform(ka, draw, AMPL_MIN, 1.0).reshape(N, N, Nh)
+    return _modes(m2, alive, sign, phase, ampl, logk,
+                  logpk, logkf, fac, fixed, paired)
+
+
+def _modes(m2, alive, sign, phase, ampl, logk, logpk, logkf, fac, fixed,
+           paired):
+    """delta of each mode from its integer |m|^2, its draws and the P(k)
+    table (GenIC.c:188-446), shared by K1's and K9's plain versions."""
     logkm = logkf + 0.5 * torch.log10(
         torch.clamp(m2, min=1).to(torch.float32))
     pofk = torch.pow(10.0, _interp(logkm, logk, logpk))
@@ -165,3 +173,107 @@ def generate_kdensity(grid: Grid, cosmo, seed: int, device,
     return kdensity(grid.N, torch.from_numpy(logk).to(device),
                     torch.from_numpy(logpk).to(device), kp, ka, logkf, fac,
                     fixed, paired)
+
+
+# ------------------------------------------------------------------
+# kz-plane generator of the out-of-core engine (K9): delta(k) is never
+# resident there, each pass regenerates the kz planes it needs.  The draws
+# of plane kz come from the seed's key folded with kz (jax.random.fold_in),
+# then split into the phase and amplitude keys, so any batching of planes
+# gives the same field, the JAX package's kdensity_plane_fn realization
+# (a different one from generate_kdensity's: same statistics, same math).
+# ------------------------------------------------------------------
+
+def plane_keys(seed: int, nplanes: int) -> np.ndarray:
+    """The (phase, amplitude) keys of planes kz = 0..nplanes-1 as uint32
+    [nplanes, 4]: fold_in(PRNGKey(seed), kz), then split."""
+    k0, k1 = prng_key(seed)
+    kz = torch.arange(nplanes, dtype=torch.int64)
+    zero = torch.zeros_like(kz)
+    f0, f1 = threefry2x32(k0, k1, zero, kz)            # fold_in
+    kp0, kp1 = threefry2x32(f0, f1, zero, zero)        # split: first key
+    ka0, ka1 = threefry2x32(f0, f1, zero, zero + 1)    # second key
+    return torch.stack([kp0, kp1, ka0, ka1], 1).numpy().astype(np.uint32)
+
+
+def kdensity_planes_plain(N, logk, logpk, keys, kz0, B, logkf, fac, fixed,
+                          paired):
+    dev = logk.device
+    half = N // 2
+    i64 = dict(dtype=torch.int64, device=dev)
+    kz = torch.arange(kz0, kz0 + B, **i64).reshape(B, 1, 1)
+    ix = torch.arange(N, **i64).reshape(1, N, 1)
+    iy = torch.arange(N, **i64).reshape(1, 1, N)
+    mx = torch.where(ix <= half, ix, ix - N)
+    my = torch.where(iy <= half, iy, iy - N)
+    m2 = mx * mx + my * my + kz * kz
+    alive = (~((mx.abs() == half) | (my.abs() == half) | (kz == half))
+             & (m2 > 0) & (m2 <= half * half))
+    # the dependent half of the kz=0 plane draws its mirrored mode's
+    # counter and conjugates (GenIC.c:293-368)
+    dep = (kz == 0) & ((ix > half) | ((ix == 0) & (iy > half)))
+    draw = torch.where(dep, ((N - ix) % N) * N + (N - iy) % N, ix * N + iy)
+    sign = torch.where(dep, -1.0, 1.0).to(torch.float32)
+    k = keys[kz0:kz0 + B].to(torch.int64) & _M32
+    kp = (k[:, 0].reshape(B, 1, 1), k[:, 1].reshape(B, 1, 1))
+    ka = (k[:, 2].reshape(B, 1, 1), k[:, 3].reshape(B, 1, 1))
+    phase = uniform(kp, draw, 0.0, 2.0 * np.pi)
+    ampl = uniform(ka, draw, AMPL_MIN, 1.0)
+    return _modes(m2, alive, sign, phase, ampl, logk, logpk, logkf, fac,
+                  fixed, paired)
+
+
+def kdensity_planes(N: int, logk, logpk, keys, kz0: int, B: int,
+                    logkf: float, fac: float, fixed: bool, paired: bool):
+    """delta(k) of the kz planes kz0..kz0+B-1, complex64 [B, N, N] (x, y
+    order within a plane), on the device of the P(k) tables; keys: the
+    int32 [>= kz0+B, 4] plane keys (plane_keys' bits)."""
+    if not kernels.plain_or_kernel("ic_kdensity_planes", logk):
+        return kdensity_planes_plain(N, logk, logpk, keys, kz0, B, logkf,
+                                     fac, fixed, paired)
+    kernels.require_cuda("ic_kdensity_planes", logk, logpk, keys)
+    if (logk.dtype != torch.float32 or logpk.shape != logk.shape
+            or logk.dim() != 1 or keys.dtype != torch.int32
+            or keys.dim() != 2 or keys.shape[1] != 4
+            or not 0 <= kz0 <= kz0 + B <= min(keys.shape[0], N // 2 + 1)):
+        raise ValueError("ic_kdensity_planes: float32 1-D tables of one "
+                         "length and int32 [nplanes, 4] keys covering the "
+                         "batch expected")
+    out = torch.empty((B, N, N), dtype=torch.complex64, device=logk.device)
+    err = kernels.lib().ic_kdensity_planes(
+        out.data_ptr(), logk.data_ptr(), logpk.data_ptr(), logk.numel(),
+        keys.data_ptr(), int(kz0), int(B), float(logkf), float(fac), N,
+        int(bool(fixed)), int(bool(paired)), kernels.stream_ptr(logk.device))
+    kernels.check("ic_kdensity_planes", err)
+    kernels.LAUNCHES["ic_kdensity_planes"] += 1
+    return out
+
+
+class PlaneGenerator:
+    """kz-plane batches of one realization on ``device`` (the counterpart
+    of the JAX package's ic.kdensity_plane_fn): ``gen(kz0, B)`` is
+    delta(k) [B, N, N] of planes kz0..kz0+B-1."""
+
+    def __init__(self, grid: Grid, cosmo, seed: int, device,
+                 fixed: bool = False, paired: bool = False):
+        N = grid.N
+        logk, logpk = pk_table(cosmo, grid)
+        self.N = N
+        self.logk = torch.from_numpy(logk).to(device)
+        self.logpk = torch.from_numpy(logpk).to(device)
+        self.keys = torch.from_numpy(
+            plane_keys(seed, N // 2 + 1).view(np.int32)).to(device)
+        self.logkf = float(np.float32(math.log10(2.0 * math.pi
+                                                 / grid.BoxSize)))
+        self.fac = float(np.float32(grid.BoxSize ** -1.5 * float(N) ** 3))
+        self.fixed, self.paired = bool(fixed), bool(paired)
+
+    def __call__(self, kz0: int, B: int):
+        return kdensity_planes(self.N, self.logk, self.logpk, self.keys,
+                               kz0, B, self.logkf, self.fac, self.fixed,
+                               self.paired)
+
+    def assemble(self):
+        """The whole field on the rfftn grid [N, N, N//2+1]: the dense
+        engine's delta(k) of this realization."""
+        return self(0, self.N // 2 + 1).permute(1, 2, 0).contiguous()

@@ -14,9 +14,9 @@ import os
 
 import numpy as np
 
-from pinocchio_tpu import native
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from .. import native
+from ..config import Params
+from ..cosmology import Cosmology
 
 from ..fragment.driver import CatalogSnapshot, GroupState
 

@@ -58,6 +58,17 @@ KERNELS = {
     "lpt_src32_accumulate": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
     "gather_rows": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "pdf_hist": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:110"),
+    # the out-of-core engine (K9-K12)
+    "ic_kdensity_planes": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
+                           "pinocchio_tpu/ic.py:149"),
+    "ooc_factors_hessian": ("cuda", _KSPACE,
+                            "pinocchio_tpu/fmax_ooc.py:421"),
+    "ooc_factors_gradient": ("cuda", _KSPACE,
+                             "pinocchio_tpu/fmax_ooc.py:438"),
+    "ooc_factors_pair": ("cuda", _KSPACE, "pinocchio_tpu/fmax_ooc.py:469"),
+    "collapse_update_slab": ("cuda", _COLLAPSE,
+                             "pinocchio_tpu/fmax_ooc.py:506"),
+    "vrows_slab": ("cuda", _COMPACT, "pinocchio_tpu/fmax_ooc.py:934"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -92,6 +103,20 @@ _SIGNATURES = {
     "gather_rows": [_P, _L, _P, _P, _I, _L, _P, _P],
     # F, n, counts, stream
     "pdf_hist": [_P, _L, _P, _P],
+    # out, logk, logpk, ntab, keys, kz0, B, logkf, fac, N, fixed, paired,
+    # stream
+    "ic_kdensity_planes": [_P, _P, _P, _I, _P, _I, _I, _F, _F, _I, _I, _I,
+                           _P],
+    # src, sb, sx, sy, out, N, kz0, B, R_grid (or growth), stream
+    "ooc_factors_hessian": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
+    "ooc_factors_gradient": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
+    # src0 and src1 with their strides, out, N, kz0, B, ia, ib, stream
+    "ooc_factors_pair": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I,
+                         _I, _P],
+    # derivs, Fmax, n, pack[23] (host), partials, nblocks, means, stream
+    "collapse_update_slab": [_P, _P, _L, _P, _P, _I, _P, _P],
+    # rank, comps, n, rows, stream
+    "vrows_slab": [_P, _P, _L, _P, _P],
 }
 
 

@@ -3,7 +3,8 @@ pinocchio_tpu/ops/lpt.py:lpt_sources).
 
 Both passes are fused elementwise work over flat fp32 streams: 6 Hessian
 streams in and 3 out for the source pass, 6 phi2 + 6 Hessian + src32 in and
-src32 out for the accumulation.  On the H100 they are bound by device
+src32 out for the accumulation (1 + 1 + 1 in and 1 out for the accumulation
+of one component pair, the out-of-core engine's fold).  On the H100 they are bound by device
 memory bytes (36 B per cell for the first pass, 56 B for the second, at
 3.35 TB/s peak), so the design is one masked, coalesced block load per
 stream per program, every intermediate in registers, and no second pass
@@ -66,6 +67,18 @@ def lpt_src32_accumulate(phi_ptr, sd_ptr, src_ptr, n, BLOCK: tl.constexpr):
     tl.store(src_ptr + offs, acc, mask=m)
 
 
+@triton.jit
+def lpt_src32_accumulate_one(phi_ptr, sd_ptr, src_ptr, n, w2,
+                             BLOCK: tl.constexpr):
+    # one component pair of the out-of-core fold: src32 - (2 w) phi2 sd
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = offs < n.to(tl.int64)
+    p = tl.load(phi_ptr + offs, mask=m)
+    s = tl.load(sd_ptr + offs, mask=m)
+    acc = tl.load(src_ptr + offs, mask=m)
+    tl.store(src_ptr + offs, acc - w2 * p * s, mask=m)
+
+
 def launch_pointwise(sd, out):
     n = sd[0].numel()
     grid = (triton.cdiv(n, BLOCK),)
@@ -76,3 +89,10 @@ def launch_accumulate(phi2, sd, src32):
     n = src32.numel()
     grid = (triton.cdiv(n, BLOCK),)
     lpt_src32_accumulate[grid](phi2, sd, src32, n, BLOCK=BLOCK, num_warps=8)
+
+
+def launch_accumulate_one(phi2, sd, src32, w2: float):
+    n = src32.numel()
+    grid = (triton.cdiv(n, BLOCK),)
+    lpt_src32_accumulate_one[grid](phi2, sd, src32, n, w2, BLOCK=BLOCK,
+                                   num_warps=8)

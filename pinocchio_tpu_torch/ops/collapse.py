@@ -2,11 +2,12 @@
 pinocchio_tpu/ops/collapse.py).
 
 The plain PyTorch functions below are the branch-free math of the JAX
-package, op for op.  ``collapse_update`` (classic ellipsoid, K3) and
-``collapse_update_table`` (TABULATED_CT / ELL_SNG table lookups, K7) are
-the wrappers of the CUDA kernel ``csrc/collapse.cu``: on a CUDA tensor they
-launch the kernel, on a CPU tensor they run ``collapse_update_plain`` and
-``collapse_update_table_plain``.
+package, op for op.  ``collapse_update`` (classic ellipsoid, K3),
+``collapse_update_table`` (TABULATED_CT / ELL_SNG table lookups, K7) and
+``collapse_update_slab`` (one x-slab of the out-of-core cycle, K11) are the
+wrappers of the CUDA kernel ``csrc/collapse.cu``: on a CUDA tensor they
+launch the kernel, on a CPU tensor they run ``collapse_update_plain``,
+``collapse_update_table_plain`` and ``collapse_update_slab_plain``.
 """
 
 from __future__ import annotations
@@ -210,12 +211,13 @@ def collapse_F(derivs, pack):
 
 def _running_max(F, derivs, Fmax, Rmax, ismooth: int):
     """Strict running max of F into Fmax/Rmax IN PLACE (a tie keeps the
-    earlier radius); returns the float64 tensor [mean delta, mean delta^2]
-    (sums taken in float64)."""
+    earlier radius; Rmax None keeps no radius); returns the float64 tensor
+    [mean delta, mean delta^2] (sums taken in float64)."""
     delta = derivs[0] + derivs[1] + derivs[2]
     upd = Fmax < F
     Fmax.copy_(torch.where(upd, F, Fmax))
-    Rmax.copy_(torch.where(upd, ismooth, Rmax))
+    if Rmax is not None:
+        Rmax.copy_(torch.where(upd, ismooth, Rmax))
     dd = delta * delta
     n = delta.numel()
     return torch.stack([delta.double().sum() / n, dd.double().sum() / n])
@@ -277,6 +279,40 @@ def collapse_update(derivs, Fmax, Rmax, ismooth: int, pack):
         COLLAPSE_BLOCKS, means.data_ptr(), kernels.stream_ptr(derivs.device))
     kernels.check("collapse_update", err)
     kernels.LAUNCHES["collapse_update"] += 1
+    return means
+
+
+def collapse_update_slab_plain(derivs, Fmax, pack):
+    """Plain version of the K11 kernel: see collapse_update_slab."""
+    return collapse_update_plain(derivs, Fmax, None, 0, pack)
+
+
+def collapse_update_slab(derivs, Fmax, pack):
+    """One x-slab of one radius of the out-of-core cycle: F from the slab's
+    Hessian components derivs [6, *S] (classic ellipsoid), running max into
+    the slab's Fmax rows [*S] IN PLACE (no Rmax); returns the slab's
+    [mean delta, mean delta^2] float64 tensor."""
+    if not kernels.plain_or_kernel("collapse_update_slab", derivs):
+        return collapse_update_slab_plain(derivs, Fmax, pack)
+    kernels.require_cuda("collapse_update_slab", derivs, Fmax)
+    n = Fmax.numel()
+    if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
+            or derivs.shape[0] != 6 or derivs[0].numel() != n):
+        raise ValueError("collapse_update_slab: derivs f32[6, *S] and Fmax "
+                         "f32[*S] expected")
+    pk = np.ascontiguousarray(pack, np.float32)
+    if pk.shape != (INVGROW_PACK,):
+        raise ValueError(f"collapse_update_slab: pack must be "
+                         f"f32[{INVGROW_PACK}]")
+    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
+                           device=derivs.device)
+    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
+    err = kernels.lib().collapse_update_slab(
+        derivs.data_ptr(), Fmax.data_ptr(), ctypes.c_int64(n),
+        pk.ctypes.data_as(ctypes.c_void_p), partials.data_ptr(),
+        COLLAPSE_BLOCKS, means.data_ptr(), kernels.stream_ptr(derivs.device))
+    kernels.check("collapse_update_slab", err)
+    kernels.LAUNCHES["collapse_update_slab"] += 1
     return means
 
 

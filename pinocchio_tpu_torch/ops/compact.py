@@ -1,11 +1,13 @@
 """Needed-particle hand-off on the device (counterpart of the compaction
 helpers of pinocchio_tpu/fmax.py: _compact_idx, _gather_rows, the segment
-gathers of displacement_stage_fetch and _pdf_bincount).
+gathers of displacement_stage_fetch and _pdf_bincount; and of
+pinocchio_tpu/fmax_ooc.py's vrows_slab).
 
 ``needed_order`` sorts with ``torch.sort`` (a library call, as the JAX
-package calls XLA's sort).  ``gather_rows`` and ``pdf_hist`` are the
-wrappers of the two kernels of ``csrc/compact.cu``: on a CUDA tensor they
-launch the kernel, on a CPU tensor they run the plain PyTorch version.
+package calls XLA's sort).  ``gather_rows``, ``pdf_hist`` and the
+out-of-core engine's ``vrows_slab`` are the wrappers of the three kernels
+of ``csrc/compact.cu``: on a CUDA tensor they launch the kernel, on a CPU
+tensor they run the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -87,6 +89,44 @@ def gather_rows(idx, stacks, out, F=None):
     kernels.check("gather_rows", err)
     kernels.LAUNCHES["gather_rows"] += 1
     return out
+
+
+def needed_rank(idx, ncell: int):
+    """Each cell's position in the order idx (from needed_order), -1 for a
+    cell that is not needed: int32 [ncell]."""
+    rank = torch.full((ncell,), -1, dtype=torch.int32, device=idx.device)
+    rank[idx] = torch.arange(idx.numel(), dtype=torch.int32,
+                             device=idx.device)
+    return rank
+
+
+def vrows_slab_plain(rank, comps, rows):
+    """Plain version of K12: see vrows_slab."""
+    sel = rank >= 0
+    rows[rank[sel].long()] = comps[:, sel].T
+    return rows
+
+
+def vrows_slab(rank, comps, rows):
+    """Scatter the needed cells of one slab of a displacement field into
+    their rows: rows[rank[i]] = comps[:, i] for every i with rank[i] >= 0
+    (rank int32 [n] from needed_rank, comps float32 [3, n], rows float32
+    [count, 3], written IN PLACE)."""
+    if not kernels.plain_or_kernel("vrows_slab", comps):
+        return vrows_slab_plain(rank, comps, rows)
+    kernels.require_cuda("vrows_slab", rank, comps, rows)
+    n = rank.numel()
+    if (rank.dtype != torch.int32 or comps.dtype != torch.float32
+            or rows.dtype != torch.float32 or tuple(comps.shape) != (3, n)
+            or rows.dim() != 2 or rows.shape[1] != 3):
+        raise ValueError("vrows_slab: rank i32[n], comps f32[3, n] and rows "
+                         "f32[count, 3] expected")
+    err = kernels.lib().vrows_slab(rank.data_ptr(), comps.data_ptr(),
+                                   ctypes.c_int64(n), rows.data_ptr(),
+                                   kernels.stream_ptr(comps.device))
+    kernels.check("vrows_slab", err)
+    kernels.LAUNCHES["vrows_slab"] += 1
+    return rows
 
 
 def pdf_hist_plain(Fmax):

@@ -11,16 +11,20 @@ Hessian component order ('ider'): xx yy zz xy xz yz.
 wrappers of the three entry points of the CUDA kernels ``csrc/kspace.cu``;
 on a CPU tensor they run the plain PyTorch multiply.  The c2r transforms are
 ``torch.fft`` (cuFFT on the card) in the two-step decomposition of
-``grids.irfft3``.
+``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
+the wrappers of the out-of-core engine's per-kz-batch factors (K10, also in
+``csrc/kspace.cu``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..grids import inverse_k2, irfft3
+from ..grids import inverse_k2, irfft3, k_batch
 
 SECOND_DERIV_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
@@ -150,3 +154,89 @@ def first_derivatives_tab(kvector, gtab, glo: float, gdx: float, N: int):
     """first_derivatives with a per-mode growth factor from a table over
     log10 |k| (scale-dependent growth, fmax-pfft.c:344-364)."""
     return irfft3(gradient_kspace_tab(kvector, gtab, glo, gdx, N), N)
+
+
+# ------------------------------------------------------------------
+# K10: the out-of-core engine's factors on one batch of kz planes.  A source
+# batch is a complex64 [B, N, N] tensor or view in (kz, x, y) order: K9's
+# planes, or spectrum[:, :, kz0:kz0+B].permute(2, 0, 1) of a resident
+# [N, N, N//2+1] spectrum.  The result, [ncomp, B, N, N], is the input of
+# one batched ifft2 over (x, y).
+# ------------------------------------------------------------------
+
+def ooc_hessian_plain(src, kz0: int, R_grid: float, N: int):
+    kx, ky, kz, k2, inv_k2 = k_batch(N, kz0, src.shape[0], src.device)
+    R = torch.tensor(R_grid, dtype=torch.float32)
+    base = src * (torch.exp(-0.5 * k2 * R * R) * inv_k2)
+    kvec = (kx, ky, kz)
+    return torch.stack([base * (kvec[a] * kvec[b])
+                        for a, b in SECOND_DERIV_PAIRS])
+
+
+def ooc_gradient_plain(src, kz0: int, growth: float, N: int):
+    kx, ky, kz, _, inv_k2 = k_batch(N, kz0, src.shape[0], src.device)
+    g = float(torch.tensor(growth, dtype=torch.float32))
+    base = src * complex(0.0, g) * inv_k2
+    return torch.stack([base * kx, base * ky, base * kz])
+
+
+def ooc_pair_plain(src0, src1, kz0: int, ia: int, ib: int, N: int):
+    kvec = k_batch(N, kz0, src0.shape[0], src0.device)
+    f = kvec[ia] * kvec[ib]
+    return torch.stack([src0 * kvec[4] * f, src1 * kvec[4] * f])
+
+
+def _batch_args(name, src, N):
+    if src.device.type != "cuda":
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, "
+                         f"got {src.device}")
+    if (src.dtype != torch.complex64 or src.dim() != 3
+            or tuple(src.shape[1:]) != (N, N)):
+        raise ValueError(f"{name}: a complex64 [B, {N}, {N}] source batch "
+                         f"expected, got {src.dtype} {tuple(src.shape)}")
+    return [src.data_ptr()] + [ctypes.c_int64(s) for s in src.stride()]
+
+
+def _launch_batch(name, srcs, ncomp, kz0, N, *tail):
+    dev = srcs[0].device
+    B = srcs[0].shape[0]
+    if any(s.device != dev or s.shape[0] != B for s in srcs):
+        raise ValueError(f"{name}: sources of one batch on one device "
+                         "expected")
+    if not 0 <= kz0 <= kz0 + B <= N // 2 + 1:
+        raise ValueError(f"{name}: planes {kz0}..{kz0 + B - 1} outside "
+                         f"0..{N // 2}")
+    args = [a for s in srcs for a in _batch_args(name, s, N)]
+    out = torch.empty((ncomp, B, N, N), dtype=torch.complex64, device=dev)
+    err = getattr(kernels.lib(), name)(*args, out.data_ptr(), N, int(kz0),
+                                       int(B), *tail,
+                                       kernels.stream_ptr(dev))
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def ooc_hessian(src, kz0: int, R_grid: float, N: int):
+    """The 6 smoothed Hessian factors k_a k_b exp(-k^2 R^2/2) / k^2 on a
+    source batch: complex64 [6, B, N, N] in ider order."""
+    if not kernels.plain_or_kernel("ooc_factors_hessian", src):
+        return ooc_hessian_plain(src, kz0, R_grid, N)
+    return _launch_batch("ooc_factors_hessian", [src], 6, kz0, N,
+                         float(R_grid))
+
+
+def ooc_gradient(src, kz0: int, growth: float, N: int):
+    """i k_a / k^2 * growth on a source batch: complex64 [3, B, N, N]."""
+    if not kernels.plain_or_kernel("ooc_factors_gradient", src):
+        return ooc_gradient_plain(src, kz0, growth, N)
+    return _launch_batch("ooc_factors_gradient", [src], 3, kz0, N,
+                         float(growth))
+
+
+def ooc_pair(src0, src1, kz0: int, ia: int, ib: int, N: int):
+    """k_a k_b / k^2 of one Hessian component (ia, ib in 0..2) on two
+    source batches: complex64 [2, B, N, N]."""
+    if not kernels.plain_or_kernel("ooc_factors_pair", src0):
+        return ooc_pair_plain(src0, src1, kz0, ia, ib, N)
+    return _launch_batch("ooc_factors_pair", [src0, src1], 2, kz0, N,
+                         int(ia), int(ib))

@@ -37,19 +37,20 @@ def sources_pointwise_plain(sd):
     return src2, src31, src32
 
 
-def src32_accumulate_plain(phi2, sd, src32):
-    for ider, w in enumerate(PHI2_WEIGHTS):
+def src32_accumulate_plain(phi2, sd, src32, weights=PHI2_WEIGHTS):
+    for ider, w in enumerate(weights):
         src32 = src32 - 2.0 * w * phi2[ider] * sd[ider]
     return src32
 
 
-def _check_stack(name, sd, *more):
+def _check_stack(name, sd, *more, ncomp=(6,)):
     kernels.require_cuda(name, sd, *more)
     for t in (sd,) + more:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: float32 tensors expected")
-    if sd.shape[0] != 6:
-        raise ValueError(f"{name}: a [6, ...] Hessian stack expected")
+    if sd.shape[0] not in ncomp:
+        raise ValueError(f"{name}: a [{' or '.join(map(str, ncomp))}, ...] "
+                         "Hessian stack expected")
 
 
 def sources_pointwise(sd):
@@ -65,17 +66,26 @@ def sources_pointwise(sd):
     return out[0], out[1], out[2]
 
 
-def src32_accumulate(phi2, sd, src32):
-    """src32 - sum_ij 2 w_ij phi2,ij sd_ij, accumulated in ider order.
+def src32_accumulate(phi2, sd, src32, weights=PHI2_WEIGHTS):
+    """src32 - sum_ij 2 w_ij phi2,ij sd_ij, accumulated in ider order: all
+    six components (phi2, sd [6, *S], the weights PHI2_WEIGHTS), or one
+    component pair of the out-of-core fold (phi2, sd [1, *S], its weight).
     On the card src32 is updated IN PLACE and returned."""
     if not kernels.plain_or_kernel("lpt_src32_accumulate", sd):
-        return src32_accumulate_plain(phi2, sd, src32)
-    _check_stack("lpt_src32_accumulate", sd, phi2, src32)
-    if phi2.shape != sd.shape or src32.shape != sd.shape[1:]:
-        raise ValueError("lpt_src32_accumulate: phi2 [6, *S], sd [6, *S] "
-                         "and src32 [*S] expected")
+        return src32_accumulate_plain(phi2, sd, src32, weights)
+    _check_stack("lpt_src32_accumulate", sd, phi2, src32, ncomp=(1, 6))
+    if (phi2.shape != sd.shape or src32.shape != sd.shape[1:]
+            or len(weights) != sd.shape[0]
+            or (sd.shape[0] == 6 and tuple(weights) != PHI2_WEIGHTS)):
+        raise ValueError("lpt_src32_accumulate: phi2 and sd [6, *S] with "
+                         "the weights PHI2_WEIGHTS, or [1, *S] with one "
+                         "weight, and src32 [*S] expected")
     from ..kernels import lpt_triton
-    lpt_triton.launch_accumulate(phi2, sd, src32)
+    if sd.shape[0] == 6:
+        lpt_triton.launch_accumulate(phi2, sd, src32)
+    else:
+        lpt_triton.launch_accumulate_one(phi2, sd, src32,
+                                         2.0 * float(weights[0]))
     kernels.LAUNCHES["lpt_src32_accumulate"] += 1
     return src32
 

@@ -7,7 +7,7 @@ x = (l1-l2)/sigma, y = (l2-l3)/sigma, with a non-uniform delta sampling
 concentrated around CT_DELTA0 (collapse_times.c:780-1232).  The tables are
 built on the host: the classic entries through the port's plain
 ``ell_classic`` on CPU float32 tensors, the SNG entries through the shared
-numpy solver ``pinocchio_tpu.ops.sng`` (jax-free).
+numpy solver of ``ops/sng.py`` (the port's copy).
 
 The lookups below are the plain PyTorch versions of the three variants
 (trilinear, bilinear-spline, bicubic) that the K7 kernel computes
@@ -87,7 +87,7 @@ def ct_entries(cosmo, l1, l2, l3, model: str = "classic",
     triples (float64 numpy): 'classic' through the closed-form ellipsoid in
     float32, 'sng' through the triaxial ODE."""
     if model == "sng":
-        from pinocchio_tpu.ops.sng import ell_sng_F
+        from .sng import ell_sng_F
         if sng_D_in is None:
             sng_D_in = float(cosmo.GrowingMode(1.0 / 1.e-5 - 1.0))
         return ell_sng_F(l1, l2, l3, sng_D_in, cosmo)

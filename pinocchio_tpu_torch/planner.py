@@ -1,0 +1,266 @@
+"""Memory planner of the port: the peak device memory of the dense and of the
+out-of-core fmax engine on one card, array by array and phase by phase, the
+host memory of the one-sub-box sweep, the engine choice and the pre-flight
+abort (the port's counterpart of pinocchio_tpu/planner.py; the reference's
+bounded-memory contract, allocations.c:37-251, and its abort with the
+per-array map, allocations.c:274-324).
+
+The arrays are the port's own (fmax.run_fmax, fmax_ooc.run_fmax_ooc,
+fragment/driver.py), counted in bytes for the grid, the number of
+displacement fields and sets, and the predicted collapsed fraction.  The card
+is read from torch (``total_memory``); a CPU device's memory is the host's.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from .config import Params
+from .cosmology import Cosmology
+
+GiB = float(2 ** 30)
+DELTA_C = 1.686
+# torch.sort of the whole grid (ops.compact.needed_order) in units of one
+# float32 field: the key and its mask (1.25), the int64 iota (2), the sorted
+# keys and indices (3) and the radix sort's work area (about 4): the
+# out-of-core needed phase measured 10.3 fields above its resident arrays on
+# an H100 at 512^3 (chip_smoke.py prints the comparison)
+SORT_FIELDS = 10.25
+# per peak-group host bytes of the sweep (fragment/driver.py and
+# groupsweep.c group arrays) and groups per stored particle
+GROUP_BYTES = 108
+GROUP_BYTES_PER_OUTPUT = 48
+GROUP_BYTES_PER_FIELD = 24
+PEAKS_PER_STORED = 0.12
+
+
+class MemoryPlanError(MemoryError):
+    """The chosen engine's predicted memory exceeds what the run has (the
+    reference's pre-flight abort, allocations.c:317-324)."""
+
+
+def collapsed_fraction(params: Params, cosmo: Cosmology, sm=None) -> float:
+    """Predicted fraction of cells with Fmax >= Flast: Press-Schechter
+    counting, 2 P(delta > delta_c / D(zlast)) at the grid-scale variance (the
+    JAX planner's estimate; measured 0.668 at 32^3 for the HMF_Validation
+    switches against 0.64 predicted)."""
+    if sm is None:
+        from .fmax import Smoothing
+        sm = Smoothing.build(params, cosmo)
+    sigma = math.sqrt(sm.variance[-1])
+    D = float(cosmo.GrowingMode(params.zlast, params.k_for_GM))
+    return min(1.0, math.erfc(DELTA_C / (sigma * D) / math.sqrt(2.0)))
+
+
+def _sizes(params: Params, frac: float) -> dict:
+    N = params.GridSize
+    Nh = N // 2 + 1
+    return dict(
+        N=N,
+        f=4.0 * N ** 3,                      # one float32 field
+        k=8.0 * N * N * Nh,                  # one complex64 rfft spectrum
+        count=frac * N ** 3,                 # needed cells
+        nf={1: 1, 2: 2, 3: 4}[params.lpt_order],
+        nseg=(len(params.output_z) if params.recompute_displacements
+              else 1))
+
+
+def _dense_phases(params: Params, frac: float) -> dict:
+    """The dense engine's (fmax.run_fmax) arrays at each phase's peak."""
+    s = _sizes(params, frac)
+    f, k, count = s["f"], s["k"], s["count"]
+    nf, nseg = s["nf"], s["nseg"]
+    # cuFFT's work area of a batched c2r (calibrated on the measured peaks)
+    fft = dict(fft_workspace=6 * k)
+    cycle = dict(delta=k, fmax_rmax=2 * f, hessian_kspace=6 * k,
+                 ifft2_out=6 * k, c2r_input_copy=6 * k, hessian_stack=6 * f,
+                 **fft)
+    sort = dict(delta=k, fmax_rmax=2 * f, hessian_stack=6 * f,
+                needed_sort=SORT_FIELDS * f)
+    sources = dict(delta=k, fmax_rmax=2 * f, needed_order=2 * f,
+                   hessian_stack=6 * f, real_sources=2 * f, q2_spectrum=k,
+                   phi2_kspace=6 * k, ifft2_out=6 * k, c2r_input_copy=6 * k,
+                   phi2_stack=6 * f, **fft)
+    packed = 4.0 * count * (2 + 3 * nf * nseg)
+    displ = dict(delta=k, fmax_rmax=2 * f, needed_order=2 * f,
+                 source_spectra=(nf - 1) * k, packed_rows=packed,
+                 displacement_set=3 * nf * f, gradient_kspace=3 * k,
+                 ifft2_out=3 * k, c2r_input_copy=3 * k, **fft)
+    return {"collapse cycle": cycle, "needed sort": sort,
+            "LPT sources": sources, "displacements": displ}
+
+
+def _ooc_phases(params: Params, frac: float) -> dict:
+    """The out-of-core engine's (fmax_ooc.run_fmax_ooc) arrays at each
+    phase's peak."""
+    from .fmax_ooc import KZ_BATCH, X_SLAB, divisor_batch
+    s = _sizes(params, frac)
+    N, f, h, count, nf = s["N"], s["f"], s["k"], s["count"], s["nf"]
+    B = min(params.ooc_kz_batch or KZ_BATCH, N // 2 + 1)
+    Bx = params.ooc_z_batch or divisor_batch(N, X_SLAB)
+    plane = 8.0 * N * N * B            # one complex64 kz batch
+    real_slab = 4.0 * Bx * N * N       # one float32 x-slab component
+    half_slab = h * Bx / N             # one complex64 x-slab component
+
+    def batch(ncomp, planes):
+        # K9 planes, K10 factors, the ifft2 result and its work area
+        return dict(kz_batch=(planes + 3 * ncomp) * plane)
+
+    def slab(ncomp, extra=0):
+        return dict(slab=ncomp * half_slab + (ncomp + extra) * real_slab)
+
+    phases = {"cycle": dict(hessian_stack=6 * h, fmax=f,
+                            **batch(6, 1))}
+    order = params.lpt_order
+    if order >= 2:
+        nsrc = 3 if order >= 3 else 1
+        phases["sources"] = dict(hessian_stack=6 * h, fmax=f,
+                                 real_sources=nsrc * f, **slab(6, 3))
+    if order >= 3:
+        phases["fold"] = dict(fmax=f, q2_spectrum=h, q31_src32=2 * f,
+                              pair_stack=2 * h, **batch(2, 1))
+    nspec = nf - 1
+    phases["needed sort"] = dict(fmax=f, source_spectra=nspec * h,
+                                 needed_sort=SORT_FIELDS * f)
+    phases["v-streams"] = dict(fmax=f, row_rank=f + 4.0 * count,
+                               source_spectra=nspec * h,
+                               displacement_stack=3 * h,
+                               rows_of_one_field=12.0 * count,
+                               **batch(3, 1))
+    return phases
+
+
+def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
+                frac: float = None) -> dict:
+    """The predicted device memory of the dense (ooc False) or the
+    out-of-core engine: dict(phases={phase: {array: bytes}}, peak=bytes,
+    phase=the phase of the peak, frac=the collapsed fraction used)."""
+    if frac is None:
+        frac = collapsed_fraction(params, cosmo or Cosmology(params))
+    phases = (_ooc_phases if ooc else _dense_phases)(params, frac)
+    totals = {p: sum(a.values()) for p, a in phases.items()}
+    top = max(totals, key=totals.get)
+    return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
+
+
+def host_sweep_bytes(params: Params, frac: float) -> float:
+    """Host bytes of the one-sub-box fragmentation: the needed particles'
+    products (cell index, F, the rows of every field and set), the sweep's
+    per-particle arrays, its peak groups and the grid's row map."""
+    s = _sizes(params, frac)
+    n = s["count"]
+    products = n * (8 + 4 + 12 * s["nf"] * s["nseg"])
+    sweep = n * (4 + 4 + 4 + 4 + 4)          # F, pos, gop, zacc, join_F
+    groups = PEAKS_PER_STORED * n * (
+        GROUP_BYTES + GROUP_BYTES_PER_OUTPUT * len(params.output_z)
+        + GROUP_BYTES_PER_FIELD * s["nf"])
+    return products + sweep + groups + 4.0 * s["N"] ** 3
+
+
+def device_memory(device) -> float:
+    """The memory of ``device`` in bytes: the card's total memory, or the
+    host's for a CPU device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return float(torch.cuda.get_device_properties(dev).total_memory)
+    return host_memory()
+
+
+def host_memory() -> float:
+    """The host's physical memory in bytes."""
+    return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+def plan(params: Params, device="cuda", cosmo: Cosmology = None) -> dict:
+    """The memory forecast of a run on ``device``: both engines' peaks, the
+    engine the run takes (params.ooc 'on', 'off', or 'auto': the
+    out-of-core engine when the dense one does not fit) and the host
+    estimate of the sweep."""
+    if cosmo is None:
+        cosmo = Cosmology(params)
+    frac = collapsed_fraction(params, cosmo)
+    limit = device_memory(device)
+    dense = device_peak(params, False, frac=frac)
+    ooc = device_peak(params, True, frac=frac)
+    if params.ooc == "on":
+        use_ooc = True
+    elif params.ooc == "auto":
+        use_ooc = dense["peak"] >= limit
+    else:
+        use_ooc = False
+    chosen = ooc if use_ooc else dense
+    host = host_sweep_bytes(params, frac)
+    host_limit = host_memory()
+    if torch.device(device).type == "cpu":
+        # device arrays live in host memory too
+        host += chosen["peak"]
+    return dict(grid=params.GridSize, device=str(device), frac=frac,
+                device_limit=limit, dense=dense, ooc=ooc, use_ooc=use_ooc,
+                engine="out-of-core" if use_ooc else "dense",
+                device_bytes=chosen["peak"],
+                fits_device=chosen["peak"] < limit,
+                host_bytes=host, host_limit=host_limit,
+                fits_host=host < host_limit)
+
+
+def ooc_selected(params: Params, device="cuda",
+                 cosmo: Cosmology = None) -> bool:
+    """Whether the run takes the out-of-core engine (see plan)."""
+    return plan(params, device, cosmo)["use_ooc"]
+
+
+def format_memory_map(report: dict) -> str:
+    """The reference-style per-array map of the chosen engine's peak phase
+    (allocations.c:274-311)."""
+    eng = report["ooc"] if report["use_ooc"] else report["dense"]
+    other = report["dense"] if report["use_ooc"] else report["ooc"]
+    lines = [
+        f"RUN PLAN for {report['grid']}^3 on {report['device']}: "
+        f"{report['engine']} engine",
+        f"  est. collapsed fraction:    {report['frac']:.3f}",
+        f"  device memory, peak phase ({eng['phase']}): "
+        f"{eng['peak'] / GiB:.2f} GiB of {report['device_limit'] / GiB:.2f} "
+        f"GiB {'(OK)' if report['fits_device'] else '(EXCEEDS DEVICE!)'}"]
+    for name, b in eng["phases"][eng["phase"]].items():
+        lines.append(f"     {name:<22s} {b / GiB:9.3f} GiB")
+    lines.append("  phases: " + ", ".join(
+        f"{p} {sum(a.values()) / GiB:.2f}" for p, a in eng["phases"].items())
+        + " GiB")
+    lines.append(f"  the {'dense' if report['use_ooc'] else 'out-of-core'} "
+                 f"engine would peak at {other['peak'] / GiB:.2f} GiB "
+                 f"({other['phase']})")
+    lines.append(f"  host memory of the sweep:   "
+                 f"{report['host_bytes'] / GiB:.2f} GiB of "
+                 f"{report['host_limit'] / GiB:.2f} GiB "
+                 f"{'(OK)' if report['fits_host'] else '(EXCEEDS HOST!)'}")
+    return "\n".join(lines)
+
+
+def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
+                   verbose: bool = True) -> dict:
+    """Pre-flight check, before any allocation: raise MemoryPlanError with
+    the per-array map when the chosen engine's device peak or the sweep's
+    host memory exceeds what there is; returns the plan."""
+    report = plan(params, device, cosmo)
+    problems = []
+    if not report["fits_device"]:
+        problems.append(
+            f"the {report['engine']} engine's device peak "
+            f"{report['device_bytes'] / GiB:.2f} GiB exceeds the device's "
+            f"{report['device_limit'] / GiB:.2f} GiB"
+            + ("" if report["use_ooc"] else
+               " (set ooc to 'auto' or 'on')"))
+    if not report["fits_host"]:
+        problems.append(
+            f"the host memory of the run, {report['host_bytes'] / GiB:.2f} "
+            f"GiB, exceeds the host's {report['host_limit'] / GiB:.2f} GiB")
+    if problems:
+        raise MemoryPlanError("memory pre-flight failed:\n  - "
+                              + "\n  - ".join(problems) + "\n"
+                              + format_memory_map(report))
+    if verbose:
+        print(format_memory_map(report))
+    return report

@@ -3,10 +3,15 @@ catalogs (counterpart of pinocchio_tpu/run.py, single-device path).
 
 The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
-RECOMPUTE_DISPLACEMENTS; one sub-box, no PLC.
+RECOMPUTE_DISPLACEMENTS; one sub-box, no PLC.  The planner picks the fmax
+engine: the dense one, or, with ooc 'on', or 'auto' when the dense engine
+does not fit the device, the out-of-core one (classic ellipsoid,
+scale-independent growth); it aborts with the memory map when the chosen
+engine does not fit.
 
-  initialization -> fmax (collapse times + displacements, on the device)
-  -> fragmentation (host C sweep) -> catalogs / mass functions / histories
+  initialization -> plan -> fmax (collapse times + displacements, on the
+  device) -> fragmentation (host C sweep) -> catalogs / mass functions /
+  histories
 
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [--norad]
@@ -22,8 +27,9 @@ import time
 
 import torch
 
-from pinocchio_tpu.config import Params, read_parameter_file
-from pinocchio_tpu.cosmology import Cosmology
+from .config import Params, read_parameter_file
+from .cosmology import Cosmology
+from .fmax_ooc import check_ooc_supported
 
 
 def check_supported(params: Params) -> None:
@@ -38,12 +44,15 @@ def check_supported(params: Params) -> None:
         no("the past light cone (PLC)", 8)
     if params.subbox_tasks > 1:
         no("fragmentation over several sub-boxes", 9)
-    if params.ooc == "on":
-        no("the out-of-core engine", 11)
+    if params.ooc not in ("on", "off", "auto"):
+        raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
+                         f"{params.ooc!r}")
     if params.DumpProducts or params.ReadProductsFromDumps:
         no("product dumps", 8)
     if params.WriteTimelessSnapshot:
         no("the timeless snapshot", 8)
+    if params.ooc == "on":
+        check_ooc_supported(params)
 
 
 def resolve_device(device) -> torch.device:
@@ -60,11 +69,13 @@ def resolve_device(device) -> torch.device:
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  verbose: bool = True, write_outputs: bool = True):
-    """The single-device run.  Returns dict(cosmo, fmax, frag, timings,
-    files)."""
+    """The single-device run.  Returns dict(cosmo, plan (the planner's
+    report), fmax, frag, timings, files)."""
     from .fmax import fmax_pdf, run_fmax
+    from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
     from .io import catalogs as io_cat
+    from .planner import enforce_budget
 
     dev = resolve_device(device)
     check_supported(params)
@@ -85,7 +96,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     # (set_scaledep_GM, host numpy in the shared jax-free module)
     scaledep_gm = None
     if getattr(cosmo, "scale_dep", False):
-        from pinocchio_tpu.scaledep import set_scaledep_gm
+        from .scaledep import set_scaledep_gm
 
         from .fmax import Smoothing
         t0 = time.perf_counter()
@@ -94,8 +105,15 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
             io_cat.largest_halo_mass(params, cosmo), verbose=verbose)
         timings["scaledep"] = time.perf_counter() - t0
 
-    fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                        verbose=verbose)
+    # the engine that fits the device, or an abort with the memory map
+    # before any allocation
+    plan = enforce_budget(params, dev, cosmo, verbose=verbose)
+    if plan["use_ooc"]:
+        check_ooc_supported(params)
+        fmax_res = run_fmax_ooc(params, cosmo, dev, verbose=verbose)
+    else:
+        fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
+                            verbose=verbose)
     timings.update({"fmax_" + k: v for k, v in fmax_res.timings.items()})
 
     t_frag = time.perf_counter()
@@ -127,7 +145,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     timings["total"] = time.perf_counter() - t_total
     if verbose:
         write_cputimes(timings)
-    return dict(cosmo=cosmo, fmax=fmax_res, frag=frag_res,
+    return dict(cosmo=cosmo, plan=plan, fmax=fmax_res, frag=frag_res,
                 timings=timings, files=written)
 
 
@@ -178,6 +196,10 @@ def write_cputimes(t: dict):
     line("collapse cycle (FFTs+ell)", "fmax_fmax_loop", 1)
     line("collapse tables", "fmax_ct_tables", 2)
     line("LPT displacements", "fmax_lpt", 1)
+    line("sources", "fmax_sources", 2)
+    line("3LPT-b fold", "fmax_fold", 2)
+    line("source spectra", "fmax_spectra", 2)
+    line("displacement rows", "fmax_lpt_rows", 2)
     line("needed-particle products", "fmax_products", 1)
     line("fragmentation", "frag_total", 1)
     line("group sweep", "frag_sweep", 2)

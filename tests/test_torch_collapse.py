@@ -27,11 +27,15 @@ import numpy as np
 import pytest
 import torch
 
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
 from pinocchio_tpu.ops import collapse as jcol
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.ops import collapse
 from torch_hessians import SPECIAL, special_hessians
+from torch_params import params_pair
+
+PARAMS = dict(GridSize=32, BoxSize=32.0, output_z=[0.0], norad=True,
+              plc_enabled=False)
 
 torch.set_num_threads(2)
 
@@ -55,9 +59,7 @@ def hessians():
 
 @pytest.fixture(scope="module")
 def pack():
-    p = Params(GridSize=32, BoxSize=32.0, output_z=[0.0], norad=True,
-               plc_enabled=False)
-    return collapse.make_inverse_growth_fit(Cosmology(p))
+    return collapse.make_inverse_growth_fit(Cosmology(params_pair(**PARAMS)[1]))
 
 
 def _perturbed(fn, inputs, seed=0, copies=2):
@@ -95,10 +97,8 @@ def _held(port, ref_jax, ref64, noisy, min_resolved):
 
 
 def test_inverse_growth_fit_identical(pack):
-    p = Params(GridSize=32, BoxSize=32.0, output_z=[0.0], norad=True,
-               plc_enabled=False)
-    np.testing.assert_array_equal(
-        pack, jcol.make_inverse_growth_fit(Cosmology(p)))
+    np.testing.assert_array_equal(pack, jcol.make_inverse_growth_fit(
+        JaxCosmology(params_pair(**PARAMS)[0])))
 
 
 def test_eigenvalues_match_jax(hessians):

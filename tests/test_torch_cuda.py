@@ -17,15 +17,19 @@ branches (tests/torch_hessians.py) F and Rmax must be exactly equal.  K7
 (the three table lookups) is exactly equal to its plain version on those
 batches and on cells far beyond the table, and within the K3 criteria on
 Gaussian Hessians; K8 (tabulated growth), K6a (row gather) and K6b (the
-FmaxPDF histogram) are exactly equal.
+FmaxPDF histogram) are exactly equal.  The out-of-core engine's kernels:
+K9 (kz planes), K10 (the three factor modes, on contiguous and strided
+batches), K11 (K3 on a slab, no Rmax) and K12 (the slab row scatter) are
+exactly equal to their plain versions; K4's one-pair accumulation is within
+1e-5 of the maximum.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu_torch.config import Params
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch import fmax, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
 from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
@@ -324,7 +328,117 @@ def test_gather_rows_and_pdf_hist(dev):
     assert int(got.sum()) == N ** 3
 
 
+@pytest.mark.cuda
+def test_kdensity_planes(dev, setup):
+    """K9 is identical to its plain version, on a full batch, the remainder
+    batch and the kz=0 plane with its Hermitian mirror."""
+    p, cosmo = setup
+    gen = ic.PlaneGenerator(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
+                            dev)
+    for kz0, B in ((0, 16), (16, 10)):
+        got = _launched("ic_kdensity_planes", lambda: gen(kz0, B))
+        want = ic.kdensity_planes_plain(N, gen.logk, gen.logpk, gen.keys,
+                                        kz0, B, gen.logkf, gen.fac, False,
+                                        False)
+        assert got.shape == (B, N, N) and got.dtype == torch.complex64
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hessian", "gradient", "pair"])
+def test_ooc_factors(dev, mode):
+    """K10 on a contiguous plane batch and on a strided batch of a resident
+    spectrum, exactly equal to its plain version."""
+    spec = rfft3(_hessians(dev)[0])
+    planes = spec[:, :, 3:10].permute(2, 0, 1).contiguous()
+    view = spec[:, :, 3:10].permute(2, 0, 1)
+    name = f"ooc_factors_{mode}"
+    if mode == "hessian":
+        fns = [lambda f, s: f(s, 3, 1.7, N)]
+        kern, plain = derivatives.ooc_hessian, derivatives.ooc_hessian_plain
+    elif mode == "gradient":
+        fns = [lambda f, s: f(s, 3, 0.8, N)]
+        kern, plain = derivatives.ooc_gradient, derivatives.ooc_gradient_plain
+    else:
+        fns = [lambda f, s, a=a, b=b: f(planes, s, 3, a, b, N)
+               for a, b in derivatives.SECOND_DERIV_PAIRS]
+        kern, plain = derivatives.ooc_pair, derivatives.ooc_pair_plain
+    for fn in fns:
+        for src in (planes, view):
+            got = _launched(name, lambda: fn(kern, src))
+            want = fn(plain, src)
+            assert got.is_contiguous()
+            assert torch.equal(torch.view_as_real(got),
+                               torch.view_as_real(want))
+
+
+@pytest.mark.cuda
+def test_collapse_update_slab(dev, setup):
+    """K11 on one x-slab is K3 without Rmax: the same F cell for cell."""
+    p, cosmo = setup
+    pack = fmax.inverse_growth_packs(cosmo, fmax.Smoothing.build(p, cosmo))[0]
+    sd = _hessians(dev)[:, 10:20].contiguous()
+    rng = np.random.default_rng(1)
+    F0 = torch.from_numpy(rng.uniform(-10.0, 4.0, (10, N, N))
+                          .astype(np.float32)).to(dev)
+    Fk, Fp, F3 = F0.clone(), F0.clone(), F0.clone()
+    mk = _launched("collapse_update_slab",
+                   lambda: collapse.collapse_update_slab(sd, Fk, pack))
+    mp = collapse.collapse_update_slab_plain(sd, Fp, pack)
+    R3 = torch.zeros_like(F0, dtype=torch.int32)
+    collapse.collapse_update(sd, F3, R3, 1, pack)
+    assert torch.equal(Fk, F3)
+    ok = (Fk - Fp).abs() <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)
+    assert ok.double().mean() >= 0.9999
+    assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_vrows_slab(dev):
+    """K12 writes every needed cell of a slab to its row, exactly."""
+    rng = np.random.default_rng(4)
+    F = torch.from_numpy(rng.uniform(-2.0, 3.0, (N, N, N))
+                         .astype(np.float32)).to(dev)
+    idx = compact.needed_order(F, 1.0)
+    rank = compact.needed_rank(idx, N ** 3)
+    v = _hessians(dev, seed=5)[:3].contiguous()
+    got = torch.zeros((idx.numel(), 3), device=dev)
+    want = torch.zeros((idx.numel(), 3), device=dev)
+    for x0 in range(0, N, 10):
+        sl = slice(x0 * N * N, (x0 + 10) * N * N)
+        comps = v[:, x0:x0 + 10].reshape(3, -1).contiguous()
+        _launched("vrows_slab",
+                  lambda: compact.vrows_slab(rank[sl], comps, got))
+        compact.vrows_slab_plain(rank[sl], comps, want)
+    assert torch.equal(got, want)
+    assert torch.equal(got, v.reshape(3, -1)[:, idx].T)
+
+
+@pytest.mark.cuda
+def test_src32_accumulate_one_pair(dev):
+    """K4's accumulation of one component pair (the out-of-core fold) on a
+    ragged slab, within 1e-5 of the maximum; the six pairs one at a time
+    give the six-component pass's result."""
+    sd, phi2 = _hessians(dev, seed=2), _hessians(dev, seed=3)
+    src = _hessians(dev, seed=4)[0]
+    want = lpt.src32_accumulate_plain(phi2, sd, src)
+    acc = src.clone()
+    for c, w in enumerate(lpt.PHI2_WEIGHTS):
+        _launched("lpt_src32_accumulate", lambda: lpt.src32_accumulate(
+            phi2[c:c + 1], sd[c:c + 1], acc, weights=(w,)))
+    assert (acc - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 @pytest.mark.parametrize("name,fn", [
+    ("ic_kdensity_planes", lambda t: ic.kdensity_planes(
+        4, t, t, t, 0, 1, 0.0, 1.0, False, False)),
+    ("ooc_factors_hessian", lambda t: derivatives.ooc_hessian(t, 0, 0.0, 4)),
+    ("ooc_factors_gradient", lambda t: derivatives.ooc_gradient(
+        t, 0, 1.0, 4)),
+    ("ooc_factors_pair", lambda t: derivatives.ooc_pair(t, t, 0, 0, 1, 4)),
+    ("collapse_update_slab", lambda t: collapse.collapse_update_slab(
+        t, t, [])),
+    ("vrows_slab", lambda t: compact.vrows_slab(t, t, t)),
     ("kspace_hessian", lambda t: derivatives.hessian_kspace(t, 0.0, 4)),
     ("collapse_update", lambda t: collapse.collapse_update(t, t, t, 0, [])),
     ("lpt_sources_pointwise", lambda t: lpt.sources_pointwise(t)),

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from pinocchio_tpu import ic as jic
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
 from pinocchio_tpu.grids import Grid as JGrid
 from pinocchio_tpu_torch import ic
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.grids import Grid
+from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
 
@@ -27,9 +28,8 @@ SEEDS = (486604, 7, 2**33 + 5)
 
 @pytest.fixture(scope="module")
 def setup():
-    p = Params(GridSize=N, BoxSize=float(N), output_z=[2, 1, 0.5, 0],
-               norad=True, plc_enabled=False)
-    return p, Cosmology(p)
+    jp, p = params_pair(**bench_kwargs(N))
+    return jp, JaxCosmology(jp), p, Cosmology(p)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -67,9 +67,9 @@ def test_uniform_bit_identical(which):
 @pytest.mark.parametrize("fixed,paired", [(False, False), (True, False),
                                           (False, True)])
 def test_kdensity_matches_jax(setup, fixed, paired):
-    p, cosmo = setup
+    jp, jcosmo, p, cosmo = setup
     want = np.asarray(jic.generate_kdensity(
-        JGrid(N=N, BoxSize=p.BoxSize_htrue), cosmo, p.RandomSeed,
+        JGrid(N=N, BoxSize=jp.BoxSize_htrue), jcosmo, jp.RandomSeed,
         fixed=fixed, paired=paired))
     got = ic.generate_kdensity(Grid(N, p.BoxSize_htrue), cosmo,
                                p.RandomSeed, "cpu", fixed=fixed,
@@ -83,7 +83,7 @@ def test_kdensity_matches_jax(setup, fixed, paired):
 
 def test_kdensity_hermitian_kz0_plane(setup):
     """The kz=0 plane is Hermitian: delta(-kx, -ky, 0) = conj(delta)."""
-    p, cosmo = setup
+    _, _, p, cosmo = setup
     d = ic.generate_kdensity(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
                              "cpu").numpy()[:, :, 0]
     idx = (-np.arange(N)) % N

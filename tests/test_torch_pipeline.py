@@ -25,12 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from pinocchio_tpu.config import Params
 from pinocchio_tpu.ops import derivatives as jder
 from pinocchio_tpu.run import run_pipeline as jax_run_pipeline
 from pinocchio_tpu_torch import fmax
+from pinocchio_tpu_torch.config import Params
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.ops import collapse
 from pinocchio_tpu_torch.run import check_supported, main, run_pipeline
+from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
 
@@ -39,14 +41,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _params(n=N):
-    return Params(GridSize=n, BoxSize=float(n), output_z=[2, 1, 0.5, 0],
-                  norad=True, plc_enabled=False)
+    return Params(**bench_kwargs(n))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    p = _params()
-    jax_res = jax_run_pipeline(p, outdir=str(tmp_path_factory.mktemp("j")),
+    jp, p = params_pair(**bench_kwargs(N))
+    jax_res = jax_run_pipeline(jp, outdir=str(tmp_path_factory.mktemp("j")),
                                verbose=False, write_outputs=False)
     out = tmp_path_factory.mktemp("t")
     port_res = run_pipeline(p, outdir=str(out), device="cpu", verbose=False)
@@ -99,14 +100,14 @@ def test_fmax_matches_jax_on_the_same_delta(runs):
     p, jax_res, _, _ = runs
     jf = jax_res["fmax"]
     state = fmax.load_jax_state({"kdensity": np.asarray(jf.kdensity)}, "cpu")
-    res = fmax.run_fmax(p, jax_res["cosmo"], "cpu",
+    res = fmax.run_fmax(p, Cosmology(p), "cpu",
                         kdensity=state["kdensity"])
     jF, jR = np.asarray(jf.products.Fmax), np.asarray(jf.products.Rmax)
     tF, tR = res.products.Fmax.numpy(), res.products.Rmax.numpy()
 
     # float64 and one-ulp-moved float32 collapse over JAX's own Hessians
     sm = jf.smoothing
-    pack = fmax.inverse_growth_packs(jax_res["cosmo"], sm)[0]
+    pack = fmax.inverse_growth_packs(Cosmology(p), sm)[0]
     rng = np.random.default_rng(0)
     F64 = np.full(jF.shape, -10.0)
     moved = [np.full(jF.shape, -10.0) for _ in range(3)]
@@ -147,21 +148,25 @@ def test_sparse_products_are_sweep_ordered(runs):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The three paths (classic; tabulated bicubic; f(R) growth with
-    RECOMPUTE_DISPLACEMENTS) run without importing jax."""
+    """The four paths (classic; tabulated bicubic; f(R) growth with
+    RECOMPUTE_DISPLACEMENTS; the out-of-core engine) run without importing
+    jax or any module of the JAX package."""
     code = (
         "import sys\n"
-        "from pinocchio_tpu.config import Params\n"
+        "from pinocchio_tpu_torch.config import Params\n"
         "from pinocchio_tpu_torch.run import run_pipeline\n"
         "for kw in ({}, dict(ell_model='tabulated', ct_interp='bicubic'),\n"
         "           dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,\n"
         "                recompute_displacements=True,"
-        " MaxMemPerParticle=400)):\n"
+        " MaxMemPerParticle=400), dict(ooc='on')):\n"
         "    p = Params(GridSize=16, BoxSize=16.0, output_z=[1.0, 0.0],"
         " norad=True, plc_enabled=False, **kw)\n"
         f"    run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = [m for m in sys.modules if m == 'pinocchio_tpu'\n"
+        "       or m.startswith('pinocchio_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('NOJAX')\n")
     env = dict(os.environ, OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -182,7 +187,9 @@ def test_cuda_device_without_gpu_raises(tmp_path):
 
 @pytest.mark.parametrize("overrides", [
     dict(ell_model="sng"), dict(ell_model="tabulated", ct_interp="bilinear"),
-    dict(scale_dependent=True), dict(recompute_displacements=True)])
+    dict(scale_dependent=True), dict(recompute_displacements=True),
+    dict(ooc="on"), dict(ooc="auto"),
+    dict(ooc="auto", ell_model="tabulated")])
 def test_features_in_the_slice_are_accepted(overrides):
     p = _params(16)
     for k, v in overrides.items():
@@ -193,7 +200,7 @@ def test_features_in_the_slice_are_accepted(overrides):
 @pytest.mark.parametrize("overrides,item", [
     (dict(StartingzForPLC=1.0), "item 8"),
     (dict(subbox_tasks=4), "item 9"),
-    (dict(ooc="on"), "item 11"),
+    (dict(ooc="on", ell_model="tabulated"), "item 11"),
     (dict(DumpProducts=True), "item 8"),
     (dict(WriteTimelessSnapshot=True), "item 8"),
 ])

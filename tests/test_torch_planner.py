@@ -1,0 +1,105 @@
+"""The port's memory planner and its self-containment, on the CPU.
+
+The dense model is held to the peaks measured on an H100 80GB HBM3 at
+256^3 (PERF.md section 5: 2.83 GiB classic, 4.06 GiB f(R) scale-dependent
+growth with RECOMPUTE_DISPLACEMENTS) within 15 %; the engine choice under
+'auto' for an 80 GB card is dense at 512^3 and out-of-core at 1024^3; a grid
+that no engine fits aborts with the per-array map.  The port's copies of
+the jax-free modules give the JAX package's numbers.
+"""
+
+import numpy as np
+import pytest
+
+from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
+from pinocchio_tpu_torch import planner
+from pinocchio_tpu_torch.config import Params
+from pinocchio_tpu_torch.cosmology import Cosmology
+from torch_params import bench_kwargs, params_pair
+
+CARD = 80e9
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """An 80 GB card, whatever this machine has."""
+    monkeypatch.setattr(planner, "device_memory", lambda device: CARD)
+FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
+          recompute_displacements=True, MaxMemPerParticle=400)
+
+
+@pytest.mark.parametrize("kw,measured", [({}, 2.83), (FR, 4.06)])
+def test_dense_model_matches_the_measured_peaks(kw, measured):
+    p = Params(**bench_kwargs(256, **kw))
+    peak = planner.device_peak(p, ooc=False)["peak"] / planner.GiB
+    assert abs(peak / measured - 1.0) <= 0.15, peak
+
+
+@pytest.mark.parametrize("n,ooc", [(512, False), (1024, True)])
+def test_auto_selects_ooc_only_when_dense_does_not_fit(card, n, ooc):
+    p = Params(**bench_kwargs(n), ooc="auto")
+    assert planner.ooc_selected(p, "cuda") is ooc
+    rep = planner.plan(p, "cuda")
+    assert rep["fits_device"]
+    assert rep["ooc"]["peak"] < rep["dense"]["peak"]
+
+
+def test_ooc_on_and_off_are_obeyed(card):
+    for mode, want in (("on", True), ("off", False)):
+        p = Params(**bench_kwargs(64), ooc=mode)
+        assert planner.ooc_selected(p, "cuda") is want
+
+
+def test_no_engine_fits_aborts_with_the_map(card):
+    p = Params(**bench_kwargs(4096), ooc="auto")
+    with pytest.raises(planner.MemoryPlanError) as err:
+        planner.enforce_budget(p, "cuda", verbose=False)
+    msg = str(err.value)
+    assert "exceeds the device" in msg and "RUN PLAN for 4096^3" in msg
+    assert "needed_sort" in msg and "out-of-core engine" in msg
+
+
+def test_dense_forced_beyond_the_card_aborts(card):
+    p = Params(**bench_kwargs(1024), ooc="off")
+    with pytest.raises(planner.MemoryPlanError, match="set ooc"):
+        planner.enforce_budget(p, "cuda", verbose=False)
+
+
+def test_ooc_ledger_at_1024():
+    """The out-of-core phases at 1024^3: every phase under the card, the
+    needed-order sort the largest, the rows of one field about 7.7 GiB."""
+    p = Params(**bench_kwargs(1024))
+    d = planner.device_peak(p, ooc=True)
+    tot = {k: sum(v.values()) / planner.GiB for k, v in d["phases"].items()}
+    assert set(tot) == {"cycle", "sources", "fold", "needed sort",
+                        "v-streams"}
+    assert max(tot.values()) < CARD / planner.GiB
+    assert 24.0 < tot["cycle"] < 32.0
+    rows = d["phases"]["v-streams"]["rows_of_one_field"] / planner.GiB
+    assert 7.0 < rows < 8.5
+    assert abs(d["frac"] - 0.64) < 0.02
+
+
+def test_host_estimate_counts_the_rows():
+    p = Params(**bench_kwargs(1024))
+    frac = 0.64
+    host = planner.host_sweep_bytes(p, frac) / planner.GiB
+    rows = frac * 1024 ** 3 * 48 / planner.GiB        # 4 fields x 12 B
+    assert rows < host < 3 * rows
+
+
+def test_port_cosmology_equals_the_jax_package():
+    jp, p = params_pair(**bench_kwargs(64))
+    jc, c = JaxCosmology(jp), Cosmology(p)
+    k = np.logspace(-3, 1, 50)
+    for name in ("PowerSpectrum",):
+        np.testing.assert_array_equal(getattr(c, name)(k),
+                                      getattr(jc, name)(k))
+    for z in (0.0, 0.5, 2.0):
+        for fn in ("GrowingMode", "GrowingMode_2LPT", "GrowingMode_3LPT_1",
+                   "GrowingMode_3LPT_2"):
+            assert getattr(c, fn)(z) == getattr(jc, fn)(z)
+    np.testing.assert_array_equal(c.sp_grow1.x, jc.sp_grow1.x)
+    np.testing.assert_array_equal(c.sp_grow1.y, jc.sp_grow1.y)
+    for r in (0.5, 2.0, 8.0):
+        assert c.var_gauss.MassVariance(r) == jc.var_gauss.MassVariance(r)

@@ -23,20 +23,22 @@ import torch
 
 from pinocchio_tpu import fmax as jfmax
 from pinocchio_tpu import ic as jic
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
 from pinocchio_tpu.fragment import driver as jdriver
 from pinocchio_tpu.grids import Grid as JGrid
 from pinocchio_tpu.ops import derivatives as jder
 from pinocchio_tpu.run import run_pipeline as jax_run_pipeline
-from pinocchio_tpu.scaledep import set_scaledep_gm
+from pinocchio_tpu.scaledep import set_scaledep_gm as jax_set_scaledep_gm
 from pinocchio_tpu_torch import fmax
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.fragment import driver
 from pinocchio_tpu_torch.grids import Grid
 from pinocchio_tpu_torch.ic import generate_kdensity
 from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
 from pinocchio_tpu_torch.ops import derivatives
 from pinocchio_tpu_torch.run import run_pipeline
+from pinocchio_tpu_torch.scaledep import set_scaledep_gm
+from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
 
@@ -46,12 +48,12 @@ FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
 
 
 def _params(n=N, **kw):
-    return Params(GridSize=n, BoxSize=float(n), output_z=[2, 1, 0.5, 0],
-                  norad=True, plc_enabled=False, **kw)
+    return params_pair(**bench_kwargs(n, **kw))[1]
 
 
 @pytest.fixture(scope="module")
 def fr():
+    """The port's f(R) Params, Cosmology, ladder and per-radius growth."""
     p = _params(**FR)
     cosmo = Cosmology(p)
     assert cosmo.scale_dep
@@ -61,17 +63,28 @@ def fr():
     return p, cosmo, sm, gm
 
 
+@pytest.fixture(scope="module")
+def jfr():
+    """The JAX package's own, from the same keyword arguments."""
+    p = params_pair(**bench_kwargs(N, **FR))[0]
+    cosmo = JaxCosmology(p)
+    sm = jfmax.Smoothing.build(p, cosmo)
+    from pinocchio_tpu.io.catalogs import largest_halo_mass as jlargest
+    gm = jax_set_scaledep_gm(p, cosmo, sm, jlargest(p, cosmo), verbose=False)
+    return p, cosmo, sm, gm
+
+
 @pytest.mark.parametrize("z", [2.0, 0.0])
-def test_growth_k_tables_identical(fr, z):
+def test_growth_k_tables_identical(fr, jfr, z):
     _, cosmo, _, _ = fr
     gtabs, glo, gdx = fmax.growth_k_tables(cosmo, z, N, "cpu")
-    jt, jlo, jdx = jfmax.growth_k_tables(cosmo, z, N)
+    jt, jlo, jdx = jfmax.growth_k_tables(jfr[1], z, N)
     np.testing.assert_array_equal(gtabs.numpy(), np.asarray(jt))
     assert glo == float(jlo) and gdx == float(jdx)
 
 
-def test_first_derivatives_tab_matches_jax(fr):
-    p, cosmo, _, _ = fr
+def test_first_derivatives_tab_matches_jax(jfr):
+    p, cosmo, _, _ = jfr
     jk = jic.generate_kdensity(JGrid(N=N, BoxSize=p.BoxSize_htrue), cosmo,
                                p.RandomSeed)
     jt, jlo, jdx = jfmax.growth_k_tables(cosmo, 0.5, N)
@@ -87,28 +100,31 @@ def test_first_derivatives_tab_matches_jax(fr):
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
-def test_inverse_growth_packs_identical(fr):
+def test_inverse_growth_packs_identical(fr, jfr):
     _, cosmo, sm, gm = fr
+    _, jcosmo, jsm, jgm = jfr
     np.testing.assert_array_equal(
         fmax.inverse_growth_packs(cosmo, sm, gm),
-        jfmax.inverse_growth_packs(cosmo, sm, gm))
+        jfmax.inverse_growth_packs(jcosmo, jsm, jgm))
 
 
-def test_sweep_weight_tables_identical(fr):
+def test_sweep_weight_tables_identical(fr, jfr):
     p, cosmo, _, gm = fr
+    jp, jcosmo, _, jgm = jfr
     k_dens = gm.k_GM_dens[-1]
+    assert k_dens == jgm.k_GM_dens[-1]
     lo, dlog, tabs = driver.growth_tables(p, cosmo, k_dens=k_dens)
-    jlo, jdlog, jtabs = jdriver.growth_tables(p, cosmo, k_dens=k_dens)
+    jlo, jdlog, jtabs = jdriver.growth_tables(jp, jcosmo, k_dens=k_dens)
     assert (lo, dlog) == (jlo, jdlog)
     for k in ("w1", "w2", "w31", "w32", "dv1", "dv2", "dv31", "dv32", "D1"):
         np.testing.assert_array_equal(tabs[k], jtabs[k])
-    want = jdriver.growth_tables_2d(p, cosmo)
+    want = jdriver.growth_tables_2d(jp, jcosmo)
     got = driver.growth_tables_2d(p, cosmo)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
-    for gm_ in (gm, None):
-        want = jdriver._segment_weight_tables(p, cosmo, gm_)
+    for gm_, jgm_ in ((gm, jgm), (None, None)):
+        want = jdriver._segment_weight_tables(jp, jcosmo, jgm_)
         got = driver._segment_weight_tables(p, cosmo, gm_)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
@@ -190,8 +206,8 @@ def test_recompute_stores_displacements_at_the_first_output():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    p = _params(64, **FR)
-    jax_res = jax_run_pipeline(p, outdir=str(tmp_path_factory.mktemp("j")),
+    jp, p = params_pair(**bench_kwargs(64, **FR))
+    jax_res = jax_run_pipeline(jp, outdir=str(tmp_path_factory.mktemp("j")),
                                verbose=False, write_outputs=False)
     port_res = run_pipeline(p, outdir=str(tmp_path_factory.mktemp("t")),
                             device="cpu", verbose=False, write_outputs=False)

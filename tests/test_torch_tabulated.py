@@ -33,16 +33,17 @@ import pytest
 import torch
 
 from pinocchio_tpu import fmax as jfmax
-from pinocchio_tpu.config import Params
-from pinocchio_tpu.cosmology import Cosmology
+from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
 from pinocchio_tpu.ops import collapse as jcol
 from pinocchio_tpu.ops import derivatives as jder
 from pinocchio_tpu.ops import tabulated as jtab
 from pinocchio_tpu.run import run_pipeline as jax_run_pipeline
 from pinocchio_tpu_torch import fmax
+from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.ops import collapse, tabulated
 from pinocchio_tpu_torch.run import run_pipeline
 from test_torch_collapse import _held, _hessians, _perturbed
+from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
 
@@ -51,16 +52,27 @@ VARIANTS = ("trilinear", "bilinear", "bicubic")
 
 
 def _params(n=32, **kw):
-    return Params(GridSize=n, BoxSize=float(n), output_z=[2, 1, 0.5, 0],
-                  norad=True, plc_enabled=False, **kw)
+    """(the JAX package's Params, the port's) of one configuration."""
+    return params_pair(**bench_kwargs(n, **kw))
 
 
 @pytest.fixture(scope="module")
-def setup():
-    p = _params()
+def jsetup():
+    """The JAX package's Params, Cosmology and ladder."""
+    jp = _params()[0]
+    jcosmo = JaxCosmology(jp)
+    return jp, jcosmo, jfmax.Smoothing.build(jp, jcosmo)
+
+
+@pytest.fixture(scope="module")
+def setup(jsetup):
+    """The port's Params, Cosmology and ladder, and the JAX package's
+    tables."""
+    jp, jcosmo, jsm = jsetup
+    p = _params()[1]
     cosmo = Cosmology(p)
     sm = fmax.Smoothing.build(p, cosmo)
-    return p, cosmo, sm, jtab.build_ct_tables_all(cosmo, sm)
+    return p, cosmo, sm, jtab.build_ct_tables_all(jcosmo, jsm)
 
 
 def _t(x):
@@ -102,19 +114,20 @@ def test_delta_grid_splines_and_aux_map_identical(setup):
                                   ct["tables2"])
 
 
-def test_ct_table_file_round_trip(setup, tmp_path):
+def test_ct_table_file_round_trip(setup, jsetup, tmp_path):
     p, _, sm, ct = setup
+    jp, _, jsm = jsetup
     mine, theirs = tmp_path / "port.ct", tmp_path / "jax.ct"
     tabulated.write_ct_table_file(mine, p, sm, ct["tables"])
-    jtab.write_ct_table_file(theirs, p, sm, ct["tables"])
+    jtab.write_ct_table_file(theirs, jp, jsm, ct["tables"])
     assert mine.read_bytes() == theirs.read_bytes()
     np.testing.assert_array_equal(
         tabulated.read_ct_table_file(theirs, p, sm), ct["tables"])
     np.testing.assert_array_equal(
-        jtab.read_ct_table_file(mine, p, sm),
+        jtab.read_ct_table_file(mine, jp, jsm),
         tabulated.read_ct_table_file(mine, p, sm))
     with pytest.raises(ValueError, match="header mismatch"):
-        tabulated.read_ct_table_file(mine, _params(16), sm)
+        tabulated.read_ct_table_file(mine, _params(16)[1], sm)
 
 
 @pytest.mark.parametrize("interp", VARIANTS)
@@ -198,10 +211,10 @@ def test_collapse_update_table_matches_jax(setup, interp):
 
 
 @pytest.fixture(scope="module")
-def jax_delta(setup):
+def jax_delta(jsetup):
     from pinocchio_tpu import ic as jic
     from pinocchio_tpu.grids import Grid as JGrid
-    p, cosmo, _, _ = setup
+    p, cosmo, _ = jsetup
     return jic.generate_kdensity(JGrid(N=p.GridSize, BoxSize=p.BoxSize_htrue),
                                  cosmo, p.RandomSeed)
 
@@ -290,22 +303,27 @@ def test_classic_table_build_matches_jax_on_resolved_nodes(setup):
         assert np.mean((np.abs(got - want) <= tol)[resolved]) >= 0.999
 
 
-def test_sng_entries_match_the_shared_solver(setup):
+def test_sng_entries_match_the_shared_solver(setup, jsetup):
+    """The port's copy of the SNG solver (ops/sng.py) gives the JAX
+    package's entries."""
     from pinocchio_tpu.ops.sng import ell_sng_F
     _, cosmo, sm, _ = setup
+    jcosmo = jsetup[1]
     ls = tabulated.node_eigenvalues(float(np.sqrt(sm.variance[sm.n // 2])))
     nodes = np.random.default_rng(3).choice(ls[0].size, 20, replace=False)
     sub = [x[nodes] for x in ls]
     got = tabulated.ct_entries(cosmo, *sub, model="sng")
-    D_in = float(cosmo.GrowingMode(1.0 / 1.e-5 - 1.0))
-    np.testing.assert_array_equal(got, ell_sng_F(*sub, D_in, cosmo))
+    D_in = float(jcosmo.GrowingMode(1.0 / 1.e-5 - 1.0))
+    np.testing.assert_array_equal(got, ell_sng_F(*sub, D_in, jcosmo))
     assert (got > 0).any()
 
 
 def test_prepare_ct_tables_sng_reads_the_file_without_solving(
-        setup, tmp_path, monkeypatch):
-    from pinocchio_tpu.ops import sng
+        setup, jsetup, tmp_path, monkeypatch):
+    from pinocchio_tpu.ops import sng as jsng
+    from pinocchio_tpu_torch.ops import sng
     p, cosmo, sm, ct = setup
+    _, jcosmo, jsm = jsetup
     path = str(tmp_path / "sng.ct")
     tabulated.write_ct_table_file(path, p, sm, ct["tables"])
 
@@ -313,9 +331,10 @@ def test_prepare_ct_tables_sng_reads_the_file_without_solving(
         raise AssertionError("the SNG solver ran")
 
     monkeypatch.setattr(sng, "ell_sng_F", no_solve)
-    ps = _params(ell_model="sng", CTtableFile=path)
+    monkeypatch.setattr(jsng, "ell_sng_F", no_solve)
+    jps, ps = _params(ell_model="sng", CTtableFile=path)
     got = fmax.prepare_ct_tables(ps, cosmo, sm, verbose=False)
-    want = jfmax.prepare_ct_tables(ps, cosmo, sm, verbose=False)
+    want = jfmax.prepare_ct_tables(jps, jcosmo, jsm, verbose=False)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
@@ -323,8 +342,8 @@ def test_prepare_ct_tables_sng_reads_the_file_without_solving(
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    p = _params(64, ell_model="tabulated", ct_interp="bicubic")
-    jax_res = jax_run_pipeline(p, outdir=str(tmp_path_factory.mktemp("j")),
+    jp, p = _params(64, ell_model="tabulated", ct_interp="bicubic")
+    jax_res = jax_run_pipeline(jp, outdir=str(tmp_path_factory.mktemp("j")),
                                verbose=False, write_outputs=False)
     port_res = run_pipeline(p, outdir=str(tmp_path_factory.mktemp("t")),
                             device="cpu", verbose=False, write_outputs=False)

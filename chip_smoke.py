@@ -25,19 +25,27 @@
      scaledep    f(R) scale-dependent growth with RECOMPUTE_DISPLACEMENTS,
                  256^3;
      tabulated_trilinear, tabulated_bilinear   the other two lookups, 128^3;
-     ooc         the out-of-core engine (ooc='on'), 512^3;
+     ooc         the out-of-core engine (ooc='on'), 256^3;
+     ooc_tabulated   the out-of-core engine with the bicubic lookup, 256^3;
+     ooc_tabulated_trilinear, ooc_tabulated_bilinear   the other two, 128^3;
+     ooc_scaledep    the out-of-core engine with f(R) growth, RECOMPUTE
+                 and DumpProducts, 256^3, then a ReadProductsFromDumps run
+                 that must launch no kernel and give the same catalogs;
 5. runs the classic path at 48^3 and the tabulated and scaledep paths at
    64^3 on the card and on the CPU (the plain versions) and holds the halo
    catalogs to each other;
 6. holds the out-of-core engine to the dense engine at 256^3, the dense one
    fed the delta assembled from the engine's kz planes (Fmax, variances, the
-   needed set, displacement rows, halo counts), with each engine's peak
-   memory beside the planner's;
+   needed set and its order, the rows of every displacement set, halo
+   counts), for the classic ellipsoid, the bicubic lookup and f(R) growth
+   with RECOMPUTE, with each engine's peak memory beside the planner's;
 7. runs the out-of-core fmax phase at 512^3 (ooc='on') and at 1024^3
-   under ooc='auto', where the planner must choose the out-of-core engine;
-   prints its map, each phase's measured peak beside the predicted one, the
-   host's free memory beside the planner's host estimate, the needed count
-   and the phase times;
+   under ooc='auto' (classic, bicubic lookup, f(R) growth), where the
+   planner must choose the out-of-core engine; prints its map, each phase's
+   measured peak beside the predicted one, the host's free memory beside
+   the planner's host estimate, the needed count and the phase times; and
+   the planner's map of f(R) growth with RECOMPUTE at 1024^3, which must
+   refuse the run on host memory before any allocation;
 8. checks that neither jax nor any module of the JAX package was imported;
 9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
@@ -79,19 +87,38 @@ OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
        "collapse_update_table_bilinear": 450,
        "collapse_update_table_bicubic": 900, "lpt_sources_pointwise": 35,
        "lpt_src32_accumulate": 18, "gather_rows": 0, "pdf_hist": 5,
-       "vrows_slab": 1}
+       "vrows_slab": 1, "collapse_update_slab_table_trilinear": 330,
+       "collapse_update_slab_table_bilinear": 450,
+       "collapse_update_slab_table_bicubic": 900,
+       "ooc_factors_gradient_tab": 40}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
           recompute_displacements=True, MaxMemPerParticle=400)
 # each path's launch set: the dense engine's shared kernels, then each
 # path's own; the out-of-core engine's
 DENSE = {"ic_kdensity", "kspace_hessian", "lpt_sources_pointwise",
          "lpt_src32_accumulate", "gather_rows", "pdf_hist"}
-OOC = {"ic_kdensity_planes", "ooc_factors_hessian", "ooc_factors_gradient",
-       "ooc_factors_pair", "collapse_update_slab", "vrows_slab",
-       "lpt_sources_pointwise", "lpt_src32_accumulate", "pdf_hist"}
+OOC_COMMON = {"ic_kdensity_planes", "ooc_factors_hessian", "ooc_factors_pair",
+              "vrows_slab", "lpt_sources_pointwise", "lpt_src32_accumulate",
+              "pdf_hist"}
+OOC = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient"}
+OOC_FR = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient_tab"}
+TAB = dict(ell_model="tabulated", ct_interp="bicubic")
+
+
+def ooc_tab(interp):
+    """The out-of-core launch set with the lookup ``interp``."""
+    return OOC_COMMON | {f"collapse_update_slab_table_{interp}",
+                         "ooc_factors_gradient"}
+
+
 OOC_N = 512
 OOC_CHECK_N = 256
 BIG_N = 1024
+# out-of-core against dense at OOC_CHECK_N: name -> switches
+OOC_CHECKS = {"classic": {}, "tabulated": TAB, "scaledep": FR}
+# the fmax phase at BIG_N under ooc='auto': name -> (switches, launch set)
+BIG = {"classic": ({}, OOC), "tabulated": (TAB, ooc_tab("bicubic")),
+       "scaledep": (dict(FR, recompute_displacements=False), OOC_FR)}
 # name -> (grid size, Params switches, the path's launch set)
 PATHS = {
     "classic": (PIPELINE_N, {}, DENSE | {"collapse_update",
@@ -110,7 +137,16 @@ PATHS = {
                                      ct_interp="bilinear"),
                            DENSE | {"collapse_update_table_bilinear",
                                     "kspace_gradient"}),
-    "ooc": (OOC_N, dict(ooc="on"), OOC),
+    "ooc": (PIPELINE_N, dict(ooc="on"), OOC),
+    "ooc_tabulated": (PIPELINE_N, dict(TAB, ooc="on"), ooc_tab("bicubic")),
+    "ooc_tabulated_trilinear": (128, dict(ooc="on", ell_model="tabulated",
+                                          ct_interp="trilinear"),
+                                ooc_tab("trilinear")),
+    "ooc_tabulated_bilinear": (128, dict(ooc="on", ell_model="tabulated",
+                                         ct_interp="bilinear"),
+                               ooc_tab("bilinear")),
+    "ooc_scaledep": (PIPELINE_N, dict(FR, ooc="on", DumpProducts=True),
+                     OOC_FR),
 }
 # card-vs-CPU checks: path -> grid size
 REFERENCE = {"classic": 48, "tabulated": 64, "scaledep": 64}
@@ -319,7 +355,6 @@ def kernel_phases(N, dev, report):
               40 * cells + table_bytes, cells,
               extra="(F, fraction criteria above) ")
         del Fk, Rk, Fp, Rp, Ft, Rt, dF
-    del tabs, targs
 
     # ---- K6a and K6b: the needed rows of four stacks, and the FmaxPDF
     # histogram, of the state after the mid radius ----
@@ -422,7 +457,42 @@ def kernel_phases(N, dev, report):
     phase("collapse_update_slab", dF.max().item(), math.inf, ms, plain_ms,
           32 * sd_slab[0].numel(), sd_slab[0].numel(),
           extra="(F, fraction criteria above) ")
-    del Fk, Fp, F3, R3, Ft, dF, F_slab
+    del Fk, Fp, F3, R3, Ft, dF
+
+    # K13 on the same slab with each lookup, from the same state; K7 on the
+    # slab (with an Rmax) must give the same F
+    ncell = sd_slab[0].numel()
+    for interp in tabulated.INTERP:
+        name = f"collapse_update_slab_table_{interp}"
+        Fk, Fp, F7 = F_slab.clone(), F_slab.clone(), F_slab.clone()
+        mk = collapse.collapse_update_slab_table(sd_slab, Fk, *targs, interp)
+        mp = collapse.collapse_update_slab_table_plain(sd_slab, Fp, *targs,
+                                                       interp)
+        R7 = torch.zeros_like(F7, dtype=torch.int32)
+        collapse.collapse_update_table(sd_slab, F7, R7, 1, *targs, interp)
+        dF = (Fk - Fp).abs()
+        okF = (dF <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)).double().mean()
+        exact = (Fk == Fp).double().mean().item()
+        same7 = (Fk == F7).double().mean().item()
+        rel = abs(mk[1].item() / mp[1].item() - 1.0)
+        print(f"  [{N}^3] {name} [6, {Bx}, {N}, {N}]: F equal to the plain "
+              f"version on {100 * exact:.4f}% and to K7's on the slab on "
+              f"{100 * same7:.4f}% (need >= 99.99%), within 1e-4*max(1,|F|) "
+              f"on {100 * okF.item():.4f}% (need 100%), mean delta^2 rel "
+              f"err {rel:.2e} (need <= 1e-5)", flush=True)
+        need(okF.item() == 1.0 and exact >= 0.9999 and same7 >= 0.9999
+             and rel <= 1e-5, f"{name} at {N}^3 disagrees")
+        Ft = F_slab.clone()
+        ms = time_ms(lambda: collapse.collapse_update_slab_table(
+            sd_slab, Ft, *targs, interp))
+        Ft = F_slab.clone()
+        plain_ms = time_ms(lambda: collapse.collapse_update_slab_table_plain(
+            sd_slab, Ft, *targs, interp))
+        phase(name, dF.max().item(), math.inf, ms, plain_ms,
+              32 * ncell + table_bytes, ncell,
+              extra="(F, fraction criteria above) ")
+        del Fk, Fp, F7, R7, Ft, dF
+    del tabs, targs, F_slab
 
     # K12: the needed rows of the first x-slab of a displacement-like
     # stack, into the rows buffer of all needed cells
@@ -458,7 +528,29 @@ def kernel_phases(N, dev, report):
           time_ms(lambda: derivatives.gradient_kspace_tab_plain(
               delta, gtabs[0], glo, gdx, N)),
           32 * modes + 4 * gtabs[0].numel(), modes, extra="identical, ")
-    del got, ref
+
+    # ---- K14: the same growth table on a [B, N, N] kz batch of delta, as a
+    # contiguous copy of its planes and as a strided view (a resident
+    # spectrum's batch), against its plain version and K8's values ----
+    kz0 = 1
+    view = delta[:, :, kz0:kz0 + B].permute(2, 0, 1)
+    k8 = got[..., kz0:kz0 + B].permute(0, 3, 1, 2)
+    for what, src in (("contiguous", view.contiguous()), ("strided", view)):
+        g14 = derivatives.ooc_gradient_tab(src, kz0, gtabs[0], glo, gdx, N)
+        ref = derivatives.ooc_gradient_tab_plain(src, kz0, gtabs[0], glo,
+                                                 gdx, N)
+        need(same(g14, ref) and same(g14, k8), f"ooc_factors_gradient_tab "
+             f"({what}) at {N}^3 is not identical to its plain version and "
+             "K8")
+    phase("ooc_factors_gradient_tab", (g14 - ref).abs().max().item(), 0.0,
+          time_ms(lambda: derivatives.ooc_gradient_tab(
+              view, kz0, gtabs[0], glo, gdx, N)),
+          time_ms(lambda: derivatives.ooc_gradient_tab_plain(
+              view, kz0, gtabs[0], glo, gdx, N)),
+          32 * B * N * N + 4 * gtabs[0].numel(), B * N * N,
+          extra=f"identical to the plain version and to K8, contiguous and "
+          f"strided [{B}, {N}, {N}], ")
+    del got, ref, g14, k8, view
 
     # ---- K4: the two LPT passes on the R=0 stack, and the accumulation of
     # one component pair on an x-slab (the out-of-core fold) ----
@@ -597,6 +689,8 @@ def run_path(dev, name):
             need(segs is not None and len(segs) == len(OUTPUT_Z),
                  f"{name}: one displacement set per output redshift "
                  "expected")
+        if p.DumpProducts:
+            restart_check(dev, p, out, res)
     print(f"  launches on the {name} path: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     expected = own
@@ -607,6 +701,34 @@ def run_path(dev, name):
     need(not stray, f"kernels of other paths launched on the {name} path: "
          f"{stray}")
     return launches, res["timings"]
+
+
+def restart_check(dev, p, out, first):
+    """A ReadProductsFromDumps run from the dump that the run ``first``
+    wrote into ``out``: it must launch no kernel and give the same halo
+    catalogs, name for name and mass for mass, at every output."""
+    import dataclasses
+    import numpy as np
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.run import run_pipeline
+
+    q = dataclasses.replace(p, DumpProducts=False, ReadProductsFromDumps=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_pipeline(q, outdir=out, device=dev, verbose=False,
+                       write_outputs=False)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"  restart from the dump: {time.perf_counter() - t0:.2f} s wall, "
+          f"launches {launched}", flush=True)
+    need(not launched, f"the restart launched kernels: {launched}")
+    need(len(res["frag"].catalogs) == len(first["frag"].catalogs),
+         "the restart gave another number of catalogs")
+    for a, b in zip(first["frag"].catalogs, res["frag"].catalogs):
+        same = (a.z == b.z and np.array_equal(a.name, b.name)
+                and np.array_equal(a.mass, b.mass))
+        print(f"  restart z={b.z:g}: {len(b.name)} halos, identical in name "
+              f"and mass to the dumping run: {same}", flush=True)
+        need(same, f"the restart's catalog at z={b.z} differs")
 
 
 def reference_check(dev, name):
@@ -655,7 +777,8 @@ def _phase_table(peaks, predicted):
 
 
 # the engine's phases (fmax_ooc timings) -> the planner's
-OOC_PHASES = {"fmax_loop": "cycle", "sources": "sources", "fold": "fold",
+OOC_PHASES = {"ct_tables": "cycle", "fmax_loop": "cycle",
+              "sources": "sources", "fold": "fold",
               "spectra": "fold", "products": "needed sort",
               "lpt_rows": "v-streams"}
 
@@ -669,13 +792,26 @@ def ooc_peaks(res):
     return out
 
 
-def ooc_dense_check(dev):
-    """The out-of-core engine against the dense engine at 256^3, the dense
-    one fed the delta assembled from the engine's kz planes: Fmax (|dF| >
-    0.01 on < 0.1 % of cells, median |dF| < 1e-4), variances within rtol
-    1e-4, the needed set equal up to max(2, 0.1 %) borderline cells, the
-    rows of the common cells within rtol = atol = 3e-3, halo counts per
-    output within 1 %; each engine's peak memory beside the planner's."""
+def scaledep_gm_for(p, cosmo):
+    """The per-radius effective growth of a scale-dependent run (host), as
+    run_pipeline sets it up; None for scale-independent growth."""
+    if not cosmo.scale_dep:
+        return None
+    from pinocchio_tpu_torch.fmax import Smoothing
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+    from pinocchio_tpu_torch.scaledep import set_scaledep_gm
+    return set_scaledep_gm(p, cosmo, Smoothing.build(p, cosmo),
+                           largest_halo_mass(p, cosmo), verbose=False)
+
+
+def ooc_dense_check(dev, name):
+    """The out-of-core engine against the dense engine at OOC_CHECK_N with
+    the switches OOC_CHECKS[name], the dense one fed the delta assembled
+    from the engine's kz planes: Fmax equal on >= 99.99 % of cells,
+    variances within rtol 1e-4, the same needed cells in the same order, the
+    rows of every displacement set within float32 round-off (1e-5 of the
+    field's maximum), halo counts equal at every output; each engine's peak
+    memory beside the planner's."""
     import numpy as np
     import torch
     from pinocchio_tpu_torch import fmax, fmax_ooc, planner
@@ -685,21 +821,23 @@ def ooc_dense_check(dev):
     from pinocchio_tpu_torch.ic import PlaneGenerator
 
     N = OOC_CHECK_N
-    p = params_for(N)
+    p = params_for(N, **OOC_CHECKS[name])
     cosmo = Cosmology(p)
+    gm = scaledep_gm_for(p, cosmo)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kd = PlaneGenerator(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
                         dev).assemble()
     t0 = time.perf_counter()
-    dense = fmax.run_fmax(p, cosmo, dev, kdensity=kd)
+    dense = fmax.run_fmax(p, cosmo, dev, kdensity=kd, scaledep_gm=gm)
     torch.cuda.synchronize()
     t_dense = time.perf_counter() - t0
     peak_dense = torch.cuda.max_memory_allocated()
     del kd
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, trace_memory=True)
+    ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
+                                trace_memory=True)
     t_ooc = time.perf_counter() - t0
     frac = planner.collapsed_fraction(p, cosmo)
     pd = planner.device_peak(p, False, frac=frac)
@@ -713,39 +851,42 @@ def ooc_dense_check(dev):
           f"{po['peak'] / GiB:.3f} GiB ({po['phase']}):\n"
           + _phase_table(peaks, po["phases"]), flush=True)
     d = (ooc.products.Fmax - dense.products.Fmax).abs()
-    big = (d > 0.01).double().mean().item()
-    med = d.median().item()
     exact = (d == 0).double().mean().item()
     rv = np.abs(ooc.smoothing.true_variance / dense.smoothing.true_variance
                 - 1.0).max()
-    print(f"  Fmax: equal on {100 * exact:.4f}% of cells, |dF| > 0.01 on "
-          f"{100 * big:.5f}% (need < 0.1%), median |dF| {med:.2e} (need < "
-          f"1e-4); variances rel err {rv:.2e} (need <= 1e-4)", flush=True)
-    need(big < 1e-3 and med < 1e-4 and rv <= 1e-4,
-         "out-of-core Fmax disagrees with the dense engine")
+    print(f"  Fmax: equal on {100 * exact:.4f}% of cells (need >= 99.99%), "
+          f"max |dF| {d.max().item():.2e}; variances rel err {rv:.2e} (need "
+          f"<= 1e-4)", flush=True)
+    need(exact >= 0.9999 and rv <= 1e-4,
+         f"{name}: out-of-core Fmax disagrees with the dense engine")
     so, sd = ooc.host_products, dense.host_products
-    sym = len(np.setxor1d(so.ci, sd.ci))
-    print(f"  needed: {len(so.ci)} out-of-core, {len(sd.ci)} dense, {sym} "
-          f"in one set only (need <= {max(2, int(1e-3 * len(sd.ci)))}); "
-          f"same order: {np.array_equal(so.ci, sd.ci)}", flush=True)
-    need(sym <= max(2, 1e-3 * len(sd.ci)), "the needed sets differ")
-    _, io, idn = np.intersect1d(so.ci, sd.ci, return_indices=True)
-    for k in so.vel:
-        a, b = so.vel[k][io], sd.vel[k][idn]
-        err = float(np.abs(a - b).max())
-        ok = bool(np.allclose(a, b, rtol=3e-3, atol=3e-3))
-        print(f"  rows {k}: max |d| {err:.3e} of max {np.abs(b).max():.3e} "
-              f"(rtol = atol = 3e-3) -> {'ok' if ok else 'FAIL'}", flush=True)
-        need(ok, f"out-of-core rows {k} disagree with the dense engine")
-    fo = run_fragmentation(p, cosmo, ooc, verbose=False)
-    fd = run_fragmentation(p, cosmo, dense, verbose=False)
+    same_order = np.array_equal(so.ci, sd.ci)
+    print(f"  needed: {len(so.ci)} out-of-core, {len(sd.ci)} dense, the same "
+          f"cells in the same order: {same_order}", flush=True)
+    need(same_order, f"{name}: the needed cells or their order differ")
+    sets_o = so.segments or [so.vel]
+    sets_d = sd.segments or [sd.vel]
+    need(len(sets_o) == len(sets_d), f"{name}: the number of displacement "
+         "sets differs")
+    for s, (vo, vd) in enumerate(zip(sets_o, sets_d)):
+        errs = {k: float(np.abs(vo[k] - vd[k]).max()) for k in vd}
+        tol = {k: 1e-5 * float(np.abs(vd[k]).max()) for k in vd}
+        ok = all(errs[k] <= tol[k] for k in vd)
+        print(f"  rows of set {s}: max |d| "
+              + ", ".join(f"{k} {errs[k]:.2e} (tol {tol[k]:.2e})"
+                          for k in vd) + f" -> {'ok' if ok else 'FAIL'}",
+              flush=True)
+        need(ok, f"{name}: out-of-core rows of set {s} disagree with the "
+             "dense engine")
+    fo = run_fragmentation(p, cosmo, ooc, scaledep_gm=gm, verbose=False)
+    fd = run_fragmentation(p, cosmo, dense, scaledep_gm=gm, verbose=False)
     for a, b in zip(fd.catalogs, fo.catalogs):
         na = int((a.mass >= p.MinHaloMass).sum())
         nb = int((b.mass >= p.MinHaloMass).sum())
-        print(f"  z={a.z:g}: {nb} halos out-of-core, {na} dense (tolerance "
-              "1 %)", flush=True)
-        need(na > 0 and abs(na - nb) <= 0.01 * na,
-             f"halo counts at z={a.z} differ between the engines")
+        print(f"  z={a.z:g}: {nb} halos out-of-core, {na} dense (need "
+              "equal)", flush=True)
+        need(na > 0 and na == nb,
+             f"{name}: halo counts at z={a.z} differ between the engines")
     del ooc, dense, fo, fd, d
     torch.cuda.empty_cache()
 
@@ -760,40 +901,48 @@ def meminfo():
     return vals.get("MemTotal", 0.0), vals.get("MemAvailable", 0.0)
 
 
-def ooc_fmax_phase(dev, N, ooc):
-    """The out-of-core fmax phase at N^3 with the planner's choice under
-    ``ooc`` ('auto' at 1024^3, where the planner must choose the
-    out-of-core engine): each phase's peak beside the planner's, the overall
-    peak under the card's memory, the host's memory beside the planner's
-    host estimate."""
+def ooc_fmax_phase(dev, N, ooc, kw, own):
+    """The out-of-core fmax phase at N^3 with the switches kw and the
+    planner's choice under ``ooc`` ('auto' at 1024^3, where the planner must
+    choose the out-of-core engine): each phase's peak beside the planner's,
+    the overall peak under the card's memory, the host's memory beside the
+    planner's host estimate, the launch set ``own``."""
     import numpy as np
     import torch
     from pinocchio_tpu_torch import fmax_ooc, kernels, planner
     from pinocchio_tpu_torch.cosmology import Cosmology
 
-    p = params_for(N, ooc=ooc)
+    p = params_for(N, ooc=ooc, **kw)
     cosmo = Cosmology(p)
+    t0 = time.perf_counter()
+    gm = scaledep_gm_for(p, cosmo)
+    t_gm = time.perf_counter() - t0
     rep = planner.plan(p, dev, cosmo)
     print(planner.format_memory_map(rep), flush=True)
     need(rep["use_ooc"], f"the planner chose the {rep['engine']} engine at "
          f"{N}^3 under ooc={ooc!r}")
     total, avail = meminfo()
+    host_fmax = sum(rep["host"]["phases"]["fmax"].values())
     print(f"  host: MemTotal {total / GiB:.2f} GiB, MemAvailable "
-          f"{avail / GiB:.2f} GiB; planner's estimate for the sweep "
-          f"{rep['host_bytes'] / GiB:.2f} GiB (not run here)",
-          flush=True)
+          f"{avail / GiB:.2f} GiB; planner's estimate for the products "
+          f"{host_fmax / GiB:.2f} GiB, for the sweep "
+          f"{rep['host_bytes'] / GiB:.2f} GiB (not run here)", flush=True)
+    need(host_fmax < avail, "the products would not fit the host's "
+         "available memory")
     card = torch.cuda.get_device_properties(dev).total_memory
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=N >= BIG_N,
-                                trace_memory=True)
+    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
+                                verbose=N >= BIG_N, trace_memory=True)
     wall = time.perf_counter() - t0
     peaks = ooc_peaks(res)
     peak = max(peaks.values())
     sp = res.host_products
     count = len(sp.ci)
-    print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall; phases: "
+    print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall"
+          + (f" (set_scaledep_gm {t_gm:.2f} s before it)" if gm else "")
+          + "; phases: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
           flush=True)
     print(f"  peak device memory {peak / GiB:.3f} GiB of the card's "
@@ -813,10 +962,43 @@ def ooc_fmax_phase(dev, N, ooc):
         np.all(np.isfinite(v[::997])) for v in sp.vel.values()),
         "non-finite products")
     need(np.all(np.diff(sp.F[::997]) <= 0), "products not in -F order")
-    missing = sorted(k for k in OOC if not kernels.LAUNCHES[k])
-    need(not missing, f"kernels not launched at {N}^3: {missing}")
+    missing = sorted(k for k in own if not kernels.LAUNCHES[k])
+    stray = sorted(k for k, v in kernels.LAUNCHES.items()
+                   if v and k not in own)
+    need(not missing and not stray, f"kernels at {N}^3: not launched "
+         f"{missing}, launched from another path {stray}")
     del res, sp
     torch.cuda.empty_cache()
+
+
+def big_refusal(dev):
+    """run_pipeline at BIG_N with f(R) growth and RECOMPUTE_DISPLACEMENTS
+    under ooc='auto': the planner must refuse it on host memory (four sets
+    of rows) with its map, before any device allocation."""
+    import torch
+    from pinocchio_tpu_torch import planner
+    from pinocchio_tpu_torch.run import run_pipeline
+
+    p = params_for(BIG_N, ooc="auto", **FR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out:
+        try:
+            run_pipeline(p, outdir=out, device=dev, verbose=False)
+        except planner.MemoryPlanError as err:
+            msg = str(err)
+        else:
+            raise CheckFailed(f"the planner accepted {BIG_N}^3 f(R) growth "
+                              "with RECOMPUTE")
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    print(msg, flush=True)
+    print(f"  device memory allocated by the refused run: {grew} bytes",
+          flush=True)
+    need("host memory of the run" in msg and "device peak" not in msg,
+         "the refusal is not on host memory alone")
+    need(grew == 0, "the refused run allocated device memory")
 
 
 def main() -> int:
@@ -867,18 +1049,22 @@ def main() -> int:
             section(f"{path} path at {REFERENCE[path]}^3 on the card and on "
                     "the CPU:")
             reference_check(dev, path)
-        section(f"out-of-core against dense at {OOC_CHECK_N}^3:")
-        ooc_dense_check(dev)
+        for name in OOC_CHECKS:
+            section(f"out-of-core against dense at {OOC_CHECK_N}^3, {name}:")
+            ooc_dense_check(dev, name)
         section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
-        ooc_fmax_phase(dev, OOC_N, "on")
-        section(f"fmax phase at {BIG_N}^3 under ooc='auto':")
-        ooc_fmax_phase(dev, BIG_N, "auto")
+        ooc_fmax_phase(dev, OOC_N, "on", {}, OOC)
+        for name, (kw, own) in BIG.items():
+            section(f"fmax phase at {BIG_N}^3 under ooc='auto', {name}:")
+            ooc_fmax_phase(dev, BIG_N, "auto", kw, own)
+        section(f"the planner at {BIG_N}^3 with f(R) growth and RECOMPUTE:")
+        big_refusal(dev)
         jaxish = sorted(m for m in sys.modules if m == "jax"
                         or m.startswith("jax.") or m == "pinocchio_tpu"
                         or m.startswith("pinocchio_tpu."))
         need(not jaxish, f"modules of jax or the JAX package imported: "
              f"{jaxish[:5]}")
-        section("no module of jax or of the JAX package was imported;")
+        section("no module of jax or of the JAX package was imported; done")
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

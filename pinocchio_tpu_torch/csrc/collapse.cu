@@ -11,6 +11,11 @@
 // engine keeps none) and the slab's delta and delta^2 means.  It is the K3
 // kernel launched on the slab with a null Rmax.
 //
+// K13 replaces OocEngine.cycle_slab_tab (fmax_ooc.py:539-561), the same slab
+// update with F looked up in the radius's TABULATED_CT / ELL_SNG table: the
+// K7 kernel launched on the slab with a null Rmax, so a slab's F is K7's F
+// cell for cell.  It is bound as K7 is, per cell, on a slab of 16 x-planes.
+//
 // K7 replaces collapse.py:collapse_update_table (254-271) with the lookups
 // of pinocchio_tpu/ops/tabulated.py (_locate 130-145, interpolate_F 148-172,
 // _d_spline_at 221, interpolate_F_bilinear 233, interpolate_F_bicubic 246):
@@ -520,4 +525,17 @@ extern "C" int collapse_update_table(const void* derivs, void* Fmax,
   mean_kernel<<<1, kThreads, 0, s>>>((const double*)partials, nblocks, n,
                                      (double*)means);
   return (int)cudaGetLastError();
+}
+
+// K13: derivs [6, n] of one out-of-core slab, Fmax its n cells; no Rmax
+extern "C" int collapse_update_slab_table(const void* derivs, void* Fmax,
+                                          int64_t n, const void* tab,
+                                          const void* tab2, const void* dv,
+                                          const void* idx_map, float ampl,
+                                          int interp, void* partials,
+                                          int nblocks, void* means,
+                                          void* stream) {
+  return collapse_update_table(derivs, Fmax, nullptr, n, 0, tab, tab2, dv,
+                               idx_map, ampl, interp, partials, nblocks,
+                               means, stream);
 }

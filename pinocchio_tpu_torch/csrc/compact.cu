@@ -141,3 +141,16 @@ extern "C" int pdf_hist(const void* F, int64_t n, void* counts,
       (const float*)F, n, (unsigned long long*)counts);
   return (int)cudaGetLastError();
 }
+
+// Page-locked host memory for the out-of-core engine's device-to-host
+// copies of the products (kernels.pinned_empty): PyTorch's pinned allocator
+// rounds each buffer up to a power of two and keeps it cached after use.
+// Returns null when the allocation fails.
+extern "C" void* host_alloc(size_t nbytes) {
+  void* p = nullptr;
+  if (cudaHostAlloc(&p, nbytes, cudaHostAllocDefault) != cudaSuccess)
+    return nullptr;
+  return p;
+}
+
+extern "C" int host_free(void* p) { return (int)cudaFreeHost(p); }

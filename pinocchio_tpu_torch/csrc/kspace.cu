@@ -1,5 +1,5 @@
 // k-space derivative multipliers (K2, K5 and K8), and the out-of-core
-// engine's per-kz-batch factors (K10).
+// engine's per-kz-batch factors (K10, K14).
 //
 // Replaces, in pinocchio_tpu/ops/derivatives.py:
 //   kspace_hessian      <- smoothed_potential + the per-pair multiply of the
@@ -14,6 +14,11 @@
 //   ooc_factors_gradient <- OocEngine.build_first_batch (438-465), constant
 //                           growth
 //   ooc_factors_pair     <- OocEngine.build_pair_batch (469-501)
+// and K14:
+//   ooc_factors_gradient_tab <- build_first_batch with a growth table
+//                           (438-465; the tables of growth_k_tables,
+//                           1286-1297): K10's gradient mode with K8's
+//                           per-mode growth lookup
 // The c2r transforms that follow stay torch.fft (cuFFT), as the JAX package
 // leaves them to XLA's FFT.
 //
@@ -34,7 +39,10 @@
 // strides, so a batch of a resident [N, N, Nh] spectrum needs no copy: there
 // consecutive threads read 8 B apart by Nh (one sector each), which makes
 // the gradient and pair modes on a spectrum slower than the hessian mode on
-// K9's contiguous planes.
+// K9's contiguous planes.  K14 is the gradient mode with K8's lookup: its
+// table is copied to shared memory by each block and every float operation
+// is K8's, so its rows are the dense engine's (it is bound as K10's gradient
+// mode, by bytes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +114,21 @@ __global__ void gradient_kernel(const float2* __restrict__ src,
   out[2 * nmodes + idx] = cscale(base, k.kz);
 }
 
+// the growth of a mode, interpolated linearly in a table over log10 |k|
+// (|k| in grid units) from glo in steps of gdx, the coordinate clipped to
+// [0, tmax]
+__device__ __forceinline__ float growth_at(const float* s_tab, float k2,
+                                           float glo, float gdx,
+                                           float tmax) {
+  const float logk = __fmul_rn(0.5f, log10f(fmaxf(k2, 1e-12f)));
+  float t = __fdiv_rn(__fsub_rn(logk, glo), gdx);
+  t = t < 0.0f ? 0.0f : (t > tmax ? tmax : t);
+  const int i = (int)t;
+  const float w = __fsub_rn(t, (float)i);
+  return __fadd_rn(__fmul_rn(s_tab[i], __fsub_rn(1.0f, w)),
+                   __fmul_rn(s_tab[i + 1], w));
+}
+
 __global__ void gradient_tab_kernel(const float2* __restrict__ src,
                                     float2* __restrict__ out, int N, int Nh,
                                     int64_t nmodes,
@@ -117,13 +140,7 @@ __global__ void gradient_tab_kernel(const float2* __restrict__ src,
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nmodes) return;
   const KMode k = kmode(N, Nh, idx);
-  const float logk = __fmul_rn(0.5f, log10f(fmaxf(k.k2, 1e-12f)));
-  float t = __fdiv_rn(__fsub_rn(logk, glo), gdx);
-  t = t < 0.0f ? 0.0f : (t > tmax ? tmax : t);
-  const int i = (int)t;
-  const float w = __fsub_rn(t, (float)i);
-  const float growth = __fadd_rn(__fmul_rn(s_tab[i], __fsub_rn(1.0f, w)),
-                                 __fmul_rn(s_tab[i + 1], w));
+  const float growth = growth_at(s_tab, k.k2, glo, gdx, tmax);
   const float2 d = __ldg(src + idx);
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
   base = cscale(base, k.inv_k2);
@@ -186,6 +203,29 @@ __global__ void ooc_gradient_kernel(Batch src, float2* __restrict__ out,
   int b, ix, iy;
   KMode k;
   batch_mode(idx, N, kz0, b, ix, iy, k);
+  const float2 d = batch_at(src, b, ix, iy);
+  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
+  base = cscale(base, k.inv_k2);
+  out[idx] = cscale(base, k.kx);
+  out[n + idx] = cscale(base, k.ky);
+  out[2 * n + idx] = cscale(base, k.kz);
+}
+
+// K14: the gradient mode with the per-mode growth of a table, as K8
+__global__ void ooc_gradient_tab_kernel(Batch src, float2* __restrict__ out,
+                                        int N, int kz0, int64_t n,
+                                        const float* __restrict__ gtab,
+                                        int ntab, float glo, float gdx,
+                                        float tmax) {
+  extern __shared__ float s_tab[];
+  for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = gtab[i];
+  __syncthreads();
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  int b, ix, iy;
+  KMode k;
+  batch_mode(idx, N, kz0, b, ix, iy, k);
+  const float growth = growth_at(s_tab, k.k2, glo, gdx, tmax);
   const float2 d = batch_at(src, b, ix, iy);
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
   base = cscale(base, k.inv_k2);
@@ -271,6 +311,23 @@ extern "C" int ooc_factors_gradient(const void* src, int64_t sb, int64_t sx,
   ooc_gradient_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
       Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n, growth);
+  return (int)cudaGetLastError();
+}
+
+// gtab: [ntab] growth over log10 |k| (see kspace_gradient_tab)
+extern "C" int ooc_factors_gradient_tab(const void* src, int64_t sb,
+                                        int64_t sx, int64_t sy, void* out,
+                                        int N, int kz0, int B,
+                                        const void* gtab, int ntab,
+                                        float glo, float gdx, float tmax,
+                                        void* stream) {
+  const int64_t n = (int64_t)B * N * N;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  ooc_gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
+                            (cudaStream_t)stream>>>(
+      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n,
+      (const float*)gtab, ntab, glo, gdx, tmax);
   return (int)cudaGetLastError();
 }
 

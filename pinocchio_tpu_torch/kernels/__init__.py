@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -58,7 +60,7 @@ KERNELS = {
     "lpt_src32_accumulate": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
     "gather_rows": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "pdf_hist": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:110"),
-    # the out-of-core engine (K9-K12)
+    # the out-of-core engine (K9-K14)
     "ic_kdensity_planes": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
                            "pinocchio_tpu/ic.py:149"),
     "ooc_factors_hessian": ("cuda", _KSPACE,
@@ -69,6 +71,15 @@ KERNELS = {
     "collapse_update_slab": ("cuda", _COLLAPSE,
                              "pinocchio_tpu/fmax_ooc.py:506"),
     "vrows_slab": ("cuda", _COMPACT, "pinocchio_tpu/fmax_ooc.py:934"),
+    # the out-of-core engine's collapse tables and growth tables (K13, K14)
+    "collapse_update_slab_table_trilinear": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/fmax_ooc.py:539"),
+    "collapse_update_slab_table_bilinear": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/fmax_ooc.py:539"),
+    "collapse_update_slab_table_bicubic": (
+        "cuda", _COLLAPSE, "pinocchio_tpu/fmax_ooc.py:539"),
+    "ooc_factors_gradient_tab": ("cuda", _KSPACE,
+                                 "pinocchio_tpu/fmax_ooc.py:438"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -117,6 +128,16 @@ _SIGNATURES = {
     "collapse_update_slab": [_P, _P, _L, _P, _P, _I, _P, _P],
     # rank, comps, n, rows, stream
     "vrows_slab": [_P, _P, _L, _P, _P],
+    # nbytes (returns the host pointer); ptr
+    "host_alloc": [ctypes.c_size_t],
+    "host_free": [_P],
+    # derivs, Fmax, n, tab, tab2, dv, idx_map, ampl, interp, partials,
+    # nblocks, means, stream
+    "collapse_update_slab_table": [_P, _P, _L, _P, _P, _P, _P, _F, _I, _P,
+                                   _I, _P, _P],
+    # src, sb, sx, sy, out, N, kz0, B, gtab, ntab, glo, gdx, tmax, stream
+    "ooc_factors_gradient_tab": [_P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _F,
+                                 _F, _F, _P],
 }
 
 
@@ -188,8 +209,43 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            so.host_alloc.restype = ctypes.c_void_p
             _LIB = so
         return _LIB
+
+
+# page-locked allocations are rounded up to a multiple of the host's 2 MiB
+# huge page: with an H100 80GB HBM3 that made cudaHostAlloc plus the copy of
+# the 1024^3 products 2.6 times faster than at their exact sizes
+# (scripts/torch_host_copy.py)
+PINNED_ALIGN = 2 ** 21
+
+
+class _PinnedBlock:
+    """nbytes of page-locked host memory (cudaHostAlloc through the kernel
+    library) as a numpy buffer, freed when the last array over it goes."""
+
+    def __init__(self, nbytes: int):
+        self._lib = lib()
+        self.ptr = self._lib.host_alloc(nbytes)
+        if not self.ptr:
+            raise MemoryError(f"cudaHostAlloc of {nbytes} bytes failed")
+        self.__array_interface__ = dict(shape=(nbytes,), typestr="|u1",
+                                        data=(self.ptr, False), version=3)
+
+    def __del__(self):
+        self._lib.host_free(self.ptr)
+
+
+def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
+    """An uninitialized numpy array in page-locked host memory of its own
+    size rounded up to a multiple of ``align`` (PyTorch's pinned allocator
+    rounds each buffer up to a power of two and keeps it cached after
+    use)."""
+    dtype = np.dtype(dtype)
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    raw = np.asarray(_PinnedBlock(-(-max(nbytes, 1) // align) * align))
+    return raw[:nbytes].view(dtype).reshape(shape)
 
 
 def check(name: str, err: int) -> None:

@@ -3,11 +3,11 @@ pinocchio_tpu/ops/collapse.py).
 
 The plain PyTorch functions below are the branch-free math of the JAX
 package, op for op.  ``collapse_update`` (classic ellipsoid, K3),
-``collapse_update_table`` (TABULATED_CT / ELL_SNG table lookups, K7) and
-``collapse_update_slab`` (one x-slab of the out-of-core cycle, K11) are the
-wrappers of the CUDA kernel ``csrc/collapse.cu``: on a CUDA tensor they
-launch the kernel, on a CPU tensor they run ``collapse_update_plain``,
-``collapse_update_table_plain`` and ``collapse_update_slab_plain``.
+``collapse_update_table`` (TABULATED_CT / ELL_SNG table lookups, K7),
+``collapse_update_slab`` and ``collapse_update_slab_table`` (one x-slab of
+the out-of-core cycle, classic K11 and tabulated K13) are the wrappers of
+the CUDA kernel ``csrc/collapse.cu``: on a CUDA tensor they launch the
+kernel, on a CPU tensor they run their ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -320,6 +320,31 @@ TABLE_SHAPE = (tabulated.CT_NBINS_XY, tabulated.CT_NBINS_XY,
                tabulated.CT_NBINS_D)
 
 
+def _table_pair(interp: str, tab, tab2):
+    """tab2 for a lookup in the variant ``interp``: the spline variants
+    need it; the trilinear one reads none and may be given None."""
+    if interp not in tabulated.INTERP:
+        raise ValueError(f"unknown interpolation variant {interp!r}")
+    if tab2 is None:
+        if interp != "trilinear":
+            raise ValueError(f"interp={interp!r} needs the spline "
+                             "second-derivative table tab2")
+        return tab                     # not read by the trilinear lookup
+    return tab2
+
+
+def _check_table(name, tab, tab2, dv, idx_map):
+    if (tuple(tab.shape) != TABLE_SHAPE or tuple(tab2.shape) != TABLE_SHAPE
+            or tab.dtype != torch.float32 or tab2.dtype != torch.float32
+            or tuple(dv.shape) != (tabulated.CT_NBINS_D,)
+            or dv.dtype != torch.float32
+            or tuple(idx_map.shape) != (tabulated.AUX_N,)
+            or idx_map.dtype != torch.int32):
+        raise ValueError(f"{name}: tab/tab2 f32{list(TABLE_SHAPE)}, dv "
+                         f"f32[{tabulated.CT_NBINS_D}], idx_map "
+                         f"i32[{tabulated.AUX_N}] expected")
+
+
 def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
                           idx_map, ampl: float, interp: str):
     """One smoothing radius of the TABULATED_CT / ELL_SNG collapse update:
@@ -328,13 +353,7 @@ def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
     float32 delta grid, idx_map the int32 aux map, ampl the radius's sqrt
     variance) in the variant ``interp``; running max into Fmax/Rmax IN
     PLACE; returns the [mean delta, mean delta^2] float64 tensor."""
-    if interp not in tabulated.INTERP:
-        raise ValueError(f"unknown interpolation variant {interp!r}")
-    if tab2 is None:
-        if interp != "trilinear":
-            raise ValueError(f"interp={interp!r} needs the spline "
-                             "second-derivative table tab2")
-        tab2 = tab                     # not read by the trilinear lookup
+    tab2 = _table_pair(interp, tab, tab2)
     name = f"collapse_update_table_{interp}"
     if not kernels.plain_or_kernel(name, derivs):
         return collapse_update_table_plain(derivs, Fmax, Rmax, ismooth, tab,
@@ -346,15 +365,7 @@ def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
             or derivs[0].numel() != n or Rmax.numel() != n):
         raise ValueError(f"{name}: derivs f32[6, *S], Fmax f32[*S], "
                          "Rmax i32[*S] expected")
-    if (tuple(tab.shape) != TABLE_SHAPE or tuple(tab2.shape) != TABLE_SHAPE
-            or tab.dtype != torch.float32 or tab2.dtype != torch.float32
-            or tuple(dv.shape) != (tabulated.CT_NBINS_D,)
-            or dv.dtype != torch.float32
-            or tuple(idx_map.shape) != (tabulated.AUX_N,)
-            or idx_map.dtype != torch.int32):
-        raise ValueError(f"{name}: tab/tab2 f32{list(TABLE_SHAPE)}, dv "
-                         f"f32[{tabulated.CT_NBINS_D}], idx_map "
-                         f"i32[{tabulated.AUX_N}] expected")
+    _check_table(name, tab, tab2, dv, idx_map)
     partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
                            device=derivs.device)
     means = torch.empty(2, dtype=torch.float64, device=derivs.device)
@@ -364,6 +375,47 @@ def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
         dv.data_ptr(), idx_map.data_ptr(), float(np.float32(ampl)),
         tabulated.INTERP.index(interp), partials.data_ptr(), COLLAPSE_BLOCKS,
         means.data_ptr(), kernels.stream_ptr(derivs.device))
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return means
+
+
+def collapse_update_slab_table_plain(derivs, Fmax, tab, tab2, dv, idx_map,
+                                     ampl: float, interp: str):
+    """Plain version of the K13 kernel: see collapse_update_slab_table."""
+    return collapse_update_table_plain(derivs, Fmax, None, 0, tab, tab2, dv,
+                                       idx_map, ampl, interp)
+
+
+def collapse_update_slab_table(derivs, Fmax, tab, tab2, dv, idx_map,
+                               ampl: float, interp: str):
+    """One x-slab of one radius of the out-of-core cycle with the
+    TABULATED_CT / ELL_SNG collapse tables: F from the slab's Hessian
+    components derivs [6, *S] looked up in the radius's table (arguments as
+    collapse_update_table), running max into the slab's Fmax rows [*S] IN
+    PLACE (no Rmax); returns the slab's [mean delta, mean delta^2] float64
+    tensor."""
+    tab2 = _table_pair(interp, tab, tab2)
+    name = f"collapse_update_slab_table_{interp}"
+    if not kernels.plain_or_kernel(name, derivs):
+        return collapse_update_slab_table_plain(derivs, Fmax, tab, tab2, dv,
+                                                idx_map, ampl, interp)
+    kernels.require_cuda(name, derivs, Fmax, tab, tab2, dv, idx_map)
+    n = Fmax.numel()
+    if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
+            or derivs.shape[0] != 6 or derivs[0].numel() != n):
+        raise ValueError(f"{name}: derivs f32[6, *S] and Fmax f32[*S] "
+                         "expected")
+    _check_table(name, tab, tab2, dv, idx_map)
+    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
+                           device=derivs.device)
+    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
+    err = kernels.lib().collapse_update_slab_table(
+        derivs.data_ptr(), Fmax.data_ptr(), ctypes.c_int64(n), tab.data_ptr(),
+        tab2.data_ptr(), dv.data_ptr(), idx_map.data_ptr(),
+        float(np.float32(ampl)), tabulated.INTERP.index(interp),
+        partials.data_ptr(), COLLAPSE_BLOCKS, means.data_ptr(),
+        kernels.stream_ptr(derivs.device))
     kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
     return means

@@ -13,7 +13,8 @@ on a CPU tensor they run the plain PyTorch multiply.  The c2r transforms are
 ``torch.fft`` (cuFFT on the card) in the two-step decomposition of
 ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
 the wrappers of the out-of-core engine's per-kz-batch factors (K10, also in
-``csrc/kspace.cu``).
+``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its gradient with a growth
+table (K14).
 """
 
 from __future__ import annotations
@@ -59,16 +60,21 @@ def _scalar(x, device):
     return torch.tensor(float(x), dtype=torch.float32, device=device)
 
 
-def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int):
-    kx, ky, kz, k2, inv_k2 = inverse_k2(N, kvector.device)
+def _growth_lookup(k2, gtab, glo: float, gdx: float):
+    """The growth of each mode, interpolated linearly in gtab over
+    log10 |k| from glo in steps of gdx."""
     logk = 0.5 * torch.log10(torch.clamp(k2, min=1e-12))
-    t = torch.clamp((logk - _scalar(glo, kvector.device))
-                    / _scalar(gdx, kvector.device), 0.0,
-                    gtab.shape[0] - 1.001)
+    t = torch.clamp((logk - _scalar(glo, k2.device))
+                    / _scalar(gdx, k2.device), 0.0, gtab.shape[0] - 1.001)
     i = t.to(torch.int32)
     w = t - i.float()
     i = i.long()
-    growth = gtab[i] * (1.0 - w) + gtab[i + 1] * w
+    return gtab[i] * (1.0 - w) + gtab[i + 1] * w
+
+
+def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int):
+    kx, ky, kz, k2, inv_k2 = inverse_k2(N, kvector.device)
+    growth = _growth_lookup(k2, gtab, glo, gdx)
     base = kvector * (1j * growth) * inv_k2
     return torch.stack([base * kx, base * ky, base * kz])
 
@@ -114,6 +120,21 @@ def gradient_kspace(kvector, growth: float, N: int):
     return out
 
 
+def _table_args(name, gtab, glo: float, gdx: float, device):
+    """(gtab, ntab, glo, gdx, tmax) of a growth-table kernel whose source
+    lies on ``device``: the float32 scalars and tmax, the float32 clip of
+    the table coordinate."""
+    kernels.require_cuda(name, gtab)
+    if gtab.device != device:
+        raise ValueError(f"{name}: all tensors must be on one CUDA device, "
+                         f"got {gtab.device} and {device}")
+    if gtab.dtype != torch.float32 or gtab.dim() != 1 or gtab.numel() < 2:
+        raise ValueError(f"{name}: gtab must be f32[ntab], ntab >= 2")
+    ntab = gtab.numel()
+    return (gtab.data_ptr(), ntab, float(np.float32(glo)),
+            float(np.float32(gdx)), float(np.float32(ntab - 1.001)))
+
+
 def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
     """i k_a / k^2 * growth(|k|) applied to a k-space source, the growth
     interpolated linearly in a table gtab [ntab] float32 over log10 |k|
@@ -122,17 +143,12 @@ def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
     if not kernels.plain_or_kernel("kspace_gradient_tab", kvector):
         return gradient_kspace_tab_plain(kvector, gtab, glo, gdx, N)
     _check_kspace("kspace_gradient_tab", kvector, N)
-    kernels.require_cuda("kspace_gradient_tab", kvector, gtab)
-    if gtab.dtype != torch.float32 or gtab.dim() != 1 or gtab.numel() < 2:
-        raise ValueError("kspace_gradient_tab: gtab must be f32[ntab], "
-                         "ntab >= 2")
-    ntab = gtab.numel()
     out = torch.empty((3,) + tuple(kvector.shape), dtype=torch.complex64,
                       device=kvector.device)
     err = kernels.lib().kspace_gradient_tab(
-        kvector.data_ptr(), out.data_ptr(), N, gtab.data_ptr(), ntab,
-        float(np.float32(glo)), float(np.float32(gdx)),
-        float(np.float32(ntab - 1.001)), kernels.stream_ptr(kvector.device))
+        kvector.data_ptr(), out.data_ptr(), N,
+        *_table_args("kspace_gradient_tab", gtab, glo, gdx, kvector.device),
+        kernels.stream_ptr(kvector.device))
     kernels.check("kspace_gradient_tab", err)
     kernels.LAUNCHES["kspace_gradient_tab"] += 1
     return out
@@ -177,6 +193,14 @@ def ooc_gradient_plain(src, kz0: int, growth: float, N: int):
     kx, ky, kz, _, inv_k2 = k_batch(N, kz0, src.shape[0], src.device)
     g = float(torch.tensor(growth, dtype=torch.float32))
     base = src * complex(0.0, g) * inv_k2
+    return torch.stack([base * kx, base * ky, base * kz])
+
+
+def ooc_gradient_tab_plain(src, kz0: int, gtab, glo: float, gdx: float,
+                           N: int):
+    kx, ky, kz, k2, inv_k2 = k_batch(N, kz0, src.shape[0], src.device)
+    growth = _growth_lookup(k2, gtab, glo, gdx)
+    base = src * (1j * growth) * inv_k2
     return torch.stack([base * kx, base * ky, base * kz])
 
 
@@ -231,6 +255,17 @@ def ooc_gradient(src, kz0: int, growth: float, N: int):
         return ooc_gradient_plain(src, kz0, growth, N)
     return _launch_batch("ooc_factors_gradient", [src], 3, kz0, N,
                          float(growth))
+
+
+def ooc_gradient_tab(src, kz0: int, gtab, glo: float, gdx: float, N: int):
+    """i k_a / k^2 * growth(|k|) on a source batch, the growth interpolated
+    linearly in a table gtab [ntab] float32 over log10 |k| (as
+    gradient_kspace_tab): complex64 [3, B, N, N]."""
+    if not kernels.plain_or_kernel("ooc_factors_gradient_tab", src):
+        return ooc_gradient_tab_plain(src, kz0, gtab, glo, gdx, N)
+    return _launch_batch("ooc_factors_gradient_tab", [src], 3, kz0, N,
+                         *_table_args("ooc_factors_gradient_tab", gtab, glo,
+                                      gdx, src.device))
 
 
 def ooc_pair(src0, src1, kz0: int, ia: int, ib: int, N: int):

@@ -23,6 +23,7 @@ from .cosmology import Cosmology
 
 GiB = float(2 ** 30)
 DELTA_C = 1.686
+GROWTH_NTAB = 512       # entries of a growth table (fmax.growth_k_tables)
 # torch.sort of the whole grid (ops.compact.needed_order) in units of one
 # float32 field: the key and its mask (1.25), the int64 iota (2), the sorted
 # keys and indices (3) and the radix sort's work area (about 4): the
@@ -97,6 +98,7 @@ def _ooc_phases(params: Params, frac: float) -> dict:
     """The out-of-core engine's (fmax_ooc.run_fmax_ooc) arrays at each
     phase's peak."""
     from .fmax_ooc import KZ_BATCH, X_SLAB, divisor_batch
+    from .ops import tabulated
     s = _sizes(params, frac)
     N, f, h, count, nf = s["N"], s["f"], s["k"], s["count"], s["nf"]
     B = min(params.ooc_kz_batch or KZ_BATCH, N // 2 + 1)
@@ -112,7 +114,14 @@ def _ooc_phases(params: Params, frac: float) -> dict:
     def slab(ncomp, extra=0):
         return dict(slab=ncomp * half_slab + (ncomp + extra) * real_slab)
 
-    phases = {"cycle": dict(hessian_stack=6 * h, fmax=f,
+    # a radius's TABULATED_CT / ELL_SNG table pair with the delta grid and
+    # the aux map; the four growth tables over log10 |k| of one set
+    nxy, nd = tabulated.CT_NBINS_XY, tabulated.CT_NBINS_D
+    ct = (dict(ct_tables=4.0 * (2 * nxy * nxy * nd + nd + tabulated.AUX_N))
+          if params.ell_model != "classic" else {})
+    gt = (dict(growth_tables=4 * 4.0 * GROWTH_NTAB)
+          if params.scale_dependent or params.mod_grav_fr else {})
+    phases = {"cycle": dict(hessian_stack=6 * h, fmax=f, **ct,
                             **batch(6, 1))}
     order = params.lpt_order
     if order >= 2:
@@ -128,7 +137,7 @@ def _ooc_phases(params: Params, frac: float) -> dict:
     phases["v-streams"] = dict(fmax=f, row_rank=f + 4.0 * count,
                                source_spectra=nspec * h,
                                displacement_stack=3 * h,
-                               rows_of_one_field=12.0 * count,
+                               rows_of_one_field=12.0 * count, **gt,
                                **batch(3, 1))
     return phases
 
@@ -146,18 +155,27 @@ def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
     return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
 
 
-def host_sweep_bytes(params: Params, frac: float) -> float:
-    """Host bytes of the one-sub-box fragmentation: the needed particles'
-    products (cell index, F, the rows of every field and set), the sweep's
-    per-particle arrays, its peak groups and the grid's row map."""
+def host_phases(params: Params, frac: float) -> dict:
+    """Host bytes of the run by phase, array by array: at the end of fmax,
+    the needed particles' products (cell index, F and the rows of every
+    field of every displacement set); during the one-sub-box sweep, the
+    same products, the sweep's per-particle arrays, its peak groups and the
+    grid's row map."""
     s = _sizes(params, frac)
     n = s["count"]
-    products = n * (8 + 4 + 12 * s["nf"] * s["nseg"])
-    sweep = n * (4 + 4 + 4 + 4 + 4)          # F, pos, gop, zacc, join_F
+    products = dict(cell_index=8.0 * n, F=4.0 * n,
+                    rows=12.0 * n * s["nf"] * s["nseg"])
     groups = PEAKS_PER_STORED * n * (
         GROUP_BYTES + GROUP_BYTES_PER_OUTPUT * len(params.output_z)
         + GROUP_BYTES_PER_FIELD * s["nf"])
-    return products + sweep + groups + 4.0 * s["N"] ** 3
+    sweep = dict(products, sweep_arrays=20.0 * n,   # F, pos, gop, zacc,
+                 groups=groups, row_map=4.0 * s["N"] ** 3)   # join_F
+    return {"fmax": products, "sweep": sweep}
+
+
+def host_sweep_bytes(params: Params, frac: float) -> float:
+    """Host bytes of the one-sub-box fragmentation (host_phases)."""
+    return sum(host_phases(params, frac)["sweep"].values())
 
 
 def device_memory(device) -> float:
@@ -192,16 +210,20 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None) -> dict:
     else:
         use_ooc = False
     chosen = ooc if use_ooc else dense
-    host = host_sweep_bytes(params, frac)
-    host_limit = host_memory()
+    hphases = host_phases(params, frac)
     if torch.device(device).type == "cpu":
         # device arrays live in host memory too
-        host += chosen["peak"]
+        for arrays in hphases.values():
+            arrays["device_arrays"] = chosen["peak"]
+    htotals = {p: sum(a.values()) for p, a in hphases.items()}
+    hphase = max(htotals, key=htotals.get)
+    host, host_limit = htotals[hphase], host_memory()
     return dict(grid=params.GridSize, device=str(device), frac=frac,
                 device_limit=limit, dense=dense, ooc=ooc, use_ooc=use_ooc,
                 engine="out-of-core" if use_ooc else "dense",
                 device_bytes=chosen["peak"],
                 fits_device=chosen["peak"] < limit,
+                host=dict(phases=hphases, phase=hphase),
                 host_bytes=host, host_limit=host_limit,
                 fits_host=host < host_limit)
 
@@ -232,10 +254,16 @@ def format_memory_map(report: dict) -> str:
     lines.append(f"  the {'dense' if report['use_ooc'] else 'out-of-core'} "
                  f"engine would peak at {other['peak'] / GiB:.2f} GiB "
                  f"({other['phase']})")
-    lines.append(f"  host memory of the sweep:   "
+    host = report["host"]
+    lines.append(f"  host memory, peak phase ({host['phase']}): "
                  f"{report['host_bytes'] / GiB:.2f} GiB of "
                  f"{report['host_limit'] / GiB:.2f} GiB "
                  f"{'(OK)' if report['fits_host'] else '(EXCEEDS HOST!)'}")
+    for name, b in host["phases"][host["phase"]].items():
+        lines.append(f"     {name:<22s} {b / GiB:9.3f} GiB")
+    lines.append("  host phases: " + ", ".join(
+        f"{p} {sum(a.values()) / GiB:.2f}"
+        for p, a in host["phases"].items()) + " GiB")
     return "\n".join(lines)
 
 

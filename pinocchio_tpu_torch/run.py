@@ -5,13 +5,13 @@ The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
 RECOMPUTE_DISPLACEMENTS; one sub-box, no PLC.  The planner picks the fmax
 engine: the dense one, or, with ooc 'on', or 'auto' when the dense engine
-does not fit the device, the out-of-core one (classic ellipsoid,
-scale-independent growth); it aborts with the memory map when the chosen
-engine does not fit.
+does not fit the device, the out-of-core one; it aborts with the memory map
+when the chosen engine does not fit.  DumpProducts writes the products after
+fmax; ReadProductsFromDumps reads them instead of running IC and fmax.
 
   initialization -> plan -> fmax (collapse times + displacements, on the
-  device) -> fragmentation (host C sweep) -> catalogs / mass functions /
-  histories
+  device; or the products read from a dump) -> fragmentation (host C sweep)
+  -> catalogs / mass functions / histories
 
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [--norad]
@@ -47,8 +47,6 @@ def check_supported(params: Params) -> None:
     if params.ooc not in ("on", "off", "auto"):
         raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
                          f"{params.ooc!r}")
-    if params.DumpProducts or params.ReadProductsFromDumps:
-        no("product dumps", 8)
     if params.WriteTimelessSnapshot:
         no("the timeless snapshot", 8)
     if params.ooc == "on":
@@ -75,6 +73,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
     from .io import catalogs as io_cat
+    from .io import dumps
     from .planner import enforce_budget
 
     dev = resolve_device(device)
@@ -108,13 +107,24 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     # the engine that fits the device, or an abort with the memory map
     # before any allocation
     plan = enforce_budget(params, dev, cosmo, verbose=verbose)
-    if plan["use_ooc"]:
+    if params.ReadProductsFromDumps:
+        # no IC and no fmax (pinocchio.c:220-236)
+        fmax_res = dumps.read_dumps(params, outdir)
+        if verbose:
+            print("[fmax] products read from dumps")
+    elif plan["use_ooc"]:
         check_ooc_supported(params)
-        fmax_res = run_fmax_ooc(params, cosmo, dev, verbose=verbose)
+        fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
+                                verbose=verbose)
     else:
         fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
                             verbose=verbose)
     timings.update({"fmax_" + k: v for k, v in fmax_res.timings.items()})
+    if (params.DumpProducts and write_outputs
+            and not params.ReadProductsFromDumps):
+        t0 = time.perf_counter()
+        dumps.dump_products(params, fmax_res, outdir)
+        timings["dump"] = time.perf_counter() - t0
 
     t_frag = time.perf_counter()
     frag_res = run_fragmentation(params, cosmo, fmax_res,
@@ -129,9 +139,11 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     written = []
     if write_outputs:
         t0 = time.perf_counter()
-        fmax_pdf(fmax_res.pdf_hist,
-                 os.path.join(outdir,
-                              f"pinocchio.{params.RunFlag}.FmaxPDF.out"))
+        if fmax_res.pdf_hist is not None:
+            # not after a restart: the dumping run wrote it
+            fmax_pdf(fmax_res.pdf_hist,
+                     os.path.join(outdir,
+                                  f"pinocchio.{params.RunFlag}.FmaxPDF.out"))
         largest = io_cat.largest_halo_mass(params, cosmo)
         for snap in frag_res.catalogs:
             written.append(io_cat.write_catalog(params, snap, outdir))
@@ -201,6 +213,7 @@ def write_cputimes(t: dict):
     line("source spectra", "fmax_spectra", 2)
     line("displacement rows", "fmax_lpt_rows", 2)
     line("needed-particle products", "fmax_products", 1)
+    line("product dump", "dump", 1)
     line("fragmentation", "frag_total", 1)
     line("group sweep", "frag_sweep", 2)
     line("I/O", "io", 1)

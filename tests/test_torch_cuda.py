@@ -21,7 +21,11 @@ FmaxPDF histogram) are exactly equal.  The out-of-core engine's kernels:
 K9 (kz planes), K10 (the three factor modes, on contiguous and strided
 batches), K11 (K3 on a slab, no Rmax) and K12 (the slab row scatter) are
 exactly equal to their plain versions; K4's one-pair accumulation is within
-1e-5 of the maximum.
+1e-5 of the maximum.  K13 (K7 on a slab, no Rmax; three lookups) is
+exactly equal to its plain version and to K7 on the rare-branch batches and
+on Gaussian Hessians; K14 (the gradient mode with a growth table, on
+contiguous and strided batches) is exactly equal to its plain version and
+to K8's values at the same modes.
 """
 
 import numpy as np
@@ -429,6 +433,60 @@ def test_src32_accumulate_one_pair(dev):
     assert (acc - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", tabulated.INTERP)
+def test_collapse_update_slab_table(dev, tables, interp):
+    """K13 on a ragged slab is K7 without Rmax, exactly, and its plain
+    version, on Gaussian Hessians and on the rare-branch batches."""
+    ampl, t = tables
+    args = (t["tables"][0], t["tables2"][0], t["dv"], t["idx_map"],
+            float(ampl[0]), interp)
+    special = special_hessians(np.random.default_rng(8))
+    rare = torch.from_numpy(np.concatenate([special[k] for k in SPECIAL],
+                                           axis=1).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(1)
+    for sd in (_hessians(dev)[:, 10:20].contiguous(), rare):
+        shape = sd.shape[1:]
+        F0 = torch.from_numpy(rng.uniform(-10.0, 4.0, shape)
+                              .astype(np.float32)).to(dev)
+        Fk, Fp, F7 = F0.clone(), F0.clone(), F0.clone()
+        mk = _launched(f"collapse_update_slab_table_{interp}",
+                       lambda: collapse.collapse_update_slab_table(sd, Fk,
+                                                                   *args))
+        mp = collapse.collapse_update_slab_table_plain(sd, Fp, *args)
+        R7 = torch.zeros_like(F0, dtype=torch.int32)
+        collapse.collapse_update_table(sd, F7, R7, 1, *args)
+        assert torch.equal(Fk, F7), _mismatch(Fk, F7)
+        assert torch.equal(Fk, Fp), _mismatch(Fk, Fp)
+        assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ooc_factors_gradient_tab(dev):
+    """K14 on a contiguous plane batch and on a strided batch of a resident
+    spectrum: exactly its plain version, and K8's values at those modes."""
+    p = Params(GridSize=N, BoxSize=float(N), output_z=[0.0], norad=True,
+               plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
+               scale_dependent=True)
+    spec = rfft3(_hessians(dev)[0])
+    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(p), 0.5, N, dev)
+    dense = derivatives.gradient_kspace_tab(spec, gtabs[2], glo, gdx, N)
+    for kz0, B in ((0, 16), (16, 10)):
+        planes = spec[:, :, kz0:kz0 + B].permute(2, 0, 1).contiguous()
+        view = spec[:, :, kz0:kz0 + B].permute(2, 0, 1)
+        for src in (planes, view):
+            got = _launched("ooc_factors_gradient_tab",
+                            lambda: derivatives.ooc_gradient_tab(
+                                src, kz0, gtabs[2], glo, gdx, N))
+            want = derivatives.ooc_gradient_tab_plain(src, kz0, gtabs[2],
+                                                      glo, gdx, N)
+            assert torch.equal(torch.view_as_real(got),
+                               torch.view_as_real(want))
+            k8 = dense[..., kz0:kz0 + B].permute(0, 3, 1, 2)
+            assert torch.equal(torch.view_as_real(got),
+                               torch.view_as_real(k8))
+
+
 @pytest.mark.parametrize("name,fn", [
     ("ic_kdensity_planes", lambda t: ic.kdensity_planes(
         4, t, t, t, 0, 1, 0.0, 1.0, False, False)),
@@ -439,6 +497,11 @@ def test_src32_accumulate_one_pair(dev):
     ("collapse_update_slab", lambda t: collapse.collapse_update_slab(
         t, t, [])),
     ("vrows_slab", lambda t: compact.vrows_slab(t, t, t)),
+    ("collapse_update_slab_table_bilinear",
+     lambda t: collapse.collapse_update_slab_table(t, t, t, t, t, t, 1.0,
+                                                   "bilinear")),
+    ("ooc_factors_gradient_tab", lambda t: derivatives.ooc_gradient_tab(
+        t, 0, t, 0.0, 1.0, 4)),
     ("kspace_hessian", lambda t: derivatives.hessian_kspace(t, 0.0, 4)),
     ("collapse_update", lambda t: collapse.collapse_update(t, t, t, 0, [])),
     ("lpt_sources_pointwise", lambda t: lpt.sources_pointwise(t)),

@@ -143,11 +143,13 @@ def _jax_k(jeng, kz0, B):
     return kxp, kyp, kzv, inv
 
 
-@pytest.mark.parametrize("mode", ["hessian", "gradient", "pair"])
+@pytest.mark.parametrize("mode", ["hessian", "gradient", "pair",
+                                  "gradient_tab"])
 def test_ooc_factors_match_jax(setup, gen, mode):
-    """K10's plain twin against the JAX engine's factors (fmax_ooc.py
-    _facs_hessian, and the expressions of build_first_batch and
-    build_pair_batch) times the same delta batch."""
+    """K10's and K14's plain twins against the JAX engine's factors
+    (fmax_ooc.py _facs_hessian, and the expressions of build_first_batch,
+    with a constant and with a tabulated growth, and build_pair_batch)
+    times the same delta batch."""
     jp, jc, _, _ = setup
     jeng = JaxOocEngine(jp, jc, verbose=False)
     kz0, B = 3, 7
@@ -163,6 +165,21 @@ def test_ooc_factors_match_jax(setup, gen, mode):
         base = dj * (1j * (inv * jnp.float32(0.8)))
         want = [base * kc for kc in kv]
         got = derivatives.ooc_gradient(torch.from_numpy(d), kz0, 0.8, N)
+    elif mode == "gradient_tab":
+        gtab = (0.6 + 0.3 * np.sin(np.arange(512) / 40.0)).astype(np.float32)
+        glo, gdx = np.float32(-3.0), np.float32(0.01)
+        k2 = kxp * kxp + kyp * kyp + kzv * kzv
+        logk = 0.5 * jnp.log10(jnp.maximum(k2, 1e-12))
+        t = jnp.clip((logk - glo) / gdx, 0.0, gtab.shape[0] - 1.001)
+        it = t.astype(jnp.int32)
+        wt = t - it.astype(jnp.float32)
+        jt = jnp.asarray(gtab)
+        g = jt[it] * (1.0 - wt) + jt[it + 1] * wt
+        base = dj * (1j * (inv * g))
+        want = [base * kc for kc in kv]
+        got = derivatives.ooc_gradient_tab(torch.from_numpy(d), kz0,
+                                           torch.from_numpy(gtab), float(glo),
+                                           float(gdx), N)
     else:
         d2 = np.conj(d[:, ::-1]).copy()
         want, got = [], []
@@ -290,13 +307,7 @@ def test_pipeline_ooc_against_dense(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(ell_model="tabulated"), "item 11"),
-    (dict(ell_model="sng"), "item 11"),
-    (dict(scale_dependent=True), "item 11"),
-    (dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True), "item 11"),
-    (dict(recompute_displacements=True), "item 11"),
     (dict(ooc_dtype="bfloat16"), "item 11"),
-    (dict(DumpProducts=True), "item 8"),
     (dict(WriteTimelessSnapshot=True), "item 8"),
 ])
 def test_unsupported_ooc_raises(overrides, item):

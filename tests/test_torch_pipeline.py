@@ -27,7 +27,7 @@ import torch
 
 from pinocchio_tpu.ops import derivatives as jder
 from pinocchio_tpu.run import run_pipeline as jax_run_pipeline
-from pinocchio_tpu_torch import fmax
+from pinocchio_tpu_torch import fmax, fmax_ooc
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.ops import collapse
@@ -148,17 +148,20 @@ def test_sparse_products_are_sweep_ordered(runs):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The four paths (classic; tabulated bicubic; f(R) growth with
-    RECOMPUTE_DISPLACEMENTS; the out-of-core engine) run without importing
-    jax or any module of the JAX package."""
+    """The paths (classic; tabulated bicubic; f(R) growth with
+    RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
+    a product dump; a restart from that dump) run without importing jax or
+    any module of the JAX package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
         "from pinocchio_tpu_torch.run import run_pipeline\n"
-        "for kw in ({}, dict(ell_model='tabulated', ct_interp='bicubic'),\n"
-        "           dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,\n"
-        "                recompute_displacements=True,"
-        " MaxMemPerParticle=400), dict(ooc='on')):\n"
+        "tab = dict(ell_model='tabulated', ct_interp='bicubic')\n"
+        "fr = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,\n"
+        "          recompute_displacements=True, MaxMemPerParticle=400)\n"
+        "for kw in ({}, tab, fr, dict(ooc='on'), dict(tab, ooc='on'),\n"
+        "           dict(fr, ooc='on', DumpProducts=True),\n"
+        "           dict(fr, ReadProductsFromDumps=True)):\n"
         "    p = Params(GridSize=16, BoxSize=16.0, output_z=[1.0, 0.0],"
         " norad=True, plc_enabled=False, **kw)\n"
         f"    run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
@@ -189,19 +192,27 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     dict(ell_model="sng"), dict(ell_model="tabulated", ct_interp="bilinear"),
     dict(scale_dependent=True), dict(recompute_displacements=True),
     dict(ooc="on"), dict(ooc="auto"),
-    dict(ooc="auto", ell_model="tabulated")])
+    dict(ooc="auto", ell_model="tabulated"),
+    # the out-of-core engine with every collapse and growth model, and the
+    # product dumps on either engine
+    dict(ooc="on", ell_model="tabulated"), dict(ooc="on", ell_model="sng"),
+    dict(ooc="on", scale_dependent=True),
+    dict(ooc="on", mod_grav_fr=True, fr0=1e-5, scale_dependent=True),
+    dict(ooc="on", recompute_displacements=True),
+    dict(ooc="on", DumpProducts=True), dict(DumpProducts=True),
+    dict(ReadProductsFromDumps=True)])
 def test_features_in_the_slice_are_accepted(overrides):
     p = _params(16)
     for k, v in overrides.items():
         setattr(p, k, v)
     check_supported(p)
+    if p.ooc == "on":
+        fmax_ooc.check_ooc_supported(p)
 
 
 @pytest.mark.parametrize("overrides,item", [
     (dict(StartingzForPLC=1.0), "item 8"),
     (dict(subbox_tasks=4), "item 9"),
-    (dict(ooc="on", ell_model="tabulated"), "item 11"),
-    (dict(DumpProducts=True), "item 8"),
     (dict(WriteTimelessSnapshot=True), "item 8"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):

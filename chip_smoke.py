@@ -13,7 +13,8 @@
    version and, where one exists, the one PyTorch call that computes the
    same function (median of 5, CUDA events); each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
-   (float32 outside the tensor cores);
+   (float32 outside the tensor cores); times special mode 2's
+   density_field (a library c2r) beside its bound and irfftn;
 4. drives each path through run_pipeline, with the launch counters reset
    just before it and read just after, and checks its outputs (catalogs and
    mass functions at 4 redshifts with halos, FmaxPDF, histories, the
@@ -31,14 +32,27 @@
      ooc_scaledep    the out-of-core engine with f(R) growth, RECOMPUTE
                  and DumpProducts, 256^3, then a ReadProductsFromDumps run
                  that must launch no kernel and give the same catalogs;
-5. runs the classic path at 48^3 and the tabulated and scaledep paths at
-   64^3 on the card and on the CPU (the plain versions) and holds the halo
-   catalogs to each other;
+     plc         the classic path with the past light cone (z 0.3 to 0,
+                 30 degrees) and the timeless snapshot with RMAX, 256^3:
+                 the PLC catalog and n(z) beside the prediction, crossings
+                 in range and aperture, no overflow, every snapshot block
+                 N^3 long, FMAX and RMAX equal to the run's, GRUP a group
+                 name;
+   then the special modes at 256^3 through run_special_mode: 1 (the CT
+   table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
+   and its variance the classic path's R=0 grid variance), 3 (the LPT
+   snapshot: the classic launch set, POS equal to q + the classic path's
+   displacement rows at the needed cells);
+5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
+   and the plc path at 64^3 (z 0.1) on the card and on the CPU (the plain
+   versions) and holds the halo catalogs and the PLC crossings to each
+   other;
 6. holds the out-of-core engine to the dense engine at 256^3, the dense one
    fed the delta assembled from the engine's kz planes (Fmax, variances, the
    needed set and its order, the rows of every displacement set, halo
-   counts), for the classic ellipsoid, the bicubic lookup and f(R) growth
-   with RECOMPUTE, with each engine's peak memory beside the planner's;
+   counts), for the classic ellipsoid with the PLC (the crossings must be
+   identical), the bicubic lookup and f(R) growth with RECOMPUTE, with
+   each engine's peak memory beside the planner's;
 7. runs the out-of-core fmax phase at 512^3 (ooc='on') and at 1024^3
    under ooc='auto' (classic, bicubic lookup, f(R) growth), where the
    planner must choose the out-of-core engine; prints its map, each phase's
@@ -49,10 +63,17 @@
 8. checks that neither jax nor any module of the JAX package was imported;
 9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
+
+    python3 chip_smoke.py --only plc,modes,reference:plc
+
+runs only the named phases (kernels, density_field, a path's name, modes,
+reference:<path>, ooc_dense:<name>, ooc_fmax, big, refusal) and prints no
+JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -60,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +125,12 @@ OOC_COMMON = {"ic_kdensity_planes", "ooc_factors_hessian", "ooc_factors_pair",
 OOC = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient"}
 OOC_FR = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient_tab"}
 TAB = dict(ell_model="tabulated", ct_interp="bicubic")
+# the past light cone from the default vertex along the default axis, and
+# the timeless snapshot with its RMAX block
+PLC = dict(plc_enabled=True, StartingzForPLC=0.3, LastzForPLC=0.0,
+           PLCAperture=30.0, PLCProvideConeData=True)
+SNAPSHOT = dict(WriteTimelessSnapshot=True, add_rmax_to_snapshot=True)
+CLASSIC = DENSE | {"collapse_update", "kspace_gradient"}
 
 
 def ooc_tab(interp):
@@ -115,14 +143,13 @@ OOC_N = 512
 OOC_CHECK_N = 256
 BIG_N = 1024
 # out-of-core against dense at OOC_CHECK_N: name -> switches
-OOC_CHECKS = {"classic": {}, "tabulated": TAB, "scaledep": FR}
+OOC_CHECKS = {"classic": PLC, "tabulated": TAB, "scaledep": FR}
 # the fmax phase at BIG_N under ooc='auto': name -> (switches, launch set)
 BIG = {"classic": ({}, OOC), "tabulated": (TAB, ooc_tab("bicubic")),
        "scaledep": (dict(FR, recompute_displacements=False), OOC_FR)}
 # name -> (grid size, Params switches, the path's launch set)
 PATHS = {
-    "classic": (PIPELINE_N, {}, DENSE | {"collapse_update",
-                                         "kspace_gradient"}),
+    "classic": (PIPELINE_N, {}, CLASSIC),
     "tabulated": (PIPELINE_N, dict(ell_model="tabulated",
                                    ct_interp="bicubic"),
                   DENSE | {"collapse_update_table_bicubic",
@@ -147,9 +174,15 @@ PATHS = {
                                ooc_tab("bilinear")),
     "ooc_scaledep": (PIPELINE_N, dict(FR, ooc="on", DumpProducts=True),
                      OOC_FR),
+    "plc": (PIPELINE_N, dict(PLC, **SNAPSHOT), CLASSIC),
 }
-# card-vs-CPU checks: path -> grid size
-REFERENCE = {"classic": 48, "tabulated": 64, "scaledep": 64}
+# card-vs-CPU checks: path -> (grid size, switches over the path's); the
+# plc path's cone stops at z 0.1, as a deeper one fills the crossing buffer
+# (4 Nmax) of a 64 Mpc/h box
+REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
+             "plc": (64, dict(StartingzForPLC=0.1))}
+# host products of the classic path, for the special modes' checks
+KEPT = {}
 
 
 class CheckFailed(RuntimeError):
@@ -188,8 +221,10 @@ def bound(name, nbytes, nelem):
 
 def params_for(N, **kw):
     from pinocchio_tpu_torch.config import Params
-    return Params(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
-                  norad=True, plc_enabled=False, **kw)
+    args = dict(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
+                norad=True, plc_enabled=False)
+    args.update(kw)
+    return Params(**args)
 
 
 def kernel_phases(N, dev, report):
@@ -601,6 +636,39 @@ def kernel_phases(N, dev, report):
     report[N] = rec
 
 
+def density_field_phase(N, dev, report):
+    """Special mode 2's density_field at N^3: the port's two-step c2r of
+    K1's delta (a library call; there is no plain version), its bound (read
+    the spectrum once, write the field once) and torch.fft.irfftn of the
+    same input; fills report[N]["density_field"]."""
+    import torch
+    from pinocchio_tpu_torch import ic
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid
+    from pinocchio_tpu_torch.ops import derivatives
+
+    p = params_for(N)
+    delta = ic.generate_kdensity(Grid(N, p.BoxSize_htrue), Cosmology(p),
+                                 p.RandomSeed, dev)
+    dens = derivatives.density_field(delta, N)
+    need(tuple(dens.shape) == (N, N, N) and bool(torch.isfinite(dens).all()),
+         f"density_field at {N}^3: not a finite [N, N, N] field")
+    full = torch.fft.irfftn(delta, s=(N, N, N), dim=(-3, -2, -1))
+    diff = (full - dens).abs().max().item() / dens.abs().max().item()
+    nbytes = 8 * N * N * (N // 2 + 1) + 4 * N ** 3
+    rec = dict(ms=time_ms(lambda: derivatives.density_field(delta, N)),
+               bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+               library_ms=time_ms(lambda: torch.fft.irfftn(
+                   delta, s=(N, N, N), dim=(-3, -2, -1))))
+    print(f"  [{N}^3] density_field (ifft2 + irfft, cuFFT): "
+          f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms (bytes), "
+          f"irfftn {rec['library_ms']:.3f} ms (differs by {diff:.1e} of "
+          f"max|delta|)", flush=True)
+    report.setdefault(N, {})["density_field"] = rec
+    del delta, dens, full
+    torch.cuda.empty_cache()
+
+
 def c2r_check(dev):
     """The two c2r decompositions at 64^3 on a gradient-mode input (not
     Hermitian on the kx and ky Nyquist planes): the port's ifft2 + irfft on
@@ -630,6 +698,45 @@ def c2r_check(dev):
          "the CPU transform")
 
 
+def host_rss():
+    """This process's resident set in bytes (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as fd:
+        for line in fd:
+            if line.startswith("VmRSS:"):
+                return float(line.split()[1]) * 1024.0
+    return 0.0
+
+
+class HostPeak:
+    """The largest resident set of this process while the block runs,
+    sampled every 5 ms by a thread, less its size at the start."""
+
+    def __enter__(self):
+        self.base = self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, host_rss())
+
+    def line(self, report):
+        """The run's host peak beside the planner's estimate of its largest
+        host phase."""
+        grew, pred = self.peak - self.base, report["host_bytes"]
+        return (f"host peak {grew / GiB:.2f} GiB above the start (VmRSS "
+                f"sampled every 5 ms), planner {pred / GiB:.2f} GiB "
+                f"({report['host']['phase']}; measured/predicted "
+                f"{grew / pred:.3f})")
+
+
 def run_path(dev, name):
     """Drive one path through run_pipeline with the launch counts set to 0
     just before it; returns (launch counts, timings)."""
@@ -645,8 +752,9 @@ def run_path(dev, name):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        res = run_pipeline(p, outdir=out, device=dev, verbose=False)
-        torch.cuda.synchronize()
+        with HostPeak() as host:
+            res = run_pipeline(p, outdir=out, device=dev, verbose=False)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -655,7 +763,8 @@ def run_path(dev, name):
         print(f"  {name} path {N}^3: {wall:.2f} s wall, {res['plan']['engine']}"
               f" engine, peak device memory {peak / GiB:.2f} GiB, planner "
               f"{pred / GiB:.2f} GiB ({res['plan']['ooc' if res['plan']['use_ooc'] else 'dense']['phase']}; "
-              f"measured/predicted {peak / pred:.3f})", flush=True)
+              f"measured/predicted {peak / pred:.3f}); "
+              + host.line(res["plan"]), flush=True)
         need(res["plan"]["use_ooc"] == (p.ooc == "on"),
              f"{name}: the planner chose the {res['plan']['engine']} engine")
         print("  phases: " + ", ".join(
@@ -691,6 +800,11 @@ def run_path(dev, name):
                  "expected")
         if p.DumpProducts:
             restart_check(dev, p, out, res)
+        if p.plc_enabled:
+            plc_checks(p, res, out)
+        if name == "classic":
+            KEPT["classic"] = (res["fmax"].host_products,
+                               sv.copy())
     print(f"  launches on the {name} path: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     expected = own
@@ -701,6 +815,177 @@ def run_path(dev, name):
     need(not stray, f"kernels of other paths launched on the {name} path: "
          f"{stray}")
     return launches, res["timings"]
+
+
+def plc_checks(p, res, out):
+    """The past light cone and the timeless snapshot of the run ``res``
+    that wrote into ``out``: the files; crossings stored without overflow,
+    their redshifts in the cone's range (+- 0.02, the crossing solve's
+    tolerance) and their directions inside the aperture; n(z) beside the
+    analytic prediction; every snapshot block N^3 entries long, FMAX and
+    RMAX equal to the run's Fmax and Rmax, GRUP 0, 1 or a group's name."""
+    import numpy as np
+    from pinocchio_tpu_torch.io.snapshot import read_snapshot
+
+    N = p.GridSize
+    files = set(os.listdir(out))
+    for kind in ("plc", "nz", "t_snapshot"):
+        need(f"pinocchio.{p.RunFlag}.{kind}.out" in files,
+             f"plc: missing pinocchio.{p.RunFlag}.{kind}.out")
+    plc = res["frag"].plc
+    n = len(plc.z)
+    zlo = min(p.StartingzForPLC, p.LastzForPLC)
+    zhi = max(p.StartingzForPLC, p.LastzForPLC)
+    axis = np.asarray(p.PLCAxis, float) / np.linalg.norm(p.PLCAxis)
+    rho = np.linalg.norm(plc.x, axis=1)
+    ang = np.degrees(np.arccos(np.clip(plc.x @ axis / rho, -1.0, 1.0)))
+    print(f"  PLC: {n} crossings, overflow {plc.overflow}, z in "
+          f"[{plc.z.min():.4f}, {plc.z.max():.4f}] (need [{zlo - 0.02:g}, "
+          f"{zhi + 0.02:g}]), largest angle from the axis {ang.max():.4f} "
+          f"deg (need < {p.PLCAperture + 1e-3:g})", flush=True)
+    need(n > 0 and not plc.overflow, "plc: no crossings, or the buffer "
+         "overflowed")
+    need(plc.z.min() >= zlo - 0.02 and plc.z.max() <= zhi + 0.02,
+         "plc: crossing redshifts outside the cone's range")
+    need(ang.max() < p.PLCAperture + 1e-3, "plc: crossings outside the "
+         "aperture")
+    nz = np.atleast_2d(np.loadtxt(os.path.join(
+        out, f"pinocchio.{p.RunFlag}.nz.out")))
+    for zl, zh, cnt, _, pred in nz:
+        print(f"  n(z) [{zl:.3f}, {zh:.3f}]: {cnt:.0f} crossings, prediction "
+              f"{pred:.0f}, ratio {cnt / pred:.4f}", flush=True)
+    print(f"  n(z) total: {nz[:, 2].sum():.0f} crossings, prediction "
+          f"{nz[:, 4].sum():.0f}, ratio {nz[:, 2].sum() / nz[:, 4].sum():.4f}",
+          flush=True)
+    _, blocks = read_snapshot(os.path.join(
+        out, f"pinocchio.{p.RunFlag}.t_snapshot.out"))
+    size = {"ID  ": 8, "RMAX": 4, "FMAX": 4, "VEL ": 12, "VEL2": 12,
+            "VL31": 12, "VL32": 12, "ZACC": 4, "GRUP": 8}
+    for label, b in size.items():
+        need(len(blocks.get(label, b"")) == b * N ** 3,
+             f"plc: snapshot block {label!r} does not hold {N}^3 entries")
+    fm = res["fmax"].products
+    F = np.frombuffer(blocks["FMAX"], np.float32)
+    R = np.frombuffer(blocks["RMAX"], np.int32)
+    same_F = np.array_equal(F, fm.Fmax.cpu().numpy().ravel())
+    same_R = np.array_equal(R, fm.Rmax.cpu().numpy().ravel())
+    grup = np.frombuffer(blocks["GRUP"], np.uint64)
+    names = np.concatenate([[0, 1], res["frag"].groups.name]).astype(
+        np.uint64)
+    named = np.isin(grup, names)
+    print(f"  snapshot: {len(size)} blocks of {N}^3, FMAX equal to the run's "
+          f"Fmax: {same_F}, RMAX equal to its Rmax: {same_R}, GRUP a group "
+          f"name (or 0, 1) on {100 * named.mean():.4f} % "
+          f"({int((grup > 1).sum())} particles in named groups)", flush=True)
+    need(same_F and same_R, "plc: snapshot FMAX or RMAX differ from the run")
+    need(named.all(), "plc: snapshot GRUP holds values that name no group")
+
+
+def special_modes(dev):
+    """run_special_mode at PIPELINE_N with the launch counts set to 0 just
+    before each mode: 1 writes the CT table and launches no kernel; 2
+    launches K1 alone and calls density_field once, its density has mean 0
+    (to 1e-6 max|delta|) and the variance of the classic path's R=0 grid
+    (to 1e-4); 3 has the classic launch set and its POS equals q + the sum
+    of the classic path's rows at the needed cells (periodically, to 1e-5
+    of the box).  Returns the mode-2 run's density_field calls."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import kernels, planner
+    from pinocchio_tpu_torch.fmax import Smoothing
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.io.snapshot import read_snapshot
+    from pinocchio_tpu_torch.ops import derivatives, tabulated
+    from pinocchio_tpu_torch.run import run_special_mode
+
+    if "classic" not in KEPT:
+        run_path(dev, "classic")
+    sp, true_variance = KEPT["classic"]
+    N = PIPELINE_N
+    p = params_for(N)
+    calls = []
+    real_density_field = derivatives.density_field
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real_density_field(*a, **k)
+
+    with tempfile.TemporaryDirectory() as out:
+        walls = {}
+        for mode in (1, 2, 3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            derivatives.density_field = counted
+            t0 = time.perf_counter()
+            try:
+                with HostPeak() as host:
+                    path = run_special_mode(p, mode, out, device=dev,
+                                            verbose=False)
+            finally:
+                derivatives.density_field = real_density_field
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            hline = ""
+            if mode == 3:
+                hline = ", " + host.line(planner.plan(p, dev,
+                                                      dense_products=True))
+            print(f"  mode {mode} {N}^3: {walls[mode]:.2f} s wall, "
+                  f"{os.path.basename(path)} {os.path.getsize(path)} bytes, "
+                  f"peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB"
+                  f"{hline}, launches {launched}", flush=True)
+            if mode == 1:
+                need(not launched, f"mode 1 launched kernels: {launched}")
+                sm = Smoothing.build(p, Cosmology(p))
+                tabs = tabulated.read_ct_table_file(path, p, sm)
+                need(tabs.shape[0] == sm.n and np.all(np.isfinite(tabs))
+                     and tabs.max() > 1.0, "mode 1: implausible CT table")
+            elif mode == 2:
+                need(launched == {"ic_kdensity": 1} and len(calls) == 1,
+                     f"mode 2: launches {launched}, density_field called "
+                     f"{len(calls)} times (need K1 once, one call)")
+                dens = np.frombuffer(read_snapshot(path)[1]["DENS"],
+                                     np.float32).astype(np.float64)
+                need(dens.size == N ** 3, "mode 2: DENS is not N^3 long")
+                mean, amax = dens.mean(), np.abs(dens).max()
+                var = (dens * dens).mean()
+                rel = abs(var / true_variance[-1] - 1.0)
+                print(f"  mode 2: mean delta {mean:.3e} (need |.| <= "
+                      f"{1e-6 * amax:.3e}), variance {var:.6f} against the "
+                      f"classic path's R=0 grid variance "
+                      f"{true_variance[-1]:.6f}, rel err {rel:.2e} (need <= "
+                      "1e-4)", flush=True)
+                need(abs(mean) <= 1e-6 * amax and rel <= 1e-4,
+                     "mode 2: the density's mean or variance is off")
+                del dens
+            else:
+                missing = sorted(k for k in CLASSIC if not launched.get(k))
+                stray = sorted(k for k in launched if k not in CLASSIC)
+                need(not missing and not stray, f"mode 3: not launched "
+                     f"{missing}, launched from another path {stray}")
+                pos = np.frombuffer(read_snapshot(path)[1]["POS "],
+                                    np.float32).reshape(-1, 3)
+                need(len(pos) == N ** 3, "mode 3: POS is not N^3 long")
+                ci = sp.ci
+                q = np.stack([ci // (N * N), (ci // N) % N, ci % N],
+                             axis=1).astype(np.float64) + 0.5
+                disp = sum(v.astype(np.float64) for v in sp.vel.values())
+                unit = p.InterPartDist * p.Hubble100
+                box = N * unit
+                d = pos[ci].astype(np.float64) - np.mod(q + disp, N) * unit
+                d -= box * np.round(d / box)
+                err = np.abs(d).max()
+                print(f"  mode 3: POS at the {len(ci)} needed cells against "
+                      f"q + the classic path's rows: max periodic |d| "
+                      f"{err:.3e} Mpc/h (need <= {1e-5 * box:.3e})",
+                      flush=True)
+                need(err <= 1e-5 * box, "mode 3: POS differs from the "
+                     "classic path's displacements")
+                del pos, d, disp, q
+            os.remove(path)
+    return len(calls), walls
 
 
 def restart_check(dev, p, out, first):
@@ -740,14 +1025,14 @@ def reference_check(dev, name):
     import torch
     from pinocchio_tpu_torch.run import run_pipeline
 
-    N = REFERENCE[name]
-    p = params_for(N, **PATHS[name][1])
-    cats = []
+    N, over = REFERENCE[name]
+    p = params_for(N, **dict(PATHS[name][1], **over))
+    frags = []
     for d in (dev, torch.device("cpu")):
         with tempfile.TemporaryDirectory() as out:
-            cats.append(run_pipeline(p, outdir=out, device=d, verbose=False,
-                                     write_outputs=False)["frag"].catalogs)
-    card, host = cats
+            frags.append(run_pipeline(p, outdir=out, device=d, verbose=False,
+                                      write_outputs=False)["frag"])
+    card, host = [f.catalogs for f in frags]
     for g, c in zip(card, host):
         ng = int((g.mass >= p.MinHaloMass).sum())
         nc = int((c.mass >= p.MinHaloMass).sum())
@@ -762,6 +1047,18 @@ def reference_check(dev, name):
     print(f"  [{name} {N}^3] final halos identical in name and mass: "
           f"{100 * same:.2f} % (need > 97 %)", flush=True)
     need(same > 0.97, f"{name}: final halos differ from the CPU run")
+    if p.plc_enabled:
+        g, c = frags[0].plc, frags[1].plc
+        ng, nc = len(g.z), len(c.z)
+        on_cpu = set(zip(c.name.tolist(), c.mass.tolist()))
+        same = sum(1 for k in zip(g.name.tolist(), g.mass.tolist())
+                   if k in on_cpu) / max(nc, 1)
+        print(f"  [{name} {N}^3] PLC: {ng} crossings on the card, {nc} on "
+              f"the CPU (tolerance max(5, 0.5 %)), {100 * same:.2f} % "
+              "identical in name and mass (need > 97 %)", flush=True)
+        need(nc > 0 and not g.overflow and not c.overflow
+             and abs(ng - nc) <= max(5, 0.005 * nc) and same > 0.97,
+             f"{name}: the PLC crossings differ from the CPU run")
 
 
 def _phase_table(peaks, predicted):
@@ -819,6 +1116,7 @@ def ooc_dense_check(dev, name):
     from pinocchio_tpu_torch.fragment.driver import run_fragmentation
     from pinocchio_tpu_torch.grids import Grid
     from pinocchio_tpu_torch.ic import PlaneGenerator
+    from pinocchio_tpu_torch.plc import build_plc_geometry
 
     N = OOC_CHECK_N
     p = params_for(N, **OOC_CHECKS[name])
@@ -878,8 +1176,11 @@ def ooc_dense_check(dev, name):
               flush=True)
         need(ok, f"{name}: out-of-core rows of set {s} disagree with the "
              "dense engine")
-    fo = run_fragmentation(p, cosmo, ooc, scaledep_gm=gm, verbose=False)
-    fd = run_fragmentation(p, cosmo, dense, scaledep_gm=gm, verbose=False)
+    geom = build_plc_geometry(p, cosmo, verbose=False)
+    fo = run_fragmentation(p, cosmo, ooc, plc_geom=geom, scaledep_gm=gm,
+                           verbose=False)
+    fd = run_fragmentation(p, cosmo, dense, plc_geom=geom, scaledep_gm=gm,
+                           verbose=False)
     for a, b in zip(fd.catalogs, fo.catalogs):
         na = int((a.mass >= p.MinHaloMass).sum())
         nb = int((b.mass >= p.MinHaloMass).sum())
@@ -887,6 +1188,17 @@ def ooc_dense_check(dev, name):
               "equal)", flush=True)
         need(na > 0 and na == nb,
              f"{name}: halo counts at z={a.z} differ between the engines")
+    if geom.enabled:
+        keys = ("name", "z", "mass", "x", "v", "nz")
+        same = {k: np.array_equal(getattr(fo.plc, k), getattr(fd.plc, k))
+                for k in keys}
+        print(f"  PLC: {len(fo.plc.z)} crossings out-of-core, "
+              f"{len(fd.plc.z)} dense, sweep {fo.timings['sweep']:.2f} / "
+              f"{fd.timings['sweep']:.2f} s; arrays identical: {same}",
+              flush=True)
+        need(all(same.values()) and len(fd.plc.z) > 0
+             and not (fo.plc.overflow or fd.plc.overflow),
+             f"{name}: the PLC crossings differ between the engines")
     del ooc, dense, fo, fd, d
     torch.cuda.empty_cache()
 
@@ -1001,7 +1313,20 @@ def big_refusal(dev):
     need(grew == 0, "the refused run allocated device memory")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module docstring).")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run (kernels, "
+                    "density_field, a path's name, modes, reference:<path>, "
+                    "ooc_dense:<name>, ooc_fmax, big, refusal); no JSON "
+                    "line is printed")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+
+    def wanted(phase):
+        return only is None or phase in only
+
     if not os.path.isdir(os.path.join(HERE, "pinocchio_tpu_torch")):
         print("chip_smoke.py: pinocchio_tpu_torch not found next to this "
               "script; run it from a checkout of the repository",
@@ -1038,27 +1363,42 @@ def main() -> int:
     try:
         report = {}
         for N in KERNEL_SIZES:
-            section(f"kernel phases at {N}^3:")
-            kernel_phases(N, dev, report)
-        c2r_check(dev)
+            if wanted("kernels"):
+                section(f"kernel phases at {N}^3:")
+                kernel_phases(N, dev, report)
+            if wanted("kernels") or wanted("density_field"):
+                density_field_phase(N, dev, report)
+        if wanted("kernels"):
+            c2r_check(dev)
         paths = {}
         for path in PATHS:
-            section(f"{path} path at {PATHS[path][0]}^3:")
-            paths[path] = run_path(dev, path)[0]
+            if wanted(path):
+                section(f"{path} path at {PATHS[path][0]}^3:")
+                paths[path] = run_path(dev, path)[0]
+        if wanted("modes"):
+            section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
+            density_calls, _ = special_modes(dev)
         for path in REFERENCE:
-            section(f"{path} path at {REFERENCE[path]}^3 on the card and on "
-                    "the CPU:")
-            reference_check(dev, path)
+            if wanted(f"reference:{path}"):
+                section(f"{path} path at {REFERENCE[path][0]}^3 on the card "
+                        "and on the CPU:")
+                reference_check(dev, path)
         for name in OOC_CHECKS:
-            section(f"out-of-core against dense at {OOC_CHECK_N}^3, {name}:")
-            ooc_dense_check(dev, name)
-        section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
-        ooc_fmax_phase(dev, OOC_N, "on", {}, OOC)
-        for name, (kw, own) in BIG.items():
-            section(f"fmax phase at {BIG_N}^3 under ooc='auto', {name}:")
-            ooc_fmax_phase(dev, BIG_N, "auto", kw, own)
-        section(f"the planner at {BIG_N}^3 with f(R) growth and RECOMPUTE:")
-        big_refusal(dev)
+            if wanted(f"ooc_dense:{name}"):
+                section(f"out-of-core against dense at {OOC_CHECK_N}^3, "
+                        f"{name}:")
+                ooc_dense_check(dev, name)
+        if wanted("ooc_fmax"):
+            section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
+            ooc_fmax_phase(dev, OOC_N, "on", {}, OOC)
+        if wanted("big"):
+            for name, (kw, own) in BIG.items():
+                section(f"fmax phase at {BIG_N}^3 under ooc='auto', {name}:")
+                ooc_fmax_phase(dev, BIG_N, "auto", kw, own)
+        if wanted("refusal"):
+            section(f"the planner at {BIG_N}^3 with f(R) growth and "
+                    "RECOMPUTE:")
+            big_refusal(dev)
         jaxish = sorted(m for m in sys.modules if m == "jax"
                         or m.startswith("jax.") or m == "pinocchio_tpu"
                         or m.startswith("pinocchio_tpu."))
@@ -1068,6 +1408,8 @@ def main() -> int:
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    if only is not None:
+        return 0
 
     # each kernel's launches: on the first path (in PATHS order) that owns
     # it; the shared kernels on the main path
@@ -1089,7 +1431,21 @@ def main() -> int:
                          max_abs_err_512=big["max_abs_err"],
                          **{k: r[k] for k in ("pair_ms", "pair_plain_ms",
                                               "pair_bound_ms") if k in r}))
-    print(json.dumps({"kernels": rows, "card": card}), flush=True)
+    # the library call of special mode 2 (no kernel of the port's own)
+    dfs = {N: report[N]["density_field"] for N in KERNEL_SIZES}
+    library = [dict(name="density_field", route="library (cuFFT)",
+                    source="pinocchio_tpu_torch/ops/derivatives.py",
+                    replaces="pinocchio_tpu/ops/derivatives.py:188",
+                    calls=density_calls, path="mode 2",
+                    ms=dfs[PIPELINE_N]["ms"],
+                    bound_ms=dfs[PIPELINE_N]["bound_ms"],
+                    bound_by="bytes",
+                    library_ms=dfs[PIPELINE_N]["library_ms"],
+                    ms_512=dfs[max(KERNEL_SIZES)]["ms"],
+                    bound_ms_512=dfs[max(KERNEL_SIZES)]["bound_ms"],
+                    library_ms_512=dfs[max(KERNEL_SIZES)]["library_ms"])]
+    print(json.dumps({"kernels": rows, "library": library, "card": card}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,9 @@ growth, + c2r).  The needed particles (Fmax >= Flast) are sorted on the
 device in the sweep's (-F, cell) order; their rows of every displacement
 set (one set, or one per output redshift with RECOMPUTE_DISPLACEMENTS) are
 gathered into one packed buffer (K6a) and handed to the host in one copy,
-with the FmaxPDF histogram (K6b).
+with the FmaxPDF histogram (K6b).  With keep_dense_products (the timeless
+snapshot, special mode 3, a dense dump) Fmax, Rmax and each [3, N, N, N]
+stack of the first displacement set are also copied whole to the host.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import kernels
 from .config import Params
 from .cosmology import Cosmology
 
@@ -96,6 +99,17 @@ class SparseProducts:
 
 
 @dataclass
+class DenseProducts:
+    """Host copies of the whole grid's products, C order (the timeless
+    snapshot, special mode 3 and a dense dump read them): Fmax [N, N, N]
+    float32, Rmax [N, N, N] int32 and the first displacement set's
+    [3, N, N, N] float32 stacks."""
+    Fmax: np.ndarray
+    Rmax: np.ndarray
+    vel: Dict[str, np.ndarray]
+
+
+@dataclass
 class FmaxResult:
     products: Products
     smoothing: Smoothing
@@ -105,6 +119,8 @@ class FmaxResult:
     timings: Dict[str, float] = field(default_factory=dict)
     # peak device bytes per phase (the out-of-core engine's trace_memory)
     peaks: Dict[str, int] = field(default_factory=dict)
+    # with keep_dense_products; None otherwise
+    dense: DenseProducts = None
 
 
 def inverse_growth_packs(cosmo: Cosmology, sm: Smoothing,
@@ -306,14 +322,18 @@ def _sync(device):
 
 
 def run_fmax(params: Params, cosmo: Cosmology, device,
-             kdensity=None, scaledep_gm=None,
-             verbose: bool = False) -> FmaxResult:
+             kdensity=None, scaledep_gm=None, verbose: bool = False,
+             keep_dense_products: bool = False) -> FmaxResult:
     """Collapse times, displacements and the needed-particle products on
     ``device``.  kdensity: an optional complex64 [N, N, N//2+1] tensor
     (e.g. the JAX package's, through load_jax_state) used instead of
     generating the initial conditions.  scaledep_gm: the per-radius
     effective growth of a scale-dependent cosmology
-    (scaledep.set_scaledep_gm)."""
+    (scaledep.set_scaledep_gm).  keep_dense_products, or
+    params.WriteTimelessSnapshot: also the whole grid's products on the
+    host (FmaxResult.dense); each displacement stack is copied after its
+    rows are gathered and before it is freed, so the device peak does not
+    grow."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     sm = Smoothing.build(params, cosmo)
@@ -371,6 +391,8 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                 float(cosmo.GrowingMode_3LPT_1(z)),
                 float(cosmo.GrowingMode_3LPT_2(z)))
 
+    keep_dense = keep_dense_products or params.WriteTimelessSnapshot
+    dense_vel = {}
     sources = displacement_sources(kdensity, sd, N, params.lpt_order)
     del sd
     keys = sorted(sources)
@@ -386,6 +408,9 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                             buf[off:off + sizes[s]],
                             F=Fmax if s == 0 else None)
         off += sizes[s]
+        if keep_dense and s == 0:
+            for k in keys:
+                dense_vel[k] = kernels.to_host(vel[k]).numpy()
         del vel
     del sources
     _sync(device)
@@ -395,6 +420,11 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     sp = _unpack(buf.cpu().numpy(), N, count, keys, len(zs))
     del buf
     hist = compact.pdf_hist(Fmax).cpu().numpy()
+    dense = None
+    if keep_dense:
+        dense = DenseProducts(Fmax=kernels.to_host(Fmax).numpy(),
+                              Rmax=kernels.to_host(Rmax).numpy(),
+                              vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
     if verbose:
         print(f"  products: {count}/{N ** 3} needed particles "
@@ -402,7 +432,7 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
               f"set(s)")
     return FmaxResult(products=Products(Fmax=Fmax, Rmax=Rmax), smoothing=sm,
                       grid=grid, host_products=sp, pdf_hist=hist,
-                      timings=timings)
+                      timings=timings, dense=dense)
 
 
 def fmax_pdf(hist: np.ndarray, fname: str = None) -> np.ndarray:

@@ -171,17 +171,6 @@ class OocEngine:
         return spec
 
 
-def _to_host(t):
-    """A host copy of a device tensor; from a card, in page-locked memory of
-    its own size to 2 MiB (kernels.pinned_empty)."""
-    if t.device.type != "cuda":
-        return t.clone()
-    dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-    host = torch.from_numpy(kernels.pinned_empty(tuple(t.shape), dtype))
-    host.copy_(t)
-    return host
-
-
 class _Phases:
     """Wall time and, with trace_memory on a card, the peak device memory
     of each phase (the peak counter is reset at each phase's start)."""
@@ -317,8 +306,8 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     idx = compact.needed_order(Fmax, params.Flast)
     count = idx.numel()
     hist = compact.pdf_hist(Fmax).cpu().numpy()
-    ci = _to_host(idx)
-    F = _to_host(Fmax.reshape(-1)[idx])
+    ci = kernels.to_host(idx)
+    F = kernels.to_host(Fmax.reshape(-1)[idx])
     rank = compact.needed_rank(idx, N ** 3)
     del idx
 
@@ -362,7 +351,7 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
                 compact.vrows_slab(rank[x0 * N * N:(x0 + Bx) * N * N],
                                    v.reshape(3, -1), rows)
                 del v
-            vel[key] = _to_host(rows).numpy()
+            vel[key] = kernels.to_host(rows).numpy()
         sets.append(vel)
     del u_v, rows, rank
     ph.stop()

@@ -6,10 +6,11 @@ The products arrive from the device already sorted in the sweep's order
 module builds the growth-weight tables and the ctypes structs and runs the
 native group sweep (the port's copy of the C sweep, native/groupsweep.c,
 loaded through ``native``).  One periodic sub-box spans the grid
-(set_subboxes with nbox=1: pbc on, safe=0); there is no PLC and no
-streaming watermark.  Scale-dependent growth adds the sweep's (log10 k,
-log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its per-segment
-displacement sets and weights.
+(set_subboxes with nbox=1: pbc on, safe=0); there is no streaming
+watermark.  Scale-dependent growth adds the sweep's (log10 k, log10 F)
+weight tables, RECOMPUTE_DISPLACEMENTS its per-segment displacement sets
+and weights, a past light cone (plc.build_plc_geometry) the sweep's
+on-the-fly crossing solve and its output buffers.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import ctypes
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -28,6 +29,7 @@ from ..cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
 from ..fmax import FmaxResult
 
+FILAMENT = 1
 NCOUNTERS = 16
 # initial group-array capacity per stored particle (the sweep reports -2
 # when it overflows, and the driver retries with twice the capacity)
@@ -91,6 +93,29 @@ class _CaptureBuffers(ctypes.Structure):
                 ("count", _i32p)]
 
 
+class _PlcInput(ctypes.Structure):
+    # field layout of groupsweep.c's plc_input
+    _fields_ = [
+        ("enabled", ctypes.c_int32),
+        ("Fstart", ctypes.c_double), ("Fstop", ctypes.c_double),
+        ("center", ctypes.c_double * 3), ("zvers", ctypes.c_double * 3),
+        ("ipd", ctypes.c_double), ("aperture", ctypes.c_double),
+        ("brent_err", ctypes.c_double),
+        ("nrepl", ctypes.c_int32),
+        ("repl_ijk", _i32p), ("repl_F1", _f64p), ("repl_F2", _f64p),
+        ("tab_rF", _f64p),
+        ("nzbins", ctypes.c_int32),
+        ("delta_z", ctypes.c_double), ("z_last", ctypes.c_double),
+        ("cap", ctypes.c_int64),
+    ]
+
+
+class _PlcOutput(ctypes.Structure):
+    _fields_ = [("name", _u64p), ("zred", _f32p), ("mass", _i32p),
+                ("x", _f32p), ("v", _f32p), ("nz", _f64p),
+                ("count", _i64p), ("overflow", _i32p)]
+
+
 class _SweepOutput(ctypes.Structure):
     _fields_ = [("mass", _i32p), ("name", _u64p),
                 ("halo_app", _i32p), ("ll", _i32p),
@@ -130,7 +155,8 @@ def growth_tables(params: Params, cosmo: Cosmology, n: int = 8192,
                   Fhi: float = 1500.0, k_dens: float = None):
     """Uniform-log10(F) tables of the displacement weights, velocity growth
     factors and D(z) used inside the sweep (set_weight / set_obj_vel,
-    build_groups.c:1411-1460).  k_dens: the wavenumber of D(z) (with
+    build_groups.c:1411-1460), and the comoving distance in grid units of
+    the PLC crossing condition.  k_dens: the wavenumber of D(z) (with
     scale-dependent growth, the smoothed density's effective scale at the
     last radius); the Nyquist k_for_GM when None."""
     lo, logF, z = _logF_grid(params, n, Fhi)
@@ -145,7 +171,8 @@ def growth_tables(params: Params, cosmo: Cosmology, n: int = 8192,
         dv1=fac * cosmo.fomega(z, k), dv2=fac * cosmo.fomega_2LPT(z, k),
         dv31=fac * cosmo.fomega_3LPT_1(z, k),
         dv32=fac * cosmo.fomega_3LPT_2(z, k),
-        D1=cosmo.GrowingMode(z, k_dens if k_dens is not None else k))
+        D1=cosmo.GrowingMode(z, k_dens if k_dens is not None else k),
+        rF=cosmo.ComovingDistance(z) / params.InterPartDist)
     return lo, logF[1] - logF[0], {
         k_: np.ascontiguousarray(v, np.float64) for k_, v in arrs.items()}
 
@@ -229,12 +256,33 @@ class GroupState:
 
 
 @dataclass
+class PlcResult:
+    """The halos' crossings of the past light cone, in the sweep's order."""
+    name: np.ndarray
+    z: np.ndarray
+    mass: np.ndarray
+    x: np.ndarray            # [n,3] true Mpc from the cone vertex
+    v: np.ndarray            # [n,3] km/s
+    nz: np.ndarray           # crossings per redshift bin
+    overflow: bool
+
+
+@dataclass
 class FragmentResult:
     catalogs: List[CatalogSnapshot]
     groups: GroupState
     counters: np.ndarray
     npeaks: int
     nstored: int
+    plc: Optional[PlcResult] = None
+    # per stored particle, in the sweep's order: the global cell index and
+    # the accretion redshift (-1 where none)
+    particle_pos: np.ndarray = None
+    particle_zacc: np.ndarray = None
+    # the name of each stored particle's group (its peak particle's ID),
+    # with 0 outside any group and FILAMENT for a filament
+    # (build_groups.c:968-973); only with WriteTimelessSnapshot
+    particle_grup: np.ndarray = None
     timings: Dict[str, float] = field(default_factory=dict)
     # the PredPeakFactor that would have been enough (fragment.c:477)
     best_pred_peak_factor: float = 0.0
@@ -246,17 +294,19 @@ def _sweep_lib():
     lib.sweep.argtypes = [ctypes.POINTER(_SweepInput),
                           ctypes.POINTER(_CaptureBuffers),
                           ctypes.POINTER(_SweepOutput),
-                          ctypes.c_void_p, ctypes.c_void_p]   # no PLC
+                          ctypes.POINTER(_PlcInput),
+                          ctypes.POINTER(_PlcOutput)]
     return lib
 
 
 def run_fragmentation(params: Params, cosmo: Cosmology,
-                      fmax_result: FmaxResult, scaledep_gm=None,
-                      verbose: bool = True,
+                      fmax_result: FmaxResult, plc_geom=None,
+                      scaledep_gm=None, verbose: bool = True,
                       _maxg_override: int = None) -> FragmentResult:
-    """The group sweep over the needed particles.  scaledep_gm: the
-    per-radius effective scales of a scale-dependent cosmology
-    (scaledep.set_scaledep_gm), None otherwise."""
+    """The group sweep over the needed particles.  plc_geom: the past light
+    cone's geometry (plc.build_plc_geometry), None or disabled for no PLC.
+    scaledep_gm: the per-radius effective scales of a scale-dependent
+    cosmology (scaledep.set_scaledep_gm), None otherwise."""
     t_all = time.perf_counter()
     timings = {}
     sp = fmax_result.host_products
@@ -422,17 +472,55 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
                       group_of_particle=p(gop, _i32p),
                       zacc=p(zacc, _f32p), gq=p(g_q, _f32p))
 
+    # the past light cone's inputs and output buffers (cap crossings)
+    plc_on = plc_geom is not None and plc_geom.enabled
+    pi = po = None
+    if plc_on:
+        plc_cap = 4 * plc_geom.Nmax
+        plc_name = np.zeros(plc_cap, np.uint64)
+        plc_z = np.zeros(plc_cap, np.float32)
+        plc_mass = np.zeros(plc_cap, np.int32)
+        plc_x = np.zeros(plc_cap * 3, np.float32)
+        plc_v = np.zeros(plc_cap * 3, np.float32)
+        plc_nz = np.zeros(max(plc_geom.nzbins, 1), np.float64)
+        plc_count = np.zeros(1, np.int64)
+        plc_over = np.zeros(1, np.int32)
+        repl_ijk = np.ascontiguousarray(plc_geom.repls_ijk.ravel(), np.int32)
+        repl_F1 = np.ascontiguousarray(plc_geom.repls_F1, np.float64)
+        repl_F2 = np.ascontiguousarray(plc_geom.repls_F2, np.float64)
+        keepalive += [repl_ijk, repl_F1, repl_F2]
+        pi = _PlcInput(
+            enabled=1, Fstart=plc_geom.Fstart, Fstop=plc_geom.Fstop,
+            center=(ctypes.c_double * 3)(*plc_geom.center),
+            zvers=(ctypes.c_double * 3)(*plc_geom.zvers),
+            ipd=params.InterPartDist, aperture=params.PLCAperture,
+            brent_err=1e-2 * params.InterPartDist, nrepl=len(repl_F1),
+            repl_ijk=p(repl_ijk, _i32p), repl_F1=p(repl_F1, _f64p),
+            repl_F2=p(repl_F2, _f64p), tab_rF=p(tabs["rF"], _f64p),
+            nzbins=plc_geom.nzbins, delta_z=plc_geom.delta_z,
+            z_last=min(params.StartingzForPLC, params.LastzForPLC),
+            cap=plc_cap)
+        po = _PlcOutput(name=p(plc_name, _u64p), zred=p(plc_z, _f32p),
+                        mass=p(plc_mass, _i32p), x=p(plc_x, _f32p),
+                        v=p(plc_v, _f32p), nz=p(plc_nz, _f64p),
+                        count=p(plc_count, _i64p),
+                        overflow=p(plc_over, _i32p))
+
     t0 = time.perf_counter()
     rc = _sweep_lib().sweep(ctypes.byref(si), ctypes.byref(cb),
-                            ctypes.byref(so), None, None)
+                            ctypes.byref(so),
+                            ctypes.byref(pi) if plc_on else None,
+                            ctypes.byref(po) if plc_on else None)
     timings["sweep"] = time.perf_counter() - t0
     if rc == -2 and n > 0:
-        # group capacity estimate too small: regrow and redo
-        # (the reference aborts at PredNpeaks instead, build_groups.c:357)
+        # group capacity estimate too small: regrow and redo, with fresh
+        # PLC buffers (the reference aborts at PredNpeaks instead,
+        # build_groups.c:357)
         if verbose:
             print(f"  group capacity {maxg} overflowed, retrying x2")
         return run_fragmentation(params, cosmo, fmax_result,
-                                 scaledep_gm=scaledep_gm, verbose=verbose,
+                                 plc_geom=plc_geom, scaledep_gm=scaledep_gm,
+                                 verbose=verbose,
                                  _maxg_override=2 * maxg + 8192)
     if rc != 0:
         raise RuntimeError(f"group sweep failed with code {rc} "
@@ -466,6 +554,29 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
         t_appear=g_tap[:ng + 1], t_peak=g_tpk[:ng + 1],
         t_merge=g_tmg[:ng + 1], good=g_good[:ng + 1], alive=g_alive[:ng + 1])
 
+    plc = None
+    if plc_on:
+        nplc = int(plc_count[0])
+        plc = PlcResult(
+            name=plc_name[:nplc].copy(), z=plc_z[:nplc].copy(),
+            mass=plc_mass[:nplc].copy(),
+            x=plc_x[:3 * nplc].reshape(-1, 3).copy(),
+            v=plc_v[:3 * nplc].reshape(-1, 3).copy(),
+            nz=plc_nz.copy(), overflow=bool(plc_over[0]))
+        if verbose:
+            print(f"  PLC: stored {nplc} halo crossings"
+                  + (" (OVERFLOW)" if plc.overflow else ""))
+
+    # the timeless snapshot's GRUP: each particle's group name, with
+    # groups[0].name = 0 and groups[FILAMENT].name = FILAMENT
+    particle_grup = None
+    if params.WriteTimelessSnapshot:
+        names = g_name[:ng + 1].copy()
+        names[0] = 0
+        if ng >= FILAMENT:
+            names[FILAMENT] = FILAMENT
+        particle_grup = names[gop]
+
     timings["total"] = time.perf_counter() - t_all
     if verbose:
         print(f"  sweep: {timings['sweep']:.2f}s; peaks {counters[0]}, "
@@ -473,5 +584,6 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
               f"mergers {counters[10]}, filament particles {counters[12]}")
     return FragmentResult(catalogs=catalogs, groups=groups,
                           counters=counters, npeaks=npeaks, nstored=n,
-                          timings=timings,
+                          plc=plc, particle_pos=pos, particle_zacc=zacc,
+                          particle_grup=particle_grup, timings=timings,
                           best_pred_peak_factor=npeaks * 6.0 / ncells)

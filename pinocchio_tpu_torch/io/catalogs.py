@@ -51,6 +51,9 @@ def _fastio():
         lib.catalog_rows.argtypes = [
             ctypes.c_char_p, i64, p(u64), p(ctypes.c_float),
             p(ctypes.c_float), p(ctypes.c_float), p(ctypes.c_float), p(i32)]
+        lib.plc_rows.restype = ctypes.c_int
+        lib.plc_rows.argtypes = [ctypes.c_char_p, i64, p(u64),
+                                 p(ctypes.c_double)]
         lib.histories_build.restype = i64
         lib.histories_build.argtypes = [
             i64, i32, p(i32), p(u64), p(i32), p(i32), p(i32), p(i32),

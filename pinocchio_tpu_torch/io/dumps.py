@@ -1,20 +1,26 @@
 """Checkpoint and restart of the fmax products (counterpart of
-pinocchio_tpu/io/dumps.py, one host, sparse format).
+pinocchio_tpu/io/dumps.py, one host).
 
 DumpProducts / ReadProductsFromDumps (fmax.c:372-506, pinocchio.c:220-236):
-after the collapse and displacement phase the needed particles' products
-are written to disk, so that a later run can go straight to fragmentation.
-The files are the JAX package's: ``DumpProducts/summary.json`` (the run's
-GridSize, RandomSeed, BoxSize and lpt_order, checked on restart, the
-smoothing radii and variances, the format, the number of displacement sets
-and the row order) and ``DumpProducts/products.<host>.npz`` with the cell
-indices ``ci``, ``F``, the rows ``vel_<field>`` and, under
-RECOMPUTE_DISPLACEMENTS, ``seg<s>_<field>`` of the sets s >= 1.  Rows are
-float32.  Either package reads the other's dumps.
+after the collapse and displacement phase the products are written to
+disk, so that a later run can go straight to fragmentation.  The files are
+the JAX package's, and either package reads the other's dumps.
+``DumpProducts/summary.json`` holds the run's GridSize, RandomSeed, BoxSize
+and lpt_order (checked on restart), the smoothing radii and variances and
+the format:
 
-The dense format (a full-grid dump, written by the JAX package for the
-timeless snapshot) is not read: the snapshot is not ported (ROADMAP.md,
-queue 1 item 8).
+  sparse  (the default) ``products.<host>.npz``: the needed particles' cell
+          indices ``ci``, ``F``, the rows ``vel_<field>`` and, under
+          RECOMPUTE_DISPLACEMENTS, ``seg<s>_<field>`` of the sets s >= 1;
+          float32 rows, with the number of sets and the row order in the
+          summary;
+  dense   (with WriteTimelessSnapshot, whose writer reads every particle)
+          ``products.npz``: the whole grid's ``Fmax``, ``Rmax`` and the
+          first displacement set's ``vel_<field>`` stacks [3, N, N, N].  It
+          keeps no further RECOMPUTE set, as the JAX package's does not.
+
+A sparse dump read by a run that wants the timeless snapshot raises
+ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,22 +31,52 @@ import os
 
 import numpy as np
 
+import torch
+
 from ..config import Params
-from ..fmax import FmaxResult, Products, Smoothing, SparseProducts
+from ..fmax import (DenseProducts, FmaxResult, Products, Smoothing,
+                    SparseProducts)
 from ..grids import Grid
+from ..ops import compact
 
 DUMP_DIR = "DumpProducts"
 
 
+def _write_summary(ddir: str, meta: dict) -> None:
+    tmp = os.path.join(ddir, ".summary.json.tmp")
+    with open(tmp, "w") as fd:
+        json.dump(meta, fd)
+    os.replace(tmp, os.path.join(ddir, "summary.json"))
+
+
 def dump_products(params: Params, fmax_result: FmaxResult,
                   directory: str = ".") -> str:
-    """Write the sparse products of ``fmax_result`` (the needed particles in
-    the sweep's order) into ``directory``/DumpProducts; returns the path of
-    the chunk."""
+    """Write the products of ``fmax_result`` into ``directory``/DumpProducts:
+    the whole grid's (fmax_result.dense) with WriteTimelessSnapshot, else
+    the needed particles' in the sweep's order; returns the path of the
+    npz file."""
     sp = fmax_result.host_products
     sm = fmax_result.smoothing
     ddir = os.path.join(directory, DUMP_DIR)
     os.makedirs(ddir, exist_ok=True)
+    meta = dict(GridSize=params.GridSize, RandomSeed=params.RandomSeed,
+                BoxSize=params.BoxSize, lpt_order=params.lpt_order,
+                nsmooth=int(sm.n), nhosts=1,
+                radii=[float(x) for x in sm.radii],
+                variance=[float(x) for x in sm.variance],
+                true_variance=[float(x) for x in sm.true_variance])
+    if params.WriteTimelessSnapshot:
+        d = fmax_result.dense
+        if d is None:
+            raise ValueError("a dense dump needs the whole grid's products "
+                             "(run fmax with WriteTimelessSnapshot)")
+        _write_summary(ddir, dict(meta, format="dense"))
+        arrays = dict(Fmax=d.Fmax, Rmax=d.Rmax)
+        for k, v in d.vel.items():
+            arrays[f"vel_{k}"] = v
+        path = os.path.join(ddir, "products.npz")
+        np.savez(path, **arrays)
+        return path
     arrays = dict(ci=np.asarray(sp.ci, np.int64),
                   F=np.asarray(sp.F, np.float32))
     for k, v in sp.vel.items():
@@ -49,29 +85,47 @@ def dump_products(params: Params, fmax_result: FmaxResult,
     for s, seg in enumerate(segs[1:], start=1):
         for k, v in seg.items():
             arrays[f"seg{s}_{k}"] = np.asarray(v, np.float32)
-    meta = dict(GridSize=params.GridSize, RandomSeed=params.RandomSeed,
-                BoxSize=params.BoxSize, lpt_order=params.lpt_order,
-                nsmooth=int(sm.n), nhosts=1,
-                radii=[float(x) for x in sm.radii],
-                variance=[float(x) for x in sm.variance],
-                true_variance=[float(x) for x in sm.true_variance],
-                format="sparse", nseg=len(segs), sorted_by=sp.sorted_by)
     path = os.path.join(ddir, "products.0.npz")
     np.savez(path, **arrays)
-    tmp = os.path.join(ddir, ".summary.json.tmp")
-    with open(tmp, "w") as fd:
-        json.dump(meta, fd)
-    os.replace(tmp, os.path.join(ddir, "summary.json"))
+    _write_summary(ddir, dict(meta, format="sparse", nseg=len(segs),
+                              sorted_by=sp.sorted_by))
     return path
+
+
+def _read_dense(params: Params, ddir: str, sm: Smoothing) -> FmaxResult:
+    """A dense dump: the whole grid's products on the host, the needed
+    particles compacted from them in the sweep's order (descending F, ties
+    by ascending cell: a stable sort of the cell-ordered candidates) and
+    the FmaxPDF histogram of the grid."""
+    with np.load(os.path.join(ddir, "products.npz")) as data:
+        dense = DenseProducts(
+            Fmax=np.asarray(data["Fmax"], np.float32),
+            Rmax=np.asarray(data["Rmax"], np.int32),
+            vel={k[4:]: np.asarray(data[k], np.float32)
+                 for k in sorted(data.files) if k.startswith("vel_")})
+    F = dense.Fmax.ravel()
+    ci = np.flatnonzero(F >= params.Flast)
+    ci = ci[np.argsort(-F[ci], kind="stable")]
+    sp = SparseProducts(
+        N=params.GridSize, ci=ci.astype(np.int64), F=F[ci],
+        vel={k: np.ascontiguousarray(v.reshape(3, -1)[:, ci].T)
+             for k, v in dense.vel.items()}, sorted_by="F")
+    hist = compact.pdf_hist(torch.from_numpy(F)).numpy()
+    return FmaxResult(products=Products(Fmax=None, Rmax=None), smoothing=sm,
+                      grid=Grid(N=params.GridSize,
+                                BoxSize=params.BoxSize_htrue),
+                      host_products=sp, pdf_hist=hist, dense=dense)
 
 
 def read_dumps(params: Params, directory: str = ".") -> FmaxResult:
     """The products of a dump in ``directory``/DumpProducts, written by the
-    port or by the JAX package, as an FmaxResult with no Fmax: the needed
-    particles in the sweep's (-F, cell) order with their rows and, under
-    RECOMPUTE_DISPLACEMENTS, one row set per output redshift.  A dump of
-    another run (GridSize, RandomSeed, BoxSize or lpt_order) raises
-    ValueError."""
+    port or by the JAX package, as an FmaxResult with no device Fmax: the
+    needed particles in the sweep's (-F, cell) order with their rows and,
+    under RECOMPUTE_DISPLACEMENTS, one row set per output redshift; from a
+    dense dump also the whole grid's products (FmaxResult.dense) and the
+    FmaxPDF histogram.  A dump of another run (GridSize, RandomSeed,
+    BoxSize or lpt_order) raises ValueError, and so does a sparse dump for
+    a run with WriteTimelessSnapshot."""
     ddir = os.path.join(directory, DUMP_DIR)
     with open(os.path.join(ddir, "summary.json")) as fd:
         meta = json.load(fd)
@@ -82,10 +136,16 @@ def read_dumps(params: Params, directory: str = ".") -> FmaxResult:
         if meta[key] != want:
             raise ValueError(f"dump mismatch for {key}: dump has "
                              f"{meta[key]}, run wants {want}")
+    sm = Smoothing(radii=np.asarray(meta["radii"]),
+                   variance=np.asarray(meta["variance"]),
+                   true_variance=np.asarray(meta["true_variance"]))
     if meta.get("format", "dense") == "dense":
-        raise NotImplementedError(
-            "a dense-format dump (written for the timeless snapshot) is not "
-            "read by pinocchio_tpu_torch yet (ROADMAP.md, queue 1 item 8)")
+        return _read_dense(params, ddir, sm)
+    if params.WriteTimelessSnapshot:
+        raise ValueError(
+            "this dump is sparse (needed particles only) but the run "
+            "wants a timeless snapshot, which needs the dense products; "
+            "re-dump with WriteTimelessSnapshot=True")
     files = sorted(glob.glob(os.path.join(ddir, "products.*.npz")),
                    key=lambda p: int(p.rsplit(".", 2)[1]))
     if not files:
@@ -113,9 +173,6 @@ def read_dumps(params: Params, directory: str = ".") -> FmaxResult:
         sets = [{k: v[order] for k, v in rows.items()} for rows in sets]
     sp = SparseProducts(N=params.GridSize, ci=ci, F=F, vel=sets[0],
                         sorted_by="F", segments=sets if nseg else None)
-    sm = Smoothing(radii=np.asarray(meta["radii"]),
-                   variance=np.asarray(meta["variance"]),
-                   true_variance=np.asarray(meta["true_variance"]))
     return FmaxResult(products=Products(Fmax=None, Rmax=None), smoothing=sm,
                       grid=Grid(N=params.GridSize,
                                 BoxSize=params.BoxSize_htrue),

@@ -248,6 +248,18 @@ def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
     return raw[:nbytes].view(dtype).reshape(shape)
 
 
+def to_host(t):
+    """A host copy of a tensor: from a card, in page-locked memory of its
+    own size rounded up to 2 MiB (pinned_empty); a CPU tensor's clone."""
+    import torch
+    if t.device.type != "cuda":
+        return t.clone()
+    dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+    host = torch.from_numpy(pinned_empty(tuple(t.shape), dtype))
+    host.copy_(t)
+    return host
+
+
 def check(name: str, err: int) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

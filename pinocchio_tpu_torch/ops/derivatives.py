@@ -172,6 +172,12 @@ def first_derivatives_tab(kvector, gtab, glo: float, gdx: float, N: int):
     return irfft3(gradient_kspace_tab(kvector, gtab, glo, gdx, N), N)
 
 
+def density_field(kdensity, N: int):
+    """The real-space linear density contrast, float32 [N, N, N]: the c2r
+    transform of delta(k) (a library call, cuFFT on the card)."""
+    return irfft3(kdensity, N)
+
+
 # ------------------------------------------------------------------
 # K10: the out-of-core engine's factors on one batch of kz planes.  A source
 # batch is a complex64 [B, N, N] tensor or view in (kz, x, y) order: K9's

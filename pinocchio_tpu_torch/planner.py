@@ -155,22 +155,44 @@ def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
     return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
 
 
-def host_phases(params: Params, frac: float) -> dict:
+def host_phases(params: Params, frac: float,
+                dense_products: bool = False) -> dict:
     """Host bytes of the run by phase, array by array: at the end of fmax,
     the needed particles' products (cell index, F and the rows of every
     field of every displacement set); during the one-sub-box sweep, the
-    same products, the sweep's per-particle arrays, its peak groups and the
-    grid's row map."""
+    same products, the sweep's per-particle arrays, its peak groups, the
+    grid's row map and, with the PLC, its crossing buffers.  With the
+    timeless snapshot the whole grid's products (Fmax, Rmax and the first
+    set's stacks) are on the host from the end of fmax on, and its writer
+    adds the IDs, ZACC, GRUP and one block's transposed rows.
+    dense_products (special mode 3): the whole grid's products, no sweep,
+    and the LPT snapshot writer's displacement sum, positions, IDs and one
+    block's rows."""
     s = _sizes(params, frac)
-    n = s["count"]
+    n, nf, cells = s["count"], s["nf"], float(s["N"]) ** 3
     products = dict(cell_index=8.0 * n, F=4.0 * n,
-                    rows=12.0 * n * s["nf"] * s["nseg"])
+                    rows=12.0 * n * nf * s["nseg"])
+    if params.WriteTimelessSnapshot or dense_products:
+        products["dense_products"] = (8.0 + 12.0 * nf) * cells
+    if dense_products:
+        return {"fmax": products,
+                "snapshot": dict(products, lpt_writer=44.0 * cells)}
     groups = PEAKS_PER_STORED * n * (
         GROUP_BYTES + GROUP_BYTES_PER_OUTPUT * len(params.output_z)
-        + GROUP_BYTES_PER_FIELD * s["nf"])
+        + GROUP_BYTES_PER_FIELD * nf)
     sweep = dict(products, sweep_arrays=20.0 * n,   # F, pos, gop, zacc,
-                 groups=groups, row_map=4.0 * s["N"] ** 3)   # join_F
-    return {"fmax": products, "sweep": sweep}
+                 groups=groups, row_map=4.0 * cells)   # join_F
+    if params.plc_enabled and params.StartingzForPLC >= 0.0:
+        # name, z, mass, x and v of each of 4 Nmax crossings
+        nmax = int(cells / 6 * params.PredPeakFactor)
+        sweep["plc_buffers"] = 40.0 * 4 * nmax
+    phases = {"fmax": products, "sweep": sweep}
+    if params.WriteTimelessSnapshot:
+        # the sweep's positions, zacc and group names per stored particle
+        phases["snapshot"] = dict(products, particle_outputs=16.0 * n,
+                                  groups=groups,
+                                  timeless_writer=32.0 * cells)
+    return phases
 
 
 def host_sweep_bytes(params: Params, frac: float) -> float:
@@ -192,11 +214,13 @@ def host_memory() -> float:
     return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
 
 
-def plan(params: Params, device="cuda", cosmo: Cosmology = None) -> dict:
+def plan(params: Params, device="cuda", cosmo: Cosmology = None,
+         dense_products: bool = False) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
     out-of-core engine when the dense one does not fit) and the host
-    estimate of the sweep."""
+    estimate of the run's phases (host_phases; dense_products for special
+    mode 3)."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
@@ -210,7 +234,7 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None) -> dict:
     else:
         use_ooc = False
     chosen = ooc if use_ooc else dense
-    hphases = host_phases(params, frac)
+    hphases = host_phases(params, frac, dense_products)
     if torch.device(device).type == "cpu":
         # device arrays live in host memory too
         for arrays in hphases.values():
@@ -268,11 +292,11 @@ def format_memory_map(report: dict) -> str:
 
 
 def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
-                   verbose: bool = True) -> dict:
+                   verbose: bool = True, dense_products: bool = False) -> dict:
     """Pre-flight check, before any allocation: raise MemoryPlanError with
-    the per-array map when the chosen engine's device peak or the sweep's
+    the per-array map when the chosen engine's device peak or the run's
     host memory exceeds what there is; returns the plan."""
-    report = plan(params, device, cosmo)
+    report = plan(params, device, cosmo, dense_products)
     problems = []
     if not report["fits_device"]:
         problems.append(

@@ -3,18 +3,24 @@ catalogs (counterpart of pinocchio_tpu/run.py, single-device path).
 
 The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
-RECOMPUTE_DISPLACEMENTS; one sub-box, no PLC.  The planner picks the fmax
-engine: the dense one, or, with ooc 'on', or 'auto' when the dense engine
-does not fit the device, the out-of-core one; it aborts with the memory map
-when the chosen engine does not fit.  DumpProducts writes the products after
-fmax; ReadProductsFromDumps reads them instead of running IC and fmax.
+RECOMPUTE_DISPLACEMENTS, the past light cone and the timeless snapshot; one
+sub-box.  The planner picks the fmax engine: the dense one, or, with ooc
+'on', or 'auto' when the dense engine does not fit the device, the
+out-of-core one; it aborts with the memory map when the chosen engine does
+not fit.  DumpProducts writes the products after fmax; ReadProductsFromDumps
+reads them instead of running IC and fmax.
 
-  initialization -> plan -> fmax (collapse times + displacements, on the
-  device; or the products read from a dump) -> fragmentation (host C sweep)
-  -> catalogs / mass functions / histories
+  initialization -> plan -> PLC geometry -> fmax (collapse times +
+  displacements, on the device; or the products read from a dump) ->
+  fragmentation (host C sweep, with the PLC crossings) -> catalogs / mass
+  functions / histories / PLC catalog and n(z) / timeless snapshot
+
+The special modes (run_special_mode, pinocchio.c argv[2]) write one product
+and stop: 1 the collapse-time table, 2 the linear density, 3 the LPT
+initial conditions as a Gadget snapshot.
 
 Usage:
-    python -m pinocchio_tpu_torch.run <parameter_file> [--norad]
+    python -m pinocchio_tpu_torch.run <parameter_file> [mode] [--norad]
         [--outdir DIR] [--device cuda]
 """
 
@@ -40,15 +46,11 @@ def check_supported(params: Params) -> None:
             f"{feature} is not ported to pinocchio_tpu_torch yet "
             f"(ROADMAP.md, queue 1 item {item}); run pinocchio_tpu instead")
 
-    if params.plc_enabled and params.StartingzForPLC >= 0.0:
-        no("the past light cone (PLC)", 8)
     if params.subbox_tasks > 1:
         no("fragmentation over several sub-boxes", 9)
     if params.ooc not in ("on", "off", "auto"):
         raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
                          f"{params.ooc!r}")
-    if params.WriteTimelessSnapshot:
-        no("the timeless snapshot", 8)
     if params.ooc == "on":
         check_ooc_supported(params)
 
@@ -75,6 +77,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .io import catalogs as io_cat
     from .io import dumps
     from .planner import enforce_budget
+    from .plc import build_plc_geometry, write_nz, write_plc_catalog
 
     dev = resolve_device(device)
     check_supported(params)
@@ -107,6 +110,10 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     # the engine that fits the device, or an abort with the memory map
     # before any allocation
     plan = enforce_budget(params, dev, cosmo, verbose=verbose)
+    t0 = time.perf_counter()
+    plc_geom = build_plc_geometry(params, cosmo, verbose=verbose)
+    if plc_geom.enabled:
+        timings["plc_geom"] = time.perf_counter() - t0
     if params.ReadProductsFromDumps:
         # no IC and no fmax (pinocchio.c:220-236)
         fmax_res = dumps.read_dumps(params, outdir)
@@ -127,7 +134,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         timings["dump"] = time.perf_counter() - t0
 
     t_frag = time.perf_counter()
-    frag_res = run_fragmentation(params, cosmo, fmax_res,
+    frag_res = run_fragmentation(params, cosmo, fmax_res, plc_geom=plc_geom,
                                  scaledep_gm=scaledep_gm, verbose=verbose)
     timings.update({"frag_" + k: v for k, v in frag_res.timings.items()})
     timings["frag_wall"] = time.perf_counter() - t_frag
@@ -152,6 +159,20 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         if not params.DoNotWriteHistories:
             written.append(io_cat.write_histories(params, frag_res.groups,
                                                   outdir))
+        t1 = time.perf_counter()
+        plc = frag_res.plc
+        if plc is not None and not params.DoNotWriteCatalogs:
+            written.append(write_plc_catalog(
+                params, plc_geom, dict(name=plc.name, z=plc.z, mass=plc.mass,
+                                       x=plc.x, v=plc.v), outdir))
+            written.append(write_nz(params, cosmo, plc_geom, plc.nz, outdir))
+            timings["io_plc"] = time.perf_counter() - t1
+        if params.WriteTimelessSnapshot:
+            from .io.snapshot import write_timeless_snapshot
+            t1 = time.perf_counter()
+            written.append(write_timeless_snapshot(params, fmax_res,
+                                                   frag_res, outdir))
+            timings["io_snapshot"] = time.perf_counter() - t1
         timings["io"] = time.perf_counter() - t0
 
     timings["total"] = time.perf_counter() - t_total
@@ -176,6 +197,7 @@ def greetings(params: Params, device: torch.device):
                         f"MOD_GRAV_FR(fR0={params.fr0:g})"),
                        (params.recompute_displacements,
                         "RECOMPUTE_DISPLACEMENTS"),
+                       (params.WriteTimelessSnapshot, "SNAPSHOT"),
                        (params.use_sim_params, "USE_SIMULATION_PARAMS")):
         if flag:
             feats.append(name)
@@ -204,6 +226,7 @@ def write_cputimes(t: dict):
     line("total", "total")
     line("initialization", "init", 1)
     line("scale-dependent growth", "scaledep", 1)
+    line("PLC geometry", "plc_geom", 1)
     line("density in k-space", "fmax_dens", 1)
     line("collapse cycle (FFTs+ell)", "fmax_fmax_loop", 1)
     line("collapse tables", "fmax_ct_tables", 2)
@@ -215,8 +238,62 @@ def write_cputimes(t: dict):
     line("needed-particle products", "fmax_products", 1)
     line("product dump", "dump", 1)
     line("fragmentation", "frag_total", 1)
-    line("group sweep", "frag_sweep", 2)
+    line("group sweep (+PLC)", "frag_sweep", 2)
     line("I/O", "io", 1)
+    line("PLC", "io_plc", 2)
+    line("snapshot", "io_snapshot", 2)
+
+
+def run_special_mode(params: Params, mode: int, outdir: str = ".",
+                     device="cuda", verbose: bool = True) -> str:
+    """The special modes (pinocchio.c argv[2]); returns the file written.
+    1: the collapse-time table of the run's radii (host numpy, to
+    CTtableFile when set); 2: the linear density contrast as a snapshot
+    (K1 and one c2r on ``device``); 3: the LPT initial conditions at the
+    first output redshift as a Gadget snapshot (the dense fmax engine with
+    the whole grid's products kept on the host)."""
+    from .fmax import Smoothing, run_fmax
+    from .io.snapshot import write_density_snapshot, write_lpt_snapshot
+
+    dev = resolve_device(device)
+    cosmo = Cosmology(params)
+    if mode == 1:
+        # the collapse-time table only (pinocchio.c:100-133)
+        from .ops import tabulated
+        sm = Smoothing.build(params, cosmo)
+        model = "sng" if params.ell_model == "sng" else "classic"
+        ct = tabulated.build_ct_tables_all(cosmo, sm, model=model)
+        path = (params.CTtableFile
+                if params.CTtableFile not in ("none", "") else
+                os.path.join(outdir,
+                             f"pinocchio.{params.RunFlag}.CTtable.out"))
+        tabulated.write_ct_table_file(path, params, sm, ct["tables"])
+        if verbose:
+            print(f"collapse-time table written to {path}")
+        return path
+    if mode == 2:
+        from .grids import Grid
+        from .ic import generate_kdensity
+        from .ops.derivatives import density_field
+        grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
+        kden = generate_kdensity(grid, cosmo, params.RandomSeed, dev,
+                                 fixed=params.FixedIC,
+                                 paired=params.PairedIC)
+        dens = density_field(kden, params.GridSize).cpu().numpy()
+        return write_density_snapshot(params, dens, outdir)
+    if mode == 3:
+        from .planner import enforce_budget
+        plan = enforce_budget(params, dev, cosmo, verbose=verbose,
+                              dense_products=True)
+        if plan["use_ooc"]:
+            raise NotImplementedError(
+                "special mode 3 writes the dense displacement stacks, which "
+                "the out-of-core engine of pinocchio_tpu_torch does not keep "
+                "(ROADMAP.md, queue 1 item 13)")
+        fmax_res = run_fmax(params, cosmo, dev, verbose=verbose,
+                            keep_dense_products=True)
+        return write_lpt_snapshot(params, cosmo, fmax_res, outdir)
+    raise ValueError(f"unknown special mode {mode}")
 
 
 def main(argv=None):
@@ -225,7 +302,9 @@ def main(argv=None):
                                  .RawDescriptionHelpFormatter)
     ap.add_argument("parameter_file")
     ap.add_argument("mode", nargs="?", type=int, default=None,
-                    help="special mode 1/2/3 (not ported)")
+                    help="special mode: 1 = collapse-time table, 2 = linear "
+                    "density snapshot, 3 = LPT initial-conditions snapshot "
+                    "(pinocchio.c argv[2])")
     ap.add_argument("--norad", action="store_true",
                     help="no radiation in the background (reference "
                     "-DNORADIATION)")
@@ -238,10 +317,6 @@ def main(argv=None):
     ap.add_argument("--hosts", type=int, default=1,
                     help="hosts (only 1 is ported)")
     args = ap.parse_args(argv)
-    if args.mode is not None:
-        raise NotImplementedError(
-            f"special mode {args.mode} is not ported to pinocchio_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 8)")
     if args.chips > 1 or args.hosts > 1:
         raise NotImplementedError(
             "multi-device and multi-host runs are not ported to "
@@ -250,7 +325,11 @@ def main(argv=None):
     overrides = {"norad": True} if args.norad else {}
     params = read_parameter_file(args.parameter_file, **overrides)
     os.makedirs(args.outdir, exist_ok=True)
-    run_pipeline(params, outdir=args.outdir, device=args.device)
+    if args.mode is not None:
+        run_special_mode(params, args.mode, outdir=args.outdir,
+                         device=args.device)
+    else:
+        run_pipeline(params, outdir=args.outdir, device=args.device)
 
 
 if __name__ == "__main__":

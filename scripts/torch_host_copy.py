@@ -5,7 +5,7 @@ five ways.
 The engine ends with the needed cells' products on the card: the cell
 indices (int64), F (float32) and the [count, 3] float32 rows of each
 displacement field.  Each buffer is copied to the host, as
-pinocchio_tpu_torch/fmax_ooc.py:_to_host does, into
+pinocchio_tpu_torch/kernels/__init__.py:to_host does, into
 
   engine    page-locked memory of the buffer's size rounded up to 2 MiB
             (cudaHostAlloc through the port's kernel library,

@@ -308,7 +308,7 @@ def test_pipeline_ooc_against_dense(tmp_path):
 
 @pytest.mark.parametrize("overrides,item", [
     (dict(ooc_dtype="bfloat16"), "item 11"),
-    (dict(WriteTimelessSnapshot=True), "item 8"),
+    (dict(WriteTimelessSnapshot=True), "item 13"),
 ])
 def test_unsupported_ooc_raises(overrides, item):
     from pinocchio_tpu_torch.config import Params

@@ -246,14 +246,21 @@ def test_port_dump_read_by_jax(fr_runs, tmp_path):
                                   ooc.smoothing.true_variance)
 
 
-def test_jax_dump_read_by_the_port(tmp_path):
-    """A dump of the JAX package's CPU run (rows sorted by cell) comes back
-    in the sweep's order, with every set."""
+@pytest.fixture(scope="module")
+def jax_fr24():
+    """The JAX package's CPU fmax run at 24^3 with f(R) growth and
+    RECOMPUTE_DISPLACEMENTS (dense products, one set per output)."""
     jp, p = params_pair(**bench_kwargs(24, **FR))
     jc = JaxCosmology(jp)
     jgm = jax_set_scaledep_gm(jp, jc, jfmax.Smoothing.build(jp, jc),
                               jlargest(jp, jc), verbose=False)
-    jres = jfmax.run_fmax(jp, jc, scaledep_gm=jgm, verbose=False)
+    return jp, p, jfmax.run_fmax(jp, jc, scaledep_gm=jgm, verbose=False)
+
+
+def test_jax_dump_read_by_the_port(jax_fr24, tmp_path):
+    """A dump of the JAX package's CPU run (rows sorted by cell) comes back
+    in the sweep's order, with every set."""
+    jp, p, jres = jax_fr24
     jdumps.dump_products(jp, jres, str(tmp_path))
     res = dumps.read_dumps(p, str(tmp_path))
     sp = res.host_products
@@ -297,14 +304,39 @@ def test_dump_of_another_run_raises(fr_runs, tmp_path, key, change):
         dumps.read_dumps(dataclasses.replace(p, **change), str(tmp_path))
 
 
-def test_dense_dump_is_not_read(fr_runs, tmp_path):
-    _, ooc, _, p = fr_runs
-    dumps.dump_products(p, ooc, str(tmp_path))
-    summary = tmp_path / "DumpProducts" / "summary.json"
-    meta = json.loads(summary.read_text())
-    summary.write_text(json.dumps(dict(meta, format="dense")))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dumps.read_dumps(p, str(tmp_path))
+def test_jax_dense_dump_read_by_the_port(jax_fr24, tmp_path):
+    """A dense dump of the JAX package (WriteTimelessSnapshot): the whole
+    grid's products, the needed particles compacted in the sweep's order,
+    the FmaxPDF counts; like the JAX package's, it keeps only the first of
+    the RECOMPUTE sets (ROADMAP queue 1 item 13)."""
+    jp, p, jres = jax_fr24
+    jq, q = (dataclasses.replace(x, WriteTimelessSnapshot=True)
+             for x in (jp, p))
+    jdumps.dump_products(jq, jres, str(tmp_path))
+    meta = json.loads((tmp_path / "DumpProducts" / "summary.json")
+                      .read_text())
+    assert meta["format"] == "dense"
+    res = dumps.read_dumps(q, str(tmp_path))
+    F = np.asarray(jres.products.Fmax)
+    np.testing.assert_array_equal(res.dense.Fmax, F)
+    np.testing.assert_array_equal(res.dense.Rmax,
+                                  np.asarray(jres.products.Rmax))
+    assert sorted(res.dense.vel) == sorted(jres.products.vel)
+    Ff = F.ravel()
+    want = np.flatnonzero(Ff >= p.Flast)
+    want = want[np.lexsort((want, -Ff[want]))]
+    sp = res.host_products
+    assert sp.sorted_by == "F" and sp.segments is None
+    np.testing.assert_array_equal(sp.ci, want)
+    np.testing.assert_array_equal(sp.F, Ff[want])
+    for k, v in jres.products.vel.items():
+        np.testing.assert_array_equal(res.dense.vel[k], np.asarray(v))
+        np.testing.assert_array_equal(
+            sp.vel[k], np.asarray(v).reshape(3, -1)[:, want].T)
+    assert res.pdf_hist.sum() == 24 ** 3
+    np.testing.assert_array_equal(
+        res.pdf_hist, np.asarray(jfmax._pdf_bincount(jres.products.Fmax)))
+    assert jdumps.read_dumps(jq, str(tmp_path)).vel_segments is None
 
 
 def test_planner_refuses_recompute_at_1024_on_the_host(monkeypatch, tmp_path):

@@ -31,7 +31,8 @@ from pinocchio_tpu_torch import fmax, fmax_ooc
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.ops import collapse
-from pinocchio_tpu_torch.run import check_supported, main, run_pipeline
+from pinocchio_tpu_torch.run import (check_supported, main, run_pipeline,
+                                     run_special_mode)
 from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
@@ -150,22 +151,30 @@ def test_sparse_products_are_sweep_ordered(runs):
 def test_port_imports_no_jax(tmp_path):
     """The paths (classic; tabulated bicubic; f(R) growth with
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
-    a product dump; a restart from that dump) run without importing jax or
-    any module of the JAX package."""
+    a product dump; a restart from that dump; the past light cone with the
+    timeless snapshot; special mode 2) run without importing jax or any
+    module of the JAX package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
-        "from pinocchio_tpu_torch.run import run_pipeline\n"
+        "from pinocchio_tpu_torch.run import run_pipeline, "
+        "run_special_mode\n"
         "tab = dict(ell_model='tabulated', ct_interp='bicubic')\n"
         "fr = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,\n"
         "          recompute_displacements=True, MaxMemPerParticle=400)\n"
+        "plc = dict(plc_enabled=True, StartingzForPLC=0.02,\n"
+        "           PLCProvideConeData=True, WriteTimelessSnapshot=True,\n"
+        "           add_rmax_to_snapshot=True)\n"
+        "base = dict(GridSize=16, BoxSize=16.0, output_z=[1.0, 0.0],\n"
+        "            norad=True, plc_enabled=False)\n"
         "for kw in ({}, tab, fr, dict(ooc='on'), dict(tab, ooc='on'),\n"
         "           dict(fr, ooc='on', DumpProducts=True),\n"
-        "           dict(fr, ReadProductsFromDumps=True)):\n"
-        "    p = Params(GridSize=16, BoxSize=16.0, output_z=[1.0, 0.0],"
-        " norad=True, plc_enabled=False, **kw)\n"
+        "           dict(fr, ReadProductsFromDumps=True), plc):\n"
+        "    p = Params(**dict(base, **kw))\n"
         f"    run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
+        f"run_special_mode(Params(**base), 2, {str(tmp_path)!r}, "
+        "device='cpu', verbose=False)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'pinocchio_tpu'\n"
         "       or m.startswith('pinocchio_tpu.')]\n"
@@ -176,6 +185,8 @@ def test_port_imports_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NOJAX" in res.stdout
+    for kind in ("plc", "nz", "t_snapshot", "density0"):
+        assert (tmp_path / f"pinocchio.run.{kind}.out").exists()
 
 
 def test_cuda_device_without_gpu_raises(tmp_path):
@@ -200,7 +211,12 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     dict(ooc="on", mod_grav_fr=True, fr0=1e-5, scale_dependent=True),
     dict(ooc="on", recompute_displacements=True),
     dict(ooc="on", DumpProducts=True), dict(DumpProducts=True),
-    dict(ReadProductsFromDumps=True)])
+    dict(ReadProductsFromDumps=True),
+    # the past light cone on either engine, the timeless snapshot on the
+    # dense one
+    dict(plc_enabled=True, StartingzForPLC=1.0),
+    dict(plc_enabled=True, StartingzForPLC=1.0, ooc="on"),
+    dict(WriteTimelessSnapshot=True)])
 def test_features_in_the_slice_are_accepted(overrides):
     p = _params(16)
     for k, v in overrides.items():
@@ -211,9 +227,8 @@ def test_features_in_the_slice_are_accepted(overrides):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(StartingzForPLC=1.0), "item 8"),
     (dict(subbox_tasks=4), "item 9"),
-    (dict(WriteTimelessSnapshot=True), "item 8"),
+    (dict(WriteTimelessSnapshot=True, ooc="on"), "item 13"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):
     p = _params(16)
@@ -224,11 +239,34 @@ def test_features_outside_the_slice_raise(overrides, item):
         check_supported(p)
 
 
+def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
+    p = _params(16)
+    p.ooc = "on"
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_special_mode(p, 3, str(tmp_path), device="cpu", verbose=False)
+    assert not os.listdir(tmp_path)
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["2"], "item 8"), (["--chips", "4"], "item 12"),
-    (["--hosts", "2"], "item 12")])
+    (["--chips", "4"], "item 12"), (["--hosts", "2"], "item 12")])
 def test_cli_options_outside_the_slice_raise(tmp_path, argv, item):
     pf = tmp_path / "parameter_file"
     pf.write_text("GridSize 16\nBoxSize 16.0\n")
     with pytest.raises(NotImplementedError, match=item):
         main([str(pf)] + argv + ["--device", "cpu"])
+
+
+def test_cli_special_mode_2_writes_the_density(tmp_path):
+    """`python -m pinocchio_tpu_torch.run <pf> 2 --device cpu`: the linear
+    density as a snapshot of N^3 float32 values with mean 0, and no other
+    product."""
+    from pinocchio_tpu_torch.io.snapshot import read_snapshot
+    pf = tmp_path / "parameter_file"
+    pf.write_text("GridSize 16\nBoxSize 16.0\n")
+    main([str(pf), "2", "--device", "cpu", "--outdir", str(tmp_path)])
+    outs = sorted(f for f in os.listdir(tmp_path) if f.endswith(".out"))
+    assert outs == ["pinocchio.run.density0.out"]
+    _, blocks = read_snapshot(str(tmp_path / outs[0]))
+    dens = np.frombuffer(blocks["DENS"], np.float32)
+    assert dens.size == 16 ** 3 and np.all(np.isfinite(dens))
+    assert abs(dens.mean()) <= 1e-6 * np.abs(dens).max()

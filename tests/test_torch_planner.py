@@ -8,6 +8,8 @@ that no engine fits aborts with the per-array map.  The port's copies of
 the jax-free modules give the JAX package's numbers.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -86,6 +88,31 @@ def test_host_estimate_counts_the_rows():
     host = planner.host_sweep_bytes(p, frac) / planner.GiB
     rows = frac * 1024 ** 3 * 48 / planner.GiB        # 4 fields x 12 B
     assert rows < host < 3 * rows
+
+
+def test_host_map_counts_the_snapshot_and_the_plc():
+    """With the timeless snapshot the whole grid's products (Fmax, Rmax and
+    four stacks: 56 B per cell at 3LPT) are on the host from fmax on, and
+    its writer adds 32 B per cell; the PLC adds its 4 Nmax crossings of
+    40 B to the sweep; special mode 3 has no sweep, and its writer adds
+    44 B per cell."""
+    p = Params(**bench_kwargs(256))
+    frac, cells = 0.66, 256 ** 3
+    base = planner.host_phases(p, frac)
+    assert set(base) == {"fmax", "sweep"}
+    assert "dense_products" not in base["fmax"]
+    snap = planner.host_phases(
+        dataclasses.replace(p, WriteTimelessSnapshot=True), frac)
+    assert snap["fmax"]["dense_products"] == 56.0 * cells
+    assert snap["snapshot"]["timeless_writer"] == 32.0 * cells
+    cone = planner.host_phases(
+        dataclasses.replace(p, plc_enabled=True, StartingzForPLC=0.3), frac)
+    assert cone["sweep"]["plc_buffers"] == 160.0 * int(cells / 6 * 0.8)
+    mode3 = planner.host_phases(p, frac, dense_products=True)
+    assert set(mode3) == {"fmax", "snapshot"}
+    assert mode3["snapshot"]["lpt_writer"] == 44.0 * cells
+    rep = planner.plan(p, "cpu", dense_products=True)
+    assert rep["host"]["phase"] == "snapshot"
 
 
 def test_port_cosmology_equals_the_jax_package():

@@ -38,15 +38,27 @@
                  in range and aperture, no overflow, every snapshot block
                  N^3 long, FMAX and RMAX equal to the run's, GRUP a group
                  name;
+     subbox      the plc path with the fragmentation over one sub-box per
+                 core this process may use (subbox_tasks), swept
+                 concurrently: the core count, nbox, the stored/total
+                 overhead, the sweep's wall beside the plc path's, the
+                 summed per-box sweep seconds and the host peak beside the
+                 planner's; its catalogs held to the plc path's (counts
+                 within max(5, 0.5 %) per output, over 97 % of the z=0
+                 names found, no duplicates) and its PLC crossings within
+                 1 % of the plc path's, with no overflow;
    then the special modes at 256^3 through run_special_mode: 1 (the CT
    table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
    and its variance the classic path's R=0 grid variance), 3 (the LPT
    snapshot: the classic launch set, POS equal to q + the classic path's
-   displacement rows at the needed cells);
+   displacement rows at the needed cells); and the sub-box sweeps of the
+   classic path's products, single-turn and two-turn (subbox_turns), each
+   with its wall, quick-pass seconds, boundary particles requested and
+   beyond-boundary count, held to the classic path's one-box catalogs;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
-   and the plc path at 64^3 (z 0.1) on the card and on the CPU (the plain
-   versions) and holds the halo catalogs and the PLC crossings to each
-   other;
+   and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, on the card and
+   on the CPU (the plain versions) and holds the halo catalogs and the PLC
+   crossings to each other;
 6. holds the out-of-core engine to the dense engine at 256^3, the dense one
    fed the delta assembled from the engine's kz planes (Fmax, variances, the
    needed set and its order, the rows of every displacement set, halo
@@ -64,11 +76,11 @@
 9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
 
-    python3 chip_smoke.py --only plc,modes,reference:plc
+    python3 chip_smoke.py --only subbox,subbox_turns,reference:subbox
 
 runs only the named phases (kernels, density_field, a path's name, modes,
-reference:<path>, ooc_dense:<name>, ooc_fmax, big, refusal) and prints no
-JSON line.
+subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big, refusal)
+and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -131,6 +143,8 @@ PLC = dict(plc_enabled=True, StartingzForPLC=0.3, LastzForPLC=0.0,
            PLCAperture=30.0, PLCProvideConeData=True)
 SNAPSHOT = dict(WriteTimelessSnapshot=True, add_rmax_to_snapshot=True)
 CLASSIC = DENSE | {"collapse_update", "kspace_gradient"}
+# the cores this process may use: one sub-box each on the subbox path
+CORES = len(os.sched_getaffinity(0))
 
 
 def ooc_tab(interp):
@@ -175,13 +189,19 @@ PATHS = {
     "ooc_scaledep": (PIPELINE_N, dict(FR, ooc="on", DumpProducts=True),
                      OOC_FR),
     "plc": (PIPELINE_N, dict(PLC, **SNAPSHOT), CLASSIC),
+    "subbox": (PIPELINE_N, dict(PLC, subbox_tasks=CORES, **SNAPSHOT),
+               CLASSIC),
 }
 # card-vs-CPU checks: path -> (grid size, switches over the path's); the
 # plc path's cone stops at z 0.1, as a deeper one fills the crossing buffer
 # (4 Nmax) of a 64 Mpc/h box
 REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
-             "plc": (64, dict(StartingzForPLC=0.1))}
-# host products of the classic path, for the special modes' checks
+             "plc": (64, dict(StartingzForPLC=0.1)),
+             "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4))}
+# what later phases hold to: the classic path's host products and grid
+# variance (special modes), its fmax result, catalogs and timings (the
+# sub-box turns); the plc path's catalogs, crossings and timings (the
+# subbox path)
 KEPT = {}
 
 
@@ -767,9 +787,12 @@ def run_path(dev, name):
               + host.line(res["plan"]), flush=True)
         need(res["plan"]["use_ooc"] == (p.ooc == "on"),
              f"{name}: the planner chose the {res['plan']['engine']} engine")
+        # the multibox merge's counts ride in its timings, as in JAX
+        counts = ("frag_overhead", "frag_boundary_requested",
+                  "frag_beyond_boundary")
         print("  phases: " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in sorted(res["timings"].items())),
-            flush=True)
+            f"{k} {v:.3f}" + ("" if k in counts else " s")
+            for k, v in sorted(res["timings"].items())), flush=True)
         for snap in res["frag"].catalogs:
             nh = int((snap.mass >= p.MinHaloMass).sum())
             print(f"  z={snap.z:g}: {nh} halos", flush=True)
@@ -805,6 +828,13 @@ def run_path(dev, name):
         if name == "classic":
             KEPT["classic"] = (res["fmax"].host_products,
                                sv.copy())
+            KEPT["classic_run"] = (res["fmax"], res["frag"].catalogs,
+                                   res["timings"])
+        if name == "plc":
+            KEPT["plc"] = (res["frag"].catalogs, len(res["frag"].plc.z),
+                           res["timings"])
+        if p.subbox_tasks > 1:
+            subbox_checks(dev, p, res, host)
     print(f"  launches on the {name} path: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     expected = own
@@ -870,8 +900,10 @@ def plc_checks(p, res, out):
     same_F = np.array_equal(F, fm.Fmax.cpu().numpy().ravel())
     same_R = np.array_equal(R, fm.Rmax.cpu().numpy().ravel())
     grup = np.frombuffer(blocks["GRUP"], np.uint64)
-    names = np.concatenate([[0, 1], res["frag"].groups.name]).astype(
-        np.uint64)
+    groups = res["frag"].groups
+    names = np.concatenate([[0, 1]] + [
+        g.name for g in (groups if isinstance(groups, list) else [groups])
+    ]).astype(np.uint64)
     named = np.isin(grup, names)
     print(f"  snapshot: {len(size)} blocks of {N}^3, FMAX equal to the run's "
           f"Fmax: {same_F}, RMAX equal to its Rmax: {same_R}, GRUP a group "
@@ -879,6 +911,102 @@ def plc_checks(p, res, out):
           f"({int((grup > 1).sum())} particles in named groups)", flush=True)
     need(same_F and same_R, "plc: snapshot FMAX or RMAX differ from the run")
     need(named.all(), "plc: snapshot GRUP holds values that name no group")
+
+
+def same_halos(p, what, got, want):
+    """The tolerance family of the JAX package's sub-box tests: halo counts
+    per output within max(5, 0.5 %) of ``want``'s, no duplicate names, and
+    over 97 % of want's final halos found in name and mass."""
+    import numpy as np
+    for g, w in zip(got, want):
+        ng = int((g.mass >= p.MinHaloMass).sum())
+        nw = int((w.mass >= p.MinHaloMass).sum())
+        dup = len(g.name) - len(np.unique(g.name))
+        print(f"  {what} z={g.z:g}: {ng} halos against {nw} (tolerance "
+              f"max(5, 0.5 %)), {dup} duplicate names", flush=True)
+        need(nw > 0 and abs(ng - nw) <= max(5, 0.005 * nw) and dup == 0,
+             f"{what}: halo count at z={g.z} differs, or names repeat")
+    g, w = got[-1], want[-1]
+    have = dict(zip(g.name.tolist(), g.mass.tolist()))
+    found = sum(1 for nm, ms in zip(w.name.tolist(), w.mass.tolist())
+                if have.get(nm) == ms) / max(len(w.name), 1)
+    print(f"  {what}: {100 * found:.2f} % of the z={w.z:g} halos found in "
+          f"name and mass (need > 97 %)", flush=True)
+    need(found > 0.97, f"{what}: final halos differ")
+
+
+def subbox_checks(dev, p, res, host):
+    """The subbox path's run ``res`` against the plc path's (run first if
+    this process has not): the decomposition and its overhead, the sweep's
+    wall beside the plc path's, the summed per-box sweep seconds, the host
+    peak within 1.25 of the planner's, the catalogs by same_halos, the PLC
+    crossings within 1 % of the plc path's with no overflow."""
+    plan, t = res["plan"], res["timings"]
+    nbox = plan["nbox"]
+    print(f"  sub-boxes: {CORES} cores, nbox {nbox[0]} x {nbox[1]} x "
+          f"{nbox[2]} ({'two' if plan['two_turn'] else 'single'}-turn, "
+          f"{plan['subbox_workers']} swept at once), padded volume "
+          f"{plan['boundary_overhead']:.4f} N^3, stored/total overhead "
+          f"{t['frag_overhead']:.4f}", flush=True)
+    need(math.prod(nbox) == p.subbox_tasks,
+         "subbox: nbox does not give one sub-box per core")
+    if "plc" not in KEPT:
+        run_path(dev, "plc")
+    cats, ncross, tp = KEPT["plc"]
+    print(f"  subbox sweep: frag_wall {t['frag_wall']:.3f} s against the plc "
+          f"path's one box {tp['frag_wall']:.3f} s "
+          f"({tp['frag_wall'] / t['frag_wall']:.2f}x); per-box sweeps "
+          f"{t['frag_sweep']:.3f} s summed (slowest box {t['frag_total']:.3f}"
+          f" s), the one box's sweep {tp['frag_sweep']:.3f} s", flush=True)
+    need(host.peak - host.base <= 1.25 * plan["host_bytes"],
+         "subbox: the host peak exceeds the planner's by more than 25 %")
+    same_halos(p, "subbox against plc", res["frag"].catalogs, cats)
+    plc = res["frag"].plc
+    rel = abs(len(plc.z) / ncross - 1.0)
+    print(f"  subbox PLC: {len(plc.z)} crossings against the plc path's "
+          f"{ncross} ({100 * rel:.3f} %, need <= 1 %), overflow "
+          f"{plc.overflow}", flush=True)
+    need(rel <= 0.01 and not plc.overflow, "subbox: the PLC crossings "
+         "differ from the plc path's, or overflowed")
+
+
+def subbox_turns(dev):
+    """run_fragmentation_multibox on the classic path's products (the run
+    kept by run_path; run first if this process has not) over one sub-box
+    per core, single-turn then two-turn: each one's wall, quick-pass
+    seconds, boundary particles requested and beyond-boundary count, held
+    to the classic path's one-box catalogs by same_halos."""
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.subbox import (
+        choose_nbox, run_fragmentation_multibox)
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+
+    if "classic_run" not in KEPT:
+        run_path(dev, "classic")
+    fres, cats, t = KEPT["classic_run"]
+    p = params_for(PIPELINE_N)
+    cosmo = Cosmology(p)
+    largest = largest_halo_mass(p, cosmo)
+    nbox = choose_nbox(p, cosmo, largest, CORES)
+    for two_turn in (False, True):
+        what = f"{'two' if two_turn else 'single'}-turn"
+        t0 = time.perf_counter()
+        res = run_fragmentation_multibox(p, cosmo, fres, nbox,
+                                         largest_mass=largest,
+                                         two_turn=two_turn, verbose=False)
+        wall = time.perf_counter() - t0
+        r = res.timings
+        print(f"  {what} over {nbox}: {wall:.3f} s wall against the one-box "
+              f"frag_wall {t['frag_wall']:.3f} s; per-box sweeps "
+              f"{r['sweep']:.3f} s summed, quick passes {r['quick']:.3f} s "
+              f"summed; {int(r['boundary_requested'])} boundary particles "
+              f"requested, {int(r['beyond_boundary'])} beyond the boundary "
+              f"layer; stored/total overhead {r['overhead']:.4f}",
+              flush=True)
+        need(two_turn == (r["quick"] > 0.0),
+             f"subbox_turns: {what}: the quick pass ran or did not")
+        same_halos(p, f"{what} against one box", res.catalogs, cats)
+        del res
 
 
 def special_modes(dev):
@@ -1318,9 +1446,9 @@ def main(argv=None) -> int:
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, "
-                    "density_field, a path's name, modes, reference:<path>, "
-                    "ooc_dense:<name>, ooc_fmax, big, refusal); no JSON "
-                    "line is printed")
+                    "density_field, a path's name, modes, subbox_turns, "
+                    "reference:<path>, ooc_dense:<name>, ooc_fmax, big, "
+                    "refusal); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -1349,11 +1477,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch import kernels, native
     t0 = time.perf_counter()
     kernels.lib()
     print(f"kernels built with nvcc in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the host C libraries too, so that no path's timings hold their build
+    t0 = time.perf_counter()
+    for name in ("groupsweep", "fastio"):
+        native.load(name)
+    print(f"host C libraries built with cc in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
 
     t_start = time.perf_counter()
 
@@ -1378,6 +1512,10 @@ def main(argv=None) -> int:
         if wanted("modes"):
             section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
             density_calls, _ = special_modes(dev)
+        if wanted("subbox_turns"):
+            section(f"sub-box sweeps of the classic path's products at "
+                    f"{PIPELINE_N}^3, {CORES} sub-boxes:")
+            subbox_turns(dev)
         for path in REFERENCE:
             if wanted(f"reference:{path}"):
                 section(f"{path} path at {REFERENCE[path][0]}^3 on the card "

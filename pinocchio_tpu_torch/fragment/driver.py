@@ -1,16 +1,24 @@
 """Fragmentation driver: from the needed-particle products to halos
-(counterpart of pinocchio_tpu/fragment/driver.py, single full-box domain).
+(counterpart of pinocchio_tpu/fragment/driver.py).
 
 The products arrive from the device already sorted in the sweep's order
 (descending Fmax, ties by ascending cell index, fragment.c:484-520), so this
-module builds the growth-weight tables and the ctypes structs and runs the
-native group sweep (the port's copy of the C sweep, native/groupsweep.c,
-loaded through ``native``).  One periodic sub-box spans the grid
-(set_subboxes with nbox=1: pbc on, safe=0); there is no streaming
-watermark.  Scale-dependent growth adds the sweep's (log10 k, log10 F)
-weight tables, RECOMPUTE_DISPLACEMENTS its per-segment displacement sets
-and weights, a past light cone (plc.build_plc_geometry) the sweep's
-on-the-fly crossing solve and its output buffers.
+module selects the particles of one sub-box, builds the growth-weight tables
+and the ctypes structs and runs the native group sweep (the port's copy of
+the C sweep, native/groupsweep.c, loaded through ``native``).  The sub-box
+is a SubboxGeometry: by default one periodic box spanning the grid
+(set_subboxes with nbox=1: pbc on, safe=0); fragment/subbox.py sweeps
+several padded sub-boxes and merges them.  A sub-box's particles are picked
+from the shared products by one C pass (subbox_select), filtered in order by
+an optional cell mask (the two-turn scheme's needed-particle map), and the
+sweep reads the shared displacement rows through a row map, so threads
+sweeping other sub-boxes share them.  There is no streaming watermark, and
+no dense-product branch (so no count_peaks: the group arrays are sized from
+the stored count and regrown on overflow).  Scale-dependent growth adds the
+sweep's (log10 k, log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its
+per-segment displacement sets and weights, a past light cone
+(plc.build_plc_geometry) the sweep's on-the-fly crossing solve and its
+output buffers.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import ctypes
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
@@ -230,12 +238,28 @@ def _segment_weight_tables(params: Params, cosmo: Cosmology, scaledep_gm,
 
 
 @dataclass
+class SubboxGeometry:
+    """One fragmentation sub-domain (subbox_data, pinocchio.h:352-366)."""
+    L: tuple            # local grid-with-boundary dims (Lgwbl)
+    pbc: tuple
+    safe: tuple
+    stabl: tuple        # offset of the local grid in the global grid
+    G: tuple            # global grid dims
+
+    @classmethod
+    def full(cls, N: int) -> "SubboxGeometry":
+        """The whole periodic grid as one sub-box."""
+        return cls(L=(N, N, N), pbc=(1, 1, 1), safe=(0, 0, 0),
+                   stabl=(0, 0, 0), G=(N, N, N))
+
+
+@dataclass
 class CatalogSnapshot:
     z: float
     name: np.ndarray           # u64
     mass: np.ndarray           # particles, i32
-    q: np.ndarray              # [n,3] Lagrangian CM, grid units
-    x: np.ndarray              # [n,3] Eulerian, grid units
+    q: np.ndarray              # [n,3] Lagrangian CM, global grid units
+    x: np.ndarray              # [n,3] Eulerian, global grid units
     v: np.ndarray              # [n,3] km/s
 
 
@@ -270,13 +294,16 @@ class PlcResult:
 @dataclass
 class FragmentResult:
     catalogs: List[CatalogSnapshot]
-    groups: GroupState
+    # one GroupState, or after a multibox merge a list of them (one per
+    # sub-box)
+    groups: Union[GroupState, List[GroupState]]
     counters: np.ndarray
     npeaks: int
     nstored: int
     plc: Optional[PlcResult] = None
-    # per stored particle, in the sweep's order: the global cell index and
-    # the accretion redshift (-1 where none)
+    # per stored particle, in the sweep's order: the cell index (the local
+    # linear index of the sub-box, z fastest; the global one after the
+    # multibox merge) and the accretion redshift (-1 where none)
     particle_pos: np.ndarray = None
     particle_zacc: np.ndarray = None
     # the name of each stored particle's group (its peak particle's ID),
@@ -286,6 +313,62 @@ class FragmentResult:
     timings: Dict[str, float] = field(default_factory=dict)
     # the PredPeakFactor that would have been enough (fragment.c:477)
     best_pred_peak_factor: float = 0.0
+    # final Lagrangian CM per group [ngroups+1, 3] in local sub-box
+    # coordinates (the two-turn boundary-sphere map_update reads them)
+    groups_q: np.ndarray = None
+
+
+def _subsel_lib():
+    """groupsweep.so with the sub-box selection helpers' signatures (the
+    displacement rows are read through rowmap, so the row gathers of the
+    JAX package's dense-segment branch, gather_rows3 and gather_i64, are
+    not needed)."""
+    lib = native.load("groupsweep")
+    if not getattr(lib, "_subsel_sig", False):
+        lib.subbox_select.restype = ctypes.c_int64
+        lib.subbox_select.argtypes = [
+            _i64p, ctypes.c_int64, ctypes.c_int32, _i32p, _i32p, _i32p,
+            _i32p, _i32p]
+        lib.gather_f32.restype = None
+        lib.gather_f32.argtypes = [_f32p, _i32p, ctypes.c_int64, _f32p]
+        lib.fill_loc.restype = None
+        lib.fill_loc.argtypes = [_i32p, ctypes.c_int64, _i32p]
+        lib._subsel_sig = True
+    return lib
+
+
+def _select(sp, geom: SubboxGeometry, cell_mask):
+    """The stored particles of the sub-box ``geom``: (rows, lin) with rows
+    the particles' rows in the shared products (None for all of them, in
+    order) and lin their local linear cells, z fastest, in the products'
+    (sweep) order; cell_mask (uint8 over the padded box, ravelled) keeps
+    the cells it marks, order-preserving."""
+    N = sp.N
+    rows = None
+    lin = sp.ci
+    if tuple(geom.L) != (N, N, N) or tuple(geom.stabl) != (0, 0, 0):
+        # one streaming C pass: the wrapped-membership test and the local
+        # linear index (distribute.c:280-367)
+        ci = np.ascontiguousarray(sp.ci, np.int64)
+        nsp = len(ci)
+        rows = np.empty(nsp, np.int32)
+        lin32 = np.empty(nsp, np.int32)
+
+        def arr3(v):
+            return np.ascontiguousarray(v, np.int32).ctypes.data_as(_i32p)
+        m = _subsel_lib().subbox_select(
+            ci.ctypes.data_as(_i64p), ctypes.c_int64(nsp), np.int32(N),
+            arr3(geom.L), arr3(geom.stabl), arr3(geom.G),
+            rows.ctypes.data_as(_i32p), lin32.ctypes.data_as(_i32p))
+        # the buffers' unwritten tails are never touched, so they take no
+        # host memory
+        rows, lin = rows[:m], lin32[:m]
+    if cell_mask is not None:
+        keep = cell_mask[lin] != 0
+        rows = (np.flatnonzero(keep).astype(np.int32) if rows is None
+                else rows[keep])
+        lin = lin[keep]
+    return rows, lin
 
 
 def _sweep_lib():
@@ -301,27 +384,49 @@ def _sweep_lib():
 
 def run_fragmentation(params: Params, cosmo: Cosmology,
                       fmax_result: FmaxResult, plc_geom=None,
-                      scaledep_gm=None, verbose: bool = True,
+                      scaledep_gm=None, geom: SubboxGeometry = None,
+                      cell_mask: np.ndarray = None, quick: bool = False,
+                      verbose: bool = True,
                       _maxg_override: int = None) -> FragmentResult:
-    """The group sweep over the needed particles.  plc_geom: the past light
-    cone's geometry (plc.build_plc_geometry), None or disabled for no PLC.
-    scaledep_gm: the per-radius effective scales of a scale-dependent
-    cosmology (scaledep.set_scaledep_gm), None otherwise."""
+    """The group sweep over the needed particles of one sub-box.  plc_geom:
+    the past light cone's geometry (plc.build_plc_geometry), None or
+    disabled for no PLC.  scaledep_gm: the per-radius effective scales of a
+    scale-dependent cosmology (scaledep.set_scaledep_gm), None otherwise.
+    geom: the sub-box, the whole periodic grid when None.  cell_mask: an
+    optional uint8 array over the padded box (ravelled, z fastest) that
+    restricts the stored particles (the needed-particle map,
+    distribute.c:670-698).  quick: the stripped first-turn sweep (quick_build_groups,
+    build_groups.c:1882-2243): no catalogs, no PLC, no RECOMPUTE segments,
+    only the group state and the groups' Lagrangian CMs (groups_q)."""
     t_all = time.perf_counter()
     timings = {}
     sp = fmax_result.host_products
     if sp.sorted_by != "F":
         raise ValueError("run_fragmentation takes F-sorted products")
-    N = sp.N
-    ncells = N ** 3
+    if geom is None:
+        geom = SubboxGeometry.full(sp.N)
+    if quick:
+        plc_geom = None
+    ncells = int(np.prod(geom.L))
 
     t0 = time.perf_counter()
-    n = len(sp.ci)
-    Fs = np.ascontiguousarray(sp.F, np.float32)
-    pos = np.ascontiguousarray(sp.ci, np.int32)
+    # the products are F-sorted and the selection keeps their order, so the
+    # selected particles are already in the sweep's order
+    rowmap, lin = _select(sp, geom, cell_mask)
+    n = len(lin)
+    pos = np.ascontiguousarray(lin, np.int32)
+    if rowmap is None:
+        Fs = np.ascontiguousarray(sp.F, np.float32)
+    else:
+        Fs = np.empty(n, np.float32)
+        _subsel_lib().gather_f32(
+            np.ascontiguousarray(sp.F, np.float32).ctypes.data_as(_f32p),
+            rowmap.ctypes.data_as(_i32p), ctypes.c_int64(n),
+            Fs.ctypes.data_as(_f32p))
     keys = ("v1", "v2", "v31", "v32")
 
     def rows(vs):
+        # the shared tables; a sub-box reads its rows through rowmap
         return {k: (np.ascontiguousarray(vs[k], np.float32)
                     if k in vs else None) for k in keys}
 
@@ -329,14 +434,15 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     # RECOMPUTE_DISPLACEMENTS: one set per output redshift, rows aligned
     # with vel (the sweep reads them with the same row index)
     segments = ([rows(vs) for vs in sp.segments]
-                if sp.segments is not None else None)
+                if sp.segments is not None and not quick else None)
     loc = np.full(ncells, -1, np.int32)
-    loc[pos] = np.arange(n, dtype=np.int32)
+    _subsel_lib().fill_loc(pos.ctypes.data_as(_i32p), ctypes.c_int64(n),
+                           loc.ctypes.data_as(_i32p))
     timings["sort"] = time.perf_counter() - t0
 
     # ---- guard rails (fragment.c:258-283, build_groups.c:350-357) ----
     nfields = {1: 1, 2: 2, 3: 4}[params.lpt_order]
-    nseg = len(segments) if segments is not None else 1
+    nseg = len(sp.segments) if sp.segments is not None else 1
     bytes_per_stored = (8 + 4 + 3 * nfields * 4) \
         + (4 + 4 + 3 * nfields * 4 * nseg + 4 + 4)
     nalloc = int(ncells * max(0.0, params.MaxMemPerParticle - 8)
@@ -368,7 +474,9 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     # the grid's own delta variance at R=0, from the collapse kernel's
     # delta^2 statistic
     sigma_grid = math.sqrt(float(fmax_result.smoothing.true_variance[-1]))
-    outF = np.ascontiguousarray(params.output_F, np.float64)
+    # the quick turn captures no catalogs (nout=0: the capture trigger never
+    # fires, as quick_build_groups skips write_catalog)
+    outF = np.ascontiguousarray([] if quick else params.output_F, np.float64)
     nout = len(outF)
 
     cap_name = np.zeros(nout * maxg, np.uint64)
@@ -403,11 +511,12 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
         Fmax=p(Fs, _f32p), pos=p(pos, _i32p),
         v1=p(vel["v1"], _f32p), v2=p(vel["v2"], _f32p),
         v31=p(vel["v31"], _f32p), v32=p(vel["v32"], _f32p),
-        loc=p(loc, _i32p), rowmap=_i32p(),
-        L=(ctypes.c_int32 * 3)(N, N, N), pbc=(ctypes.c_int32 * 3)(1, 1, 1),
-        safe=(ctypes.c_int32 * 3)(0, 0, 0),
-        stabl=(ctypes.c_int32 * 3)(0, 0, 0),
-        G=(ctypes.c_int32 * 3)(N, N, N),
+        loc=p(loc, _i32p), rowmap=p(rowmap, _i32p),
+        L=(ctypes.c_int32 * 3)(*geom.L),
+        pbc=(ctypes.c_int32 * 3)(*geom.pbc),
+        safe=(ctypes.c_int32 * 3)(*geom.safe),
+        stabl=(ctypes.c_int32 * 3)(*geom.stabl),
+        G=(ctypes.c_int32 * 3)(*geom.G),
         f_m=fpar["f_m"], f_rm=fpar["f_rm"], espo=fpar["espo"],
         f_a=fpar["f_a"], f_ra=fpar["f_ra"], f_200=fpar["f_200"],
         sigmaD0=fpar["sigmaD0"], sigma_grid=sigma_grid,
@@ -520,6 +629,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
             print(f"  group capacity {maxg} overflowed, retrying x2")
         return run_fragmentation(params, cosmo, fmax_result,
                                  plc_geom=plc_geom, scaledep_gm=scaledep_gm,
+                                 geom=geom, cell_mask=cell_mask, quick=quick,
                                  verbose=verbose,
                                  _maxg_override=2 * maxg + 8192)
     if rc != 0:
@@ -527,12 +637,13 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
                            f"(-2 = peak-capacity overflow)")
 
     catalogs = []
-    Gf = np.float32(N)
-    for iout, z in enumerate(params.output_z):
+    stabl_f = np.asarray(geom.stabl, np.float32)
+    Gf = np.asarray(geom.G, np.float32)
+    for iout, z in enumerate([] if quick else params.output_z):
         c = int(cap_count[iout])
         base = iout * maxg
-        q = cap_q[3 * base:3 * (base + c)].reshape(-1, 3)
-        x = cap_x[3 * base:3 * (base + c)].reshape(-1, 3)
+        q = cap_q[3 * base:3 * (base + c)].reshape(-1, 3) + stabl_f
+        x = cap_x[3 * base:3 * (base + c)].reshape(-1, 3) + stabl_f
         catalogs.append(CatalogSnapshot(
             z=z, name=cap_name[base:base + c].copy(),
             mass=cap_mass[base:base + c].copy(),
@@ -570,7 +681,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     # the timeless snapshot's GRUP: each particle's group name, with
     # groups[0].name = 0 and groups[FILAMENT].name = FILAMENT
     particle_grup = None
-    if params.WriteTimelessSnapshot:
+    if params.WriteTimelessSnapshot and not quick:
         names = g_name[:ng + 1].copy()
         names[0] = 0
         if ng >= FILAMENT:
@@ -586,4 +697,5 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
                           counters=counters, npeaks=npeaks, nstored=n,
                           plc=plc, particle_pos=pos, particle_zacc=zacc,
                           particle_grup=particle_grup, timings=timings,
-                          best_pred_peak_factor=npeaks * 6.0 / ncells)
+                          best_pred_peak_factor=npeaks * 6.0 / ncells,
+                          groups_q=g_q[:3 * (ng + 1)].reshape(-1, 3))

@@ -298,11 +298,14 @@ def build_histories_flat(groups: GroupState, min_halo_mass: int):
     return treelen[:ntrees], rec
 
 
-def write_histories(params: Params, groups: GroupState,
-                    directory: str = ".") -> str:
+def write_histories(params: Params, groups, directory: str = ".") -> str:
     """Merger histories of the main halos (write_histories,
-    write_halos.c:897-1103), ascii or binary."""
-    treelen, rec = build_histories_flat(groups, params.MinHaloMass)
+    write_halos.c:897-1103), ascii or binary.  groups: a GroupState, or a
+    list of them (one per sub-box), whose trees are written in order."""
+    group_list = groups if isinstance(groups, list) else [groups]
+    parts = [build_histories_flat(g, params.MinHaloMass) for g in group_list]
+    treelen = np.concatenate([t for t, _ in parts])
+    rec = np.concatenate([r for _, r in parts])
     ntrees = len(treelen)
     nbranch = len(rec)
     path = os.path.join(directory,

@@ -7,7 +7,8 @@ disk, so that a later run can go straight to fragmentation.  The files are
 the JAX package's, and either package reads the other's dumps.
 ``DumpProducts/summary.json`` holds the run's GridSize, RandomSeed, BoxSize
 and lpt_order (checked on restart), the smoothing radii and variances and
-the format:
+the format (a legacy dense dump keeps the radii and variances in its
+``products.npz`` instead, and both packages read them from there):
 
   sparse  (the default) ``products.<host>.npz``: the needed particles' cell
           indices ``ci``, ``F``, the rows ``vel_<field>`` and, under
@@ -92,12 +93,22 @@ def dump_products(params: Params, fmax_result: FmaxResult,
     return path
 
 
+SMOOTHING_KEYS = ("radii", "variance", "true_variance")
+
+
+def _smoothing(src) -> Smoothing:
+    return Smoothing(**{k: np.asarray(src[k]) for k in SMOOTHING_KEYS})
+
+
 def _read_dense(params: Params, ddir: str, sm: Smoothing) -> FmaxResult:
     """A dense dump: the whole grid's products on the host, the needed
     particles compacted from them in the sweep's order (descending F, ties
     by ascending cell: a stable sort of the cell-ordered candidates) and
-    the FmaxPDF histogram of the grid."""
+    the FmaxPDF histogram of the grid.  sm None (a legacy dump): the
+    smoothing radii and variances from the npz."""
     with np.load(os.path.join(ddir, "products.npz")) as data:
+        if sm is None:
+            sm = _smoothing(data)
         dense = DenseProducts(
             Fmax=np.asarray(data["Fmax"], np.float32),
             Rmax=np.asarray(data["Rmax"], np.int32),
@@ -124,8 +135,9 @@ def read_dumps(params: Params, directory: str = ".") -> FmaxResult:
     under RECOMPUTE_DISPLACEMENTS, one row set per output redshift; from a
     dense dump also the whole grid's products (FmaxResult.dense) and the
     FmaxPDF histogram.  A dump of another run (GridSize, RandomSeed,
-    BoxSize or lpt_order) raises ValueError, and so does a sparse dump for
-    a run with WriteTimelessSnapshot."""
+    BoxSize or lpt_order) raises ValueError, and so do a sparse dump for a
+    run with WriteTimelessSnapshot and a sparse dump whose summary lacks
+    the smoothing radii and variances."""
     ddir = os.path.join(directory, DUMP_DIR)
     with open(os.path.join(ddir, "summary.json")) as fd:
         meta = json.load(fd)
@@ -136,11 +148,14 @@ def read_dumps(params: Params, directory: str = ".") -> FmaxResult:
         if meta[key] != want:
             raise ValueError(f"dump mismatch for {key}: dump has "
                              f"{meta[key]}, run wants {want}")
-    sm = Smoothing(radii=np.asarray(meta["radii"]),
-                   variance=np.asarray(meta["variance"]),
-                   true_variance=np.asarray(meta["true_variance"]))
+    # a legacy dense dump keeps the radii and variances in its npz
+    sm = _smoothing(meta) if "radii" in meta else None
     if meta.get("format", "dense") == "dense":
         return _read_dense(params, ddir, sm)
+    if sm is None:
+        raise ValueError(
+            f"the sparse dump in {ddir} has no smoothing radii and "
+            f"variances in its summary.json ({', '.join(SMOOTHING_KEYS)})")
     if params.WriteTimelessSnapshot:
         raise ValueError(
             "this dump is sparse (needed particles only) but the run "

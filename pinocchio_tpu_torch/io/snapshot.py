@@ -192,8 +192,9 @@ def write_timeless_snapshot(params: Params, fmax_result, frag_result,
             "timeless snapshot: particle group names absent (the run was "
             "fragmented without WriteTimelessSnapshot=True)")
     d = _dense(fmax_result)
-    # the sweep's zacc and group names back to grid order (one sub-box:
-    # particle_pos is the global cell index)
+    # the sweep's zacc and group names back to grid order: particle_pos is
+    # the global cell index (one sub-box's, or the multibox merge's over the
+    # sub-boxes' well-resolved regions, fragment/subbox._resolved_particles)
     zacc = np.full(N ** 3, -1.0, np.float32)
     grup = np.zeros(N ** 3, np.uint64)
     pos = frag_result.particle_pos

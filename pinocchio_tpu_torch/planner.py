@@ -1,7 +1,7 @@
 """Memory planner of the port: the peak device memory of the dense and of the
 out-of-core fmax engine on one card, array by array and phase by phase, the
-host memory of the one-sub-box sweep, the engine choice and the pre-flight
-abort (the port's counterpart of pinocchio_tpu/planner.py; the reference's
+host memory of the sweep (one box, or the sub-boxes swept at once), the
+sub-box decomposition, the engine choice and the pre-flight abort (the port's counterpart of pinocchio_tpu/planner.py; the reference's
 bounded-memory contract, allocations.c:37-251, and its abort with the
 per-array map, allocations.c:274-324).
 
@@ -155,16 +155,24 @@ def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
     return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
 
 
-def host_phases(params: Params, frac: float,
-                dense_products: bool = False) -> dict:
+def host_phases(params: Params, frac: float, dense_products: bool = False,
+                geoms=None, two_turn: bool = False,
+                workers: int = None) -> dict:
     """Host bytes of the run by phase, array by array: at the end of fmax,
     the needed particles' products (cell index, F and the rows of every
-    field of every displacement set); during the one-sub-box sweep, the
-    same products, the sweep's per-particle arrays, its peak groups, the
-    grid's row map and, with the PLC, its crossing buffers.  With the
-    timeless snapshot the whole grid's products (Fmax, Rmax and the first
-    set's stacks) are on the host from the end of fmax on, and its writer
-    adds the IDs, ZACC, GRUP and one block's transposed rows.
+    field of every displacement set); during the sweep, the same products
+    (shared by every sub-box) and, for each box swept at once, the sweep's
+    per-particle arrays, its peak groups and capture buffers, the box's row
+    map and, with the PLC, its crossing buffers (4 Nmax per box).  geoms:
+    the sub-boxes (fragment.subbox.subbox_geometries), one periodic box
+    when None; a sub-box stores the collapsed fraction of its padded cells
+    and adds its particles' rows in the shared products, the two-turn
+    scheme three uint8 maps over its padded cells.  workers boxes
+    (fragment.subbox.pool_workers when None) are swept at once; the
+    others' results (groups, particle outputs) stay until the merge.  With
+    the timeless snapshot the whole grid's products (Fmax, Rmax and the
+    first set's stacks) are on the host from the end of fmax on, and its
+    writer adds the IDs, ZACC, GRUP and one block's transposed rows.
     dense_products (special mode 3): the whole grid's products, no sweep,
     and the LPT snapshot writer's displacement sum, positions, IDs and one
     block's rows."""
@@ -177,27 +185,73 @@ def host_phases(params: Params, frac: float,
     if dense_products:
         return {"fmax": products,
                 "snapshot": dict(products, lpt_writer=44.0 * cells)}
-    groups = PEAKS_PER_STORED * n * (
-        GROUP_BYTES + GROUP_BYTES_PER_OUTPUT * len(params.output_z)
-        + GROUP_BYTES_PER_FIELD * nf)
-    sweep = dict(products, sweep_arrays=20.0 * n,   # F, pos, gop, zacc,
-                 groups=groups, row_map=4.0 * cells)   # join_F
-    if params.plc_enabled and params.StartingzForPLC >= 0.0:
-        # name, z, mass, x and v of each of 4 Nmax crossings
-        nmax = int(cells / 6 * params.PredPeakFactor)
-        sweep["plc_buffers"] = 40.0 * 4 * nmax
+    per_group = (GROUP_BYTES + GROUP_BYTES_PER_OUTPUT * len(params.output_z)
+                 + GROUP_BYTES_PER_FIELD * nf)
+    plc_on = params.plc_enabled and params.StartingzForPLC >= 0.0
+    # name, z, mass, x and v of each of 4 Nmax crossings
+    plc_bytes = 40.0 * 4 * int(cells / 6 * params.PredPeakFactor)
+    boxes = sorted((float(math.prod(g.L)) for g in geoms), reverse=True) \
+        if geoms else [cells]
+    multi = len(boxes) > 1
+    # per stored particle: F, pos, gop, zacc, join_F, and a sub-box's row
+    per_particle = 24.0 if multi else 20.0
+
+    def working(c):
+        nb = frac * c
+        w = dict(sweep_arrays=per_particle * nb,
+                 groups=PEAKS_PER_STORED * nb * per_group, row_map=4.0 * c)
+        if two_turn:
+            w["turn_masks"] = 3.0 * c
+        if plc_on:
+            w["plc_buffers"] = plc_bytes
+        return w
+
+    if workers is None:
+        from .fragment.subbox import pool_workers
+        workers = pool_workers()
+    sweep = dict(products)
+    for c in boxes[:workers]:
+        for k, b in working(c).items():
+            sweep[k] = sweep.get(k, 0.0) + b
+    if boxes[workers:]:
+        sweep["finished_boxes"] = sum(boxes[workers:]) * frac * (
+            PEAKS_PER_STORED * per_group + 16.0)
     phases = {"fmax": products, "sweep": sweep}
     if params.WriteTimelessSnapshot:
-        # the sweep's positions, zacc and group names per stored particle
-        phases["snapshot"] = dict(products, particle_outputs=16.0 * n,
-                                  groups=groups,
-                                  timeless_writer=32.0 * cells)
+        # the sweep's positions (int64 after a multibox merge), zacc and
+        # group names per stored particle, and every box's groups
+        phases["snapshot"] = dict(
+            products, particle_outputs=(20.0 if multi else 16.0) * n,
+            groups=PEAKS_PER_STORED * frac * sum(boxes) * per_group,
+            timeless_writer=32.0 * cells)
     return phases
 
 
 def host_sweep_bytes(params: Params, frac: float) -> float:
-    """Host bytes of the one-sub-box fragmentation (host_phases)."""
+    """Host bytes of the one-box fragmentation (host_phases)."""
     return sum(host_phases(params, frac)["sweep"].values())
+
+
+def subbox_plan(params: Params, cosmo: Cosmology) -> dict:
+    """The sub-box decomposition of a run with subbox_tasks > 1
+    (fragment.subbox, set_subboxes): nbox, the geometries, whether the
+    memory-driven default sweeps in two turns, the threads that sweep at
+    once, and the boundary overhead, the padded volumes over N^3 (1 for
+    one box)."""
+    if params.subbox_tasks <= 1:
+        return dict(nbox=(1, 1, 1), geoms=None, two_turn=False, workers=1,
+                    boundary_overhead=1.0)
+    from .fragment.subbox import (choose_nbox, default_two_turn,
+                                  pool_workers, subbox_geometries)
+    from .io.catalogs import largest_halo_mass
+    largest = largest_halo_mass(params, cosmo)
+    nbox = choose_nbox(params, cosmo, largest, params.subbox_tasks)
+    geoms = subbox_geometries(params, cosmo, largest, nbox)
+    padded = sum(float(math.prod(g.L)) for g in geoms)
+    return dict(nbox=nbox, geoms=geoms,
+                two_turn=default_two_turn(params, cosmo, geoms),
+                workers=min(len(geoms), pool_workers()),
+                boundary_overhead=padded / float(params.GridSize) ** 3)
 
 
 def device_memory(device) -> float:
@@ -218,9 +272,10 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
          dense_products: bool = False) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
-    out-of-core engine when the dense one does not fit) and the host
-    estimate of the run's phases (host_phases; dense_products for special
-    mode 3)."""
+    out-of-core engine when the dense one does not fit), the sub-box
+    decomposition (subbox_plan: nbox, boundary_overhead, two_turn,
+    subbox_workers) and the host estimate of the run's phases (host_phases;
+    dense_products for special mode 3)."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
@@ -234,7 +289,9 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
     else:
         use_ooc = False
     chosen = ooc if use_ooc else dense
-    hphases = host_phases(params, frac, dense_products)
+    sub = subbox_plan(params, cosmo)
+    hphases = host_phases(params, frac, dense_products, geoms=sub["geoms"],
+                          two_turn=sub["two_turn"], workers=sub["workers"])
     if torch.device(device).type == "cpu":
         # device arrays live in host memory too
         for arrays in hphases.values():
@@ -249,7 +306,9 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
                 fits_device=chosen["peak"] < limit,
                 host=dict(phases=hphases, phase=hphase),
                 host_bytes=host, host_limit=host_limit,
-                fits_host=host < host_limit)
+                fits_host=host < host_limit, nbox=tuple(sub["nbox"]),
+                boundary_overhead=sub["boundary_overhead"],
+                two_turn=sub["two_turn"], subbox_workers=sub["workers"])
 
 
 def ooc_selected(params: Params, device="cuda",
@@ -278,6 +337,14 @@ def format_memory_map(report: dict) -> str:
     lines.append(f"  the {'dense' if report['use_ooc'] else 'out-of-core'} "
                  f"engine would peak at {other['peak'] / GiB:.2f} GiB "
                  f"({other['phase']})")
+    nbox = report["nbox"]
+    if math.prod(nbox) > 1:
+        lines.append(
+            f"  fragmentation: {math.prod(nbox)} sub-boxes "
+            f"({nbox[0]} x {nbox[1]} x {nbox[2]}), padded volume "
+            f"{report['boundary_overhead']:.3f} N^3, "
+            f"{'two-turn' if report['two_turn'] else 'single-turn'}, "
+            f"{report['subbox_workers']} swept at once")
     host = report["host"]
     lines.append(f"  host memory, peak phase ({host['phase']}): "
                  f"{report['host_bytes'] / GiB:.2f} GiB of "

@@ -3,16 +3,19 @@ catalogs (counterpart of pinocchio_tpu/run.py, single-device path).
 
 The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
-RECOMPUTE_DISPLACEMENTS, the past light cone and the timeless snapshot; one
-sub-box.  The planner picks the fmax engine: the dense one, or, with ooc
-'on', or 'auto' when the dense engine does not fit the device, the
-out-of-core one; it aborts with the memory map when the chosen engine does
-not fit.  DumpProducts writes the products after fmax; ReadProductsFromDumps
-reads them instead of running IC and fmax.
+RECOMPUTE_DISPLACEMENTS, the past light cone and the timeless snapshot.  The
+planner picks the fmax engine: the dense one, or, with ooc 'on', or 'auto'
+when the dense engine does not fit the device, the out-of-core one; it
+aborts with the memory map when the chosen engine does not fit.
+DumpProducts writes the products after fmax; ReadProductsFromDumps reads
+them instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
+fragmentation runs over that many padded sub-boxes, swept concurrently on
+the host's cores and merged (fragment/subbox.py); one process, one device.
 
   initialization -> plan -> PLC geometry -> fmax (collapse times +
   displacements, on the device; or the products read from a dump) ->
-  fragmentation (host C sweep, with the PLC crossings) -> catalogs / mass
+  fragmentation (host C sweep of one box or of sub-boxes on a thread
+  pool, with the PLC crossings) -> catalogs / mass
   functions / histories / PLC catalog and n(z) / timeless snapshot
 
 The special modes (run_special_mode, pinocchio.c argv[2]) write one product
@@ -21,7 +24,7 @@ initial conditions as a Gadget snapshot.
 
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [mode] [--norad]
-        [--outdir DIR] [--device cuda]
+        [--outdir DIR] [--device cuda] [--subboxes N]
 """
 
 from __future__ import annotations
@@ -39,15 +42,9 @@ from .fmax_ooc import check_ooc_supported
 
 
 def check_supported(params: Params) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a feature
-    outside the ported paths."""
-    def no(feature, item):
-        raise NotImplementedError(
-            f"{feature} is not ported to pinocchio_tpu_torch yet "
-            f"(ROADMAP.md, queue 1 item {item}); run pinocchio_tpu instead")
-
-    if params.subbox_tasks > 1:
-        no("fragmentation over several sub-boxes", 9)
+    """Raise ValueError for an unknown ooc mode, and NotImplementedError,
+    naming the ROADMAP item, for a feature outside the ported paths (with
+    ooc 'on': fmax_ooc.check_ooc_supported)."""
     if params.ooc not in ("on", "off", "auto"):
         raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
                          f"{params.ooc!r}")
@@ -74,6 +71,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .fmax import fmax_pdf, run_fmax
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
+    from .fragment.subbox import choose_nbox, run_fragmentation_multibox
     from .io import catalogs as io_cat
     from .io import dumps
     from .planner import enforce_budget
@@ -134,8 +132,17 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         timings["dump"] = time.perf_counter() - t0
 
     t_frag = time.perf_counter()
-    frag_res = run_fragmentation(params, cosmo, fmax_res, plc_geom=plc_geom,
-                                 scaledep_gm=scaledep_gm, verbose=verbose)
+    if params.subbox_tasks > 1:
+        largest = io_cat.largest_halo_mass(params, cosmo)
+        nbox = choose_nbox(params, cosmo, largest, params.subbox_tasks)
+        frag_res = run_fragmentation_multibox(
+            params, cosmo, fmax_res, nbox, plc_geom=plc_geom,
+            scaledep_gm=scaledep_gm, largest_mass=largest, verbose=verbose)
+    else:
+        frag_res = run_fragmentation(params, cosmo, fmax_res,
+                                     plc_geom=plc_geom,
+                                     scaledep_gm=scaledep_gm,
+                                     verbose=verbose)
     timings.update({"frag_" + k: v for k, v in frag_res.timings.items()})
     timings["frag_wall"] = time.perf_counter() - t_frag
     if verbose and frag_res.best_pred_peak_factor:
@@ -238,7 +245,9 @@ def write_cputimes(t: dict):
     line("needed-particle products", "fmax_products", 1)
     line("product dump", "dump", 1)
     line("fragmentation", "frag_total", 1)
+    line("fragmentation wall", "frag_wall", 1)
     line("group sweep (+PLC)", "frag_sweep", 2)
+    line("quick pass (two-turn)", "frag_quick", 2)
     line("I/O", "io", 1)
     line("PLC", "io_plc", 2)
     line("snapshot", "io_snapshot", 2)
@@ -312,6 +321,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")
+    ap.add_argument("--subboxes", type=int, default=None,
+                    help="fragmentation sub-domains, swept concurrently on "
+                    "the host's cores (the subbox_tasks parameter)")
     ap.add_argument("--chips", type=int, default=1,
                     help="devices (only 1 is ported)")
     ap.add_argument("--hosts", type=int, default=1,
@@ -324,6 +336,8 @@ def main(argv=None):
     resolve_device(args.device)
     overrides = {"norad": True} if args.norad else {}
     params = read_parameter_file(args.parameter_file, **overrides)
+    if args.subboxes:
+        params.subbox_tasks = args.subboxes
     os.makedirs(args.outdir, exist_ok=True)
     if args.mode is not None:
         run_special_mode(params, args.mode, outdir=args.outdir,

@@ -152,8 +152,9 @@ def test_port_imports_no_jax(tmp_path):
     """The paths (classic; tabulated bicubic; f(R) growth with
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
     a product dump; a restart from that dump; the past light cone with the
-    timeless snapshot; special mode 2) run without importing jax or any
-    module of the JAX package."""
+    timeless snapshot; fragmentation over sub-boxes, single-turn and
+    two-turn; special mode 2) run without importing jax or any module of
+    the JAX package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
@@ -169,10 +170,16 @@ def test_port_imports_no_jax(tmp_path):
         "            norad=True, plc_enabled=False)\n"
         "for kw in ({}, tab, fr, dict(ooc='on'), dict(tab, ooc='on'),\n"
         "           dict(fr, ooc='on', DumpProducts=True),\n"
-        "           dict(fr, ReadProductsFromDumps=True), plc):\n"
+        "           dict(fr, ReadProductsFromDumps=True), plc,\n"
+        "           dict(plc, subbox_tasks=4)):\n"
         "    p = Params(**dict(base, **kw))\n"
-        f"    run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
+        f"    res = run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
+        "from pinocchio_tpu_torch.fragment.subbox import "
+        "run_fragmentation_multibox\n"
+        "from pinocchio_tpu_torch.cosmology import Cosmology\n"
+        "run_fragmentation_multibox(p, Cosmology(p), res['fmax'], (2, 2, 1),"
+        " two_turn=True, verbose=False)\n"
         f"run_special_mode(Params(**base), 2, {str(tmp_path)!r}, "
         "device='cpu', verbose=False)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -216,7 +223,9 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     # dense one
     dict(plc_enabled=True, StartingzForPLC=1.0),
     dict(plc_enabled=True, StartingzForPLC=1.0, ooc="on"),
-    dict(WriteTimelessSnapshot=True)])
+    dict(WriteTimelessSnapshot=True),
+    # fragmentation over sub-boxes on either engine
+    dict(subbox_tasks=4), dict(subbox_tasks=4, ooc="on")])
 def test_features_in_the_slice_are_accepted(overrides):
     p = _params(16)
     for k, v in overrides.items():
@@ -227,7 +236,6 @@ def test_features_in_the_slice_are_accepted(overrides):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(subbox_tasks=4), "item 9"),
     (dict(WriteTimelessSnapshot=True, ooc="on"), "item 13"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):
@@ -248,7 +256,8 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--chips", "4"], "item 12"), (["--hosts", "2"], "item 12")])
+    (["--chips", "4"], "item 12"), (["--hosts", "2"], "item 12"),
+    (["--hosts", "2", "--subboxes", "2"], "item 12")])
 def test_cli_options_outside_the_slice_raise(tmp_path, argv, item):
     pf = tmp_path / "parameter_file"
     pf.write_text("GridSize 16\nBoxSize 16.0\n")

@@ -130,3 +130,45 @@ def test_port_cosmology_equals_the_jax_package():
     np.testing.assert_array_equal(c.sp_grow1.y, jc.sp_grow1.y)
     for r in (0.5, 2.0, 8.0):
         assert c.var_gauss.MassVariance(r) == jc.var_gauss.MassVariance(r)
+
+
+@pytest.mark.parametrize("ntasks", [2, 4, 8])
+def test_subbox_plan_matches_jax(ntasks):
+    """The sub-box decomposition in the plan (nbox and the padded volumes
+    over N^3) equals the JAX planner's for the same sub-box count."""
+    from pinocchio_tpu import planner as jplanner
+    jp, p = params_pair(**bench_kwargs(128, subbox_tasks=ntasks))
+    want = jplanner.plan(jp, subboxes=ntasks, verbose=False,
+                         cosmo=JaxCosmology(jp))
+    rep = planner.plan(p, "cpu")
+    assert rep["nbox"] == tuple(want["nbox"])
+    assert rep["boundary_overhead"] == want["boundary_overhead"]
+    assert "sub-boxes" in planner.format_memory_map(rep)
+
+
+def test_host_map_counts_each_swept_sub_box():
+    """Each sub-box swept at once adds its row map (4 B per padded cell),
+    its stored particles' arrays and groups and, with the PLC, its own
+    4 Nmax crossing buffers; the products are counted once; the boxes
+    beyond the pool's threads keep only their results."""
+    p = dataclasses.replace(Params(**bench_kwargs(256, subbox_tasks=8)),
+                            plc_enabled=True, StartingzForPLC=0.3)
+    cosmo = Cosmology(p)
+    sub = planner.subbox_plan(p, cosmo)
+    geoms, frac = sub["geoms"], 0.66
+    padded = sum(float(np.prod(g.L)) for g in geoms)
+    assert len(geoms) == 8 and not sub["two_turn"]
+    assert sub["boundary_overhead"] == padded / 256 ** 3
+    one = planner.host_phases(p, frac)["sweep"]
+    all8 = planner.host_phases(p, frac, geoms=geoms, workers=8)["sweep"]
+    assert all8["row_map"] == 4.0 * padded
+    assert all8["plc_buffers"] == 8 * one["plc_buffers"]
+    assert all8["rows"] == one["rows"]
+    assert all8["sweep_arrays"] == pytest.approx(24.0 * frac * padded)
+    two = planner.host_phases(p, frac, geoms=geoms, two_turn=True,
+                              workers=8)["sweep"]
+    assert two["turn_masks"] == 3.0 * padded
+    four = planner.host_phases(p, frac, geoms=geoms, workers=4)["sweep"]
+    assert four["plc_buffers"] == 4 * one["plc_buffers"]
+    assert four["finished_boxes"] > 0
+    assert sum(four.values()) < sum(all8.values())

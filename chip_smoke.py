@@ -13,8 +13,9 @@
    version and, where one exists, the one PyTorch call that computes the
    same function (median of 5, CUDA events); each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
-   (float32 outside the tensor cores); times special mode 2's
-   density_field (a library c2r) beside its bound and irfftn;
+   (float32 outside the tensor cores); the shard kernels K1s, K2s, K5s and
+   K8s on the (1, 1) shard of a 2x2 pencil mesh's k layout; times special
+   mode 2's density_field (a library c2r) beside its bound and irfftn;
 4. drives each path through run_pipeline, with the launch counters reset
    just before it and read just after, and checks its outputs (catalogs and
    mass functions at 4 redshifts with halos, FmaxPDF, histories, the
@@ -47,7 +48,20 @@
                  within max(5, 0.5 %) per output, over 97 % of the z=0
                  names found, no duplicates) and its PLC crossings within
                  1 % of the plc path's, with no overflow;
-   then the special modes at 256^3 through run_special_mode: 1 (the CT
+     mesh        the classic path with IC and fmax over a 2x2 pencil mesh
+                 whose four shards all live on the one card (the shard
+                 kernels, K3, K4, K6; the single-device K1, K2, K5 must not
+                 run), held to the classic path: at most 1e-3 N^3 cells
+                 with |dF| > 0.1, variances within rtol 1e-4, halo counts
+                 per output within 0.5 %;
+   then delta over a slab 4, a pencil 2x2 and a volumes 2x2x2 mesh of the
+   card, bit-equal to the single-device field; the fmax phase alone over
+   the slab 4 and the volumes 2x2x2 mesh (classic) and over the pencil 2x2
+   with f(R) growth and RECOMPUTE (K8s), each with its launch set and peak,
+   held to the classic or scaledep path like the mesh path; the
+   distributed c2r and one all_to_all beside one device's c2r (on one card
+   the transposes are device-local copies, not NVLink); then the special
+   modes at 256^3 through run_special_mode: 1 (the CT
    table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
    and its variance the classic path's R=0 grid variance), 3 (the LPT
    snapshot: the classic launch set, POS equal to q + the classic path's
@@ -56,9 +70,9 @@
    with its wall, quick-pass seconds, boundary particles requested and
    beyond-boundary count, held to the classic path's one-box catalogs;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
-   and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, on the card and
-   on the CPU (the plain versions) and holds the halo catalogs and the PLC
-   crossings to each other;
+   and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, and the mesh
+   path at 48^3, on the card and on the CPU (the plain versions) and holds
+   the halo catalogs and the PLC crossings to each other;
 6. holds the out-of-core engine to the dense engine at 256^3, the dense one
    fed the delta assembled from the engine's kz planes (Fmax, variances, the
    needed set and its order, the rows of every displacement set, halo
@@ -78,9 +92,9 @@
 
     python3 chip_smoke.py --only subbox,subbox_turns,reference:subbox
 
-runs only the named phases (kernels, density_field, a path's name, modes,
-subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big, refusal)
-and prints no JSON line.
+runs only the named phases (kernels, density_field, a path's name,
+mesh_fmax, modes, subbox_turns, reference:<path>, ooc_dense:<name>,
+ooc_fmax, big, refusal) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -124,7 +138,9 @@ OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
        "vrows_slab": 1, "collapse_update_slab_table_trilinear": 330,
        "collapse_update_slab_table_bilinear": 450,
        "collapse_update_slab_table_bicubic": 900,
-       "ooc_factors_gradient_tab": 40}
+       "ooc_factors_gradient_tab": 40, "ic_kdensity_shard": 380,
+       "kspace_hessian_shard": 40, "kspace_gradient_shard": 20,
+       "kspace_gradient_tab_shard": 40}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
           recompute_displacements=True, MaxMemPerParticle=400)
 # each path's launch set: the dense engine's shared kernels, then each
@@ -143,6 +159,13 @@ PLC = dict(plc_enabled=True, StartingzForPLC=0.3, LastzForPLC=0.0,
            PLCAperture=30.0, PLCProvideConeData=True)
 SNAPSHOT = dict(WriteTimelessSnapshot=True, add_rmax_to_snapshot=True)
 CLASSIC = DENSE | {"collapse_update", "kspace_gradient"}
+# the fmax phase over a mesh: the shard kernels K1s, K2s, K5s (K8s with
+# scale-dependent growth), K3, K4 and K6 on each shard; the single-device K1,
+# K2 and K5 must not run
+MESH = {"ic_kdensity_shard", "kspace_hessian_shard", "kspace_gradient_shard",
+        "collapse_update", "lpt_sources_pointwise", "lpt_src32_accumulate",
+        "gather_rows", "pdf_hist"}
+MESH_FR = (MESH - {"kspace_gradient_shard"}) | {"kspace_gradient_tab_shard"}
 # the cores this process may use: one sub-box each on the subbox path
 CORES = len(os.sched_getaffinity(0))
 
@@ -191,13 +214,22 @@ PATHS = {
     "plc": (PIPELINE_N, dict(PLC, **SNAPSHOT), CLASSIC),
     "subbox": (PIPELINE_N, dict(PLC, subbox_tasks=CORES, **SNAPSHOT),
                CLASSIC),
+    "mesh": (PIPELINE_N, {}, MESH),
 }
+# paths over a mesh of the one card: name -> (decomposition, mesh shape)
+MESH_PATHS = {"mesh": ("pencil", (2, 2))}
+# the fmax phase alone over other meshes of the card, at PIPELINE_N: name ->
+# (decomposition, mesh shape, switches, launch set)
+MESH_FMAX = {"mesh_slab4": ("slab", (4,), {}, MESH),
+             "mesh_volume222": ("volumes", (2, 2, 2), {}, MESH),
+             "mesh_scaledep": ("pencil", (2, 2), FR, MESH_FR)}
 # card-vs-CPU checks: path -> (grid size, switches over the path's); the
 # plc path's cone stops at z 0.1, as a deeper one fills the crossing buffer
 # (4 Nmax) of a 64 Mpc/h box
 REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
              "plc": (64, dict(StartingzForPLC=0.1)),
-             "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4))}
+             "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4)),
+             "mesh": (48, {})}
 # what later phases hold to: the classic path's host products and grid
 # variance (special modes), its fmax result, catalogs and timings (the
 # sub-box turns); the plc path's catalogs, crossings and timings (the
@@ -239,6 +271,43 @@ def bound(name, nbytes, nelem):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def record_phase(rec, N, name, err, tol, ms, plain_ms, nbytes, nelem,
+                 library_ms=None, extra=""):
+    """Print one kernel's line at N^3 and fill rec[name] with its
+    max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms; fails when
+    err exceeds tol."""
+    ok = err <= tol
+    bms, by = bound(name, nbytes, nelem)
+    lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+    print(f"  [{N}^3] {name:<22s} max_abs_err {err:.3e} "
+          f"(tolerance {tol:.3e}) {extra}kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms{lib}, bound {bms:.3f} ms ({by}) "
+          f"-> {'ok' if ok else 'FAIL'}", flush=True)
+    need(ok, f"{name} at {N}^3 disagrees with its plain version")
+    rec[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def same_values(a, b):
+    """Whether two tensors hold equal values (complex ones part by part)."""
+    import torch
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return torch.equal(a, b)
+
+
+def card_mesh(dev, kind, shape):
+    """A mesh of math.prod(shape) shards, every one on the device ``dev``:
+    kind 'slab', 'pencil' or 'volumes' in the mesh shape ``shape``."""
+    from pinocchio_tpu_torch.parallel import pfft
+    devices = [dev] * math.prod(shape)
+    if kind == "slab":
+        return pfft.make_mesh(devices=devices)
+    if kind == "pencil":
+        return pfft.make_pencil_mesh(shape=shape, devices=devices)
+    return pfft.make_volume_mesh(shape=shape, devices=devices)
+
+
 def params_for(N, **kw):
     from pinocchio_tpu_torch.config import Params
     args = dict(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
@@ -267,23 +336,10 @@ def kernel_phases(N, dev, report):
     modes, cells = N * N * Nh, N ** 3
     rec = {}
 
-    def phase(name, err, tol, ms, plain_ms, nbytes, nelem, library_ms=None,
-              extra=""):
-        ok = err <= tol
-        bms, by = bound(name, nbytes, nelem)
-        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
-        print(f"  [{N}^3] {name:<22s} max_abs_err {err:.3e} "
-              f"(tolerance {tol:.3e}) {extra}kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms{lib}, bound {bms:.3f} ms ({by}) "
-              f"-> {'ok' if ok else 'FAIL'}", flush=True)
-        need(ok, f"{name} at {N}^3 disagrees with its plain version")
-        rec[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by, library_ms=library_ms)
+    def phase(*args, **kw):
+        record_phase(rec, N, *args, **kw)
 
-    def same(a, b):
-        if a.is_complex():
-            a, b = torch.view_as_real(a), torch.view_as_real(b)
-        return torch.equal(a, b)
+    same = same_values
 
     # ---- K1: initial conditions.  delta must equal the plain version's
     # bit for bit, which needs bit-identical phase and amplitude draws ----
@@ -656,6 +712,73 @@ def kernel_phases(N, dev, report):
     report[N] = rec
 
 
+def shard_kernel_phases(N, dev, report):
+    """K1s, K2s (R=0, and a mid radius untimed), K5s and K8s at N^3 on the
+    (1, 1) shard of a 2x2 pencil mesh's k layout, the window [N, N/2:N,
+    Nhp/2:Nhp] whose last kz plane is padding, against their plain
+    versions: exactly equal; fills report[N][name]."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax, ic
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid
+    from pinocchio_tpu_torch.ops import derivatives
+    from pinocchio_tpu_torch.parallel import pfft
+
+    p = params_for(N)
+    cosmo = Cosmology(p)
+    grid = Grid(N, p.BoxSize_htrue)
+    sm = fmax.Smoothing.build(p, cosmo)
+    decomp = pfft.make_decomp(card_mesh(dev, "pencil", (2, 2)), N)
+    y0, ny, z0, nz = decomp.k_window(3)
+    modes = N * ny * nz
+    rec = report.setdefault(N, {})
+    logk, logpk, kp, ka, logkf, fac = ic.kdensity_args(grid, cosmo,
+                                                       p.RandomSeed)
+    tabs = (torch.from_numpy(logk).to(dev), torch.from_numpy(logpk).to(dev))
+    args = (N, *tabs, kp, ka, logkf, fac, False, False, y0, ny, z0, nz)
+    win = f"[{N}, {ny}, {nz}] at ({y0}, {z0}), "
+    shard = ic.kdensity_shard(*args)
+    ref = ic.kdensity_shard_plain(*args)
+    need(same_values(shard, ref), f"ic_kdensity_shard at {N}^3 is not "
+         "identical to its plain version")
+    record_phase(rec, N, "ic_kdensity_shard", 0.0, 0.0,
+                 time_ms(lambda: ic.kdensity_shard(*args)),
+                 time_ms(lambda: ic.kdensity_shard_plain(*args)),
+                 8 * modes + 8 * logk.size, modes,
+                 extra="identical, " + win)
+    del ref
+    R_mid = float(np.float32(sm.radii[sm.n // 2] / grid.CellSize))
+    cosmo_fr = Cosmology(params_for(N, **FR))
+    gtabs, glo, gdx = fmax.growth_k_tables(cosmo_fr, 0.0, N, dev)
+    D1 = float(cosmo.GrowingMode(0.0))
+    cases = (
+        ("kspace_hessian_shard", derivatives.hessian_kspace_shard,
+         derivatives.hessian_kspace_shard_plain, (R_mid,), 56, False),
+        ("kspace_hessian_shard", derivatives.hessian_kspace_shard,
+         derivatives.hessian_kspace_shard_plain, (0.0,), 56, True),
+        ("kspace_gradient_shard", derivatives.gradient_kspace_shard,
+         derivatives.gradient_kspace_shard_plain, (D1,), 32, True),
+        ("kspace_gradient_tab_shard", derivatives.gradient_kspace_tab_shard,
+         derivatives.gradient_kspace_tab_shard_plain, (gtabs[0], glo, gdx),
+         32, True))
+    for name, kern, plain, extra, per_mode, timed in cases:
+        def call(f):
+            return f(shard, *extra, N, y0, z0)
+        got, ref = call(kern), call(plain)
+        need(same_values(got, ref), f"{name} at {N}^3 {extra[:1]} is not "
+             "identical to its plain version")
+        if timed:
+            tab = 4 * gtabs[0].numel() if "tab" in name else 0
+            record_phase(rec, N, name, 0.0, 0.0, time_ms(lambda: call(kern)),
+                         time_ms(lambda: call(plain)),
+                         per_mode * modes + tab, modes,
+                         extra="identical, " + win)
+        del got, ref
+    del shard
+    torch.cuda.empty_cache()
+
+
 def density_field_phase(N, dev, report):
     """Special mode 2's density_field at N^3: the port's two-step c2r of
     K1's delta (a library call; there is no plain version), its bound (read
@@ -767,13 +890,15 @@ def run_path(dev, name):
 
     N, kw, own = PATHS[name]
     p = params_for(N, **kw)
+    mesh = card_mesh(dev, *MESH_PATHS[name]) if name in MESH_PATHS else None
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
         with HostPeak() as host:
-            res = run_pipeline(p, outdir=out, device=dev, verbose=False)
+            res = run_pipeline(p, outdir=out, device=dev, verbose=False,
+                               mesh=mesh)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -833,8 +958,14 @@ def run_path(dev, name):
         if name == "plc":
             KEPT["plc"] = (res["frag"].catalogs, len(res["frag"].plc.z),
                            res["timings"])
+        if name == "scaledep":
+            KEPT["scaledep"] = (res["fmax"].products.Fmax.cpu().numpy(),
+                                sv.copy())
         if p.subbox_tasks > 1:
             subbox_checks(dev, p, res, host)
+        if mesh is not None:
+            KEPT["mesh_peak"] = (peak, pred)
+            mesh_checks(dev, p, res)
     print(f"  launches on the {name} path: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     expected = own
@@ -845,6 +976,190 @@ def run_path(dev, name):
     need(not stray, f"kernels of other paths launched on the {name} path: "
          f"{stray}")
     return launches, res["timings"]
+
+
+def held_to_single_device(what, N, F, sv, F_ref, sv_ref):
+    """A mesh run's Fmax and grid variances against one device's: at most
+    1e-3 N^3 cells with |dF| > 0.1 (the ellipsoid's near-degenerate cells
+    flip when the FFT sums in another order), the variances within rtol
+    1e-4 (a mean of shard means)."""
+    import numpy as np
+    nflip = int((np.abs(F - F_ref) > 0.1).sum())
+    rv = float(np.abs(sv / sv_ref - 1.0).max())
+    print(f"  {what}: {nflip} cells with |dF| > 0.1 against one device "
+          f"(need <= {1e-3 * N ** 3:.0f}), max |dF| "
+          f"{float(np.abs(F - F_ref).max()):.3e}, F equal on "
+          f"{100 * float(np.mean(F == F_ref)):.4f}%; variances rel err "
+          f"{rv:.2e} (need <= 1e-4)", flush=True)
+    need(nflip <= 1e-3 * N ** 3 and rv <= 1e-4,
+         f"{what}: Fmax or the variances differ from the single-device run")
+
+
+def mesh_checks(dev, p, res):
+    """The mesh path's run ``res`` against the classic path's (run first if
+    this process has not): Fmax and the variances by held_to_single_device,
+    halo counts per output within 0.5 %."""
+    if "classic_run" not in KEPT:
+        run_path(dev, "classic")
+    ref, cats, _ = KEPT["classic_run"]
+    F, _ = res["fmax"].products.gather()
+    held_to_single_device("mesh", p.GridSize, F,
+                          res["fmax"].smoothing.true_variance,
+                          ref.products.Fmax.cpu().numpy(),
+                          ref.smoothing.true_variance)
+    for got, want in zip(res["frag"].catalogs, cats):
+        ng = int((got.mass >= p.MinHaloMass).sum())
+        nw = int((want.mass >= p.MinHaloMass).sum())
+        print(f"  mesh z={got.z:g}: {ng} halos, classic path {nw} (need "
+              "within 0.5 %)", flush=True)
+        need(nw > 0 and abs(ng - nw) <= 0.005 * nw,
+             f"mesh: halo count at z={got.z} differs from the classic path")
+    g, w = res["frag"].catalogs[-1], cats[-1]
+    have = dict(zip(w.name.tolist(), w.mass.tolist()))
+    found = sum(1 for nm, ms in zip(g.name.tolist(), g.mass.tolist())
+                if have.get(nm) == ms) / max(len(w.name), 1)
+    print(f"  mesh: {100 * found:.2f} % of the classic path's z=0 halos "
+          "identical in name and mass", flush=True)
+
+
+def mesh_deltas(dev):
+    """delta(k) over a slab 4, a pencil 2x2 and a volumes 2x2x2 mesh of the
+    card (K1s) against the single-device field (K1): every shard equal to
+    its window bit for bit, its padded planes zero."""
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid
+    from pinocchio_tpu_torch.ic import generate_kdensity
+    from pinocchio_tpu_torch.parallel import driver, pfft
+
+    N = PIPELINE_N
+    p = params_for(N)
+    cosmo = Cosmology(p)
+    grid = Grid(N, p.BoxSize_htrue)
+    full = generate_kdensity(grid, cosmo, p.RandomSeed, dev)
+    for kind, shape in (("slab", (4,)), ("pencil", (2, 2)),
+                        ("volumes", (2, 2, 2))):
+        decomp = pfft.make_decomp(card_mesh(dev, kind, shape), N)
+        shards = driver.build_kdensity(decomp, grid, cosmo, p.RandomSeed)
+        ok = True
+        for i, sh in enumerate(shards):
+            y0, ny, z0, nz = decomp.k_window(i)
+            nzv = max(0, min(nz, N // 2 + 1 - z0))
+            ok = ok and same_values(sh[..., :nzv],
+                                    full[:, y0:y0 + ny, z0:z0 + nzv])
+            ok = ok and bool(torch.all(sh[..., nzv:] == 0))
+        print(f"  delta over {kind} {shape} ({len(shards)} shards, Nhp "
+              f"{decomp.Nhp}): identical to the single-device delta: {ok}",
+              flush=True)
+        need(ok, f"delta over the {kind} mesh differs from one device's")
+        del shards
+    del full
+    torch.cuda.empty_cache()
+
+
+def mesh_fmax_phase(dev, name):
+    """The fmax phase alone over the mesh MESH_FMAX[name] of the card at
+    PIPELINE_N with the launch counts set to 0 just before it: its wall,
+    device peak and launch set, held to the single-device run of the same
+    switches kept by run_path (classic or scaledep; run first if this
+    process has not) by held_to_single_device.  Returns the launches."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.parallel.driver import run_fmax_distributed
+
+    kind, shape, kw, own = MESH_FMAX[name]
+    ref_name = "scaledep" if kw else "classic"
+    if ref_name not in KEPT:
+        run_path(dev, ref_name)
+    F_ref, sv_ref = (KEPT["scaledep"] if kw else
+                     (KEPT["classic_run"][0].products.Fmax.cpu().numpy(),
+                      KEPT["classic"][1]))
+    p = params_for(PIPELINE_N, **kw)
+    cosmo = Cosmology(p)
+    gm = scaledep_gm_for(p, cosmo)
+    mesh = card_mesh(dev, kind, shape)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_fmax_distributed(p, cosmo, mesh, scaledep_gm=gm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: {kind} {shape} of the card, fmax {wall:.2f} s wall, "
+          f"device peak {peak / GiB:.2f} GiB; phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
+          flush=True)
+    F, _ = res.products.gather()
+    held_to_single_device(name, PIPELINE_N, F, res.smoothing.true_variance,
+                          F_ref, sv_ref)
+    sp = res.host_products
+    nsets = len(sp.segments) if sp.segments else 1
+    need(nsets == (len(OUTPUT_Z) if p.recompute_displacements else 1),
+         f"{name}: {nsets} displacement sets")
+    need(np.all(np.diff(sp.F[::997]) <= 0), f"{name}: products not in -F "
+         "order")
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    missing = sorted(k for k in own if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in own)
+    need(not missing and not stray, f"{name}: not launched {missing}, "
+         f"launched from another path {stray}")
+    KEPT.setdefault("mesh_fmax", {})[name] = dict(
+        wall_s=wall, peak_gib=peak / GiB, timings=res.timings)
+    del res, sp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_transposes(dev):
+    """The distributed c2r of one radius's 6 Hessian components at
+    PIPELINE_N over a pencil 2x2 and a volumes 2x2x2 mesh of the card, beside
+    one device's batched c2r of the same spectrum, and the transposes alone:
+    on one card they are device-local copies (torch.cat of chunk views),
+    not NVLink traffic.  Returns the times in ms."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid, irfft3
+    from pinocchio_tpu_torch.ic import generate_kdensity
+    from pinocchio_tpu_torch.ops import derivatives
+    from pinocchio_tpu_torch.parallel import pfft
+
+    N = PIPELINE_N
+    p = params_for(N)
+    full = generate_kdensity(Grid(N, p.BoxSize_htrue), Cosmology(p),
+                             p.RandomSeed, dev)
+    hk = derivatives.hessian_kspace(full, 0.0, N)
+    out = dict(single_c2r_ms=time_ms(lambda: irfft3(hk, N)))
+    print(f"  one device: batched c2r of the 6 components "
+          f"{out['single_c2r_ms']:.3f} ms", flush=True)
+    del hk
+    for kind, shape in (("pencil", (2, 2)), ("volumes", (2, 2, 2))):
+        decomp = pfft.make_decomp(card_mesh(dev, kind, shape), N)
+        hs = decomp.map(lambda i, k: derivatives.hessian_kspace_shard(
+            k, 0.0, N, *pfft._origin(decomp, i)),
+            decomp.scatter(full, kspace=True))
+        inv = time_ms(lambda: decomp.inv(hs))
+        a2a = time_ms(lambda: pfft.all_to_all(hs, decomp.groups("a"), -3,
+                                              -2))
+        nbytes = sum(h.numel() * 8 for h in hs)
+        key = f"{kind}_{'x'.join(map(str, shape))}"
+        out[f"{key}_c2r_ms"] = inv
+        out[f"{key}_a2a_ms"] = a2a
+        print(f"  {kind} {shape} of the card: distributed c2r {inv:.3f} ms; "
+              f"one all_to_all over 'a' of the 6 components "
+              f"({nbytes / GiB:.3f} GiB) {a2a:.3f} ms, "
+              f"{nbytes / a2a / 1e6:.0f} GB/s (a device-local copy)",
+              flush=True)
+        del hs
+    del full
+    torch.cuda.empty_cache()
+    return out
 
 
 def plc_checks(p, res, out):
@@ -1157,9 +1472,11 @@ def reference_check(dev, name):
     p = params_for(N, **dict(PATHS[name][1], **over))
     frags = []
     for d in (dev, torch.device("cpu")):
+        mesh = (card_mesh(d, *MESH_PATHS[name]) if name in MESH_PATHS
+                else None)
         with tempfile.TemporaryDirectory() as out:
             frags.append(run_pipeline(p, outdir=out, device=d, verbose=False,
-                                      write_outputs=False)["frag"])
+                                      write_outputs=False, mesh=mesh)["frag"])
     card, host = [f.catalogs for f in frags]
     for g, c in zip(card, host):
         ng = int((g.mass >= p.MinHaloMass).sum())
@@ -1446,9 +1763,9 @@ def main(argv=None) -> int:
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, "
-                    "density_field, a path's name, modes, subbox_turns, "
-                    "reference:<path>, ooc_dense:<name>, ooc_fmax, big, "
-                    "refusal); no JSON line is printed")
+                    "density_field, a path's name, mesh_fmax, modes, "
+                    "subbox_turns, reference:<path>, ooc_dense:<name>, "
+                    "ooc_fmax, big, refusal); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -1470,8 +1787,9 @@ def main(argv=None) -> int:
                          text=True, timeout=60)
     card = smi.stdout.strip()
     print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}",
+    device_kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{device_kind}",
           flush=True)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1500,6 +1818,7 @@ def main(argv=None) -> int:
             if wanted("kernels"):
                 section(f"kernel phases at {N}^3:")
                 kernel_phases(N, dev, report)
+                shard_kernel_phases(N, dev, report)
             if wanted("kernels") or wanted("density_field"):
                 density_field_phase(N, dev, report)
         if wanted("kernels"):
@@ -1509,6 +1828,22 @@ def main(argv=None) -> int:
             if wanted(path):
                 section(f"{path} path at {PATHS[path][0]}^3:")
                 paths[path] = run_path(dev, path)[0]
+        mesh_report = {}
+        if wanted("mesh_fmax"):
+            section(f"delta over three meshes of the card at {PIPELINE_N}^3:")
+            mesh_deltas(dev)
+            for name, (mkind, mshape, _, _) in MESH_FMAX.items():
+                section(f"fmax over a {mkind} {mshape} mesh of the card at "
+                        f"{PIPELINE_N}^3 ({name}):")
+                paths[name] = mesh_fmax_phase(dev, name)
+            section(f"the distributed c2r and its transposes at "
+                    f"{PIPELINE_N}^3:")
+            mesh_report = dict(transposes=mesh_transposes(dev),
+                               fmax=KEPT["mesh_fmax"])
+            if "mesh_peak" in KEPT:
+                mesh_report["mesh_path_peak_gib"] = KEPT["mesh_peak"][0] / GiB
+                mesh_report["mesh_path_planner_gib"] = (KEPT["mesh_peak"][1]
+                                                        / GiB)
         if wanted("modes"):
             section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
             density_calls, _ = special_modes(dev)
@@ -1552,8 +1887,10 @@ def main(argv=None) -> int:
     # each kernel's launches: on the first path (in PATHS order) that owns
     # it; the shared kernels on the main path
     rows = []
+    owners = {nm: own for nm, (_, _, own) in PATHS.items()}
+    owners.update({nm: v[3] for nm, v in MESH_FMAX.items()})
     for kname, (route, source, replaces) in kernels.KERNELS.items():
-        owner = next(nm for nm, (_, _, own) in PATHS.items() if kname in own)
+        owner = next(nm for nm, own in owners.items() if kname in own)
         r = report[PIPELINE_N][kname]
         big = report[max(KERNEL_SIZES)][kname]
         rows.append(dict(name=kname, route=route, source=source,
@@ -1582,10 +1919,10 @@ def main(argv=None) -> int:
                     ms_512=dfs[max(KERNEL_SIZES)]["ms"],
                     bound_ms_512=dfs[max(KERNEL_SIZES)]["bound_ms"],
                     library_ms_512=dfs[max(KERNEL_SIZES)]["library_ms"])]
-    print(json.dumps({"kernels": rows, "library": library, "card": card}),
-          flush=True)
+    print(json.dumps({"kernels": rows, "library": library, "card": card,
+                      "mesh": mesh_report}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

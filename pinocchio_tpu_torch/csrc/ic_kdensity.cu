@@ -1,8 +1,11 @@
-// Initial conditions: delta(k) on the rfftn grid [N, N, N/2+1] (K1), and a
-// batch of kz planes of the out-of-core engine's realization (K9).
+// Initial conditions: delta(k) on the rfftn grid [N, N, N/2+1] (K1) or on a
+// shard's window of it (K1s), and a batch of kz planes of the out-of-core
+// engine's realization (K9).
 //
-// K1 replaces pinocchio_tpu/ic.py:_kdensity_jit (lines 49-104), K9
-// kdensity_plane_fn.plane (lines 128-178).  JAX draws the
+// K1 replaces pinocchio_tpu/ic.py:_kdensity_jit (lines 49-104), K1s
+// pinocchio_tpu/parallel/driver.py:build_kdensity (lines 42-69, the same
+// draws generated into a mesh's k layout), K9 kdensity_plane_fn.plane
+// (lines 128-178).  JAX draws the
 // phase and amplitude of every mode with the counter-based threefry2x32
 // generator (jax_threefry_partitionable), so each thread derives its own
 // bits from (key, flat mode index) and the field is bit-for-bit the same
@@ -14,6 +17,14 @@
 // draws from its mirrored mode's flat index and conjugates, so the kernel
 // needs no gather.  P(k) is the host's log-log table, interpolated like
 // jnp.interp (searchsorted right, clamped at both ends).
+//
+// K1s computes the window [N, y0:y0+ny, z0:z0+nz] of the [N, N, Nhp] k layout
+// of a mesh (Nhp >= Nh pads the kz axis so that it splits evenly): each mode
+// draws at its GLOBAL counter (ix * N + iy) * Nh + iz, and a dependent mode
+// of the kz=0 plane at its mirror's global counter, so every shard holds the
+// single-device field's values and a mirror partner in another shard needs
+// no exchange; the padded planes iz >= Nh are written as exact zeros.  K1 is
+// the window (0, N, 0, Nh) of the same kernel.
 //
 // What bounds it on the H100: arithmetic, not bytes (8 B written per mode):
 // two 20-round threefry evaluations, a 12-step binary search in a 16 KB
@@ -114,14 +125,19 @@ __global__ void kdensity_kernel(float2* __restrict__ out,
                                 const float* __restrict__ logpk, int ntab,
                                 uint32_t kp0, uint32_t kp1, uint32_t ka0,
                                 uint32_t ka1, float logkf, float fac, int N,
-                                int Nh, int64_t nmodes, int fixed,
-                                int paired) {
+                                int y0, int ny, int z0, int nz,
+                                int64_t nmodes, int fixed, int paired) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nmodes) return;
-  const int iz = (int)(idx % Nh);
-  const int64_t rest = idx / Nh;
-  const int iy = (int)(rest % N);
-  const int ix = (int)(rest / N);
+  const int Nh = N / 2 + 1;
+  const int iz = z0 + (int)(idx % nz);
+  const int64_t rest = idx / nz;
+  const int iy = y0 + (int)(rest % ny);
+  const int ix = (int)(rest / ny);
+  if (iz >= Nh) {                        // a padded plane of a mesh layout
+    out[idx] = make_float2(0.0f, 0.0f);
+    return;
+  }
   const int half = N / 2;
   const int mx = ix <= half ? ix : ix - N;
   const int my = iy <= half ? iy : iy - N;
@@ -129,8 +145,9 @@ __global__ void kdensity_kernel(float2* __restrict__ out,
   const bool alive = !(abs(mx) == half || abs(my) == half || iz == half) &&
                      m2 > 0 && m2 <= half * half;
 
-  // Hermitian mirror on the kz=0 plane: draw from the mirrored mode
-  int64_t draw = idx;
+  // the mode's global counter; on the kz=0 plane's dependent half, the
+  // mirrored mode's (Hermitian mirror)
+  int64_t draw = ((int64_t)ix * N + iy) * Nh + iz;
   float sign = 1.0f;
   if (iz == 0 && (ix > half || (ix == 0 && iy > half))) {
     const int mix = (N - ix) % N, miy = (N - iy) % N;
@@ -179,17 +196,42 @@ __global__ void kdensity_planes_kernel(float2* __restrict__ out,
 
 }  // namespace
 
+namespace {
+
+int launch_kdensity(void* out, const void* logk, const void* logpk, int ntab,
+                    uint32_t kp0, uint32_t kp1, uint32_t ka0, uint32_t ka1,
+                    float logkf, float fac, int N, int y0, int ny, int z0,
+                    int nz, int fixed, int paired, void* stream) {
+  if (y0 < 0 || ny < 0 || y0 + ny > N || z0 < 0 || nz < 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nmodes = (int64_t)N * ny * nz;
+  if (nmodes == 0) return 0;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  kdensity_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (float2*)out, (const float*)logk, (const float*)logpk, ntab, kp0, kp1,
+      ka0, ka1, logkf, fac, N, y0, ny, z0, nz, nmodes, fixed, paired);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int ic_kdensity(void* out, const void* logk, const void* logpk,
                            int ntab, uint32_t kp0, uint32_t kp1,
                            uint32_t ka0, uint32_t ka1, float logkf, float fac,
                            int N, int fixed, int paired, void* stream) {
-  const int Nh = N / 2 + 1;
-  const int64_t nmodes = (int64_t)N * N * Nh;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  kdensity_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (float2*)out, (const float*)logk, (const float*)logpk, ntab, kp0, kp1,
-      ka0, ka1, logkf, fac, N, Nh, nmodes, fixed, paired);
-  return (int)cudaGetLastError();
+  return launch_kdensity(out, logk, logpk, ntab, kp0, kp1, ka0, ka1, logkf,
+                         fac, N, 0, N, 0, N / 2 + 1, fixed, paired, stream);
+}
+
+// K1s: out [N, ny, nz], the window at (y0, z0) of a mesh's k layout
+extern "C" int ic_kdensity_shard(void* out, const void* logk,
+                                 const void* logpk, int ntab, uint32_t kp0,
+                                 uint32_t kp1, uint32_t ka0, uint32_t ka1,
+                                 float logkf, float fac, int N, int y0,
+                                 int ny, int z0, int nz, int fixed,
+                                 int paired, void* stream) {
+  return launch_kdensity(out, logk, logpk, ntab, kp0, kp1, ka0, ka1, logkf,
+                         fac, N, y0, ny, z0, nz, fixed, paired, stream);
 }
 
 extern "C" int ic_kdensity_planes(void* out, const void* logk,

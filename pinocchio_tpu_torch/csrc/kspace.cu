@@ -9,6 +9,17 @@
 //                          the growth factor of each mode is interpolated
 //                          linearly from a table over log10 |k| (|k| in grid
 //                          units, a quirk of the reference kept as is)
+// and, over a shard's window of a mesh's k layout (K2s, K5s, K8s), the same
+// three in pinocchio_tpu/parallel/pfft.py:
+//   kspace_hessian_shard      <- distributed_second_derivatives (333-352)
+//   kspace_gradient_shard     <- distributed_first_derivatives (355-366)
+//   kspace_gradient_tab_shard <- distributed_first_derivatives_tab (369-390)
+// A shard is the window [N, y0:y0+ny, z0:z0+nz] of the [N, N, Nhp] layout
+// (Nhp >= Nh pads the kz axis so that it splits evenly over the mesh); each
+// mode's k comes from its global indices (ix, y0 + iy, z0 + iz), so every
+// float operation is the single-device kernel's, and the padded planes
+// iz >= Nh are written as exact zeros without being read.  The full-grid
+// kernels are the window (0, N, 0, Nh).
 // and, in pinocchio_tpu/fmax_ooc.py, K10's three modes:
 //   ooc_factors_hessian  <- OocEngine.build_hessian_batch (lines 421-434)
 //   ooc_factors_gradient <- OocEngine.build_first_batch (438-465), constant
@@ -71,10 +82,26 @@ __device__ __forceinline__ KMode kmode_at(int N, int ix, int iy, int iz) {
   return k;
 }
 
-__device__ __forceinline__ KMode kmode(int N, int Nh, int64_t idx) {
-  const int iz = (int)(idx % Nh);
-  const int64_t rest = idx / Nh;
-  return kmode_at(N, (int)(rest / N), (int)(rest % N), iz);
+// a window [N, y0:y0+ny, z0:z0+nz] of the k layout; the full grid is
+// (0, N, 0, Nh)
+struct Window {
+  int N, y0, ny, z0, nz;
+};
+
+// the mode of the window's flat index idx; false on a padded plane iz >= Nh
+__device__ __forceinline__ bool kmode(const Window& w, int64_t idx,
+                                      KMode& k) {
+  const int iz = w.z0 + (int)(idx % w.nz);
+  const int64_t rest = idx / w.nz;
+  if (iz > w.N / 2) return false;
+  k = kmode_at(w.N, (int)(rest / w.ny), w.y0 + (int)(rest % w.ny), iz);
+  return true;
+}
+
+__device__ __forceinline__ void zero_out(float2* __restrict__ out, int ncomp,
+                                         int64_t nmodes, int64_t idx) {
+  for (int c = 0; c < ncomp; ++c)
+    out[c * nmodes + idx] = make_float2(0.0f, 0.0f);
 }
 
 __device__ __forceinline__ float2 cscale(float2 a, float s) {
@@ -82,11 +109,12 @@ __device__ __forceinline__ float2 cscale(float2 a, float s) {
 }
 
 __global__ void hessian_kernel(const float2* __restrict__ delta,
-                               float2* __restrict__ out, int N, int Nh,
+                               float2* __restrict__ out, Window w,
                                int64_t nmodes, float R) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nmodes) return;
-  const KMode k = kmode(N, Nh, idx);
+  KMode k;
+  if (!kmode(w, idx, k)) return zero_out(out, 6, nmodes, idx);
   // exp(-0.5 * k2 * R * R), evaluated left to right like the JAX expression
   const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
   const float s = __fmul_rn(expf(arg), k.inv_k2);
@@ -100,11 +128,12 @@ __global__ void hessian_kernel(const float2* __restrict__ delta,
 }
 
 __global__ void gradient_kernel(const float2* __restrict__ src,
-                                float2* __restrict__ out, int N, int Nh,
+                                float2* __restrict__ out, Window w,
                                 int64_t nmodes, float growth) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nmodes) return;
-  const KMode k = kmode(N, Nh, idx);
+  KMode k;
+  if (!kmode(w, idx, k)) return zero_out(out, 3, nmodes, idx);
   const float2 d = __ldg(src + idx);
   // (a + ib) * (i g) = (-b g, a g), then * inv_k2, then * k_a
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
@@ -130,7 +159,7 @@ __device__ __forceinline__ float growth_at(const float* s_tab, float k2,
 }
 
 __global__ void gradient_tab_kernel(const float2* __restrict__ src,
-                                    float2* __restrict__ out, int N, int Nh,
+                                    float2* __restrict__ out, Window w,
                                     int64_t nmodes,
                                     const float* __restrict__ gtab, int ntab,
                                     float glo, float gdx, float tmax) {
@@ -139,7 +168,8 @@ __global__ void gradient_tab_kernel(const float2* __restrict__ src,
   __syncthreads();
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nmodes) return;
-  const KMode k = kmode(N, Nh, idx);
+  KMode k;
+  if (!kmode(w, idx, k)) return zero_out(out, 3, nmodes, idx);
   const float growth = growth_at(s_tab, k.k2, glo, gdx, tmax);
   const float2 d = __ldg(src + idx);
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
@@ -252,26 +282,61 @@ __global__ void ooc_pair_kernel(Batch src0, Batch src1,
 
 constexpr int kThreads = 256;
 
+// the window's mode count, or -1 for a window outside the k layout
+int64_t window_modes(const Window& w) {
+  if (w.y0 < 0 || w.ny < 0 || w.y0 + w.ny > w.N || w.z0 < 0 || w.nz < 0)
+    return -1;
+  return (int64_t)w.N * w.ny * w.nz;
+}
+
+int launch_hessian(const void* delta, void* out, Window w, float R_grid,
+                   void* stream) {
+  const int64_t nmodes = window_modes(w);
+  if (nmodes < 0) return (int)cudaErrorInvalidValue;
+  if (nmodes == 0) return 0;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  hessian_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)delta, (float2*)out, w, nmodes, R_grid);
+  return (int)cudaGetLastError();
+}
+
+int launch_gradient(const void* src, void* out, Window w, float growth,
+                    void* stream) {
+  const int64_t nmodes = window_modes(w);
+  if (nmodes < 0) return (int)cudaErrorInvalidValue;
+  if (nmodes == 0) return 0;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  gradient_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)src, (float2*)out, w, nmodes, growth);
+  return (int)cudaGetLastError();
+}
+
+int launch_gradient_tab(const void* src, void* out, Window w,
+                        const void* gtab, int ntab, float glo, float gdx,
+                        float tmax, void* stream) {
+  const int64_t nmodes = window_modes(w);
+  if (nmodes < 0) return (int)cudaErrorInvalidValue;
+  if (nmodes == 0) return 0;
+  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
+  gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
+                        (cudaStream_t)stream>>>(
+      (const float2*)src, (float2*)out, w, nmodes, (const float*)gtab, ntab,
+      glo, gdx, tmax);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kspace_hessian(const void* delta, void* out, int N,
                               float R_grid, void* stream) {
-  const int Nh = N / 2 + 1;
-  const int64_t nmodes = (int64_t)N * N * Nh;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  hessian_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)delta, (float2*)out, N, Nh, nmodes, R_grid);
-  return (int)cudaGetLastError();
+  return launch_hessian(delta, out, Window{N, 0, N, 0, N / 2 + 1}, R_grid,
+                        stream);
 }
 
 extern "C" int kspace_gradient(const void* src, void* out, int N,
                                float growth, void* stream) {
-  const int Nh = N / 2 + 1;
-  const int64_t nmodes = (int64_t)N * N * Nh;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  gradient_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)src, (float2*)out, N, Nh, nmodes, growth);
-  return (int)cudaGetLastError();
+  return launch_gradient(src, out, Window{N, 0, N, 0, N / 2 + 1}, growth,
+                         stream);
 }
 
 // gtab: [ntab] growth over log10 |k| from glo in steps of gdx; tmax: the
@@ -279,14 +344,33 @@ extern "C" int kspace_gradient(const void* src, void* out, int N,
 extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
                                    const void* gtab, int ntab, float glo,
                                    float gdx, float tmax, void* stream) {
-  const int Nh = N / 2 + 1;
-  const int64_t nmodes = (int64_t)N * N * Nh;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
-                        (cudaStream_t)stream>>>(
-      (const float2*)src, (float2*)out, N, Nh, nmodes, (const float*)gtab,
-      ntab, glo, gdx, tmax);
-  return (int)cudaGetLastError();
+  return launch_gradient_tab(src, out, Window{N, 0, N, 0, N / 2 + 1}, gtab,
+                             ntab, glo, gdx, tmax, stream);
+}
+
+// K2s, K5s, K8s: src [N, ny, nz], the window at (y0, z0) of a mesh's k
+// layout; out [ncomp, N, ny, nz]
+extern "C" int kspace_hessian_shard(const void* delta, void* out, int N,
+                                    int y0, int ny, int z0, int nz,
+                                    float R_grid, void* stream) {
+  return launch_hessian(delta, out, Window{N, y0, ny, z0, nz}, R_grid,
+                        stream);
+}
+
+extern "C" int kspace_gradient_shard(const void* src, void* out, int N,
+                                     int y0, int ny, int z0, int nz,
+                                     float growth, void* stream) {
+  return launch_gradient(src, out, Window{N, y0, ny, z0, nz}, growth,
+                         stream);
+}
+
+extern "C" int kspace_gradient_tab_shard(const void* src, void* out, int N,
+                                         int y0, int ny, int z0, int nz,
+                                         const void* gtab, int ntab,
+                                         float glo, float gdx, float tmax,
+                                         void* stream) {
+  return launch_gradient_tab(src, out, Window{N, y0, ny, z0, nz}, gtab, ntab,
+                             glo, gdx, tmax, stream);
 }
 
 // K10 entry points: src* and its strides s*b, s*x, s*y (in complex

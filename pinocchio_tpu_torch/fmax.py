@@ -299,7 +299,7 @@ def displacement_fields(sources: dict, growths, N: int,
     return out
 
 
-def _unpack(host: np.ndarray, N: int, count: int, keys, nsets: int):
+def unpack_products(host: np.ndarray, N: int, count: int, keys, nsets: int):
     """SparseProducts from the packed host copy: cell indices and F, then
     the rows of each displacement set (compact.gather_rows layout)."""
     ci = host[:count].view(np.int32).astype(np.int64)
@@ -417,7 +417,7 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     timings["lpt"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sp = _unpack(buf.cpu().numpy(), N, count, keys, len(zs))
+    sp = unpack_products(buf.cpu().numpy(), N, count, keys, len(zs))
     del buf
     hist = compact.pdf_hist(Fmax).cpu().numpy()
     dense = None

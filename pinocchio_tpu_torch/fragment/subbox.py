@@ -282,12 +282,12 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
     sub-box's (of its second turn, with two), "sort", "sweep" and "quick"
     the sums over sub-boxes, "overhead" the stored particles over N^3, and
     "boundary_requested" / "beyond_boundary" the two-turn map's counts
-    summed.  host_slice (several hosts) is ROADMAP item 12 and raises
+    summed.  host_slice (several hosts) is ROADMAP item 12b and raises
     NotImplementedError."""
     if host_slice is not None and host_slice[1] > 1:
         raise NotImplementedError(
             "multi-host fragmentation is not ported to pinocchio_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 12)")
+            "yet (ROADMAP.md, queue 1 item 12b)")
     if largest_mass is None:
         from ..io.catalogs import largest_halo_mass
         largest_mass = largest_halo_mass(params, cosmo)

@@ -30,24 +30,41 @@ def signed_modes(N: int) -> np.ndarray:
     return np.where(m <= N // 2, m, m - N)
 
 
-def k_grid_units(N: int, device):
-    """k vectors in grid units (2*pi*m/N) for the rfftn layout as float32
-    tensors broadcastable to [N, N, N//2+1]; the kz axis is |kz|."""
-    kx = (2.0 * np.pi / N) * signed_modes(N)
-    kz = np.abs(kx[: N // 2 + 1])
+def k_window(N: int, y0: int, ny: int, z0: int, nz: int, device):
+    """(kx, ky, kz, k^2, 1/k^2 with the k=0 mode set to 0) in grid units
+    (2*pi*m/N, computed in float64 and rounded to float32), broadcastable to
+    the window [N, y0:y0+ny, z0:z0+nz] of the rfftn layout; the kz axis is
+    |kz|.  The whole layout is the window (0, N, 0, N//2+1); a mesh's shard
+    is the window its k block covers (planes beyond N//2 get the k of their
+    index, which a caller zeroes)."""
+    two_pi = 2.0 * np.pi / N
+    m = signed_modes(N)
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.tensor(kx, **f32).reshape(N, 1, 1),
-            torch.tensor(kx, **f32).reshape(1, N, 1),
-            torch.tensor(kz, **f32).reshape(1, 1, N // 2 + 1))
-
-
-def inverse_k2(N: int, device):
-    """(kx, ky, kz, 1/k^2 with the k=0 mode set to 0), float32."""
-    kx, ky, kz = k_grid_units(N, device)
+    kx = torch.tensor(two_pi * m, **f32).reshape(N, 1, 1)
+    ky = torch.tensor(two_pi * m[y0:y0 + ny], **f32).reshape(1, ny, 1)
+    kz = torch.tensor(two_pi * np.arange(z0, z0 + nz), **f32
+                      ).reshape(1, 1, nz)
     k2 = kx * kx + ky * ky + kz * kz
     inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
                          0.0)
     return kx, ky, kz, k2, inv_k2
+
+
+def inverse_k2(N: int, device):
+    """(kx, ky, kz, k^2, 1/k^2 with the k=0 mode set to 0), float32, over
+    the whole rfftn layout [N, N, N//2+1]."""
+    return k_window(N, 0, N, 0, N // 2 + 1, device)
+
+
+def irfft_z(u, n: int):
+    """c2r over the last axis, [.., n//2+1] -> [.., n], of a tensor the
+    caller owns: the imaginary parts of the kz=0 and kz=n/2 planes are
+    zeroed IN PLACE first, numpy's documented semantics, so that every FFT
+    backend computes the same thing."""
+    u[..., 0].imag.zero_()
+    if n % 2 == 0:
+        u[..., n // 2].imag.zero_()
+    return torch.fft.irfft(u, n=n, dim=-1)
 
 
 def rfft3(x):
@@ -68,12 +85,8 @@ def irfft3(k, n: int):
     those planes differently from the JAX package's two-step transform.
     The 1-D irfft discards the imaginary part of the kz=0 and kz=N/2
     planes (numpy's documented semantics); it is zeroed here explicitly so
-    that every FFT backend computes the same thing."""
-    u = torch.fft.ifft2(k, dim=(-3, -2))
-    u[..., 0].imag.zero_()
-    if n % 2 == 0:
-        u[..., n // 2].imag.zero_()
-    return torch.fft.irfft(u, n=n, dim=-1)
+    that every FFT backend computes the same thing (irfft_z)."""
+    return irfft_z(torch.fft.ifft2(k, dim=(-3, -2)), n)
 
 
 def k_batch(N: int, kz0: int, B: int, device):

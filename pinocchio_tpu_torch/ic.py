@@ -10,7 +10,9 @@ same bits and, up to float32 rounding of the transcendentals, the same
 field.
 
 ``kdensity`` is the wrapper of the CUDA kernel ``csrc/ic_kdensity.cu``; on
-CPU tables it runs ``kdensity_plain``.
+CPU tables it runs ``kdensity_plain``.  ``kdensity_shard`` (K1s) computes one
+shard of a mesh's k layout with the same kernel: each mode draws at its
+global counter, so every shard holds the single-device field's values.
 """
 
 from __future__ import annotations
@@ -95,31 +97,45 @@ def _interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def kdensity_plain(N, logk, logpk, kp, ka, logkf, fac, fixed, paired):
+def kdensity_shard_plain(N, logk, logpk, kp, ka, logkf, fac, fixed, paired,
+                         y0, ny, z0, nz):
+    """Plain version of K1s: see kdensity_shard."""
     dev = logk.device
     Nh = N // 2 + 1
     half = N // 2
+    nzv = max(0, min(nz, Nh - z0))
     i64 = dict(dtype=torch.int64, device=dev)
     ix = torch.arange(N, **i64).reshape(N, 1, 1)
-    iy = torch.arange(N, **i64).reshape(1, N, 1)
-    iz = torch.arange(Nh, **i64).reshape(1, 1, Nh)
+    iy = torch.arange(y0, y0 + ny, **i64).reshape(1, ny, 1)
+    iz = torch.arange(z0, z0 + nzv, **i64).reshape(1, 1, nzv)
     mx = torch.where(ix <= half, ix, ix - N)
     my = torch.where(iy <= half, iy, iy - N)
     m2 = mx * mx + my * my + iz * iz
     alive = (~((mx.abs() == half) | (my.abs() == half) | (iz == half))
              & (m2 > 0) & (m2 <= half * half))
-    # flat index of the draw: the mirrored mode on the dependent part of
-    # the kz=0 plane, which also conjugates
+    # global counter of the draw: the mirrored mode's on the dependent part
+    # of the kz=0 plane, which also conjugates
     dep = (iz == 0) & ((ix > half) | ((ix == 0) & (iy > half)))
     flat = (ix * N + iy) * Nh + iz
     mirror = (((N - ix) % N) * N + (N - iy) % N) * Nh
     draw = torch.where(dep, mirror, flat).reshape(-1)
     sign = torch.where(dep, -1.0, 1.0).to(torch.float32)
 
-    phase = uniform(kp, draw, 0.0, 2.0 * np.pi).reshape(N, N, Nh)
-    ampl = uniform(ka, draw, AMPL_MIN, 1.0).reshape(N, N, Nh)
-    return _modes(m2, alive, sign, phase, ampl, logk,
-                  logpk, logkf, fac, fixed, paired)
+    shape = (N, ny, nzv)
+    phase = uniform(kp, draw, 0.0, 2.0 * np.pi).reshape(shape)
+    ampl = uniform(ka, draw, AMPL_MIN, 1.0).reshape(shape)
+    got = _modes(m2, alive, sign, phase, ampl, logk, logpk, logkf, fac,
+                 fixed, paired)
+    if nzv == nz:
+        return got
+    out = torch.zeros((N, ny, nz), dtype=torch.complex64, device=dev)
+    out[..., :nzv] = got
+    return out
+
+
+def kdensity_plain(N, logk, logpk, kp, ka, logkf, fac, fixed, paired):
+    return kdensity_shard_plain(N, logk, logpk, kp, ka, logkf, fac, fixed,
+                                paired, 0, N, 0, N // 2 + 1)
 
 
 def _modes(m2, alive, sign, phase, ampl, logk, logpk, logkf, fac, fixed,
@@ -162,14 +178,50 @@ def kdensity(N: int, logk, logpk, kp, ka, logkf: float, fac: float,
     return out
 
 
-def generate_kdensity(grid: Grid, cosmo, seed: int, device,
-                      fixed: bool = False, paired: bool = False):
-    """delta(k) on the rfftn grid [N, N, N//2+1], complex64, on ``device``."""
+def kdensity_shard(N: int, logk, logpk, kp, ka, logkf: float, fac: float,
+                   fixed: bool, paired: bool, y0: int, ny: int, z0: int,
+                   nz: int):
+    """delta(k) of one shard of a mesh's k layout [N, N, Nhp], complex64
+    [N, ny, nz]: the modes of every kx, ky y0..y0+ny-1 and kz z0..z0+nz-1
+    (exact zeros for kz > N/2, the layout's padding), on the device of the
+    P(k) tables; the other arguments as kdensity."""
+    if not kernels.plain_or_kernel("ic_kdensity_shard", logk):
+        return kdensity_shard_plain(N, logk, logpk, kp, ka, logkf, fac, fixed,
+                                    paired, y0, ny, z0, nz)
+    kernels.require_cuda("ic_kdensity_shard", logk, logpk)
+    if (logk.dtype != torch.float32 or logpk.shape != logk.shape
+            or logk.dim() != 1 or not 0 <= y0 <= y0 + ny <= N or z0 < 0
+            or nz < 0):
+        raise ValueError("ic_kdensity_shard: float32 1-D tables of one "
+                         "length and a window inside the k layout expected")
+    out = torch.empty((N, ny, nz), dtype=torch.complex64, device=logk.device)
+    with kernels.on_device(logk.device):
+        err = kernels.lib().ic_kdensity_shard(
+            out.data_ptr(), logk.data_ptr(), logpk.data_ptr(), logk.numel(),
+            kp[0], kp[1], ka[0], ka[1], float(logkf), float(fac), N, int(y0),
+            int(ny), int(z0), int(nz), int(bool(fixed)), int(bool(paired)),
+            kernels.stream_ptr(logk.device))
+    kernels.check("ic_kdensity_shard", err)
+    kernels.LAUNCHES["ic_kdensity_shard"] += 1
+    return out
+
+
+def kdensity_args(grid: Grid, cosmo, seed: int):
+    """The host inputs of K1 and K1s: (logk, logpk) float32 numpy P(k)
+    tables, the phase and amplitude keys, log10 of the fundamental mode and
+    the amplitude factor, both rounded to float32."""
     logk, logpk = pk_table(cosmo, grid)
     kp, ka = split(prng_key(seed))
     kf = 2.0 * math.pi / grid.BoxSize
     logkf = float(np.float32(math.log10(kf)))
     fac = float(np.float32(grid.BoxSize ** -1.5 * float(grid.N) ** 3))
+    return logk, logpk, kp, ka, logkf, fac
+
+
+def generate_kdensity(grid: Grid, cosmo, seed: int, device,
+                      fixed: bool = False, paired: bool = False):
+    """delta(k) on the rfftn grid [N, N, N//2+1], complex64, on ``device``."""
+    logk, logpk, kp, ka, logkf, fac = kdensity_args(grid, cosmo, seed)
     return kdensity(grid.N, torch.from_numpy(logk).to(device),
                     torch.from_numpy(logpk).to(device), kp, ka, logkf, fac,
                     fixed, paired)

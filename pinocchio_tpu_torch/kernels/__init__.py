@@ -80,6 +80,15 @@ KERNELS = {
         "cuda", _COLLAPSE, "pinocchio_tpu/fmax_ooc.py:539"),
     "ooc_factors_gradient_tab": ("cuda", _KSPACE,
                                  "pinocchio_tpu/fmax_ooc.py:438"),
+    # a shard's window of a mesh's k layout (K1s, K2s, K5s, K8s)
+    "ic_kdensity_shard": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
+                          "pinocchio_tpu/parallel/driver.py:42"),
+    "kspace_hessian_shard": ("cuda", _KSPACE,
+                             "pinocchio_tpu/parallel/pfft.py:333"),
+    "kspace_gradient_shard": ("cuda", _KSPACE,
+                              "pinocchio_tpu/parallel/pfft.py:355"),
+    "kspace_gradient_tab_shard": ("cuda", _KSPACE,
+                                  "pinocchio_tpu/parallel/pfft.py:369"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -138,6 +147,14 @@ _SIGNATURES = {
     # src, sb, sx, sy, out, N, kz0, B, gtab, ntab, glo, gdx, tmax, stream
     "ooc_factors_gradient_tab": [_P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _F,
                                  _F, _F, _P],
+    # K1's arguments with the window y0, ny, z0, nz after N
+    "ic_kdensity_shard": [_P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
+    # src, out, N, y0, ny, z0, nz, then as K2, K5, K8
+    "kspace_hessian_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "kspace_gradient_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "kspace_gradient_tab_shard": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _F,
+                                  _F, _P],
 }
 
 
@@ -269,6 +286,19 @@ def check(name: str, err: int) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """A context that makes ``device`` current for the launches inside it:
+    a kernel of the C library launches on the current device, so a launch
+    for a shard on another card than the current one runs under it (a no-op
+    context for a CPU device)."""
+    import contextlib
+
+    import torch
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def require_cuda(name: str, *tensors) -> None:

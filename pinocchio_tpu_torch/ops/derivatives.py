@@ -9,9 +9,13 @@ Hessian component order ('ider'): xx yy zz xy xz yz.
 
 ``hessian_kspace``, ``gradient_kspace`` and ``gradient_kspace_tab`` are the
 wrappers of the three entry points of the CUDA kernels ``csrc/kspace.cu``;
-on a CPU tensor they run the plain PyTorch multiply.  The c2r transforms are
-``torch.fft`` (cuFFT on the card) in the two-step decomposition of
-``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
+on a CPU tensor they run the plain PyTorch multiply.  Their ``*_shard``
+versions (K2s, K5s, K8s) apply the same multipliers to one shard of a
+mesh's k layout, the window [N, y0:y0+ny, z0:z0+nz] of [N, N, Nhp] (Nhp >=
+N//2+1 pads the kz axis so that it splits evenly; the padded planes are
+zero in and out); the full-grid functions are the window (0, 0).  The c2r
+transforms are ``torch.fft`` (cuFFT on the card) in the two-step
+decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
 the wrappers of the out-of-core engine's per-kz-batch factors (K10, also in
 ``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its gradient with a growth
 table (K14).
@@ -25,31 +29,55 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..grids import inverse_k2, irfft3, k_batch
+from ..grids import irfft3, k_batch, k_window
 
 SECOND_DERIV_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
 
-def smoothed_potential(kdensity, R_grid: float, N: int):
-    """delta(k) * exp(-k^2 R^2 / 2) / k^2 with the k=0 mode zeroed."""
-    _, _, _, k2, inv_k2 = inverse_k2(N, kdensity.device)
-    R = torch.tensor(R_grid, dtype=torch.float32)
-    smooth = torch.exp(-0.5 * k2 * R * R)
-    return kdensity * (smooth * inv_k2)
+def _plain_window(src, N: int, y0: int, z0: int, ncomp: int, fn):
+    """A plain twin over the shard src [N, ny, nz] at (y0, z0): fn(src of
+    the planes kz < N//2+1, their k_window) -> [ncomp, N, ny, nz'], the
+    padded planes exactly zero."""
+    ny, nz = src.shape[1], src.shape[2]
+    nzv = max(0, min(nz, N // 2 + 1 - z0))
+    kv = k_window(N, y0, ny, z0, nzv, src.device)
+    got = fn(src[..., :nzv], kv)
+    if nzv == nz:
+        return got
+    out = torch.zeros((ncomp,) + tuple(src.shape), dtype=got.dtype,
+                      device=src.device)
+    out[..., :nzv] = got
+    return out
+
+
+def hessian_kspace_shard_plain(src, R_grid: float, N: int, y0: int,
+                               z0: int):
+    """Plain version of K2s: see hessian_kspace_shard."""
+    def fn(s, kv):
+        R = torch.tensor(R_grid, dtype=torch.float32)
+        base = s * (torch.exp(-0.5 * kv[3] * R * R) * kv[4])
+        return torch.stack([base * (kv[a] * kv[b])
+                            for a, b in SECOND_DERIV_PAIRS])
+    return _plain_window(src, N, y0, z0, 6, fn)
 
 
 def hessian_kspace_plain(kdensity, R_grid: float, N: int):
-    kvec = inverse_k2(N, kdensity.device)[:3]
-    base = smoothed_potential(kdensity, R_grid, N)
-    return torch.stack([base * (kvec[a] * kvec[b])
-                        for a, b in SECOND_DERIV_PAIRS])
+    return hessian_kspace_shard_plain(kdensity, R_grid, N, 0, 0)
+
+
+def gradient_kspace_shard_plain(src, growth: float, N: int, y0: int,
+                                z0: int):
+    """Plain version of K5s: see gradient_kspace_shard."""
+    g = float(torch.tensor(growth, dtype=torch.float32))
+
+    def fn(s, kv):
+        base = s * complex(0.0, g) * kv[4]
+        return torch.stack([base * kv[0], base * kv[1], base * kv[2]])
+    return _plain_window(src, N, y0, z0, 3, fn)
 
 
 def gradient_kspace_plain(kvector, growth: float, N: int):
-    kx, ky, kz, _, inv_k2 = inverse_k2(N, kvector.device)
-    g = float(torch.tensor(growth, dtype=torch.float32))
-    base = kvector * complex(0.0, g) * inv_k2
-    return torch.stack([base * kx, base * ky, base * kz])
+    return gradient_kspace_shard_plain(kvector, growth, N, 0, 0)
 
 
 def _scalar(x, device):
@@ -72,11 +100,17 @@ def _growth_lookup(k2, gtab, glo: float, gdx: float):
     return gtab[i] * (1.0 - w) + gtab[i + 1] * w
 
 
+def gradient_kspace_tab_shard_plain(src, gtab, glo: float, gdx: float,
+                                    N: int, y0: int, z0: int):
+    """Plain version of K8s: see gradient_kspace_tab_shard."""
+    def fn(s, kv):
+        base = s * (1j * _growth_lookup(kv[3], gtab, glo, gdx)) * kv[4]
+        return torch.stack([base * kv[0], base * kv[1], base * kv[2]])
+    return _plain_window(src, N, y0, z0, 3, fn)
+
+
 def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int):
-    kx, ky, kz, k2, inv_k2 = inverse_k2(N, kvector.device)
-    growth = _growth_lookup(k2, gtab, glo, gdx)
-    base = kvector * (1j * growth) * inv_k2
-    return torch.stack([base * kx, base * ky, base * kz])
+    return gradient_kspace_tab_shard_plain(kvector, gtab, glo, gdx, N, 0, 0)
 
 
 def _check_kspace(name, src, N):
@@ -152,6 +186,60 @@ def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
     kernels.check("kspace_gradient_tab", err)
     kernels.LAUNCHES["kspace_gradient_tab"] += 1
     return out
+
+
+def _shard_launch(name, src, ncomp, N, y0, z0, *tail):
+    """Launch the window kernel ``name`` on the shard src [N, ny, nz] at
+    (y0, z0) of a mesh's k layout, on the shard's device and stream: a
+    complex64 [ncomp, N, ny, nz] result."""
+    kernels.require_cuda(name, src)
+    if (src.dtype != torch.complex64 or src.dim() != 3 or src.shape[0] != N
+            or not 0 <= y0 <= y0 + src.shape[1] <= N or z0 < 0):
+        raise ValueError(f"{name}: a complex64 [{N}, ny, nz] shard inside "
+                         f"the k layout expected, got {src.dtype} "
+                         f"{tuple(src.shape)} at ({y0}, {z0})")
+    out = torch.empty((ncomp,) + tuple(src.shape), dtype=torch.complex64,
+                      device=src.device)
+    with kernels.on_device(src.device):
+        err = getattr(kernels.lib(), name)(
+            src.data_ptr(), out.data_ptr(), N, int(y0), src.shape[1],
+            int(z0), src.shape[2], *tail, kernels.stream_ptr(src.device))
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def hessian_kspace_shard(src, R_grid: float, N: int, y0: int, z0: int):
+    """K2 on one shard of a mesh's k layout: src complex64 [N, ny, nz], the
+    window of modes (all kx, ky y0..y0+ny-1, kz z0..z0+nz-1), gives the 6
+    smoothed second-derivative multipliers [6, N, ny, nz] in ider order,
+    zero on the padded planes kz > N/2."""
+    if not kernels.plain_or_kernel("kspace_hessian_shard", src):
+        return hessian_kspace_shard_plain(src, R_grid, N, y0, z0)
+    return _shard_launch("kspace_hessian_shard", src, 6, N, y0, z0,
+                         float(R_grid))
+
+
+def gradient_kspace_shard(src, growth: float, N: int, y0: int, z0: int):
+    """K5 on one shard (see hessian_kspace_shard): i k_a / k^2 * growth,
+    complex64 [3, N, ny, nz]."""
+    if not kernels.plain_or_kernel("kspace_gradient_shard", src):
+        return gradient_kspace_shard_plain(src, growth, N, y0, z0)
+    return _shard_launch("kspace_gradient_shard", src, 3, N, y0, z0,
+                         float(growth))
+
+
+def gradient_kspace_tab_shard(src, gtab, glo: float, gdx: float, N: int,
+                              y0: int, z0: int):
+    """K8 on one shard (see hessian_kspace_shard): i k_a / k^2 *
+    growth(|k|) with the growth table gtab [ntab] on the shard's device,
+    complex64 [3, N, ny, nz]."""
+    if not kernels.plain_or_kernel("kspace_gradient_tab_shard", src):
+        return gradient_kspace_tab_shard_plain(src, gtab, glo, gdx, N, y0,
+                                               z0)
+    return _shard_launch("kspace_gradient_tab_shard", src, 3, N, y0, z0,
+                         *_table_args("kspace_gradient_tab_shard", gtab, glo,
+                                      gdx, src.device))
 
 
 def second_derivatives(kdensity, R_grid: float, N: int):

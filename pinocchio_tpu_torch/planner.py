@@ -143,13 +143,17 @@ def _ooc_phases(params: Params, frac: float) -> dict:
 
 
 def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
-                frac: float = None) -> dict:
+                frac: float = None, n_chips: int = 1) -> dict:
     """The predicted device memory of the dense (ooc False) or the
     out-of-core engine: dict(phases={phase: {array: bytes}}, peak=bytes,
-    phase=the phase of the peak, frac=the collapsed fraction used)."""
+    phase=the phase of the peak, frac=the collapsed fraction used).  With
+    n_chips > 1 (a mesh over that many devices) every array is sharded, so
+    each device holds 1/n_chips of it (the JAX planner's per-chip model)."""
     if frac is None:
         frac = collapsed_fraction(params, cosmo or Cosmology(params))
     phases = (_ooc_phases if ooc else _dense_phases)(params, frac)
+    phases = {p: {a: b / n_chips for a, b in arrays.items()}
+              for p, arrays in phases.items()}
     totals = {p: sum(a.values()) for p, a in phases.items()}
     top = max(totals, key=totals.get)
     return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
@@ -269,19 +273,20 @@ def host_memory() -> float:
 
 
 def plan(params: Params, device="cuda", cosmo: Cosmology = None,
-         dense_products: bool = False) -> dict:
+         dense_products: bool = False, n_chips: int = 1) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
     out-of-core engine when the dense one does not fit), the sub-box
     decomposition (subbox_plan: nbox, boundary_overhead, two_turn,
     subbox_workers) and the host estimate of the run's phases (host_phases;
-    dense_products for special mode 3)."""
+    dense_products for special mode 3).  n_chips: the distinct devices of a
+    mesh run, each like ``device``; the device fields are per device."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
     limit = device_memory(device)
-    dense = device_peak(params, False, frac=frac)
-    ooc = device_peak(params, True, frac=frac)
+    dense = device_peak(params, False, frac=frac, n_chips=n_chips)
+    ooc = device_peak(params, True, frac=frac, n_chips=n_chips)
     if params.ooc == "on":
         use_ooc = True
     elif params.ooc == "auto":
@@ -295,11 +300,12 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
     if torch.device(device).type == "cpu":
         # device arrays live in host memory too
         for arrays in hphases.values():
-            arrays["device_arrays"] = chosen["peak"]
+            arrays["device_arrays"] = chosen["peak"] * n_chips
     htotals = {p: sum(a.values()) for p, a in hphases.items()}
     hphase = max(htotals, key=htotals.get)
     host, host_limit = htotals[hphase], host_memory()
-    return dict(grid=params.GridSize, device=str(device), frac=frac,
+    return dict(grid=params.GridSize, device=str(device), n_chips=n_chips,
+                frac=frac,
                 device_limit=limit, dense=dense, ooc=ooc, use_ooc=use_ooc,
                 engine="out-of-core" if use_ooc else "dense",
                 device_bytes=chosen["peak"],
@@ -311,10 +317,10 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
                 two_turn=sub["two_turn"], subbox_workers=sub["workers"])
 
 
-def ooc_selected(params: Params, device="cuda",
-                 cosmo: Cosmology = None) -> bool:
+def ooc_selected(params: Params, device="cuda", cosmo: Cosmology = None,
+                 n_chips: int = 1) -> bool:
     """Whether the run takes the out-of-core engine (see plan)."""
-    return plan(params, device, cosmo)["use_ooc"]
+    return plan(params, device, cosmo, n_chips=n_chips)["use_ooc"]
 
 
 def format_memory_map(report: dict) -> str:
@@ -322,9 +328,11 @@ def format_memory_map(report: dict) -> str:
     (allocations.c:274-311)."""
     eng = report["ooc"] if report["use_ooc"] else report["dense"]
     other = report["dense"] if report["use_ooc"] else report["ooc"]
+    chips = report.get("n_chips", 1)
     lines = [
-        f"RUN PLAN for {report['grid']}^3 on {report['device']}: "
-        f"{report['engine']} engine",
+        f"RUN PLAN for {report['grid']}^3 on {report['device']}"
+        + (f" (per device of {chips})" if chips > 1 else "")
+        + f": {report['engine']} engine",
         f"  est. collapsed fraction:    {report['frac']:.3f}",
         f"  device memory, peak phase ({eng['phase']}): "
         f"{eng['peak'] / GiB:.2f} GiB of {report['device_limit'] / GiB:.2f} "
@@ -359,11 +367,13 @@ def format_memory_map(report: dict) -> str:
 
 
 def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
-                   verbose: bool = True, dense_products: bool = False) -> dict:
+                   verbose: bool = True, dense_products: bool = False,
+                   n_chips: int = 1) -> dict:
     """Pre-flight check, before any allocation: raise MemoryPlanError with
     the per-array map when the chosen engine's device peak or the run's
-    host memory exceeds what there is; returns the plan."""
-    report = plan(params, device, cosmo, dense_products)
+    host memory exceeds what there is; returns the plan (n_chips as in
+    plan)."""
+    report = plan(params, device, cosmo, dense_products, n_chips)
     problems = []
     if not report["fits_device"]:
         problems.append(

@@ -1,5 +1,6 @@
-"""End-to-end pipeline driver on one CUDA device: parameter file ->
-catalogs (counterpart of pinocchio_tpu/run.py, single-device path).
+"""End-to-end pipeline driver on one CUDA device, or with the fmax phase
+sharded over a mesh of devices in one process: parameter file -> catalogs
+(counterpart of pinocchio_tpu/run.py, single-host paths).
 
 The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
@@ -10,7 +11,10 @@ aborts with the memory map when the chosen engine does not fit.
 DumpProducts writes the products after fmax; ReadProductsFromDumps reads
 them instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
 fragmentation runs over that many padded sub-boxes, swept concurrently on
-the host's cores and merged (fragment/subbox.py); one process, one device.
+the host's cores and merged (fragment/subbox.py).  With a mesh (--chips N:
+cuda:0..N-1, or N CPU shards with --device cpu; --decomp slab, pencil,
+volumes or auto) IC and fmax run sharded over it (parallel/driver.py) and
+hand the same host products to the rest; one process.
 
   initialization -> plan -> PLC geometry -> fmax (collapse times +
   displacements, on the device; or the products read from a dump) ->
@@ -24,7 +28,8 @@ initial conditions as a Gadget snapshot.
 
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [mode] [--norad]
-        [--outdir DIR] [--device cuda] [--subboxes N]
+        [--outdir DIR] [--device cuda] [--subboxes N] [--chips N]
+        [--decomp auto|slab|pencil|volumes]
 """
 
 from __future__ import annotations
@@ -41,13 +46,21 @@ from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
 
 
-def check_supported(params: Params) -> None:
+MESH_OOC = ("the out-of-core engine over a mesh (its ledger sharded over kz) "
+            "is not ported to pinocchio_tpu_torch yet (ROADMAP.md, queue 1 "
+            "item 12c)")
+
+
+def check_supported(params: Params, mesh=None) -> None:
     """Raise ValueError for an unknown ooc mode, and NotImplementedError,
     naming the ROADMAP item, for a feature outside the ported paths (with
-    ooc 'on': fmax_ooc.check_ooc_supported)."""
+    ooc 'on': fmax_ooc.check_ooc_supported; over a mesh, the out-of-core
+    engine)."""
     if params.ooc not in ("on", "off", "auto"):
         raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
                          f"{params.ooc!r}")
+    if mesh is not None and params.ooc == "on":
+        raise NotImplementedError(MESH_OOC)
     if params.ooc == "on":
         check_ooc_supported(params)
 
@@ -65,9 +78,12 @@ def resolve_device(device) -> torch.device:
 
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
-                 verbose: bool = True, write_outputs: bool = True):
-    """The single-device run.  Returns dict(cosmo, plan (the planner's
-    report), fmax, frag, timings, files)."""
+                 verbose: bool = True, write_outputs: bool = True,
+                 mesh=None):
+    """The run on ``device``, or with IC and fmax sharded over ``mesh``
+    (parallel.pfft.Mesh; its devices replace ``device``).  Returns
+    dict(cosmo, plan (the planner's report), fmax, frag, timings,
+    files)."""
     from .fmax import fmax_pdf, run_fmax
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
@@ -77,12 +93,12 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .planner import enforce_budget
     from .plc import build_plc_geometry, write_nz, write_plc_catalog
 
-    dev = resolve_device(device)
-    check_supported(params)
+    dev = resolve_device(device if mesh is None else mesh.device_list()[0])
+    check_supported(params, mesh)
     t_total = time.perf_counter()
     timings = {}
     if verbose:
-        greetings(params, dev)
+        greetings(params, dev, mesh)
     t0 = time.perf_counter()
     cosmo = Cosmology(params)
     timings["init"] = time.perf_counter() - t0
@@ -105,9 +121,13 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
             io_cat.largest_halo_mass(params, cosmo), verbose=verbose)
         timings["scaledep"] = time.perf_counter() - t0
 
-    # the engine that fits the device, or an abort with the memory map
-    # before any allocation
-    plan = enforce_budget(params, dev, cosmo, verbose=verbose)
+    # the engine that fits the device (each of the mesh's devices), or an
+    # abort with the memory map before any allocation
+    plan = enforce_budget(params, dev, cosmo, verbose=verbose,
+                          n_chips=1 if mesh is None else mesh.n_devices())
+    if mesh is not None and plan["use_ooc"] \
+            and not params.ReadProductsFromDumps:
+        raise NotImplementedError(MESH_OOC)
     t0 = time.perf_counter()
     plc_geom = build_plc_geometry(params, cosmo, verbose=verbose)
     if plc_geom.enabled:
@@ -117,6 +137,13 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         fmax_res = dumps.read_dumps(params, outdir)
         if verbose:
             print("[fmax] products read from dumps")
+    elif mesh is not None:
+        from .parallel.driver import run_fmax_distributed
+        if verbose:
+            print(f"[fmax] sharded over mesh {mesh.shape}")
+        fmax_res = run_fmax_distributed(params, cosmo, mesh,
+                                        scaledep_gm=scaledep_gm,
+                                        verbose=verbose)
     elif plan["use_ooc"]:
         check_ooc_supported(params)
         fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
@@ -189,7 +216,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                 timings=timings, files=written)
 
 
-def greetings(params: Params, device: torch.device):
+def greetings(params: Params, device: torch.device, mesh=None):
     """Run banner with the active feature set (greetings,
     initialization.c:2030)."""
     feats = [f"{params.lpt_order}LPT", f"ELL_{params.ell_model.upper()}"]
@@ -216,6 +243,8 @@ def greetings(params: Params, device: torch.device):
           f"{params.BoxSize:g} Mpc{'/h' if params.BoxInH100 else ''} box")
     print(f"  features: {' '.join(feats)}")
     print(f"  device: {device} ({name})")
+    if mesh is not None:
+        print(f"  mesh: {mesh.shape} over {mesh.n_devices()} device(s)")
     print("*" * 64)
 
 
@@ -325,15 +354,28 @@ def main(argv=None):
                     help="fragmentation sub-domains, swept concurrently on "
                     "the host's cores (the subbox_tasks parameter)")
     ap.add_argument("--chips", type=int, default=1,
-                    help="devices (only 1 is ported)")
+                    help="shard IC and fmax over this many devices: "
+                    "cuda:0..N-1 with --device cuda (raises when fewer "
+                    "exist), N shards on the CPU with --device cpu")
+    ap.add_argument("--decomp", default="auto",
+                    choices=["auto", "slab", "pencil", "volumes"],
+                    help="FFT domain decomposition for --chips "
+                    "(set_fft_decomposition; auto: pencil for even counts "
+                    "from 4, else slab)")
     ap.add_argument("--hosts", type=int, default=1,
                     help="hosts (only 1 is ported)")
     args = ap.parse_args(argv)
-    if args.chips > 1 or args.hosts > 1:
+    if args.hosts > 1:
         raise NotImplementedError(
-            "multi-device and multi-host runs are not ported to "
-            "pinocchio_tpu_torch yet (ROADMAP.md, queue 1 item 12)")
-    resolve_device(args.device)
+            "multi-host runs are not ported to pinocchio_tpu_torch yet "
+            "(ROADMAP.md, queue 1 item 12b)")
+    dev = resolve_device(args.device)
+    mesh = None
+    if args.chips > 1:
+        from .parallel.pfft import mesh_for
+        mesh = mesh_for(args.chips, args.decomp,
+                        devices=None if dev.type == "cuda"
+                        else [dev] * args.chips)
     overrides = {"norad": True} if args.norad else {}
     params = read_parameter_file(args.parameter_file, **overrides)
     if args.subboxes:
@@ -343,7 +385,8 @@ def main(argv=None):
         run_special_mode(params, args.mode, outdir=args.outdir,
                          device=args.device)
     else:
-        run_pipeline(params, outdir=args.outdir, device=args.device)
+        run_pipeline(params, outdir=args.outdir, device=args.device,
+                     mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,11 @@ exactly equal to their plain versions; K4's one-pair accumulation is within
 exactly equal to its plain version and to K7 on the rare-branch batches and
 on Gaussian Hessians; K14 (the gradient mode with a growth table, on
 contiguous and strided batches) is exactly equal to its plain version and
-to K8's values at the same modes.
+to K8's values at the same modes.  The shard kernels K1s, K2s, K5s and K8s
+on a mesh shard's window are exactly equal to their plain versions and to
+the full-grid kernels on that window; the fmax phase over a 2x2 pencil
+mesh of the one card launches the mesh's kernels and holds the
+single-device run's results.
 """
 
 import numpy as np
@@ -487,7 +491,109 @@ def test_ooc_factors_gradient_tab(dev):
                                torch.view_as_real(k8))
 
 
+# (y0, ny, z0, nz) windows of an [N, N, Nhp] mesh layout: the whole grid, a
+# 2x2 pencil shard, and a ragged shard reaching into kz padding beyond Nh
+SHARD_WINDOWS = [(0, N, 0, N // 2 + 1), (25, 25, 13, 13), (10, 5, 20, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", SHARD_WINDOWS)
+def test_shard_kernels(dev, setup, window):
+    """K1s, K2s (two radii), K5s and K8s on a shard's window: exactly
+    their plain versions, and exactly the full-grid kernels' values on the
+    window, zero on the padded planes."""
+    p, cosmo = setup
+    y0, ny, z0, nz = window
+    nzv = max(0, min(nz, N // 2 + 1 - z0))
+    args = ic.kdensity_args(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed)
+    tabs = tuple(torch.from_numpy(t).to(dev) for t in args[:2])
+    full = ic.kdensity(N, *tabs, *args[2:], False, False)
+    shard = _launched("ic_kdensity_shard", lambda: ic.kdensity_shard(
+        N, *tabs, *args[2:], False, False, *window))
+    sl = (slice(None), slice(y0, y0 + ny), slice(z0, z0 + nzv))
+
+    def exact(got, plain, dense):
+        for want in (plain, dense):
+            assert torch.equal(torch.view_as_real(got[..., :nzv]),
+                               torch.view_as_real(want[..., :nzv]
+                                                  if want is plain
+                                                  else want))
+        assert torch.all(got[..., nzv:] == 0)
+
+    exact(shard, ic.kdensity_shard_plain(N, *tabs, *args[2:], False, False,
+                                         *window), full[sl])
+    gp = Params(GridSize=N, BoxSize=float(N), output_z=[0.0], norad=True,
+                plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
+                scale_dependent=True)
+    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(gp), 0.5, N, dev)
+    cases = [("kspace_hessian_shard",
+              lambda f, *a: f(shard, R, N, y0, z0),
+              derivatives.hessian_kspace_shard,
+              derivatives.hessian_kspace_shard_plain,
+              lambda: derivatives.hessian_kspace(full, R, N))
+             for R in (2.5, 0.0)]
+    cases += [("kspace_gradient_shard",
+               lambda f, *a: f(shard, 0.7, N, y0, z0),
+               derivatives.gradient_kspace_shard,
+               derivatives.gradient_kspace_shard_plain,
+               lambda: derivatives.gradient_kspace(full, 0.7, N)),
+              ("kspace_gradient_tab_shard",
+               lambda f, *a: f(shard, gtabs[1], glo, gdx, N, y0, z0),
+               derivatives.gradient_kspace_tab_shard,
+               derivatives.gradient_kspace_tab_shard_plain,
+               lambda: derivatives.gradient_kspace_tab(full, gtabs[1], glo,
+                                                       gdx, N))]
+    for name, call, kern, plain, dense in cases:
+        got = _launched(name, lambda: call(kern))
+        exact(got, call(plain), dense()[(slice(None),) + sl])
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card(dev, setup):
+    """The fmax phase over a 2x2 pencil mesh of one card: delta bit-equal
+    to the single-device field, the mesh's launch set; against the
+    single-device run, displacements within 1e-4 of the maximum and at
+    most 1e-3 N^3 cells with |dF| > 0.1 (chip_smoke.py's mesh criteria;
+    the CPU shows 25 such cells of 50^3)."""
+    from pinocchio_tpu_torch.parallel import driver, pfft
+    p, cosmo = setup
+    ref = fmax.run_fmax(p, cosmo, dev, keep_dense_products=True)
+    kernels.reset_launches()
+    mesh = pfft.make_pencil_mesh(4, devices=[dev] * 4)
+    r = driver.run_fmax_distributed(p, cosmo, mesh,
+                                    keep_dense_products=True)
+    torch.cuda.synchronize()
+    launched = {k for k, v in kernels.LAUNCHES.items() if v}
+    want = {"ic_kdensity_shard", "kspace_hessian_shard",
+            "kspace_gradient_shard", "collapse_update",
+            "lpt_sources_pointwise", "lpt_src32_accumulate", "gather_rows",
+            "pdf_hist"}
+    assert launched == want, (launched - want, want - launched)
+    dec = pfft.make_decomp(mesh, N)
+    delta = driver.build_kdensity(dec, Grid(N, p.BoxSize_htrue), cosmo,
+                                  p.RandomSeed)
+    single = ic.generate_kdensity(Grid(N, p.BoxSize_htrue), cosmo,
+                                  p.RandomSeed, dev).cpu().numpy()
+    got = dec.gather(delta, kspace=True)[:, :, :N // 2 + 1]
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  single.view(np.uint32))
+    F_ref = ref.products.Fmax.cpu().numpy()
+    nflip = int((np.abs(r.dense.Fmax - F_ref) > 0.1).sum())
+    assert nflip <= 1e-3 * N ** 3, nflip
+    for k, a in ref.dense.vel.items():
+        assert np.abs(r.dense.vel[k] - a).max() < 1e-4 * np.abs(a).max()
+
+
 @pytest.mark.parametrize("name,fn", [
+    ("ic_kdensity_shard", lambda t: ic.kdensity_shard(
+        4, t, t, (0, 0), (0, 0), 0.0, 1.0, False, False, 0, 2, 0, 3)),
+    ("kspace_hessian_shard", lambda t: derivatives.hessian_kspace_shard(
+        t, 0.0, 4, 0, 0)),
+    ("kspace_gradient_shard", lambda t: derivatives.gradient_kspace_shard(
+        t, 1.0, 4, 0, 0)),
+    ("kspace_gradient_tab_shard",
+     lambda t: derivatives.gradient_kspace_tab_shard(t, t, 0.0, 1.0, 4, 0,
+                                                     0)),
     ("ic_kdensity_planes", lambda t: ic.kdensity_planes(
         4, t, t, t, 0, 1, 0.0, 1.0, False, False)),
     ("ooc_factors_hessian", lambda t: derivatives.ooc_hessian(t, 0, 0.0, 4)),

@@ -153,8 +153,8 @@ def test_port_imports_no_jax(tmp_path):
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
     a product dump; a restart from that dump; the past light cone with the
     timeless snapshot; fragmentation over sub-boxes, single-turn and
-    two-turn; special mode 2) run without importing jax or any module of
-    the JAX package."""
+    two-turn; classic and f(R) over an 8-shard mesh; special mode 2) run
+    without importing jax or any module of the JAX package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
@@ -175,6 +175,11 @@ def test_port_imports_no_jax(tmp_path):
         "    p = Params(**dict(base, **kw))\n"
         f"    res = run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
+        "from pinocchio_tpu_torch.parallel.pfft import make_volume_mesh\n"
+        "for kw in ({}, fr):\n"
+        "    run_pipeline(Params(**dict(base, **kw)), device='cpu',\n"
+        f"                 outdir={str(tmp_path)!r}, verbose=False,\n"
+        "                 mesh=make_volume_mesh(8, devices=['cpu'] * 8))\n"
         "from pinocchio_tpu_torch.fragment.subbox import "
         "run_fragmentation_multibox\n"
         "from pinocchio_tpu_torch.cosmology import Cosmology\n"
@@ -255,14 +260,29 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--chips", "4"], "item 12"), (["--hosts", "2"], "item 12"),
-    (["--hosts", "2", "--subboxes", "2"], "item 12")])
-def test_cli_options_outside_the_slice_raise(tmp_path, argv, item):
+@pytest.mark.parametrize("argv,ooc,error,item", [
+    # a mesh with the out-of-core engine, several hosts, and a mesh of
+    # more cards than the machine has (this one has none)
+    (["--chips", "2", "--device", "cpu"], "on", NotImplementedError,
+     "item 12c"),
+    (["--chips", "4", "--device", "cuda"], "auto", RuntimeError, "CUDA"),
+    (["--hosts", "2", "--device", "cpu"], "auto", NotImplementedError,
+     "item 12b"),
+    (["--hosts", "2", "--subboxes", "2", "--device", "cpu"], "auto",
+     NotImplementedError, "item 12b")])
+def test_cli_options_outside_the_slice_raise(tmp_path, monkeypatch, argv, ooc,
+                                             error, item):
+    import pinocchio_tpu_torch.run as run_mod
+    if error is RuntimeError and torch.cuda.device_count() >= 4:
+        pytest.skip("the machine has 4 CUDA devices")
+    read = run_mod.read_parameter_file
+    monkeypatch.setattr(run_mod, "read_parameter_file",
+                        lambda *a, **kw: read(*a, ooc=ooc, **kw))
     pf = tmp_path / "parameter_file"
     pf.write_text("GridSize 16\nBoxSize 16.0\n")
-    with pytest.raises(NotImplementedError, match=item):
-        main([str(pf)] + argv + ["--device", "cpu"])
+    with pytest.raises(error, match=item):
+        main([str(pf), "--outdir", str(tmp_path)] + argv)
+    assert not any(f.endswith(".out") for f in os.listdir(tmp_path))
 
 
 def test_cli_special_mode_2_writes_the_density(tmp_path):

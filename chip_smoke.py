@@ -14,7 +14,10 @@
    same function (median of 5, CUDA events); each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
    (float32 outside the tensor cores); the shard kernels K1s, K2s, K5s and
-   K8s on the (1, 1) shard of a 2x2 pencil mesh's k layout; times special
+   K8s on the (1, 1) shard of a 2x2 pencil mesh's k layout, and the
+   exchange's K15, K16 and K17 on the (1, 1) shard of its real layout (2
+   hosts with the main path's sub-box boxes, timed; 16 hosts with wrapped
+   boxes, a host with none, spheres across edges), exactly; times special
    mode 2's density_field (a library c2r) beside its bound and irfftn;
 4. drives each path through run_pipeline, with the launch counters reset
    just before it and read just after, and checks its outputs (catalogs and
@@ -56,11 +59,24 @@
                  per output within 0.5 %;
    then delta over a slab 4, a pencil 2x2 and a volumes 2x2x2 mesh of the
    card, bit-equal to the single-device field; the fmax phase alone over
-   the slab 4 and the volumes 2x2x2 mesh (classic) and over the pencil 2x2
-   with f(R) growth and RECOMPUTE (K8s), each with its launch set and peak,
-   held to the classic or scaledep path like the mesh path; the
+   the slab 4 and the volumes 2x2x2 mesh (classic, at 128^3, held to a
+   single-device fmax there) and over the pencil 2x2 with f(R) growth and
+   RECOMPUTE (K8s, held to the scaledep path), each with its launch set
+   and peak; the
    distributed c2r and one all_to_all beside one device's c2r (on one card
-   the transposes are device-local copies, not NVLink); then the special
+   the transposes are device-local copies, not NVLink); then the exchange
+   (hosts_exchange) on one deferred fmax over a 2x2 pencil mesh of the card
+   at 256^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
+   rows held to the brute-force selection, with the count, pack, route and
+   extract times, wire bytes and device peak, and the two-turn wire
+   protocol for 2 hosts (K15, K16, K17 launched; the union of the hosts'
+   catalogs equal to the one-process two-turn multibox); the hosts path:
+   run_pipeline(hosts=(h, 2)) for h = 0, 1 over that mesh, one sub-box per
+   core, into one outdir (the mesh kernels, K15 and K16 launched; the
+   chunks, no part file; the union of the catalogs equal to the one-process
+   multibox on the same products exactly; mf.out byte-identical, or equal
+   in counts with the bins' mean masses within rtol 1e-6;
+   scripts/torch_merge_chunks.py); then the special
    modes at 256^3 through run_special_mode: 1 (the CT
    table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
    and its variance the classic path's R=0 grid variance), 3 (the LPT
@@ -70,9 +86,10 @@
    with its wall, quick-pass seconds, boundary particles requested and
    beyond-boundary count, held to the classic path's one-box catalogs;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
-   and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, and the mesh
-   path at 48^3, on the card and on the CPU (the plain versions) and holds
-   the halo catalogs and the PLC crossings to each other;
+   and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, the mesh path
+   at 48^3 and the hosts path at 48^3 (each device's hosts united equal to
+   its one-process run), on the card and on the CPU (the plain versions)
+   and holds the halo catalogs and the PLC crossings to each other;
 6. holds the out-of-core engine to the dense engine at 256^3, the dense one
    fed the delta assembled from the engine's kz planes (Fmax, variances, the
    needed set and its order, the rows of every displacement set, halo
@@ -109,6 +126,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SIZES = (256, 512)
@@ -140,7 +158,8 @@ OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
        "collapse_update_slab_table_bicubic": 900,
        "ooc_factors_gradient_tab": 40, "ic_kdensity_shard": 380,
        "kspace_hessian_shard": 40, "kspace_gradient_shard": 20,
-       "kspace_gradient_tab_shard": 40}
+       "kspace_gradient_tab_shard": 40, "exchange_count": 12,
+       "exchange_pack": 4, "exchange_paint": 20}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
           recompute_displacements=True, MaxMemPerParticle=400)
 # each path's launch set: the dense engine's shared kernels, then each
@@ -168,6 +187,13 @@ MESH = {"ic_kdensity_shard", "kspace_hessian_shard", "kspace_gradient_shard",
 MESH_FR = (MESH - {"kspace_gradient_shard"}) | {"kspace_gradient_tab_shard"}
 # the cores this process may use: one sub-box each on the subbox path
 CORES = len(os.sched_getaffinity(0))
+# two hosts mocked over a 2x2 pencil mesh of the card: the mesh path's
+# kernels and the exchange's count and pack (K15, K16); the two-turn wire
+# protocol adds the sphere paint (K17)
+HOSTS = 2
+HOSTS_MESH = ("pencil", (2, 2))
+HOSTS_LAUNCH = MESH | {"exchange_count", "exchange_pack"}
+TWO_TURN_LAUNCH = {"exchange_count", "exchange_pack", "exchange_paint"}
 
 
 def ooc_tab(interp):
@@ -218,18 +244,19 @@ PATHS = {
 }
 # paths over a mesh of the one card: name -> (decomposition, mesh shape)
 MESH_PATHS = {"mesh": ("pencil", (2, 2))}
-# the fmax phase alone over other meshes of the card, at PIPELINE_N: name ->
-# (decomposition, mesh shape, switches, launch set)
-MESH_FMAX = {"mesh_slab4": ("slab", (4,), {}, MESH),
-             "mesh_volume222": ("volumes", (2, 2, 2), {}, MESH),
-             "mesh_scaledep": ("pencil", (2, 2), FR, MESH_FR)}
+# the fmax phase alone over other meshes of the card: name ->
+# (decomposition, mesh shape, switches, launch set, grid size); the slab and
+# volumes meshes run at 128^3 to keep the whole run inside its time budget
+MESH_FMAX = {"mesh_slab4": ("slab", (4,), {}, MESH, 128),
+             "mesh_volume222": ("volumes", (2, 2, 2), {}, MESH, 128),
+             "mesh_scaledep": ("pencil", (2, 2), FR, MESH_FR, PIPELINE_N)}
 # card-vs-CPU checks: path -> (grid size, switches over the path's); the
 # plc path's cone stops at z 0.1, as a deeper one fills the crossing buffer
 # (4 Nmax) of a 64 Mpc/h box
 REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
              "plc": (64, dict(StartingzForPLC=0.1)),
              "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4)),
-             "mesh": (48, {})}
+             "mesh": (48, {}), "hosts": (48, dict(subbox_tasks=4))}
 # what later phases hold to: the classic path's host products and grid
 # variance (special modes), its fmax result, catalogs and timings (the
 # sub-box turns); the plc path's catalogs, crossings and timings (the
@@ -1059,26 +1086,35 @@ def mesh_deltas(dev):
 
 def mesh_fmax_phase(dev, name):
     """The fmax phase alone over the mesh MESH_FMAX[name] of the card at
-    PIPELINE_N with the launch counts set to 0 just before it: its wall,
+    its grid size with the launch counts set to 0 just before it: its wall,
     device peak and launch set, held to the single-device run of the same
-    switches kept by run_path (classic or scaledep; run first if this
-    process has not) by held_to_single_device.  Returns the launches."""
+    switches by held_to_single_device: at PIPELINE_N the one kept by
+    run_path (classic or scaledep; run first if this process has not), at
+    another size a single-device fmax of its own.  Returns the launches."""
     import numpy as np
     import torch
     from pinocchio_tpu_torch import kernels
     from pinocchio_tpu_torch.cosmology import Cosmology
     from pinocchio_tpu_torch.parallel.driver import run_fmax_distributed
 
-    kind, shape, kw, own = MESH_FMAX[name]
-    ref_name = "scaledep" if kw else "classic"
-    if ref_name not in KEPT:
-        run_path(dev, ref_name)
-    F_ref, sv_ref = (KEPT["scaledep"] if kw else
-                     (KEPT["classic_run"][0].products.Fmax.cpu().numpy(),
-                      KEPT["classic"][1]))
-    p = params_for(PIPELINE_N, **kw)
+    from pinocchio_tpu_torch.fmax import run_fmax
+
+    kind, shape, kw, own, N = MESH_FMAX[name]
+    p = params_for(N, **kw)
     cosmo = Cosmology(p)
     gm = scaledep_gm_for(p, cosmo)
+    if N != PIPELINE_N:
+        one = run_fmax(p, cosmo, dev, scaledep_gm=gm)
+        F_ref = one.products.Fmax.cpu().numpy()
+        sv_ref = one.smoothing.true_variance
+        del one
+    else:
+        ref_name = "scaledep" if kw else "classic"
+        if ref_name not in KEPT:
+            run_path(dev, ref_name)
+        F_ref, sv_ref = (KEPT["scaledep"] if kw else
+                         (KEPT["classic_run"][0].products.Fmax.cpu().numpy(),
+                          KEPT["classic"][1]))
     mesh = card_mesh(dev, kind, shape)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1095,7 +1131,7 @@ def mesh_fmax_phase(dev, name):
           + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
           flush=True)
     F, _ = res.products.gather()
-    held_to_single_device(name, PIPELINE_N, F, res.smoothing.true_variance,
+    held_to_single_device(name, N, F, res.smoothing.true_variance,
                           F_ref, sv_ref)
     sp = res.host_products
     nsets = len(sp.segments) if sp.segments else 1
@@ -1506,6 +1542,474 @@ def reference_check(dev, name):
              f"{name}: the PLC crossings differ from the CPU run")
 
 
+def exchange_inputs(N, dev, nhosts, seed=0):
+    """K15-K17's inputs on the (1, 1) shard of a 2x2 pencil layout at N^3:
+    about 60 % of the shard's cells as its needed rows (sorted); with 2
+    hosts the padded and turn-0 boxes of the main path's 8 sub-boxes
+    (wrapped across the grid's edge), with more hosts random boxes, some
+    wrapped, one wider than the grid, the last host none; 400 boundary
+    spheres of radius 0 to 40 centred anywhere, so that some cross the
+    shard's edge and the periodic wrap, and one of radius N/2; a 4-channel
+    hand-off buffer (the classic path's v1, v2, v31, v32) in a random row
+    order."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.subbox import (choose_nbox,
+                                                     subbox_geometries)
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+    from pinocchio_tpu_torch.parallel.exchange import (build_host_regions,
+                                                       region_tables)
+    h2 = N // 2
+    ncell = h2 * h2 * N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cells = torch.nonzero(torch.rand(ncell, generator=gen, device=dev)
+                          < 0.6).reshape(-1)
+    rng = np.random.default_rng(seed)
+    if nhosts == HOSTS:
+        p = params_for(N)
+        cosmo = Cosmology(p)
+        largest = largest_halo_mass(p, cosmo)
+        geoms = subbox_geometries(p, cosmo, largest,
+                                  choose_nbox(p, cosmo, largest, 8))
+        pad = build_host_regions(geoms, nhosts, N)
+        t0 = build_host_regions(geoms, nhosts, N, turn0=True)
+    else:
+        def boxes():
+            out = [tuple(tuple((int(rng.integers(0, N)),
+                                int(rng.integers(N // 8, N + N // 4)))
+                               for _ in range(3))
+                         for _ in range(rng.integers(1, 4)))
+                   for _ in range(nhosts - 1)] + [()]
+            out[0] += (((N - 5, N + 9), (0, N), (N - 3, 40)),)
+            return tuple(out)
+        pad, t0 = boxes(), boxes()
+    sph = np.column_stack([rng.integers(0, N, (400, 3)),
+                           rng.integers(0, 41, 400)]).astype(np.float32)
+    sph[0] = (h2, h2, N - 2, h2)
+    sph[1] = (N - 1, 0, 1, 30)
+    n = cells.numel()
+    nch = 4
+    return dict(block=(h2, h2, h2, h2, 0, N), cells=cells,
+                tables=(*region_tables(pad, dev), *region_tables(t0, dev)),
+                nboxes=sum(len(h) for h in pad),
+                spheres=torch.from_numpy(sph).to(dev),
+                owner=torch.from_numpy(rng.integers(0, nhosts, len(sph))
+                                       .astype(np.int32)).to(dev),
+                buf=torch.randn(n * (2 + 3 * nch), generator=gen, device=dev),
+                perm=torch.randperm(n, generator=gen, device=dev), nch=nch)
+
+
+def exchange_kernel_phases(N, dev, report):
+    """K15 (with boxes, and with request maps), K16 and K17 at N^3 on the
+    (1, 1) shard of a 2x2 pencil layout against their plain versions:
+    identical, for 2 hosts (the main path's boxes, timed) and 16 hosts (the
+    edge cases); each host's rows dealt over 2 destinations, as host h of a
+    2x2 mesh holds positions 2h and 2h + 1.  Fills report[N][name]."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch.ops import exchange as xops
+    rec = report.setdefault(N, {})
+    for nhosts in (HOSTS, 16):
+        case = exchange_inputs(N, dev, nhosts)
+        pb, po, tb, to = case["tables"]
+        block, cells, n = case["block"], case["cells"], case["cells"].numel()
+        timed = nhosts == HOSTS
+        shard = f"{nhosts} hosts, shard (1, 1) [{N // 2}, {N // 2}, {N}], "
+
+        def count(f, hmap=None):
+            return f(cells, block, N, pb, po, nhosts, hmap=hmap)
+        got, want = count(xops.count), count(xops.count_plain)
+        need(all(torch.equal(g, w) for g, w in zip(got, want)),
+             f"exchange_count at {N}^3 ({nhosts} hosts) differs")
+        bits, counts = got
+        members = int(counts.sum())
+        W = xops.words(nhosts)
+        if timed:
+            record_phase(rec, N, "exchange_count", 0.0, 0.0,
+                         time_ms(lambda: count(xops.count)),
+                         time_ms(lambda: count(xops.count_plain), reps=2),
+                         n * (8 + 4 * W) + 4 * counts.numel(),
+                         n * case["nboxes"],
+                         extra=f"identical, {shard}{members} memberships "
+                         f"of {n} rows, ")
+        paint_args = (case["spheres"], case["owner"], block, N, pb, po, tb,
+                      to, nhosts)
+        hmap = xops.paint(*paint_args)
+        need(torch.equal(hmap, xops.paint_plain(*paint_args)),
+             f"exchange_paint at {N}^3 ({nhosts} hosts) differs")
+        need(all(torch.equal(g, w) for g, w in zip(
+            count(xops.count, hmap), count(xops.count_plain, hmap))),
+            f"exchange_count with request maps at {N}^3 differs")
+        painted = int(hmap.sum())
+        if timed:
+            # the cells of each sphere that fall in the shard, each tested
+            # once (the rest of the cube needs no box test)
+            h2 = N // 2
+            inside = cube = 0
+            for cx, cy, cz, r in case["spheres"].tolist():
+                s = int(r)
+                if s <= 0:
+                    continue
+                off = np.arange(-s, s)
+                ox, oy, oz = [off[((int(c) + off) % N - o >= 0)
+                                  & ((int(c) + off) % N - o < e)]
+                              for c, o, e in ((cx, h2, h2), (cy, h2, h2),
+                                              (cz, 0, N))]
+                cube += len(ox) * len(oy) * len(oz)
+                rest = s * s - (ox[:, None] ** 2 + oy[None, :] ** 2)
+                inside += int(np.searchsorted(np.sort(oz ** 2), rest,
+                                              side="right").sum())
+            record_phase(rec, N, "exchange_paint", 0.0, 0.0,
+                         time_ms(lambda: xops.paint(*paint_args)),
+                         time_ms(lambda: xops.paint_plain(*paint_args),
+                                 reps=2),
+                         hmap.numel() + case["spheres"].numel() * 4, inside,
+                         extra=f"identical, {shard}"
+                         f"{case['spheres'].shape[0]} spheres, {painted} "
+                         f"cells painted of {inside} in the spheres "
+                         f"({cube} in their cubes), ")
+        tot = counts.sum(0, dtype=torch.int64).tolist()
+        nd = 2
+        seg_n = np.array([max(0, -(-(tot[h] - j) // nd))
+                          for h in range(nhosts) for j in range(nd)],
+                         np.int64)
+        rowf = 2 + 3 * case["nch"]
+        seg_base = np.concatenate([[0], np.cumsum(seg_n * rowf)[:-1]])
+        args = (case["perm"], case["buf"], n, bits,
+                torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+                torch.full((nhosts,), nd, dtype=torch.int32, device=dev),
+                torch.tensor([[2 * h, 2 * h + 1] for h in range(nhosts)],
+                             dtype=torch.int32, device=dev),
+                torch.from_numpy(seg_base).to(dev),
+                torch.from_numpy(seg_n).to(dev), case["nch"])
+        size = int(seg_n.sum()) * rowf
+        out_k = torch.zeros(size, device=dev)
+        out_p = torch.zeros(size, device=dev)
+        xops.pack(*args, out_k)
+        xops.pack_plain(*args, out_p)
+        need(torch.equal(out_k, out_p),
+             f"exchange_pack at {N}^3 ({nhosts} hosts) differs")
+        if timed:
+            record_phase(rec, N, "exchange_pack", 0.0, 0.0,
+                         time_ms(lambda: xops.pack(*args, out_k)),
+                         time_ms(lambda: xops.pack_plain(*args, out_p)),
+                         n * (8 + 4 * W + 4 * rowf) + 8 * counts.numel()
+                         + 4 * rowf * members, members,
+                         extra=f"identical, {shard}{members} rows of "
+                         f"{4 * rowf} B packed, ")
+        else:
+            print(f"  [{N}^3] exchange_count, exchange_pack, exchange_paint:"
+                  f" identical with {shard}{members} memberships, "
+                  f"{painted} cells painted", flush=True)
+        del case, got, want, bits, counts, hmap, args, out_k, out_p
+        torch.cuda.empty_cache()
+
+
+def hosts_products(dev):
+    """The hosts phases' shared products: the classic fmax at PIPELINE_N
+    over the 2x2 pencil mesh of the card with the hand-off deferred, the
+    whole products, and the single-process multibox catalogs over one
+    sub-box per core (single-turn, as run_pipeline chooses there) and
+    two-turn; kept in KEPT."""
+    import dataclasses
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.subbox import (
+        choose_nbox, run_fragmentation_multibox)
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+    from pinocchio_tpu_torch.parallel.driver import run_fmax_distributed
+    from pinocchio_tpu_torch.parallel.multihost import fetch_local_sparse
+    if "hosts" in KEPT:
+        return KEPT["hosts"]
+    p = params_for(PIPELINE_N, subbox_tasks=CORES)
+    cosmo = Cosmology(p)
+    largest = largest_halo_mass(p, cosmo)
+    nbox = choose_nbox(p, cosmo, largest, max(CORES, HOSTS))
+    t0 = time.perf_counter()
+    fr = run_fmax_distributed(p, cosmo, card_mesh(dev, *HOSTS_MESH),
+                              defer_handoff=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    whole = dataclasses.replace(fr, host_products=fetch_local_sparse(fr),
+                                handoff=None)
+    single = {tt: run_fragmentation_multibox(p, cosmo, whole, nbox,
+                                             largest_mass=largest,
+                                             two_turn=tt, verbose=False)
+              for tt in (None, True)}
+    print(f"  deferred mesh fmax {wall:.2f} s; {len(whole.host_products.ci)}"
+          f" needed rows on {fr.handoff.decomp.p} shards; the one-process "
+          f"multibox over {nbox}: single-turn "
+          f"{single[None].timings['total']:.2f} s, two-turn "
+          f"{single[True].timings['total']:.2f} s (slowest box)", flush=True)
+    KEPT["hosts"] = dict(p=p, cosmo=cosmo, largest=largest, nbox=nbox, fr=fr,
+                         whole=whole.host_products, single=single)
+    return KEPT["hosts"]
+
+
+def united(what, parts, want):
+    """The union of the hosts' catalogs equals ``want`` exactly, names and
+    masses at every output, with no name twice."""
+    import numpy as np
+    for iout, w in enumerate(want):
+        names = np.concatenate([c[iout].name for c in parts])
+        masses = np.concatenate([c[iout].mass for c in parts])
+        o, ow = np.argsort(names, kind="stable"), np.argsort(w.name,
+                                                             kind="stable")
+        ok = (len(names) == len(np.unique(names)) == len(w.name) > 0
+              and np.array_equal(names[o], w.name[ow])
+              and np.array_equal(masses[o], w.mass[ow]))
+        if iout == len(want) - 1 or not ok:
+            print(f"  {what} z={w.z:g}: {len(names)} halos over the hosts, "
+                  f"{len(w.name)} in one process; identical in name and "
+                  f"mass: {ok}", flush=True)
+        need(ok, f"{what}: the hosts' catalogs at z={w.z} differ from one "
+             "process's")
+
+
+def hosts_exchange(dev):
+    """The exchange on the deferred 256^3 mesh products (hosts_products):
+    single-turn and turn 0 for 2 and 4 hosts, each host's rows held to the
+    brute-force selection from the gathered products (cells, F, v1 rows),
+    with each exchange's count, pack, route and extract times, wire bytes
+    and device peak; then the two-turn wire protocol for 2 hosts with the
+    launch counts set to 0 just before: K15, K16 and K17 launched, the
+    union of the hosts' catalogs equal to the one-process two-turn
+    multibox; turn 0 ships fewer copies than single-turn.  Returns the
+    two-turn run's launches."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.fragment.subbox import (
+        run_fragmentation_multibox, subbox_geometries)
+    from pinocchio_tpu_torch.parallel.exchange import (build_host_regions,
+                                                       exchange_products)
+    d = hosts_products(dev)
+    p, fr, whole = d["p"], d["fr"], d["whole"]
+    N = p.GridSize
+    geoms = subbox_geometries(p, d["cosmo"], d["largest"], d["nbox"])
+    F, _ = fr.products.gather()
+    needed = F >= p.Flast
+    row = np.empty(N ** 3, np.int64)
+    row[whole.ci] = np.arange(len(whole.ci))
+    coord = np.arange(N)
+    copies = {}
+    out = {}
+    for nhosts in (HOSTS, 4):
+        for turn in (None, 0):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            st = {}
+            got = exchange_products(fr, geoms,
+                                    nhosts, turn=turn, stats=st)
+            peak = torch.cuda.max_memory_allocated() - base
+            regions = build_host_regions(geoms, nhosts, N, turn0=turn == 0)
+            ok = True
+            for h in range(nhosts):
+                m = np.zeros((N, N, N), bool)
+                for (x0, lx), (y0, ly), (z0, lz) in regions[h]:
+                    m |= (((coord - x0) % N < lx)[:, None, None]
+                          & ((coord - y0) % N < ly)[None, :, None]
+                          & ((coord - z0) % N < lz)[None, None, :])
+                m &= needed
+                sp = got[h]
+                # the host's cells are the selection when they are as many
+                # and all in it (the rows' own cells are distinct: the
+                # sweep's order is strict)
+                idx = row[sp.ci]
+                ok = (ok and len(sp.ci) == int(m.sum())
+                      and bool(m.ravel()[sp.ci].all())
+                      and np.array_equal(sp.F, whole.F[idx])
+                      and np.array_equal(sp.vel["v1"], whole.vel["v1"][idx])
+                      and bool(np.all((np.diff(sp.F) < 0)
+                                      | ((np.diff(sp.F) == 0)
+                                         & (np.diff(sp.ci) > 0)))))
+            lab = "single-turn" if turn is None else "turn 0"
+            print(f"  exchange {lab}, {nhosts} hosts: {st['rows']} copies, "
+                  f"{st['wire_bytes'] / 2 ** 20:.1f} MiB on the wire; count "
+                  f"{1e3 * st['count']:.1f} ms, pack {1e3 * st['pack']:.1f} "
+                  f"ms, route {1e3 * st['route']:.1f} ms, extract "
+                  f"{1e3 * st['extract']:.1f} ms; device peak "
+                  f"{peak / GiB:.3f} GiB above the products; each host's "
+                  f"rows the brute-force selection: {ok}", flush=True)
+            need(ok, f"exchange {lab} with {nhosts} hosts differs from the "
+                 "brute-force selection")
+            copies[(nhosts, turn)] = st["rows"]
+            key = f"{'single' if turn is None else 'turn0'}_{nhosts}"
+            out[key] = dict(st, peak_gib=peak / GiB)
+            del got
+    need(copies[(HOSTS, 0)] < copies[(HOSTS, None)],
+         "turn 0 does not ship fewer copies than single-turn")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    parts = [run_fragmentation_multibox(p, d["cosmo"], fr, d["nbox"],
+                                        largest_mass=d["largest"],
+                                        two_turn=True,
+                                        host_slice=(h, HOSTS), verbose=False)
+             for h in range(HOSTS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    t = [r.timings for r in parts]
+    print(f"  two-turn wire protocol, {HOSTS} hosts: {wall:.2f} s for both "
+          f"hosts; turn 0 {[int(x['turn0_copies']) for x in t]} and turn 1 "
+          f"{[int(x['turn1_copies']) for x in t]} copies per host against "
+          f"{copies[(HOSTS, None)]} single-turn; transfer "
+          f"{[round(x['transfer'], 3) for x in t]} s, quick passes "
+          f"{[round(x['quick'], 3) for x in t]} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    need({k for k, v in launches.items() if v} == TWO_TURN_LAUNCH,
+         "the two-turn exchange did not launch exactly K15, K16 and K17")
+    need(sum(x["turn0_copies"] for x in t) < copies[(HOSTS, None)],
+         "the two-turn wire carries no fewer turn-0 copies")
+    united("two-turn hosts", [r.catalogs for r in parts],
+           d["single"][True].catalogs)
+    fr.handoff.release()
+    out["two_turn"] = dict(wall_s=wall,
+                           turn0=[x["turn0_copies"] for x in t],
+                           turn1=[x["turn1_copies"] for x in t])
+    KEPT["hosts_exchange"] = out
+    return launches
+
+
+def hosts_path(dev):
+    """The hosts path: run_pipeline(mesh=2x2 pencil of the card,
+    hosts=(h, 2)) for h = 0, 1 into one outdir, one sub-box per core, with
+    the launch counts set to 0 just before and read just after (the mesh
+    path's kernels and K15, K16); the chunks and no part file or staging
+    directory; scripts/torch_merge_chunks.py; the union of the hosts'
+    catalogs equal to the one-process multibox on the same mesh products
+    (hosts_products) exactly, and the in-run mf.out to the one computed
+    from those catalogs.  Returns the launches."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.io.catalogs import compute_mf
+    from pinocchio_tpu_torch.run import run_pipeline
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_merge_chunks
+
+    d = hosts_products(dev)
+    p = d["p"]
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        walls, res = [], []
+        for h in range(HOSTS):
+            t0 = time.perf_counter()
+            res.append(run_pipeline(p, outdir=out, device=dev, verbose=False,
+                                    mesh=card_mesh(dev, *HOSTS_MESH),
+                                    hosts=(h, HOSTS)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(os.listdir(out))
+        for h, r in enumerate(res):
+            t = r["timings"]
+            print(f"  host {h}: {walls[h]:.2f} s wall; phases: " + ", ".join(
+                f"{k} {v:.3f}" + ("" if k == "frag_overhead" else " s")
+                for k, v in sorted(t.items())), flush=True)
+        print(f"  device peak {peak / GiB:.2f} GiB; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for z in OUTPUT_Z:
+            for h in range(HOSTS):
+                need(f"pinocchio.{z:6.4f}.{p.RunFlag}.catalog.out.{h}" in
+                     files, f"hosts: no catalog chunk of host {h} at z={z}")
+        need(not any(".part" in f or f.startswith(".host") for f in files),
+             "hosts: a part file or staging directory is left")
+        united("hosts", [r["frag"].catalogs for r in res],
+               d["single"][None].catalogs)
+        # byte-identical, or else: the columns of the bin counts (2-5)
+        # equal, and those of the bin's mean mass (1, 6, 7), whose float64
+        # sums run in another order over the hosts' parts, within rtol 1e-6
+        nsame = 0
+        with tempfile.TemporaryDirectory() as ref:
+            for snap in d["single"][None].catalogs:
+                name = f"pinocchio.{snap.z:6.4f}.{p.RunFlag}.mf.out"
+                compute_mf(p, d["cosmo"], snap, ref, largest=d["largest"])
+                with open(os.path.join(out, name), "rb") as fa, \
+                        open(os.path.join(ref, name), "rb") as fb:
+                    if fa.read() == fb.read():
+                        nsame += 1
+                        continue
+                a = np.loadtxt(os.path.join(out, name))
+                b = np.loadtxt(os.path.join(ref, name))
+                counts = a.shape == b.shape and np.array_equal(a[:, 1:5],
+                                                               b[:, 1:5])
+                need(counts and np.allclose(a, b, rtol=1e-6, atol=0),
+                     f"hosts: {name} differs from one process's beyond the "
+                     "summation order of a bin's mean mass: counts equal "
+                     f"{counts}")
+                print(f"  in-run {name}: not byte-identical; counts equal, "
+                      "mean masses within rtol 1e-6 (float64 summation "
+                      "order)", flush=True)
+        print(f"  in-run mf.out: {nsame} of {len(OUTPUT_Z)} byte-identical "
+              "to one process's", flush=True)
+        t0 = time.perf_counter()
+        merged = torch_merge_chunks.merge(p, out)
+        print(f"  merged {len(merged)} files in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        need(not any(".out." in f for f in os.listdir(out)),
+             "hosts: chunks left after the merge")
+    missing = sorted(k for k in HOSTS_LAUNCH if not launches[k])
+    stray = sorted(k for k, v in launches.items()
+                   if v and k not in HOSTS_LAUNCH)
+    need(not missing and not stray, f"hosts: not launched {missing}, "
+         f"launched from another path {stray}")
+    KEPT["hosts_path"] = dict(walls=walls, peak_gib=peak / GiB)
+    return launches
+
+
+def hosts_reference_check(dev):
+    """The hosts' fragmentation at REFERENCE["hosts"] on the card and on
+    the CPU (the plain versions), each from one deferred fmax over a 2x2
+    pencil mesh of its device: on each, the union of the two hosts'
+    catalogs (the exchange, then each host's share of the sub-boxes)
+    equals the one-process multibox on the same products exactly; between
+    the devices, each host's catalogs by the reference tolerance.  (On the
+    CPU two fmax runs may differ in the FFT's last bit, so each device's
+    comparison shares one run.)"""
+    import dataclasses
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.subbox import (
+        choose_nbox, run_fragmentation_multibox)
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+    from pinocchio_tpu_torch.parallel.driver import run_fmax_distributed
+    from pinocchio_tpu_torch.parallel.multihost import fetch_local_sparse
+    N, over = REFERENCE["hosts"]
+    p = params_for(N, **over)
+    cosmo = Cosmology(p)
+    largest = largest_halo_mass(p, cosmo)
+    nbox = choose_nbox(p, cosmo, largest, p.subbox_tasks)
+    per_dev = []
+    for d in (dev, torch.device("cpu")):
+        fr = run_fmax_distributed(p, cosmo, card_mesh(d, *HOSTS_MESH),
+                                  defer_handoff=True)
+        whole = dataclasses.replace(
+            fr, host_products=fetch_local_sparse(fr), handoff=None)
+        single = run_fragmentation_multibox(p, cosmo, whole, nbox,
+                                            largest_mass=largest,
+                                            verbose=False)
+        parts = [run_fragmentation_multibox(p, cosmo, fr, nbox,
+                                            largest_mass=largest,
+                                            host_slice=(h, HOSTS),
+                                            verbose=False)
+                 for h in range(HOSTS)]
+        fr.handoff.release()
+        united(f"[hosts {N}^3 on {d.type}]", [r.catalogs for r in parts],
+               single.catalogs)
+        per_dev.append(parts)
+    for h in range(HOSTS):
+        same_halos(p, f"[hosts {N}^3] host {h} on the card against the CPU",
+                   per_dev[0][h].catalogs, per_dev[1][h].catalogs)
+
+
 def _phase_table(peaks, predicted):
     """Lines of each phase's measured peak beside the planner's."""
     lines = []
@@ -1622,10 +2126,12 @@ def ooc_dense_check(dev, name):
         need(ok, f"{name}: out-of-core rows of set {s} disagree with the "
              "dense engine")
     geom = build_plc_geometry(p, cosmo, verbose=False)
-    fo = run_fragmentation(p, cosmo, ooc, plc_geom=geom, scaledep_gm=gm,
-                           verbose=False)
-    fd = run_fragmentation(p, cosmo, dense, plc_geom=geom, scaledep_gm=gm,
-                           verbose=False)
+    # the two sweeps run on two host threads at once (each sweep is one
+    # native call on one core)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fo, fd = ex.map(lambda r: run_fragmentation(
+            p, cosmo, r, plc_geom=geom, scaledep_gm=gm, verbose=False),
+            (ooc, dense))
     for a, b in zip(fd.catalogs, fo.catalogs):
         na = int((a.mass >= p.MinHaloMass).sum())
         nb = int((b.mass >= p.MinHaloMass).sum())
@@ -1763,9 +2269,10 @@ def main(argv=None) -> int:
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, "
-                    "density_field, a path's name, mesh_fmax, modes, "
-                    "subbox_turns, reference:<path>, ooc_dense:<name>, "
-                    "ooc_fmax, big, refusal); no JSON line is printed")
+                    "density_field, a path's name, mesh_fmax, "
+                    "hosts_exchange, hosts, modes, subbox_turns, "
+                    "reference:<path>, ooc_dense:<name>, ooc_fmax, big, "
+                    "refusal); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -1819,6 +2326,8 @@ def main(argv=None) -> int:
                 section(f"kernel phases at {N}^3:")
                 kernel_phases(N, dev, report)
                 shard_kernel_phases(N, dev, report)
+            if wanted("kernels") or wanted("exchange_kernels"):
+                exchange_kernel_phases(N, dev, report)
             if wanted("kernels") or wanted("density_field"):
                 density_field_phase(N, dev, report)
         if wanted("kernels"):
@@ -1832,9 +2341,9 @@ def main(argv=None) -> int:
         if wanted("mesh_fmax"):
             section(f"delta over three meshes of the card at {PIPELINE_N}^3:")
             mesh_deltas(dev)
-            for name, (mkind, mshape, _, _) in MESH_FMAX.items():
+            for name, (mkind, mshape, _, _, mN) in MESH_FMAX.items():
                 section(f"fmax over a {mkind} {mshape} mesh of the card at "
-                        f"{PIPELINE_N}^3 ({name}):")
+                        f"{mN}^3 ({name}):")
                 paths[name] = mesh_fmax_phase(dev, name)
             section(f"the distributed c2r and its transposes at "
                     f"{PIPELINE_N}^3:")
@@ -1844,6 +2353,14 @@ def main(argv=None) -> int:
                 mesh_report["mesh_path_peak_gib"] = KEPT["mesh_peak"][0] / GiB
                 mesh_report["mesh_path_planner_gib"] = (KEPT["mesh_peak"][1]
                                                         / GiB)
+        if wanted("hosts_exchange"):
+            section(f"the exchange over a 2x2 pencil mesh of the card at "
+                    f"{PIPELINE_N}^3, mocked hosts:")
+            paths["hosts_exchange"] = hosts_exchange(dev)
+        if wanted("hosts"):
+            section(f"hosts path at {PIPELINE_N}^3: {HOSTS} mocked hosts "
+                    f"over a 2x2 pencil mesh of the card, {CORES} sub-boxes:")
+            paths["hosts"] = hosts_path(dev)
         if wanted("modes"):
             section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
             density_calls, _ = special_modes(dev)
@@ -1855,7 +2372,10 @@ def main(argv=None) -> int:
             if wanted(f"reference:{path}"):
                 section(f"{path} path at {REFERENCE[path][0]}^3 on the card "
                         "and on the CPU:")
-                reference_check(dev, path)
+                if path == "hosts":
+                    hosts_reference_check(dev)
+                else:
+                    reference_check(dev, path)
         for name in OOC_CHECKS:
             if wanted(f"ooc_dense:{name}"):
                 section(f"out-of-core against dense at {OOC_CHECK_N}^3, "
@@ -1889,6 +2409,7 @@ def main(argv=None) -> int:
     rows = []
     owners = {nm: own for nm, (_, _, own) in PATHS.items()}
     owners.update({nm: v[3] for nm, v in MESH_FMAX.items()})
+    owners.update(hosts=HOSTS_LAUNCH, hosts_exchange=TWO_TURN_LAUNCH)
     for kname, (route, source, replaces) in kernels.KERNELS.items():
         owner = next(nm for nm, own in owners.items() if kname in own)
         r = report[PIPELINE_N][kname]
@@ -1920,7 +2441,10 @@ def main(argv=None) -> int:
                     bound_ms_512=dfs[max(KERNEL_SIZES)]["bound_ms"],
                     library_ms_512=dfs[max(KERNEL_SIZES)]["library_ms"])]
     print(json.dumps({"kernels": rows, "library": library, "card": card,
-                      "mesh": mesh_report}), flush=True)
+                      "mesh": mesh_report,
+                      "hosts": dict(path=KEPT.get("hosts_path"),
+                                    exchange=KEPT.get("hosts_exchange"))}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)

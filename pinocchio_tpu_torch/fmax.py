@@ -121,6 +121,19 @@ class FmaxResult:
     peaks: Dict[str, int] = field(default_factory=dict)
     # with keep_dense_products; None otherwise
     dense: DenseProducts = None
+    # a mesh run's deferred hand-off (parallel.driver.ShardedHandoff, each
+    # shard's needed rows still on its device): host_products stays None
+    # until ensure_host_products, the exchange or the local fetch reads it
+    handoff: object = None
+
+
+def ensure_host_products(fmax_result: FmaxResult) -> SparseProducts:
+    """fmax_result.host_products, merged from a deferred hand-off on first
+    use (which then frees the hand-off's device buffers)."""
+    if fmax_result.host_products is None and fmax_result.handoff is not None:
+        fmax_result.host_products = fmax_result.handoff.finish()
+        fmax_result.handoff = None
+    return fmax_result.host_products
 
 
 def inverse_growth_packs(cosmo: Cosmology, sm: Smoothing,

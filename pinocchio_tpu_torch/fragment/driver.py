@@ -35,7 +35,7 @@ from .. import native
 from ..config import Params
 from ..cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
-from ..fmax import FmaxResult
+from ..fmax import FmaxResult, ensure_host_products
 
 FILAMENT = 1
 NCOUNTERS = 16
@@ -400,7 +400,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
     only the group state and the groups' Lagrangian CMs (groups_q)."""
     t_all = time.perf_counter()
     timings = {}
-    sp = fmax_result.host_products
+    sp = ensure_host_products(fmax_result)
     if sp.sorted_by != "F":
         raise ValueError("run_fragmentation takes F-sorted products")
     if geom is None:

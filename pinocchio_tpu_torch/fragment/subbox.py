@@ -1,7 +1,6 @@
-"""Multi-sub-box fragmentation on one host (counterpart of
-pinocchio_tpu/fragment/subbox.py without its multi-host pieces): the domain
-decomposition of the reference's V5 fragmentation (set_subboxes,
-initialization.c:933-1140).
+"""Multi-sub-box fragmentation (counterpart of pinocchio_tpu/fragment/
+subbox.py): the domain decomposition of the reference's V5 fragmentation
+(set_subboxes, initialization.c:933-1140).
 
 The grid is split into nbox[0] x nbox[1] x nbox[2] sub-volumes, each padded
 with a boundary layer ('safe') of BoundaryLayerFactor times the Lagrangian
@@ -20,6 +19,13 @@ The sub-boxes are swept concurrently on a thread pool: the native sweep
 releases the GIL and keeps its state per thread, and every thread reads the
 one copy of the products.  An exception in any sub-box's sweep fails the
 run (ThreadPoolExecutor.map re-raises it).
+
+With a host slice (h, H) a host sweeps only its round-robin share of the
+sub-boxes.  When the products are a mesh run's deferred hand-off over a
+mesh whose size H divides, its rows come through the exchange
+(parallel/exchange.py): the padded volumes in one turn, or the two-turn
+wire protocol (turn 0 the resolved regions, the quick passes, turn 1 the
+boundary spheres); otherwise it reads the whole products.
 """
 
 from __future__ import annotations
@@ -37,6 +43,44 @@ from ..config import Params
 from ..cosmology import Cosmology
 from .driver import (CatalogSnapshot, FragmentResult, PlcResult,
                      SubboxGeometry, run_fragmentation, _f32p, _i32p, _u8p)
+
+
+def _exchange_mesh(fmax_result, nhosts: int):
+    """The mesh to run the exchange over: the deferred hand-off's, when its
+    size is above 1 and nhosts divides it; else None."""
+    handoff = fmax_result.handoff
+    if handoff is None:
+        return None
+    mesh = handoff.decomp.mesh
+    if mesh.size > 1 and mesh.size % nhosts == 0:
+        return mesh
+    return None
+
+
+def _host_copy(fmax_result, host_slice=None, all_geoms=None,
+               verbose=False):
+    """The products this host sweeps: with a host slice over a mesh's
+    deferred hand-off, its share from the exchange (a mesh whose size the
+    host count divides) or from the local fetch of every shard (the JAX
+    package's branch for other meshes, which is the whole products in one
+    process); else the whole products."""
+    import dataclasses
+
+    from ..fmax import ensure_host_products
+    if host_slice is not None and host_slice[1] > 1 \
+            and fmax_result.handoff is not None:
+        if _exchange_mesh(fmax_result, host_slice[1]) is not None:
+            from ..parallel.exchange import exchange_products
+            sp = exchange_products(fmax_result, all_geoms, host_slice[1],
+                                   hosts=host_slice[:1],
+                                   verbose=verbose)[host_slice[0]]
+        else:
+            from ..parallel.multihost import fetch_local_sparse
+            sp = fetch_local_sparse(fmax_result)
+        return dataclasses.replace(fmax_result, host_products=sp,
+                                   handoff=None)
+    ensure_host_products(fmax_result)
+    return fmax_result
 
 
 def pool_workers() -> int:
@@ -217,6 +261,99 @@ def run_fragmentation_two_turn(params: Params, cosmo: Cosmology,
     return res
 
 
+def quick_pass_spheres(params: Params, geom: SubboxGeometry, quick_res,
+                       r1, r2) -> np.ndarray:
+    """The boundary-request spheres of one sub-box's quick pass in global
+    grid coordinates: float32 rows (cx, cy, cz, radius in cells) of every
+    group whose request sphere (BoundaryLayerFactor x R_Lagrangian,
+    update_map build_groups.c:2252-2262) reaches beyond the turn-0 region.
+    They cross hosts instead of the reference's per-cell frag_map_update
+    bitmap (distribute.c:689-698)."""
+    g = quick_res.groups
+    if g.ngroups <= 1:
+        return np.zeros((0, 4), np.float32)
+    mass = np.asarray(g.mass[2:g.ngroups + 1], np.float64)
+    c = quick_res.groups_q[2:g.ngroups + 1].astype(np.int32)
+    size = (params.BoundaryLayerFactor
+            * np.cbrt(mass / 4.188790205) + 0.5).astype(np.int32)
+    # a sphere is needed unless it lies inside along every non-periodic
+    # dimension (map_update's fast path, groupsweep.c:1499-1505)
+    fully = np.ones(len(mass), bool)
+    for d in range(3):
+        if not geom.pbc[d]:
+            fully &= (c[:, d] - size >= r1[d]) & (c[:, d] + size < r2[d])
+    keep = (mass > 0) & (size > 0) & ~fully
+    N = geom.G[0]
+    out = np.empty((int(keep.sum()), 4), np.float32)
+    out[:, :3] = (c[keep] + np.asarray(geom.stabl, np.int32)) % N
+    out[:, 3] = size[keep]
+    return out
+
+
+def _allgather_spheres(sph: np.ndarray, host_id: int, nhosts: int) -> dict:
+    """Every host's sphere list, which the turn-1 exchange packs by.  In one
+    process each mocked host runs its own exchanges, so its own list is
+    the one that matters (across processes this is item 12b-ii)."""
+    return {host_id: sph}
+
+
+def _base_mask(geom: SubboxGeometry):
+    r1, r2 = turn0_bounds(geom)
+    base = np.zeros(geom.L, np.uint8)
+    base[r1[0]:r2[0], r1[1]:r2[1], r1[2]:r2[2]] = 1
+    return base.ravel(), r1, r2
+
+
+def _two_turn_exchange(params: Params, cosmo: Cosmology, fmax_result,
+                       all_geoms, my_geoms, host_slice, scaledep_gm=None,
+                       verbose: bool = False):
+    """The V5 two-turn scheme across hosts (fragment.c:159-316 with
+    distribute.c's two-pass maps): the turn-0 exchange ships each host's
+    well-resolved regions and 1-cell rim, the quick passes find the halos,
+    and the turn-1 exchange ships the cells of their boundary spheres.
+    Returns (fmax_result with this host's merged products, each own
+    sub-box's cell mask for the full sweep, quick-pass seconds, the
+    particle copies of turn 0 and turn 1)."""
+    import dataclasses
+
+    from ..parallel.exchange import exchange_products, merge_sparse
+    h, H = host_slice
+    t0 = time.perf_counter()
+    sp0 = exchange_products(fmax_result, all_geoms, H, turn=0, hosts=(h,),
+                            verbose=verbose)[h]
+    fr0 = dataclasses.replace(fmax_result, host_products=sp0, handoff=None)
+
+    def quick_one(geom):
+        base, r1, r2 = _base_mask(geom)
+        if all(geom.pbc):
+            return base, None
+        qres = run_fragmentation(params, cosmo, fr0, geom=geom,
+                                 scaledep_gm=scaledep_gm, cell_mask=base,
+                                 quick=True, verbose=False)
+        add, _ = boundary_sphere_map(params, geom, qres, r1, r2)
+        return base | add, quick_pass_spheres(params, geom, qres, r1, r2)
+
+    if len(my_geoms) == 1:
+        quick_out = [quick_one(my_geoms[0])]
+    else:
+        with ThreadPoolExecutor(max_workers=pool_workers()) as ex:
+            quick_out = list(ex.map(quick_one, my_geoms))
+    masks = [m for m, _ in quick_out]
+    parts = [s for _, s in quick_out if s is not None]
+    t_quick = time.perf_counter() - t0
+    sph = np.concatenate(parts) if parts else np.zeros((0, 4), np.float32)
+    sp1 = exchange_products(fmax_result, all_geoms, H, turn=1,
+                            spheres=_allgather_spheres(sph, h, H),
+                            hosts=(h,), verbose=verbose)[h]
+    sp = merge_sparse(sp0, sp1)
+    if verbose:
+        print(f"  two-turn exchange: {len(sp0.ci)} resolved + "
+              f"{len(sp.ci) - len(sp0.ci)} boundary particle-copies "
+              f"({len(sph)} spheres), quick passes {t_quick:.1f} s")
+    return (dataclasses.replace(fmax_result, host_products=sp, handoff=None),
+            masks, t_quick, (len(sp0.ci), len(sp.ci) - len(sp0.ci)))
+
+
 def _resolved_particles(geom: SubboxGeometry, res: FragmentResult, N: int):
     """One sub-box's share of the distribute_back analog (distribute.c:
     718-948): its per-particle zacc and group name over its well-resolved
@@ -282,26 +419,55 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
     sub-box's (of its second turn, with two), "sort", "sweep" and "quick"
     the sums over sub-boxes, "overhead" the stored particles over N^3, and
     "boundary_requested" / "beyond_boundary" the two-turn map's counts
-    summed.  host_slice (several hosts) is ROADMAP item 12b and raises
-    NotImplementedError."""
-    if host_slice is not None and host_slice[1] > 1:
-        raise NotImplementedError(
-            "multi-host fragmentation is not ported to pinocchio_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 12b)")
+    summed.  host_slice=(h, H): this host sweeps its round-robin share of
+    the sub-boxes (a host that owns none raises ValueError) from the
+    products _host_copy or _two_turn_exchange gives it; "transfer" times
+    that, and "turn0_copies" / "turn1_copies" count the two-turn
+    exchange's rows."""
     if largest_mass is None:
         from ..io.catalogs import largest_halo_mass
         largest_mass = largest_halo_mass(params, cosmo)
     geoms = subbox_geometries(params, cosmo, largest_mass, nbox)
     if two_turn is None:
         two_turn = default_two_turn(params, cosmo, geoms)
+    all_geoms = geoms
+    multi_host = host_slice is not None and host_slice[1] > 1
+    if multi_host:
+        from ..parallel.multihost import host_subboxes
+        geoms = host_subboxes(geoms, *host_slice)
+        if not geoms:
+            raise ValueError(f"host {host_slice[0]} owns no sub-box "
+                             f"(nbox={tuple(nbox)}, nhosts={host_slice[1]})")
     if verbose:
         g0 = geoms[0]
         print(f"  fragmentation over {len(geoms)} sub-boxes {tuple(nbox)}; "
               f"box 0: L={g0.L} safe={g0.safe}"
               + (" (two-turn)" if two_turn else ""))
 
-    def one(geom):
-        if two_turn and not all(geom.pbc):
+    t_copy = time.perf_counter()
+    masks, t_quick, copies = None, 0.0, None
+    if multi_host and two_turn:
+        if (_exchange_mesh(fmax_result, host_slice[1]) is not None
+                and any(not all(g.pbc) for g in geoms)):
+            # the quick passes run between the two exchanges, so that only
+            # resolved and sphere-selected boundary cells cross hosts
+            fmax_result, masks, t_quick, copies = _two_turn_exchange(
+                params, cosmo, fmax_result, all_geoms, geoms, host_slice,
+                scaledep_gm=scaledep_gm, verbose=verbose)
+    if masks is None:
+        fmax_result = _host_copy(fmax_result, host_slice=host_slice,
+                                 all_geoms=all_geoms, verbose=verbose)
+    t_copy = time.perf_counter() - t_copy - t_quick
+
+    def one(args):
+        i, geom = args
+        if masks is not None:
+            # the quick pass ran inside the two-turn exchange
+            res = run_fragmentation(params, cosmo, fmax_result,
+                                    plc_geom=plc_geom,
+                                    scaledep_gm=scaledep_gm, geom=geom,
+                                    cell_mask=masks[i], verbose=False)
+        elif two_turn and not all(geom.pbc):
             res = run_fragmentation_two_turn(
                 params, cosmo, fmax_result, geom, plc_geom=plc_geom,
                 scaledep_gm=scaledep_gm, verbose=False)
@@ -318,10 +484,10 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
         return res
 
     if len(geoms) == 1:
-        results = [one(geoms[0])]
+        results = [one((0, geoms[0]))]
     else:
         with ThreadPoolExecutor(max_workers=pool_workers()) as ex:
-            results = list(ex.map(one, geoms))
+            results = list(ex.map(one, enumerate(geoms)))
 
     catalogs = []
     for iout, z in enumerate(params.output_z):
@@ -338,7 +504,11 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
                **{k: sum(r.timings.get(k, 0.0) for r in results)
                   for k in ("sort", "sweep", "quick", "boundary_requested",
                             "beyond_boundary")},
-               "overhead": nstored / float(params.GridSize) ** 3}
+               "overhead": nstored / float(params.GridSize) ** 3,
+               "transfer": t_copy}
+    timings["quick"] += t_quick
+    if copies is not None:
+        timings["turn0_copies"], timings["turn1_copies"] = map(float, copies)
     merged = FragmentResult(
         catalogs=catalogs, groups=[r.groups for r in results],
         counters=counters, npeaks=sum(r.npeaks for r in results),

@@ -1,5 +1,5 @@
 """Catalog, mass-function and merger-history writers (counterpart of
-pinocchio_tpu/io/catalogs.py, single-host).
+pinocchio_tpu/io/catalogs.py).
 
 File formats are byte/column compatible with the reference
 (write_halos.c): ascii layouts match the fprintf formats; binary files use
@@ -196,16 +196,76 @@ def mf_histogram(params: Params, snap: CatalogSnapshot,
     return ninbin, massinbin, mmin, nbin
 
 
+def reduce_parts(final_path: str, host_id: int, nhosts: int,
+                 arrays: dict):
+    """The cross-host sum of small arrays through part files (the collector
+    reduce of write_halos.c:35-225 over a shared filesystem): writes this
+    host's arrays as <final_path>.part<h>.npz; when all nhosts parts are
+    there, loads and sums them, removes the parts and returns the sums,
+    which the caller writes as the final file.  Returns None while other
+    hosts' parts are pending (the last host to land merges; two that
+    finish together would write identical files)."""
+    part = f"{final_path}.part{host_id}.npz"
+    tmp = part + ".tmp"
+    with open(tmp, "wb") as fd:
+        np.savez(fd, **arrays)
+    os.replace(tmp, part)
+    paths = [f"{final_path}.part{h}.npz" for h in range(nhosts)]
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    merged = None
+    try:
+        for p in paths:
+            with np.load(p) as d:
+                if merged is None:
+                    merged = {k: d[k].copy() for k in d.files}
+                else:
+                    for k in merged:
+                        merged[k] = merged[k] + d[k]
+    except FileNotFoundError:
+        # another host that finished at the same moment merged first
+        return None
+    for p in paths:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+    return merged
+
+
+def clear_stale_parts(directory: str, host_id: int) -> None:
+    """Remove this host's part files left by an earlier run that failed,
+    which would otherwise be summed into this run's reductions; called at
+    the start of a run, before any output."""
+    import glob
+    for p in glob.glob(os.path.join(directory, f"*.part{host_id}.npz")):
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+
+
 def compute_mf(params: Params, cosmo: Cosmology, snap: CatalogSnapshot,
-               directory: str = ".", largest: float = None) -> str:
+               directory: str = ".", largest: float = None,
+               hosts: tuple = None) -> str:
     """Halo mass function with Poisson errors + analytic fit
-    (compute_mf, write_halos.c:35-192)."""
+    (compute_mf, write_halos.c:35-192).  hosts=(h, H), H > 1: snap holds
+    this host's halos; the bin histograms reduce across hosts through part
+    files (reduce_parts) and the last host to land writes the file; the
+    others return None."""
     hfac = params.Hubble100 if params.OutputInH100 else 1.0
     hfac4 = hfac ** 4
     vol = params.GridSize ** 3 * params.InterPartDist ** 3
     if largest is None:
         largest = largest_halo_mass(params, cosmo)
     ninbin, massinbin, mmin, nbin = mf_histogram(params, snap, largest)
+    if hosts is not None and hosts[1] > 1:
+        merged = reduce_parts(
+            os.path.join(directory, _catalog_filename(params, snap.z, "mf")),
+            hosts[0], hosts[1], dict(ninbin=ninbin, massinbin=massinbin))
+        if merged is None:
+            return None
+        ninbin, massinbin = merged["ninbin"], merged["massinbin"]
 
     D = float(cosmo.GrowingMode(snap.z, params.k_for_GM))
     path = os.path.join(directory, _catalog_filename(params, snap.z, "mf"))

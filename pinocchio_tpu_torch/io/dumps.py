@@ -1,5 +1,5 @@
 """Checkpoint and restart of the fmax products (counterpart of
-pinocchio_tpu/io/dumps.py, one host).
+pinocchio_tpu/io/dumps.py).
 
 DumpProducts / ReadProductsFromDumps (fmax.c:372-506, pinocchio.c:220-236):
 after the collapse and displacement phase the products are written to
@@ -14,7 +14,9 @@ the format (a legacy dense dump keeps the radii and variances in its
           indices ``ci``, ``F``, the rows ``vel_<field>`` and, under
           RECOMPUTE_DISPLACEMENTS, ``seg<s>_<field>`` of the sets s >= 1;
           float32 rows, with the number of sets and the row order in the
-          summary;
+          summary.  A run over H > 1 hosts writes one per host, the rows of
+          the host's own mesh shards (parallel.multihost.
+          fetch_local_sparse), and a restart reads their union;
   dense   (with WriteTimelessSnapshot, whose writer reads every particle)
           ``products.npz``: the whole grid's ``Fmax``, ``Rmax`` and the
           first displacement set's ``vel_<field>`` stacks [3, N, N, N].  It
@@ -36,7 +38,7 @@ import torch
 
 from ..config import Params
 from ..fmax import (DenseProducts, FmaxResult, Products, Smoothing,
-                    SparseProducts)
+                    SparseProducts, ensure_host_products)
 from ..grids import Grid
 from ..ops import compact
 
@@ -51,22 +53,23 @@ def _write_summary(ddir: str, meta: dict) -> None:
 
 
 def dump_products(params: Params, fmax_result: FmaxResult,
-                  directory: str = ".") -> str:
+                  directory: str = ".", hosts: tuple = (0, 1)) -> str:
     """Write the products of ``fmax_result`` into ``directory``/DumpProducts:
-    the whole grid's (fmax_result.dense) with WriteTimelessSnapshot, else
-    the needed particles' in the sweep's order; returns the path of the
-    npz file."""
-    sp = fmax_result.host_products
+    the whole grid's (fmax_result.dense) with WriteTimelessSnapshot on one
+    host, else the needed particles' in the sweep's order (hosts=(h, H),
+    H > 1: host h's share, products.<h>.npz); returns the path of the npz
+    file."""
+    h, H = hosts
     sm = fmax_result.smoothing
     ddir = os.path.join(directory, DUMP_DIR)
     os.makedirs(ddir, exist_ok=True)
     meta = dict(GridSize=params.GridSize, RandomSeed=params.RandomSeed,
                 BoxSize=params.BoxSize, lpt_order=params.lpt_order,
-                nsmooth=int(sm.n), nhosts=1,
+                nsmooth=int(sm.n), nhosts=H,
                 radii=[float(x) for x in sm.radii],
                 variance=[float(x) for x in sm.variance],
                 true_variance=[float(x) for x in sm.true_variance])
-    if params.WriteTimelessSnapshot:
+    if params.WriteTimelessSnapshot and H == 1:
         d = fmax_result.dense
         if d is None:
             raise ValueError("a dense dump needs the whole grid's products "
@@ -78,6 +81,16 @@ def dump_products(params: Params, fmax_result: FmaxResult,
         path = os.path.join(ddir, "products.npz")
         np.savez(path, **arrays)
         return path
+    if H > 1:
+        from ..parallel.exchange import host_of_device_default
+        from ..parallel.multihost import fetch_local_sparse
+        handoff = fmax_result.handoff
+        owner = (None if handoff is None else
+                 host_of_device_default(handoff.decomp.mesh, H))
+        sp = fetch_local_sparse(fmax_result, None if owner is None
+                                else (lambda i: owner[i] == h))
+    else:
+        sp = ensure_host_products(fmax_result)
     arrays = dict(ci=np.asarray(sp.ci, np.int64),
                   F=np.asarray(sp.F, np.float32))
     for k, v in sp.vel.items():
@@ -86,7 +99,7 @@ def dump_products(params: Params, fmax_result: FmaxResult,
     for s, seg in enumerate(segs[1:], start=1):
         for k, v in seg.items():
             arrays[f"seg{s}_{k}"] = np.asarray(v, np.float32)
-    path = os.path.join(ddir, "products.0.npz")
+    path = os.path.join(ddir, f"products.{h}.npz")
     np.savez(path, **arrays)
     _write_summary(ddir, dict(meta, format="sparse", nseg=len(segs),
                               sorted_by=sp.sorted_by))

@@ -1,5 +1,5 @@
 """Gadget-2 format-2 snapshot writers (counterpart of
-pinocchio_tpu/io/snapshot.py, one host).
+pinocchio_tpu/io/snapshot.py).
 
 Byte-compatible with the reference's write_snapshot.c and with the JAX
 package's files: format-2 blocks (an 8-byte name record [4-char label + the
@@ -16,7 +16,9 @@ Three products, as in the reference:
   - density (special mode 2): ID, DENS (write_density,
     write_snapshot.c:344-397)
 
-The products are the fmax run's host copies (fmax.DenseProducts).  A block
+The products are the fmax run's host copies (fmax.DenseProducts); a run
+over several hosts writes one npz chunk per host (write_timeless_chunk) and
+merge_timeless_chunks assembles the timeless snapshot.  A block
 whose payload is a transposed copy is made just before it is written and
 dropped after, so that one such copy is alive at a time.
 """
@@ -200,24 +202,143 @@ def write_timeless_snapshot(params: Params, fmax_result, frag_result,
     pos = frag_result.particle_pos
     zacc[pos] = frag_result.particle_zacc
     grup[pos] = frag_result.particle_grup
+    return _timeless_write(params, d.Fmax,
+                           d.Rmax if params.add_rmax_to_snapshot else None,
+                           d.vel, zacc, grup, directory)
 
+
+def _timeless_write(params: Params, Fmax, Rmax, vel: dict, zacc, grup,
+                    directory) -> str:
+    """The timeless snapshot's blocks from the whole grid's Fmax, Rmax (or
+    None for no RMAX block), displacement stacks [3, N, N, N], zacc and
+    group names in grid order."""
+    N = params.GridSize
     blocks = [("ID  ", "LLONG   ", 1, _particle_ids(N))]
-    if params.add_rmax_to_snapshot:
+    if Rmax is not None:
         # initialize_RMAX (write_snapshot.c:830-852)
         blocks.append(("RMAX", "LONG    ", 1,
-                       np.asarray(d.Rmax, np.int32).ravel()))
-    blocks += [("FMAX", "FLOAT   ", 1, np.asarray(d.Fmax, np.float32).ravel()),
-               ("VEL ", "FLOATN  ", 3, _rows(d.vel["v1"]))]
-    if "v2" in d.vel:
-        blocks.append(("VEL2", "FLOATN  ", 3, _rows(d.vel["v2"])))
-    if "v31" in d.vel:
-        blocks.append(("VL31", "FLOATN  ", 3, _rows(d.vel["v31"])))
-        blocks.append(("VL32", "FLOATN  ", 3, _rows(d.vel["v32"])))
+                       np.asarray(Rmax, np.int32).ravel()))
+    blocks += [("FMAX", "FLOAT   ", 1, np.asarray(Fmax, np.float32).ravel()),
+               ("VEL ", "FLOATN  ", 3, _rows(vel["v1"]))]
+    if "v2" in vel:
+        blocks.append(("VEL2", "FLOATN  ", 3, _rows(vel["v2"])))
+    if "v31" in vel:
+        blocks.append(("VL31", "FLOATN  ", 3, _rows(vel["v31"])))
+        blocks.append(("VL32", "FLOATN  ", 3, _rows(vel["v32"])))
     blocks.append(("ZACC", "FLOAT   ", 1, zacc))
     blocks.append(("GRUP", "LLONG   ", 1, grup))
     path = os.path.join(directory,
                         f"pinocchio.{params.RunFlag}.t_snapshot.out")
     return _write_snapshot(path, params, params.zlast, blocks)
+
+
+def write_timeless_chunk(params: Params, fmax_result, frag_result,
+                         directory=".", host_id: int = 0, nhosts: int = 1,
+                         device_filter=None) -> str:
+    """One host's share of the timeless snapshot as an npz chunk (the
+    collector scheme of write_snapshot.c:400-506 over a shared filesystem;
+    merge_timeless_chunks writes the Gadget file).  The grid's products:
+    over a mesh, the real blocks of the shards this host owns (mesh
+    positions where device_filter(i) holds; by default the host's
+    contiguous block of the flat mesh order, exchange.
+    host_of_device_default), F and Rmax from the shards, the displacement
+    stacks from FmaxResult.dense, each with its global start; without a
+    mesh host 0 writes the whole grid.  The per-particle products: this
+    host's sub-boxes' zacc and group names at their global cells."""
+    if frag_result is None or frag_result.particle_pos is None:
+        raise ValueError(
+            "timeless snapshot requested but the fragmentation result "
+            "carries no per-particle products; run with "
+            "WriteTimelessSnapshot=True")
+    d = _dense(fmax_result)
+    arrays = dict(pos=np.asarray(frag_result.particle_pos, np.int64),
+                  zacc=np.asarray(frag_result.particle_zacc, np.float32),
+                  grup=np.asarray(frag_result.particle_grup, np.uint64))
+    rmax = params.add_rmax_to_snapshot
+    decomp = getattr(fmax_result.products, "decomp", None)
+    if decomp is None:
+        blocks = ([(None, (0, params.GridSize) * 3)] if host_id == 0
+                  else [])
+    else:
+        if device_filter is None:
+            from ..parallel.exchange import host_of_device_default
+            owner = host_of_device_default(decomp.mesh, nhosts)
+
+            def device_filter(i):
+                return owner[i] == host_id
+        blocks = [(i, decomp.real_block(i)) for i in range(decomp.p)
+                  if device_filter(i)]
+    for j, (i, (x0, nx, y0, ny, z0, nz)) in enumerate(blocks):
+        sl = (slice(x0, x0 + nx), slice(y0, y0 + ny), slice(z0, z0 + nz))
+        start = np.array([x0, y0, z0], np.int64)
+        if i is None:
+            F, R = d.Fmax, d.Rmax
+        else:
+            from .. import kernels
+            F = kernels.to_host(fmax_result.products.Fmax[i]).numpy()
+            R = kernels.to_host(fmax_result.products.Rmax[i]).numpy()
+        arrays[f"F_{j}_data"], arrays[f"F_{j}_start"] = F, start
+        if rmax:
+            arrays[f"rmax_{j}_data"], arrays[f"rmax_{j}_start"] = R, start
+        for k, v in d.vel.items():
+            arrays[f"vel_{k}_{j}_data"] = np.ascontiguousarray(
+                v[(slice(None),) + sl])
+            arrays[f"vel_{k}_{j}_start"] = np.concatenate([[0], start])
+    path = os.path.join(directory, f"pinocchio.{params.RunFlag}.t_snapshot"
+                        f".out.{host_id}.npz")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fd:
+        np.savez(fd, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def merge_timeless_chunks(params: Params, directory=".",
+                          keep: bool = False):
+    """The Gadget file from the hosts' npz chunks, byte for byte the one
+    write_timeless_snapshot writes in one process (the collector gather of
+    write_snapshot.c:400-506); an RMAX block when the chunks carry Rmax.
+    Returns the path, or None when there is no chunk."""
+    import glob
+    import re
+    chunks = sorted(
+        glob.glob(os.path.join(
+            directory, f"pinocchio.{params.RunFlag}.t_snapshot.out.*.npz")),
+        key=lambda p: int(re.search(r"\.out\.(\d+)\.npz$", p).group(1)))
+    if not chunks:
+        return None
+    N = params.GridSize
+    F = np.zeros((N, N, N), np.float32)
+    rmax = None
+    vel: dict = {}
+    zacc = np.full(N ** 3, -1.0, np.float32)
+    grup = np.zeros(N ** 3, np.uint64)
+    shard = re.compile(r"^(F|rmax|vel_(\w+))_(\d+)_data$")
+    for path in chunks:
+        with np.load(path) as d:
+            zacc[d["pos"]] = d["zacc"]
+            grup[d["pos"]] = d["grup"]
+            for key in d.files:
+                m = shard.match(key)
+                if not m:
+                    continue
+                data = d[key]
+                sl = tuple(slice(int(s), int(s) + n) for s, n in
+                           zip(d[key[:-4] + "start"], data.shape))
+                if m.group(1) == "F":
+                    F[sl] = data
+                elif m.group(1) == "rmax":
+                    if rmax is None:
+                        rmax = np.zeros((N, N, N), np.int32)
+                    rmax[sl] = data
+                else:
+                    vel.setdefault(m.group(2), np.zeros((3, N, N, N),
+                                                        np.float32))[sl] = data
+    out = _timeless_write(params, F, rmax, vel, zacc, grup, directory)
+    if not keep:
+        for c in chunks:
+            os.remove(c)
+    return out
 
 
 def read_snapshot(path: str):

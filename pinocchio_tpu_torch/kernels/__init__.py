@@ -27,7 +27,8 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu")
+SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu",
+           "exchange.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds op for
 # op as its plain PyTorch version does (explicit fmaf stays fused)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -38,6 +39,7 @@ _COLLAPSE = "pinocchio_tpu_torch/csrc/collapse.cu"
 _KSPACE = "pinocchio_tpu_torch/csrc/kspace.cu"
 _COMPACT = "pinocchio_tpu_torch/csrc/compact.cu"
 _LPT = "pinocchio_tpu_torch/kernels/lpt_triton.py"
+_EXCHANGE = "pinocchio_tpu_torch/csrc/exchange.cu"
 # kernel name -> (route, source in the repo, JAX function it replaces)
 KERNELS = {
     "ic_kdensity": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
@@ -89,6 +91,13 @@ KERNELS = {
                               "pinocchio_tpu/parallel/pfft.py:355"),
     "kspace_gradient_tab_shard": ("cuda", _KSPACE,
                                   "pinocchio_tpu/parallel/pfft.py:369"),
+    # the cross-host product exchange (K15, K16, K17)
+    "exchange_count": ("cuda", _EXCHANGE,
+                       "pinocchio_tpu/parallel/exchange.py:311"),
+    "exchange_pack": ("cuda", _EXCHANGE,
+                      "pinocchio_tpu/parallel/exchange.py:339"),
+    "exchange_paint": ("cuda", _EXCHANGE,
+                       "pinocchio_tpu/parallel/exchange.py:121"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -155,6 +164,16 @@ _SIGNATURES = {
     "kspace_gradient_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "kspace_gradient_tab_shard": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _F,
                                   _F, _P],
+    # cells, n, block[6] (host), N, boxes, box_off, map (or null), H, bits,
+    # counts, stream
+    "exchange_count": [_P, _L, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # perm, buf, count, bits, W, block_off, H, host_nd, host_devs, ndmax,
+    # seg_base, seg_n, nch, out, stream
+    "exchange_pack": [_P, _P, _L, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I,
+                      _P, _P],
+    # spheres, sphere_host, ns, block[6] (host), N, pad_boxes, pad_off,
+    # t0_boxes, t0_off, rmax, map, stream
+    "exchange_paint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
 }
 
 

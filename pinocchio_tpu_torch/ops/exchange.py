@@ -1,0 +1,251 @@
+"""The device programs of the cross-host product exchange (counterpart of
+count_local, pack_local and _paint_block in
+pinocchio_tpu/parallel/exchange.py).
+
+``count`` (K15), ``pack`` (K16) and ``paint`` (K17) are the wrappers of the
+three kernels of ``csrc/exchange.cu``: on a CUDA tensor they launch the
+kernel, on a CPU tensor they run the plain PyTorch version beside it.
+Boxes are int32 rows (x0, Lx, y0, Ly, z0, Lz), a box holding the cells
+[x0, x0 + L) mod N of each dimension, with the rows of host h at
+box_off[h]:box_off[h + 1].  A shard's block is (x0, nx, y0, ny, z0, nz).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+THREADS = 256         # the kernels' block size: K15's counts are per block
+
+
+def words(nhosts: int) -> int:
+    """uint32 words of a row's host bitmask."""
+    return (nhosts + 31) // 32
+
+
+def _block_coords(cells, block):
+    x0, nx, y0, ny, z0, nz = block
+    return (x0 + cells // (ny * nz), y0 + cells // nz % ny, z0 + cells % nz)
+
+
+def _member_plain(boxes, lo, hi, gx, gy, gz, N):
+    """Whether each cell (broadcast over gx, gy, gz) lies in a box of
+    boxes[lo:hi]."""
+    m = torch.zeros(torch.broadcast_shapes(gx.shape, gy.shape, gz.shape),
+                    dtype=torch.bool, device=gx.device)
+    for b in boxes[lo:hi]:
+        m |= (((gx - b[0]) % N < b[1]) & ((gy - b[2]) % N < b[3])
+              & ((gz - b[4]) % N < b[5]))
+    return m
+
+
+def _to_int32_bits(word):
+    """int64 values in [0, 2^32) as the int32 of the same 32 bits."""
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def count_plain(cells, block, N, boxes, box_off, nhosts, hmap=None):
+    """Plain version of K15: see count."""
+    n = cells.numel()
+    if hmap is not None:
+        m = hmap.reshape(nhosts, -1)[:, cells].T != 0
+    else:
+        gx, gy, gz = _block_coords(cells, block)
+        rows, off = boxes.tolist(), box_off.tolist()
+        m = torch.stack([_member_plain(rows, off[h], off[h + 1], gx, gy, gz,
+                                       N) for h in range(nhosts)], dim=1)
+    W = words(nhosts)
+    pad = torch.zeros((W * 32 - nhosts,), dtype=torch.int64)
+    shifts = torch.cat([torch.arange(32, dtype=torch.int64)] * W)
+    mm = torch.cat([m.to(torch.int64), pad.expand(n, -1).to(m.device)], 1)
+    bits = _to_int32_bits((mm << shifts.to(m.device)).reshape(n, W, 32)
+                          .sum(2))
+    nblocks = -(-n // THREADS)
+    full = torch.zeros((nblocks * THREADS, nhosts), dtype=torch.int32,
+                       device=m.device)
+    full[:n] = m.to(torch.int32)
+    return bits, full.reshape(nblocks, THREADS, nhosts).sum(
+        1, dtype=torch.int32)
+
+
+def count(cells, block, N, boxes, box_off, nhosts, hmap=None):
+    """Which hosts need each needed row of a shard: cells int64 [n], the
+    shard's needed local cells in ascending order; the row is a member of
+    host h when its global cell lies in one of h's boxes (boxes int32 [nb,
+    6], box_off int32 [H + 1]), or, with hmap (uint8 [H, nx, ny, nz], the
+    turn-1 request maps of the shard), when hmap[h] marks it.  Returns
+    (bits int32 [n, ceil(H/32)], the uint32 bitmask of each row's hosts,
+    bit h % 32 of word h // 32; counts int32 [ceil(n/256), H], the members
+    of each host among each run of 256 rows)."""
+    if not kernels.plain_or_kernel("exchange_count", cells):
+        return count_plain(cells, block, N, boxes, box_off, nhosts, hmap)
+    tensors = [cells, boxes, box_off] + ([hmap] if hmap is not None else [])
+    kernels.require_cuda("exchange_count", *tensors)
+    x0, nx, y0, ny, z0, nz = block
+    if (cells.dtype != torch.int64 or boxes.dtype != torch.int32
+            or box_off.dtype != torch.int32
+            or box_off.numel() != nhosts + 1
+            or (hmap is not None and (hmap.dtype != torch.uint8 or hmap.numel()
+                                      != nhosts * nx * ny * nz))):
+        raise ValueError("exchange_count: cells i64[n], boxes i32[nb, 6], "
+                         "box_off i32[H + 1] and hmap u8[H, nx, ny, nz] "
+                         "expected")
+    n = cells.numel()
+    W = words(nhosts)
+    bits = torch.empty((n, W), dtype=torch.int32, device=cells.device)
+    counts = torch.empty((-(-n // THREADS), nhosts), dtype=torch.int32,
+                         device=cells.device)
+    blk = (ctypes.c_int * 6)(*block)
+    err = kernels.lib().exchange_count(
+        cells.data_ptr(), ctypes.c_int64(n), blk, N, boxes.data_ptr(),
+        box_off.data_ptr(), hmap.data_ptr() if hmap is not None else None,
+        nhosts, bits.data_ptr(), counts.data_ptr(),
+        kernels.stream_ptr(cells.device))
+    kernels.check("exchange_count", err)
+    kernels.LAUNCHES["exchange_count"] += 1
+    return bits, counts
+
+
+def pack_plain(perm, buf, count, bits, block_off, host_nd, host_devs,
+               seg_base, seg_n, nch, out):
+    """Plain version of K16: see pack.  It ranks each host's members with a
+    cumulative sum over the rows (block_off is K16's shortcut to the
+    same ranks)."""
+    nhosts = host_nd.numel()
+    nd_l, devs_l = host_nd.tolist(), host_devs.tolist()
+    for h in range(nhosts):
+        m = (bits[:, h // 32] >> (h % 32)) & 1 == 1
+        t = torch.nonzero(m).reshape(-1)
+        if t.numel() == 0:
+            continue
+        i = torch.arange(t.numel(), device=buf.device)
+        nd = nd_l[h]
+        p = torch.tensor(devs_l[h][:nd], device=buf.device)[i % nd]
+        slot = i // nd
+        base, ns = seg_base[p], seg_n[p]
+        r = perm[t]
+        out[base + slot] = buf[r]
+        out[base + ns + slot] = buf[count + r]
+        src = (2 * count + 3 * r)[:, None] + torch.arange(
+            3, device=buf.device)
+        dst = (base + 2 * ns + 3 * slot)[:, None] + torch.arange(
+            3, device=buf.device)
+        for ch in range(nch):
+            out[dst + ch * 3 * ns[:, None]] = buf[src + ch * 3 * count]
+    return out
+
+
+def pack(perm, buf, count, bits, block_off, host_nd, host_devs, seg_base,
+         seg_n, nch, out):
+    """Pack a shard's member rows into one segment per destination: perm
+    int64 [count], the hand-off row (in buf, the shard's packed hand-off
+    buffer of count rows and nch row channels, compact.gather_rows layout)
+    of each row in ascending cell order; bits from count; block_off int64
+    [ceil(count/256), H], the exclusive scan over blocks of count's
+    counts.  The member of host h of rank i (in cell order) goes to the
+    destination host_devs[h][i % host_nd[h]] (int32 tables [H], [H, ndmax]
+    of mesh positions), slot i // host_nd[h]; destination p's segment
+    starts at float seg_base[p] of out and holds seg_n[p] rows (int64
+    [p]), laid out as a hand-off buffer of seg_n[p] rows.  Writes out
+    (float32, 1-D) and returns it."""
+    if not kernels.plain_or_kernel("exchange_pack", buf):
+        return pack_plain(perm, buf, count, bits, block_off, host_nd,
+                          host_devs, seg_base, seg_n, nch, out)
+    kernels.require_cuda("exchange_pack", perm, buf, bits, block_off,
+                         host_nd, host_devs, seg_base, seg_n, out)
+    if (perm.dtype != torch.int64 or buf.dtype != torch.float32
+            or bits.dtype != torch.int32 or block_off.dtype != torch.int64
+            or host_nd.dtype != torch.int32 or host_devs.dtype != torch.int32
+            or seg_base.dtype != torch.int64 or seg_n.dtype != torch.int64
+            or out.dtype != torch.float32 or perm.numel() != count
+            or buf.numel() != count * (2 + 3 * nch)):
+        raise ValueError("exchange_pack: perm i64[count], buf f32[count * (2"
+                         " + 3 nch)], bits i32, block_off i64, host tables "
+                         "i32, segment tables i64 and out f32 expected")
+    nhosts = host_nd.numel()
+    err = kernels.lib().exchange_pack(
+        perm.data_ptr(), buf.data_ptr(), ctypes.c_int64(count),
+        bits.data_ptr(), bits.shape[1], block_off.data_ptr(), nhosts,
+        host_nd.data_ptr(), host_devs.data_ptr(), host_devs.shape[1],
+        seg_base.data_ptr(), seg_n.data_ptr(), nch, out.data_ptr(),
+        kernels.stream_ptr(buf.device))
+    kernels.check("exchange_pack", err)
+    kernels.LAUNCHES["exchange_pack"] += 1
+    return out
+
+
+def paint_plain(spheres, sphere_host, block, N, pad_boxes, pad_off,
+                t0_boxes, t0_off, nhosts):
+    """Plain version of K17: see paint (the JAX package's _paint_block, on
+    tensors)."""
+    x0, nx, y0, ny, z0, nz = block
+    dev = spheres.device
+    out = torch.zeros((nhosts, nx, ny, nz), dtype=torch.uint8, device=dev)
+    pad, poff = pad_boxes.tolist(), pad_off.tolist()
+    t0, toff = t0_boxes.tolist(), t0_off.tolist()
+    org, ext = (x0, y0, z0), (nx, ny, nz)
+    for (cx, cy, cz, r), h in zip(spheres.tolist(), sphere_host.tolist()):
+        s = int(r)
+        if s <= 0:
+            continue
+        off = torch.arange(-s, s, device=dev)
+        g, loc, keep = [], [], []
+        for d, c in enumerate((cx, cy, cz)):
+            gd = (int(c) + off) % N
+            ld = gd - org[d]
+            k = (ld >= 0) & (ld < ext[d])
+            g.append(gd[k])
+            loc.append(ld[k])
+            keep.append(off[k])
+        if not all(k.numel() for k in keep):
+            continue
+        ox, oy, oz = keep
+        sel = (ox[:, None, None] ** 2 + oy[None, :, None] ** 2
+               + oz[None, None, :] ** 2 <= s * s)
+        gx, gy, gz = (g[0][:, None, None], g[1][None, :, None],
+                      g[2][None, None, :])
+        sel &= _member_plain(pad, poff[h], poff[h + 1], gx, gy, gz, N)
+        sel &= ~_member_plain(t0, toff[h], toff[h + 1], gx, gy, gz, N)
+        i, j, k = torch.nonzero(sel, as_tuple=True)
+        out[h, loc[0][i], loc[1][j], loc[2][k]] = 1
+    return out
+
+
+def paint(spheres, sphere_host, block, N, pad_boxes, pad_off, t0_boxes,
+          t0_off, nhosts):
+    """The turn-1 request maps of one shard: uint8 [H, nx, ny, nz], 1 where
+    a boundary sphere of host h (spheres float32 [ns, 4]: cx, cy, cz and
+    the radius r in cells; sphere_host int32 [ns]) covers a cell at the
+    offsets [-r, r) of each dimension with ox^2 + oy^2 + oz^2 <= r^2,
+    wrapped periodically, that lies in one of h's padded boxes and in none
+    of its turn-0 boxes (both as count's boxes)."""
+    if not kernels.plain_or_kernel("exchange_paint", spheres):
+        return paint_plain(spheres, sphere_host, block, N, pad_boxes,
+                           pad_off, t0_boxes, t0_off, nhosts)
+    kernels.require_cuda("exchange_paint", spheres, sphere_host, pad_boxes,
+                         pad_off, t0_boxes, t0_off)
+    if (spheres.dtype != torch.float32 or spheres.dim() != 2
+            or spheres.shape[1] != 4 or sphere_host.dtype != torch.int32
+            or sphere_host.numel() != spheres.shape[0]):
+        raise ValueError("exchange_paint: spheres f32[ns, 4] and "
+                         "sphere_host i32[ns] expected")
+    x0, nx, y0, ny, z0, nz = block
+    out = torch.zeros((nhosts, nx, ny, nz), dtype=torch.uint8,
+                      device=spheres.device)
+    ns = spheres.shape[0]
+    if ns == 0:
+        return out
+    rmax = int(np.floor(float(spheres[:, 3].max())))
+    blk = (ctypes.c_int * 6)(*block)
+    err = kernels.lib().exchange_paint(
+        spheres.data_ptr(), sphere_host.data_ptr(), ns, blk, N,
+        pad_boxes.data_ptr(), pad_off.data_ptr(), t0_boxes.data_ptr(),
+        t0_off.data_ptr(), rmax, out.data_ptr(),
+        kernels.stream_ptr(spheres.device))
+    kernels.check("exchange_paint", err)
+    kernels.LAUNCHES["exchange_paint"] += 1
+    return out

@@ -199,9 +199,12 @@ def build_displacement_stage(decomp, scaledep: bool = False):
 class ShardedHandoff:
     """The needed particles of every shard (F >= Flast) in the sweep's
     order: ``add_set`` gathers one displacement set's rows on each shard
-    (K6a, into one buffer per shard for every set), ``finish`` copies each
+    (K6a, into one buffer per shard for every set); ``finish`` copies each
     shard's buffer to page-locked host memory and merges the shards on the
-    host into the global (-F, ascending cell) order."""
+    host into the global (-F, ascending cell) order.  Deferred
+    (run_fmax_distributed defer_handoff), the buffers stay on their devices
+    for the exchange (parallel/exchange.py) and the local fetch
+    (parallel/multihost.py) until ``release`` or ``finish``."""
 
     def __init__(self, decomp, Fmax: list, Flast: float, keys: list,
                  nsets: int):
@@ -218,6 +221,12 @@ class ShardedHandoff:
             lambda i, F: torch.empty(sum(sizes[i]), dtype=torch.float32,
                                      device=F.device), Fmax)
         self.sizes, self.off, self.nadded = sizes, [0] * decomp.p, 0
+        self._by_cell = [None] * decomp.p
+
+    @property
+    def channels(self) -> int:
+        """Row channels of a buffer: 3 floats each, one per key and set."""
+        return len(self.keys) * self.nsets
 
     def add_set(self, vel: dict) -> None:
         """Gather the needed rows of the next displacement set (key -> real
@@ -233,47 +242,74 @@ class ShardedHandoff:
         self.decomp.map(one, self.Fmax)
         self.nadded += 1
 
-    def finish(self) -> SparseProducts:
-        """The merged SparseProducts; frees the device buffers.  Each
-        shard's rows are already in the sweep's order, so they land at
-        increasing positions of the merged arrays (one scatter per shard
-        and array)."""
-        d = self.decomp
-        N = d.N
-        parts = []
-        for i, buf in enumerate(self.bufs):
-            host = kernels.to_host(buf).numpy()
-            sp = unpack_products(host, N, self.counts[i], self.keys,
-                                 self.nsets)
-            x0, nx, y0, ny, z0, nz = d.real_block(i)
-            loc = torch.from_numpy(sp.ci)
-            ix, iy, iz = loc // (ny * nz), loc // nz % ny, loc % nz
-            sp.ci = ((x0 + ix) * N + y0 + iy) * N + z0 + iz
-            parts.append(sp)
-        self.bufs = None
-        # the merged position of every row; torch's host sort and scatters
-        # use every core
-        ci = torch.cat([p.ci for p in parts])
-        n = ci.numel()
-        pos = torch.empty(n, dtype=torch.int64).index_copy_(
-            0, merge_order(torch.cat([torch.from_numpy(p.F) for p in parts]),
-                           ci, N ** 3), torch.arange(n))
-        spans = np.cumsum([0] + self.counts)
+    def cell_order(self, i: int):
+        """Shard i's needed local cells in ascending order and, for each,
+        its row in the buffer: (cells int64, perm int64), one torch.sort,
+        kept for the next exchange."""
+        if self._by_cell[i] is None:
+            with kernels.on_device(self.decomp.devices[i]):
+                self._by_cell[i] = torch.sort(self.idx[i])
+        return self._by_cell[i]
 
-        def merged(arrays):
-            arrays = [torch.as_tensor(a) for a in arrays]
-            out = arrays[0].new_empty((n,) + tuple(arrays[0].shape[1:]))
-            for a, b, arr in zip(spans[:-1], spans[1:], arrays):
-                out.index_copy_(0, pos[a:b], arr)
-            return out.numpy()
-        sets = [{k: merged([(p.segments[s] if p.segments else p.vel)[k]
-                            for p in parts]) for k in self.keys}
-                for s in range(self.nsets)]
-        out_ci = merged([p.ci for p in parts])
-        out_F = merged([p.F for p in parts])
-        return SparseProducts(N=N, ci=out_ci, F=out_F, vel=sets[0],
-                              sorted_by="F",
-                              segments=sets if self.nsets > 1 else None)
+    def shard_products(self, i: int) -> SparseProducts:
+        """Shard i's needed rows on the host (one page-locked copy), with
+        global cell indices, in the sweep's order."""
+        host = kernels.to_host(self.bufs[i]).numpy()
+        sp = unpack_products(host, self.decomp.N, self.counts[i], self.keys,
+                             self.nsets)
+        sp.ci = global_cells(self.decomp.real_block(i), self.decomp.N, sp.ci)
+        return sp
+
+    def release(self) -> None:
+        """Free the device buffers."""
+        self.bufs = self.idx = None
+        self._by_cell = [None] * self.decomp.p
+
+    def finish(self) -> SparseProducts:
+        """The merged SparseProducts of every shard; frees the device
+        buffers."""
+        parts = [self.shard_products(i) for i in range(self.decomp.p)]
+        self.release()
+        return merge_parts(parts, self.decomp.N)
+
+
+def global_cells(block, N: int, loc) -> np.ndarray:
+    """The global cell indices (int64 numpy) of the local cells ``loc`` of
+    the real block (x0, nx, y0, ny, z0, nz)."""
+    x0, _, y0, ny, z0, nz = block
+    loc = torch.as_tensor(np.asarray(loc, np.int64))
+    ix, iy, iz = loc // (ny * nz), loc // nz % ny, loc % nz
+    return (((x0 + ix) * N + y0 + iy) * N + z0 + iz).numpy()
+
+
+def merge_parts(parts: list, N: int) -> SparseProducts:
+    """The union of disjoint SparseProducts (global cells, same keys and
+    sets) in the sweep's order.  Each row lands at its merged position
+    (one scatter per part and array); torch's host sort and scatters use
+    every core."""
+    ci = torch.cat([torch.as_tensor(np.asarray(p.ci, np.int64))
+                    for p in parts])
+    n = ci.numel()
+    pos = torch.empty(n, dtype=torch.int64).index_copy_(
+        0, merge_order(torch.cat([torch.as_tensor(np.asarray(p.F, np.float32))
+                                  for p in parts]), ci, N ** 3),
+        torch.arange(n))
+    spans = np.cumsum([0] + [len(p.ci) for p in parts])
+    nsets = len(parts[0].segments) if parts[0].segments else 1
+
+    def merged(arrays):
+        arrays = [torch.as_tensor(a) for a in arrays]
+        out = arrays[0].new_empty((n,) + tuple(arrays[0].shape[1:]))
+        for a, b, arr in zip(spans[:-1], spans[1:], arrays):
+            out.index_copy_(0, pos[a:b], arr)
+        return out.numpy()
+    keys = sorted(parts[0].vel)
+    sets = [{k: merged([(p.segments[s] if p.segments else p.vel)[k]
+                        for p in parts]) for k in keys}
+            for s in range(nsets)]
+    return SparseProducts(N=N, ci=merged([p.ci for p in parts]),
+                          F=merged([p.F for p in parts]), vel=sets[0],
+                          sorted_by="F", segments=sets if nsets > 1 else None)
 
 
 def merge_order(F, ci, ncell: int):
@@ -303,6 +339,20 @@ def sharded_products(decomp, Fmax: list, Flast: float, sets: list):
     return h.finish()
 
 
+def handoff_from_arrays(decomp, Fmax, sets: list,
+                        Flast: float) -> ShardedHandoff:
+    """A deferred hand-off over ``decomp``'s mesh from whole-grid arrays,
+    such as the JAX package's products gathered with np.asarray: Fmax
+    [N, N, N] and one dict per displacement set of key -> [3, N, N, N],
+    turned into the port's tensors by fmax.load_jax_state and scattered."""
+    Fs = decomp.scatter(load_jax_state({"Fmax": Fmax}, "cpu")["Fmax"])
+    h = ShardedHandoff(decomp, Fs, Flast, sorted(sets[0]), len(sets))
+    for vel in sets:
+        h.add_set({k: decomp.scatter(load_jax_state({k: v}, "cpu")[k])
+                   for k, v in vel.items()})
+    return h
+
+
 def pdf_hist(decomp, Fmax: list) -> np.ndarray:
     """The FmaxPDF counts: the sum of the shards' K6b histograms."""
     return sum(h.cpu().numpy() for h in decomp.map(
@@ -318,7 +368,8 @@ def _sync(decomp) -> None:
 def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
                          verbose: bool = False,
                          keep_dense_products: bool = False,
-                         kdensity=None) -> FmaxResult:
+                         kdensity=None,
+                         defer_handoff: bool = False) -> FmaxResult:
     """fmax.run_fmax over a mesh: IC, the smoothing cycle, the LPT stage
     and the hand-off sharded over ``mesh`` (classic or TABULATED_CT /
     ELL_SNG collapse, scale-dependent growth, RECOMPUTE_DISPLACEMENTS
@@ -327,7 +378,14 @@ def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
     assembles the whole grid's products on the host (FmaxResult.dense).
     kdensity: an optional complex64 [N, N, N//2+1] field (e.g. the JAX
     package's) scattered over the mesh instead of generating the initial
-    conditions."""
+    conditions.  defer_handoff: keep each shard's needed rows (cells, F and
+    the rows of every displacement set) on its device as
+    FmaxResult.handoff, with host_products None until a consumer asks (the
+    exchange, the local fetch, fmax.ensure_host_products).  The default
+    merges at once, as the JAX package's default does (defer_segments):
+    the device buffers are freed before the sweep, every caller may read
+    host_products directly, and the merge stays inside the ``products``
+    timing; deferring pays only where the rows leave by the exchange."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     decomp = pfft.make_decomp(mesh, N)
@@ -400,7 +458,7 @@ def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
     timings["lpt"] = t_sources + time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sp = handoff.finish()
+    sp = None if defer_handoff else handoff.finish()
     hist = pdf_hist(decomp, Fmax)
     dense = None
     if keep_dense:
@@ -408,13 +466,14 @@ def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
                               Rmax=decomp.gather(Rmax), vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
     if verbose:
-        count = len(sp.ci)
+        count = sum(handoff.counts)
         print(f"  products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%) from {decomp.p} shards, "
               f"{len(zs)} displacement set(s)")
     return FmaxResult(products=ShardedProducts(decomp, Fmax, Rmax),
                       smoothing=sm, grid=grid, host_products=sp,
-                      pdf_hist=hist, timings=timings, dense=dense)
+                      pdf_hist=hist, timings=timings, dense=dense,
+                      handoff=handoff if defer_handoff else None)
 
 
 def demo_step(mesh, N: int = 32, seed: int = 1):

@@ -14,7 +14,14 @@ fragmentation runs over that many padded sub-boxes, swept concurrently on
 the host's cores and merged (fragment/subbox.py).  With a mesh (--chips N:
 cuda:0..N-1, or N CPU shards with --device cpu; --decomp slab, pencil,
 volumes or auto) IC and fmax run sharded over it (parallel/driver.py) and
-hand the same host products to the rest; one process.
+hand the same host products to the rest; one process.  With hosts=(h, H)
+the run is host h of H: it sweeps its round-robin share of the sub-boxes,
+fed over a mesh by the cross-host exchange (parallel/exchange.py), and
+writes its catalogs, histories and PLC as .out.<h> chunks, its share of the
+timeless snapshot as an npz chunk, and the mass functions and n(z) through
+part files that the last host sums; scripts/torch_merge_chunks.py
+reassembles the files.  In one process each host repeats IC and fmax, so
+the CLI's --hosts waits for the process layer (item 12b-ii).
 
   initialization -> plan -> PLC geometry -> fmax (collapse times +
   displacements, on the device; or the products read from a dump) ->
@@ -79,9 +86,10 @@ def resolve_device(device) -> torch.device:
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  verbose: bool = True, write_outputs: bool = True,
-                 mesh=None):
+                 mesh=None, hosts: tuple = None):
     """The run on ``device``, or with IC and fmax sharded over ``mesh``
-    (parallel.pfft.Mesh; its devices replace ``device``).  Returns
+    (parallel.pfft.Mesh; its devices replace ``device``); hosts=(h, H):
+    host h's share of a run over H hosts (the module docstring).  Returns
     dict(cosmo, plan (the planner's report), fmax, frag, timings,
     files)."""
     from .fmax import fmax_pdf, run_fmax
@@ -97,6 +105,11 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     check_supported(params, mesh)
     t_total = time.perf_counter()
     timings = {}
+    host_id, nhosts = hosts if hosts else (0, 1)
+    if nhosts > 1 and write_outputs:
+        # this host's part files of a run that failed would be summed into
+        # this run's reductions
+        io_cat.clear_stale_parts(outdir, host_id)
     if verbose:
         greetings(params, dev, mesh)
     t0 = time.perf_counter()
@@ -141,9 +154,11 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         from .parallel.driver import run_fmax_distributed
         if verbose:
             print(f"[fmax] sharded over mesh {mesh.shape}")
+        # several hosts keep the hand-off on the devices for the exchange
         fmax_res = run_fmax_distributed(params, cosmo, mesh,
                                         scaledep_gm=scaledep_gm,
-                                        verbose=verbose)
+                                        verbose=verbose,
+                                        defer_handoff=nhosts > 1)
     elif plan["use_ooc"]:
         check_ooc_supported(params)
         fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
@@ -155,16 +170,20 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     if (params.DumpProducts and write_outputs
             and not params.ReadProductsFromDumps):
         t0 = time.perf_counter()
-        dumps.dump_products(params, fmax_res, outdir)
+        dumps.dump_products(params, fmax_res, outdir,
+                            hosts=(host_id, nhosts))
         timings["dump"] = time.perf_counter() - t0
 
     t_frag = time.perf_counter()
-    if params.subbox_tasks > 1:
+    if params.subbox_tasks > 1 or nhosts > 1:
         largest = io_cat.largest_halo_mass(params, cosmo)
-        nbox = choose_nbox(params, cosmo, largest, params.subbox_tasks)
+        nbox = choose_nbox(params, cosmo, largest,
+                           max(params.subbox_tasks, nhosts))
         frag_res = run_fragmentation_multibox(
             params, cosmo, fmax_res, nbox, plc_geom=plc_geom,
-            scaledep_gm=scaledep_gm, largest_mass=largest, verbose=verbose)
+            scaledep_gm=scaledep_gm, largest_mass=largest,
+            host_slice=(host_id, nhosts) if nhosts > 1 else None,
+            verbose=verbose)
     else:
         frag_res = run_fragmentation(params, cosmo, fmax_res,
                                      plc_geom=plc_geom,
@@ -172,6 +191,10 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                                      verbose=verbose)
     timings.update({"frag_" + k: v for k, v in frag_res.timings.items()})
     timings["frag_wall"] = time.perf_counter() - t_frag
+    if fmax_res.handoff is not None:
+        # the exchanges are done: free the deferred device buffers
+        fmax_res.handoff.release()
+        fmax_res.handoff = None
     if verbose and frag_res.best_pred_peak_factor:
         print(f"  the PredPeakFactor parameter could have been "
               f"{frag_res.best_pred_peak_factor:5.2f} in place of "
@@ -186,27 +209,61 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                      os.path.join(outdir,
                                   f"pinocchio.{params.RunFlag}.FmaxPDF.out"))
         largest = io_cat.largest_halo_mass(params, cosmo)
+        # several hosts write into a staging directory of their own, so
+        # that hosts sharing one filesystem never race on a file, and
+        # surface each file as an .out.<h> chunk (the collector scheme,
+        # write_halos.c:194-225)
+        io_dir = outdir
+        if nhosts > 1:
+            io_dir = os.path.join(outdir, f".host{host_id}")
+            os.makedirs(io_dir, exist_ok=True)
+
+        def chunk(path):
+            if nhosts == 1:
+                return path
+            out = os.path.join(outdir, f"{os.path.basename(path)}.{host_id}")
+            os.replace(path, out)
+            return out
+        mf_hosts = (host_id, nhosts) if nhosts > 1 else None
         for snap in frag_res.catalogs:
-            written.append(io_cat.write_catalog(params, snap, outdir))
-            written.append(io_cat.compute_mf(params, cosmo, snap, outdir,
-                                             largest=largest))
+            written.append(chunk(io_cat.write_catalog(params, snap, io_dir)))
+            mf = io_cat.compute_mf(params, cosmo, snap, outdir,
+                                   largest=largest, hosts=mf_hosts)
+            if mf is not None:
+                written.append(mf)
         if not params.DoNotWriteHistories:
-            written.append(io_cat.write_histories(params, frag_res.groups,
-                                                  outdir))
+            written.append(chunk(io_cat.write_histories(
+                params, frag_res.groups, io_dir)))
         t1 = time.perf_counter()
         plc = frag_res.plc
         if plc is not None and not params.DoNotWriteCatalogs:
-            written.append(write_plc_catalog(
+            written.append(chunk(write_plc_catalog(
                 params, plc_geom, dict(name=plc.name, z=plc.z, mass=plc.mass,
-                                       x=plc.x, v=plc.v), outdir))
-            written.append(write_nz(params, cosmo, plc_geom, plc.nz, outdir))
+                                       x=plc.x, v=plc.v), io_dir)))
+            nz = plc.nz
+            if nhosts > 1:
+                # the n(z) histogram reduces across hosts like the mf bins
+                nz = io_cat.reduce_parts(
+                    os.path.join(outdir, f"pinocchio.{params.RunFlag}.nz.out"),
+                    host_id, nhosts, dict(nz=plc.nz))
+                nz = None if nz is None else nz["nz"]
+            if nz is not None:
+                written.append(write_nz(params, cosmo, plc_geom, nz, outdir))
             timings["io_plc"] = time.perf_counter() - t1
         if params.WriteTimelessSnapshot:
-            from .io.snapshot import write_timeless_snapshot
+            from .io.snapshot import (write_timeless_chunk,
+                                      write_timeless_snapshot)
             t1 = time.perf_counter()
-            written.append(write_timeless_snapshot(params, fmax_res,
-                                                   frag_res, outdir))
+            if nhosts > 1:
+                written.append(write_timeless_chunk(
+                    params, fmax_res, frag_res, outdir, host_id=host_id,
+                    nhosts=nhosts))
+            else:
+                written.append(write_timeless_snapshot(params, fmax_res,
+                                                       frag_res, outdir))
             timings["io_snapshot"] = time.perf_counter() - t1
+        if nhosts > 1:
+            os.rmdir(io_dir)
         timings["io"] = time.perf_counter() - t0
 
     timings["total"] = time.perf_counter() - t_total
@@ -363,12 +420,16 @@ def main(argv=None):
                     "(set_fft_decomposition; auto: pencil for even counts "
                     "from 4, else slab)")
     ap.add_argument("--hosts", type=int, default=1,
-                    help="hosts (only 1 is ported)")
+                    help="hosts (only 1 from the command line: a run over "
+                    "several hosts in one process is run_pipeline(hosts=))")
     args = ap.parse_args(argv)
     if args.hosts > 1:
         raise NotImplementedError(
-            "multi-host runs are not ported to pinocchio_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 12b)")
+            "multi-host runs from the command line need the process layer "
+            "(torch.distributed bring-up, the exchange across processes), "
+            "which is not ported to pinocchio_tpu_torch yet (ROADMAP.md, "
+            "queue 1 item 12b-ii); one process runs a host's share with "
+            "run_pipeline(hosts=(h, H))")
     dev = resolve_device(args.device)
     mesh = None
     if args.chips > 1:

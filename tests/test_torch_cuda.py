@@ -29,7 +29,11 @@ to K8's values at the same modes.  The shard kernels K1s, K2s, K5s and K8s
 on a mesh shard's window are exactly equal to their plain versions and to
 the full-grid kernels on that window; the fmax phase over a 2x2 pencil
 mesh of the one card launches the mesh's kernels and holds the
-single-device run's results.
+single-device run's results.  The exchange's kernels K15 (count, with
+boxes and with request maps), K16 (pack) and K17 (sphere paint) are
+exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
+layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
+with no box, and spheres across the shard's edge and the periodic wrap.
 """
 
 import numpy as np
@@ -41,6 +45,7 @@ from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch import fmax, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
 from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
+from pinocchio_tpu_torch.ops import exchange as xops
 from pinocchio_tpu_torch.ops import tabulated
 from torch_hessians import SPECIAL, special_hessians
 
@@ -617,9 +622,124 @@ def test_mesh_on_one_card(dev, setup):
         t, t, 0.0, 1.0, 4)),
     ("gather_rows", lambda t: compact.gather_rows(t, [t], t)),
     ("pdf_hist", lambda t: compact.pdf_hist(t)),
+    ("exchange_count", lambda t: xops.count(t, (0, 1, 0, 1, 0, 1), 4, t, t,
+                                            1)),
+    ("exchange_pack", lambda t: xops.pack(t, t, 0, t, t, t, t, t, t, 1, t)),
+    ("exchange_paint", lambda t: xops.paint(t, t, (0, 1, 0, 1, 0, 1), 4, t,
+                                            t, t, t, 1)),
 ])
 def test_wrappers_refuse_other_devices(name, fn):
     """A wrapper takes the plain version only for a CPU tensor: any other
     device that is not CUDA raises, whether or not a card is present."""
     with pytest.raises(ValueError, match=f"{name}: unsupported device"):
         fn(torch.empty(6, 4, 4, 4, device="meta"))
+
+
+def exchange_case(N, nhosts, seed=0):
+    """Inputs of K15-K17 on the (1, 1) shard of a 2x2 pencil layout at N:
+    a sorted random third of the shard's cells as its needed rows; per
+    host one to three boxes, some wrapped across the grid's edge, one
+    wider than the grid, the last host none; spheres centred anywhere (so
+    some cross the shard's edge and the periodic wrap), one of radius N/2
+    and one of radius 0."""
+    rng = np.random.default_rng(seed)
+    h2 = N // 2
+    block = (h2, h2, h2, h2, 0, N)
+    ncell = h2 * h2 * N
+    cells = np.sort(rng.choice(ncell, ncell // 3, replace=False))
+
+    def boxes(turn0):
+        out = []
+        for h in range(nhosts):
+            host = []
+            for _ in range(0 if h == nhosts - 1 else rng.integers(1, 4)):
+                lo = (3, 2) if turn0 else (N // 2, 3)
+                host.append(tuple(
+                    (int(rng.integers(0, N)),
+                     int(rng.integers(N // lo[0], N // lo[1] + N // 2)))
+                    for _ in range(3)))
+            out.append(tuple(host))
+        out[0] = out[0] + (((N - 3, N + 5), (0, N), (N - 2, 6)),)
+        return tuple(out)
+    sph = np.column_stack([rng.integers(0, N, (40, 3)),
+                           rng.integers(1, N // 6 + 2, 40)]).astype(
+                               np.float32)
+    sph[0] = (N - 1, N - 1, 1, 7)
+    sph[1] = (h2, h2, N - 2, N // 2)
+    sph[2] = (3, 3, 3, 0)
+    owner = rng.integers(0, nhosts, len(sph)).astype(np.int32)
+    return dict(block=block, cells=cells, pad=boxes(False), t0=boxes(True),
+                spheres=sph, owner=owner)
+
+
+def _tables(case, dev):
+    from pinocchio_tpu_torch.parallel.exchange import region_tables
+    return (*region_tables(case["pad"], dev), *region_tables(case["t0"], dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nhosts", [3, 16, 40])
+def test_exchange_count(dev, nhosts):
+    case = exchange_case(N, nhosts)
+    pb, po, tb, to = _tables(case, dev)
+    cells = torch.from_numpy(case["cells"]).to(dev)
+    got = xops.count(cells, case["block"], N, pb, po, nhosts)
+    want = xops.count_plain(cells, case["block"], N, pb, po, nhosts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 0 and int(got[1][:, -1].sum()) == 0
+    hmap = xops.paint(torch.from_numpy(case["spheres"]).to(dev),
+                      torch.from_numpy(case["owner"]).to(dev),
+                      case["block"], N, pb, po, tb, to, nhosts)
+    got = xops.count(cells, case["block"], N, pb, po, nhosts, hmap=hmap)
+    want = xops.count_plain(cells, case["block"], N, pb, po, nhosts,
+                            hmap=hmap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nhosts", [3, 16])
+def test_exchange_pack(dev, nhosts):
+    case = exchange_case(N, nhosts, seed=1)
+    pb, po, _, _ = _tables(case, dev)
+    cells = torch.from_numpy(case["cells"]).to(dev)
+    bits, counts = xops.count(cells, case["block"], N, pb, po, nhosts)
+    rng = np.random.default_rng(2)
+    n, nch = len(cells), 8
+    buf = torch.from_numpy(rng.standard_normal(n * (2 + 3 * nch))
+                           .astype(np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    nd = [1 + h % 3 for h in range(nhosts)]
+    devs, q = [], 0
+    for h in range(nhosts):
+        devs.append(list(range(q, q + nd[h])) + [0] * (3 - nd[h]))
+        q += nd[h]
+    tot = counts.sum(0).tolist()
+    seg_n = np.array([max(0, -(-(tot[h] - j) // nd[h])) for h in
+                      range(nhosts) for j in range(nd[h])], np.int64)
+    rowf = 2 + 3 * nch
+    seg_base = np.concatenate([[0], np.cumsum(seg_n * rowf)[:-1]])
+    args = (perm, buf, n, bits,
+            torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+            torch.tensor(nd, dtype=torch.int32, device=dev),
+            torch.tensor(devs, dtype=torch.int32, device=dev),
+            torch.from_numpy(seg_base).to(dev),
+            torch.from_numpy(seg_n).to(dev), nch)
+    total = int(seg_n.sum()) * rowf
+    got = xops.pack(*args, torch.zeros(total, device=dev))
+    want = xops.pack_plain(*args, torch.zeros(total, device=dev))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_exchange_paint(dev):
+    nhosts = 5
+    case = exchange_case(N, nhosts, seed=3)
+    pb, po, tb, to = _tables(case, dev)
+    args = (torch.from_numpy(case["spheres"]).to(dev),
+            torch.from_numpy(case["owner"]).to(dev), case["block"], N, pb,
+            po, tb, to, nhosts)
+    got = xops.paint(*args)
+    assert torch.equal(got, xops.paint_plain(*args))
+    assert int(got.sum()) > 0

@@ -153,8 +153,11 @@ def test_port_imports_no_jax(tmp_path):
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
     a product dump; a restart from that dump; the past light cone with the
     timeless snapshot; fragmentation over sub-boxes, single-turn and
-    two-turn; classic and f(R) over an 8-shard mesh; special mode 2) run
-    without importing jax or any module of the JAX package."""
+    two-turn; classic and f(R) over an 8-shard mesh; two mocked hosts over
+    a 4-shard mesh with the exchange, single-turn through run_pipeline and
+    two-turn through a host slice, and scripts/torch_merge_chunks.py on
+    their chunks; special mode 2) run without importing jax or any module
+    of the JAX package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
@@ -187,6 +190,33 @@ def test_port_imports_no_jax(tmp_path):
         " two_turn=True, verbose=False)\n"
         f"run_special_mode(Params(**base), 2, {str(tmp_path)!r}, "
         "device='cpu', verbose=False)\n"
+        "import os, runpy\n"
+        "from pinocchio_tpu_torch.parallel.driver import "
+        "run_fmax_distributed\n"
+        "from pinocchio_tpu_torch.parallel.pfft import make_pencil_mesh\n"
+        "def mesh4():\n"
+        "    return make_pencil_mesh(4, devices=['cpu'] * 4)\n"
+        f"hd = os.path.join({str(tmp_path)!r}, 'hosts')\n"
+        "os.makedirs(hd)\n"
+        "hp = Params(**dict(base, **plc, subbox_tasks=2))\n"
+        "for h in range(2):\n"
+        "    run_pipeline(hp, outdir=hd, device='cpu', verbose=False,\n"
+        "                 mesh=mesh4(), hosts=(h, 2))\n"
+        "fr = run_fmax_distributed(p, Cosmology(p), mesh4(),\n"
+        "                          defer_handoff=True)\n"
+        "run_fragmentation_multibox(p, Cosmology(p), fr, (2, 2, 1),\n"
+        "                           two_turn=True, host_slice=(1, 2),\n"
+        "                           verbose=False)\n"
+        "pf = os.path.join(hd, 'parameter_file')\n"
+        "open(pf, 'w').write('GridSize 16\\nBoxSize 16.0\\n'\n"
+        "                    'StartingzForPLC 0.02\\nPLCProvideConeData\\n'\n"
+        "                    'WriteTimelessSnapshot\\n')\n"
+        "open(os.path.join(hd, 'outputs'), 'w').write('1.0\\n0.0\\n')\n"
+        "sys.argv = ['torch_merge_chunks.py', pf, '--dir', hd, '--norad']\n"
+        "runpy.run_path('scripts/torch_merge_chunks.py', "
+        "run_name='__main__')\n"
+        "assert os.path.exists(os.path.join(hd, "
+        "'pinocchio.run.t_snapshot.out'))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'pinocchio_tpu'\n"
         "       or m.startswith('pinocchio_tpu.')]\n"
@@ -267,9 +297,9 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
      "item 12c"),
     (["--chips", "4", "--device", "cuda"], "auto", RuntimeError, "CUDA"),
     (["--hosts", "2", "--device", "cpu"], "auto", NotImplementedError,
-     "item 12b"),
+     "item 12b-ii"),
     (["--hosts", "2", "--subboxes", "2", "--device", "cpu"], "auto",
-     NotImplementedError, "item 12b")])
+     NotImplementedError, "item 12b-ii")])
 def test_cli_options_outside_the_slice_raise(tmp_path, monkeypatch, argv, ooc,
                                              error, item):
     import pinocchio_tpu_torch.run as run_mod

@@ -57,6 +57,14 @@
                  run), held to the classic path: at most 1e-3 N^3 cells
                  with |dF| > 0.1, variances within rtol 1e-4, halo counts
                  per output within 0.5 %;
+     ooc_mesh    the ooc path with the out-of-core ledger sharded over kz
+                 on 4 shards of the one card (K9, K10, K11, K4, K12, K6b on
+                 every shard; none of K1-K3, K5, the shard kernels or
+                 K15-K17), held to the ooc path: Fmax, variances, the needed
+                 cells, their order and every row bit for bit, or within the
+                 JAX package's mesh tolerance (ooc_held_to_one_device), and
+                 the catalogs identical (or halo counts within max(10,
+                 6 sqrt(n) + 5 %) when the products are not bit-equal);
    then delta over a slab 4, a pencil 2x2 and a volumes 2x2x2 mesh of the
    card, bit-equal to the single-device field; the fmax phase alone over
    the slab 4 and the volumes 2x2x2 mesh (classic, at 128^3, held to a
@@ -64,7 +72,15 @@
    RECOMPUTE (K8s, held to the scaledep path), each with its launch set
    and peak; the
    distributed c2r and one all_to_all beside one device's c2r (on one card
-   the transposes are device-local copies, not NVLink); then the exchange
+   the transposes are device-local copies, not NVLink); the c2r of one
+   radius's Hessian at 128^3 and 256^3 three ways (one device's 2-D ifft,
+   two 1-D iffts, the slab 4 and volumes 2x2x2 meshes) in bit-equal cells
+   and ulps (mesh_c2r); the out-of-core fmax phase alone at 256^3 over 3
+   and 4 shards of the card with the bicubic lookup (K13) and with f(R)
+   growth and RECOMPUTE (K14, 4 row sets), each held to the single-device
+   engine as the ooc_mesh path is, with its launch set and its phases'
+   peaks beside the planner's per-device map (ooc_mesh_fmax); then the
+   exchange
    (hosts_exchange) on one deferred fmax over a 2x2 pencil mesh of the card
    at 256^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
    rows held to the brute-force selection, with the count, pack, route and
@@ -90,19 +106,25 @@
    at 48^3 and the hosts path at 48^3 (each device's hosts united equal to
    its one-process run), on the card and on the CPU (the plain versions)
    and holds the halo catalogs and the PLC crossings to each other;
-6. holds the out-of-core engine to the dense engine at 256^3, the dense one
-   fed the delta assembled from the engine's kz planes (Fmax, variances, the
-   needed set and its order, the rows of every displacement set, halo
-   counts), for the classic ellipsoid with the PLC (the crossings must be
-   identical), the bicubic lookup and f(R) growth with RECOMPUTE, with
-   each engine's peak memory beside the planner's;
-7. runs the out-of-core fmax phase at 512^3 (ooc='on') and at 1024^3
-   under ooc='auto' (classic, bicubic lookup, f(R) growth), where the
-   planner must choose the out-of-core engine; prints its map, each phase's
-   measured peak beside the predicted one, the host's free memory beside
-   the planner's host estimate, the needed count and the phase times; and
-   the planner's map of f(R) growth with RECOMPUTE at 1024^3, which must
-   refuse the run on host memory before any allocation;
+6. holds the out-of-core engine to the dense engine, the dense one fed the
+   delta assembled from the engine's kz planes (Fmax, variances, the needed
+   set and its order, the rows of every displacement set, halo counts),
+   for the classic ellipsoid with the PLC at 256^3 (the crossings must be
+   identical), the bicubic lookup and f(R) growth with RECOMPUTE at 128^3,
+   with each engine's peak memory beside the planner's;
+7. runs the out-of-core fmax phase at 512^3 (ooc='on'; classic, and the
+   bicubic lookup) and at 1024^3 under ooc='auto' (classic, f(R) growth),
+   where the planner must choose the out-of-core engine; prints its map,
+   each phase's measured peak beside the predicted one, the host's free
+   memory beside the planner's host estimate, the needed count and the
+   phase times; then the classic fmax phase at 1024^3 under ooc='auto'
+   over 4 shards of the card (ooc_mesh_big): the planner's per-device map
+   must choose the out-of-core engine, the needed count and a SHA-256 of
+   (ci, F) must equal the single-device run's, each phase's time and peak
+   beside the planner's, the hand-off's seconds and the host peak beside
+   the single device's; and the planner's map of f(R) growth with
+   RECOMPUTE at 1024^3, which must refuse the run on host memory before
+   any allocation;
 8. checks that neither jax nor any module of the JAX package was imported;
 9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
    as the last line.  Any failed check exits non-zero before that.
@@ -110,8 +132,9 @@
     python3 chip_smoke.py --only subbox,subbox_turns,reference:subbox
 
 runs only the named phases (kernels, density_field, a path's name,
-mesh_fmax, modes, subbox_turns, reference:<path>, ooc_dense:<name>,
-ooc_fmax, big, refusal) and prints no JSON line.
+mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
+subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
+ooc_mesh_big, refusal) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -203,13 +226,21 @@ def ooc_tab(interp):
 
 
 OOC_N = 512
-OOC_CHECK_N = 256
 BIG_N = 1024
-# out-of-core against dense at OOC_CHECK_N: name -> switches
-OOC_CHECKS = {"classic": PLC, "tabulated": TAB, "scaledep": FR}
-# the fmax phase at BIG_N under ooc='auto': name -> (switches, launch set)
-BIG = {"classic": ({}, OOC), "tabulated": (TAB, ooc_tab("bicubic")),
-       "scaledep": (dict(FR, recompute_displacements=False), OOC_FR)}
+# out-of-core against dense: name -> (grid size, switches); the bicubic
+# and f(R) checks run at 128^3 to keep the whole run inside its time budget
+# (the ooc_mesh_fmax phases hold both models' out-of-core runs at 256^3)
+OOC_CHECKS = {"classic": (256, PLC), "tabulated": (128, TAB),
+              "scaledep": (128, FR)}
+# the big out-of-core fmax phases: name -> (grid size, ooc, switches,
+# launch set); at BIG_N under ooc='auto', where the planner must choose the
+# out-of-core engine; the bicubic lookup runs at OOC_N with ooc='on' (cut
+# from BIG_N to keep the whole run inside its time budget: K13 is timed at
+# 512^3 in the kernel phases)
+BIG = {"classic": (BIG_N, "auto", {}, OOC),
+       "tabulated": (OOC_N, "on", TAB, ooc_tab("bicubic")),
+       "scaledep": (BIG_N, "auto", dict(FR, recompute_displacements=False),
+                    OOC_FR)}
 # name -> (grid size, Params switches, the path's launch set)
 PATHS = {
     "classic": (PIPELINE_N, {}, CLASSIC),
@@ -241,15 +272,28 @@ PATHS = {
     "subbox": (PIPELINE_N, dict(PLC, subbox_tasks=CORES, **SNAPSHOT),
                CLASSIC),
     "mesh": (PIPELINE_N, {}, MESH),
+    "ooc_mesh": (PIPELINE_N, dict(ooc="on"), OOC),
 }
-# paths over a mesh of the one card: name -> (decomposition, mesh shape)
-MESH_PATHS = {"mesh": ("pencil", (2, 2))}
+# paths over a mesh of the one card: name -> (decomposition, mesh shape);
+# the out-of-core engine shards its ledger over the mesh's devices in flat
+# order whatever the decomposition
+MESH_PATHS = {"mesh": ("pencil", (2, 2)), "ooc_mesh": ("slab", (4,))}
 # the fmax phase alone over other meshes of the card: name ->
 # (decomposition, mesh shape, switches, launch set, grid size); the slab and
 # volumes meshes run at 128^3 to keep the whole run inside its time budget
 MESH_FMAX = {"mesh_slab4": ("slab", (4,), {}, MESH, 128),
              "mesh_volume222": ("volumes", (2, 2, 2), {}, MESH, 128),
              "mesh_scaledep": ("pencil", (2, 2), FR, MESH_FR, PIPELINE_N)}
+# the out-of-core fmax phase alone at PIPELINE_N over shards of the card,
+# held to the single-device engine: name -> (shards, switches, launch set);
+# 3 shards split the 129 kz planes 43 / 43 / 43 and the 16 x-slabs 6 / 5 / 5
+OOC_MESH_FMAX = {
+    "ooc_mesh_bicubic3": (3, TAB, ooc_tab("bicubic")),
+    "ooc_mesh_bicubic4": (4, TAB, ooc_tab("bicubic")),
+    "ooc_mesh_scaledep3": (3, FR, OOC_FR),
+    "ooc_mesh_scaledep4": (4, FR, OOC_FR)}
+# shards of the card for the fmax phase at BIG_N
+OOC_MESH_BIG = 4
 # card-vs-CPU checks: path -> (grid size, switches over the path's); the
 # plc path's cone stops at z 0.1, as a deeper one fills the crossing buffer
 # (4 Nmax) of a 64 Mpc/h box
@@ -536,7 +580,7 @@ def kernel_phases(N, dev, report):
     # ---- the out-of-core engine's kernels at the shapes of its path: a kz
     # batch of planes, an x-slab ----
     B = min(fmax_ooc.KZ_BATCH, Nh)
-    Bx = fmax_ooc.divisor_batch(N, fmax_ooc.X_SLAB)
+    Bx = fmax_ooc.slab_width(N)
     gen = ic.PlaneGenerator(grid, cosmo, p.RandomSeed, dev)
     planes = gen(0, B)
     ref = ic.kdensity_planes_plain(N, gen.logk, gen.logpk, gen.keys, 0, B,
@@ -988,9 +1032,16 @@ def run_path(dev, name):
         if name == "scaledep":
             KEPT["scaledep"] = (res["fmax"].products.Fmax.cpu().numpy(),
                                 sv.copy())
+        if name == "ooc":
+            KEPT["ooc"] = (res["fmax"].products.Fmax.cpu().numpy(), sv.copy(),
+                           res["fmax"].host_products, res["frag"].catalogs)
         if p.subbox_tasks > 1:
             subbox_checks(dev, p, res, host)
-        if mesh is not None:
+        if mesh is not None and res["plan"]["use_ooc"]:
+            KEPT["ooc_mesh_path"] = dict(wall_s=wall, peak_gib=peak / GiB,
+                                         planner_gib=pred / GiB)
+            ooc_mesh_checks(dev, p, res)
+        elif mesh is not None:
             KEPT["mesh_peak"] = (peak, pred)
             mesh_checks(dev, p, res)
     print(f"  launches on the {name} path: "
@@ -1150,6 +1201,58 @@ def mesh_fmax_phase(dev, name):
     del res, sp
     torch.cuda.empty_cache()
     return launches
+
+
+def mesh_c2r_ulps(dev):
+    """One radius's 6 Hessian components (R = 2 cells) taken to real space
+    at 128^3 and PIPELINE_N three ways: one device's c2r (grids.irfft3: a
+    2-D ifft over x and y, then the irfft over z), the same with the 2-D
+    ifft as two 1-D iffts (the mesh's sequence), and the distributed c2r
+    over a slab 4 and a volumes 2x2x2 mesh of the card; each pair's share
+    of bit-equal cells, its largest difference in ulps (where the value is
+    above 1e-3 of the maximum) and over the maximum.  Returns them."""
+    import torch
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid, irfft3, irfft_z
+    from pinocchio_tpu_torch.ic import generate_kdensity
+    from pinocchio_tpu_torch.ops import derivatives
+    from pinocchio_tpu_torch.parallel import pfft
+
+    def ulps(a, b):
+        # ulps where |b| is above 1e-3 of its maximum (near zero a sign
+        # change is billions of ulps), on the card
+        d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+        big = b.abs() > 1e-3 * b.abs().max()
+        return dict(equal=float((d == 0).double().mean()),
+                    max_ulps=int(d[big].max()),
+                    max_rel=float((a - b).abs().max() / b.abs().max()))
+
+    out = {}
+    for N in (128, PIPELINE_N):
+        p = params_for(N)
+        full = generate_kdensity(Grid(N, p.BoxSize_htrue), Cosmology(p),
+                                 p.RandomSeed, dev)
+        hk = derivatives.hessian_kspace(full, 2.0, N)
+        del full
+        one = irfft3(hk, N)
+        seq = irfft_z(torch.fft.ifft(torch.fft.ifft(hk, dim=-3), dim=-2), N)
+        res = {"one_vs_two_1d": ulps(one, seq)}
+        for kind, shape in (("slab", (4,)), ("volumes", (2, 2, 2))):
+            decomp = pfft.make_decomp(card_mesh(dev, kind, shape), N)
+            real = torch.from_numpy(decomp.gather(decomp.inv(
+                decomp.scatter(hk, kspace=True)))).to(dev)
+            res[f"{kind}_vs_one"] = ulps(real, one)
+            res[f"{kind}_vs_two_1d"] = ulps(real, seq)
+            del real
+        del hk, one, seq
+        torch.cuda.empty_cache()
+        print(f"  [{N}^3] c2r of 6 Hessian components, share of bit-equal "
+              "cells and largest difference: " + "; ".join(
+                  f"{k} {100 * v['equal']:.3f}% ({v['max_ulps']} ulps, "
+                  f"{v['max_rel']:.1e} of the maximum)"
+                  for k, v in res.items()), flush=True)
+        out[N] = res
+    return out
 
 
 def mesh_transposes(dev):
@@ -2011,10 +2114,14 @@ def hosts_reference_check(dev):
 
 
 def _phase_table(peaks, predicted):
-    """Lines of each phase's measured peak beside the planner's."""
+    """Lines of each phase's measured peak beside the planner's (the
+    out-of-core mesh's needed phase beside the larger of the planner's
+    sort and hand-off)."""
     lines = []
     for ph, meas in peaks.items():
-        pred = sum(predicted[ph].values()) if ph in predicted else None
+        qs = [q for q in (ph, "hand-off" if ph == "needed sort" else None)
+              if q in predicted]
+        pred = max(sum(predicted[q].values()) for q in qs) if qs else None
         lines.append(f"    {ph:<12s} measured {meas / GiB:8.3f} GiB, planner "
                      + ("-" if pred is None else
                         f"{pred / GiB:8.3f} GiB (measured/predicted "
@@ -2051,8 +2158,8 @@ def scaledep_gm_for(p, cosmo):
 
 
 def ooc_dense_check(dev, name):
-    """The out-of-core engine against the dense engine at OOC_CHECK_N with
-    the switches OOC_CHECKS[name], the dense one fed the delta assembled
+    """The out-of-core engine against the dense engine at the grid size
+    and switches of OOC_CHECKS[name], the dense one fed the delta assembled
     from the engine's kz planes: Fmax equal on >= 99.99 % of cells,
     variances within rtol 1e-4, the same needed cells in the same order, the
     rows of every displacement set within float32 round-off (1e-5 of the
@@ -2067,8 +2174,8 @@ def ooc_dense_check(dev, name):
     from pinocchio_tpu_torch.ic import PlaneGenerator
     from pinocchio_tpu_torch.plc import build_plc_geometry
 
-    N = OOC_CHECK_N
-    p = params_for(N, **OOC_CHECKS[name])
+    N, kw = OOC_CHECKS[name]
+    p = params_for(N, **kw)
     cosmo = Cosmology(p)
     gm = scaledep_gm_for(p, cosmo)
     torch.cuda.synchronize()
@@ -2196,13 +2303,26 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
-                                verbose=N >= BIG_N, trace_memory=True)
+    with HostPeak() as host:
+        res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
+                                    verbose=N >= BIG_N, trace_memory=True)
     wall = time.perf_counter() - t0
     peaks = ooc_peaks(res)
     peak = max(peaks.values())
     sp = res.host_products
     count = len(sp.ci)
+    if N == BIG_N and not kw:
+        # what the mesh phase at BIG_N is held to
+        t0 = time.perf_counter()
+        KEPT["big_classic"] = dict(
+            count=count, digest=digest(sp.ci, sp.F), wall_s=wall,
+            peak_gib=peak / GiB, handoff_s=res.timings["handoff"],
+            host_gib=(host.peak - host.base) / GiB, timings=res.timings)
+        print(f"  (ci, F) digest {KEPT['big_classic']['digest'][:16]} in "
+              f"{time.perf_counter() - t0:.2f} s; hand-off (d2h of the "
+              f"products) {res.timings['handoff']:.3f} s; host peak "
+              f"{(host.peak - host.base) / GiB:.2f} GiB above the start",
+              flush=True)
     print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall"
           + (f" (set_scaledep_gm {t_gm:.2f} s before it)" if gm else "")
           + "; phases: "
@@ -2264,14 +2384,246 @@ def big_refusal(dev):
     need(grew == 0, "the refused run allocated device memory")
 
 
+def digest(*arrays):
+    """SHA-256 of the arrays' bytes: 64 MiB pieces hashed on a thread pool
+    (hashlib releases the interpreter lock), then their digests in
+    order."""
+    import hashlib
+
+    import numpy as np
+    size = 64 << 20
+    pieces = []
+    for a in arrays:
+        b = memoryview(np.ascontiguousarray(a)).cast("B")
+        pieces += [b[i:i + size] for i in range(0, len(b), size)]
+    with ThreadPoolExecutor(max_workers=CORES) as ex:
+        hs = list(ex.map(lambda m: hashlib.sha256(m).digest(), pieces))
+    return hashlib.sha256(b"".join(hs)).hexdigest()
+
+
+def ooc_held_to_one_device(what, got, want):
+    """An out-of-core mesh run's Fmax, variances, needed cells, F and rows
+    (got, want: (Fmax host array, variances, SparseProducts)) against the
+    single-device engine's: bit for bit, or within the JAX package's own
+    mesh tolerance (tests/test_ooc.py:395-423: |dF| > 0.01 on fewer than
+    0.1 % of cells, median |dF| < 1e-4, variances within rtol 1e-4, the
+    needed sets differing on at most max(4, 0.1 %) cells, the rows of the
+    common cells within rtol = atol = 3e-3).  Returns whether every array
+    was bit-equal."""
+    import numpy as np
+    (F, sv, sp), (F1, sv1, sp1) = got, want
+    sets, sets1 = sp.segments or [sp.vel], sp1.segments or [sp1.vel]
+    same = dict(Fmax=np.array_equal(F, F1), variances=np.array_equal(sv, sv1),
+                cells=np.array_equal(sp.ci, sp1.ci),
+                F=np.array_equal(sp.F, sp1.F),
+                rows=len(sets) == len(sets1) and all(
+                    np.array_equal(a[k], b[k])
+                    for a, b in zip(sets, sets1) for k in b))
+    exact = all(same.values())
+    d = np.abs(F - F1)
+    rv = float(np.abs(sv / sv1 - 1.0).max())
+    nx = len(np.setxor1d(sp.ci, sp1.ci)) if not same["cells"] else 0
+    print(f"  {what}: bit-equal to one device: {same}; Fmax equal on "
+          f"{100 * float(np.mean(d == 0)):.4f}% of cells, max |dF| "
+          f"{float(d.max()):.3e}, variances rel err {rv:.2e}, needed "
+          f"{len(sp.ci)} / {len(sp1.ci)}, {nx} cells in one set only",
+          flush=True)
+    if exact:
+        return True
+    need((d > 0.01).mean() < 1e-3 and np.median(d) < 1e-4 and rv <= 1e-4
+         and nx <= max(4, 1e-3 * len(sp1.ci)) and len(sets) == len(sets1),
+         f"{what}: Fmax, variances or the needed set differ from one "
+         "device beyond the JAX mesh tolerance")
+    _, ia, ib = np.intersect1d(sp.ci, sp1.ci, return_indices=True)
+    for s, (a, b) in enumerate(zip(sets, sets1)):
+        for k in b:
+            need(np.allclose(a[k][ia], b[k][ib], rtol=3e-3, atol=3e-3),
+                 f"{what}: rows {k} of set {s} differ from one device")
+    return False
+
+
+def ooc_mesh_checks(dev, p, res):
+    """The ooc_mesh path's run ``res`` against the ooc path's (run first if
+    this process has not): the products by ooc_held_to_one_device; the
+    catalogs identical when the products are, else the halo counts per
+    output within the JAX package's tolerance max(10, 6 sqrt(n) + 5 %)."""
+    import numpy as np
+    if "ooc" not in KEPT:
+        run_path(dev, "ooc")
+    F1, sv1, sp1, cats = KEPT["ooc"]
+    fr = res["fmax"]
+    exact = ooc_held_to_one_device(
+        "ooc_mesh", (fr.products.gather()[0], fr.smoothing.true_variance,
+                     fr.host_products), (F1, sv1, sp1))
+    for got, want in zip(res["frag"].catalogs, cats):
+        ng = int((got.mass >= p.MinHaloMass).sum())
+        nw = int((want.mass >= p.MinHaloMass).sum())
+        same = all(np.array_equal(getattr(got, k), getattr(want, k))
+                   for k in ("name", "mass", "q", "x", "v"))
+        print(f"  ooc_mesh z={got.z:g}: {ng} halos, ooc path {nw}; "
+              f"catalog identical: {same}", flush=True)
+        need(nw > 0 and (same if exact else
+                         abs(ng - nw) <= max(10, 6 * nw ** 0.5 + 0.05 * nw)),
+             f"ooc_mesh: the catalog at z={got.z} differs from the ooc path")
+    KEPT["ooc_mesh_path"]["bit_equal"] = exact
+
+
+def ooc_mesh_fmax_phase(dev, name):
+    """The out-of-core fmax phase alone at PIPELINE_N over the shards of
+    OOC_MESH_FMAX[name] on the card, with the launch counts set to 0 just
+    before it: its wall, phases and peaks beside the planner's per-device
+    map, held to the single-device engine's run of the same switches (run
+    once per model) by ooc_held_to_one_device, with its launch set and one
+    displacement set per output under RECOMPUTE.  Returns the launches."""
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    shards, kw, own = OOC_MESH_FMAX[name]
+    p = params_for(PIPELINE_N, ooc="on", **kw)
+    cosmo = Cosmology(p)
+    gm = scaledep_gm_for(p, cosmo)
+    ones = KEPT.setdefault("ooc_one", {})
+    model = name.rstrip("0123456789")
+    if model not in ones:
+        t0 = time.perf_counter()
+        one = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm)
+        ones[model] = ((one.products.Fmax.cpu().numpy(),
+                        one.smoothing.true_variance, one.host_products),
+                       time.perf_counter() - t0, one.timings["handoff"])
+        del one
+    ref, wall1, handoff1 = ones[model]
+    mesh = card_mesh(dev, "slab", (shards,))
+    rep = planner.plan(p, dev, cosmo, shards=shards)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm, mesh=mesh,
+                                trace_memory=True)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peaks = ooc_peaks(res)
+    print(f"  {name}: {shards} shards of the card, fmax {wall:.2f} s wall "
+          f"(one device {wall1:.2f} s), hand-off {res.timings['handoff']:.3f}"
+          f" s (one device {handoff1:.3f} s); phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items())
+          + f"\n  peak {max(peaks.values()) / GiB:.3f} GiB, planner "
+          f"{rep['ooc']['peak'] / GiB:.3f} GiB ({rep['ooc']['phase']}):\n"
+          + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
+    sp = res.host_products
+    exact = ooc_held_to_one_device(
+        name, (res.products.gather()[0], res.smoothing.true_variance, sp),
+        ref)
+    nsets = len(sp.segments) if sp.segments else 1
+    need(nsets == (len(OUTPUT_Z) if p.recompute_displacements else 1),
+         f"{name}: {nsets} displacement sets")
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    missing = sorted(k for k in own if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in own)
+    need(not missing and not stray, f"{name}: not launched {missing}, "
+         f"launched from another path {stray}")
+    KEPT.setdefault("ooc_mesh_fmax", {})[name] = dict(
+        wall_s=wall, one_device_wall_s=wall1, bit_equal=exact,
+        peak_gib=max(peaks.values()) / GiB,
+        planner_gib=rep["ooc"]["peak"] / GiB, timings=res.timings)
+    del res, sp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ooc_mesh_big(dev):
+    """The fmax phase at BIG_N, classic, under ooc='auto' over OOC_MESH_BIG
+    shards of the card: the planner's per-device map must choose the
+    out-of-core engine; the needed count and a digest of (ci, F) equal the
+    single-device run's (ooc_fmax_phase at BIG_N, run first if this process
+    has not); each phase's time and peak beside the planner's, the
+    hand-off's seconds beside the single device's and the host peak beside
+    the planner's host estimate of the products; the launch set OOC."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    if "big_classic" not in KEPT:
+        ooc_fmax_phase(dev, BIG_N, "auto", {}, OOC)
+    one = KEPT["big_classic"]
+    p = params_for(BIG_N, ooc="auto")
+    cosmo = Cosmology(p)
+    rep = planner.plan(p, dev, cosmo, shards=OOC_MESH_BIG)
+    print(planner.format_memory_map(rep), flush=True)
+    need(rep["use_ooc"], f"the planner chose the {rep['engine']} engine at "
+         f"{BIG_N}^3 over {OOC_MESH_BIG} shards")
+    host_fmax = sum(rep["host"]["phases"]["fmax"].values())
+    mesh = card_mesh(dev, "slab", (OOC_MESH_BIG,))
+    card = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, verbose=True,
+                                    trace_memory=True)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peaks = ooc_peaks(res)
+    peak = max(peaks.values())
+    sp = res.host_products
+    count = len(sp.ci)
+    t0 = time.perf_counter()
+    dig = digest(sp.ci, sp.F)
+    t_dig = time.perf_counter() - t0
+    grew = host.peak - host.base
+    print(f"  {BIG_N}^3 out-of-core fmax over {OOC_MESH_BIG} shards: "
+          f"{wall:.2f} s wall (one device {one['wall_s']:.2f} s); phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
+          flush=True)
+    print(f"  peak device memory {peak / GiB:.3f} GiB of the card's "
+          f"{card / GiB:.2f} GiB (one device {one['peak_gib']:.3f} GiB); "
+          f"planner {rep['device_bytes'] / GiB:.3f} GiB:\n"
+          + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
+    print(f"  hand-off (merge on the card and d2h) {res.timings['handoff']:.3f}"
+          f" s, one device (d2h) {one['handoff_s']:.3f} s; host peak "
+          f"{grew / GiB:.2f} GiB above the start (one device "
+          f"{one['host_gib']:.2f} GiB), planner's products "
+          f"{host_fmax / GiB:.2f} GiB", flush=True)
+    print(f"  needed cells {count} (one device {one['count']}); (ci, F) "
+          f"digest {dig[:16]} (one device {one['digest'][:16]}, {t_dig:.2f}"
+          " s)", flush=True)
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    need(count == one["count"] and dig == one["digest"],
+         f"the {BIG_N}^3 mesh's needed cells or their F differ from one "
+         "device's")
+    need(peak < card, "the out-of-core mesh's peak exceeds the card's memory")
+    sv = res.smoothing.true_variance
+    need(np.all(np.isfinite(sv)) and sv[-1] > 0, "non-finite grid variance")
+    need(all(np.all(np.isfinite(v[::997])) for v in sp.vel.values()),
+         "non-finite products")
+    missing = sorted(k for k in OOC if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in OOC)
+    need(not missing and not stray, f"kernels of the {BIG_N}^3 mesh: not "
+         f"launched {missing}, launched from another path {stray}")
+    KEPT["ooc_mesh_big"] = dict(
+        wall_s=wall, peak_gib=peak / GiB, planner_gib=rep["device_bytes"]
+        / GiB, handoff_s=res.timings["handoff"], host_gib=grew / GiB,
+        one_device=dict((k, v) for k, v in one.items() if k != "timings"),
+        count=count, timings=res.timings)
+    del res, sp
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, "
                     "density_field, a path's name, mesh_fmax, "
-                    "hosts_exchange, hosts, modes, subbox_turns, "
-                    "reference:<path>, ooc_dense:<name>, ooc_fmax, big, "
+                    "mesh_c2r, ooc_mesh_fmax or one of its names, "
+                    "hosts_exchange, "
+                    "hosts, modes, subbox_turns, reference:<path>, "
+                    "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
                     "refusal); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
@@ -2349,10 +2701,18 @@ def main(argv=None) -> int:
                     f"{PIPELINE_N}^3:")
             mesh_report = dict(transposes=mesh_transposes(dev),
                                fmax=KEPT["mesh_fmax"])
+        if wanted("mesh_fmax") or wanted("mesh_c2r"):
+            section("the distributed c2r against one device's, in ulps:")
+            mesh_report["c2r_ulps"] = mesh_c2r_ulps(dev)
             if "mesh_peak" in KEPT:
                 mesh_report["mesh_path_peak_gib"] = KEPT["mesh_peak"][0] / GiB
                 mesh_report["mesh_path_planner_gib"] = (KEPT["mesh_peak"][1]
                                                         / GiB)
+        for name in OOC_MESH_FMAX:
+            if wanted("ooc_mesh_fmax") or wanted(name):
+                section(f"out-of-core fmax over {OOC_MESH_FMAX[name][0]} "
+                        f"shards of the card at {PIPELINE_N}^3 ({name}):")
+                paths[name] = ooc_mesh_fmax_phase(dev, name)
         if wanted("hosts_exchange"):
             section(f"the exchange over a 2x2 pencil mesh of the card at "
                     f"{PIPELINE_N}^3, mocked hosts:")
@@ -2378,16 +2738,21 @@ def main(argv=None) -> int:
                     reference_check(dev, path)
         for name in OOC_CHECKS:
             if wanted(f"ooc_dense:{name}"):
-                section(f"out-of-core against dense at {OOC_CHECK_N}^3, "
+                section(f"out-of-core against dense at "
+                        f"{OOC_CHECKS[name][0]}^3, "
                         f"{name}:")
                 ooc_dense_check(dev, name)
         if wanted("ooc_fmax"):
             section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
             ooc_fmax_phase(dev, OOC_N, "on", {}, OOC)
         if wanted("big"):
-            for name, (kw, own) in BIG.items():
-                section(f"fmax phase at {BIG_N}^3 under ooc='auto', {name}:")
-                ooc_fmax_phase(dev, BIG_N, "auto", kw, own)
+            for name, (bN, ooc, kw, own) in BIG.items():
+                section(f"fmax phase at {bN}^3 under ooc={ooc!r}, {name}:")
+                ooc_fmax_phase(dev, bN, ooc, kw, own)
+        if wanted("ooc_mesh_big"):
+            section(f"fmax phase at {BIG_N}^3 under ooc='auto' over "
+                    f"{OOC_MESH_BIG} shards of the card, classic:")
+            paths["ooc_mesh_big"] = ooc_mesh_big(dev)
         if wanted("refusal"):
             section(f"the planner at {BIG_N}^3 with f(R) growth and "
                     "RECOMPUTE:")
@@ -2442,6 +2807,9 @@ def main(argv=None) -> int:
                     library_ms_512=dfs[max(KERNEL_SIZES)]["library_ms"])]
     print(json.dumps({"kernels": rows, "library": library, "card": card,
                       "mesh": mesh_report,
+                      "ooc_mesh": dict(path=KEPT.get("ooc_mesh_path"),
+                                       fmax=KEPT.get("ooc_mesh_fmax"),
+                                       big=KEPT.get("ooc_mesh_big")),
                       "hosts": dict(path=KEPT.get("hosts_path"),
                                     exchange=KEPT.get("hosts_exchange"))}),
           flush=True)

@@ -1,6 +1,7 @@
 """Out-of-core fmax engine: collapse times and 3LPT displacements for grids
-whose dense engine does not fit the card (counterpart of
-pinocchio_tpu/fmax_ooc.py, one device, float32 storage).
+whose dense engine does not fit the card, on one device or with its ledger
+sharded over the devices of a mesh (counterpart of
+pinocchio_tpu/fmax_ooc.py, float32 storage).
 
 The idea is the JAX engine's.  A field f(x, y, z) is kept only as its half
 transform
@@ -41,6 +42,30 @@ realization).
             position in the field's [count, 3] rows buffer); one copy of
             that buffer into pinned host memory before the next field
 
+Over a mesh (the JAX engine's OocEngine(mesh=), whose ledger GSPMD shards
+over a 1-D mesh whatever the decomposition) the devices of the mesh, in
+its flat order, are the shards, one OocEngine each.  Shard i owns a
+contiguous window of the Nh kz planes (Nh // p planes, one more for the
+first Nh % p shards: the port splits unevenly where JAX pads to Nhp) with
+its own kz batches, so its stacks [ncomp, N, N, nkz_i] and spectra
+[N, N, nkz_i] live on its device and every K9/K10/K14 launch takes the
+global plane index; and a contiguous block of whole x-slabs, which holds its
+Fmax and real source fields.  An x-slab gathers its kz pieces from every
+shard onto its owner (.to(owner) + torch.cat, the copy that pfft.all_to_all
+makes) for the irfft and K11/K13, K4 or K12 there; a spectrum goes the
+other way, the rfft over z on the slab's owner and its kz pieces copied to
+their owners before the fft2 per kz batch.  The per-slab statistics are
+summed in global slab order, so the grid variances do not depend on the
+mesh.  Each shard sorts its own block (N^3/p keys) and writes its rows with
+K12 into a buffer of its own; the hand-off merges them into the sweep's
+order without a host sort: each shard's cells are already in (-F, cell)
+order, so a cell's merged position is its rank in its shard plus, for every
+other shard, the count of that shard's cells before it (torch.searchsorted
+on the int64 (F, cell) keys of parallel.driver.merge_key); the rows then
+land on the first shard's device in chunks of LAND_ROWS positions, each
+chunk copied once into the final page-locked host array.  Every launch of a
+shard runs under kernels.on_device(its device).
+
 The products are the dense engine's: a SparseProducts sorted by F, with one
 row set per output redshift under RECOMPUTE_DISPLACEMENTS, so the
 fragmentation driver takes them unchanged.
@@ -77,6 +102,7 @@ PAIRS = derivatives.SECOND_DERIV_PAIRS
 KZ_BATCH = 16           # kz planes per batch
 X_SLAB = 16             # largest x-slab width (a divisor of N is taken)
 LPT_KEYS = ("v1", "v2", "v31", "v32")
+LAND_ROWS = 1 << 24     # merged positions per landing chunk of a mesh run
 
 
 def kz_schedule(n: int, target: int):
@@ -89,9 +115,22 @@ def kz_schedule(n: int, target: int):
     return sched
 
 
-def divisor_batch(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target."""
-    return max(b for b in range(1, min(n, target) + 1) if n % b == 0)
+def split(n: int, p: int) -> list:
+    """(start, length) of p contiguous parts of range(n): n // p each, one
+    more for the first n % p."""
+    out, a = [], 0
+    for i in range(p):
+        m = n // p + (i < n % p)
+        out.append((a, m))
+        a += m
+    return out
+
+
+def slab_width(N: int, shards: int = 1) -> int:
+    """The default x-slab width of a run over ``shards`` shards: the largest
+    divisor of N up to X_SLAB that leaves every shard a slab."""
+    return max(b for b in range(1, min(N, X_SLAB) + 1)
+               if N % b == 0 and N // b >= shards)
 
 
 def check_ooc_supported(params: Params) -> None:
@@ -109,146 +148,360 @@ def check_ooc_supported(params: Params) -> None:
 
 
 class OocEngine:
-    """The half-transform machinery of one out-of-core run on ``device``:
-    kz batches, x-slabs and the forward transforms."""
+    """The half-transform machinery of the kz planes k0..k0+nkz-1 (every
+    plane by default) on ``device``: kz batches and the stacks they fill.
+    One device's run has one; a mesh run one per shard (OocMesh).
+    planes: the device's PlaneGenerator, when one exists already."""
 
-    def __init__(self, params: Params, cosmo: Cosmology, device):
+    def __init__(self, params: Params, cosmo: Cosmology, device,
+                 kz_window: tuple = None, planes: PlaneGenerator = None):
         self.grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
         self.N = N = self.grid.N
         self.Nh = N // 2 + 1
         self.dev = torch.device(device)
-        self.kz_sched = kz_schedule(self.Nh,
-                                    params.ooc_kz_batch or KZ_BATCH)
-        self.Bx = params.ooc_z_batch or divisor_batch(N, X_SLAB)
-        if N % self.Bx:
-            raise ValueError(f"ooc_z_batch={self.Bx} must divide GridSize "
-                             f"{N}")
-        self.planes = PlaneGenerator(self.grid, cosmo, params.RandomSeed,
-                                     self.dev, fixed=params.FixedIC,
-                                     paired=params.PairedIC)
+        self.k0, self.nkz = kz_window or (0, self.Nh)
+        self.kz_sched = [(self.k0 + a, B) for a, B in kz_schedule(
+            self.nkz, params.ooc_kz_batch or KZ_BATCH)]
+        self.planes = planes or PlaneGenerator(
+            self.grid, cosmo, params.RandomSeed, self.dev,
+            fixed=params.FixedIC, paired=params.PairedIC)
 
     def stack(self, ncomp: int):
-        """An uninitialized [ncomp, N, N, Nh] complex64 half-transform
-        stack."""
-        return torch.empty((ncomp, self.N, self.N, self.Nh),
+        """An uninitialized [ncomp, N, N, nkz] complex64 half-transform
+        stack of this engine's planes."""
+        return torch.empty((ncomp, self.N, self.N, self.nkz),
                            dtype=torch.complex64, device=self.dev)
 
     def spec_batch(self, spec, kz0: int, B: int):
-        """Planes kz0..kz0+B-1 of a [N, N, Nh] spectrum as a [B, N, N]
-        view."""
-        return spec[:, :, kz0:kz0 + B].permute(2, 0, 1)
+        """Global planes kz0..kz0+B-1 of this engine's [N, N, nkz] spectrum
+        as a [B, N, N] view."""
+        a = kz0 - self.k0
+        return spec[:, :, a:a + B].permute(2, 0, 1)
 
     def build(self, stack, factors):
         """Fill ``stack`` with the half transforms of factors(kz0, B), the
-        [ncomp, B, N, N] k-space batch of each kz batch."""
-        for kz0, B in self.kz_sched:
-            w = torch.fft.ifft2(factors(kz0, B), dim=(-2, -1))
-            stack[..., kz0:kz0 + B].copy_(w.permute(0, 2, 3, 1))
-            del w
-        # what the 1-D irfft discards (grids.irfft3)
-        stack[..., 0].imag.zero_()
-        if self.N % 2 == 0:
-            stack[..., self.N // 2].imag.zero_()
+        [ncomp, B, N, N] k-space batch of each kz batch (kz0 global)."""
+        with kernels.on_device(self.dev):
+            for kz0, B in self.kz_sched:
+                w = torch.fft.ifft2(factors(kz0, B), dim=(-2, -1))
+                stack[..., kz0 - self.k0:kz0 - self.k0 + B].copy_(
+                    w.permute(0, 2, 3, 1))
+                del w
+            # what the 1-D irfft discards (grids.irfft3), on the planes'
+            # owner
+            for kz in (0, self.N // 2) if self.N % 2 == 0 else (0,):
+                if self.k0 <= kz < self.k0 + self.nkz:
+                    stack[..., kz - self.k0].imag.zero_()
         return stack
 
-    def slabs(self, stack):
-        """(x0, real slab [ncomp, Bx, N, N]) of every x-slab of a stack."""
-        for x0 in range(0, self.N, self.Bx):
-            yield x0, torch.fft.irfft(stack[:, x0:x0 + self.Bx], n=self.N,
-                                      dim=-1).contiguous()
 
-    def to_spec(self, field):
-        """A real [N, N, N] field's rfftn spectrum [N, N, Nh]: rfft over z
-        per x-slab, then fft2 over (x, y) per kz batch, in place."""
-        spec = torch.empty((self.N, self.N, self.Nh), dtype=torch.complex64,
-                           device=self.dev)
-        for x0 in range(0, self.N, self.Bx):
-            spec[x0:x0 + self.Bx] = torch.fft.rfft(field[x0:x0 + self.Bx],
-                                                   dim=-1)
-        for kz0, B in self.kz_sched:
-            sl = spec[:, :, kz0:kz0 + B]
-            sl.copy_(torch.fft.fft2(sl, dim=(0, 1)))
+class OocMesh:
+    """The shards of one out-of-core run: one OocEngine per device of
+    ``mesh`` (its flat order, any decomposition), or one on ``device``
+    without a mesh; the x-slabs and their owners, the gathered slabs, the
+    forward transforms and the hand-off's merge (module docstring)."""
+
+    def __init__(self, params: Params, cosmo: Cosmology, device, mesh=None):
+        devices = ([torch.device(device)] if mesh is None
+                   else [torch.device(d) for d in mesh.device_list()])
+        self.devices, self.p = devices, len(devices)
+        self.dev = devices[0]               # where the hand-off lands
+        self.grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
+        self.N = N = self.grid.N
+        Nh = N // 2 + 1
+        if self.p > Nh:
+            raise ValueError(f"{self.p} shards for the {Nh} kz planes of "
+                             f"GridSize {N}")
+        gens = {}
+
+        def planes(dev):
+            if dev not in gens:
+                gens[dev] = PlaneGenerator(self.grid, cosmo,
+                                           params.RandomSeed, dev,
+                                           fixed=params.FixedIC,
+                                           paired=params.PairedIC)
+            return gens[dev]
+        self.shards = [OocEngine(params, cosmo, dev, kz_window=w,
+                                 planes=planes(dev))
+                       for dev, w in zip(devices, split(Nh, self.p))]
+        self.Bx = params.ooc_z_batch or slab_width(N, self.p)
+        if N % self.Bx or N // self.Bx < self.p:
+            raise ValueError(f"ooc_z_batch={self.Bx} must divide GridSize "
+                             f"{N} into at least {self.p} x-slabs")
+        # each shard's x-block (x0, nx): a run of whole slabs
+        self.x_blocks = [(a * self.Bx, m * self.Bx)
+                         for a, m in split(N // self.Bx, self.p)]
+        self.owner = [i for i, (_, nx) in enumerate(self.x_blocks)
+                      for _ in range(nx // self.Bx)]
+        # the hand-off's state (needed): row ranks, counts, merged positions
+        self.rank = self.counts = self.gpos = self.bounds = None
+        self.t_handoff = 0.0
+
+    def each(self, fn) -> list:
+        """[fn(i, shard) for every shard i], each under its device."""
+        out = []
+        for i, sh in enumerate(self.shards):
+            with kernels.on_device(sh.dev):
+                out.append(fn(i, sh))
+        return out
+
+    def per_device(self, fn) -> list:
+        """fn(device) once per distinct device, as a list over the
+        shards."""
+        done = {}
+        for d in self.devices:
+            if d not in done:
+                done[d] = fn(d)
+        return [done[d] for d in self.devices]
+
+    def blocks(self, fill=None) -> list:
+        """A float32 field [nx, N, N] of each shard's x-block, empty or
+        filled with ``fill``."""
+        def one(i, sh):
+            shape = (self.x_blocks[i][1], self.N, self.N)
+            if fill is None:
+                return torch.empty(shape, dtype=torch.float32, device=sh.dev)
+            return torch.full(shape, fill, dtype=torch.float32,
+                              device=sh.dev)
+        return self.each(one)
+
+    def stack(self, ncomp: int) -> list:
+        return [sh.stack(ncomp) for sh in self.shards]
+
+    def build(self, stacks: list, factors) -> list:
+        """Every shard's stack filled with the half transforms of
+        factors(i, kz0, B) (shard i, global planes kz0..kz0+B-1)."""
+        for i, (sh, st) in enumerate(zip(self.shards, stacks)):
+            sh.build(st, lambda kz0, B: factors(i, kz0, B))
+        return stacks
+
+    def planes(self, i: int, kz0: int, B: int):
+        """delta(k) of global planes kz0..kz0+B-1 on shard i's device."""
+        return self.shards[i].planes(kz0, B)
+
+    def spec_batch(self, spec: list, i: int, kz0: int, B: int):
+        """Global planes kz0..kz0+B-1 of shard i's piece of a spectrum."""
+        return self.shards[i].spec_batch(spec[i], kz0, B)
+
+    def slabs(self, stacks: list):
+        """(owner o, x0 within o's block, real slab [ncomp, Bx, N, N]) of
+        every x-slab in global order: its kz pieces gathered from every
+        shard onto o and transformed there; the consumer's loop body runs
+        under o's device."""
+        N, Bx = self.N, self.Bx
+        for x0 in range(0, N, Bx):
+            o = self.owner[x0 // Bx]
+            dev = self.devices[o]
+            with kernels.on_device(dev):
+                if self.p == 1:
+                    half = stacks[0][:, x0:x0 + Bx]
+                else:
+                    half = torch.cat([st[:, x0:x0 + Bx].to(dev)
+                                      for st in stacks], dim=-1)
+                real = torch.fft.irfft(half, n=N, dim=-1).contiguous()
+                del half
+                yield o, x0 - self.x_blocks[o][0], real
+                del real
+
+    def to_spec(self, fields: list) -> list:
+        """A real field's rfftn spectrum as each shard's [N, N, nkz] piece:
+        rfft over z per x-slab on its owner, the kz pieces copied to their
+        shards, then fft2 over (x, y) per kz batch, in place."""
+        N, Bx = self.N, self.Bx
+        spec = [torch.empty((N, N, sh.nkz), dtype=torch.complex64,
+                            device=sh.dev) for sh in self.shards]
+        for x0 in range(0, N, Bx):
+            o = self.owner[x0 // Bx]
+            lx = x0 - self.x_blocks[o][0]
+            with kernels.on_device(self.devices[o]):
+                r = torch.fft.rfft(fields[o][lx:lx + Bx], dim=-1)
+                for sh, s in zip(self.shards, spec):
+                    s[x0:x0 + Bx] = r[..., sh.k0:sh.k0 + sh.nkz]
+                del r
+        for sh, s in zip(self.shards, spec):
+            with kernels.on_device(sh.dev):
+                for kz0, B in sh.kz_sched:
+                    sl = s[:, :, kz0 - sh.k0:kz0 - sh.k0 + B]
+                    sl.copy_(torch.fft.fft2(sl, dim=(0, 1)))
         return spec
+
+    def gather(self, blocks: list) -> np.ndarray:
+        """A real field of x-blocks as one host array [N, N, N]."""
+        return np.concatenate([kernels.to_host(b).numpy() for b in blocks])
+
+    def needed(self, Fmax: list, Flast: float):
+        """The needed cells of every shard's block in the sweep's order
+        (compact.needed_order on each block: N^3/p keys per sort), the row
+        rank of each shard's cells (kept as ``rank``) and their merged
+        positions; returns the merged cell indices (int64) and F (float32)
+        as host arrays."""
+        N2 = self.N * self.N
+        ci, F, self.rank = [], [], []
+        for i, sh in enumerate(self.shards):
+            with kernels.on_device(sh.dev):
+                idx = compact.needed_order(Fmax[i], Flast)
+                F.append(Fmax[i].reshape(-1)[idx])
+                self.rank.append(compact.needed_rank(idx, Fmax[i].numel()))
+                ci.append(idx if self.p == 1
+                          else idx + self.x_blocks[i][0] * N2)
+                del idx
+        self.counts = [t.numel() for t in ci]
+        self.count = sum(self.counts)
+        if self.p > 1:
+            self._positions(ci, F)
+        return self.land(ci), self.land(F)
+
+    def _positions(self, ci: list, F: list) -> None:
+        """Each shard's merged positions (int32, ascending: a shard's cells
+        keep their order) and, per shard, the bounds of its cells in every
+        landing chunk."""
+        from .parallel.driver import merge_key
+        if self.N ** 3 > 2 ** 33:
+            raise ValueError("the hand-off's int64 (F, cell) keys hold cell "
+                             "indices up to 2^33 (GridSize <= 2048)")
+        t0 = time.perf_counter()
+        keys = [merge_key(f, c) for f, c in zip(F, ci)]
+        edges = list(range(0, self.count, LAND_ROWS)) + [self.count]
+        self.gpos, self.bounds = [], []
+        for i, sh in enumerate(self.shards):
+            with kernels.on_device(sh.dev):
+                pos = torch.arange(self.counts[i], dtype=torch.int64,
+                                   device=sh.dev)
+                for j, k in enumerate(keys):
+                    if j != i and self.counts[j] and self.counts[i]:
+                        pos += torch.searchsorted(k.to(sh.dev), keys[i])
+                self.gpos.append(pos.to(torch.int32))
+                del pos
+                self.bounds.append(torch.searchsorted(
+                    self.gpos[i], torch.tensor(edges, dtype=torch.int32,
+                                               device=sh.dev)).tolist())
+        del keys
+        self.t_handoff += time.perf_counter() - t0
+
+    def land(self, parts: list) -> np.ndarray:
+        """The shards' rows ``parts`` (each [count_i, ...] in its shard's
+        order) as one host array in the sweep's order: one device's buffer
+        copied to page-locked memory, or over a mesh each chunk of LAND_ROWS
+        merged positions assembled on the hand-off device (index_copy_ at
+        the positions) and copied into the final host array."""
+        t0 = time.perf_counter()
+        if self.p == 1:
+            out = kernels.to_host(parts[0]).numpy()
+            self.t_handoff += time.perf_counter() - t0
+            return out
+        tail = tuple(parts[0].shape[1:])
+        host = kernels.host_empty((self.count,) + tail, parts[0].dtype,
+                                  self.dev)
+        with kernels.on_device(self.dev):
+            buf = torch.empty((min(LAND_ROWS, self.count),) + tail,
+                              dtype=parts[0].dtype, device=self.dev)
+            for c, a in enumerate(range(0, self.count, LAND_ROWS)):
+                b = min(a + LAND_ROWS, self.count)
+                for i, part in enumerate(parts):
+                    lo, hi = self.bounds[i][c], self.bounds[i][c + 1]
+                    if hi > lo:
+                        pos = self.gpos[i][lo:hi].to(self.dev, torch.int64)
+                        buf.index_copy_(0, pos - a,
+                                        part[lo:hi].to(self.dev))
+                host[a:b].copy_(buf[:b - a])
+            del buf
+        self.t_handoff += time.perf_counter() - t0
+        return host.numpy()
 
 
 class _Phases:
-    """Wall time and, with trace_memory on a card, the peak device memory
-    of each phase (the peak counter is reset at each phase's start)."""
+    """Wall time and, with trace_memory on cards, the peak device memory of
+    each phase (the largest over the run's cards; the peak counters are
+    reset at each phase's start)."""
 
-    def __init__(self, device, trace_memory: bool):
-        self.dev = torch.device(device)
-        self.trace = trace_memory and self.dev.type == "cuda"
+    def __init__(self, devices, trace_memory: bool):
+        self.devs = list(dict.fromkeys(torch.device(d) for d in devices))
+        self.trace = trace_memory and self.devs[0].type == "cuda"
         self.timings: Dict[str, float] = {}
         self.peaks: Dict[str, int] = {}
         self._name = None
 
+    def _sync(self):
+        for d in self.devs:
+            _sync(d)
+
     def start(self, name: str):
         self.stop()
-        _sync(self.dev)
+        self._sync()
         if self.trace:
-            torch.cuda.reset_peak_memory_stats(self.dev)
+            for d in self.devs:
+                torch.cuda.reset_peak_memory_stats(d)
         self._name, self._t0 = name, time.perf_counter()
 
     def stop(self):
         if self._name is None:
             return
-        _sync(self.dev)
+        self._sync()
         self.timings[self._name] = time.perf_counter() - self._t0
         if self.trace:
-            self.peaks[self._name] = torch.cuda.max_memory_allocated(
-                self.dev)
+            self.peaks[self._name] = max(torch.cuda.max_memory_allocated(d)
+                                         for d in self.devs)
         self._name = None
 
 
 def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
                  scaledep_gm=None, verbose: bool = False,
-                 trace_memory: bool = False) -> FmaxResult:
-    """The out-of-core fmax run on ``device``: collapse cycle, 3LPT sources
-    and the displacement rows of the needed cells, with a device working
-    set of a few N^3 fields (module docstring).  scaledep_gm: the
-    per-radius effective growth of a scale-dependent cosmology
-    (scaledep.set_scaledep_gm), as for fmax.run_fmax.  trace_memory: on a
-    card, record each phase's peak device memory in the result's ``peaks``
-    (resetting the peak counter at each phase)."""
+                 trace_memory: bool = False, mesh=None) -> FmaxResult:
+    """The out-of-core fmax run on ``device``, or sharded over the devices
+    of ``mesh`` (parallel.pfft.Mesh; they replace ``device``): collapse
+    cycle, 3LPT sources and the displacement rows of the needed cells,
+    with a working set of a few N^3 fields over all devices (module
+    docstring).  scaledep_gm: the per-radius effective growth of a
+    scale-dependent cosmology (scaledep.set_scaledep_gm), as for
+    fmax.run_fmax.  trace_memory: on cards, record each phase's peak device
+    memory in the result's ``peaks`` (resetting the peak counters at each
+    phase).  Over a mesh ``products`` is a parallel.driver.ShardedProducts
+    of the shards' Fmax x-blocks (no Rmax)."""
     check_ooc_supported(params)
-    eng = OocEngine(params, cosmo, device)
-    N, Bx, dev = eng.N, eng.Bx, eng.dev
+    om = OocMesh(params, cosmo, device, mesh)
+    N, Bx = om.N, om.Bx
+    N2 = N * N
     nsl = N // Bx
     sm = Smoothing.build(params, cosmo)
     order = params.lpt_order
-    ph = _Phases(dev, trace_memory)
+    ph = _Phases(om.devices, trace_memory)
 
     # ---- collapse cycle ----
-    radii_grid = (sm.radii / eng.grid.CellSize).astype(np.float32)
+    radii_grid = (sm.radii / om.grid.CellSize).astype(np.float32)
     if params.ell_model != "classic":
         ph.start("ct_tables")
         ct = prepare_ct_tables(params, cosmo, sm, verbose=verbose)
-        ct_dev = load_jax_state(dict(dv=ct["dv"], idx_map=ct["idx_map"]), dev)
+        ct_dev = om.per_device(lambda dev: load_jax_state(
+            dict(dv=ct["dv"], idx_map=ct["idx_map"]), dev))
 
         def radius_update(ism):
-            # the radius's table pair on the device (2 MB), for its slabs
-            t = load_jax_state(dict(tables=ct["tables"][ism],
-                                    tables2=ct["tables2"][ism]), dev)
-            return lambda sd, F: collapse.collapse_update_slab_table(
-                sd, F, t["tables"], t["tables2"], ct_dev["dv"],
-                ct_dev["idx_map"], float(ct["ampl"][ism]), params.ct_interp)
+            # the radius's table pair on each device (2 MB), for its slabs
+            t = om.per_device(lambda dev: load_jax_state(
+                dict(tables=ct["tables"][ism], tables2=ct["tables2"][ism]),
+                dev))
+            return lambda o, sd, F: collapse.collapse_update_slab_table(
+                sd, F, t[o]["tables"], t[o]["tables2"], ct_dev[o]["dv"],
+                ct_dev[o]["idx_map"], float(ct["ampl"][ism]),
+                params.ct_interp)
     else:
         packs = inverse_growth_packs(cosmo, sm, scaledep_gm)
 
         def radius_update(ism):
-            return lambda sd, F: collapse.collapse_update_slab(sd, F,
-                                                               packs[ism])
+            return lambda o, sd, F: collapse.collapse_update_slab(
+                sd, F, packs[ism])
     ph.start("fmax_loop")
-    stack = eng.stack(6)
-    Fmax = torch.full((N, N, N), -10.0, dtype=torch.float32, device=dev)
+    stack = om.stack(6)
+    Fmax = om.blocks(fill=-10.0)
     stats = []
     for ism, R in enumerate(radii_grid):
-        eng.build(stack, lambda kz0, B: derivatives.ooc_hessian(
-            eng.planes(kz0, B), kz0, float(R), N))
+        om.build(stack, lambda i, kz0, B: derivatives.ooc_hessian(
+            om.planes(i, kz0, B), kz0, float(R), N))
         update = radius_update(ism)
-        s = torch.zeros(2, dtype=torch.float64, device=dev)
-        for x0, sd in eng.slabs(stack):
-            s += update(sd, Fmax[x0:x0 + Bx])
+        s = torch.zeros(2, dtype=torch.float64, device=om.dev)
+        # summed in global slab order on the first device: the variances
+        # do not depend on the mesh
+        for o, x, sd in om.slabs(stack):
+            s += update(o, sd, Fmax[o][x:x + Bx]).to(om.dev)
             del sd
         stats.append(s)
     # sums of slab means, normalized by the slab count
@@ -266,30 +519,29 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     if order >= 2:
         names = ("q2", "q31", "src32") if order >= 3 else ("q2",)
         for nm in names:
-            fields[nm] = torch.empty((N, N, N), dtype=torch.float32,
-                                     device=dev)
-        for x0, sd in eng.slabs(stack):
+            fields[nm] = om.blocks()
+        for o, x, sd in om.slabs(stack):
             for nm, src in zip(("q2", "q31", "src32"),
                                lpt.sources_pointwise(sd)):
                 if nm in fields:
-                    fields[nm][x0:x0 + Bx] = src
+                    fields[nm][o][x:x + Bx] = src
             del sd, src
     del stack
     specs = {}
     if order >= 2:
-        specs["v2"] = eng.to_spec(fields.pop("q2"))
+        specs["v2"] = om.to_spec(fields.pop("q2"))
 
     # ---- 3LPT-b: fold one Hessian component pair at a time ----
     if order >= 3:
         ph.start("fold")
         src32 = fields.pop("src32")
-        uu = eng.stack(2)
+        uu = om.stack(2)
         for c, (a, b) in enumerate(PAIRS):
-            eng.build(uu, lambda kz0, B: derivatives.ooc_pair(
-                eng.planes(kz0, B), eng.spec_batch(specs["v2"], kz0, B),
+            om.build(uu, lambda i, kz0, B: derivatives.ooc_pair(
+                om.planes(i, kz0, B), om.spec_batch(specs["v2"], i, kz0, B),
                 kz0, a, b, N))
-            for x0, u in eng.slabs(uu):
-                out = src32[x0:x0 + Bx]
+            for o, x, u in om.slabs(uu):
+                out = src32[o][x:x + Bx]
                 acc = lpt.src32_accumulate(u[1:2], u[0:1], out,
                                            weights=(lpt.PHI2_WEIGHTS[c],))
                 if acc is not out:          # the plain version's result
@@ -297,19 +549,16 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
                 del u, acc
         del uu
         ph.start("spectra")
-        specs["v31"] = eng.to_spec(fields.pop("q31"))
-        specs["v32"] = eng.to_spec(src32)
+        specs["v31"] = om.to_spec(fields.pop("q31"))
+        specs["v32"] = om.to_spec(src32)
         del src32
 
     # ---- the needed cells, their order and the FmaxPDF histogram ----
     ph.start("products")
-    idx = compact.needed_order(Fmax, params.Flast)
-    count = idx.numel()
-    hist = compact.pdf_hist(Fmax).cpu().numpy()
-    ci = kernels.to_host(idx)
-    F = kernels.to_host(Fmax.reshape(-1)[idx])
-    rank = compact.needed_rank(idx, N ** 3)
-    del idx
+    ci, F = om.needed(Fmax, params.Flast)
+    count = om.count
+    hist = sum(h.cpu().numpy() for h in om.each(
+        lambda i, sh: compact.pdf_hist(Fmax[i])))
 
     # ---- displacement rows: one set per output redshift under
     # RECOMPUTE_DISPLACEMENTS (stored at output_z[0]), else one at the last
@@ -318,55 +567,66 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     zs = (list(params.output_z) if params.recompute_displacements
           else [params.zlast])
     scaledep = bool(getattr(cosmo, "scale_dep", False))
-    u_v = eng.stack(3)
-    rows = torch.empty((count, 3), dtype=torch.float32, device=dev)
+    u_v = om.stack(3)
+    rows = om.each(lambda i, sh: torch.empty((om.counts[i], 3),
+                                             dtype=torch.float32,
+                                             device=sh.dev))
     sets = []
     for s, z in enumerate(zs):
         last = s == len(zs) - 1
         if scaledep:
-            gtabs, glo, gdx = growth_k_tables(cosmo, z, N, dev)
+            gk = om.per_device(lambda dev: growth_k_tables(cosmo, z, N, dev))
         else:
             growth = (cosmo.GrowingMode(z), cosmo.GrowingMode_2LPT(z),
                       cosmo.GrowingMode_3LPT_1(z),
                       cosmo.GrowingMode_3LPT_2(z))
         vel = {}
         for key in LPT_KEYS[:{1: 1, 2: 2, 3: 4}[order]]:
-            i = GROWTH_INDEX[key]
+            i_g = GROWTH_INDEX[key]
             spec = specs.pop(key, None) if last else specs.get(key)
 
-            def source(kz0, B):
+            def source(i, kz0, B):
                 if key == "v1":
-                    return eng.planes(kz0, B)
-                return eng.spec_batch(spec, kz0, B)
+                    return om.planes(i, kz0, B)
+                return om.spec_batch(spec, i, kz0, B)
 
             if scaledep:
-                eng.build(u_v, lambda kz0, B: derivatives.ooc_gradient_tab(
-                    source(kz0, B), kz0, gtabs[i], glo, gdx, N))
+                om.build(u_v, lambda i, kz0, B: derivatives.ooc_gradient_tab(
+                    source(i, kz0, B), kz0, gk[i][0][i_g], gk[i][1],
+                    gk[i][2], N))
             else:
-                g = float(growth[i])
-                eng.build(u_v, lambda kz0, B: derivatives.ooc_gradient(
-                    source(kz0, B), kz0, g, N))
+                g = float(growth[i_g])
+                om.build(u_v, lambda i, kz0, B: derivatives.ooc_gradient(
+                    source(i, kz0, B), kz0, g, N))
             del spec
-            for x0, v in eng.slabs(u_v):
-                compact.vrows_slab(rank[x0 * N * N:(x0 + Bx) * N * N],
-                                   v.reshape(3, -1), rows)
+            for o, x, v in om.slabs(u_v):
+                compact.vrows_slab(om.rank[o][x * N2:(x + Bx) * N2],
+                                   v.reshape(3, -1), rows[o])
                 del v
-            vel[key] = kernels.to_host(rows).numpy()
+            vel[key] = om.land(rows)
         sets.append(vel)
-    del u_v, rows, rank
+    del u_v, rows
+    om.rank = om.gpos = None
     ph.stop()
 
-    sp = SparseProducts(N=N, ci=ci.numpy(), F=F.numpy(), vel=sets[0],
-                        sorted_by="F",
+    sp = SparseProducts(N=N, ci=ci, F=F, vel=sets[0], sorted_by="F",
                         segments=sets if len(sets) > 1 else None)
     if verbose:
         print(f"  ooc products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%), {len(sets)} displacement "
-              f"set(s), x-slabs of {Bx}, kz batches of {eng.kz_sched[0][1]}")
+              f"set(s), x-slabs of {Bx}, kz batches of "
+              f"{om.shards[0].kz_sched[0][1]}"
+              + (f", {om.p} shards" if mesh is not None else ""))
     timings = dict(ph.timings)
     timings["lpt"] = sum(timings.get(k, 0.0) for k in ("sources", "fold",
                                                          "spectra",
                                                          "lpt_rows"))
-    return FmaxResult(products=Products(Fmax=Fmax, Rmax=None), smoothing=sm,
-                      grid=eng.grid, host_products=sp, pdf_hist=hist,
+    timings["handoff"] = om.t_handoff
+    if mesh is None:
+        products = Products(Fmax=Fmax[0], Rmax=None)
+    else:
+        from .parallel.driver import ShardedProducts
+        products = ShardedProducts(om, Fmax, None)
+    return FmaxResult(products=products, smoothing=sm, grid=om.grid,
+                      host_products=sp, pdf_hist=hist,
                       timings=timings, peaks=dict(ph.peaks))

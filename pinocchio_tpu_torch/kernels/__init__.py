@@ -284,14 +284,23 @@ def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
     return raw[:nbytes].view(dtype).reshape(shape)
 
 
+def host_empty(shape, dtype, device):
+    """An uninitialized host tensor to receive data from ``device``: in
+    page-locked memory (pinned_empty) for a card, plain memory for the
+    CPU."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return torch.empty(shape, dtype=dtype)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.from_numpy(pinned_empty(tuple(shape), np_dtype))
+
+
 def to_host(t):
     """A host copy of a tensor: from a card, in page-locked memory of its
     own size rounded up to 2 MiB (pinned_empty); a CPU tensor's clone."""
-    import torch
     if t.device.type != "cuda":
         return t.clone()
-    dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-    host = torch.from_numpy(pinned_empty(tuple(t.shape), dtype))
+    host = host_empty(t.shape, t.dtype, t.device)
     host.copy_(t)
     return host
 

@@ -36,14 +36,18 @@ from . import pfft
 
 @dataclass
 class ShardedProducts:
-    """Fmax (float32) and Rmax (int32) as real shards of ``decomp``."""
+    """Fmax (float32) and Rmax (int32) as real shards of ``decomp`` (a
+    pfft decomposition, or the out-of-core engine's fmax_ooc.OocMesh with
+    its x-blocks and no Rmax)."""
     decomp: object
     Fmax: list
     Rmax: list
 
     def gather(self):
-        """(Fmax, Rmax) of the whole grid as host numpy arrays."""
-        return self.decomp.gather(self.Fmax), self.decomp.gather(self.Rmax)
+        """(Fmax, Rmax) of the whole grid as host numpy arrays (Rmax None
+        for the out-of-core engine, which keeps none)."""
+        return (self.decomp.gather(self.Fmax),
+                None if self.Rmax is None else self.decomp.gather(self.Rmax))
 
 
 def build_kdensity(decomp, grid: Grid, cosmo, seed: int,
@@ -321,12 +325,17 @@ def merge_order(F, ci, ncell: int):
     np.lexsort (about ten times slower at 256^3)."""
     F, ci = torch.as_tensor(F), torch.as_tensor(ci)
     if ncell <= 2 ** 33:
-        # a positive float's bits order as the float; 0x3FFFFFFF - bits
-        # lies in [-2^30, 2^30), so the key stays inside int64
-        key = ((0x3FFFFFFF - F.view(torch.int32).to(torch.int64)) * 2 ** 33
-               + ci)
-        return torch.sort(key).indices
+        return torch.sort(merge_key(F, ci)).indices
     return torch.from_numpy(np.lexsort((ci.numpy(), -F.numpy())))
+
+
+def merge_key(F, ci):
+    """The int64 key whose ascending order is the sweep's order of needed
+    cells (F float32 > 0, global cell indices ci int64 below 2^33, tensors
+    on one device): a positive float's bits order as the float, and
+    0x3FFFFFFF - bits lies in [-2^30, 2^30), so the key stays inside
+    int64."""
+    return (0x3FFFFFFF - F.view(torch.int32).to(torch.int64)) * 2 ** 33 + ci
 
 
 def sharded_products(decomp, Fmax: list, Flast: float, sets: list):

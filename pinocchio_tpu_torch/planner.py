@@ -1,5 +1,6 @@
 """Memory planner of the port: the peak device memory of the dense and of the
-out-of-core fmax engine on one card, array by array and phase by phase, the
+out-of-core fmax engine on one card or on each device of a mesh, array by
+array and phase by phase, the
 host memory of the sweep (one box, or the sub-boxes swept at once), the
 sub-box decomposition, the engine choice and the pre-flight abort (the port's counterpart of pinocchio_tpu/planner.py; the reference's
 bounded-memory contract, allocations.c:37-251, and its abort with the
@@ -94,15 +95,29 @@ def _dense_phases(params: Params, frac: float) -> dict:
             "LPT sources": sources, "displacements": displ}
 
 
-def _ooc_phases(params: Params, frac: float) -> dict:
+def _ooc_phases(params: Params, frac: float, shards: int = 1,
+                n_chips: int = 1) -> dict:
     """The out-of-core engine's (fmax_ooc.run_fmax_ooc) arrays at each
-    phase's peak."""
-    from .fmax_ooc import KZ_BATCH, X_SLAB, divisor_batch
+    phase's peak on one device.  Over a mesh of ``shards`` shards on
+    n_chips devices a device holds shards / n_chips of them: of the arrays
+    sharded over kz (stacks, spectra) and over x (Fmax, real fields, row
+    ranks, rows) as many of the largest shard's pieces, at most the whole
+    array (one card holding every shard holds the sum), and one shard's
+    transient at a time: a kz batch of its window, a gathered x-slab, the
+    sort of its x-block and, with several shards, the hand-off's keys and
+    merged positions (a phase of its own) and one landing chunk."""
+    from .fmax_ooc import KZ_BATCH, LAND_ROWS, slab_width, split
     from .ops import tabulated
     s = _sizes(params, frac)
     N, f, h, count, nf = s["N"], s["f"], s["k"], s["count"], s["nf"]
-    B = min(params.ooc_kz_batch or KZ_BATCH, N // 2 + 1)
-    Bx = params.ooc_z_batch or divisor_batch(N, X_SLAB)
+    Nh = N // 2 + 1
+    nkz = split(Nh, shards)[0][1]      # the largest kz window
+    B = min(params.ooc_kz_batch or KZ_BATCH, nkz)
+    Bx = params.ooc_z_batch or slab_width(N, shards)
+    # the largest x-block's share of the grid (runs of whole x-slabs)
+    block = split(N // Bx, shards)[0][1] * Bx / N
+    per = shards / n_chips
+    rk, rx = min(1.0, per * nkz / Nh), min(1.0, per * block)
     plane = 8.0 * N * N * B            # one complex64 kz batch
     real_slab = 4.0 * Bx * N * N       # one float32 x-slab component
     half_slab = h * Bx / N             # one complex64 x-slab component
@@ -121,39 +136,60 @@ def _ooc_phases(params: Params, frac: float) -> dict:
           if params.ell_model != "classic" else {})
     gt = (dict(growth_tables=4 * 4.0 * GROWTH_NTAB)
           if params.scale_dependent or params.mod_grav_fr else {})
-    phases = {"cycle": dict(hessian_stack=6 * h, fmax=f, **ct,
+    phases = {"cycle": dict(hessian_stack=6 * h * rk, fmax=f * rx, **ct,
                             **batch(6, 1))}
     order = params.lpt_order
     if order >= 2:
         nsrc = 3 if order >= 3 else 1
-        phases["sources"] = dict(hessian_stack=6 * h, fmax=f,
-                                 real_sources=nsrc * f, **slab(6, 3))
+        phases["sources"] = dict(hessian_stack=6 * h * rk, fmax=f * rx,
+                                 real_sources=nsrc * f * rx, **slab(6, 3))
     if order >= 3:
-        phases["fold"] = dict(fmax=f, q2_spectrum=h, q31_src32=2 * f,
-                              pair_stack=2 * h, **batch(2, 1))
+        phases["fold"] = dict(fmax=f * rx, q2_spectrum=h * rk,
+                              q31_src32=2 * f * rx, pair_stack=2 * h * rk,
+                              **batch(2, 1))
     nspec = nf - 1
-    phases["needed sort"] = dict(fmax=f, source_spectra=nspec * h,
-                                 needed_sort=SORT_FIELDS * f)
-    phases["v-streams"] = dict(fmax=f, row_rank=f + 4.0 * count,
-                               source_spectra=nspec * h,
-                               displacement_stack=3 * h,
-                               rows_of_one_field=12.0 * count, **gt,
+    base = dict(fmax=f * rx, source_spectra=nspec * h * rk)
+    phases["needed sort"] = dict(base, needed_sort=SORT_FIELDS * f * block)
+    if shards > 1:
+        # the last shard sorts beside the others' row ranks, cells and F;
+        # then the merged positions: every shard's ranks, cells, F, (F,
+        # cell) keys and positions, and one shard's int64 sum and
+        # searchsorted result
+        phases["needed sort"]["other_shards"] = ((f + 12.0 * count)
+                                                 * (rx - block))
+        phases["hand-off"] = dict(base, shard_products=(f + 24.0 * count)
+                                  * rx, positions=16.0 * count * block)
+    phases["v-streams"] = dict(fmax=f * rx, row_rank=(f + 4.0 * count) * rx,
+                               source_spectra=nspec * h * rk,
+                               displacement_stack=3 * h * rk,
+                               rows_of_one_field=12.0 * count * rx, **gt,
                                **batch(3, 1))
+    if shards > 1:
+        # the merged positions, a landing chunk and one shard's share of
+        # its positions (int64)
+        phases["v-streams"]["merged_positions"] = 4.0 * count * rx
+        phases["v-streams"]["landing_chunk"] = (12.0 + 8.0 * block) * min(
+            LAND_ROWS, count)
     return phases
 
 
 def device_peak(params: Params, ooc: bool, cosmo: Cosmology = None,
-                frac: float = None, n_chips: int = 1) -> dict:
+                frac: float = None, n_chips: int = 1,
+                shards: int = None) -> dict:
     """The predicted device memory of the dense (ooc False) or the
     out-of-core engine: dict(phases={phase: {array: bytes}}, peak=bytes,
     phase=the phase of the peak, frac=the collapsed fraction used).  With
-    n_chips > 1 (a mesh over that many devices) every array is sharded, so
-    each device holds 1/n_chips of it (the JAX planner's per-chip model)."""
+    n_chips > 1 (a mesh over that many devices) the dense engine's every
+    array is sharded, so each device holds 1/n_chips of it (the JAX
+    planner's per-chip model); the out-of-core engine's per-device model
+    over ``shards`` shards (n_chips when None) is _ooc_phases'."""
     if frac is None:
         frac = collapsed_fraction(params, cosmo or Cosmology(params))
-    phases = (_ooc_phases if ooc else _dense_phases)(params, frac)
-    phases = {p: {a: b / n_chips for a, b in arrays.items()}
-              for p, arrays in phases.items()}
+    if ooc:
+        phases = _ooc_phases(params, frac, shards or n_chips, n_chips)
+    else:
+        phases = {p: {a: b / n_chips for a, b in arrays.items()}
+                  for p, arrays in _dense_phases(params, frac).items()}
     totals = {p: sum(a.values()) for p, a in phases.items()}
     top = max(totals, key=totals.get)
     return dict(phases=phases, peak=totals[top], phase=top, frac=frac)
@@ -273,20 +309,26 @@ def host_memory() -> float:
 
 
 def plan(params: Params, device="cuda", cosmo: Cosmology = None,
-         dense_products: bool = False, n_chips: int = 1) -> dict:
+         dense_products: bool = False, n_chips: int = 1,
+         shards: int = None) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
     out-of-core engine when the dense one does not fit), the sub-box
     decomposition (subbox_plan: nbox, boundary_overhead, two_turn,
     subbox_workers) and the host estimate of the run's phases (host_phases;
     dense_products for special mode 3).  n_chips: the distinct devices of a
-    mesh run, each like ``device``; the device fields are per device."""
+    mesh run, each like ``device``, and shards its size (n_chips when
+    None); the device fields are per device.  The out-of-core engine over a
+    mesh lands its products in the same host arrays as on one device (its
+    merge runs on the devices), so the host estimate does not depend on the
+    mesh."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
     limit = device_memory(device)
     dense = device_peak(params, False, frac=frac, n_chips=n_chips)
-    ooc = device_peak(params, True, frac=frac, n_chips=n_chips)
+    ooc = device_peak(params, True, frac=frac, n_chips=n_chips,
+                      shards=shards)
     if params.ooc == "on":
         use_ooc = True
     elif params.ooc == "auto":
@@ -305,7 +347,7 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
     hphase = max(htotals, key=htotals.get)
     host, host_limit = htotals[hphase], host_memory()
     return dict(grid=params.GridSize, device=str(device), n_chips=n_chips,
-                frac=frac,
+                shards=shards or n_chips, frac=frac,
                 device_limit=limit, dense=dense, ooc=ooc, use_ooc=use_ooc,
                 engine="out-of-core" if use_ooc else "dense",
                 device_bytes=chosen["peak"],
@@ -329,9 +371,11 @@ def format_memory_map(report: dict) -> str:
     eng = report["ooc"] if report["use_ooc"] else report["dense"]
     other = report["dense"] if report["use_ooc"] else report["ooc"]
     chips = report.get("n_chips", 1)
+    shards = report.get("shards", chips)
     lines = [
         f"RUN PLAN for {report['grid']}^3 on {report['device']}"
         + (f" (per device of {chips})" if chips > 1 else "")
+        + (f" ({shards} shards)" if shards > 1 else "")
         + f": {report['engine']} engine",
         f"  est. collapsed fraction:    {report['frac']:.3f}",
         f"  device memory, peak phase ({eng['phase']}): "
@@ -368,12 +412,12 @@ def format_memory_map(report: dict) -> str:
 
 def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
                    verbose: bool = True, dense_products: bool = False,
-                   n_chips: int = 1) -> dict:
+                   n_chips: int = 1, shards: int = None) -> dict:
     """Pre-flight check, before any allocation: raise MemoryPlanError with
     the per-array map when the chosen engine's device peak or the run's
-    host memory exceeds what there is; returns the plan (n_chips as in
-    plan)."""
-    report = plan(params, device, cosmo, dense_products, n_chips)
+    host memory exceeds what there is; returns the plan (n_chips and
+    shards as in plan)."""
+    report = plan(params, device, cosmo, dense_products, n_chips, shards)
     problems = []
     if not report["fits_device"]:
         problems.append(

@@ -14,9 +14,14 @@ fragmentation runs over that many padded sub-boxes, swept concurrently on
 the host's cores and merged (fragment/subbox.py).  With a mesh (--chips N:
 cuda:0..N-1, or N CPU shards with --device cpu; --decomp slab, pencil,
 volumes or auto) IC and fmax run sharded over it (parallel/driver.py) and
-hand the same host products to the rest; one process.  With hosts=(h, H)
+hand the same host products to the rest; one process.  When the planner
+picks the out-of-core engine for each of the mesh's devices (ooc 'on', or
+'auto' where the dense one does not fit), that engine runs with its ledger
+sharded over kz on the mesh's devices, whatever the decomposition
+(fmax_ooc.py), and its products are on the host at once.  With hosts=(h, H)
 the run is host h of H: it sweeps its round-robin share of the sub-boxes,
-fed over a mesh by the cross-host exchange (parallel/exchange.py), and
+fed over a mesh by the cross-host exchange (parallel/exchange.py), or, after
+the out-of-core engine, from the host products, and
 writes its catalogs, histories and PLC as .out.<h> chunks, its share of the
 timeless snapshot as an npz chunk, and the mass functions and n(z) through
 part files that the last host sums; scripts/torch_merge_chunks.py
@@ -53,21 +58,13 @@ from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
 
 
-MESH_OOC = ("the out-of-core engine over a mesh (its ledger sharded over kz) "
-            "is not ported to pinocchio_tpu_torch yet (ROADMAP.md, queue 1 "
-            "item 12c)")
-
-
-def check_supported(params: Params, mesh=None) -> None:
+def check_supported(params: Params) -> None:
     """Raise ValueError for an unknown ooc mode, and NotImplementedError,
     naming the ROADMAP item, for a feature outside the ported paths (with
-    ooc 'on': fmax_ooc.check_ooc_supported; over a mesh, the out-of-core
-    engine)."""
+    ooc 'on': fmax_ooc.check_ooc_supported)."""
     if params.ooc not in ("on", "off", "auto"):
         raise ValueError(f"ooc must be 'on', 'off' or 'auto', got "
                          f"{params.ooc!r}")
-    if mesh is not None and params.ooc == "on":
-        raise NotImplementedError(MESH_OOC)
     if params.ooc == "on":
         check_ooc_supported(params)
 
@@ -102,7 +99,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .plc import build_plc_geometry, write_nz, write_plc_catalog
 
     dev = resolve_device(device if mesh is None else mesh.device_list()[0])
-    check_supported(params, mesh)
+    check_supported(params)
     t_total = time.perf_counter()
     timings = {}
     host_id, nhosts = hosts if hosts else (0, 1)
@@ -137,10 +134,8 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     # the engine that fits the device (each of the mesh's devices), or an
     # abort with the memory map before any allocation
     plan = enforce_budget(params, dev, cosmo, verbose=verbose,
-                          n_chips=1 if mesh is None else mesh.n_devices())
-    if mesh is not None and plan["use_ooc"] \
-            and not params.ReadProductsFromDumps:
-        raise NotImplementedError(MESH_OOC)
+                          n_chips=1 if mesh is None else mesh.n_devices(),
+                          shards=1 if mesh is None else mesh.size)
     t0 = time.perf_counter()
     plc_geom = build_plc_geometry(params, cosmo, verbose=verbose)
     if plc_geom.enabled:
@@ -150,6 +145,15 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         fmax_res = dumps.read_dumps(params, outdir)
         if verbose:
             print("[fmax] products read from dumps")
+    elif plan["use_ooc"]:
+        # over a mesh, its devices in flat order shard the ledger over kz
+        # whatever the decomposition (as the JAX package's run.py)
+        check_ooc_supported(params)
+        if verbose and mesh is not None:
+            print(f"[fmax] out-of-core ledger sharded over {mesh.size} "
+                  "devices")
+        fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
+                                verbose=verbose, mesh=mesh)
     elif mesh is not None:
         from .parallel.driver import run_fmax_distributed
         if verbose:
@@ -159,10 +163,6 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                                         scaledep_gm=scaledep_gm,
                                         verbose=verbose,
                                         defer_handoff=nhosts > 1)
-    elif plan["use_ooc"]:
-        check_ooc_supported(params)
-        fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                                verbose=verbose)
     else:
         fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
                             verbose=verbose)

@@ -29,8 +29,10 @@ to K8's values at the same modes.  The shard kernels K1s, K2s, K5s and K8s
 on a mesh shard's window are exactly equal to their plain versions and to
 the full-grid kernels on that window; the fmax phase over a 2x2 pencil
 mesh of the one card launches the mesh's kernels and holds the
-single-device run's results.  The exchange's kernels K15 (count, with
-boxes and with request maps), K16 (pack) and K17 (sphere paint) are
+single-device run's results, and the out-of-core engine over 3 shards of
+the card equals the single-device engine exactly.  The exchange's kernels
+K15 (count, with boxes and with request maps), K16 (pack) and K17 (sphere
+paint) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap.
@@ -587,6 +589,40 @@ def test_mesh_on_one_card(dev, setup):
     assert nflip <= 1e-3 * N ** 3, nflip
     for k, a in ref.dense.vel.items():
         assert np.abs(r.dense.vel[k] - a).max() < 1e-4 * np.abs(a).max()
+
+
+@pytest.mark.cuda
+def test_ooc_mesh_on_one_card(dev, setup):
+    """The out-of-core engine over 3 shards of one card (kz windows of 9,
+    9 and 8 planes, x-blocks of 20, 20 and 10): the out-of-core launch set
+    and, against the single-device engine, Fmax, the variances, the
+    FmaxPDF counts, the needed cells, their F and the rows exactly equal
+    (each plane's ifft2 in another batch, each x-slab's irfft of the same
+    planes)."""
+    from pinocchio_tpu_torch import fmax_ooc
+    from pinocchio_tpu_torch.parallel import pfft
+    p, cosmo = setup
+    one = fmax_ooc.run_fmax_ooc(p, cosmo, dev)
+    kernels.reset_launches()
+    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev,
+                                mesh=pfft.make_mesh(devices=[dev] * 3))
+    torch.cuda.synchronize()
+    launched = {k for k, v in kernels.LAUNCHES.items() if v}
+    want = {"ic_kdensity_planes", "ooc_factors_hessian",
+            "collapse_update_slab", "lpt_sources_pointwise",
+            "ooc_factors_pair", "lpt_src32_accumulate", "pdf_hist",
+            "ooc_factors_gradient", "vrows_slab"}
+    assert launched == want, (launched - want, want - launched)
+    np.testing.assert_array_equal(res.products.gather()[0],
+                                  one.products.Fmax.cpu().numpy())
+    np.testing.assert_array_equal(res.smoothing.true_variance,
+                                  one.smoothing.true_variance)
+    np.testing.assert_array_equal(res.pdf_hist, one.pdf_hist)
+    a, b = res.host_products, one.host_products
+    np.testing.assert_array_equal(a.ci, b.ci)
+    np.testing.assert_array_equal(a.F, b.F)
+    for k in b.vel:
+        np.testing.assert_array_equal(a.vel[k], b.vel[k])
 
 
 @pytest.mark.parametrize("name,fn", [

@@ -279,14 +279,28 @@ def test_demo_step_is_the_same_physics_on_every_mesh():
 
 
 def test_planner_peaks_are_per_device(setup):
-    """The per-device fields of a mesh over n devices are 1/n of one
-    device's; the host estimate does not change."""
+    """The per-device fields of a mesh over n devices: the dense engine's
+    are 1/n of one device's; of the out-of-core engine's a device holds
+    its shard's x-block (a quarter of the grid at 32^3 over 4 shards) and
+    kz window (at most 5 of the 17 planes), sorts that x-block and adds
+    the hand-off's arrays; the host estimate does not change."""
     _, _, p, cosmo = setup
     one = planner.plan(p, "cpu", cosmo)
     four = planner.plan(p, "cpu", cosmo, n_chips=4)
     assert four["n_chips"] == 4
     assert four["dense"]["peak"] == pytest.approx(one["dense"]["peak"] / 4)
-    assert four["ooc"]["peak"] == pytest.approx(one["ooc"]["peak"] / 4)
+    po, p4 = one["ooc"]["phases"], four["ooc"]["phases"]
+    for name in ("fmax", "real_sources"):
+        assert p4["sources"][name] == pytest.approx(po["sources"][name] / 4)
+    assert p4["v-streams"]["rows_of_one_field"] == pytest.approx(
+        po["v-streams"]["rows_of_one_field"] / 4)
+    for name in ("source_spectra", "displacement_stack"):
+        assert p4["v-streams"][name] == pytest.approx(
+            po["v-streams"][name] * 5 / 17)
+    assert p4["needed sort"]["needed_sort"] == pytest.approx(
+        po["needed sort"]["needed_sort"] / 4)
+    assert "merged_positions" in p4["v-streams"]
+    assert one["ooc"]["peak"] / 4 < four["ooc"]["peak"] < one["ooc"]["peak"]
     assert four["host"]["phases"]["fmax"] == one["host"]["phases"]["fmax"]
     assert "per device of 4" in planner.format_memory_map(four)
     assert not planner.ooc_selected(p, "cpu", cosmo, n_chips=4)

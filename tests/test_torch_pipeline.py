@@ -153,7 +153,8 @@ def test_port_imports_no_jax(tmp_path):
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
     a product dump; a restart from that dump; the past light cone with the
     timeless snapshot; fragmentation over sub-boxes, single-turn and
-    two-turn; classic and f(R) over an 8-shard mesh; two mocked hosts over
+    two-turn; classic and f(R) over an 8-shard mesh, on the dense and on
+    the out-of-core engine; two mocked hosts over
     a 4-shard mesh with the exchange, single-turn through run_pipeline and
     two-turn through a host slice, and scripts/torch_merge_chunks.py on
     their chunks; special mode 2) run without importing jax or any module
@@ -179,7 +180,7 @@ def test_port_imports_no_jax(tmp_path):
         f"    res = run_pipeline(p, outdir={str(tmp_path)!r}, device='cpu',"
         " verbose=False)\n"
         "from pinocchio_tpu_torch.parallel.pfft import make_volume_mesh\n"
-        "for kw in ({}, fr):\n"
+        "for kw in ({}, fr, dict(ooc='on'), dict(fr, ooc='on')):\n"
         "    run_pipeline(Params(**dict(base, **kw)), device='cpu',\n"
         f"                 outdir={str(tmp_path)!r}, verbose=False,\n"
         "                 mesh=make_volume_mesh(8, devices=['cpu'] * 8))\n"
@@ -291,10 +292,13 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
 
 
 @pytest.mark.parametrize("argv,ooc,error,item", [
-    # a mesh with the out-of-core engine, several hosts, and a mesh of
-    # more cards than the machine has (this one has none)
-    (["--chips", "2", "--device", "cpu"], "on", NotImplementedError,
-     "item 12c"),
+    # a mesh with the out-of-core engine and the timeless snapshot (the
+    # case keeps its id from when such a mesh refused the out-of-core
+    # engine itself, item 12c), several hosts, and a mesh of more cards
+    # than the machine has (this one has none)
+    pytest.param(["--chips", "2", "--device", "cpu"], "on",
+                 NotImplementedError, "item 13",
+                 id="argv0-on-NotImplementedError-item 12c"),
     (["--chips", "4", "--device", "cuda"], "auto", RuntimeError, "CUDA"),
     (["--hosts", "2", "--device", "cpu"], "auto", NotImplementedError,
      "item 12b-ii"),
@@ -309,7 +313,8 @@ def test_cli_options_outside_the_slice_raise(tmp_path, monkeypatch, argv, ooc,
     monkeypatch.setattr(run_mod, "read_parameter_file",
                         lambda *a, **kw: read(*a, ooc=ooc, **kw))
     pf = tmp_path / "parameter_file"
-    pf.write_text("GridSize 16\nBoxSize 16.0\n")
+    pf.write_text("GridSize 16\nBoxSize 16.0\n"
+                  + ("WriteTimelessSnapshot\n" if item == "item 13" else ""))
     with pytest.raises(error, match=item):
         main([str(pf), "--outdir", str(tmp_path)] + argv)
     assert not any(f.endswith(".out") for f in os.listdir(tmp_path))

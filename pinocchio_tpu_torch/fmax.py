@@ -413,19 +413,21 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     sizes = [compact.packed_size(count, len(keys), s == 0)
              for s in range(len(zs))]
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    # each cell's row, built once for every displacement set
+    rank = compact.needed_rank(idx, N ** 3)
     off = 0
     for s, z in enumerate(zs):
         vel = displacement_fields(sources, growths_at(z), N, scaledep)
         # the needed rows of this set, then its stacks are freed
         compact.gather_rows(idx, [vel[k] for k in keys],
                             buf[off:off + sizes[s]],
-                            F=Fmax if s == 0 else None)
+                            F=Fmax if s == 0 else None, rank=rank)
         off += sizes[s]
         if keep_dense and s == 0:
             for k in keys:
                 dense_vel[k] = kernels.to_host(vel[k]).numpy()
         del vel
-    del sources
+    del sources, rank
     _sync(device)
     timings["lpt"] = time.perf_counter() - t0
 

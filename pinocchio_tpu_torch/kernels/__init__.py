@@ -60,6 +60,7 @@ KERNELS = {
         "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
     "lpt_sources_pointwise": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
     "lpt_src32_accumulate": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
+    "needed_rank": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "gather_rows": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "pdf_hist": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:110"),
     # the out-of-core engine (K9-K14)
@@ -120,16 +121,24 @@ _SIGNATURES = {
     "kspace_gradient": [_P, _P, _I, _F, _P],
     # src, out, N, gtab, ntab, glo, gdx, tmax, stream
     "kspace_gradient_tab": [_P, _P, _I, _P, _I, _F, _F, _F, _P],
-    # derivs, Fmax, Rmax, ncell, ismooth, pack[23] (host), partials,
-    # nblocks, means, stream
-    "collapse_update": [_P, _P, _P, _L, _I, _P, _P, _I, _P, _P],
+    # derivs, Fmax, Rmax, ncell, ismooth, pack[23] (host), then the
+    # reduction's partials, max_blocks, ticket, means, stream
+    "collapse_update": [_P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P],
     # derivs, Fmax, Rmax, ncell, ismooth, tab, tab2, dv, idx_map, ampl,
-    # interp, partials, nblocks, means, stream
+    # interp, then as collapse_update
     "collapse_update_table": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _F, _I,
-                              _P, _I, _P, _P],
-    # idx, count, F (or null), stacks[nstack] (host), nstack, ncell, out,
-    # stream
-    "gather_rows": [_P, _L, _P, _P, _I, _L, _P, _P],
+                              _P, _I, _P, _P, _P],
+    # mode, ring, out[4] (host)
+    "collapse_kernel_info": [_I, _I, _P],
+    # counts[2], stream
+    "cbrt_check": [_P, _P],
+    # idx, count, ncell, rank, stream
+    "needed_rank": [_P, _L, _L, _P, _P],
+    # rank, ncell, count, F (or null), stacks[nstack] (host), nstack, out,
+    # rec, stream
+    "scatter_rows": [_P, _L, _L, _P, _P, _I, _P, _P, _P],
+    # which, out[4] (host)
+    "compact_kernel_info": [_I, _P],
     # F, n, counts, stream
     "pdf_hist": [_P, _L, _P, _P],
     # out, logk, logpk, ntab, keys, kz0, B, logkf, fac, N, fixed, paired,
@@ -142,17 +151,17 @@ _SIGNATURES = {
     # src0 and src1 with their strides, out, N, kz0, B, ia, ib, stream
     "ooc_factors_pair": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I,
                          _I, _P],
-    # derivs, Fmax, n, pack[23] (host), partials, nblocks, means, stream
-    "collapse_update_slab": [_P, _P, _L, _P, _P, _I, _P, _P],
+    # derivs, Fmax, n, pack[23] (host), then as collapse_update
+    "collapse_update_slab": [_P, _P, _L, _P, _P, _I, _P, _P, _P],
     # rank, comps, n, rows, stream
     "vrows_slab": [_P, _P, _L, _P, _P],
     # nbytes (returns the host pointer); ptr
     "host_alloc": [ctypes.c_size_t],
     "host_free": [_P],
-    # derivs, Fmax, n, tab, tab2, dv, idx_map, ampl, interp, partials,
-    # nblocks, means, stream
+    # derivs, Fmax, n, tab, tab2, dv, idx_map, ampl, interp, then as
+    # collapse_update
     "collapse_update_slab_table": [_P, _P, _L, _P, _P, _P, _P, _F, _I, _P,
-                                   _I, _P, _P],
+                                   _I, _P, _P, _P],
     # src, sb, sx, sy, out, N, kz0, B, gtab, ntab, glo, gdx, tmax, stream
     "ooc_factors_gradient_tab": [_P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _F,
                                  _F, _F, _P],
@@ -203,6 +212,12 @@ def library_path() -> str:
                         f"libpinocchio_kernels-{h.hexdigest()[:16]}.so")
 
 
+def ptxas_path(library: str = None) -> str:
+    """The file beside the library where the build keeps ptxas's -v report
+    (each kernel's registers, shared memory and spills)."""
+    return (library or library_path()) + ".ptxas.txt"
+
+
 def build() -> str:
     """Compile the CUDA sources (if this exact source set is not built yet)
     and return the library path."""
@@ -213,18 +228,22 @@ def build() -> str:
     nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}"
     objs = [f"{tmp}.{s}.o" for s in SOURCES]
-    cmds = [[nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)]
+    cmds = [[nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-c", "-o", o,
+                                   os.path.join(CSRC, s)]
             for s, o in zip(SOURCES, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    errors = []
+    errors, report = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)}\n{err}")
+        report.append(err)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    with open(ptxas_path(path), "w") as fd:
+        fd.write("".join(report))
     link = [nvcc] + ARCH + ["-shared", "-o", f"{tmp}.so"] + objs
     res = subprocess.run(link, capture_output=True, text=True)
     for o in objs:

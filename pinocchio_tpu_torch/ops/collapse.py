@@ -135,7 +135,8 @@ def ell_classic(l1, l2, l3):
 def _cbrt(x):
     """Cube root of a non-negative tensor (torch has no cbrt): a float64
     power rounded once to the input's dtype, within an ulp of cbrtf; the
-    CUDA kernel takes it the same way."""
+    CUDA kernel gives the same floats (its cube_root: a float64 cbrt, and
+    this power only near a float32 rounding midpoint)."""
     return torch.pow(x.double(), 1.0 / 3.0).to(x.dtype)
 
 
@@ -245,10 +246,67 @@ def collapse_update_table_plain(derivs, Fmax, Rmax, ismooth: int, tab,
     return _running_max(F, derivs, Fmax, Rmax, ismooth)
 
 
-# grid of the reduction: a fixed block count keeps the per-block partials
-# (and the order of the float64 sums) independent of the grid size
-COLLAPSE_BLOCKS = 132 * 8
-COLLAPSE_THREADS = 256
+# the kernel's grid is the blocks that stay resident on the card (its
+# occupancy query), at most MAX_BLOCKS_PER_SM on each SM; the kernel picks
+# its loads from what it sees (csrc/collapse.cu: the classic update streams
+# aligned planes of a large enough grid through a shared-memory ring)
+MAX_BLOCKS_PER_SM = 32
+_SCRATCH = {}
+
+
+def _scratch(device, stream):
+    """(partials, ticket, blocks) of the kernel's reduction on ``device``
+    and its stream ``stream``, allocated once: float64 [2 * blocks] for at
+    most blocks = MAX_BLOCKS_PER_SM * SMs blocks, and one zeroed uint32
+    counter that the kernel's last block resets."""
+    key = (device, stream)
+    if key not in _SCRATCH:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        blocks = MAX_BLOCKS_PER_SM * sms
+        _SCRATCH[key] = (torch.empty(2 * blocks, dtype=torch.float64,
+                                     device=device),
+                         torch.zeros(1, dtype=torch.int32, device=device),
+                         blocks)
+    return _SCRATCH[key]
+
+
+def _launch(name, fn, device, *args):
+    """Launch one collapse entry point of the kernel library: its
+    arguments, then the reduction's scratch, a fresh means tensor and the
+    stream; returns the means [mean delta, mean delta^2] float64."""
+    stream = kernels.stream_ptr(device)
+    partials, ticket, blocks = _scratch(device, stream)
+    means = torch.empty(2, dtype=torch.float64, device=device)
+    err = fn(*args, partials.data_ptr(), blocks, ticket.data_ptr(),
+             means.data_ptr(), stream)
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return means
+
+
+def kernel_info(interp: str = None, ring: bool = True):
+    """Registers, spill (local) bytes, shared bytes and resident 256-thread
+    blocks per SM of the collapse kernel for the classic update (interp
+    None; through the bulk-copy ring or with direct loads) or a table
+    lookup, as the card's runtime reports them: (regs, local, shared,
+    blocks)."""
+    mode = 0 if interp is None else 1 + tabulated.INTERP.index(interp)
+    out = (ctypes.c_int * 4)()
+    kernels.check("collapse_kernel_info", kernels.lib().collapse_kernel_info(
+        mode, int(ring), out))
+    return tuple(out)
+
+
+def cbrt_check(device):
+    """The cube root's proof on the card: every positive finite float32,
+    and 0 and +inf, through the kernel's cube_root and the float64 pow it
+    stands for; returns (floats whose results differ, floats near a float32
+    rounding midpoint, where cube_root takes the pow)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    kernels.check("cbrt_check", kernels.lib().cbrt_check(
+        counts.data_ptr(), kernels.stream_ptr(device)))
+    bad, near = counts.tolist()
+    return bad, near
 
 
 def collapse_update(derivs, Fmax, Rmax, ismooth: int, pack):
@@ -263,23 +321,16 @@ def collapse_update(derivs, Fmax, Rmax, ismooth: int, pack):
     n = Fmax.numel()
     if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
             or Rmax.dtype != torch.int32 or derivs.shape[0] != 6
-            or derivs[0].numel() != n or Rmax.numel() != n):
+            or derivs.numel() != 6 * n or Rmax.numel() != n):
         raise ValueError("collapse_update: derivs f32[6, *S], Fmax f32[*S], "
                          "Rmax i32[*S] expected")
     pk = np.ascontiguousarray(pack, np.float32)
     if pk.shape != (INVGROW_PACK,):
         raise ValueError(f"collapse_update: pack must be f32[{INVGROW_PACK}]")
-    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
-                           device=derivs.device)
-    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
-    err = kernels.lib().collapse_update(
-        derivs.data_ptr(), Fmax.data_ptr(), Rmax.data_ptr(),
-        ctypes.c_int64(n), int(ismooth),
-        pk.ctypes.data_as(ctypes.c_void_p), partials.data_ptr(),
-        COLLAPSE_BLOCKS, means.data_ptr(), kernels.stream_ptr(derivs.device))
-    kernels.check("collapse_update", err)
-    kernels.LAUNCHES["collapse_update"] += 1
-    return means
+    return _launch("collapse_update", kernels.lib().collapse_update,
+                   derivs.device, derivs.data_ptr(), Fmax.data_ptr(),
+                   Rmax.data_ptr(), ctypes.c_int64(n), int(ismooth),
+                   pk.ctypes.data)
 
 
 def collapse_update_slab_plain(derivs, Fmax, pack):
@@ -297,23 +348,16 @@ def collapse_update_slab(derivs, Fmax, pack):
     kernels.require_cuda("collapse_update_slab", derivs, Fmax)
     n = Fmax.numel()
     if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
-            or derivs.shape[0] != 6 or derivs[0].numel() != n):
+            or derivs.shape[0] != 6 or derivs.numel() != 6 * n):
         raise ValueError("collapse_update_slab: derivs f32[6, *S] and Fmax "
                          "f32[*S] expected")
     pk = np.ascontiguousarray(pack, np.float32)
     if pk.shape != (INVGROW_PACK,):
         raise ValueError(f"collapse_update_slab: pack must be "
                          f"f32[{INVGROW_PACK}]")
-    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
-                           device=derivs.device)
-    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
-    err = kernels.lib().collapse_update_slab(
-        derivs.data_ptr(), Fmax.data_ptr(), ctypes.c_int64(n),
-        pk.ctypes.data_as(ctypes.c_void_p), partials.data_ptr(),
-        COLLAPSE_BLOCKS, means.data_ptr(), kernels.stream_ptr(derivs.device))
-    kernels.check("collapse_update_slab", err)
-    kernels.LAUNCHES["collapse_update_slab"] += 1
-    return means
+    return _launch("collapse_update_slab", kernels.lib().collapse_update_slab,
+                   derivs.device, derivs.data_ptr(), Fmax.data_ptr(),
+                   ctypes.c_int64(n), pk.ctypes.data)
 
 
 TABLE_SHAPE = (tabulated.CT_NBINS_XY, tabulated.CT_NBINS_XY,
@@ -362,22 +406,15 @@ def collapse_update_table(derivs, Fmax, Rmax, ismooth: int, tab, tab2, dv,
     n = Fmax.numel()
     if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
             or Rmax.dtype != torch.int32 or derivs.shape[0] != 6
-            or derivs[0].numel() != n or Rmax.numel() != n):
+            or derivs.numel() != 6 * n or Rmax.numel() != n):
         raise ValueError(f"{name}: derivs f32[6, *S], Fmax f32[*S], "
                          "Rmax i32[*S] expected")
     _check_table(name, tab, tab2, dv, idx_map)
-    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
-                           device=derivs.device)
-    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
-    err = kernels.lib().collapse_update_table(
-        derivs.data_ptr(), Fmax.data_ptr(), Rmax.data_ptr(),
-        ctypes.c_int64(n), int(ismooth), tab.data_ptr(), tab2.data_ptr(),
-        dv.data_ptr(), idx_map.data_ptr(), float(np.float32(ampl)),
-        tabulated.INTERP.index(interp), partials.data_ptr(), COLLAPSE_BLOCKS,
-        means.data_ptr(), kernels.stream_ptr(derivs.device))
-    kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
-    return means
+    return _launch(name, kernels.lib().collapse_update_table, derivs.device,
+                   derivs.data_ptr(), Fmax.data_ptr(), Rmax.data_ptr(),
+                   ctypes.c_int64(n), int(ismooth), tab.data_ptr(),
+                   tab2.data_ptr(), dv.data_ptr(), idx_map.data_ptr(),
+                   float(np.float32(ampl)), tabulated.INTERP.index(interp))
 
 
 def collapse_update_slab_table_plain(derivs, Fmax, tab, tab2, dv, idx_map,
@@ -403,19 +440,12 @@ def collapse_update_slab_table(derivs, Fmax, tab, tab2, dv, idx_map,
     kernels.require_cuda(name, derivs, Fmax, tab, tab2, dv, idx_map)
     n = Fmax.numel()
     if (derivs.dtype != torch.float32 or Fmax.dtype != torch.float32
-            or derivs.shape[0] != 6 or derivs[0].numel() != n):
+            or derivs.shape[0] != 6 or derivs.numel() != 6 * n):
         raise ValueError(f"{name}: derivs f32[6, *S] and Fmax f32[*S] "
                          "expected")
     _check_table(name, tab, tab2, dv, idx_map)
-    partials = torch.empty(2 * COLLAPSE_BLOCKS, dtype=torch.float64,
-                           device=derivs.device)
-    means = torch.empty(2, dtype=torch.float64, device=derivs.device)
-    err = kernels.lib().collapse_update_slab_table(
-        derivs.data_ptr(), Fmax.data_ptr(), ctypes.c_int64(n), tab.data_ptr(),
-        tab2.data_ptr(), dv.data_ptr(), idx_map.data_ptr(),
-        float(np.float32(ampl)), tabulated.INTERP.index(interp),
-        partials.data_ptr(), COLLAPSE_BLOCKS, means.data_ptr(),
-        kernels.stream_ptr(derivs.device))
-    kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
-    return means
+    return _launch(name, kernels.lib().collapse_update_slab_table,
+                   derivs.device, derivs.data_ptr(), Fmax.data_ptr(),
+                   ctypes.c_int64(n), tab.data_ptr(), tab2.data_ptr(),
+                   dv.data_ptr(), idx_map.data_ptr(),
+                   float(np.float32(ampl)), tabulated.INTERP.index(interp))

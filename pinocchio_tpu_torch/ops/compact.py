@@ -4,8 +4,8 @@ gathers of displacement_stage_fetch and _pdf_bincount; and of
 pinocchio_tpu/fmax_ooc.py's vrows_slab).
 
 ``needed_order`` sorts with ``torch.sort`` (a library call, as the JAX
-package calls XLA's sort).  ``gather_rows``, ``pdf_hist`` and the
-out-of-core engine's ``vrows_slab`` are the wrappers of the three kernels
+package calls XLA's sort).  ``needed_rank``, ``gather_rows``, ``pdf_hist``
+and the out-of-core engine's ``vrows_slab`` are the wrappers of the kernels
 of ``csrc/compact.cu``: on a CUDA tensor they launch the kernel, on a CPU
 tensor they run the plain PyTorch version.
 """
@@ -21,6 +21,9 @@ from .. import kernels
 
 PDF_BINS = 210
 MAX_STACKS = 8
+# floats of the kernel's row record (one 32-byte sector): gather_rows holds
+# [count, ROW_RECORD] float32 of scratch while it runs
+ROW_RECORD = 8
 
 
 def needed_order(Fmax, Flast: float):
@@ -41,8 +44,8 @@ def packed_size(count: int, nstack: int, with_F: bool) -> int:
     return (2 * count if with_F else 0) + 3 * nstack * count
 
 
-def gather_rows_plain(idx, stacks, out, F=None):
-    """Plain version of K6a: see gather_rows."""
+def gather_rows_plain(idx, stacks, out, F=None, rank=None):
+    """Plain version of K6a: see gather_rows (rank is not read)."""
     count = idx.numel()
     off = 0
     if F is not None:
@@ -55,12 +58,16 @@ def gather_rows_plain(idx, stacks, out, F=None):
     return out
 
 
-def gather_rows(idx, stacks, out, F=None):
+def gather_rows(idx, stacks, out, F=None, rank=None):
     """Write the needed rows into the packed host-bound buffer ``out``
     (float32, 1-D, packed_size floats): when F (the Fmax grid) is given,
     first the cell indices as int32 bits and F[idx], then for each
     [3, N, N, N] float32 stack its [count, 3] rows at idx (int64, from
-    needed_order)."""
+    needed_order).  rank: needed_rank(idx, N^3), built here when not given;
+    a caller with several displacement sets builds it once.  On the card
+    the cells are walked in order and each needed cell's columns land as
+    one 32-byte record at its row, then the records are copied into the
+    packed layout (scatter_rows, csrc/compact.cu)."""
     if not kernels.plain_or_kernel("gather_rows", idx):
         return gather_rows_plain(idx, stacks, out, F)
     tensors = [idx, out] + list(stacks) + ([F] if F is not None else [])
@@ -79,25 +86,62 @@ def gather_rows(idx, stacks, out, F=None):
         raise ValueError("gather_rows: idx i64[count], stacks f32[3, *S] "
                          f"(at most {MAX_STACKS}), F f32[*S] and a 1-D f32 "
                          "out of packed_size floats expected")
+    if rank is None:
+        rank = needed_rank(idx, ncell)
+    kernels.require_cuda("gather_rows", idx, rank)
+    if rank.dtype != torch.int32 or rank.numel() != ncell:
+        raise ValueError(f"gather_rows: rank i32[{ncell}] expected")
     ptrs = np.array([v.data_ptr() for v in stacks] + [0], np.uint64)
-    err = kernels.lib().gather_rows(
-        idx.data_ptr(), ctypes.c_int64(count),
+    rec = torch.empty((count, ROW_RECORD), dtype=torch.float32,
+                      device=idx.device)
+    err = kernels.lib().scatter_rows(
+        rank.data_ptr(), ctypes.c_int64(ncell), ctypes.c_int64(count),
         F.data_ptr() if F is not None else None,
-        ptrs.ctypes.data_as(ctypes.c_void_p), len(stacks),
-        ctypes.c_int64(ncell), out.data_ptr(),
-        kernels.stream_ptr(idx.device))
+        ptrs.ctypes.data_as(ctypes.c_void_p), len(stacks), out.data_ptr(),
+        rec.data_ptr(), kernels.stream_ptr(idx.device))
     kernels.check("gather_rows", err)
     kernels.LAUNCHES["gather_rows"] += 1
     return out
 
 
-def needed_rank(idx, ncell: int):
-    """Each cell's position in the order idx (from needed_order), -1 for a
-    cell that is not needed: int32 [ncell]."""
+def needed_rank_plain(idx, ncell: int):
+    """Plain version of the rank kernel: see needed_rank."""
     rank = torch.full((ncell,), -1, dtype=torch.int32, device=idx.device)
     rank[idx] = torch.arange(idx.numel(), dtype=torch.int32,
                              device=idx.device)
     return rank
+
+
+def needed_rank(idx, ncell: int):
+    """Each cell's position in the order idx (int64, from needed_order), -1
+    for a cell that is not needed: int32 [ncell]."""
+    if not kernels.plain_or_kernel("needed_rank", idx):
+        return needed_rank_plain(idx, ncell)
+    kernels.require_cuda("needed_rank", idx)
+    if idx.dtype != torch.int64 or idx.dim() != 1 or idx.numel() > ncell:
+        raise ValueError(f"needed_rank: idx i64[count <= {ncell}] expected")
+    rank = torch.empty(ncell, dtype=torch.int32, device=idx.device)
+    err = kernels.lib().needed_rank(idx.data_ptr(),
+                                    ctypes.c_int64(idx.numel()),
+                                    ctypes.c_int64(ncell), rank.data_ptr(),
+                                    kernels.stream_ptr(idx.device))
+    kernels.check("needed_rank", err)
+    kernels.LAUNCHES["needed_rank"] += 1
+    return rank
+
+
+def kernel_info():
+    """Registers, spill (local) bytes, static shared bytes and resident
+    256-thread blocks per SM of the K6a kernels, as the card's runtime
+    reports them: {name: (regs, local, shared, blocks)}."""
+    out = {}
+    for which, name in enumerate(("needed_rank", "record pass (quads)",
+                                  "record pass (cells)", "column pass")):
+        info = (ctypes.c_int * 4)()
+        kernels.check("compact_kernel_info",
+                      kernels.lib().compact_kernel_info(which, info))
+        out[name] = tuple(info)
+    return out
 
 
 def vrows_slab_plain(rank, comps, rows):

@@ -218,6 +218,10 @@ class ShardedHandoff:
         # stable sort of each shard is the global order restricted to it
         self.idx = decomp.map(lambda i, F: compact.needed_order(F, Flast),
                               Fmax)
+        # each local cell's row, built once for every set (freed after the
+        # last one)
+        self.rank = decomp.map(
+            lambda i, F: compact.needed_rank(self.idx[i], F.numel()), Fmax)
         self.counts = [t.numel() for t in self.idx]
         sizes = [[compact.packed_size(c, len(self.keys), s == 0)
                   for s in range(nsets)] for c in self.counts]
@@ -241,10 +245,12 @@ class ShardedHandoff:
             a = self.off[i]
             compact.gather_rows(self.idx[i], [vel[k][i] for k in self.keys],
                                 self.bufs[i][a:a + self.sizes[i][s]],
-                                F=F if s == 0 else None)
+                                F=F if s == 0 else None, rank=self.rank[i])
             self.off[i] = a + self.sizes[i][s]
         self.decomp.map(one, self.Fmax)
         self.nadded += 1
+        if self.nadded == self.nsets:
+            self.rank = None
 
     def cell_order(self, i: int):
         """Shard i's needed local cells in ascending order and, for each,
@@ -266,7 +272,7 @@ class ShardedHandoff:
 
     def release(self) -> None:
         """Free the device buffers."""
-        self.bufs = self.idx = None
+        self.bufs = self.idx = self.rank = None
         self._by_cell = [None] * self.decomp.p
 
     def finish(self) -> SparseProducts:

@@ -87,12 +87,20 @@ def _dense_phases(params: Params, frac: float) -> dict:
                    phi2_kspace=6 * k, ifft2_out=6 * k, c2r_input_copy=6 * k,
                    phi2_stack=6 * f, **fft)
     packed = 4.0 * count * (2 + 3 * nf * nseg)
+    # the hand-off's rank field lives through every set
     displ = dict(delta=k, fmax_rmax=2 * f, needed_order=2 * f,
-                 source_spectra=(nf - 1) * k, packed_rows=packed,
+                 needed_rank=f, source_spectra=(nf - 1) * k, packed_rows=packed,
                  displacement_set=3 * nf * f, gradient_kspace=3 * k,
                  ifft2_out=3 * k, c2r_input_copy=3 * k, **fft)
+    # one set's rows into the packed buffer: gather_rows' row records (32 B
+    # a row) beside the set's stacks, once its transforms' buffers are gone
+    gather = dict(delta=k, fmax_rmax=2 * f, needed_order=2 * f,
+                  needed_rank=f, source_spectra=(nf - 1) * k,
+                  packed_rows=packed, displacement_set=3 * nf * f,
+                  row_records=32.0 * count)
     return {"collapse cycle": cycle, "needed sort": sort,
-            "LPT sources": sources, "displacements": displ}
+            "LPT sources": sources, "displacements": displ,
+            "row gather": gather}
 
 
 def _ooc_phases(params: Params, frac: float, shards: int = 1,

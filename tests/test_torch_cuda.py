@@ -13,11 +13,13 @@ is not a multiple of the 256-thread CUDA blocks, 50^3 cells not one of the
 1e-5 of max|delta| with identical draws, K2/K5 within 1e-6 of the maximum,
 K3 |dF| <= 1e-4 max(1, |F|) on 99.99 % of cells with Rmax equal on 99.9 %,
 K4 within 1e-5 of the maximum.  On the Hessians that reach K3's rare
-branches (tests/torch_hessians.py) F and Rmax must be exactly equal.  K7
+branches (tests/torch_hessians.py) F and Rmax must be exactly equal, and
+K3 through its bulk-copy ring and with direct loads gives the same bits.  K7
 (the three table lookups) is exactly equal to its plain version on those
 batches and on cells far beyond the table, and within the K3 criteria on
-Gaussian Hessians; K8 (tabulated growth), K6a (row gather) and K6b (the
-FmaxPDF histogram) are exactly equal.  The out-of-core engine's kernels:
+Gaussian Hessians; K8 (tabulated growth), K6a (the row rank and the row
+scatter, on some, every and no needed cell) and K6b (the FmaxPDF
+histogram) are exactly equal.  The out-of-core engine's kernels:
 K9 (kz planes), K10 (the three factor modes, on contiguous and strided
 batches), K11 (K3 on a slab, no Rmax) and K12 (the slab row scatter) are
 exactly equal to their plain versions; K4's one-pair accumulation is within
@@ -141,6 +143,60 @@ def test_collapse_update(dev, setup):
     assert (Rk == Rp).double().mean() >= 0.999
     assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
     assert abs(mk[0].item() - mp[0].item()) <= 1e-6
+    # a second call reuses the cached reduction scratch and returns a
+    # tensor of its own; a stack off the 16-byte grid gives the same
+    F2, R2 = F0.clone(), R0.clone()
+    m2 = collapse.collapse_update(sd, F2, R2, 7, pack)
+    assert torch.equal(F2, Fk) and torch.equal(R2, Rk)
+    assert torch.equal(m2, mk) and m2.data_ptr() != mk.data_ptr()
+    F3, R3 = F0.clone(), R0.clone()
+    m3 = collapse.collapse_update(_misaligned(sd), F3, R3, 7, pack)
+    assert torch.equal(F3, Fk) and torch.equal(R3, Rk)
+    assert torch.equal(m3, mk)
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary, which the collapse kernels load directly."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+def test_collapse_update_ring_and_direct_loads(dev, setup):
+    """On a grid where every block streams 16 tiles or more, K3 takes the
+    bulk-copy ring; the same stack off the 16-byte grid takes direct
+    loads.  Both give the same F, Rmax and means bit for bit, and meet the
+    K3 criteria against the plain version."""
+    p, cosmo = setup
+    pack = fmax.inverse_growth_packs(cosmo, fmax.Smoothing.build(p, cosmo))[0]
+    per_sm = min(collapse.kernel_info(None, True)[3],
+                 collapse.kernel_info(None, False)[3])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # 512-cell tiles, 16 a block on the resident grid
+    sd = _hessians(dev).reshape(6, -1).repeat(
+        1, -(-16 * per_sm * sms * 512 // N ** 3))
+    n = sd.shape[1]
+    assert -(-n // 512) >= 16 * min(per_sm * sms, -(-n // 512))
+    rng = np.random.default_rng(2)
+    F0 = torch.from_numpy(rng.uniform(-10.0, 4.0, n)
+                          .astype(np.float32)).to(dev)
+    R0 = torch.from_numpy(rng.integers(-1, 5, n).astype(np.int32)).to(dev)
+    Fk, Rk = F0.clone(), R0.clone()
+    mk = _launched("collapse_update",
+                   lambda: collapse.collapse_update(sd, Fk, Rk, 7, pack))
+    Fd, Rd = F0.clone(), R0.clone()
+    md = collapse.collapse_update(_misaligned(sd), Fd, Rd, 7, pack)
+    assert torch.equal(Fd, Fk) and torch.equal(Rd, Rk)
+    assert torch.equal(md, mk)
+    Fp, Rp = F0.clone(), R0.clone()
+    mp = collapse.collapse_update_plain(sd, Fp, Rp, 7, pack)
+    ok = (Fk - Fp).abs() <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)
+    assert ok.double().mean() >= 0.9999
+    assert (Rk == Rp).double().mean() >= 0.999
+    assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
 
 
 def _mismatch(got, want):
@@ -320,24 +376,49 @@ def test_kspace_gradient_tab(dev):
 
 
 @pytest.mark.cuda
-def test_gather_rows_and_pdf_hist(dev):
+@pytest.mark.parametrize("flast", [1.0, -np.inf, np.nan],
+                         ids=["some", "every", "none"])
+def test_gather_rows_and_pdf_hist(dev, flast):
+    """K6a (the rank kernel, then the scatter by quads, or by cells on a
+    ragged grid) exactly equal to its plain version: with and without F,
+    1, 4 and 8 stacks, a rank built by the wrapper or passed in, some,
+    every or no cell needed; K6b's counts exactly."""
     rng = np.random.default_rng(9)
     F = torch.from_numpy(rng.choice(
         np.arange(-10.0, 30.0, 0.1, dtype=np.float32), (N, N, N))).to(dev)
     F.view(-1)[:4] = torch.tensor([0.0, 20.95, 1e6, float("inf")])
-    stacks = [_hessians(dev, seed=s)[:3].contiguous() for s in range(4)]
-    idx = compact.needed_order(F, 1.0)
+    stacks = [_hessians(dev, seed=s)[:3].contiguous() for s in range(8)]
+    idx = compact.needed_order(F, flast)
     count = idx.numel()
-    assert count > 0
+    # F >= nan holds for no cell
+    assert (0 < count < N ** 3 if flast == 1.0
+            else count == (N ** 3 if flast < 0 else 0))
+    rank = _launched("needed_rank", lambda: compact.needed_rank(idx, N ** 3))
+    assert torch.equal(rank, compact.needed_rank_plain(idx, N ** 3))
     for with_F in (True, False):
-        size = compact.packed_size(count, len(stacks), with_F)
-        got = torch.empty(size, device=dev)
-        want = torch.empty(size, device=dev)
-        Fa = F if with_F else None
-        _launched("gather_rows",
-                  lambda: compact.gather_rows(idx, stacks, got, F=Fa))
-        compact.gather_rows_plain(idx, stacks, want, F=Fa)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for ns in (1, 4, 8):
+            size = compact.packed_size(count, ns, with_F)
+            got = torch.full((size,), float("nan"), device=dev)
+            again = torch.full((size,), float("nan"), device=dev)
+            want = torch.empty(size, device=dev)
+            Fa = F if with_F else None
+            _launched("gather_rows", lambda: compact.gather_rows(
+                idx, stacks[:ns], got, F=Fa))
+            _launched("gather_rows", lambda: compact.gather_rows(
+                idx, stacks[:ns], again, F=Fa, rank=rank))
+            compact.gather_rows_plain(idx, stacks[:ns], want, F=Fa)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(again.view(torch.int32),
+                               want.view(torch.int32))
+    # a grid of 7^3 cells takes the scatter by cells
+    small = F[:7, :7, :7].contiguous()
+    sidx = compact.needed_order(small, flast)
+    sst = [s[:, :7, :7, :7].contiguous() for s in stacks[:2]]
+    size = compact.packed_size(sidx.numel(), 2, True)
+    got, want = torch.empty(size, device=dev), torch.empty(size, device=dev)
+    compact.gather_rows(sidx, sst, got, F=small)
+    compact.gather_rows_plain(sidx, sst, want, F=small)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     got = _launched("pdf_hist", lambda: compact.pdf_hist(F))
     assert torch.equal(got, compact.pdf_hist_plain(F))
     assert int(got.sum()) == N ** 3
@@ -406,6 +487,15 @@ def test_collapse_update_slab(dev, setup):
     ok = (Fk - Fp).abs() <= 1e-4 * torch.clamp(Fp.abs(), min=1.0)
     assert ok.double().mean() >= 0.9999
     assert abs(mk[1].item() / mp[1].item() - 1.0) <= 1e-5
+    # a second call on the cached scratch gives the same statistics, and a
+    # slab off the 16-byte grid the same F
+    F2 = F0.clone()
+    assert torch.equal(collapse.collapse_update_slab(sd, F2, pack), mk)
+    assert torch.equal(F2, Fk)
+    F2 = F0.clone()
+    assert torch.equal(collapse.collapse_update_slab(_misaligned(sd), F2,
+                                                     pack), mk)
+    assert torch.equal(F2, Fk)
 
 
 @pytest.mark.cuda
@@ -573,8 +663,8 @@ def test_mesh_on_one_card(dev, setup):
     launched = {k for k, v in kernels.LAUNCHES.items() if v}
     want = {"ic_kdensity_shard", "kspace_hessian_shard",
             "kspace_gradient_shard", "collapse_update",
-            "lpt_sources_pointwise", "lpt_src32_accumulate", "gather_rows",
-            "pdf_hist"}
+            "lpt_sources_pointwise", "lpt_src32_accumulate", "needed_rank",
+            "gather_rows", "pdf_hist"}
     assert launched == want, (launched - want, want - launched)
     dec = pfft.make_decomp(mesh, N)
     delta = driver.build_kdensity(dec, Grid(N, p.BoxSize_htrue), cosmo,
@@ -611,7 +701,7 @@ def test_ooc_mesh_on_one_card(dev, setup):
     want = {"ic_kdensity_planes", "ooc_factors_hessian",
             "collapse_update_slab", "lpt_sources_pointwise",
             "ooc_factors_pair", "lpt_src32_accumulate", "pdf_hist",
-            "ooc_factors_gradient", "vrows_slab"}
+            "ooc_factors_gradient", "needed_rank", "vrows_slab"}
     assert launched == want, (launched - want, want - launched)
     np.testing.assert_array_equal(res.products.gather()[0],
                                   one.products.Fmax.cpu().numpy())
@@ -657,6 +747,7 @@ def test_ooc_mesh_on_one_card(dev, setup):
     ("kspace_gradient_tab", lambda t: derivatives.gradient_kspace_tab(
         t, t, 0.0, 1.0, 4)),
     ("gather_rows", lambda t: compact.gather_rows(t, [t], t)),
+    ("needed_rank", lambda t: compact.needed_rank(t, 4)),
     ("pdf_hist", lambda t: compact.pdf_hist(t)),
     ("exchange_count", lambda t: xops.count(t, (0, 1, 0, 1, 0, 1), 4, t, t,
                                             1)),

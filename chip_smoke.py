@@ -7,16 +7,22 @@
    name and power limit;
 2. builds the CUDA kernels from csrc/ with nvcc (one process per source, in
    parallel) and prints the build time, then what the compiler made of
-   the collapse template and of K6a (registers and spills from ptxas -v,
-   the runtime's shared memory and resident blocks per SM, SASS counts)
-   and the proof of K3's cube root on every positive float32;
+   the collapse template, of K6a, K6b and of K1/K1s/K9 (registers and
+   spills from ptxas -v, the runtime's shared memory and resident blocks
+   per SM, SASS counts), the proof of K3's cube root on every positive
+   float32 and the proof of K1's phases (every phase the generator can
+   draw: the kernel's phase, sincosf and dead-mode signed zeros against the
+   plain version's phase, sin and cos);
 3. runs every kernel at 256^3 and 512^3 on the card at the shapes its path
    gives it (K6a on the classic path's own state after the radius loop,
    beside its check after the mid radius; K3 also per branch of
    ell_classic and with direct loads; K11 and K13 also 20 calls back to
    back and the host's enqueue of one), holds each against its plain
    PyTorch version on the same inputs, with the tolerance printed (K3, K7,
-   K11 and K13 exactly), and times the kernel, the plain
+   K11 and K13 exactly; K1, K1s and K9 bit for bit, signed zeros included,
+   K1 also with FixedIC and PairedIC, K1s also on a ragged window, K9 also
+   on the batch that ends at Nh; K6b also on adversarial F), and times the
+   kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
    same function (median of 5, CUDA events); each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
@@ -309,6 +315,11 @@ REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
              "plc": (64, dict(StartingzForPLC=0.1)),
              "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4)),
              "mesh": (48, {}), "hosts": (48, dict(subbox_tasks=4))}
+# the classic path's halos at PIPELINE_N per output (z = 2, 1, 0.5, 0),
+# recorded on an NVIDIA H100 80GB HBM3 with the kernels of commit a7598f1,
+# before K1 and K6b were redesigned: the redesigned kernels give the same
+# delta and the same FmaxPDF, so the catalogs must not move
+CLASSIC_HALOS = (49706, 62173, 63610, 62929)
 # what later phases hold to: the classic path's host products and grid
 # variance (special modes), its fmax result, catalogs and timings (the
 # sub-box turns); the plc path's catalogs, crossings and timings (the
@@ -417,6 +428,24 @@ def same_values(a, b):
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
     return torch.equal(a, b)
+
+
+def same_bits(a, b):
+    """Whether two float32 or complex64 tensors hold the same bits (so a
+    signed zero equals only itself)."""
+    import torch
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def adversarial_F(dev):
+    """Inputs that K6b's bins must take as the plain version does (the card
+    test's, tests/torch_hist_cases.py): {name: float32 tensor on dev}."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_hist_cases import adversarial_F as cases
+    return cases(dev)
 
 
 def card_mesh(dev, kind, shape):
@@ -561,6 +590,10 @@ COMPILED = {r"rank_kernel": "needed_rank",
             r"record_quad_kernel": "record pass (quads)",
             r"record_cell_kernel": "record pass (cells)",
             r"column_kernel": "column pass",
+            r"hist_kernel": "pdf_hist",
+            r"kdensity_kernel": "ic modes (K1, K1s)",
+            r"kdensity_planes_kernel": "ic planes (K9)",
+            r"pk_table_kernel": "ic P(k) table",
             r"collapse_kernelILi(\d)E(?:Lb([01])E)?": None}
 COLLAPSE_MODES = ("classic", "trilinear", "bilinear", "bicubic")
 FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DEPBAR.F64", "F2F.F64",
@@ -640,14 +673,16 @@ def compiled_report(dev):
     spill bytes, shared memory and resident blocks per SM (the occupancy
     query), and the static SASS instruction, float64 instruction and call
     counts (cuobjdump); then the cube root's proof on every positive finite
-    float32.  Returns {label: dict}."""
+    float32 and the proof of K1's phases (ic.phase_check).  Returns {label:
+    dict}."""
     import torch
-    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch import ic, kernels
     from pinocchio_tpu_torch.ops import collapse, compact
     lib = kernels.library_path()
     ptx = _ptxas_report(kernels.ptxas_path(lib))
     sass = _sass_report(lib)
     runtime = dict(compact.kernel_info())
+    runtime.update(ic.kernel_info())
     for m, mode in enumerate(COLLAPSE_MODES):
         for ring in ((True, False) if m == 0 else (False,)):
             label = (f"collapse_kernel<{mode}, "
@@ -680,6 +715,22 @@ def compiled_report(dev):
          f"{bad} floats")
     out["cbrt"] = dict(differ=bad, near_midpoint=near,
                        ms=start.elapsed_time(end))
+    torch.cuda.synchronize()
+    start.record()
+    phases, values, zeros = ic.phase_check(dev)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    print(f"  K1's phases: of the {ic.PHASES} phases the generator can draw "
+          f"(2^23 uniforms, and shifted by float32(pi)), {phases} differ from "
+          f"the plain version's phase, {values} in sincosf from its sin and "
+          f"cos, {zeros} in a dead mode's signed zeros from its signs of "
+          f"sin and cos (need 0 each); {ms:.1f} ms", flush=True)
+    need(phases == 0 and values == 0 and zeros == 0,
+         f"K1's phases: {phases} phases, {values} sincosf values, {zeros} "
+         "dead-mode signs differ")
+    out["phases"] = dict(phases=ic.PHASES, phase_differ=phases,
+                         sincos_differ=values, sign_differ=zeros, ms=ms)
     return out
 
 
@@ -716,16 +767,31 @@ def kernel_phases(N, dev, report):
     logkf = float(np.float32(math.log10(2.0 * math.pi / grid.BoxSize)))
     fac = float(np.float32(grid.BoxSize ** -1.5 * float(N) ** 3))
     args = (N, logk, logpk, kp, ka, logkf, fac, False, False)
+    # FixedIC and PairedIC first (bit for bit, untimed)
+    for fixed, paired in ((True, False), (False, True)):
+        sw = args[:7] + (fixed, paired)
+        need(same_bits(ic.kdensity(*sw), ic.kdensity_plain(*sw)),
+             f"ic_kdensity at {N}^3 (fixed {fixed}, paired {paired}) is not "
+             "bit for bit its plain version")
     delta = ic.kdensity(*args)
     ref = ic.kdensity_plain(*args)
     err = (delta - ref).abs().max().item()
-    need(same(delta, ref),
-         f"ic_kdensity at {N}^3 is not identical to its plain version")
-    phase("ic_kdensity", err, 1e-5 * ref.abs().max().item(),
-          time_ms(lambda: ic.kdensity(*args)),
-          time_ms(lambda: ic.kdensity_plain(*args)),
-          8 * modes + 8 * logk.numel(), modes, extra="identical, ")
+    need(same_bits(delta, ref),
+         f"ic_kdensity at {N}^3 is not bit for bit its plain version")
+    zeros = int((ref == 0).sum())
     del ref
+
+    def k1():
+        return ic.kdensity(*args)
+    ms, batch, host = time_ms(k1), batch_ms(k1), host_ms(k1)
+    phase("ic_kdensity", err, 1e-5 * delta.abs().max().item(), ms,
+          time_ms(lambda: ic.kdensity_plain(*args)),
+          8 * modes + 8 * logk.numel(), modes,
+          extra=f"bit for bit (signed zeros of {zeros} dead modes "
+          f"included; FixedIC and PairedIC too; 20 calls back to back "
+          f"{batch:.3f} ms a call, the host's enqueue {host:.3f} ms), ")
+    rec["ic_kdensity"].update(dead_modes=zeros, batch_ms=batch,
+                              host_ms=host)
 
     # ---- K2: Hessian multiply (a mid radius and R=0) ----
     R_mid = float(np.float32(sm.radii[sm.n // 2] / grid.CellSize))
@@ -874,14 +940,29 @@ def kernel_phases(N, dev, report):
          "its plain version")
     bins = torch.clamp(torch.nan_to_num(Fflat * 10.0, nan=0.0), 0.0,
                        209.0).to(torch.int64)
-    phase("pdf_hist", (got - want).abs().max().item(), 0.0,
-          time_ms(lambda: compact.pdf_hist(F0)),
+    def k6b():
+        return compact.pdf_hist(F0)
+    ms, batch, host = time_ms(k6b), batch_ms(k6b), host_ms(k6b)
+    phase("pdf_hist", (got - want).abs().max().item(), 0.0, ms,
           time_ms(lambda: compact.pdf_hist_plain(F0)),
           4 * cells + 8 * compact.PDF_BINS, cells,
           library_ms=time_ms(lambda: torch.bincount(
               bins, minlength=compact.PDF_BINS)),
-          extra="identical (library: bincount of the bins), ")
+          extra=f"identical (library: bincount of the bins; 20 calls back "
+          f"to back {batch:.3f} ms a call, the host's enqueue {host:.3f} "
+          "ms), ")
+    rec["pdf_hist"].update(batch_ms=batch, host_ms=host)
     del bins
+    cases = adversarial_F(dev)
+    for what, F in cases.items():
+        got = compact.pdf_hist(F)
+        need(torch.equal(got, compact.pdf_hist_plain(F))
+             and int(got.sum()) == F.numel(),
+             f"pdf_hist on {what} ({F.numel()} cells) differs from its "
+             "plain version")
+    print(f"  [{N}^3] pdf_hist on the adversarial inputs "
+          f"({', '.join(cases)}): identical", flush=True)
+    del cases
 
     # ---- the out-of-core engine's kernels at the shapes of its path: a kz
     # batch of planes, an x-slab ----
@@ -889,16 +970,38 @@ def kernel_phases(N, dev, report):
     Bx = fmax_ooc.slab_width(N)
     gen = ic.PlaneGenerator(grid, cosmo, p.RandomSeed, dev)
     planes = gen(0, B)
-    ref = ic.kdensity_planes_plain(N, gen.logk, gen.logpk, gen.keys, 0, B,
-                                   gen.logkf, gen.fac, False, False)
-    need(same(planes, ref), f"ic_kdensity_planes at {N}^3 is not identical "
-         "to its plain version")
-    phase("ic_kdensity_planes", (planes - ref).abs().max().item(), 0.0,
-          time_ms(lambda: gen(0, B)),
+    gen_args = (N, gen.logk, gen.logpk, gen.keys)
+    ref = ic.kdensity_planes_plain(*gen_args, 0, B, gen.logkf, gen.fac,
+                                   False, False)
+    need(same_bits(planes, ref), f"ic_kdensity_planes at {N}^3 is not bit "
+         "for bit its plain version")
+    # the last batch (it holds the Nyquist plane kz = N/2 and ends at Nh),
+    # from the generator and from the public wrapper (which builds its
+    # P(k) table in the call)
+    last = (Nh - B, B)
+    need(same_bits(gen(*last), ic.kdensity_planes_plain(
+        *gen_args, *last, gen.logkf, gen.fac, False, False))
+         and same_bits(ic.kdensity_planes(*gen_args, *last, gen.logkf,
+                                          gen.fac, False, False),
+                       gen(*last)),
+         f"ic_kdensity_planes at {N}^3, planes {Nh - B}..{Nh - 1}, is not "
+         "bit for bit its plain version")
+    with_table = time_ms(lambda: ic.kdensity_planes(
+        *gen_args, 0, B, gen.logkf, gen.fac, False, False))
+
+    def k9():
+        return gen(0, B)
+    ms, batch, host = time_ms(k9), batch_ms(k9), host_ms(k9)
+    phase("ic_kdensity_planes", (planes - ref).abs().max().item(), 0.0, ms,
           time_ms(lambda: ic.kdensity_planes_plain(
-              N, gen.logk, gen.logpk, gen.keys, 0, B, gen.logkf, gen.fac,
-              False, False)), 8 * B * N * N + 16 * B + 8 * gen.logk.numel(),
-          B * N * N, extra=f"identical, [{B}, {N}, {N}], ")
+              *gen_args, 0, B, gen.logkf, gen.fac, False, False)),
+          8 * B * N * N + 16 * B + 8 * gen.logk.numel(),
+          B * N * N, extra=f"bit for bit (and planes {Nh - B}..{Nh - 1}), "
+          f"[{B}, {N}, {N}] (with its P(k) table built in the call "
+          f"{with_table:.3f} ms; 20 calls back to back {batch:.3f} ms a "
+          f"call, the host's enqueue {host:.3f} ms), ")
+    rec["ic_kdensity_planes"].update(with_table_ms=with_table,
+                                     batch_ms=batch, host_ms=host)
     del ref
     spec = delta[:, :, 1:1 + B].permute(2, 0, 1)      # a strided batch
     kz_cases = (
@@ -1130,13 +1233,18 @@ def shard_kernel_phases(N, dev, report):
     win = f"[{N}, {ny}, {nz}] at ({y0}, {z0}), "
     shard = ic.kdensity_shard(*args)
     ref = ic.kdensity_shard_plain(*args)
-    need(same_values(shard, ref), f"ic_kdensity_shard at {N}^3 is not "
-         "identical to its plain version")
+    need(same_bits(shard, ref), f"ic_kdensity_shard at {N}^3 is not bit "
+         "for bit its plain version")
+    # a ragged window: odd y0 and ny, reaching into the padded planes
+    odd = args[:9] + (N // 2 + 1, N // 2 - 3, N // 4 + 1, N // 4 + 3)
+    need(same_bits(ic.kdensity_shard(*odd), ic.kdensity_shard_plain(*odd)),
+         f"ic_kdensity_shard at {N}^3 on the window {odd[9:]} is not bit "
+         "for bit its plain version")
     record_phase(rec, N, "ic_kdensity_shard", 0.0, 0.0,
                  time_ms(lambda: ic.kdensity_shard(*args)),
                  time_ms(lambda: ic.kdensity_shard_plain(*args)),
                  8 * modes + 8 * logk.size, modes,
-                 extra="identical, " + win)
+                 extra=f"bit for bit (and on the window {odd[9:]}), " + win)
     del ref
     R_mid = float(np.float32(sm.radii[sm.n // 2] / grid.CellSize))
     cosmo_fr = Cosmology(params_for(N, **FR))
@@ -1308,13 +1416,21 @@ def run_path(dev, name):
         print("  phases: " + ", ".join(
             f"{k} {v:.3f}" + ("" if k in counts else " s")
             for k, v in sorted(res["timings"].items())), flush=True)
+        halos = []
         for snap in res["frag"].catalogs:
             nh = int((snap.mass >= p.MinHaloMass).sum())
+            halos.append(nh)
             print(f"  z={snap.z:g}: {nh} halos", flush=True)
             need(nh > 0, f"{name}: no halos at z={snap.z}")
             for kind in ("catalog", "mf"):
                 fn = f"pinocchio.{snap.z:6.4f}.{p.RunFlag}.{kind}.out"
                 need(fn in files, f"{name}: missing {fn}")
+        if name == "classic" and N == 256:
+            print(f"  halos per output {tuple(halos)}, recorded before the "
+                  f"redesign of K1 and K6b {CLASSIC_HALOS} (need equal)",
+                  flush=True)
+            need(tuple(halos) == CLASSIC_HALOS, "classic: the halo counts "
+                 "moved from those recorded")
         for fn in (f"pinocchio.{p.RunFlag}.FmaxPDF.out",
                    f"pinocchio.{p.RunFlag}.histories.out",
                    f"pinocchio.{p.RunFlag}.cosmology.out"):

@@ -38,15 +38,29 @@
 // coalesced), then the scattered 12-byte row writes of the needed cells.
 // Design: one thread per slab cell.
 //
-// pdf_hist replaces fmax.py:_pdf_bincount (110-112): counts of
-// clamp(int(F * 10), 0, 209) over the grid.  What bounds it: atomic
-// contention, since most cells fall in bin 0 (F = -10 or 0).  Design: per
-// block bins in shared memory, with the lanes of a warp that share a bin
-// adding once (__match_any_sync), then one global atomic add per bin and
-// block.  Both results are exact: copies and integer counts.
+// pdf_hist (K6b) replaces fmax.py:_pdf_bincount (110-112): counts of
+// clamp(int(F * 10), 0, 209) over the grid.  What bounds it: the bytes of F
+// (4 B a cell, read once), and most cells fall in a few bins (F = -10 and 0
+// in bin 0, the rest between bins 0 and 50), so a shared counter per bin
+// and block serializes the lanes that meet on it.  Design: 16-byte loads
+// marked evict-first, two sets of four in flight per thread (the next set
+// is loaded while the current one is counted), and a private 16-bit counter
+// per lane and bin in shared memory, laid out [warp][bin][lane] so that the
+// 32 lanes of a warp always touch 32 banks: an increment is a plain load,
+// add and store, with no atomic and no conflict whatever the data.  A
+// thread counts at most 4 * kHistMaxQuads cells, so no counter wraps (the
+// grid grows past the resident blocks where n needs it).  Then each warp
+// sums its lanes per bin into the block's totals, and each block adds its
+// non-zero totals to the int64 counts with one global atomic per bin.  The
+// cells before the first 16-byte boundary of F and after the last whole
+// quad (an unaligned view, n % 4 != 0) are counted one by one by block 0.
+// The counts are zeroed in the same call.  Both results are exact: copies
+// and integer counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -54,6 +68,15 @@ constexpr int kThreads = 256;
 constexpr int kMaxStacks = 8;
 constexpr int kBins = 210;
 constexpr int kRec = 8;         // floats of a row record: one 32-byte sector
+constexpr int kMaxDevices = 64;
+// K6b: 8 warps a block, each with a 16-bit counter per lane and bin
+// (107,520 B of shared memory, two blocks per SM), four 16-byte loads of a
+// thread in flight per set, and at most kHistMaxQuads quads a thread
+constexpr int kHistThreads = 256;
+constexpr int kHistLoads = 4;
+constexpr size_t kHistSmem =
+    (size_t)(kHistThreads / 32) * kBins * 32 * sizeof(uint16_t);
+constexpr int64_t kHistMaxQuads = 16383;
 
 __global__ void rank_kernel(const int64_t* __restrict__ idx, int64_t count,
                             int* __restrict__ rank) {
@@ -164,30 +187,110 @@ __global__ void vrows_kernel(const int* __restrict__ rank,
   row[2] = __ldg(comps + 2 * n + i);
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const float* __restrict__ F, int64_t n,
+// the bin of one F: clamp, then truncate toward zero; NaN gives bin 0
+__device__ __forceinline__ int pdf_bin(float x) {
+  return (int)fminf(fmaxf(x * 10.0f, 0.0f), (float)(kBins - 1));
+}
+
+// one lane's counter of bin b is lanes[b * 32]
+__device__ __forceinline__ void hist_count(uint16_t* lanes, const float4& v) {
+  lanes[pdf_bin(v.x) * 32] += 1;
+  lanes[pdf_bin(v.y) * 32] += 1;
+  lanes[pdf_bin(v.z) * 32] += 1;
+  lanes[pdf_bin(v.w) * 32] += 1;
+}
+
+// F [n]: head cells before the first 16-byte boundary, then nquad quads,
+// then the tail (fewer than 4 cells); counts zeroed before the launch
+__global__ void __launch_bounds__(kHistThreads)
+hist_kernel(const float* __restrict__ F, int64_t n, int head, int64_t nquad,
             unsigned long long* __restrict__ counts) {
-  __shared__ unsigned int bins[kBins];
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) bins[b] = 0;
+  extern __shared__ uint4 hist_smem[];
+  __shared__ unsigned int total[kBins];
+  uint16_t* hist = reinterpret_cast<uint16_t*>(hist_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < (int)(kHistSmem / sizeof(uint4));
+       i += kHistThreads)
+    hist_smem[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int b = threadIdx.x; b < kBins; b += kHistThreads) total[b] = 0;
   __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  // the block-uniform loop keeps every lane of a warp in each iteration,
-  // so the match below always runs over the full warp
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < n;
-       base += stride) {
-    const int64_t i = base + threadIdx.x;
-    int b = -1;
-    if (i < n) {
-      // clamp, then truncate toward zero; NaN gives bin 0
-      b = (int)fminf(fmaxf(__ldg(F + i) * 10.0f, 0.0f), (float)(kBins - 1));
-    }
-    const unsigned same = __match_any_sync(0xffffffffu, b);
-    if (b >= 0 && (threadIdx.x & 31) == __ffs(same) - 1)
-      atomicAdd(&bins[b], (unsigned)__popc(same));
+
+  // the cells outside the quads, one global atomic each
+  if (blockIdx.x == 0) {
+    const int t = threadIdx.x;
+    const int64_t tail0 = head + 4 * nquad;
+    int64_t i = -1;
+    if (t < head) i = t;
+    else if (t >= 4 && tail0 + (t - 4) < n) i = tail0 + (t - 4);
+    if (i >= 0) atomicAdd(counts + pdf_bin(__ldg(F + i)), 1ull);
+  }
+
+  uint16_t* lanes = hist + warp * (kBins * 32) + lane;
+  const float4* q4 = reinterpret_cast<const float4*>(F + head);
+  const int64_t stride = (int64_t)gridDim.x * kHistThreads;
+  const int64_t step = kHistLoads * stride;
+  int64_t q = (int64_t)blockIdx.x * kHistThreads + threadIdx.x;
+  float4 cur[kHistLoads];
+#pragma unroll
+  for (int j = 0; j < kHistLoads; ++j)
+    if (q + j * stride < nquad) cur[j] = __ldcs(q4 + q + j * stride);
+  for (; q < nquad; q += step) {
+    float4 next[kHistLoads];
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j)
+      if (q + step + j * stride < nquad)
+        next[j] = __ldcs(q4 + q + step + j * stride);
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j)
+      if (q + j * stride < nquad) hist_count(lanes, cur[j]);
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j) cur[j] = next[j];
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (bins[b]) atomicAdd(counts + b, (unsigned long long)bins[b]);
+
+  // warp w sums its lanes' counters of bins lane, lane + 32, ...: a bin's
+  // 32 counters are 16 words, read from word (i + lane / 2) % 16 so that
+  // the 32 lanes read 32 banks
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(hist + warp * (kBins * 32));
+  for (int b = lane; b < kBins; b += 32) {
+    unsigned int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t w = words[b * 16 + ((i + (lane >> 1)) & 15)];
+      sum += (w & 0xffffu) + (w >> 16);
+    }
+    if (sum) atomicAdd(&total[b], sum);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kBins; b += kHistThreads)
+    if (total[b]) atomicAdd(counts + b, (unsigned long long)total[b]);
+}
+
+// resident hist_kernel blocks per SM and the SMs of device dev, queried
+// once per device (0 when the query fails)
+int hist_blocks(int dev, int* sms) {
+  static int blocks[kMaxDevices] = {}, count[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  if (blocks[dev] == 0) {
+    if (cudaFuncSetAttribute(hist_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kHistSmem) != cudaSuccess ||
+        cudaFuncSetAttribute(hist_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+      return 0;
+    int b = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, hist_kernel, kHistThreads, kHistSmem) != cudaSuccess)
+      return 0;
+    blocks[dev] = b;
+  }
+  *sms = count[dev];
+  return blocks[dev];
 }
 
 }  // namespace
@@ -272,18 +375,27 @@ extern "C" int scatter_rows(const void* rank_, int64_t ncell, int64_t count,
 
 // registers, local (spill) bytes, static shared bytes and resident blocks
 // per SM of kernel `which`: 0 needed_rank, 1 the record pass by quads, 2 by
-// cells, 3 the column pass; out[4]
+// cells, 3 the column pass, 4 K6b's histogram (its shared bytes: static
+// and dynamic); out[4]
 extern "C" int compact_kernel_info(int which, int* out) {
   cudaFuncAttributes a;
   const void* fn = which == 0   ? (const void*)rank_kernel
                    : which == 1 ? (const void*)record_quad_kernel
                    : which == 2 ? (const void*)record_cell_kernel
-                                : (const void*)column_kernel;
+                   : which == 3 ? (const void*)column_kernel
+                                : (const void*)hist_kernel;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
+  if (which == 4) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    out[2] += (int)kHistSmem;
+    out[3] = hist_blocks(dev, &sms);
+    return out[3] > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
+  }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, fn,
                                                             kThreads, 0);
 }
@@ -298,14 +410,30 @@ extern "C" int vrows_slab(const void* rank, const void* comps, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// counts: [210] int64, zeroed by the caller
+// counts: [210] int64, written (zeroed, then counted)
 extern "C" int pdf_hist(const void* F, int64_t n, void* counts,
                         void* stream) {
-  if (n == 0) return 0;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  hist_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)F, n, (unsigned long long*)counts);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(counts, 0, kBins * sizeof(int64_t), s);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  const uintptr_t p = (uintptr_t)F;
+  if (p & 3) return (int)cudaErrorMisalignedAddress;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  const int per_sm = hist_blocks(dev, &sms);
+  if (per_sm <= 0 || sms <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int head = (int)std::min<int64_t>(((16 - (p & 15)) & 15) / 4, n);
+  const int64_t nquad = (n - head) / 4;
+  // every resident block, at most one a thread's quad, and enough that no
+  // thread counts more than kHistMaxQuads quads
+  const int64_t need = (nquad + kHistThreads * kHistMaxQuads - 1) /
+                       (kHistThreads * kHistMaxQuads);
+  const int64_t most = std::max<int64_t>(
+      1, (nquad + kHistThreads - 1) / kHistThreads);
+  const int64_t grid =
+      std::max<int64_t>(need, std::min<int64_t>((int64_t)per_sm * sms, most));
+  hist_kernel<<<(unsigned)grid, kHistThreads, kHistSmem, s>>>(
+      (const float*)F, n, head, nquad, (unsigned long long*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ global counter, so every shard holds the single-device field's values.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -68,7 +69,12 @@ def random_bits(key, counters):
 
 def uniform(key, counters, minval: float, maxval: float):
     """jax.random.uniform (float32) at the flat indices ``counters``."""
-    bits = random_bits(key, counters)
+    return uniform_of_bits(random_bits(key, counters), minval, maxval)
+
+
+def uniform_of_bits(bits, minval: float, maxval: float):
+    """jax.random.uniform's float32 of the generator's bits (int64 tensor
+    holding uint32 values)."""
     f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
          - 1.0)
     lo = torch.tensor(minval, dtype=torch.float32)
@@ -154,6 +160,13 @@ def _modes(m2, alive, sign, phase, ampl, logk, logpk, logkf, fac, fixed,
                          sign * amp * torch.sin(phase))
 
 
+def _power_table(N: int, device):
+    """Scratch for the kernels' P(k) table: float32 for every |m|^2 a live
+    mode can have, 0..(N/2)^2, written by the launch."""
+    return torch.empty((N // 2) ** 2 + 1, dtype=torch.float32,
+                       device=device)
+
+
 def kdensity(N: int, logk, logpk, kp, ka, logkf: float, fac: float,
              fixed: bool, paired: bool):
     """delta(k) complex64 [N, N, N//2+1] on the device of the P(k) tables
@@ -168,10 +181,11 @@ def kdensity(N: int, logk, logpk, kp, ka, logkf: float, fac: float,
                          "expected")
     out = torch.empty((N, N, N // 2 + 1), dtype=torch.complex64,
                       device=logk.device)
+    pk = _power_table(N, logk.device)
     err = kernels.lib().ic_kdensity(
-        out.data_ptr(), logk.data_ptr(), logpk.data_ptr(), logk.numel(),
-        kp[0], kp[1], ka[0], ka[1], float(logkf), float(fac), N,
-        int(bool(fixed)), int(bool(paired)),
+        out.data_ptr(), pk.data_ptr(), logk.data_ptr(), logpk.data_ptr(),
+        logk.numel(), kp[0], kp[1], ka[0], ka[1], float(logkf), float(fac),
+        N, int(bool(fixed)), int(bool(paired)),
         kernels.stream_ptr(logk.device))
     kernels.check("ic_kdensity", err)
     kernels.LAUNCHES["ic_kdensity"] += 1
@@ -195,11 +209,13 @@ def kdensity_shard(N: int, logk, logpk, kp, ka, logkf: float, fac: float,
         raise ValueError("ic_kdensity_shard: float32 1-D tables of one "
                          "length and a window inside the k layout expected")
     out = torch.empty((N, ny, nz), dtype=torch.complex64, device=logk.device)
+    pk = _power_table(N, logk.device)
     with kernels.on_device(logk.device):
         err = kernels.lib().ic_kdensity_shard(
-            out.data_ptr(), logk.data_ptr(), logpk.data_ptr(), logk.numel(),
-            kp[0], kp[1], ka[0], ka[1], float(logkf), float(fac), N, int(y0),
-            int(ny), int(z0), int(nz), int(bool(fixed)), int(bool(paired)),
+            out.data_ptr(), pk.data_ptr(), logk.data_ptr(), logpk.data_ptr(),
+            logk.numel(), kp[0], kp[1], ka[0], ka[1], float(logkf),
+            float(fac), N, int(y0), int(ny), int(z0), int(nz),
+            int(bool(fixed)), int(bool(paired)),
             kernels.stream_ptr(logk.device))
     kernels.check("ic_kdensity_shard", err)
     kernels.LAUNCHES["ic_kdensity_shard"] += 1
@@ -275,14 +291,7 @@ def kdensity_planes_plain(N, logk, logpk, keys, kz0, B, logkf, fac, fixed,
                   fixed, paired)
 
 
-def kdensity_planes(N: int, logk, logpk, keys, kz0: int, B: int,
-                    logkf: float, fac: float, fixed: bool, paired: bool):
-    """delta(k) of the kz planes kz0..kz0+B-1, complex64 [B, N, N] (x, y
-    order within a plane), on the device of the P(k) tables; keys: the
-    int32 [>= kz0+B, 4] plane keys (plane_keys' bits)."""
-    if not kernels.plain_or_kernel("ic_kdensity_planes", logk):
-        return kdensity_planes_plain(N, logk, logpk, keys, kz0, B, logkf,
-                                     fac, fixed, paired)
+def _check_planes(N, logk, logpk, keys, kz0, B):
     kernels.require_cuda("ic_kdensity_planes", logk, logpk, keys)
     if (logk.dtype != torch.float32 or logpk.shape != logk.shape
             or logk.dim() != 1 or keys.dtype != torch.int32
@@ -291,14 +300,35 @@ def kdensity_planes(N: int, logk, logpk, keys, kz0: int, B: int,
         raise ValueError("ic_kdensity_planes: float32 1-D tables of one "
                          "length and int32 [nplanes, 4] keys covering the "
                          "batch expected")
+
+
+def _planes(N, logk, logpk, keys, kz0, B, logkf, fac, fixed, paired, pk,
+            build):
+    """Launch K9 into a new [B, N, N] tensor with the P(k) table pk, which
+    the launch writes first when ``build``."""
     out = torch.empty((B, N, N), dtype=torch.complex64, device=logk.device)
     err = kernels.lib().ic_kdensity_planes(
-        out.data_ptr(), logk.data_ptr(), logpk.data_ptr(), logk.numel(),
-        keys.data_ptr(), int(kz0), int(B), float(logkf), float(fac), N,
-        int(bool(fixed)), int(bool(paired)), kernels.stream_ptr(logk.device))
+        out.data_ptr(), pk.data_ptr(), int(build), logk.data_ptr(),
+        logpk.data_ptr(), logk.numel(), keys.data_ptr(), int(kz0), int(B),
+        float(logkf), float(fac), N, int(bool(fixed)), int(bool(paired)),
+        kernels.stream_ptr(logk.device))
     kernels.check("ic_kdensity_planes", err)
     kernels.LAUNCHES["ic_kdensity_planes"] += 1
     return out
+
+
+def kdensity_planes(N: int, logk, logpk, keys, kz0: int, B: int,
+                    logkf: float, fac: float, fixed: bool, paired: bool):
+    """delta(k) of the kz planes kz0..kz0+B-1, complex64 [B, N, N] (x, y
+    order within a plane), on the device of the P(k) tables; keys: the
+    int32 [>= kz0+B, 4] plane keys (plane_keys' bits).  On the card each
+    call builds the kernel's P(k) table (a PlaneGenerator keeps its own)."""
+    if not kernels.plain_or_kernel("ic_kdensity_planes", logk):
+        return kdensity_planes_plain(N, logk, logpk, keys, kz0, B, logkf,
+                                     fac, fixed, paired)
+    _check_planes(N, logk, logpk, keys, kz0, B)
+    return _planes(N, logk, logpk, keys, kz0, B, logkf, fac, fixed, paired,
+                   _power_table(N, logk.device), True)
 
 
 class PlaneGenerator:
@@ -319,13 +349,75 @@ class PlaneGenerator:
                                                  / grid.BoxSize)))
         self.fac = float(np.float32(grid.BoxSize ** -1.5 * float(N) ** 3))
         self.fixed, self.paired = bool(fixed), bool(paired)
+        self._pk = None          # the kernel's P(k) table, built once
 
     def __call__(self, kz0: int, B: int):
-        return kdensity_planes(self.N, self.logk, self.logpk, self.keys,
-                               kz0, B, self.logkf, self.fac, self.fixed,
-                               self.paired)
+        if not kernels.plain_or_kernel("ic_kdensity_planes", self.logk):
+            return kdensity_planes_plain(self.N, self.logk, self.logpk,
+                                         self.keys, kz0, B, self.logkf,
+                                         self.fac, self.fixed, self.paired)
+        build = self._pk is None
+        if build:
+            _check_planes(self.N, self.logk, self.logpk, self.keys, 0, 0)
+            self._pk = _power_table(self.N, self.logk.device)
+        if not 0 <= kz0 <= kz0 + B <= self.N // 2 + 1:
+            raise ValueError(f"ic_kdensity_planes: planes {kz0}..{kz0 + B} "
+                             f"outside 0..{self.N // 2 + 1}")
+        return _planes(self.N, self.logk, self.logpk, self.keys, kz0, B,
+                       self.logkf, self.fac, self.fixed, self.paired,
+                       self._pk, build)
 
     def assemble(self):
         """The whole field on the rfftn grid [N, N, N//2+1]: the dense
         engine's delta(k) of this realization."""
         return self(0, self.N // 2 + 1).permute(1, 2, 0).contiguous()
+
+
+# ------------------------------------------------------------------
+# the proof of the kernels' dead-mode zeros and sincosf (on the card)
+# ------------------------------------------------------------------
+
+PHASES = 2 ** 24
+
+
+def phase_check(device):
+    """Every phase the generator can draw (the 2^23 uniforms of [0, 2 pi),
+    and the same shifted by float32(pi) as PairedIC draws them) through the
+    kernel's phase, sincosf and dead-mode signs on the card, against the
+    plain version's phase, sin and cos of it: returns (phases whose value
+    differs, phases whose sin or cos differs in any bit, the parts of a
+    dead mode's zero whose sign differs from the plain version's)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    phase, sinv, cosv = (torch.empty(PHASES, **f32) for _ in range(3))
+    rule = torch.empty(PHASES, dtype=torch.uint8, device=device)
+    kernels.check("ic_phase_check", kernels.lib().ic_phase_check(
+        phase.data_ptr(), sinv.data_ptr(), cosv.data_ptr(), rule.data_ptr(),
+        kernels.stream_ptr(device)))
+    bits = (torch.arange(PHASES // 2, dtype=torch.int64, device=device)
+            << 9)
+    want = uniform_of_bits(bits, 0.0, 2.0 * np.pi)
+    want = torch.cat([want, want + float(np.float32(np.pi))])
+    i32 = torch.int32
+    phases = int((phase.view(i32) != want.view(i32)).sum())
+    s, c = torch.sin(want), torch.cos(want)
+    values = int(((sinv.view(i32) != s.view(i32))
+                  | (cosv.view(i32) != c.view(i32))).sum())
+    # a dead mode is (+0 * cos, +0 * sin): the signs of cos and sin
+    zeros = int((((rule & 1) != 0) != torch.signbit(c)).sum()
+                + (((rule & 2) != 0) != torch.signbit(s)).sum())
+    return phases, values, zeros
+
+
+def kernel_info():
+    """Registers, spill (local) bytes, static shared bytes and resident
+    256-thread blocks per SM of K1's modes kernel (also K1s'), K9's and the
+    P(k) table's, as the card's runtime reports them: {name: (regs, local,
+    shared, blocks)}."""
+    out = {}
+    for which, name in enumerate(("ic modes (K1, K1s)", "ic planes (K9)",
+                                  "ic P(k) table")):
+        info = (ctypes.c_int * 4)()
+        kernels.check("ic_kernel_info",
+                      kernels.lib().ic_kernel_info(which, info))
+        out[name] = tuple(info)
+    return out

@@ -112,9 +112,14 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # out, logk, logpk, ntab, kp0, kp1, ka0, ka1, logkf, fac, N, fixed,
-    # paired, stream
-    "ic_kdensity": [_P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I, _I, _P],
+    # out, pk (scratch), logk, logpk, ntab, kp0, kp1, ka0, ka1, logkf, fac,
+    # N, fixed, paired, stream
+    "ic_kdensity": [_P, _P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I, _I,
+                    _P],
+    # phase, sin, cos, rule, stream
+    "ic_phase_check": [_P, _P, _P, _P, _P],
+    # which, out[4] (host)
+    "ic_kernel_info": [_I, _P],
     # delta, out, N, R_grid, stream
     "kspace_hessian": [_P, _P, _I, _F, _P],
     # src, out, N, growth, stream
@@ -141,10 +146,10 @@ _SIGNATURES = {
     "compact_kernel_info": [_I, _P],
     # F, n, counts, stream
     "pdf_hist": [_P, _L, _P, _P],
-    # out, logk, logpk, ntab, keys, kz0, B, logkf, fac, N, fixed, paired,
-    # stream
-    "ic_kdensity_planes": [_P, _P, _P, _I, _P, _I, _I, _F, _F, _I, _I, _I,
-                           _P],
+    # out, pk, build, logk, logpk, ntab, keys, kz0, B, logkf, fac, N, fixed,
+    # paired, stream
+    "ic_kdensity_planes": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _I,
+                           _I, _I, _P],
     # src, sb, sx, sy, out, N, kz0, B, R_grid (or growth), stream
     "ooc_factors_hessian": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
     "ooc_factors_gradient": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
@@ -166,8 +171,8 @@ _SIGNATURES = {
     "ooc_factors_gradient_tab": [_P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _F,
                                  _F, _F, _P],
     # K1's arguments with the window y0, ny, z0, nz after N
-    "ic_kdensity_shard": [_P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
+    "ic_kdensity_shard": [_P, _P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I,
+                          _I, _I, _I, _I, _I, _P],
     # src, out, N, y0, ny, z0, nz, then as K2, K5, K8
     "kspace_hessian_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "kspace_gradient_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],

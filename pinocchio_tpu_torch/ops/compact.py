@@ -131,12 +131,13 @@ def needed_rank(idx, ncell: int):
 
 
 def kernel_info():
-    """Registers, spill (local) bytes, static shared bytes and resident
-    256-thread blocks per SM of the K6a kernels, as the card's runtime
+    """Registers, spill (local) bytes, shared bytes and resident 256-thread
+    blocks per SM of the K6a kernels and K6b's, as the card's runtime
     reports them: {name: (regs, local, shared, blocks)}."""
     out = {}
     for which, name in enumerate(("needed_rank", "record pass (quads)",
-                                  "record pass (cells)", "column pass")):
+                                  "record pass (cells)", "column pass",
+                                  "pdf_hist")):
         info = (ctypes.c_int * 4)()
         kernels.check("compact_kernel_info",
                       kernels.lib().compact_kernel_info(which, info))
@@ -190,7 +191,8 @@ def pdf_hist(Fmax):
     kernels.require_cuda("pdf_hist", Fmax)
     if Fmax.dtype != torch.float32:
         raise ValueError("pdf_hist: float32 Fmax expected")
-    counts = torch.zeros(PDF_BINS, dtype=torch.int64, device=Fmax.device)
+    # the call zeroes the counts, then counts
+    counts = torch.empty(PDF_BINS, dtype=torch.int64, device=Fmax.device)
     err = kernels.lib().pdf_hist(Fmax.data_ptr(),
                                  ctypes.c_int64(Fmax.numel()),
                                  counts.data_ptr(),

@@ -11,6 +11,7 @@ import torch
 
 from pinocchio_tpu import fmax as jfmax
 from pinocchio_tpu_torch.ops import compact
+from torch_hist_cases import NAMES, adversarial_F
 
 torch.set_num_threads(2)
 
@@ -72,3 +73,15 @@ def test_pdf_hist_matches_jax(grids):
     want = np.asarray(jfmax._pdf_bincount(jnp.asarray(F)))
     np.testing.assert_array_equal(got, want)
     assert got.sum() == F.size and got.shape == (compact.PDF_BINS,)
+
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_pdf_hist_adversarial_matches_jax(name):
+    """pdf_hist (the plain twin here) on adversarial F against JAX's
+    _pdf_bincount (tests/torch_hist_cases.py)."""
+    F = adversarial_F("cpu", 4096)[name]
+    got = compact.pdf_hist(F).numpy()
+    want = np.asarray(jfmax._pdf_bincount(jnp.asarray(F.numpy())))
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == F.numel()

@@ -38,7 +38,17 @@ paint) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap.
+K1 is also held bit for bit (an int32 view of both parts, so a signed
+zero equals only itself) at 32^3, 48^3 and 96^3 with and without FixedIC
+and PairedIC; K1s on windows with odd y0 and ny and with padded planes;
+K9 on batches from kz = 0, across kz = N/2 and up to Nh, from a generator
+and from the public wrapper; the kernels' phase, sincosf and dead-mode
+signs on every phase the generator can draw; K6b on adversarial F (one bin
+for every cell, NaN, +-inf, -0.0, 1e30, the bin edges, 20.9-21.0, lengths
+4k + 1..3, views off the 16-byte grid).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -52,6 +62,7 @@ from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
 from pinocchio_tpu_torch.ops import exchange as xops
 from pinocchio_tpu_torch.ops import tabulated
 from torch_hessians import SPECIAL, special_hessians
+from torch_hist_cases import adversarial_F
 
 torch.set_num_threads(2)
 
@@ -102,6 +113,100 @@ def test_ic_kdensity(dev, setup, fixed, paired):
     want = ic.kdensity_plain(*args)
     assert got.shape == (N, N, N // 2 + 1) and got.dtype == torch.complex64
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _same_bits(a, b):
+    """The same float32 bits (complex64 part by part), so a signed zero
+    equals only itself (torch.equal takes -0.0 for +0.0)."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _ic_host_args(n):
+    """K1's host inputs at n^3 (kdensity_args of the bench shape)."""
+    p = Params(GridSize=n, BoxSize=float(n), output_z=[0.0], norad=True,
+               plc_enabled=False)
+    return ic.kdensity_args(Grid(n, p.BoxSize_htrue), Cosmology(p),
+                            p.RandomSeed)
+
+
+def _ic_args(n, dev):
+    """K1's inputs at n^3: the P(k) tables on dev, the keys, log10 kf and
+    the amplitude factor."""
+    args = _ic_host_args(n)
+    return (tuple(torch.from_numpy(t).to(dev) for t in args[:2])
+            + tuple(args[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 48, 96])
+@pytest.mark.parametrize("fixed,paired", [(False, False), (True, False),
+                                          (False, True)])
+def test_ic_kdensity_bit_for_bit(dev, n, fixed, paired):
+    """K1 bit for bit its plain version, the signed zeros of the dead modes
+    included; Nh = 17, 25, 49 is odd, so rows of kz straddle warps."""
+    args = (n,) + _ic_args(n, dev) + (fixed, paired)
+    got = _launched("ic_kdensity", lambda: ic.kdensity(*args))
+    want = ic.kdensity_plain(*args)
+    assert _same_bits(got, want)
+    assert int((want == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,paired", [
+    ((1, 7, 20, 10), False), ((1, 7, 20, 10), True), ((0, N, 0, 26), False),
+    ((49, 1, 25, 3), False), ((13, 31, 0, 33), True), ((25, 25, 13, 13),
+                                                       False)])
+def test_kdensity_shard_bit_for_bit(dev, window, paired):
+    """K1s bit for bit its plain version on windows with odd y0 and ny and
+    with padded planes iz >= Nh (written as +0)."""
+    args = (N,) + _ic_args(N, dev) + (False, paired) + window
+    got = _launched("ic_kdensity_shard", lambda: ic.kdensity_shard(*args))
+    assert _same_bits(got, ic.kdensity_shard_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed,paired", [(False, False), (True, False),
+                                          (False, True)])
+def test_kdensity_planes_bit_for_bit(dev, setup, fixed, paired):
+    """K9 bit for bit its plain version, from the generator (its P(k)
+    table built on the first batch and kept) and from the public wrapper
+    (the table built in each call): batches that start at kz = 0, cross
+    kz = N/2, end at Nh, and the whole half grid."""
+    p, cosmo = setup
+    gen = ic.PlaneGenerator(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
+                            dev, fixed=fixed, paired=paired)
+    Nh = N // 2 + 1
+    for kz0, B in ((0, 5), (20, 6), (10, 16), (0, Nh)):
+        args = (N, gen.logk, gen.logpk, gen.keys, kz0, B, gen.logkf,
+                gen.fac, fixed, paired)
+        want = ic.kdensity_planes_plain(*args)
+        assert _same_bits(_launched("ic_kdensity_planes",
+                                    lambda: gen(kz0, B)), want)
+        assert _same_bits(_launched("ic_kdensity_planes",
+                                    lambda: ic.kdensity_planes(*args)), want)
+
+
+@pytest.mark.cuda
+def test_ic_phase_proof(dev):
+    """Every phase the generator can draw: the kernel's phase, sincosf and
+    dead-mode signs equal the plain version's phase, sin and cos."""
+    assert ic.phase_check(dev) == (0, 0, 0)
+
+
+@pytest.mark.cuda
+def test_pdf_hist_adversarial(dev):
+    """K6b equal to its plain version on adversarial F
+    (tests/torch_hist_cases.py): one bin for every cell, NaN, +-inf, -0.0,
+    1e30, every bin edge and its neighbours, 20.9 to 21.0, lengths
+    4k + 1..3, views 1-3 elements past a 16-byte boundary."""
+    for name, F in adversarial_F(dev).items():
+        got = _launched("pdf_hist", lambda: compact.pdf_hist(F))
+        assert torch.equal(got, compact.pdf_hist_plain(F)), name
+        assert int(got.sum()) == F.numel(), name
 
 
 @pytest.mark.cuda

@@ -13,7 +13,16 @@ CPU.
   the float64 pow rounded once on 10^6 seeded float32 values across the
   exponent range and on values whose cube roots lie at float32 midpoints;
 - the planner's dense displacement phase holds the rank field, and its
-  row-gather phase the rank and the row records.
+  row-gather phase the rank and the row records;
+- K1's dead-mode rule (csrc/ic_kdensity.cu dead_zero: the signs of cos
+  and sin of the phase from the parity of the odd and of the even quarter
+  turns kQuarter at or below it), in numpy, gives the signs of the float64
+  cos and sin on every phase the generator can draw (2^23 uniforms of
+  [0, 2 pi), and the same shifted by float32(pi)), and each quarter turn
+  is the least float32 above k pi / 2;
+- the kernels' division by a multiply (Div: m = ceil(2^(31+s) / d),
+  s = ceil(log2 d)) gives n // d for every d up to 2^16 and 2^31 - 1 on the
+  numerators where it is tightest.
 """
 
 import os
@@ -33,6 +42,8 @@ torch.set_num_threads(2)
 
 COLLAPSE_CU = os.path.join(os.path.dirname(__file__), os.pardir,
                            "pinocchio_tpu_torch", "csrc", "collapse.cu")
+IC_CU = os.path.join(os.path.dirname(__file__), os.pardir,
+                     "pinocchio_tpu_torch", "csrc", "ic_kdensity.cu")
 
 
 def _state(N, flast, seed):
@@ -168,3 +179,64 @@ def test_planner_maps_the_rank_in_the_displacement_phase():
     assert gather["needed_rank"] == 4.0 * 64 ** 3
     assert "ifft2_out" not in gather
     assert sum(gather.values()) < sum(phases["displacements"].values())
+
+
+def _quarter_turns():
+    """kQuarter of csrc/ic_kdensity.cu, its float32 hex literals."""
+    with open(IC_CU) as fd:
+        m = re.search(r"kQuarter\[8\] = \{([^}]*)\}", fd.read())
+    lits = [t.strip().rstrip("f") for t in m.group(1).split(",")]
+    return np.array([float.fromhex(t) for t in lits], np.float32)
+
+
+def _generator_phases():
+    """Every phase the kernels can draw, as the plain version computes it:
+    jax.random.uniform of each of the 2^23 mantissas scaled to [0, 2 pi)
+    in float32, then the same plus float32(pi) (PairedIC)."""
+    k = np.arange(2 ** 23, dtype=np.uint32)
+    u = (k | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    ph = np.maximum(np.float32(0.0), u * np.float32(2.0 * np.pi)
+                    + np.float32(0.0))
+    return np.concatenate([ph, ph + np.float32(np.pi)])
+
+
+def test_dead_mode_signs_follow_the_phase():
+    q = _quarter_turns()
+    # each is the least float32 above k pi / 2
+    for k, v in enumerate(q, start=1):
+        assert float(v) > k * np.pi / 2
+        assert float(np.nextafter(v, np.float32(0.0))) < k * np.pi / 2
+    ph = _generator_phases()
+    assert ph.dtype == np.float32 and ph.max() < q[-1]
+    # the parity of the odd quarter turns at or below the phase (cos), of
+    # the even ones (sin)
+    beyond = [ph >= v for v in q]
+    cneg = beyond[0] ^ beyond[2] ^ beyond[4] ^ beyond[6]
+    sneg = beyond[1] ^ beyond[3] ^ beyond[5] ^ beyond[7]
+    x = ph.astype(np.float64)
+    np.testing.assert_array_equal(cneg, np.cos(x) < 0)
+    np.testing.assert_array_equal(sneg, np.sin(x) < 0)
+    # numpy's float32 cos and sin give the same signs
+    np.testing.assert_array_equal(cneg, np.signbit(np.cos(ph)))
+    np.testing.assert_array_equal(sneg, np.signbit(np.sin(ph)))
+
+
+def _div(n, d):
+    """The kernels' n // d for 0 <= n < 2^31 (csrc/ic_kdensity.cu Div)."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    m = ((1 << (31 + s)) + d - 1) // d
+    assert m < 2 ** 32
+    return (n * np.uint64(m)) >> np.uint64(31 + s)
+
+
+def test_division_by_a_multiply():
+    top = 2 ** 31 - 1
+    for d in list(range(1, 2 ** 16 + 1)) + [2 ** 31 - 1, 2 ** 30 + 1]:
+        # the largest numerators, and those on either side of a multiple
+        q = top // d
+        n = [0, 1, d - 1, d, top, top - 1, q * d, q * d - 1, (q // 2) * d,
+             (q // 2) * d - 1]
+        n = np.array([v for v in n if 0 <= v <= top], np.uint64)
+        np.testing.assert_array_equal(_div(n, d), n // np.uint64(d))

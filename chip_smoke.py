@@ -32,7 +32,9 @@
    hosts with the main path's sub-box boxes, timed; 16 hosts with wrapped
    boxes, a host with none, spheres across edges), exactly; times special
    mode 2's density_field (a library c2r) beside its bound and irfftn;
-4. drives each path through run_pipeline, with the launch counters reset
+4. drives each path through run_pipeline (with the overlapped hand-off,
+   its default: the rows stream to the host while the sweep starts on
+   their watermark), with the launch counters reset
    just before it and read just after, and checks its outputs (catalogs and
    mass functions at 4 redshifts with halos, FmaxPDF, histories, the
    cosmology table), its own launch set (every kernel of the path launched,
@@ -114,6 +116,19 @@
    classic path's products, single-turn and two-turn (subbox_turns), each
    with its wall, quick-pass seconds, boundary particles requested and
    beyond-boundary count, held to the classic path's one-box catalogs;
+   then the hand-off (handoff): the overlapped hand-off against the
+   blocking one (overlap=False) on the classic fmax at 256^3 on one delta,
+   the cell indices, F, rows and FmaxPDF counts bit for bit, its timeline
+   from the end of the collapse cycle (return, ci/F landed, first and last
+   chunk, each table's host buffer allocated and landed), its rate on the
+   host's clock and, from a torch.profiler trace, the copies' device time,
+   rate and the part of it beside a kernel; the
+   watermark proof at 128^3 (0.02 s before each chunk lands; one box and
+   2x1x1 sub-boxes single- and two-turn: the blocking run's catalogs, the
+   sweeps waiting on the watermark, the run longer than 0.02 x 16 / 2 s);
+   f(R) with RECOMPUTE (4 sets, traced) and the out-of-core engine at
+   128^3, bit for bit, with the blocking run's catalogs; run_pipeline at
+   128^3 with the PLC and a dump both ways, every output file equal;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
    and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, the mesh path
    at 48^3 and the hosts path at 48^3 (each device's hosts united equal to
@@ -130,24 +145,30 @@
    where the planner must choose the out-of-core engine; prints its map,
    each phase's measured peak beside the predicted one, the host's free
    memory beside the planner's host estimate, the needed count and the
-   phase times; then the classic fmax phase at 1024^3 under ooc='auto'
+   phase times, when run_fmax_ooc returned, when each table's host buffer
+   was allocated and when its last row landed;
+   at 1024^3 classic also one blocking run (overlap=False) with the same
+   (ci, F), its wall, hand-off and host peak; then the classic fmax phase
+   at 1024^3 under ooc='auto'
    over 4 shards of the card (ooc_mesh_big): the planner's per-device map
    must choose the out-of-core engine, the needed count and a SHA-256 of
    (ci, F) must equal the single-device run's, each phase's time and peak
-   beside the planner's, the hand-off's seconds and the host peak beside
-   the single device's; and the planner's map of f(R) growth with
+   beside the planner's, the hand-off's seconds, the last row's time and
+   the host peak beside the single device's, and one blocking run as
+   above; and the planner's map of f(R) growth with
    RECOMPUTE at 1024^3, which must refuse the run on host memory before
    any allocation;
 8. checks that neither jax nor any module of the JAX package was imported;
-9. prints one JSON line of the kernels, then {"ok": true, "device": ...}
-   as the last line.  Any failed check exits non-zero before that.
+9. prints one JSON line of the kernels (with the hand-off's timelines and
+   traces under "handoff"), then {"ok": true, "device": ...} as the last
+   line.  Any failed check exits non-zero before that.
 
     python3 chip_smoke.py --only subbox,subbox_turns,reference:subbox
 
 runs only the named phases (kernels, density_field, a path's name,
 mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
 subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
-ooc_mesh_big, refusal) and prints no JSON line.
+ooc_mesh_big, refusal, handoff) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -2548,6 +2569,302 @@ def hosts_reference_check(dev):
                    per_dev[0][h].catalogs, per_dev[1][h].catalogs)
 
 
+# the overlapped hand-off (handoff): the watermark proof and the
+# overlapped-against-blocking checks of the f(R) and out-of-core engines at
+# HANDOFF_N; the per-chunk delay of the proof
+HANDOFF_N = 128
+HANDOFF_DELAY = 0.02
+# the blocking hand-off at BIG_N measured with the code of commit d64c30c
+# on an H100 80GB HBM3 at 700 W, s: one device, 4 shards (printed beside
+# this run's)
+HANDOFF_D64C30C = (9.98, 8.57)
+
+
+def products_bytes(sp):
+    """The bytes of a hand-off: cell indices (int32 on the wire) and F,
+    then three float32 per row and table of every displacement set."""
+    sets = sp.segments or [sp.vel]
+    return 4 * len(sp.ci) * (2 + 3 * sum(len(v) for v in sets))
+
+
+def same_products(what, a, b):
+    """Two FmaxResults' cell indices, F, every row of every displacement
+    set (float32 compared through an int32 view) and FmaxPDF counts, bit
+    for bit; returns the hand-off's bytes."""
+    import numpy as np
+    sa, sb = a.host_products, b.host_products
+    sets_a, sets_b = sa.segments or [sa.vel], sb.segments or [sb.vel]
+
+    def bits(x):
+        return np.ascontiguousarray(x, np.float32).view(np.int32)
+    ok = (np.array_equal(sa.ci, sb.ci) and np.array_equal(bits(sa.F),
+                                                           bits(sb.F))
+          and len(sets_a) == len(sets_b)
+          and np.array_equal(a.pdf_hist, b.pdf_hist)
+          and all(sorted(x) == sorted(y)
+                  and all(np.array_equal(bits(x[k]), bits(y[k])) for k in x)
+                  for x, y in zip(sets_a, sets_b)))
+    print(f"  {what}: {len(sa.ci)} needed cells, {len(sets_a)} displacement "
+          f"set(s); overlapped and blocking products bit for bit: {ok}",
+          flush=True)
+    need(ok, f"{what}: the overlapped products differ from the blocking "
+         "ones")
+    return products_bytes(sa)
+
+
+def same_catalogs(what, got, want):
+    """Catalogs of the same products: counters, names and masses equal,
+    positions within 1e-5."""
+    import numpy as np
+    ok = np.array_equal(got.counters, want.counters)
+    for g, w in zip(got.catalogs, want.catalogs):
+        og, ow = np.argsort(g.name), np.argsort(w.name)
+        ok = (ok and len(w.name) > 0 and np.array_equal(g.name[og],
+                                                         w.name[ow])
+              and np.array_equal(g.mass[og], w.mass[ow])
+              and np.allclose(g.x[og], w.x[ow], atol=1e-5))
+    print(f"  {what}: catalogs at {len(got.catalogs)} outputs equal to the "
+          f"blocking run's: {ok} ({[len(c.name) for c in got.catalogs]} "
+          "groups)", flush=True)
+    need(ok, f"{what}: the catalogs differ from the blocking run's")
+
+
+def copy_overlap(run):
+    """run() under torch.profiler with CPU and CUDA activities: returns
+    (its result, a dict of the device time of the device-to-host copies
+    into page-locked memory, ms, the part of it during which a kernel
+    ran, ms, the copies' and the kernels' counts), or the dict None when
+    the trace holds no such copy (then the caller has no overlap
+    proof)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    copies, busy = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        # the hand-off's copies land in page-locked memory; the run's
+        # small synchronous reads (the variances, the needed count) in
+        # pageable memory
+        if e.name.startswith("Memcpy DtoH (Device -> Pinned)"):
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            busy.append(span)
+    if not copies:
+        return out, None
+    busy.sort()
+    merged = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    import bisect
+    starts = [m[0] for m in merged]
+    total = over = 0.0
+    for a, b in copies:
+        total += b - a
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(merged) and merged[i][0] < b:
+            over += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            i += 1
+    return out, dict(copy_ms=total / 1e3, overlap_ms=over / 1e3,
+                     copies=len(copies), kernels=len(busy))
+
+
+def handoff_timeline(what, t, nbytes, trace, stream=None):
+    """One line of an overlapped hand-off's times from the end of the
+    collapse cycle (FmaxResult.timings after the join) and its rates; with
+    its _StreamState, when each table's host buffer was allocated and when
+    its last row landed."""
+    span = t["handoff_last"] - t.get("handoff_ci_F", t["handoff_return"])
+    line = (f"  {what}: returned {t['handoff_return']:.4f} s after the "
+            f"cycle"
+            + (f", ci/F landed {t['handoff_ci_F']:.4f} s"
+               if "handoff_ci_F" in t else "")
+            + f", first chunk {t['handoff_first']:.4f} s, last chunk "
+            f"{t['handoff_last']:.4f} s; {nbytes / 1e9:.3f} GB, "
+            f"{nbytes / max(span, 1e-9) / 1e9:.2f} GB/s from the host's "
+            "clock")
+    if trace is not None:
+        line += (f"; trace: {trace['copies']} copies into page-locked "
+                 f"memory, {trace['copy_ms']:.3f} ms of device time, "
+                 f"{nbytes / max(trace['copy_ms'], 1e-9) / 1e6:.2f} GB/s, "
+                 f"{trace['overlap_ms']:.3f} ms of it beside one of "
+                 f"{trace['kernels']} kernels")
+    else:
+        line += "; not traced (overlap not measured)"
+    if stream is not None:
+        line += ("\n    tables allocated / landed, s after the cycle: "
+                 + ", ".join(f"{k}: {stream.allocated.get(k, 0.0):.3f} / "
+                             f"{stream.landed.get(k, 0.0):.3f}"
+                             for k in stream.keys))
+    print(line, flush=True)
+
+
+def handoff_phase(dev):
+    """The overlapped hand-off against the blocking one (run_fmax and
+    run_fmax_ooc with overlap True and False): the classic fmax at
+    PIPELINE_N on one delta, bit for bit, with its timeline from the end
+    of the collapse cycle and a torch.profiler trace of its copies; the
+    watermark proof at HANDOFF_N (HANDOFF_DELAY seconds before each chunk
+    lands, one box and 2x1x1 sub-boxes single- and two-turn: the catalogs
+    of the blocking products, the sweeps waiting on the watermark, the
+    run longer than the delay x N_CHUNKS / 2); f(R) with RECOMPUTE (4
+    sets, traced: the copies of a set beside the next set's LPT kernels)
+    and the out-of-core engine at HANDOFF_N, bit for bit, with equal
+    catalogs; run_pipeline's outputs both ways (same_outputs)."""
+    import torch
+    from pinocchio_tpu_torch import fmax, fmax_ooc
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fragment.driver import run_fragmentation
+    from pinocchio_tpu_torch.fragment.subbox import (
+        run_fragmentation_multibox)
+    from pinocchio_tpu_torch.grids import Grid
+    from pinocchio_tpu_torch.ic import generate_kdensity
+
+    report = {}
+    p = params_for(PIPELINE_N)
+    cosmo = Cosmology(p)
+    kd = generate_kdensity(Grid(PIPELINE_N, p.BoxSize_htrue), cosmo,
+                           p.RandomSeed, dev)
+    # a first run compiles the Triton kernel and plans the FFTs
+    fmax.run_fmax(p, cosmo, dev, kdensity=kd, overlap=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocking = fmax.run_fmax(p, cosmo, dev, kdensity=kd, overlap=False)
+    wall_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = fmax.run_fmax(p, cosmo, dev, kdensity=kd)
+    wall_r = time.perf_counter() - t0
+    res.pending_fetch.join()
+    nbytes = same_products(f"classic {PIPELINE_N}^3", res, blocking)
+    tb = blocking.timings
+    print(f"  blocking: fmax {wall_b:.3f} s; from the end of the cycle "
+          f"{tb['lpt'] + tb['products']:.4f} s to its return (lpt "
+          f"{tb['lpt']:.4f} s, sort + d2h + histogram {tb['products']:.4f}"
+          f" s); overlapped: fmax {wall_r:.3f} s to its return", flush=True)
+    del res, blocking
+    res, trace = copy_overlap(lambda: fmax.run_fmax(p, cosmo, dev,
+                                                    kdensity=kd))
+    res.pending_fetch.join()
+    handoff_timeline(f"overlapped classic {PIPELINE_N}^3 (traced)",
+                     res.timings, nbytes, trace, res.pending_fetch.stream)
+    report["classic"] = dict(timings=res.timings, bytes=nbytes, trace=trace,
+                             blocking_s=tb["lpt"] + tb["products"])
+    del res, kd
+
+    q = params_for(HANDOFF_N)
+    cosmo = Cosmology(q)
+    base = fmax.run_fmax(q, cosmo, dev, overlap=False)
+    for boxes in ("one box", "2x1x1 single-turn", "2x1x1 two-turn"):
+        def frag(r):
+            if boxes == "one box":
+                return run_fragmentation(q, cosmo, r, verbose=False)
+            return run_fragmentation_multibox(
+                q, cosmo, r, (2, 1, 1), two_turn=boxes.endswith("two-turn"),
+                verbose=False)
+        want = frag(base)
+        fmax._STREAM_TEST_DELAY = HANDOFF_DELAY
+        try:
+            t0 = time.perf_counter()
+            r = fmax.run_fmax(q, cosmo, dev)
+            got = frag(r)
+            elapsed = time.perf_counter() - t0
+            r.pending_fetch.join()
+        finally:
+            fmax._STREAM_TEST_DELAY = 0.0
+        floor = HANDOFF_DELAY * fmax.N_CHUNKS / 2
+        wait = got.timings["stream_wait"]
+        print(f"  watermark, {boxes} at {HANDOFF_N}^3, {HANDOFF_DELAY} s a "
+              f"chunk: fmax + fragmentation {elapsed:.3f} s (need > "
+              f"{floor:.2f} s), the sweeps waited {wait:.3f} s on it (need "
+              f"> 0), last row {r.timings['handoff_last']:.3f} s after the "
+              f"cycle", flush=True)
+        need(elapsed > floor and wait > 0.0,
+             f"watermark, {boxes}: the stream did not gate the sweep")
+        same_catalogs(f"watermark, {boxes}", got, want)
+        report.setdefault("watermark", {})[boxes] = dict(
+            elapsed_s=elapsed, stream_wait_s=wait)
+        del r, got, want
+
+    for name, kw in (("f(R) + RECOMPUTE", FR), ("out-of-core", dict(
+            ooc="on"))):
+        q = params_for(HANDOFF_N, **kw)
+        cosmo = Cosmology(q)
+        gm = scaledep_gm_for(q, cosmo)
+        run = fmax_ooc.run_fmax_ooc if q.ooc == "on" else fmax.run_fmax
+        blocking = run(q, cosmo, dev, scaledep_gm=gm, overlap=False)
+        r = run(q, cosmo, dev, scaledep_gm=gm)
+        got = run_fragmentation(q, cosmo, r, scaledep_gm=gm, verbose=False)
+        (r.pending_fetch or r.ooc_pending).join()
+        same_products(f"{name} {HANDOFF_N}^3, swept", r, blocking)
+        del r
+
+        def joined():
+            r = run(q, cosmo, dev, scaledep_gm=gm)
+            pending = r.pending_fetch or r.ooc_pending
+            pending.join()
+            return r, pending.stream
+        (res, stream), trace = copy_overlap(joined)
+        nbytes = same_products(f"{name} {HANDOFF_N}^3, traced", res,
+                               blocking)
+        handoff_timeline(f"overlapped {name} {HANDOFF_N}^3 (traced, "
+                         "joined inside the trace)", res.timings, nbytes,
+                         trace, stream)
+        same_catalogs(f"{name} {HANDOFF_N}^3", got, run_fragmentation(
+            q, cosmo, blocking, scaledep_gm=gm, verbose=False))
+        report[name] = dict(timings=res.timings, bytes=nbytes, trace=trace)
+        del res, blocking, got
+    report["files"] = same_outputs(dev)
+    torch.cuda.empty_cache()
+    KEPT["handoff"] = report
+
+
+def same_outputs(dev):
+    """run_pipeline at HANDOFF_N with the past light cone (z 0.1 to 0) and
+    a dump, overlap=False then True: every output file equal, byte for
+    byte (a dump's npz array by array: the archive stamps its time);
+    returns the count of files compared."""
+    import numpy as np
+    from pinocchio_tpu_torch.run import run_pipeline
+
+    p = params_for(HANDOFF_N, DumpProducts=True, plc_enabled=True,
+                   StartingzForPLC=0.1, LastzForPLC=0.0, PLCAperture=30.0,
+                   PLCProvideConeData=True)
+    files = []
+    with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() \
+            as b:
+        for out, overlap in ((a, False), (b, True)):
+            run_pipeline(p, outdir=out, device=dev, verbose=False,
+                         overlap=overlap)
+        for root, _, names in os.walk(a):
+            for nm in names:
+                rel = os.path.relpath(os.path.join(root, nm), a)
+                fa, fb = os.path.join(a, rel), os.path.join(b, rel)
+                if not os.path.exists(fb):
+                    same = False
+                elif nm.endswith(".npz"):
+                    with np.load(fa) as x, np.load(fb) as y:
+                        same = sorted(x.files) == sorted(y.files) and all(
+                            np.array_equal(x[k], y[k]) for k in x.files)
+                else:
+                    with open(fa, "rb") as x, open(fb, "rb") as y:
+                        same = x.read() == y.read()
+                files.append((rel, same))
+    bad = [rel for rel, same in files if not same]
+    print(f"  run_pipeline at {HANDOFF_N}^3 with the PLC and a dump, "
+          f"overlapped against blocking: {len(files)} files "
+          f"{sorted(rel for rel, _ in files)}, differing: {bad}",
+          flush=True)
+    need(files and not bad, f"overlapped outputs differ: {bad}")
+    return len(files)
+
+
 def _phase_table(peaks, predicted):
     """Lines of each phase's measured peak beside the planner's (the
     out-of-core mesh's needed phase beside the larger of the planner's
@@ -2627,6 +2944,7 @@ def ooc_dense_check(dev, name):
     t0 = time.perf_counter()
     ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                 trace_memory=True)
+    ooc.ooc_pending.join()
     t_ooc = time.perf_counter() - t0
     frac = planner.collapsed_fraction(p, cosmo)
     pd = planner.device_peak(p, False, frac=frac)
@@ -2741,21 +3059,27 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     with HostPeak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                     verbose=N >= BIG_N, trace_memory=True)
+        t_ret = time.perf_counter() - t0
+        res.ooc_pending.join()
     wall = time.perf_counter() - t0
     peaks = ooc_peaks(res)
     peak = max(peaks.values())
     sp = res.host_products
     count = len(sp.ci)
+    print(f"  overlapped: run_fmax_ooc returned after {t_ret:.2f} s "
+          f"({res.timings['handoff_return']:.3f} s after the cycle), the "
+          f"last row landed {res.timings['handoff_last']:.3f} s after the "
+          f"cycle, joined after {wall:.2f} s; " + tables_line(res), flush=True)
     if N == BIG_N and not kw:
         # what the mesh phase at BIG_N is held to
         t0 = time.perf_counter()
         KEPT["big_classic"] = dict(
             count=count, digest=digest(sp.ci, sp.F), wall_s=wall,
-            peak_gib=peak / GiB, handoff_s=res.timings["handoff"],
+            return_s=t_ret, peak_gib=peak / GiB,
+            handoff_s=res.timings["handoff"],
             host_gib=(host.peak - host.base) / GiB, timings=res.timings)
         print(f"  (ci, F) digest {KEPT['big_classic']['digest'][:16]} in "
-              f"{time.perf_counter() - t0:.2f} s; hand-off (d2h of the "
-              f"products) {res.timings['handoff']:.3f} s; host peak "
+              f"{time.perf_counter() - t0:.2f} s; host peak "
               f"{(host.peak - host.base) / GiB:.2f} GiB above the start",
               flush=True)
     print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall"
@@ -2787,6 +3111,58 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
          f"{missing}, launched from another path {stray}")
     del res, sp
     torch.cuda.empty_cache()
+    if N == BIG_N and not kw:
+        KEPT["big_classic"]["blocking"] = blocking_big(
+            dev, p, cosmo, None, KEPT["big_classic"], HANDOFF_D64C30C[0])
+
+
+def tables_line(res):
+    """When each table's host buffer of an out-of-core run's joined
+    streams was allocated and when its last row landed, s after the
+    cycle."""
+    st = res.ooc_pending.stream
+    return "tables allocated / landed, s after the cycle: " + ", ".join(
+        f"{k}: {st.allocated.get(k, 0.0):.3f} / {st.landed.get(k, 0.0):.3f}"
+        for k in st.keys)
+
+
+def blocking_big(dev, p, cosmo, mesh, over, earlier):
+    """One blocking run (overlap=False) of the fmax phase at BIG_N beside
+    the overlapped one ``over`` (its digest, times and host peak): the
+    same needed cells and F, its wall, hand-off and host peak, and the
+    blocking hand-off of commit d64c30c, ``earlier`` seconds."""
+    import gc
+
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, overlap=False)
+    wall = time.perf_counter() - t0
+    sp = res.host_products
+    same = digest(sp.ci, sp.F) == over["digest"]
+    grew = (host.peak - host.base) / GiB
+    t = over["timings"]
+    print("  blocking: phases " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in res.timings.items()), flush=True)
+    print(f"  blocking: {wall:.2f} s to its return with every row landed "
+          f"(hand-off {res.timings['handoff']:.3f} s, d64c30c's {earlier} s; "
+          f"lpt_rows {res.timings['lpt_rows']:.3f} s), host peak "
+          f"{grew:.2f} GiB above the start; overlapped: returned after "
+          f"{over['return_s']:.2f} s, last row {t['handoff_last']:.3f} s "
+          f"after the cycle, joined after {over['wall_s']:.2f} s, host "
+          f"peak {over['host_gib']:.2f} GiB; the same (ci, F): {same}",
+          flush=True)
+    need(same, "the blocking run's needed cells or F differ from the "
+         "overlapped run's")
+    out = dict(wall_s=wall, handoff_s=res.timings["handoff"],
+               lpt_rows_s=res.timings["lpt_rows"], host_gib=grew)
+    del res, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def big_refusal(dev):
@@ -2923,6 +3299,7 @@ def ooc_mesh_fmax_phase(dev, name):
     if model not in ones:
         t0 = time.perf_counter()
         one = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm)
+        one.ooc_pending.join()
         ones[model] = ((one.products.Fmax.cpu().numpy(),
                         one.smoothing.true_variance, one.host_products),
                        time.perf_counter() - t0, one.timings["handoff"])
@@ -2936,6 +3313,7 @@ def ooc_mesh_fmax_phase(dev, name):
     t0 = time.perf_counter()
     res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm, mesh=mesh,
                                 trace_memory=True)
+    res.ooc_pending.join()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
@@ -2999,6 +3377,8 @@ def ooc_mesh_big(dev):
     with HostPeak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, verbose=True,
                                     trace_memory=True)
+        t_ret = time.perf_counter() - t0
+        res.ooc_pending.join()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
@@ -3017,7 +3397,12 @@ def ooc_mesh_big(dev):
           f"{card / GiB:.2f} GiB (one device {one['peak_gib']:.3f} GiB); "
           f"planner {rep['device_bytes'] / GiB:.3f} GiB:\n"
           + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
-    print(f"  hand-off (merge on the card and d2h) {res.timings['handoff']:.3f}"
+    print(f"  overlapped: returned after {t_ret:.2f} s, the last row "
+          f"landed {res.timings['handoff_last']:.3f} s after the cycle (one "
+          f"device {one['timings']['handoff_last']:.3f} s); "
+          + tables_line(res), flush=True)
+    print(f"  hand-off (merge on the card and d2h enqueued) "
+          f"{res.timings['handoff']:.3f}"
           f" s, one device (d2h) {one['handoff_s']:.3f} s; host peak "
           f"{grew / GiB:.2f} GiB above the start (one device "
           f"{one['host_gib']:.2f} GiB), planner's products "
@@ -3040,12 +3425,15 @@ def ooc_mesh_big(dev):
     need(not missing and not stray, f"kernels of the {BIG_N}^3 mesh: not "
          f"launched {missing}, launched from another path {stray}")
     KEPT["ooc_mesh_big"] = dict(
-        wall_s=wall, peak_gib=peak / GiB, planner_gib=rep["device_bytes"]
-        / GiB, handoff_s=res.timings["handoff"], host_gib=grew / GiB,
+        wall_s=wall, return_s=t_ret, peak_gib=peak / GiB,
+        planner_gib=rep["device_bytes"] / GiB,
+        handoff_s=res.timings["handoff"], host_gib=grew / GiB,
         one_device=dict((k, v) for k, v in one.items() if k != "timings"),
-        count=count, timings=res.timings)
+        count=count, timings=res.timings, digest=dig)
     del res, sp
     torch.cuda.empty_cache()
+    KEPT["ooc_mesh_big"]["blocking"] = blocking_big(
+        dev, p, cosmo, mesh, KEPT["ooc_mesh_big"], HANDOFF_D64C30C[1])
     return launches
 
 
@@ -3059,7 +3447,7 @@ def main(argv=None) -> int:
                     "hosts_exchange, "
                     "hosts, modes, subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
-                    "refusal); no JSON line is printed")
+                    "refusal, handoff); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -3127,6 +3515,10 @@ def main(argv=None) -> int:
             if wanted(path):
                 section(f"{path} path at {PATHS[path][0]}^3:")
                 paths[path] = run_path(dev, path)[0]
+        if wanted("handoff"):
+            section(f"the overlapped hand-off against the blocking one at "
+                    f"{PIPELINE_N}^3 and {HANDOFF_N}^3:")
+            handoff_phase(dev)
         mesh_report = {}
         if wanted("mesh_fmax"):
             section(f"delta over three meshes of the card at {PIPELINE_N}^3:")
@@ -3250,7 +3642,13 @@ def main(argv=None) -> int:
                                        fmax=KEPT.get("ooc_mesh_fmax"),
                                        big=KEPT.get("ooc_mesh_big")),
                       "hosts": dict(path=KEPT.get("hosts_path"),
-                                    exchange=KEPT.get("hosts_exchange"))}),
+                                    exchange=KEPT.get("hosts_exchange")),
+                      "handoff": dict(KEPT.get("handoff", {}),
+                                      big=KEPT.get("big_classic", {}).get(
+                                          "blocking"),
+                                      big_mesh=KEPT.get(
+                                          "ooc_mesh_big", {}).get(
+                                          "blocking"))}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,

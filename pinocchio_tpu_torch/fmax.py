@@ -10,8 +10,14 @@ ell_model 'tabulated' or 'sng', a lookup in the radius's collapse-time table
 growth, + c2r).  The needed particles (Fmax >= Flast) are sorted on the
 device in the sweep's (-F, cell) order; their rows of every displacement
 set (one set, or one per output redshift with RECOMPUTE_DISPLACEMENTS) are
-gathered into one packed buffer (K6a) and handed to the host in one copy,
-with the FmaxPDF histogram (K6b).  With keep_dense_products (the timeless
+gathered into one packed buffer (K6a) and handed to the host with the
+FmaxPDF histogram (K6b).  By default the hand-off overlaps the device's
+work (PendingFetch): the histogram is binned before LPT, and each set's
+rows cross to page-locked memory on a copy stream of their own, in
+N_CHUNKS prefix chunks per table, as soon as K6a has gathered them; a
+waiter thread advances the rows_ready watermark that the C sweep starts
+on (_StreamState, StreamingVel).  With overlap=False they cross in one
+blocking copy after the last set.  With keep_dense_products (the timeless
 snapshot, special mode 3, a dense dump) Fmax, Rmax and each [3, N, N, N]
 stack of the first displacement set are also copied whole to the host.
 """
@@ -19,6 +25,8 @@ stack of the first displacement set are also copied whole to the host.
 from __future__ import annotations
 
 import math
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -125,6 +133,11 @@ class FmaxResult:
     # shard's needed rows still on its device): host_products stays None
     # until ensure_host_products, the exchange or the local fetch reads it
     handoff: object = None
+    # the dense engine's overlapped hand-off (PendingFetch): its rows are
+    # still landing behind the watermark; join() it after fragmentation
+    pending_fetch: object = None
+    # the out-of-core engine's background row streams (fmax_ooc._OocPending)
+    ooc_pending: object = None
 
 
 def ensure_host_products(fmax_result: FmaxResult) -> SparseProducts:
@@ -334,9 +347,300 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+N_CHUNKS = 16       # d2h chunks per displacement table (the watermark's grain)
+_STREAM_TEST_DELAY = 0.0    # tests: seconds added before each chunk lands
+
+
+def _chunk_bounds(n: int, k: int = N_CHUNKS):
+    return [n * i // k for i in range(k + 1)]
+
+
+class _StreamState:
+    """The host side of the displacement tables' streams.
+
+    Each expected table (a key of the first displacement set, ("seg", s,
+    key) of set s) lands in a float32 [count, 3] host buffer, chunk after
+    chunk in row order.  A waiter thread waits for the chunks' copies
+    (kernels.HostCopy) in the order they were enqueued, which is the order
+    the copy stream runs them in, and advances ``ready[0]``: the rows
+    delivered in every expected table, the pointer the C sweep spin-waits
+    on (groupsweep.c rows_ready).  note() adds a copy that is not a table
+    (cell indices and F): the waiter records when it landed.  ``times``:
+    seconds from t0 to each note, to the watermark's first advance
+    ("first") and to the last row ("last"); ``allocated`` and ``landed``:
+    seconds from t0 to each table's host buffer attached and to its last
+    row landed."""
+
+    def __init__(self, count: int, keys, t0: float = None):
+        self.count = count
+        self.keys = list(keys)
+        self.buffers = {}
+        self._delivered = dict.fromkeys(self.keys, 0)
+        self._events = {k: threading.Event() for k in self.keys}
+        self._attached = {k: threading.Event() for k in self.keys}
+        self._notes = {}
+        self.ready = np.zeros(1, np.int64)
+        self.error = None
+        self.times, self.allocated, self.landed = {}, {}, {}
+        self._t0 = time.perf_counter() if t0 is None else t0
+        self._lock = threading.Lock()
+        self._queue = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def attach(self, key, rows: np.ndarray) -> None:
+        """The host buffer [count, 3] that ``key``'s chunks land in."""
+        self.buffers[key] = rows
+        self.allocated[key] = time.perf_counter() - self._t0
+        self._attached[key].set()
+
+    def buffer(self, key) -> np.ndarray:
+        """``key``'s host buffer, possibly still filling; waits until it is
+        attached."""
+        self._attached[key].wait()
+        if key not in self.buffers:
+            self.check()
+        return self.buffers[key]
+
+    def enqueue(self, key, i1: int, copy) -> None:
+        """A chunk of ``key`` whose copy ends at row i1."""
+        self._queue.put((key, i1, copy))
+
+    def note(self, name: str, copy) -> threading.Event:
+        """A copy that is not a table; the event is set once it landed."""
+        ev = self._notes[name] = threading.Event()
+        self._queue.put((name, None, copy))
+        return ev
+
+    def _run(self):
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            key, i1, copy = item
+            try:
+                if _STREAM_TEST_DELAY and i1 is not None:
+                    time.sleep(_STREAM_TEST_DELAY)
+                copy.wait()
+            except BaseException as e:       # noqa: BLE001 - check() raises
+                self.fail(e)
+                return
+            if self._advance(key, i1):
+                return
+
+    def _advance(self, key, i1) -> bool:
+        now = time.perf_counter() - self._t0
+        with self._lock:
+            if i1 is None:
+                self.times[key] = now
+                self._notes[key].set()
+                return False
+            self._delivered[key] = i1
+            ready = min(self._delivered.values())
+            if ready > self.ready[0] and "first" not in self.times:
+                self.times["first"] = now
+            self.ready[0] = ready
+            if i1 >= self.count:
+                self.landed[key] = now
+                self._events[key].set()
+            done = all(ev.is_set() for ev in self._events.values())
+            if done:
+                self.times.setdefault("first", now)
+                self.times["last"] = now
+            return done
+
+    def fail(self, err: BaseException) -> None:
+        """Record the error and release every waiter: the sweep reads on
+        to its end, and the fragmentation driver re-raises through
+        check()."""
+        with self._lock:
+            if self.error is None:
+                self.error = err
+            self.ready[0] = self.count
+            for evs in (self._events, self._attached, self._notes):
+                for ev in evs.values():
+                    ev.set()
+        self._queue.put(None)
+
+    def wait(self, key) -> None:
+        self._events[key].wait()
+        self.check()
+
+    def check(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+    def join(self) -> dict:
+        """Wait for every table, re-raise a failed copy, return times."""
+        for ev in self._events.values():
+            ev.wait()
+        self._thread.join()
+        self.check()
+        return dict(self.times)
+
+
+class StreamingVel:
+    """Dict-like view of one displacement set over a _StreamState:
+    __getitem__ (and items, values) BLOCKS until that table has
+    landed, so the dumps, the snapshot and any other reader keep their
+    semantics; the fragmentation driver reads buffer() instead, which does
+    not block, and hands the C sweep the rows_ready watermark."""
+
+    def __init__(self, stream: _StreamState, keymap: dict, n: int):
+        self.stream = stream
+        self._keymap = keymap          # public key -> stream key
+        self._n = n
+
+    def __contains__(self, k):
+        return k in self._keymap
+
+    def __iter__(self):
+        return iter(self._keymap)
+
+    def __len__(self):
+        return len(self._keymap)
+
+    def keys(self):
+        return self._keymap.keys()
+
+    def __getitem__(self, k):
+        sk = self._keymap[k]
+        self.stream.wait(sk)
+        return self.stream.buffer(sk)[:self._n]
+
+    def items(self):
+        return [(k, self[k]) for k in self._keymap]
+
+    def values(self):
+        return [self[k] for k in self._keymap]
+
+    def buffer(self, k):
+        """The table's host buffer, possibly still filling (rows below the
+        watermark have landed)."""
+        return self.stream.buffer(self._keymap[k])[:self._n]
+
+
+def _stream_key(s: int, key: str):
+    """The stream key of displacement set s's table ``key``."""
+    return key if s == 0 else ("seg", s, key)
+
+
+def _expected_stream_keys(keys, nsets: int) -> list:
+    """The tables a streamed hand-off delivers: ``keys`` of the first
+    displacement set, then ("seg", s, key) of each further set.  The
+    watermark is the least delivered prefix over them, so the list must be
+    what is enqueued, or the sweep never starts."""
+    return [_stream_key(s, k) for s in range(nsets) for k in keys]
+
+
+def streaming_sets(stream: _StreamState, keys, nsets: int, n: int):
+    """(vel, segments) over ``stream``: the first set's StreamingVel, and
+    with several sets the list of all (segments[0] is vel), else None."""
+    sets = [StreamingVel(stream, {k: _stream_key(s, k) for k in keys}, n)
+            for s in range(nsets)]
+    return sets[0], (sets if nsets > 1 else None)
+
+
+class PendingFetch:
+    """The dense engine's overlapped hand-off (counterpart of the JAX
+    package's PendingFetch).  On the device's copy stream, into
+    page-locked host buffers: the FmaxPDF counts, then each displacement
+    set as soon as K6a has gathered its rows into the packed device
+    buffer, while the device goes on with the next set; the first set's
+    cell indices and F first, then each table's rows in N_CHUNKS prefix
+    chunks interleaved by (chunk, table), so the watermark advances
+    evenly.  A set's host buffers are allocated when its gather has been
+    enqueued, so that the device runs the set's work meanwhile: the CUDA
+    driver serializes page-locked allocations with every other CUDA call of the
+    process, so an allocation on a thread of its own would hold the launches
+    back instead.  finish() waits for the counts, the cell indices and F only;
+    the tables stream behind the watermark of a _StreamState.  join() waits for
+    the last row, drops the device buffer and adds the hand-off's times to
+    ``timings``."""
+
+    def __init__(self, device, N: int, count: int, keys, nsets: int,
+                 t0: float, timings: dict):
+        self.device = torch.device(device)
+        self.N, self.count, self.keys, self.nsets = N, count, list(keys), nsets
+        self.copier = kernels.CopyStream(self.device)
+        self.stream = _StreamState(count, _expected_stream_keys(keys, nsets),
+                                   t0)
+        self.buf = self._hist = self._ci_F = None
+        self._notes = {}               # name -> event set once it landed
+        self.timings = timings
+
+    def add_hist(self, counts) -> None:
+        """The FmaxPDF counts (int64 [PDF_BINS] on the device)."""
+        host = kernels.host_empty((PDF_BINS,), torch.int64, self.device,
+                                  align=4096)
+        self.copier.after()
+        self._hist = host
+        self._notes["hist"] = self.stream.note("hist",
+                                               self.copier.copy(host, counts))
+
+    def add_set(self, s: int, buf, off: int) -> None:
+        """Set s's rows, just gathered into buf[off:] (packed layout)."""
+        self.buf = buf
+        c = self.count
+        self.copier.after()
+        if s == 0:
+            self._ci_F = kernels.host_empty((2 * c,), torch.float32,
+                                            self.device)
+            self._notes["ci_F"] = self.stream.note(
+                "ci_F", self.copier.copy(self._ci_F, buf[off:off + 2 * c]))
+            off += 2 * c
+        tables = []
+        for j, k in enumerate(self.keys):
+            key = _stream_key(s, k)
+            rows = kernels.host_empty((c, 3), torch.float32, self.device)
+            self.stream.attach(key, rows.numpy())
+            tables.append((key, rows.reshape(-1), off + 3 * c * j))
+        b = _chunk_bounds(c)
+        for i in range(N_CHUNKS):
+            lo, hi = 3 * b[i], 3 * b[i + 1]
+            for key, rows, o in tables:
+                self.stream.enqueue(key, b[i + 1], self.copier.copy(
+                    rows[lo:hi], buf[o + lo:o + hi]))
+
+    def finish(self):
+        """(SparseProducts with streaming tables, FmaxPDF counts), once the
+        counts, cell indices and F have landed."""
+        for ev in self._notes.values():
+            ev.wait()
+        if not self._notes.keys() <= self.stream.times.keys():
+            self.stream.check()        # a note's copy failed
+        # (a table's failed copy raises from the sweep or join())
+        c = self.count
+        host = self._ci_F.numpy()
+        vel, segments = streaming_sets(self.stream, self.keys, self.nsets, c)
+        sp = SparseProducts(N=self.N, ci=host[:c].view(np.int32)
+                            .astype(np.int64), F=host[c:2 * c], vel=vel,
+                            sorted_by="F", segments=segments)
+        return sp, self._hist.numpy()
+
+    def abort(self, err: BaseException) -> None:
+        """Release the waiters after a failure on the enqueuing side."""
+        self.stream.fail(err)
+
+    def join(self) -> dict:
+        """Wait for the last row (re-raising a failed copy) and drop the
+        device buffer; adds to ``timings`` and returns the hand-off's times
+        in seconds from the end of the collapse cycle: handoff_ci_F (the
+        cell indices and F landed), handoff_first (the watermark's first
+        advance), handoff_last (the last row)."""
+        try:
+            times = self.stream.join()
+        finally:
+            self.buf = None
+        out = {f"handoff_{k}": v for k, v in times.items() if k != "hist"}
+        self.timings.update(out)
+        return out
+
+
 def run_fmax(params: Params, cosmo: Cosmology, device,
              kdensity=None, scaledep_gm=None, verbose: bool = False,
-             keep_dense_products: bool = False) -> FmaxResult:
+             keep_dense_products: bool = False,
+             overlap: bool = True) -> FmaxResult:
     """Collapse times, displacements and the needed-particle products on
     ``device``.  kdensity: an optional complex64 [N, N, N//2+1] tensor
     (e.g. the JAX package's, through load_jax_state) used instead of
@@ -346,7 +650,14 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     params.WriteTimelessSnapshot: also the whole grid's products on the
     host (FmaxResult.dense); each displacement stack is copied after its
     rows are gathered and before it is freed, so the device peak does not
-    grow."""
+    grow.  overlap (the default): the FmaxPDF counts are binned before
+    LPT, and each displacement set's rows stream to the host behind the
+    device's work (PendingFetch); the call returns once the counts, the
+    cell indices and F have landed, with the tables as StreamingVel views
+    that fragmentation sweeps behind their watermark, and
+    FmaxResult.pending_fetch to join() afterwards.  overlap=False: one
+    blocking copy of every set after the last, the same products bit for
+    bit."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     sm = Smoothing.build(params, cosmo)
@@ -373,7 +684,8 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
         packs = inverse_growth_packs(cosmo, sm, scaledep_gm)
         Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
     sm.true_variance[:] = stats[:, 1].cpu().numpy()      # device sync
-    timings["fmax_loop"] = time.perf_counter() - t0
+    t_cycle = time.perf_counter()
+    timings["fmax_loop"] = t_cycle - t0
     if verbose:
         for ism in range(sm.n):
             print(f"  smoothing {ism + 1}/{sm.n}: R={sm.radii[ism]:9.5f} "
@@ -406,48 +718,69 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
 
     keep_dense = keep_dense_products or params.WriteTimelessSnapshot
     dense_vel = {}
-    sources = displacement_sources(kdensity, sd, N, params.lpt_order)
-    del sd
-    keys = sorted(sources)
+    keys = sorted(GROWTH_INDEX)[:{1: 1, 2: 2, 3: 4}[params.lpt_order]]
     count = idx.numel()
-    sizes = [compact.packed_size(count, len(keys), s == 0)
-             for s in range(len(zs))]
-    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-    # each cell's row, built once for every displacement set
-    rank = compact.needed_rank(idx, N ** 3)
-    off = 0
-    for s, z in enumerate(zs):
-        vel = displacement_fields(sources, growths_at(z), N, scaledep)
-        # the needed rows of this set, then its stacks are freed
-        compact.gather_rows(idx, [vel[k] for k in keys],
-                            buf[off:off + sizes[s]],
-                            F=Fmax if s == 0 else None, rank=rank)
-        off += sizes[s]
-        if keep_dense and s == 0:
-            for k in keys:
-                dense_vel[k] = kernels.to_host(vel[k]).numpy()
-        del vel
-    del sources, rank
-    _sync(device)
-    timings["lpt"] = time.perf_counter() - t0
+    pending = None
+    if overlap:
+        pending = PendingFetch(device, N, count, keys, len(zs), t_cycle,
+                               timings)
+    try:
+        if pending is not None:
+            # the histogram before LPT, so that its copy does not wait
+            pending.add_hist(compact.pdf_hist(Fmax))
+        sources = displacement_sources(kdensity, sd, N, params.lpt_order)
+        del sd
+        sizes = [compact.packed_size(count, len(keys), s == 0)
+                 for s in range(len(zs))]
+        buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+        # each cell's row, built once for every displacement set
+        rank = compact.needed_rank(idx, N ** 3)
+        off = 0
+        for s, z in enumerate(zs):
+            vel = displacement_fields(sources, growths_at(z), N, scaledep)
+            # the needed rows of this set, then its stacks are freed
+            compact.gather_rows(idx, [vel[k] for k in keys],
+                                buf[off:off + sizes[s]],
+                                F=Fmax if s == 0 else None, rank=rank)
+            if pending is not None:
+                pending.add_set(s, buf, off)
+            off += sizes[s]
+            if keep_dense and s == 0:
+                for k in keys:
+                    dense_vel[k] = kernels.to_host(vel[k]).numpy()
+            del vel
+        del sources, rank
+        if pending is None:
+            _sync(device)
+        timings["lpt"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    sp = unpack_products(buf.cpu().numpy(), N, count, keys, len(zs))
-    del buf
-    hist = compact.pdf_hist(Fmax).cpu().numpy()
+        t0 = time.perf_counter()
+        if pending is None:
+            sp = unpack_products(buf.cpu().numpy(), N, count, keys, len(zs))
+            hist = compact.pdf_hist(Fmax).cpu().numpy()
+        else:
+            sp, hist = pending.finish()
+        del buf
+    except BaseException as e:
+        if pending is not None:
+            pending.abort(e)
+        raise
     dense = None
     if keep_dense:
         dense = DenseProducts(Fmax=kernels.to_host(Fmax).numpy(),
                               Rmax=kernels.to_host(Rmax).numpy(),
                               vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
+    if pending is not None:
+        timings["handoff_return"] = time.perf_counter() - t_cycle
     if verbose:
         print(f"  products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%), {len(zs)} displacement "
-              f"set(s)")
+              f"set(s)" + (", rows streaming behind the watermark"
+                           if overlap else ""))
     return FmaxResult(products=Products(Fmax=Fmax, Rmax=Rmax), smoothing=sm,
                       grid=grid, host_products=sp, pdf_hist=hist,
-                      timings=timings, dense=dense)
+                      timings=timings, dense=dense, pending_fetch=pending)
 
 
 def fmax_pdf(hist: np.ndarray, fname: str = None) -> np.ndarray:

@@ -12,13 +12,17 @@ several padded sub-boxes and merges them.  A sub-box's particles are picked
 from the shared products by one C pass (subbox_select), filtered in order by
 an optional cell mask (the two-turn scheme's needed-particle map), and the
 sweep reads the shared displacement rows through a row map, so threads
-sweeping other sub-boxes share them.  There is no streaming watermark, and
-no dense-product branch (so no count_peaks: the group arrays are sized from
-the stored count and regrown on overflow).  Scale-dependent growth adds the
-sweep's (log10 k, log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its
-per-segment displacement sets and weights, a past light cone
-(plc.build_plc_geometry) the sweep's on-the-fly crossing solve and its
-output buffers.
+sweeping other sub-boxes share them.  Rows that still stream from the device
+(fmax.StreamingVel, from either engine's overlapped hand-off) are read from
+their host buffers while they fill: the sweep gets the stream's rows_ready
+watermark and waits on it before it reads a row past the delivered prefix (the
+products are in the sweep's order, so the prefix is all it needs); a failed
+copy releases the watermark and raises after the sweep.  There is no
+dense-product branch (so no count_peaks: the group arrays are sized from the
+stored count and regrown on overflow).  Scale-dependent growth adds the sweep's
+(log10 k, log10 F) weight tables, RECOMPUTE_DISPLACEMENTS its per-segment
+displacement sets and weights, a past light cone (plc.build_plc_geometry) the
+sweep's on-the-fly crossing solve and its output buffers.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from .. import native
 from ..config import Params
 from ..cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
-from ..fmax import FmaxResult, ensure_host_products
+from ..fmax import FmaxResult, StreamingVel, ensure_host_products
 
 FILAMENT = 1
 NCOUNTERS = 16
@@ -91,7 +95,7 @@ class _SweepInput(ctypes.Structure):
         ("seg_v32", ctypes.POINTER(_f32p)),
         ("seg_w1", _f64p), ("seg_w2", _f64p),
         ("seg_w31", _f64p), ("seg_w32", _f64p),
-        ("rows_ready", _i64p),
+        ("rows_ready", _i64p), ("rows_wait_ns", _i64p),
     ]
 
 
@@ -424,9 +428,14 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
             rowmap.ctypes.data_as(_i32p), ctypes.c_int64(n),
             Fs.ctypes.data_as(_f32p))
     keys = ("v1", "v2", "v31", "v32")
+    # streamed tables (fmax.StreamingVel): the sweep reads their host
+    # buffers while they fill, behind the rows_ready watermark
+    stream = sp.vel.stream if isinstance(sp.vel, StreamingVel) else None
 
     def rows(vs):
         # the shared tables; a sub-box reads its rows through rowmap
+        if stream is not None:
+            return {k: (vs.buffer(k) if k in vs else None) for k in keys}
         return {k: (np.ascontiguousarray(vs[k], np.float32)
                     if k in vs else None) for k in keys}
 
@@ -528,7 +537,11 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
         tab_dv31=p(tabs["dv31"], _f64p), tab_dv32=p(tabs["dv32"], _f64p),
         tab_D1=p(tabs["D1"], _f64p),
         nout=nout, outF=p(outF, _f64p), maxg=maxg,
-        rows_ready=_i64p())
+        rows_ready=(p(stream.ready, _i64p) if stream is not None
+                    else _i64p()))
+    waited = np.zeros(1, np.int64)
+    if stream is not None:
+        si.rows_wait_ns = p(waited, _i64p)
     # arrays the sweep reads through si's pointers, kept alive until it ends
     keepalive = []
 
@@ -621,6 +634,10 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
                             ctypes.byref(pi) if plc_on else None,
                             ctypes.byref(po) if plc_on else None)
     timings["sweep"] = time.perf_counter() - t0
+    if stream is not None:
+        # a failed copy released the watermark: raise, not halos
+        stream.check()
+        timings["stream_wait"] = float(waited[0]) * 1e-9
     if rc == -2 and n > 0:
         # group capacity estimate too small: regrow and redo, with fresh
         # PLC buffers (the reference aborts at PredNpeaks instead,

@@ -16,9 +16,11 @@ native map_update asks for a sphere of the boundary layer around each, and
 the full pass sweeps that union.  Single-turn sweeps the whole padded box.
 
 The sub-boxes are swept concurrently on a thread pool: the native sweep
-releases the GIL and keeps its state per thread, and every thread reads the
-one copy of the products.  An exception in any sub-box's sweep fails the
-run (ThreadPoolExecutor.map re-raises it).
+releases the GIL and keeps its state per thread, and every thread reads the one
+copy of the products.  While the rows still stream from the device (either
+engine's overlapped hand-off), every sweep of every sub-box, the two-turn quick
+passes too, waits on the one rows_ready watermark.  An exception in any
+sub-box's sweep fails the run (ThreadPoolExecutor.map re-raises it).
 
 With a host slice (h, H) a host sweeps only its round-robin share of the
 sub-boxes.  When the products are a mesh run's deferred hand-off over a
@@ -243,6 +245,7 @@ def run_fragmentation_two_turn(params: Params, cosmo: Cosmology,
                              scaledep_gm=scaledep_gm, cell_mask=base,
                              quick=True, verbose=False)
     add, counts = boundary_sphere_map(params, geom, qres, r1, r2)
+    quick_wait = qres.timings.get("stream_wait")
     del qres                    # its arrays are not needed by turn 1
     np.bitwise_or(base, add, out=base)
     del add
@@ -251,6 +254,8 @@ def run_fragmentation_two_turn(params: Params, cosmo: Cosmology,
                             scaledep_gm=scaledep_gm, geom=geom,
                             cell_mask=base, verbose=False)
     res.timings["quick"] = t_quick
+    if quick_wait is not None:
+        res.timings["stream_wait"] += quick_wait
     res.timings["boundary_requested"] = float(counts[0])
     res.timings["beyond_boundary"] = float(counts[1])
     if verbose:
@@ -416,8 +421,10 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
     decides when None.  A sub-box periodic in every direction has no
     boundary layer and always takes the single-turn sweep
     (fragment.c:190-199 all_pbc).  Timings: "total" is the slowest
-    sub-box's (of its second turn, with two), "sort", "sweep" and "quick"
-    the sums over sub-boxes, "overhead" the stored particles over N^3, and
+    sub-box's (of its second turn, with two), "sort", "sweep", "quick" and
+    "stream_wait" (the seconds the sweeps waited on a streamed hand-off's
+    watermark) the sums over sub-boxes, "overhead" the stored particles
+    over N^3, and
     "boundary_requested" / "beyond_boundary" the two-turn map's counts
     summed.  host_slice=(h, H): this host sweeps its round-robin share of
     the sub-boxes (a host that owns none raises ValueError) from the
@@ -503,7 +510,7 @@ def run_fragmentation_multibox(params: Params, cosmo: Cosmology,
     timings = {"total": max(r.timings["total"] for r in results),
                **{k: sum(r.timings.get(k, 0.0) for r in results)
                   for k in ("sort", "sweep", "quick", "boundary_requested",
-                            "beyond_boundary")},
+                            "beyond_boundary", "stream_wait")},
                "overhead": nstored / float(params.GridSize) ** 3,
                "transfer": t_copy}
     timings["quick"] += t_quick

@@ -11,6 +11,11 @@ and flags, so an edited source is rebuilt.  The Triton kernels live in
 Every wrapper adds one to its entry in ``LAUNCHES`` where it launches its
 kernel, and nowhere else; a run resets the counts with ``reset_launches``
 and reads them afterwards to show which kernels the path went through.
+
+The module also keeps the device-to-host copy machinery of the hand-off:
+page-locked host buffers (``pinned_empty``), one copy stream per card
+(``copy_stream``) and copies that each end in an event (``HostCopy``,
+``CopyStream``).
 """
 
 from __future__ import annotations
@@ -308,15 +313,110 @@ def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
     return raw[:nbytes].view(dtype).reshape(shape)
 
 
-def host_empty(shape, dtype, device):
+def host_empty(shape, dtype, device, align: int = PINNED_ALIGN):
     """An uninitialized host tensor to receive data from ``device``: in
-    page-locked memory (pinned_empty) for a card, plain memory for the
-    CPU."""
+    page-locked memory (pinned_empty, rounded up to ``align`` bytes) for a
+    card, plain memory for the CPU."""
     import torch
     if torch.device(device).type != "cuda":
         return torch.empty(shape, dtype=dtype)
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-    return torch.from_numpy(pinned_empty(tuple(shape), np_dtype))
+    return torch.from_numpy(pinned_empty(tuple(shape), np_dtype, align))
+
+
+_COPY_STREAMS = {}
+
+
+def copy_stream(device):
+    """The device-to-host copy stream of a card (one per device, made on
+    first use); None for the CPU."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    dev = torch.device("cuda", dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    with _LOCK:
+        if dev not in _COPY_STREAMS:
+            _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+        return _COPY_STREAMS[dev]
+
+
+class HostCopy:
+    """One copy of a device tensor ``src`` into a host tensor ``dst``
+    (CopyStream.copy).  On a card it is enqueued at once on the device's
+    copy stream with non_blocking=True (dst page-locked), followed by an
+    event; ``src`` is marked as used by that stream, so the caching
+    allocator does not hand its memory to another tensor before the copy
+    has read it.  On the CPU it waits in its CopyStream's queue, and a
+    wait() makes it and every copy queued before it, in order, on the
+    waiting thread: in both cases a copy that has landed means that every
+    earlier copy of its stream has."""
+
+    def __init__(self, dst, src, copier: "CopyStream"):
+        import torch
+        self.event = None
+        self._copier = copier
+        if copier.stream is None:
+            self._args = (dst, src)
+            with copier.lock:
+                copier.todo.append(self)
+            return
+        with torch.cuda.stream(copier.stream):
+            dst.copy_(src, non_blocking=True)
+            src.record_stream(copier.stream)
+            # a blocking-sync event: a waiting host thread sleeps rather
+            # than spins beside the sweep
+            self.event = torch.cuda.Event(blocking=True)
+            self.event.record(copier.stream)
+
+    def wait(self) -> None:
+        """Return once the copy has landed in ``dst``."""
+        if self.event is not None:
+            self.event.synchronize()
+            return
+        c = self._copier
+        with c.lock:
+            while self._args is not None:
+                first = c.todo.popleft()
+                dst, src = first._args
+                dst.copy_(src)
+                first._args = None
+
+    def before_reuse(self, device) -> None:
+        """Make the work enqueued next on ``device``'s current stream wait
+        for this copy (before its source is written again); on the CPU,
+        wait."""
+        import torch
+        if self.event is not None:
+            torch.cuda.current_stream(device).wait_event(self.event)
+        else:
+            self.wait()
+
+
+class CopyStream:
+    """Device-to-host copies of one device, in order (copy_stream on a
+    card): after() makes the copy stream wait for the work enqueued so far
+    on the calling thread's current stream of the device (PyTorch's side
+    streams do not wait for the default stream by themselves), copy()
+    enqueues one HostCopy."""
+
+    def __init__(self, device):
+        import collections
+
+        import torch
+        self.device = torch.device(device)
+        self.stream = copy_stream(self.device)
+        self.todo = collections.deque()      # the CPU's copies not made yet
+        self.lock = threading.Lock()
+
+    def after(self) -> None:
+        import torch
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def copy(self, dst, src) -> HostCopy:
+        return HostCopy(dst, src, self)
 
 
 def to_host(t):

@@ -22,6 +22,8 @@
  * Compiled as a plain shared library; driven through ctypes.
  */
 
+/* nanosleep and clock_gettime (the watermark's wait) */
+#define _POSIX_C_SOURCE 199309L
 #define _USE_MATH_DEFINES
 #include <math.h>
 
@@ -122,6 +124,9 @@ typedef struct {
      * (streamed analog of the reference's 50k-particle chunked
      * redistribution, distribute.c:300-534). */
     const volatile int64_t *rows_ready;
+    /* with rows_ready: the nanoseconds the sweep waited on the watermark
+     * are added here */
+    int64_t *rows_wait_ns;
 } sweep_input;
 
 /* group state (struct of arrays), allocated by the sweep */
@@ -998,10 +1003,17 @@ int sweep(const sweep_input *in, const capture_buffers *cap,
             if (__atomic_load_n(in->rows_ready, __ATOMIC_ACQUIRE)
                     <= need) {
                 struct timespec ts = { 0, 200000 };   /* 200 us */
+                struct timespec w0, w1;
+                clock_gettime(CLOCK_MONOTONIC, &w0);
                 do {
                     nanosleep(&ts, NULL);
                 } while (__atomic_load_n(in->rows_ready,
                                          __ATOMIC_ACQUIRE) <= need);
+                clock_gettime(CLOCK_MONOTONIC, &w1);
+                if (in->rows_wait_ns)
+                    *in->rows_wait_ns +=
+                        (int64_t)(w1.tv_sec - w0.tv_sec) * 1000000000LL
+                        + (w1.tv_nsec - w0.tv_nsec);
             }
         }
         /* particles arrive in collapse-time order, i.e. spatially random:

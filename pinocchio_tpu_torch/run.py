@@ -7,9 +7,12 @@ scale-independent or scale-dependent growth, with or without
 RECOMPUTE_DISPLACEMENTS, the past light cone and the timeless snapshot.  The
 planner picks the fmax engine: the dense one, or, with ooc 'on', or 'auto'
 when the dense engine does not fit the device, the out-of-core one; it
-aborts with the memory map when the chosen engine does not fit.
-DumpProducts writes the products after fmax; ReadProductsFromDumps reads
-them instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
+aborts with the memory map when the chosen engine does not fit.  Either
+engine hands its rows to the host overlapped (overlap, the default): they
+stream while fragmentation sweeps behind their watermark, and the run
+joins the streams after it.  DumpProducts writes the products after fmax,
+or after fragmentation when they stream; ReadProductsFromDumps reads them
+instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
 fragmentation runs over that many padded sub-boxes, swept concurrently on
 the host's cores and merged (fragment/subbox.py).  With a mesh (--chips N:
 cuda:0..N-1, or N CPU shards with --device cpu; --decomp slab, pencil,
@@ -83,12 +86,15 @@ def resolve_device(device) -> torch.device:
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  verbose: bool = True, write_outputs: bool = True,
-                 mesh=None, hosts: tuple = None):
+                 mesh=None, hosts: tuple = None, overlap: bool = True):
     """The run on ``device``, or with IC and fmax sharded over ``mesh``
     (parallel.pfft.Mesh; its devices replace ``device``); hosts=(h, H):
-    host h's share of a run over H hosts (the module docstring).  Returns
-    dict(cosmo, plan (the planner's report), fmax, frag, timings,
-    files)."""
+    host h's share of a run over H hosts (the module docstring).  overlap
+    (the default): either engine's overlapped hand-off, the rows streaming
+    to the host while fragmentation sweeps behind their watermark (the
+    dense mesh engine does not stream); False: the blocking hand-off, the
+    same outputs.  Returns dict(cosmo, plan (the planner's report), fmax,
+    frag, timings, files)."""
     from .fmax import fmax_pdf, run_fmax
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
@@ -153,7 +159,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
             print(f"[fmax] out-of-core ledger sharded over {mesh.size} "
                   "devices")
         fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                                verbose=verbose, mesh=mesh)
+                                verbose=verbose, mesh=mesh, overlap=overlap)
     elif mesh is not None:
         from .parallel.driver import run_fmax_distributed
         if verbose:
@@ -165,14 +171,22 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                                         defer_handoff=nhosts > 1)
     else:
         fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                            verbose=verbose)
+                            verbose=verbose, overlap=overlap)
     timings.update({"fmax_" + k: v for k, v in fmax_res.timings.items()})
-    if (params.DumpProducts and write_outputs
-            and not params.ReadProductsFromDumps):
+    # the rows of an overlapped hand-off are still streaming: no device
+    # sync before fragmentation, and the dump (which reads every row)
+    # after it
+    pending = fmax_res.pending_fetch or fmax_res.ooc_pending
+    dump_wanted = (params.DumpProducts and write_outputs
+                   and not params.ReadProductsFromDumps)
+
+    def dump():
         t0 = time.perf_counter()
         dumps.dump_products(params, fmax_res, outdir,
                             hosts=(host_id, nhosts))
         timings["dump"] = time.perf_counter() - t0
+    if dump_wanted and pending is None:
+        dump()
 
     t_frag = time.perf_counter()
     if params.subbox_tasks > 1 or nhosts > 1:
@@ -191,6 +205,14 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                                      verbose=verbose)
     timings.update({"frag_" + k: v for k, v in frag_res.timings.items()})
     timings["frag_wall"] = time.perf_counter() - t_frag
+    if pending is not None:
+        # the last rows have landed (the sweeps read them): join the
+        # streams, which re-raises a failed copy, and take their timings
+        pending.join()
+        timings.update({"fmax_" + k: v
+                        for k, v in fmax_res.timings.items()})
+        if dump_wanted:
+            dump()
     if fmax_res.handoff is not None:
         # the exchanges are done: free the deferred device buffers
         fmax_res.handoff.release()
@@ -387,7 +409,9 @@ def run_special_mode(params: Params, mode: int, outdir: str = ".",
                 "(ROADMAP.md, queue 1 item 13)")
         fmax_res = run_fmax(params, cosmo, dev, verbose=verbose,
                             keep_dense_products=True)
-        return write_lpt_snapshot(params, cosmo, fmax_res, outdir)
+        path = write_lpt_snapshot(params, cosmo, fmax_res, outdir)
+        fmax_res.pending_fetch.join()      # re-raises a failed copy
+        return path
     raise ValueError(f"unknown special mode {mode}")
 
 

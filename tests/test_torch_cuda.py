@@ -32,7 +32,10 @@ on a mesh shard's window are exactly equal to their plain versions and to
 the full-grid kernels on that window; the fmax phase over a 2x2 pencil
 mesh of the one card launches the mesh's kernels and holds the
 single-device run's results, and the out-of-core engine over 3 shards of
-the card equals the single-device engine exactly.  The exchange's kernels
+the card equals the single-device engine exactly; the overlapped hand-off
+equals the blocking one bit for bit on both engines, and its copies land
+their source's values when the source is freed and its memory reused
+before they run.  The exchange's kernels
 K15 (count, with boxes and with request maps), K16 (pack) and K17 (sphere
 paint) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
@@ -798,9 +801,11 @@ def test_ooc_mesh_on_one_card(dev, setup):
     from pinocchio_tpu_torch.parallel import pfft
     p, cosmo = setup
     one = fmax_ooc.run_fmax_ooc(p, cosmo, dev)
+    one.ooc_pending.join()
     kernels.reset_launches()
     res = fmax_ooc.run_fmax_ooc(p, cosmo, dev,
                                 mesh=pfft.make_mesh(devices=[dev] * 3))
+    res.ooc_pending.join()
     torch.cuda.synchronize()
     launched = {k for k, v in kernels.LAUNCHES.items() if v}
     want = {"ic_kdensity_planes", "ooc_factors_hessian",
@@ -818,6 +823,62 @@ def test_ooc_mesh_on_one_card(dev, setup):
     np.testing.assert_array_equal(a.F, b.F)
     for k in b.vel:
         np.testing.assert_array_equal(a.vel[k], b.vel[k])
+
+
+@pytest.mark.cuda
+def test_copies_land_after_their_source_is_freed_and_reused(dev):
+    """The hand-off's copies (kernels.CopyStream) held back on the copy
+    stream behind a sleep: their source tensor is freed and a tensor of the
+    same size is allocated and overwritten before they run; they still
+    land the source's values, because each copy marks its source as used
+    by the copy stream (record_stream)."""
+    n = 1 << 24
+    src = torch.arange(n, dtype=torch.float32, device=dev)
+    want = src.cpu().numpy()
+    host = kernels.host_empty((n,), torch.float32, dev)
+    copier = kernels.CopyStream(dev)
+    copier.after()
+    with torch.cuda.stream(copier.stream):
+        torch.cuda._sleep(200_000_000)
+    b = fmax._chunk_bounds(n)
+    copies = [copier.copy(host[b[i]:b[i + 1]], src[b[i]:b[i + 1]])
+              for i in range(fmax.N_CHUNKS)]
+    ptr = src.data_ptr()
+    del src
+    other = torch.empty(n, dtype=torch.float32, device=dev)
+    other.fill_(-1.0)
+    assert not copies[-1].event.query(), "the copies ran before the reuse"
+    for c in copies:
+        c.wait()
+    np.testing.assert_array_equal(host.numpy(), want)
+    assert other.data_ptr() != ptr
+    torch.cuda.synchronize()
+    assert bool((other == -1.0).all())
+
+
+@pytest.mark.cuda
+def test_overlapped_handoff_on_the_card(dev, setup):
+    """The dense and out-of-core engines' overlapped hand-off on the card
+    against the blocking one: the same products bit for bit and the same
+    catalogs, the copies landing on the copy stream behind events."""
+    from pinocchio_tpu_torch import fmax_ooc
+    from pinocchio_tpu_torch.fragment.driver import run_fragmentation
+    p, cosmo = setup
+    for run in (fmax.run_fmax, fmax_ooc.run_fmax_ooc):
+        a = run(p, cosmo, dev, overlap=False)
+        b = run(p, cosmo, dev)
+        fa = run_fragmentation(p, cosmo, a, verbose=False)
+        fb = run_fragmentation(p, cosmo, b, verbose=False)
+        (b.pending_fetch or b.ooc_pending).join()
+        sa, sb = a.host_products, b.host_products
+        np.testing.assert_array_equal(sa.ci, sb.ci)
+        np.testing.assert_array_equal(sa.F, sb.F)
+        for k in sa.vel:
+            np.testing.assert_array_equal(sa.vel[k], sb.vel[k])
+        np.testing.assert_array_equal(a.pdf_hist, b.pdf_hist)
+        np.testing.assert_array_equal(fa.counters, fb.counters)
+        for x, y in zip(fa.catalogs, fb.catalogs):
+            np.testing.assert_array_equal(np.sort(x.name), np.sort(y.name))
 
 
 @pytest.mark.parametrize("name,fn", [

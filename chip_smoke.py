@@ -107,7 +107,17 @@
    chunks, no part file; the union of the catalogs equal to the one-process
    multibox on the same products exactly; mf.out byte-identical, or equal
    in counts with the bins' mean masses within rtol 1e-6;
-   scripts/torch_merge_chunks.py); then the special
+   scripts/torch_merge_chunks.py); the procs phase: the same hosts as two
+   processes of the CLI (python -m pinocchio_tpu_torch.run --hosts 2
+   --shard-devices cuda:0,cuda:0, gloo through page-locked host buffers),
+   each holding two shards of the 2x2 pencil: at 256^3 single-turn every
+   chunk and in-run file byte for byte the hosts path's and the merge its
+   merge; at 128^3 two-turn (the CLI's main with the memory-driven
+   default forced to two-turn: K17 and the spheres across processes) every
+   file byte for byte that of the mocked hosts in this process; each
+   process's line (wall, phases, launches, device peak, bytes and seconds
+   through the group) and launch set (the mesh path's kernels, K15, K16,
+   and K17 when two-turn); then the special
    modes at 256^3 through run_special_mode: 1 (the CT
    table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
    and its variance the classic path's R=0 grid variance), 3 (the LPT
@@ -154,8 +164,8 @@
    must choose the out-of-core engine, the needed count and a SHA-256 of
    (ci, F) must equal the single-device run's, each phase's time and peak
    beside the planner's, the hand-off's seconds, the last row's time and
-   the host peak beside the single device's, and one blocking run as
-   above; and the planner's map of f(R) growth with
+   the host peak beside the single device's; and the planner's map of f(R)
+   growth with
    RECOMPUTE at 1024^3, which must refuse the run on host memory before
    any allocation;
 8. checks that neither jax nor any module of the JAX package was imported;
@@ -168,7 +178,8 @@
 runs only the named phases (kernels, density_field, a path's name,
 mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
 subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
-ooc_mesh_big, refusal, handoff) and prints no JSON line.
+ooc_mesh_big, refusal, handoff, exchange_kernels, hosts_exchange, hosts,
+procs) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -252,6 +263,10 @@ HOSTS = 2
 HOSTS_MESH = ("pencil", (2, 2))
 HOSTS_LAUNCH = MESH | {"exchange_count", "exchange_pack"}
 TWO_TURN_LAUNCH = {"exchange_count", "exchange_pack", "exchange_paint"}
+# the hosts as processes (procs): the two-turn run's grid, and the process
+# group's timeout, s
+PROCS_TWO_TURN_N = 128
+PROCS_GROUP_TIMEOUT = 300
 
 
 def ooc_tab(interp):
@@ -2453,68 +2468,70 @@ def hosts_path(dev):
 
     d = hosts_products(dev)
     p = d["p"]
-    with tempfile.TemporaryDirectory() as out:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        walls, res = [], []
-        for h in range(HOSTS):
-            t0 = time.perf_counter()
-            res.append(run_pipeline(p, outdir=out, device=dev, verbose=False,
-                                    mesh=card_mesh(dev, *HOSTS_MESH),
-                                    hosts=(h, HOSTS)))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        files = sorted(os.listdir(out))
-        for h, r in enumerate(res):
-            t = r["timings"]
-            print(f"  host {h}: {walls[h]:.2f} s wall; phases: " + ", ".join(
-                f"{k} {v:.3f}" + ("" if k == "frag_overhead" else " s")
-                for k, v in sorted(t.items())), flush=True)
-        print(f"  device peak {peak / GiB:.2f} GiB; launches "
-              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-        for z in OUTPUT_Z:
-            for h in range(HOSTS):
-                need(f"pinocchio.{z:6.4f}.{p.RunFlag}.catalog.out.{h}" in
-                     files, f"hosts: no catalog chunk of host {h} at z={z}")
-        need(not any(".part" in f or f.startswith(".host") for f in files),
-             "hosts: a part file or staging directory is left")
-        united("hosts", [r["frag"].catalogs for r in res],
-               d["single"][None].catalogs)
-        # byte-identical, or else: the columns of the bin counts (2-5)
-        # equal, and those of the bin's mean mass (1, 6, 7), whose float64
-        # sums run in another order over the hosts' parts, within rtol 1e-6
-        nsame = 0
-        with tempfile.TemporaryDirectory() as ref:
-            for snap in d["single"][None].catalogs:
-                name = f"pinocchio.{snap.z:6.4f}.{p.RunFlag}.mf.out"
-                compute_mf(p, d["cosmo"], snap, ref, largest=d["largest"])
-                with open(os.path.join(out, name), "rb") as fa, \
-                        open(os.path.join(ref, name), "rb") as fb:
-                    if fa.read() == fb.read():
-                        nsame += 1
-                        continue
-                a = np.loadtxt(os.path.join(out, name))
-                b = np.loadtxt(os.path.join(ref, name))
-                counts = a.shape == b.shape and np.array_equal(a[:, 1:5],
-                                                               b[:, 1:5])
-                need(counts and np.allclose(a, b, rtol=1e-6, atol=0),
-                     f"hosts: {name} differs from one process's beyond the "
-                     "summation order of a bin's mean mass: counts equal "
-                     f"{counts}")
-                print(f"  in-run {name}: not byte-identical; counts equal, "
-                      "mean masses within rtol 1e-6 (float64 summation "
-                      "order)", flush=True)
-        print(f"  in-run mf.out: {nsame} of {len(OUTPUT_Z)} byte-identical "
-              "to one process's", flush=True)
+    out = scratch_dir("hosts")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls, res = [], []
+    for h in range(HOSTS):
         t0 = time.perf_counter()
-        merged = torch_merge_chunks.merge(p, out)
-        print(f"  merged {len(merged)} files in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        need(not any(".out." in f for f in os.listdir(out)),
-             "hosts: chunks left after the merge")
+        res.append(run_pipeline(p, outdir=out, device=dev, verbose=False,
+                                mesh=card_mesh(dev, *HOSTS_MESH),
+                                hosts=(h, HOSTS)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    files = sorted(os.listdir(out))
+    for h, r in enumerate(res):
+        t = r["timings"]
+        print(f"  host {h}: {walls[h]:.2f} s wall; phases: " + ", ".join(
+            f"{k} {v:.3f}" + ("" if k == "frag_overhead" else " s")
+            for k, v in sorted(t.items())), flush=True)
+    print(f"  device peak {peak / GiB:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for z in OUTPUT_Z:
+        for h in range(HOSTS):
+            need(f"pinocchio.{z:6.4f}.{p.RunFlag}.catalog.out.{h}" in
+                 files, f"hosts: no catalog chunk of host {h} at z={z}")
+    need(not any(".part" in f or f.startswith(".host") for f in files),
+         "hosts: a part file or staging directory is left")
+    united("hosts", [r["frag"].catalogs for r in res],
+           d["single"][None].catalogs)
+    # byte-identical, or else: the columns of the bin counts (2-5)
+    # equal, and those of the bin's mean mass (1, 6, 7), whose float64
+    # sums run in another order over the hosts' parts, within rtol 1e-6
+    nsame = 0
+    with tempfile.TemporaryDirectory() as ref:
+        for snap in d["single"][None].catalogs:
+            name = f"pinocchio.{snap.z:6.4f}.{p.RunFlag}.mf.out"
+            compute_mf(p, d["cosmo"], snap, ref, largest=d["largest"])
+            with open(os.path.join(out, name), "rb") as fa, \
+                    open(os.path.join(ref, name), "rb") as fb:
+                if fa.read() == fb.read():
+                    nsame += 1
+                    continue
+            a = np.loadtxt(os.path.join(out, name))
+            b = np.loadtxt(os.path.join(ref, name))
+            counts = a.shape == b.shape and np.array_equal(a[:, 1:5],
+                                                           b[:, 1:5])
+            need(counts and np.allclose(a, b, rtol=1e-6, atol=0),
+                 f"hosts: {name} differs from one process's beyond the "
+                 "summation order of a bin's mean mass: counts equal "
+                 f"{counts}")
+            print(f"  in-run {name}: not byte-identical; counts equal, "
+                  "mean masses within rtol 1e-6 (float64 summation "
+                  "order)", flush=True)
+    print(f"  in-run mf.out: {nsame} of {len(OUTPUT_Z)} byte-identical "
+          "to one process's", flush=True)
+    # the files before the merge, for the procs phase
+    keep_files(out, scratch_dir("hosts_chunks"))
+    t0 = time.perf_counter()
+    merged = torch_merge_chunks.merge(p, out)
+    print(f"  merged {len(merged)} files in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    need(not any(".out." in f for f in os.listdir(out)),
+         "hosts: chunks left after the merge")
     missing = sorted(k for k in HOSTS_LAUNCH if not launches[k])
     stray = sorted(k for k, v in launches.items()
                    if v and k not in HOSTS_LAUNCH)
@@ -2522,6 +2539,189 @@ def hosts_path(dev):
          f"launched from another path {stray}")
     KEPT["hosts_path"] = dict(walls=walls, peak_gib=peak / GiB)
     return launches
+
+
+def scratch_dir(name):
+    """A fresh directory ``name`` under this run's scratch directory (made
+    on first use, removed when the script ends)."""
+    import shutil
+    if "scratch" not in KEPT:
+        KEPT["scratch"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    d = os.path.join(KEPT["scratch"], name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def keep_files(src, dst):
+    """Copy the files of ``src`` (not its directories) into ``dst``."""
+    import shutil
+    for f in os.listdir(src):
+        if os.path.isfile(os.path.join(src, f)):
+            shutil.copy2(os.path.join(src, f), os.path.join(dst, f))
+
+
+def same_files(what, got, want):
+    """The two directories hold the same file names and every file byte
+    for byte."""
+    import filecmp
+    a = sorted(f for f in os.listdir(got) if os.path.isfile(
+        os.path.join(got, f)))
+    b = sorted(f for f in os.listdir(want) if os.path.isfile(
+        os.path.join(want, f)))
+    need(a == b, f"{what}: the files differ in name: "
+         f"{sorted(set(a) ^ set(b))}")
+    differ = [f for f in a if not filecmp.cmp(os.path.join(got, f),
+                                              os.path.join(want, f),
+                                              shallow=False)]
+    print(f"  {what}: {len(a) - len(differ)} of {len(a)} files "
+          f"byte-identical", flush=True)
+    need(not differ, f"{what}: not byte-identical: {differ}")
+
+
+def write_parameter_file(d, N):
+    """The parameter file of params_for(N)'s run (GridSize, BoxSize and the
+    outputs file; the CLI's --norad for no radiation; no StartingzForPLC,
+    so no past light cone) in ``d``."""
+    with open(os.path.join(d, "outputs"), "w") as fd:
+        fd.write("".join(f"{z}\n" for z in OUTPUT_Z))
+    pf = os.path.join(d, "parameter_file")
+    with open(pf, "w") as fd:
+        fd.write(f"GridSize {N}\nBoxSize {float(N)}\nOutputList outputs\n")
+    return pf
+
+
+# the CLI's main with the fragmentation's memory-driven default (which picks
+# single-turn on this host) forced to two-turn, as on a host short of memory
+TWO_TURN_MAIN = ("import sys\n"
+                 "from pinocchio_tpu_torch.fragment import subbox\n"
+                 "subbox.default_two_turn = lambda *args: True\n"
+                 "from pinocchio_tpu_torch.run import main\n"
+                 "main(sys.argv[1:])\n")
+
+
+def launch_procs(what, pf, out, two_turn=False):
+    """HOSTS processes of the CLI (python -m pinocchio_tpu_torch.run, or
+    TWO_TURN_MAIN) over a 2x2 pencil mesh of the card, two shards each on
+    cuda:0, one sub-box per core, joined in a gloo group at a free
+    localhost port; each process's report ([cluster] line: wall, phase
+    timings, launches, device peak, bytes and seconds through the group),
+    printed.  Every process is stopped before this returns."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    head = (["-c", TWO_TURN_MAIN] if two_turn
+            else ["-m", "pinocchio_tpu_torch.run"])
+    logs, procs = [], []
+    t0 = time.perf_counter()
+    try:
+        for h in range(HOSTS):
+            logs.append(open(os.path.join(out, f".log{h}"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable] + head + [
+                    pf, "--norad", "--device", "cuda", "--chips", "4",
+                    "--decomp", HOSTS_MESH[0], "--shard-devices",
+                    "cuda:0,cuda:0", "--hosts", str(HOSTS), "--host-id",
+                    str(h), "--coordinator", f"localhost:{port}",
+                    "--subboxes", str(CORES), "--outdir", out,
+                    "--group-timeout", str(PROCS_GROUP_TIMEOUT)],
+                cwd=HERE, stdout=logs[h], stderr=subprocess.STDOUT))
+        rcs = [pr.wait(timeout=2 * PROCS_GROUP_TIMEOUT) for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for h, (rc, log) in enumerate(zip(rcs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.remove(log.name)
+        line = [ln for ln in text.splitlines() if ln.startswith("[cluster] {")]
+        if rc != 0 or not line:
+            print(text[-4000:], flush=True)
+        need(rc == 0 and line, f"{what}: process {h} exited with {rc}")
+        print(f"  {what} process {h}: {line[-1][len('[cluster] '):]}",
+              flush=True)
+        reports.append(json.loads(line[-1][len("[cluster] "):]))
+    print(f"  {what}: {HOSTS} processes in {wall:.2f} s (launch to exit)",
+          flush=True)
+    return reports, wall
+
+
+def procs_launch_sets(what, reports, own):
+    for h, rep in enumerate(reports):
+        got = set(rep["launches"])
+        need(got == own, f"{what} process {h}: not launched "
+             f"{sorted(own - got)}, launched from another path "
+             f"{sorted(got - own)}")
+
+
+def procs_phase(dev):
+    """The hosts path as processes: HOSTS processes of the CLI on the one
+    card (gloo, through page-locked host buffers), each holding two shards
+    of the 2x2 pencil mesh on cuda:0.  At PIPELINE_N, single-turn, one
+    sub-box per core: each host's chunks, the in-run mass functions and
+    FmaxPDF byte for byte the hosts path's (run first if this process has
+    not), and scripts/torch_merge_chunks.py's files byte for byte its
+    merge; at PROCS_TWO_TURN_N two-turn (K17 and the spheres across
+    processes), every file byte for byte that of run_pipeline(hosts=(h,
+    2)) for h = 0, 1 in this process over the same mesh with the same
+    default.  Each process launched the mesh path's kernels, K15 and K16
+    (and K17 when two-turn), and none other."""
+    import torch
+    from pinocchio_tpu_torch.fragment import subbox
+    from pinocchio_tpu_torch.run import run_pipeline
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_merge_chunks
+
+    if "hosts_path" not in KEPT:
+        hosts_path(dev)
+    record = {}
+    out = scratch_dir("procs")
+    pf = write_parameter_file(scratch_dir("procs_pf"), PIPELINE_N)
+    reports, wall = launch_procs("single-turn", pf, out)
+    procs_launch_sets("single-turn", reports, HOSTS_LAUNCH)
+    same_files(f"{PIPELINE_N}^3 processes against the mocked hosts", out,
+               os.path.join(KEPT["scratch"], "hosts_chunks"))
+    torch_merge_chunks.merge(params_for(PIPELINE_N, subbox_tasks=CORES), out)
+    same_files(f"{PIPELINE_N}^3 merge against the mocked hosts' merge", out,
+               os.path.join(KEPT["scratch"], "hosts"))
+    record["single_turn"] = dict(wall_s=wall, reports=reports,
+                                 mocked_walls=KEPT["hosts_path"]["walls"])
+
+    N = PROCS_TWO_TURN_N
+    p = params_for(N, subbox_tasks=CORES)
+    mocked = scratch_dir("procs_mocked")
+    default = subbox.default_two_turn
+    subbox.default_two_turn = lambda *args: True
+    try:
+        walls = []
+        for h in range(HOSTS):
+            t0 = time.perf_counter()
+            r = run_pipeline(p, outdir=mocked, device=dev, verbose=False,
+                             mesh=card_mesh(dev, *HOSTS_MESH),
+                             hosts=(h, HOSTS))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            need(r["frag"].timings.get("turn1_copies", 0) > 0,
+                 f"the mocked two-turn host {h} shipped no turn-1 copies")
+    finally:
+        subbox.default_two_turn = default
+    print(f"  {N}^3 two-turn mocked hosts: {[round(w, 2) for w in walls]} s",
+          flush=True)
+    out = scratch_dir("procs_two_turn")
+    reports, wall = launch_procs("two-turn", write_parameter_file(
+        scratch_dir("procs_pf"), N), out, two_turn=True)
+    procs_launch_sets("two-turn", reports, HOSTS_LAUNCH | {"exchange_paint"})
+    same_files(f"{N}^3 two-turn processes against the mocked hosts", out,
+               mocked)
+    record["two_turn"] = dict(wall_s=wall, reports=reports,
+                              mocked_walls=walls)
+    KEPT["procs"] = record
 
 
 def hosts_reference_check(dev):
@@ -2574,10 +2774,10 @@ def hosts_reference_check(dev):
 # HANDOFF_N; the per-chunk delay of the proof
 HANDOFF_N = 128
 HANDOFF_DELAY = 0.02
-# the blocking hand-off at BIG_N measured with the code of commit d64c30c
-# on an H100 80GB HBM3 at 700 W, s: one device, 4 shards (printed beside
-# this run's)
-HANDOFF_D64C30C = (9.98, 8.57)
+# the blocking hand-off at BIG_N on one device measured with the code of
+# commit d64c30c on an H100 80GB HBM3 at 700 W, s (printed beside this
+# run's)
+HANDOFF_D64C30C = 9.98
 
 
 def products_bytes(sp):
@@ -3113,7 +3313,7 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     torch.cuda.empty_cache()
     if N == BIG_N and not kw:
         KEPT["big_classic"]["blocking"] = blocking_big(
-            dev, p, cosmo, None, KEPT["big_classic"], HANDOFF_D64C30C[0])
+            dev, p, cosmo, None, KEPT["big_classic"], HANDOFF_D64C30C)
 
 
 def tables_line(res):
@@ -3432,8 +3632,6 @@ def ooc_mesh_big(dev):
         count=count, timings=res.timings, digest=dig)
     del res, sp
     torch.cuda.empty_cache()
-    KEPT["ooc_mesh_big"]["blocking"] = blocking_big(
-        dev, p, cosmo, mesh, KEPT["ooc_mesh_big"], HANDOFF_D64C30C[1])
     return launches
 
 
@@ -3445,7 +3643,7 @@ def main(argv=None) -> int:
                     "density_field, a path's name, mesh_fmax, "
                     "mesh_c2r, ooc_mesh_fmax or one of its names, "
                     "hosts_exchange, "
-                    "hosts, modes, subbox_turns, reference:<path>, "
+                    "hosts, procs, modes, subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
                     "refusal, handoff); no JSON line is printed")
     args = ap.parse_args(argv)
@@ -3551,6 +3749,11 @@ def main(argv=None) -> int:
             section(f"hosts path at {PIPELINE_N}^3: {HOSTS} mocked hosts "
                     f"over a 2x2 pencil mesh of the card, {CORES} sub-boxes:")
             paths["hosts"] = hosts_path(dev)
+        if wanted("procs"):
+            section(f"the hosts as {HOSTS} processes of the CLI over a 2x2 "
+                    f"pencil mesh of the card at {PIPELINE_N}^3, two-turn at "
+                    f"{PROCS_TWO_TURN_N}^3:")
+            procs_phase(dev)
         if wanted("modes"):
             section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
             density_calls, _ = special_modes(dev)
@@ -3596,6 +3799,10 @@ def main(argv=None) -> int:
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if "scratch" in KEPT:
+            import shutil
+            shutil.rmtree(KEPT.pop("scratch"), ignore_errors=True)
     if only is not None:
         return 0
 
@@ -3642,12 +3849,10 @@ def main(argv=None) -> int:
                                        fmax=KEPT.get("ooc_mesh_fmax"),
                                        big=KEPT.get("ooc_mesh_big")),
                       "hosts": dict(path=KEPT.get("hosts_path"),
-                                    exchange=KEPT.get("hosts_exchange")),
+                                    exchange=KEPT.get("hosts_exchange"),
+                                    procs=KEPT.get("procs")),
                       "handoff": dict(KEPT.get("handoff", {}),
                                       big=KEPT.get("big_classic", {}).get(
-                                          "blocking"),
-                                      big_mesh=KEPT.get(
-                                          "ooc_mesh_big", {}).get(
                                           "blocking"))}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,11 +49,15 @@ from .driver import (CatalogSnapshot, FragmentResult, PlcResult,
 
 def _exchange_mesh(fmax_result, nhosts: int):
     """The mesh to run the exchange over: the deferred hand-off's, when its
-    size is above 1 and nhosts divides it; else None."""
+    size is above 1 and nhosts divides it; else None.  A mesh split over
+    processes must be split over nhosts of them (which then divide it)."""
     handoff = fmax_result.handoff
     if handoff is None:
         return None
     mesh = handoff.decomp.mesh
+    if mesh.procs is not None and mesh.procs[1] != nhosts:
+        raise ValueError(f"{nhosts} hosts over a mesh split over "
+                         f"{mesh.procs[1]} processes: a process is a host")
     if mesh.size > 1 and mesh.size % nhosts == 0:
         return mesh
     return None
@@ -63,9 +67,10 @@ def _host_copy(fmax_result, host_slice=None, all_geoms=None,
                verbose=False):
     """The products this host sweeps: with a host slice over a mesh's
     deferred hand-off, its share from the exchange (a mesh whose size the
-    host count divides) or from the local fetch of every shard (the JAX
-    package's branch for other meshes, which is the whole products in one
-    process); else the whole products."""
+    host count divides, as a mesh split over processes always is) or from
+    the local fetch of every shard (the JAX package's branch for other
+    meshes, which is the whole products in one process); else the whole
+    products."""
     import dataclasses
 
     from ..fmax import ensure_host_products
@@ -295,11 +300,19 @@ def quick_pass_spheres(params: Params, geom: SubboxGeometry, quick_res,
     return out
 
 
-def _allgather_spheres(sph: np.ndarray, host_id: int, nhosts: int) -> dict:
-    """Every host's sphere list, which the turn-1 exchange packs by.  In one
-    process each mocked host runs its own exchanges, so its own list is
-    the one that matters (across processes this is item 12b-ii)."""
-    return {host_id: sph}
+def _allgather_spheres(sph: np.ndarray, host_id: int, nhosts: int,
+                       procs: tuple = None) -> dict:
+    """Every host's sphere list, which the turn-1 exchange packs by: over a
+    mesh split over processes (procs), one all-gather of the [n, 4]
+    float32 lists of the group, their sizes first.  In one process each
+    mocked host runs its own exchanges, and a host's rows depend on its own
+    spheres alone (K17 paints each host's map with its own), so its own
+    list is the one that matters."""
+    if procs is None:
+        return {host_id: sph}
+    from ..parallel.multihost import all_gather_rows
+    return dict(enumerate(all_gather_rows(
+        "gather", np.asarray(sph, np.float32).reshape(-1, 4))))
 
 
 def _base_mask(geom: SubboxGeometry):
@@ -347,8 +360,9 @@ def _two_turn_exchange(params: Params, cosmo: Cosmology, fmax_result,
     parts = [s for _, s in quick_out if s is not None]
     t_quick = time.perf_counter() - t0
     sph = np.concatenate(parts) if parts else np.zeros((0, 4), np.float32)
+    procs = fmax_result.handoff.decomp.mesh.procs
     sp1 = exchange_products(fmax_result, all_geoms, H, turn=1,
-                            spheres=_allgather_spheres(sph, h, H),
+                            spheres=_allgather_spheres(sph, h, H, procs),
                             hosts=(h,), verbose=verbose)[h]
     sp = merge_sparse(sp0, sp1)
     if verbose:

@@ -1,5 +1,5 @@
-"""The fmax phase over a mesh of devices in one process (counterpart of
-pinocchio_tpu/parallel/driver.py, its single-host part).
+"""The fmax phase over a mesh of devices, in one process or split over a
+process group (counterpart of pinocchio_tpu/parallel/driver.py).
 
 delta(k) is generated straight into the decomposition's k layout (K1s,
 global draw counters: the single-device field for any mesh); each smoothing
@@ -12,6 +12,14 @@ selects and gathers the needed rows on each shard (torch.sort, K6a), copies
 each shard's rows to page-locked host memory and merges them on the host
 into the sweep's (-F, ascending cell) order; the FmaxPDF histogram is the
 sum of the shards' K6b counts.  No device ever holds a whole N^3 field.
+
+Over a mesh split over processes (pfft.mesh_for(procs=)) each process runs
+the kernels of its own shards only; the transposes cross processes
+(pfft.all_to_all), the means of the collapse cycle, the FmaxPDF counts and
+the needed count are sums over the group (multihost.all_sum), and the
+hand-off is always deferred: each process keeps its own shards' rows for
+the exchange, as the JAX package keeps a multi-process run's segments on
+its devices (defer_segments).
 """
 
 from __future__ import annotations
@@ -70,11 +78,29 @@ def build_kdensity(decomp, grid: Grid, cosmo, seed: int,
 
 
 def _combine(decomp, stats) -> np.ndarray:
-    """The mesh's (mean delta, mean delta^2) from each shard's, float64 on
-    the host, weighted by the shards' cell counts."""
+    """The mesh's (mean delta, mean delta^2) from each shard's (each a
+    float64 tensor [..., 2]), float64 on the host, weighted by the shards'
+    cell counts and summed in mesh order: over a process group each
+    process's terms cross in one sum over the group, where every other
+    process adds zeros to them, so the result is the one-process sum."""
     n = [math.prod(decomp.real_block(i)[1::2]) for i in range(decomp.p)]
-    host = [s.cpu().numpy() for s in stats]
-    return sum(w * h for w, h in zip(n, host)) / float(decomp.N) ** 3
+    terms = None
+    for i in decomp.local:
+        t = n[i] * stats[i].cpu().numpy()
+        if terms is None:
+            terms = np.zeros((decomp.p,) + t.shape, t.dtype)
+        terms[i] = t
+    terms = group_sum(decomp, "reduce", terms)
+    return sum(terms[i] for i in range(decomp.p)) / float(decomp.N) ** 3
+
+
+def group_sum(decomp, kind: str, arr: np.ndarray) -> np.ndarray:
+    """arr summed over the process group of decomp's mesh (arr itself in
+    one process)."""
+    if decomp.mesh.procs is None:
+        return arr
+    from .multihost import all_sum
+    return all_sum(kind, arr)
 
 
 def build_fmax_step(decomp):
@@ -116,7 +142,10 @@ def _radius_cycle(decomp, kden, radii_grid, update):
         sd = pfft.distributed_second_derivatives(decomp, kden, float(R))
         stats.append(decomp.map(
             lambda i, s, F, Rm: update(i, s, F, Rm, ism), sd, Fmax, Rmax))
-    return Fmax, Rmax, np.stack([_combine(decomp, s) for s in stats]), sd
+    # every radius's statistics [nsmooth, 2] of each shard, in one sum
+    per_shard = decomp.map(lambda i, _: torch.stack([s[i] for s in stats]),
+                           Fmax)
+    return Fmax, Rmax, _combine(decomp, per_shard), sd
 
 
 def build_fmax_loop(decomp, nsmooth: int):
@@ -140,7 +169,7 @@ def build_fmax_loop_tab(decomp, nsmooth: int, interp: str = "trilinear"):
         on = {dev: load_jax_state({k: ct[k] for k in ("tables", "tables2",
                                                       "dv", "idx_map")},
                                   dev)
-              for dev in set(decomp.devices)}
+              for dev in decomp.mesh.local_devices()}
 
         def update(i, sd, F, R, ism):
             t = on[decomp.devices[i]]
@@ -157,12 +186,12 @@ def distributed_lpt_sources(decomp, sd) -> tuple:
     2LPT potential's Hessian through K2s at R=0 (LPT.c:32-172).  Returns
     the k shards (kvec2, kvec31, kvec32)."""
     pw = decomp.map(lambda i, s: lpt.sources_pointwise(s), sd)
-    kvec2 = decomp.fwd([t[0] for t in pw])
+    kvec2 = decomp.fwd(decomp.map(lambda i, t: t[0], pw))
     phi2 = pfft.distributed_second_derivatives(decomp, kvec2, 0.0)
     src32 = decomp.map(lambda i, ph, s, t: lpt.src32_accumulate(ph, s, t[2]),
                        phi2, sd, pw)
     del phi2
-    kvec31 = decomp.fwd([t[1] for t in pw])
+    kvec31 = decomp.fwd(decomp.map(lambda i, t: t[1], pw))
     del pw
     return kvec2, kvec31, decomp.fwd(src32)
 
@@ -222,7 +251,7 @@ class ShardedHandoff:
         # last one)
         self.rank = decomp.map(
             lambda i, F: compact.needed_rank(self.idx[i], F.numel()), Fmax)
-        self.counts = [t.numel() for t in self.idx]
+        self.counts = [0 if t is None else t.numel() for t in self.idx]
         sizes = [[compact.packed_size(c, len(self.keys), s == 0)
                   for s in range(nsets)] for c in self.counts]
         self.bufs = decomp.map(
@@ -277,7 +306,13 @@ class ShardedHandoff:
 
     def finish(self) -> SparseProducts:
         """The merged SparseProducts of every shard; frees the device
-        buffers."""
+        buffers.  Over a mesh split over processes this process holds only
+        its own shards' rows, which leave by the exchange: that raises."""
+        if self.decomp.mesh.procs is not None:
+            raise ValueError("the hand-off of a mesh split over processes "
+                             "holds this process's shards only: their rows "
+                             "leave by the exchange (parallel/exchange.py) "
+                             "or the local fetch of this process's shards")
         parts = [self.shard_products(i) for i in range(self.decomp.p)]
         self.release()
         return merge_parts(parts, self.decomp.N)
@@ -368,14 +403,20 @@ def handoff_from_arrays(decomp, Fmax, sets: list,
     return h
 
 
-def pdf_hist(decomp, Fmax: list) -> np.ndarray:
-    """The FmaxPDF counts: the sum of the shards' K6b histograms."""
-    return sum(h.cpu().numpy() for h in decomp.map(
-        lambda i, F: compact.pdf_hist(F), Fmax))
+def pdf_hist(decomp, Fmax: list, extra: np.ndarray = None) -> np.ndarray:
+    """The FmaxPDF counts: the sum of the shards' K6b histograms (over the
+    process group of a split mesh).  extra: int64 counts of this process
+    summed with them in the same reduction and returned after the bins."""
+    local = [h.cpu().numpy() for h in decomp.map(
+        lambda i, F: compact.pdf_hist(F), Fmax) if h is not None]
+    hist = sum(local)
+    if extra is not None:
+        hist = np.concatenate([hist, np.asarray(extra, np.int64)])
+    return group_sum(decomp, "reduce", hist)
 
 
 def _sync(decomp) -> None:
-    for dev in set(decomp.devices):
+    for dev in decomp.mesh.local_devices():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -400,10 +441,13 @@ def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
     merges at once, as the JAX package's default does (defer_segments):
     the device buffers are freed before the sweep, every caller may read
     host_products directly, and the merge stays inside the ``products``
-    timing; deferring pays only where the rows leave by the exchange."""
+    timing; deferring pays only where the rows leave by the exchange.  Over
+    a mesh split over processes the hand-off is always deferred, and
+    keep_dense_products gathers the whole grid into every process."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     decomp = pfft.make_decomp(mesh, N)
+    defer_handoff = defer_handoff or mesh.procs is not None
     sm = Smoothing.build(params, cosmo)
     timings = {}
 
@@ -474,14 +518,14 @@ def run_fmax_distributed(params, cosmo, mesh, scaledep_gm=None,
 
     t0 = time.perf_counter()
     sp = None if defer_handoff else handoff.finish()
-    hist = pdf_hist(decomp, Fmax)
+    hist = pdf_hist(decomp, Fmax, extra=[sum(handoff.counts)])
+    hist, count = hist[:-1], int(hist[-1])
     dense = None
     if keep_dense:
         dense = DenseProducts(Fmax=decomp.gather(Fmax),
                               Rmax=decomp.gather(Rmax), vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
     if verbose:
-        count = sum(handoff.counts)
         print(f"  products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%) from {decomp.p} shards, "
               f"{len(zs)} displacement set(s)")
@@ -508,3 +552,57 @@ def demo_step(mesh, N: int = 32, seed: int = 1):
     build_fmax_step(decomp)(kden, Fmax, Rmax, 2.0, 0, pack)
     disp = build_displacement_step(decomp)(kden, 1.0)
     return Fmax, Rmax, disp
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """The multi-device fmax phase (run_fmax_distributed: sharded IC, the
+    smoothing cycle with its distributed transforms, the LPT stage and the
+    hand-off) on a small in-code configuration (the HMF_Validation
+    switches at the smallest grid from 32 that every mesh dimension
+    divides) over an n-device mesh, pencil when n factors (n >= 4 and
+    even), else slab, and over a volumes mesh too when n = 8, each held to
+    the single-device run_fmax on the first device: at most max(30,
+    N^3/10^4) cells with |dF| > 0.1, the cells with F >= 1 within max(5,
+    1/1000), and the displacement rows of the needed cells both runs share
+    within 1e-4 of the largest (the counterpart of the JAX package's
+    __graft_entry__.dryrun_multichip; devices as pfft.make_mesh's, default
+    cuda:0..n-1).  Raises AssertionError on a disagreement."""
+    from ..config import Params
+    from ..cosmology import Cosmology
+    from ..fmax import run_fmax
+    meshes = [pfft.make_pencil_mesh(n_devices, devices=devices)
+              if n_devices >= 4 and n_devices % 2 == 0
+              else pfft.make_mesh(n_devices, devices)]
+    if n_devices == 8:
+        meshes.append(pfft.make_volume_mesh(8, devices=devices))
+    lcm = math.lcm(*(d for m in meshes for d in m.devices.shape))
+    N = -(-32 // lcm) * lcm
+    params = Params(GridSize=N, BoxSize=float(N),
+                    output_z=[2.0, 1.0, 0.5, 0.0], norad=True,
+                    plc_enabled=False)
+    cosmo = Cosmology(params)
+    one = run_fmax(params, cosmo, meshes[0].device_list()[0], overlap=False)
+    F1 = one.products.Fmax.cpu().numpy()
+    sp1 = one.host_products
+    for mesh in meshes:
+        res = run_fmax_distributed(params, cosmo, mesh)
+        F, _ = res.products.gather()
+        nflip = int((np.abs(F - F1) > 0.1).sum())
+        _agree(nflip < max(30, N ** 3 // 10000),
+               f"{mesh.shape}: {nflip} collapse flips")
+        c1, c = int((F1 >= 1.0).sum()), int((F >= 1.0).sum())
+        _agree(abs(c - c1) <= max(5, c1 // 1000),
+               f"{mesh.shape}: {c} cells with F >= 1 against {c1}")
+        sp = res.host_products
+        _, ia, ib = np.intersect1d(sp.ci, sp1.ci, return_indices=True)
+        _agree(len(ia) > 0.999 * len(sp1.ci),
+               f"{mesh.shape}: {len(ia)} of {len(sp1.ci)} needed cells")
+        for key, rows in sp1.vel.items():
+            a, b = np.asarray(sp.vel[key])[ia], np.asarray(rows)[ib]
+            _agree(np.abs(a - b).max() < 1e-4 * max(np.abs(b).max(), 1e-3),
+                   f"{mesh.shape}: {key} rows differ")
+
+
+def _agree(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)

@@ -1,5 +1,6 @@
-"""Cross-host product exchange over a mesh of devices in one process
-(counterpart of pinocchio_tpu/parallel/exchange.py).
+"""Cross-host product exchange over a mesh of devices, in one process or
+split over a process group (counterpart of
+pinocchio_tpu/parallel/exchange.py).
 
 The analog of the reference's hypercube exchange (distribute.c:58-175).
 After the fmax phase each shard's needed rows sit in its deferred hand-off
@@ -23,9 +24,14 @@ generally spans shards held by other hosts' devices.  One exchange:
      and merge per host into the sweep's order, descending F with ties by
      ascending cell (parallel.driver.merge_order).
 
-In one process every mocked host's products come back, as in the JAX
-package.  A cell needed by two hosts goes to both; within one host it goes
-once, since membership is a union over the host's boxes.  The wire is
+Over a mesh split over processes (one process per host) each process counts
+and packs its own shards, the segment counts of every source come from one
+sum over the group, the route sends each process's segments to each
+destination process in one staged all_to_all, and each process extracts its
+own devices' rows: its host's products.  In one process every mocked
+host's products come back, as in the JAX package.  A cell needed by two
+hosts goes to both; within one host it goes once, since membership is a
+union over the host's boxes.  The wire is
 float32, as the hand-off is.  Slab and pencil meshes only: on a volumes
 mesh the JAX package's exchange fails (its _shard_coords and _route fall
 through to the slab branch and ask for the mesh axis 'x'), and this one
@@ -50,7 +56,7 @@ from .. import kernels
 from ..fmax import SparseProducts, unpack_products
 from ..ops import exchange as ops
 from . import pfft
-from .driver import _sync, global_cells, merge_parts
+from .driver import _sync, global_cells, group_sum, merge_parts
 
 VOLUMES_GAP = ("the exchange over a volumes mesh is not supported: the JAX "
                "package's exchange handles slab and pencil meshes only "
@@ -94,13 +100,11 @@ def region_tables(regions, device):
 
 
 def host_of_device_default(mesh, nhosts: int) -> tuple:
-    """Mesh position -> host: one process mocks an H-host cluster as
-    contiguous blocks of the flat device order (the layout a cluster's
-    bring-up gives, each host's devices consecutive), of equal size when H
-    divides the mesh (the exchange needs that; the snapshot chunks and
-    dumps take any count)."""
-    p = mesh.size
-    return tuple(i * nhosts // p for i in range(p))
+    """Mesh position -> host: an H-host cluster as contiguous blocks of the
+    flat device order (pfft.host_blocks; the block of each process of a
+    mesh split over processes), of equal size when H divides the mesh (the
+    exchange needs that; the snapshot chunks and dumps take any count)."""
+    return pfft.host_blocks(mesh.size, nhosts)
 
 
 def _check_decomp(decomp) -> None:
@@ -156,30 +160,45 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
     the sweep's order, with one row set per displacement set (RECOMPUTE
     segments).  Every shard counts and packs for every host, as each source
     host does; only the devices of ``hosts`` receive and extract, as a host
-    receives its own rows and not the others'.
+    receives its own rows and not the others'.  Over a mesh split over
+    processes every process of the group takes part, nhosts is the group's
+    size, and each process receives its own host's products only (hosts
+    None or its own rank).
 
     turn selects the V5 two-turn wire protocol (fragment.c:159-316): None
     ships the whole padded volumes; 0 only each host's well-resolved
     regions and 1-cell rim; 1 the cells of ``spheres`` ({host: [ns, 4]
-    global cx, cy, cz, r}) inside the padded volumes and outside the turn-0
-    regions.  stats, when given, receives the phases' seconds (count,
-    pack, route, extract), the routed wire bytes and rows, and each
-    destination device's rows (every host's)."""
+    global cx, cy, cz, r}; every host's, across processes) inside the
+    padded volumes and outside the turn-0 regions.  stats, when given,
+    receives the phases' seconds (count, pack, route, extract), the routed
+    wire bytes and rows, each destination device's rows (every host's), and
+    the bytes and seconds of the exchange's collectives over the group
+    (group_bytes, group_s; 0 in one process)."""
     handoff = fmax_result.handoff
     if handoff is None or handoff.bufs is None:
         raise ValueError("the exchange needs a mesh run's deferred hand-off "
                          "(run_fmax_distributed(defer_handoff=True))")
     decomp = handoff.decomp
     _check_decomp(decomp)
+    mesh = decomp.mesh
     N, p = decomp.N, decomp.p
-    host_of_device = host_of_device_default(decomp.mesh, nhosts)
+    host_of_device = host_of_device_default(mesh, nhosts)
     host_devs = [[i for i in range(p) if host_of_device[i] == h]
                  for h in range(nhosts)]
     want = range(nhosts) if hosts is None else sorted(set(hosts))
+    if mesh.procs is not None:
+        rank, nproc = mesh.procs
+        if nhosts != nproc or set(want) - {rank}:
+            raise ValueError(f"over a mesh split over {nproc} processes the "
+                             f"exchange runs for {nproc} hosts and process "
+                             f"{rank} receives its own rows, not hosts "
+                             f"{list(want)} of {nhosts}")
+        want = [rank]
     routed = sorted(q for h in want for q in host_devs[h])
     ndmax = max(len(d) for d in host_devs)
     nch = handoff.channels
     rowf = 2 + 3 * nch
+    traffic = _traffic(mesh)
     t_start = time.perf_counter()
 
     # ---- 1. count (K15) on every shard, then one copy of the totals
@@ -188,7 +207,7 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
         maps = build_turn1_maps(spheres or {}, geoms, nhosts, N, decomp)
     regions = build_host_regions(geoms, nhosts, N, turn0=(turn == 0))
     tables = {}
-    for dev in set(decomp.devices):
+    for dev in mesh.local_devices():
         nd_t = torch.tensor([len(d) for d in host_devs], dtype=torch.int32)
         devs_t = torch.tensor([d + [0] * (ndmax - len(d)) for d in host_devs],
                               dtype=torch.int32)
@@ -204,7 +223,11 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
         block_off = torch.cumsum(counts, 0, dtype=torch.int64) - counts
         return bits, block_off, counts.sum(0, dtype=torch.int64)
     counted = decomp.map(count_one, decomp.devices)
-    totals = np.stack([c[2].cpu().numpy() for c in counted])    # [p, H]
+    totals = np.zeros((p, nhosts), np.int64)              # [p, H]
+    for i in decomp.local:
+        totals[i] = counted[i][2].cpu().numpy()
+    # the other processes' sources: one sum over the group
+    totals = group_sum(decomp, "route", totals)
     del maps
     t_count = time.perf_counter() - t_start
 
@@ -235,14 +258,36 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
     t_pack = time.perf_counter() - t0
 
     # ---- 3. route: each wanted destination concatenates its segments in
-    # source order on its own device
+    # source order on its own device; across processes the segments of
+    # other processes' sources, and for other processes' destinations, go
+    # in one staged all_to_all of the group
     t0 = time.perf_counter()
-    recv = [None] * p
+
+    def segment(s, q):
+        return packed[s][seg_base[s, q]:seg_base[s, q] + seg_n[s, q] * rowf]
+    got = {}
+    if mesh.procs is not None:
+        from .multihost import all_to_all_staged
+        own = mesh.owner
+        send, recv = {}, {}
+        for q in range(p):
+            for s in decomp.local:
+                if own(q) != rank:
+                    send.setdefault(own(q), []).append(segment(s, q))
+        for q in routed:
+            for s in range(p):
+                if own(s) != rank:
+                    recv.setdefault(own(s), []).append(
+                        ((int(seg_n[s, q] * rowf),), decomp.devices[q]))
+        got = {r: iter(v) for r, v in all_to_all_staged(
+            "route", send, recv, torch.float32).items()}
+    recv_rows = [None] * p
     for q in routed:
         dev = decomp.devices[q]
-        pieces = [packed[s][seg_base[s, q]:seg_base[s, q] + seg_n[s, q] * rowf]
-                  .to(dev, non_blocking=True) for s in range(p)]
-        recv[q] = torch.cat(pieces)
+        pieces = [segment(s, q).to(dev, non_blocking=True)
+                  if mesh.local(s) else next(got[mesh.owner(s)])
+                  for s in range(p)]
+        recv_rows[q] = torch.cat(pieces)
     del packed
     _sync(decomp)
     t_route = time.perf_counter() - t0
@@ -253,8 +298,8 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
     for h in want:
         parts = []
         for q in host_devs[h]:
-            host = kernels.to_host(recv[q]).numpy()
-            recv[q] = None
+            host = kernels.to_host(recv_rows[q]).numpy()
+            recv_rows[q] = None
             off = 0
             for s in range(p):
                 n = int(seg_n[s, q])
@@ -270,11 +315,13 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
         out[h] = merge_parts(parts, N)
     t_extract = time.perf_counter() - t0
     rows = int(seg_n[:, routed].sum())
+    group = traffic()
     if stats is not None:
         stats.update(count=t_count, pack=t_pack, route=t_route,
                      extract=t_extract, rows=rows,
                      wire_bytes=4 * rows * rowf,
-                     device_rows=seg_n.sum(0).tolist())
+                     device_rows=seg_n.sum(0).tolist(),
+                     group_bytes=group[0], group_s=group[1])
     if verbose:
         lab = "" if turn is None else f" turn {turn}:"
         print(f"  exchange:{lab} {rows} particle-copies ({4 * rows * rowf} "
@@ -282,8 +329,21 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
               f"hosts in "
               f"{time.perf_counter() - t_start:.3f} s (count {t_count:.3f}, "
               f"pack {t_pack:.3f}, route {t_route:.3f}, extract "
-              f"{t_extract:.3f})")
+              f"{t_extract:.3f})"
+              + (f"; {group[0]} bytes through the process group in "
+                 f"{group[1]:.3f} s" if mesh.procs is not None else ""))
     return out
+
+
+def _traffic(mesh):
+    """A function returning the route's (bytes, seconds) through the
+    process group since this call ((0, 0.0) in one process)."""
+    if mesh.procs is None:
+        return lambda: (0, 0.0)
+    from .multihost import TRAFFIC
+    b0, s0 = TRAFFIC["route"]["bytes"], TRAFFIC["route"]["seconds"]
+    return lambda: (TRAFFIC["route"]["bytes"] - b0,
+                    TRAFFIC["route"]["seconds"] - s0)
 
 
 def merge_sparse(a: SparseProducts, b: SparseProducts) -> SparseProducts:

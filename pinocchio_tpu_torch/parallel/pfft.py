@@ -1,11 +1,20 @@
 """Distributed 3-D FFT and k-space multipliers over a mesh of devices in one
-process (counterpart of pinocchio_tpu/parallel/pfft.py).
+process or split over a process group (counterpart of
+pinocchio_tpu/parallel/pfft.py).
 
 A ``Mesh`` is a numpy object array of ``torch.device`` in the mesh's shape
 with its axis names.  A sharded field is the list of its shard tensors in
-row-major mesh order, each on its own device.  The three decompositions of
-the JAX package (the reference's set_fft_decomposition, initialization.c:
-1205-1379), in global shapes, with p the mesh size and Nh = N//2+1:
+row-major mesh order, each on its own device.  A mesh split over a process
+group (``procs`` = (rank, size); mesh_for(procs=)) holds in each process
+only the shards of the contiguous block of flat positions that
+host_blocks gives its rank: the other positions' devices and shards are
+None, the per-shard work runs on the local positions alone, and a chunk of
+a transpose whose source and destination lie in two processes crosses in
+one staged all_to_all of the group per transpose (multihost).
+
+The three decompositions of the JAX package (the reference's
+set_fft_decomposition, initialization.c:1205-1379), in global shapes, with
+p the mesh size and Nh = N//2+1:
 
   slab    ('x')          real [N/p, N, N]             k [N, N/p, Nh]
   pencil  ('a','b')      real [N/pa, N/pb, N]         k [N, N/pa, Nhp/pb]
@@ -23,6 +32,7 @@ each on its shard's window of the k layout.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -39,12 +49,34 @@ AXB = "b"
 AXC = "c"   # third axis of the volumes mesh
 
 
+def host_blocks(p: int, nhosts: int) -> tuple:
+    """Mesh position -> host of a mesh of p positions over nhosts hosts:
+    contiguous blocks of the flat order (the layout a cluster's bring-up
+    gives, each host's devices consecutive), of equal size when nhosts
+    divides p."""
+    return tuple(i * nhosts // p for i in range(p))
+
+
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """Devices in the mesh's shape (a numpy object array of torch.device)
-    and the mesh's axis names."""
+    and the mesh's axis names; procs (rank, size) for a mesh split over a
+    process group, whose devices are None where another process holds the
+    shard."""
     devices: np.ndarray
     axis_names: tuple
+    procs: tuple = None
+
+    def __post_init__(self):
+        if self.procs is not None:
+            rank, nproc = self.procs
+            if self.size % nproc:
+                raise ValueError(f"a mesh of {self.size} shards over "
+                                 f"{nproc} processes")
+            own = [self.owner(i) == rank for i in range(self.size)]
+            if own != [d is not None for d in self.devices.flat]:
+                raise ValueError(f"rank {rank}'s devices must be those of "
+                                 "its block of the mesh, and only those")
 
     @property
     def shape(self) -> dict:
@@ -55,19 +87,38 @@ class Mesh:
         return self.devices.size
 
     def device_list(self) -> list:
-        """The shards' devices in row-major mesh order."""
+        """The shards' devices in row-major mesh order (None where another
+        process holds the shard)."""
         return list(self.devices.flat)
 
+    def owner(self, i: int) -> int:
+        """The rank of the process that holds shard i (0 in one process)."""
+        if self.procs is None:
+            return 0
+        return host_blocks(self.size, self.procs[1])[i]
+
+    def local(self, i: int) -> bool:
+        """Whether this process holds shard i."""
+        return self.procs is None or self.owner(i) == self.procs[0]
+
+    def local_devices(self) -> list:
+        """This process's distinct devices, in mesh order."""
+        return list(dict.fromkeys(d for d in self.devices.flat
+                                  if d is not None))
+
     def n_devices(self) -> int:
-        """Distinct devices: the memory the mesh spreads over."""
-        return len(set(self.devices.flat))
+        """Distinct devices: the memory the mesh spreads over (each
+        process's own, times the processes)."""
+        return len(self.local_devices()) * (1 if self.procs is None
+                                            else self.procs[1])
 
 
 def _devices(n, devices) -> list:
-    """The mesh's device list: ``devices`` as given (it may repeat a device),
-    or with n alone cuda:0..n-1, which must all exist."""
+    """The mesh's device list: ``devices`` as given (it may repeat a device;
+    None marks another process's shard), or with n alone cuda:0..n-1,
+    which must all exist."""
     if devices is not None:
-        devs = [torch.device(d) for d in devices]
+        devs = [None if d is None else torch.device(d) for d in devices]
         if n is not None and n != len(devs):
             raise ValueError(f"a mesh of {n} devices with a list of "
                              f"{len(devs)}")
@@ -124,21 +175,36 @@ def make_volume_mesh(n: int = None, shape: tuple = None,
     return Mesh(_array(devs, tuple(shape)), (AXA, AXB, AXC))
 
 
-def mesh_for(n: int, decomp: str = "auto", devices=None) -> Mesh:
+def mesh_for(n: int, decomp: str = "auto", devices=None,
+             procs: tuple = None) -> Mesh:
     """The mesh of a run over n devices: --decomp slab, pencil or volumes,
     or auto, a pencil mesh for even counts from 4 on and a slab otherwise
-    (the JAX package's run.py choice)."""
+    (the JAX package's run.py choice).  procs=(rank, size): the mesh split
+    over the process group, n shards in all, of which this process holds
+    its block of n / size on ``devices`` (that many; default cuda:0..n /
+    size - 1, which must all exist)."""
+    if procs is not None:
+        rank, nproc = procs
+        if n % nproc:
+            raise ValueError(f"{nproc} processes do not divide a mesh of "
+                             f"{n} shards")
+        local = _devices(n // nproc, devices)
+        devices = [local[i - rank * (n // nproc)] if o == rank else None
+                   for i, o in enumerate(host_blocks(n, nproc))]
     if decomp == "slab":
-        return make_mesh(n, devices)
-    if decomp == "pencil":
-        return make_pencil_mesh(n, devices=devices)
-    if decomp == "volumes":
-        return make_volume_mesh(n, devices=devices)
-    if decomp != "auto":
+        mesh = make_mesh(n, devices)
+    elif decomp == "pencil":
+        mesh = make_pencil_mesh(n, devices=devices)
+    elif decomp == "volumes":
+        mesh = make_volume_mesh(n, devices=devices)
+    elif decomp != "auto":
         raise ValueError(f"unknown decomposition {decomp!r}")
-    if n >= 4 and n % 2 == 0:
-        return make_pencil_mesh(n, devices=devices)
-    return make_mesh(n, devices)
+    elif n >= 4 and n % 2 == 0:
+        mesh = make_pencil_mesh(n, devices=devices)
+    else:
+        mesh = make_mesh(n, devices)
+    return mesh if procs is None else dataclasses.replace(
+        mesh, procs=tuple(procs))
 
 
 def _array(devs, shape) -> np.ndarray:
@@ -148,22 +214,55 @@ def _array(devs, shape) -> np.ndarray:
 
 
 def all_to_all(shards: list, groups: list, split_axis: int,
-               concat_axis: int) -> list:
+               concat_axis: int, mesh: Mesh = None) -> list:
     """The tiled all_to_all of jax.lax within each group of shard indices:
     member j of a group receives chunk j (of the group's size, along
     split_axis) of every member's shard, concatenated along concat_axis in
     member order, on its own device.  Each chunk is a view copied with
     .to(non_blocking=True) (no copy at all when both shards are on one
-    device) and torch.cat writes the result."""
+    device) and torch.cat writes the result.  Over a mesh split over
+    processes (``mesh``), each process assembles its own destinations, and
+    the chunks whose source another process holds, or whose destination,
+    cross in one staged all_to_all of the group (multihost.
+    all_to_all_staged); every process takes part whenever any chunk of the
+    groups crosses processes, as every process can tell from the mesh."""
+    own = mesh.owner if mesh is not None else (lambda i: 0)
+    rank = mesh.procs[0] if mesh is not None and mesh.procs else 0
+    g = len(groups[0])
+    chunks = {i: torch.chunk(shards[i], g, dim=split_axis)
+              for group in groups for i in group if own(i) == rank}
+    send, recv = {}, {}
+    for group in groups:
+        for j, dst in enumerate(group):
+            for src in group:
+                if own(src) == rank and own(dst) != rank:
+                    send.setdefault(own(dst), []).append(chunks[src][j])
+                elif own(dst) == rank and own(src) != rank:
+                    recv.setdefault(own(src), []).append(
+                        (chunks[dst][j].shape, shards[dst].device))
+    got = {}
+    if any(own(src) != own(dst) for group in groups for src in group
+           for dst in group):
+        from .multihost import all_to_all_staged
+        some = chunks[next(iter(chunks))][0]
+        got = {r: iter(v) for r, v in all_to_all_staged(
+            "transpose", send, recv, some.dtype).items()}
     out = [None] * len(shards)
     for group in groups:
-        g = len(group)
-        chunks = [torch.chunk(shards[i], g, dim=split_axis) for i in group]
         for j, dst in enumerate(group):
+            if own(dst) != rank:
+                continue
             dev = shards[dst].device
-            out[dst] = torch.cat([c[j].to(dev, non_blocking=True)
-                                  for c in chunks], dim=concat_axis)
+            out[dst] = torch.cat(
+                [chunks[src][j].to(dev, non_blocking=True)
+                 if own(src) == rank else next(got[own(src)])
+                 for src in group], dim=concat_axis)
     return out
+
+
+def _each(fn, shards: list) -> list:
+    """fn of every shard this process holds; None at the others."""
+    return [None if t is None else fn(t) for t in shards]
 
 
 def _pad_z(k, Nhp: int):
@@ -186,7 +285,11 @@ class _Decomp:
         self.Nhp = Nhp
         self.devices = mesh.device_list()
         self.p = mesh.size
+        self.local = [i for i in range(self.p) if mesh.local(i)]
         self.k_global_shape = (N, N, Nhp)
+        if mesh.procs is not None:
+            from .multihost import require_group
+            require_group(mesh.procs)
 
     def groups(self, axes) -> list:
         """The shard groups of a collective over ``axes`` (a name or a
@@ -201,13 +304,18 @@ class _Decomp:
         return idx.transpose(order).reshape(-1, size).tolist()
 
     def map(self, fn, *fields) -> list:
-        """[fn(i, field_0[i], ...)] for every shard i, each under its device
-        (kernels.on_device)."""
-        out = []
-        for i, dev in enumerate(self.devices):
-            with kernels.on_device(dev):
-                out.append(fn(i, *(f[i] for f in fields)))
+        """[fn(i, field_0[i], ...)] for every shard i this process holds,
+        each under its device (kernels.on_device); None at the others."""
+        out = [None] * self.p
+        for i in self.local:
+            with kernels.on_device(self.devices[i]):
+                out[i] = fn(i, *(f[i] for f in fields))
         return out
+
+    def all_to_all(self, shards, axes, split_axis, concat_axis) -> list:
+        """all_to_all within the groups of the collective over ``axes``."""
+        return all_to_all(shards, self.groups(axes), split_axis, concat_axis,
+                          self.mesh)
 
     # each shard's blocks: real (x0, nx, y0, ny, z0, nz) and k (y0, ny,
     # z0, nz) of the [N, N, Nhp] layout
@@ -219,26 +327,36 @@ class _Decomp:
 
     def scatter(self, full, kspace: bool = False) -> list:
         """A whole field [..., N, N, N] (real) or [..., N, N, Nh] (k, padded
-        to Nhp here), a tensor or numpy array, as shards on the mesh."""
+        to Nhp here), a tensor or numpy array, as shards on the mesh (this
+        process's; every process of a group holds the whole field)."""
         if isinstance(full, np.ndarray):
             full = torch.from_numpy(np.array(full))
         if kspace:
             full = _pad_z(full, self.Nhp)
-        return [full[(Ellipsis,) + self._block(i, kspace)].to(dev)
-                .contiguous() for i, dev in enumerate(self.devices)]
+        return self.map(lambda i, dev: full[(Ellipsis,) + self._block(
+            i, kspace)].to(dev).contiguous(), self.devices)
 
     def gather(self, shards: list, kspace: bool = False) -> np.ndarray:
         """The whole field on the host as numpy, [..., N, N, N] (real) or
         [..., N, N, Nhp] (k), from each shard's page-locked host copy
-        (kernels.to_host)."""
-        lead = tuple(shards[0].shape[:-3])
+        (kernels.to_host); over a mesh split over processes, in every
+        process, the blocks crossing in one all_gather of the group."""
+        some = next(s for s in shards if s is not None)
+        lead = tuple(some.shape[:-3])
         last = self.Nhp if kspace else self.N
-        full = None
-        for i, s in enumerate(shards):
-            host = kernels.to_host(s).numpy()
-            if full is None:
-                full = np.empty(lead + (self.N, self.N, last), host.dtype)
-            full[(Ellipsis,) + self._block(i, kspace)] = host
+        host = {i: kernels.to_host(shards[i]).numpy() for i in self.local}
+        dtype = host[self.local[0]].dtype
+        if self.mesh.procs is not None:
+            from .multihost import all_gather_rows
+            mine = np.stack([host[i] for i in self.local])
+            parts = all_gather_rows("gather", mine)
+            host = {}
+            for r, part in enumerate(parts):
+                mine_r = [i for i in range(self.p) if self.mesh.owner(i) == r]
+                host.update(zip(mine_r, part))
+        full = np.empty(lead + (self.N, self.N, last), dtype)
+        for i, h in host.items():
+            full[(Ellipsis,) + self._block(i, kspace)] = h
         return full
 
     def _block(self, i: int, kspace: bool) -> tuple:
@@ -269,17 +387,17 @@ class SlabDecomp(_Decomp):
 
     def fwd(self, shards):
         """real [..., N/p, N, N] -> k [..., N, N/p, Nh]."""
-        k = [torch.fft.fft(torch.fft.rfft(r, dim=-1), dim=-2)
-             for r in shards]
-        k = all_to_all(k, self.groups(AX), -2, -3)
-        return [torch.fft.fft(t, dim=-3).contiguous() for t in k]
+        k = _each(lambda r: torch.fft.fft(torch.fft.rfft(r, dim=-1), dim=-2),
+                  shards)
+        k = self.all_to_all(k, AX, -2, -3)
+        return _each(lambda t: torch.fft.fft(t, dim=-3).contiguous(), k)
 
     def inv(self, shards):
         """k [..., N, N/p, Nh] -> real [..., N/p, N, N]."""
-        k = [torch.fft.ifft(t, dim=-3) for t in shards]
-        k = all_to_all(k, self.groups(AX), -3, -2)
-        return [irfft_z(torch.fft.ifft(t, dim=-2), self.N).contiguous()
-                for t in k]
+        k = _each(lambda t: torch.fft.ifft(t, dim=-3), shards)
+        k = self.all_to_all(k, AX, -3, -2)
+        return _each(lambda t: irfft_z(torch.fft.ifft(t, dim=-2), self.N)
+                     .contiguous(), k)
 
 
 class PencilDecomp(_Decomp):
@@ -308,21 +426,23 @@ class PencilDecomp(_Decomp):
 
     def fwd(self, shards):
         """real [..., N/pa, N/pb, N] -> k [..., N, N/pa, Nhp/pb]."""
-        k = [_pad_z(torch.fft.rfft(r, dim=-1), self.Nhp) for r in shards]
+        k = _each(lambda r: _pad_z(torch.fft.rfft(r, dim=-1), self.Nhp),
+                  shards)
         # row transpose: gather y, scatter kz within each 'b' group
-        k = all_to_all(k, self.groups(AXB), -1, -2)
-        k = [torch.fft.fft(t, dim=-2) for t in k]
+        k = self.all_to_all(k, AXB, -1, -2)
+        k = _each(lambda t: torch.fft.fft(t, dim=-2), k)
         # column transpose: gather x, scatter ky within each 'a' group
-        k = all_to_all(k, self.groups(AXA), -2, -3)
-        return [torch.fft.fft(t, dim=-3).contiguous() for t in k]
+        k = self.all_to_all(k, AXA, -2, -3)
+        return _each(lambda t: torch.fft.fft(t, dim=-3).contiguous(), k)
 
     def inv(self, shards):
         """k [..., N, N/pa, Nhp/pb] -> real [..., N/pa, N/pb, N]."""
-        k = [torch.fft.ifft(t, dim=-3) for t in shards]
-        k = all_to_all(k, self.groups(AXA), -3, -2)
-        k = [torch.fft.ifft(t, dim=-2) for t in k]
-        k = all_to_all(k, self.groups(AXB), -2, -1)
-        return [irfft_z(t[..., :self.Nh], self.N).contiguous() for t in k]
+        k = _each(lambda t: torch.fft.ifft(t, dim=-3), shards)
+        k = self.all_to_all(k, AXA, -3, -2)
+        k = _each(lambda t: torch.fft.ifft(t, dim=-2), k)
+        k = self.all_to_all(k, AXB, -2, -1)
+        return _each(lambda t: irfft_z(t[..., :self.Nh], self.N)
+                     .contiguous(), k)
 
 
 class VolumeDecomp(_Decomp):
@@ -358,22 +478,22 @@ class VolumeDecomp(_Decomp):
 
     def fwd(self, shards):
         """real [..., N/pa, N/pb, N/pc] -> k [..., N, N/pa, Nhp/(pb pc)]."""
-        k = all_to_all(shards, self.groups(AXC), -2, -1)
-        k = [_pad_z(torch.fft.rfft(r, dim=-1), self.Nhp) for r in k]
-        k = all_to_all(k, self.groups((AXB, AXC)), -1, -2)
-        k = [torch.fft.fft(t, dim=-2) for t in k]
-        k = all_to_all(k, self.groups(AXA), -2, -3)
-        return [torch.fft.fft(t, dim=-3).contiguous() for t in k]
+        k = self.all_to_all(shards, AXC, -2, -1)
+        k = _each(lambda r: _pad_z(torch.fft.rfft(r, dim=-1), self.Nhp), k)
+        k = self.all_to_all(k, (AXB, AXC), -1, -2)
+        k = _each(lambda t: torch.fft.fft(t, dim=-2), k)
+        k = self.all_to_all(k, AXA, -2, -3)
+        return _each(lambda t: torch.fft.fft(t, dim=-3).contiguous(), k)
 
     def inv(self, shards):
         """k [..., N, N/pa, Nhp/(pb pc)] -> real [..., N/pa, N/pb, N/pc]."""
-        k = [torch.fft.ifft(t, dim=-3) for t in shards]
-        k = all_to_all(k, self.groups(AXA), -3, -2)
-        k = [torch.fft.ifft(t, dim=-2) for t in k]
-        k = all_to_all(k, self.groups((AXB, AXC)), -2, -1)
-        r = [irfft_z(t[..., :self.Nh], self.N) for t in k]
-        return [t.contiguous()
-                for t in all_to_all(r, self.groups(AXC), -1, -2)]
+        k = _each(lambda t: torch.fft.ifft(t, dim=-3), shards)
+        k = self.all_to_all(k, AXA, -3, -2)
+        k = _each(lambda t: torch.fft.ifft(t, dim=-2), k)
+        k = self.all_to_all(k, (AXB, AXC), -2, -1)
+        r = _each(lambda t: irfft_z(t[..., :self.Nh], self.N), k)
+        return _each(lambda t: t.contiguous(),
+                     self.all_to_all(r, AXC, -1, -2))
 
 
 def make_decomp(mesh: Mesh, N: int) -> _Decomp:

@@ -1,6 +1,6 @@
 """End-to-end pipeline driver on one CUDA device, or with the fmax phase
-sharded over a mesh of devices in one process: parameter file -> catalogs
-(counterpart of pinocchio_tpu/run.py, single-host paths).
+sharded over a mesh of devices, in one process or in one process per host:
+parameter file -> catalogs (counterpart of pinocchio_tpu/run.py).
 
 The classic ellipsoid or the TABULATED_CT / ELL_SNG collapse tables,
 scale-independent or scale-dependent growth, with or without
@@ -28,8 +28,14 @@ the out-of-core engine, from the host products, and
 writes its catalogs, histories and PLC as .out.<h> chunks, its share of the
 timeless snapshot as an npz chunk, and the mass functions and n(z) through
 part files that the last host sums; scripts/torch_merge_chunks.py
-reassembles the files.  In one process each host repeats IC and fmax, so
-the CLI's --hosts waits for the process layer (item 12b-ii).
+reassembles the files.  In one process (run_pipeline(hosts=) over an
+ordinary mesh) each mocked host repeats IC and fmax over the whole mesh.
+The CLI's --hosts H runs the hosts as H processes, one per host, joined in
+a torch.distributed process group (parallel/multihost.py): each computes
+only its own block of the mesh's shards, the transposes, reductions and
+the exchange cross processes, and the outputs are those of the mocked
+hosts.  The out-of-core engine over several processes is not ported
+(item 12b-iii).
 
   initialization -> plan -> PLC geometry -> fmax (collapse times +
   displacements, on the device; or the products read from a dump) ->
@@ -43,13 +49,20 @@ initial conditions as a Gadget snapshot.
 
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [mode] [--norad]
-        [--outdir DIR] [--device cuda] [--subboxes N] [--chips N]
-        [--decomp auto|slab|pencil|volumes]
+        [--outdir DIR] [--device cuda] [--grid N] [--subboxes N]
+        [--chips N] [--decomp auto|slab|pencil|volumes]
+        [--shard-devices D,D,...] [--hosts H --host-id h
+        --coordinator HOST:PORT [--group-timeout S]]
+
+    e.g. two processes on the CPU, each holding 2 of 4 shards:
+    python -m pinocchio_tpu_torch.run <pf> --device cpu --chips 4 \
+        --hosts 2 --host-id <h> --coordinator localhost:<port> --outdir D
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -59,6 +72,12 @@ import torch
 from .config import Params, read_parameter_file
 from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
+
+OOC_PROCESSES_GAP = (
+    "the out-of-core engine over several processes is not ported to "
+    "pinocchio_tpu_torch yet (ROADMAP.md, queue 1 item 12b-iii); run the "
+    "hosts in one process with run_pipeline(hosts=(h, H)), or the dense "
+    "engine (ooc off)")
 
 
 def check_supported(params: Params) -> None:
@@ -89,12 +108,14 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  mesh=None, hosts: tuple = None, overlap: bool = True):
     """The run on ``device``, or with IC and fmax sharded over ``mesh``
     (parallel.pfft.Mesh; its devices replace ``device``); hosts=(h, H):
-    host h's share of a run over H hosts (the module docstring).  overlap
-    (the default): either engine's overlapped hand-off, the rows streaming
-    to the host while fragmentation sweeps behind their watermark (the
-    dense mesh engine does not stream); False: the blocking hand-off, the
-    same outputs.  Returns dict(cosmo, plan (the planner's report), fmax,
-    frag, timings, files)."""
+    host h's share of a run over H hosts (the module docstring), which over
+    a mesh split over a process group (pfft.mesh_for(procs=)) must be the
+    process's (rank, size), every process of the group calling it alike.
+    overlap (the default): either engine's overlapped hand-off, the rows
+    streaming to the host while fragmentation sweeps behind their watermark
+    (the dense mesh engine does not stream); False: the blocking hand-off,
+    the same outputs.  Returns dict(cosmo, plan (the planner's report),
+    fmax, frag, timings, files)."""
     from .fmax import fmax_pdf, run_fmax
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
@@ -104,15 +125,26 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .planner import enforce_budget
     from .plc import build_plc_geometry, write_nz, write_plc_catalog
 
-    dev = resolve_device(device if mesh is None else mesh.device_list()[0])
+    dev = resolve_device(device if mesh is None
+                         else mesh.local_devices()[0])
     check_supported(params)
     t_total = time.perf_counter()
     timings = {}
     host_id, nhosts = hosts if hosts else (0, 1)
+    procs = None if mesh is None else mesh.procs
+    if procs is not None and tuple(procs) != (host_id, nhosts):
+        raise ValueError(f"a mesh split over {procs[1]} processes as rank "
+                         f"{procs[0]} runs as that host, not as hosts="
+                         f"{hosts}")
     if nhosts > 1 and write_outputs:
         # this host's part files of a run that failed would be summed into
         # this run's reductions
         io_cat.clear_stale_parts(outdir, host_id)
+    if procs is not None:
+        # no process writes a part file before every process cleared its
+        # own stale ones
+        from .parallel.multihost import barrier
+        barrier()
     if verbose:
         greetings(params, dev, mesh)
     t0 = time.perf_counter()
@@ -121,7 +153,8 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     if verbose:
         print(f"[init] cosmology ready in {timings['init']:.2f}s "
               f"(sigma8={params.Sigma8:.4f})")
-    if write_outputs:
+    if write_outputs and host_id == 0:
+        # one host writes the files that every host would write alike
         cosmo.write_cosmology_file(outdir)
 
     # per-radius effective growth scales of a scale-dependent cosmology
@@ -155,6 +188,8 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         # over a mesh, its devices in flat order shard the ledger over kz
         # whatever the decomposition (as the JAX package's run.py)
         check_ooc_supported(params)
+        if procs is not None:
+            raise NotImplementedError(OOC_PROCESSES_GAP)
         if verbose and mesh is not None:
             print(f"[fmax] out-of-core ledger sharded over {mesh.size} "
                   "devices")
@@ -225,8 +260,9 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     written = []
     if write_outputs:
         t0 = time.perf_counter()
-        if fmax_res.pdf_hist is not None:
-            # not after a restart: the dumping run wrote it
+        if fmax_res.pdf_hist is not None and host_id == 0:
+            # not after a restart: the dumping run wrote it; every host
+            # holds the whole histogram
             fmax_pdf(fmax_res.pdf_hist,
                      os.path.join(outdir,
                                   f"pinocchio.{params.RunFlag}.FmaxPDF.out"))
@@ -431,47 +467,89 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")
+    ap.add_argument("--grid", type=int, default=None,
+                    help="override GridSize")
     ap.add_argument("--subboxes", type=int, default=None,
                     help="fragmentation sub-domains, swept concurrently on "
                     "the host's cores (the subbox_tasks parameter)")
     ap.add_argument("--chips", type=int, default=1,
-                    help="shard IC and fmax over this many devices: "
-                    "cuda:0..N-1 with --device cuda (raises when fewer "
-                    "exist), N shards on the CPU with --device cpu")
+                    help="shard IC and fmax over this many devices in all "
+                    "(over every process with --hosts): cuda:0..N-1 with "
+                    "--device cuda (raises when fewer exist), N shards on "
+                    "the CPU with --device cpu")
     ap.add_argument("--decomp", default="auto",
                     choices=["auto", "slab", "pencil", "volumes"],
                     help="FFT domain decomposition for --chips "
                     "(set_fft_decomposition; auto: pencil for even counts "
                     "from 4, else slab)")
+    ap.add_argument("--shard-devices", default=None,
+                    help="comma-separated devices of this process's shards "
+                    "(chips / hosts of them; a device may repeat, e.g. "
+                    "cuda:0,cuda:0 for two shards on one card); default "
+                    "cuda:0..chips/hosts-1, or the CPU with --device cpu")
     ap.add_argument("--hosts", type=int, default=1,
-                    help="hosts (only 1 from the command line: a run over "
-                    "several hosts in one process is run_pipeline(hosts=))")
+                    help="processes of a run over several hosts, one per "
+                    "host (torch.distributed over gloo; launch each with "
+                    "its --host-id and the same --coordinator); each holds "
+                    "chips / hosts of the shards")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="this process's id in [0, hosts)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0, where the process group "
+                    "meets (any free port)")
+    ap.add_argument("--group-timeout", type=float, default=1800.0,
+                    help="seconds after which a collective of the process "
+                    "group, its rendezvous included, fails the run")
     args = ap.parse_args(argv)
+    overrides = {"norad": True} if args.norad else {}
+    params = read_parameter_file(args.parameter_file, **overrides)
+    if args.grid:
+        params.GridSize = args.grid
+    if args.subboxes:
+        params.subbox_tasks = args.subboxes
+    procs = None
     if args.hosts > 1:
-        raise NotImplementedError(
-            "multi-host runs from the command line need the process layer "
-            "(torch.distributed bring-up, the exchange across processes), "
-            "which is not ported to pinocchio_tpu_torch yet (ROADMAP.md, "
-            "queue 1 item 12b-ii); one process runs a host's share with "
-            "run_pipeline(hosts=(h, H))")
+        if args.mode is not None:
+            raise ValueError("the special modes run in one process")
+        if args.chips % args.hosts:
+            raise ValueError(f"--hosts {args.hosts} needs --chips a "
+                             f"multiple of it, not {args.chips}: each "
+                             "process holds chips / hosts of the shards")
+        if params.ooc == "on":
+            raise NotImplementedError(OOC_PROCESSES_GAP)
+        from .parallel.multihost import initialize_cluster
+        procs = initialize_cluster(args.hosts, args.coordinator,
+                                   args.host_id, timeout=args.group_timeout)
+    try:
+        _run_main(args, params, procs)
+    finally:
+        if procs is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run_main(args, params, procs):
     dev = resolve_device(args.device)
     mesh = None
     if args.chips > 1:
         from .parallel.pfft import mesh_for
-        mesh = mesh_for(args.chips, args.decomp,
-                        devices=None if dev.type == "cuda"
-                        else [dev] * args.chips)
-    overrides = {"norad": True} if args.norad else {}
-    params = read_parameter_file(args.parameter_file, **overrides)
-    if args.subboxes:
-        params.subbox_tasks = args.subboxes
+        local = args.chips // (1 if procs is None else procs[1])
+        devices = (args.shard_devices.split(",") if args.shard_devices
+                   else None if dev.type == "cuda" else [dev] * local)
+        mesh = mesh_for(args.chips, args.decomp, devices=devices,
+                        procs=procs)
     os.makedirs(args.outdir, exist_ok=True)
     if args.mode is not None:
         run_special_mode(params, args.mode, outdir=args.outdir,
                          device=args.device)
     else:
-        run_pipeline(params, outdir=args.outdir, device=args.device,
-                     mesh=mesh)
+        t0 = time.perf_counter()
+        res = run_pipeline(params, outdir=args.outdir, device=args.device,
+                           mesh=mesh, hosts=procs)
+        if procs is not None:
+            from .parallel.multihost import process_report
+            print("[cluster] " + json.dumps(process_report(
+                mesh, res["timings"], time.perf_counter() - t0)), flush=True)
 
 
 if __name__ == "__main__":

@@ -294,16 +294,21 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
 @pytest.mark.parametrize("argv,ooc,error,item", [
     # a mesh with the out-of-core engine and the timeless snapshot (the
     # case keeps its id from when such a mesh refused the out-of-core
-    # engine itself, item 12c), several hosts, and a mesh of more cards
-    # than the machine has (this one has none)
+    # engine itself, item 12c), a mesh of more cards than the machine has
+    # (this one has none), and several processes with the out-of-core
+    # engine (item 12b-iii) or with fewer shards than processes, both
+    # refused before the group's rendezvous (the two cases keep their ids
+    # from when the CLI refused --hosts itself, item 12b-ii)
     pytest.param(["--chips", "2", "--device", "cpu"], "on",
                  NotImplementedError, "item 13",
                  id="argv0-on-NotImplementedError-item 12c"),
     (["--chips", "4", "--device", "cuda"], "auto", RuntimeError, "CUDA"),
-    (["--hosts", "2", "--device", "cpu"], "auto", NotImplementedError,
-     "item 12b-ii"),
-    (["--hosts", "2", "--subboxes", "2", "--device", "cpu"], "auto",
-     NotImplementedError, "item 12b-ii")])
+    pytest.param(["--hosts", "2", "--chips", "4", "--device", "cpu"], "on",
+                 NotImplementedError, "item 12b-iii",
+                 id="argv2-auto-NotImplementedError-item 12b-ii"),
+    pytest.param(["--hosts", "2", "--subboxes", "2", "--device", "cpu"],
+                 "auto", ValueError, "--chips a multiple",
+                 id="argv3-auto-NotImplementedError-item 12b-ii")])
 def test_cli_options_outside_the_slice_raise(tmp_path, monkeypatch, argv, ooc,
                                              error, item):
     import pinocchio_tpu_torch.run as run_mod

@@ -32,6 +32,11 @@
    hosts with the main path's sub-box boxes, timed; 16 hosts with wrapped
    boxes, a host with none, spheres across edges), exactly; times special
    mode 2's density_field (a library c2r) beside its bound and irfftn;
+   holds the 16-bit storage kernels K18 (store) and K19 (load) bit for bit
+   to their plain versions in bfloat16 and float16 at the shapes of the
+   ooc_bf16 path (a Hessian kz batch into a stack and a z-rfft slab into a
+   spectrum; an x-slab of a stack and a spectrum's kz batch widened), with
+   their times beside copy_ and .to(float32) (storage_kernels);
 4. drives each path through run_pipeline (with the overlapped hand-off,
    its default: the rows stream to the host while the sweep starts on
    their watermark), with the launch counters reset
@@ -46,6 +51,13 @@
                  256^3;
      tabulated_trilinear, tabulated_bilinear   the other two lookups, 128^3;
      ooc         the out-of-core engine (ooc='on'), 256^3;
+     ooc_bf16    the out-of-core engine with bfloat16 stacks and spectra
+                 (K18, K19 with K9-K12), 256^3: its Fmax against the ooc
+                 path's float32 run of the same delta (median |dF|, the
+                 share above 0.01, F >= Flast changed), the needed count,
+                 halo counts per output within max(10, 6 sqrt(n) + 5 %);
+                 the fmax phase alone with each phase's peak beside the
+                 planner's 16-bit map;
      ooc_tabulated   the out-of-core engine with the bicubic lookup, 256^3;
      ooc_tabulated_trilinear, ooc_tabulated_bilinear   the other two, 128^3;
      ooc_scaledep    the out-of-core engine with f(R) growth, RECOMPUTE
@@ -94,8 +106,10 @@
    and 4 shards of the card with the bicubic lookup (K13) and with f(R)
    growth and RECOMPUTE (K14, 4 row sets), each held to the single-device
    engine as the ooc_mesh path is, with its launch set and its phases'
-   peaks beside the planner's per-device map (ooc_mesh_fmax); then the
-   exchange
+   peaks beside the planner's per-device map (ooc_mesh_fmax); the fmax
+   phase with float16 storage at 128^3 against float32 (ooc_f16) and with
+   bfloat16 storage over 4 shards of the card at 256^3, bit for bit the
+   ooc_bf16 path's (ooc_mesh_bf16); then the exchange
    (hosts_exchange) on one deferred fmax over a 2x2 pencil mesh of the card
    at 256^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
    rows held to the brute-force selection, with the count, pack, route and
@@ -167,7 +181,12 @@
    the host peak beside the single device's; and the planner's map of f(R)
    growth with
    RECOMPUTE at 1024^3, which must refuse the run on host memory before
-   any allocation;
+   any allocation; the fmax phase at 1024^3 with bfloat16 storage
+   (big_bf16): its peak within 5 % of the planner's, its wall and needed
+   count beside the float32 run's; the planner's CLI in a subprocess on
+   the card's memory (planner_cli); the classic path's catalogs and
+   histories through scripts/torch_pinocchio2fits.py and
+   scripts/torch_validate_fits.py (fits);
 8. checks that neither jax nor any module of the JAX package was imported;
 9. prints one JSON line of the kernels (with the hand-off's timelines and
    traces under "handoff"), then {"ok": true, "device": ...} as the last
@@ -179,7 +198,8 @@ runs only the named phases (kernels, density_field, a path's name,
 mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
 subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
 ooc_mesh_big, refusal, handoff, exchange_kernels, hosts_exchange, hosts,
-procs) and prints no JSON line.
+procs, storage_kernels, ooc_f16, ooc_mesh_bf16, big_bf16, planner_cli,
+fits) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -228,7 +248,8 @@ OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
        "ooc_factors_gradient_tab": 40, "ic_kdensity_shard": 380,
        "kspace_hessian_shard": 40, "kspace_gradient_shard": 20,
        "kspace_gradient_tab_shard": 40, "exchange_count": 12,
-       "exchange_pack": 4, "exchange_paint": 20}
+       "exchange_pack": 4, "exchange_paint": 20, "storage_store": 0,
+       "storage_load": 0}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
           recompute_displacements=True, MaxMemPerParticle=400)
 # each path's launch set: the dense engine's shared kernels, then each
@@ -275,6 +296,15 @@ def ooc_tab(interp):
                          "ooc_factors_gradient"}
 
 
+# the out-of-core engine with 16-bit stacks and spectra: K18 and K19 beside
+# the float32 engine's kernels; the grid of its float16 fmax phase and the
+# 4 shards of the card of its mesh phase
+STORAGE = {"storage_store", "storage_load"}
+OOC16 = OOC | STORAGE
+OOC_F16_N = 128
+OOC_MESH16 = 4
+
+
 OOC_N = 512
 BIG_N = 1024
 # out-of-core against dense: name -> (grid size, switches); the bicubic
@@ -309,6 +339,7 @@ PATHS = {
                            DENSE | {"collapse_update_table_bilinear",
                                     "kspace_gradient"}),
     "ooc": (PIPELINE_N, dict(ooc="on"), OOC),
+    "ooc_bf16": (PIPELINE_N, dict(ooc="on", ooc_dtype="bfloat16"), OOC16),
     "ooc_tabulated": (PIPELINE_N, dict(TAB, ooc="on"), ooc_tab("bicubic")),
     "ooc_tabulated_trilinear": (128, dict(ooc="on", ell_model="tabulated",
                                           ct_interp="trilinear"),
@@ -1506,6 +1537,14 @@ def run_path(dev, name):
         if name == "ooc":
             KEPT["ooc"] = (res["fmax"].products.Fmax.cpu().numpy(), sv.copy(),
                            res["fmax"].host_products, res["frag"].catalogs)
+        if name == "ooc_bf16":
+            KEPT["ooc_bf16"] = (res["fmax"].products.Fmax.cpu().numpy(),
+                                sv.copy(), res["fmax"].host_products)
+            ooc16_checks(dev, p, res, wall)
+        if name == "classic":
+            # what the fits phase converts
+            KEPT["classic_out"] = scratch_dir("classic_out")
+            keep_files(out, KEPT["classic_out"])
         if p.subbox_tasks > 1:
             subbox_checks(dev, p, res, host)
         if mesh is not None and res["plan"]["use_ooc"]:
@@ -3635,6 +3674,428 @@ def ooc_mesh_big(dev):
     return launches
 
 
+def storage_kernel_phases(N, dev, report):
+    """K18 and K19 at N^3 at the shapes of the ooc_bf16 path, bit for bit
+    their plain versions in both 16-bit types: K18 rounding a Hessian kz
+    batch [6, 16, N, N] into the planes 32..47 of a [6, N, N, Nh, 2] stack
+    (81 of its launches at 256^3; the JSON row) and a z-rfft slab
+    [Bx, N, Nh] into a spectrum's x window (rows); K19 widening an x-slab
+    [6, Bx, N, Nh, 2] of the stack (144 of its launches; the row) and a
+    spectrum's kz batch [1, 16, N, N] (kz).  Each with its time, the plain
+    version's, the one PyTorch call's that does the same work (copy_ with
+    the conversion into the window; .to(float32)) and its bound: 12 bytes
+    a complex value (8 read and 4 written, or 4 and 8) over 3.35 TB/s; and
+    the kernel's time a call 20 back to back (one call's time holds the
+    host's enqueue, which these short kernels do not hide)."""
+    import torch
+    from pinocchio_tpu_torch.fmax_ooc import KZ_BATCH, slab_width
+    from pinocchio_tpu_torch.ops import storage
+
+    rec = report.setdefault(N, {})
+    Nh, B, Bx = N // 2 + 1, KZ_BATCH, slab_width(N)
+    k = min(32, Nh - B)
+    gen = torch.Generator(device=dev).manual_seed(N)
+
+    def values(shape):
+        # Gaussian values over some 25 binary orders of magnitude
+        x = torch.randn(shape + (2,), device=dev, generator=gen)
+        x *= torch.exp(4.0 * torch.randn(shape + (2,), device=dev,
+                                         generator=gen))
+        return torch.view_as_complex(x)
+
+    def bits16(t):
+        return t.view(torch.int16)
+
+    def bits64(t):
+        return torch.view_as_real(t).view(torch.int32)
+
+    w = values((6, B, N, N))
+    r = values((Bx, N, Nh))
+    forms = {}
+    for name, dtype in storage.DTYPES.items():
+        sk = torch.zeros((6, N, N, Nh, 2), dtype=dtype, device=dev)
+        sp = torch.zeros_like(sk)
+        storage.store_kz(w, sk, k)
+        storage.store_kz_plain(w, sp, k)
+        ok_kz = torch.equal(bits16(sk), bits16(sp))
+        ck, cp = sk[0, :Bx], sp[0, :Bx].clone()
+        storage.store_rows(r, ck, 0)
+        storage.store_rows_plain(r, cp, 0)
+        ok_rows = torch.equal(bits16(ck), bits16(cp))
+        half = sp[:, Bx:2 * Bx]
+        ok_load = torch.equal(bits64(storage.load_rows(half)),
+                              bits64(storage.load_rows_plain(half)))
+        ok_kzl = torch.equal(bits64(storage.load_kz(sp[:1], k, B)),
+                             bits64(storage.load_kz_plain(sp[:1], k, B)))
+        inf = int(torch.isinf(sp.float()).sum())
+        print(f"  [{N}^3] {name}: K18 kz batch and rows, K19 x-slab and kz "
+              f"batch bit for bit their plain versions: {ok_kz}, {ok_rows}, "
+              f"{ok_load}, {ok_kzl} ({inf} values rounded to inf)",
+              flush=True)
+        need(ok_kz and ok_rows and ok_load and ok_kzl,
+             f"K18 or K19 ({name}) at {N}^3 differ from their plain "
+             "versions")
+        forms[name] = (sk, sp)
+    sk, sp = forms["bfloat16"]
+    half = sp[:, Bx:2 * Bx]
+    spec = sp[:1]
+    ck, cp = sk[0, :Bx], sp[0, :Bx]
+
+    def timed(fn, plain, library, nelem):
+        nbytes = 12.0 * nelem
+        return (time_ms(fn), time_ms(plain), time_ms(library),
+                bound("storage_store", nbytes, nelem)[0], batch_ms(fn))
+
+    kz = timed(lambda: storage.store_kz(w, sk, k),
+               lambda: storage.store_kz_plain(w, sp, k),
+               lambda: sp[:, :, :, k:k + B].copy_(
+                   torch.view_as_real(w).permute(0, 2, 3, 1, 4)),
+               w.numel())
+    rows = timed(lambda: storage.store_rows(r, ck, 0),
+                 lambda: storage.store_rows_plain(r, cp, 0),
+                 lambda: cp.copy_(torch.view_as_real(r)), r.numel())
+    xs = timed(lambda: storage.load_rows(half),
+               lambda: storage.load_rows_plain(half),
+               lambda: half.to(torch.float32), half.numel() // 2)
+    kzl = timed(lambda: storage.load_kz(spec, k, B),
+                lambda: storage.load_kz_plain(spec, k, B),
+                lambda: spec[:, :, :, k:k + B].permute(0, 3, 1, 2, 4).to(
+                    torch.float32, memory_format=torch.contiguous_format),
+                B * N * N)
+    for name, main, other, what in (
+            ("storage_store", kz, rows, "rows [Bx, N, Nh]"),
+            ("storage_load", xs, kzl, "kz batch [1, 16, N, N]")):
+        record_phase(rec, N, name, 0.0, 0.0, main[0], main[1],
+                     12.0 * (w.numel() if name == "storage_store"
+                             else half.numel() // 2),
+                     w.numel() if name == "storage_store"
+                     else half.numel() // 2, library_ms=main[2],
+                     extra=f"bit for bit (20 calls back to back "
+                     f"{main[4]:.3f} ms a call), ")
+        print(f"  [{N}^3] {name} {what}: kernel {other[0]:.3f} ms (back to "
+              f"back {other[4]:.3f}), plain {other[1]:.3f} ms, library "
+              f"{other[2]:.3f} ms, bound {other[3]:.3f} ms", flush=True)
+        rec[name].update(batch_ms=main[4], other_ms=other[0],
+                         other_batch_ms=other[4], other_plain_ms=other[1],
+                         other_library_ms=other[2], other_bound_ms=other[3],
+                         other=what)
+    del forms, sk, sp, w, r, half, spec, ck, cp
+    torch.cuda.empty_cache()
+
+
+def fmax_stats(what, F, F32, Flast):
+    """|dF| of a 16-bit run's Fmax against the float32 run's on the same
+    delta: the median, the share above 0.01, the share of cells whose
+    F >= Flast changed; printed and returned."""
+    import numpy as np
+    d = np.abs(F - F32)
+    st = dict(median_dF=float(np.median(d)),
+              above_0_01=float((d > 0.01).mean()),
+              flips=float(((F >= Flast) != (F32 >= Flast)).mean()),
+              max_dF=float(d.max()))
+    print(f"  {what} Fmax against float32: median |dF| "
+          f"{st['median_dF']:.3e}, |dF| > 0.01 on {100 * st['above_0_01']:.3f}"
+          f"% of cells, F >= Flast changed on {100 * st['flips']:.4f}%, max "
+          f"{st['max_dF']:.3e} (at 32^3 on the CPU, tests/test_torch_ooc_"
+          "bf16.py: the JAX package's bfloat16 run against its float32 run "
+          "2.04e-3, 2.81 %)",
+          flush=True)
+    need(np.all(np.isfinite(F)) and st["median_dF"] < 1e-2,
+         f"{what}: Fmax far from the float32 run's")
+    return st
+
+
+def ooc16_checks(dev, p, res, wall):
+    """The ooc_bf16 path's run against the ooc path's float32 run of the
+    same delta (run first if this process has not): Fmax statistics, the
+    needed count within 1e-3 N^3, the halo counts per output within
+    max(10, 6 sqrt(n) + 5 % n) (the JAX package's tolerance,
+    tests/test_ooc.py); then the fmax phase alone with its peaks traced,
+    each phase beside the planner's 16-bit map."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, planner
+    if "ooc" not in KEPT:
+        run_path(dev, "ooc")
+    F32, _, sp32, cats32 = KEPT["ooc"]
+    F, _, sp = KEPT["ooc_bf16"]
+    N = p.GridSize
+    st = fmax_stats("ooc_bf16", F, F32, p.Flast)
+    dn = len(sp.ci) - len(sp32.ci)
+    print(f"  needed cells {len(sp.ci)}, float32 {len(sp32.ci)} (difference "
+          f"{dn}, need <= {1e-3 * N ** 3:.0f})", flush=True)
+    need(abs(dn) <= 1e-3 * N ** 3, "ooc_bf16: the needed count moved")
+    halos = []
+    for got, want in zip(res["frag"].catalogs, cats32):
+        ng = int((got.mass >= p.MinHaloMass).sum())
+        nw = int((want.mass >= p.MinHaloMass).sum())
+        tol = max(10, 6 * nw ** 0.5 + 0.05 * nw)
+        print(f"  ooc_bf16 z={got.z:g}: {ng} halos, float32 ooc path {nw} "
+              f"(need within {tol:.0f})", flush=True)
+        need(nw > 0 and abs(ng - nw) <= tol,
+             f"ooc_bf16: the halo count at z={got.z} is off the float32 "
+             "run's")
+        halos.append((ng, nw))
+    cosmo = res["cosmo"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = fmax_ooc.run_fmax_ooc(p, cosmo, dev, trace_memory=True)
+    one.ooc_pending.join()
+    t_fmax = time.perf_counter() - t0
+    same = np.array_equal(one.products.Fmax.cpu().numpy(), F)
+    po = planner.device_peak(p, True, frac=planner.collapsed_fraction(
+        p, cosmo))
+    peaks = ooc_peaks(one)
+    print(f"  the fmax phase alone {t_fmax:.2f} s (Fmax equal to the path's:"
+          f" {same}), peak {max(peaks.values()) / GiB:.3f} GiB, planner "
+          f"{po['peak'] / GiB:.3f} GiB ({po['phase']}):\n"
+          + _phase_table(peaks, po["phases"]), flush=True)
+    need(same, "ooc_bf16: the fmax phase alone gave another Fmax")
+    KEPT["storage16"] = dict(path=dict(
+        wall_s=wall, fmax_s=t_fmax, halos=halos, needed=len(sp.ci),
+        needed_f32=len(sp32.ci), peaks_gib={k: v / GiB
+                                            for k, v in peaks.items()},
+        planner_gib={k: sum(v.values()) / GiB
+                     for k, v in po["phases"].items()}, **st))
+    del one
+
+
+def ooc_f16_phase(dev):
+    """The fmax phase alone at OOC_F16_N^3 with float16 storage against a
+    float32 run of the same delta, with the launch counts set to 0 just
+    before the float16 run: Fmax statistics, the needed count within
+    1e-3 N^3, finite v1 rows (the rows of each field with a value that
+    overflowed are counted); the launch set OOC16.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    N = OOC_F16_N
+    p32 = params_for(N, ooc="on")
+    p16 = params_for(N, ooc="on", ooc_dtype="float16")
+    cosmo = Cosmology(p32)
+    r32 = fmax_ooc.run_fmax_ooc(p32, cosmo, dev, overlap=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r16 = fmax_ooc.run_fmax_ooc(p16, cosmo, dev, overlap=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    st = fmax_stats("ooc_f16", r16.products.Fmax.cpu().numpy(),
+                    r32.products.Fmax.cpu().numpy(), p16.Flast)
+    sp, sp32 = r16.host_products, r32.host_products
+    dn = len(sp.ci) - len(sp32.ci)
+    print(f"  float16 fmax {wall:.2f} s; needed cells {len(sp.ci)}, float32 "
+          f"{len(sp32.ci)}; launches: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    need(abs(dn) <= 1e-3 * N ** 3, "ooc_f16: the needed count moved")
+    # the source spectra are unnormalized forward transforms: in float16
+    # they overflow to inf as the JAX engine's do (no clamp), and so do the
+    # rows built from them; v1 comes from delta's planes
+    bad = {k: int((~np.isfinite(v)).any(axis=1).sum())
+           for k, v in sp.vel.items()}
+    print(f"  rows with a non-finite value per field: {bad}", flush=True)
+    need(bad["v1"] == 0, "ooc_f16: non-finite v1 rows")
+    missing = sorted(k for k in OOC16 if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in OOC16)
+    need(not missing and not stray, f"ooc_f16: not launched {missing}, "
+         f"launched from another path {stray}")
+    KEPT.setdefault("storage16", {})["f16"] = dict(wall_s=wall,
+                                                   nonfinite_rows=bad, **st)
+    del r16, r32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ooc_mesh16_phase(dev):
+    """The fmax phase alone at PIPELINE_N with bfloat16 storage over
+    OOC_MESH16 shards of the card, with the launch counts set to 0 just
+    before it: bit for bit the ooc_bf16 path's single-device products
+    (run first if this process has not), its phases' peaks beside the
+    planner's per-device map; the launch set OOC16.  Returns the
+    launches."""
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    if "ooc_bf16" not in KEPT:
+        run_path(dev, "ooc_bf16")
+    p = params_for(PIPELINE_N, ooc="on", ooc_dtype="bfloat16")
+    cosmo = Cosmology(p)
+    mesh = card_mesh(dev, "slab", (OOC_MESH16,))
+    rep = planner.plan(p, dev, cosmo, shards=OOC_MESH16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, trace_memory=True)
+    res.ooc_pending.join()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peaks = ooc_peaks(res)
+    print(f"  {OOC_MESH16} shards of the card, bfloat16: fmax {wall:.2f} s; "
+          f"peak {max(peaks.values()) / GiB:.3f} GiB, planner "
+          f"{rep['ooc']['peak'] / GiB:.3f} GiB ({rep['ooc']['phase']}):\n"
+          + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
+    exact = ooc_held_to_one_device(
+        "ooc_mesh_bf16", (res.products.gather()[0],
+                          res.smoothing.true_variance, res.host_products),
+        KEPT["ooc_bf16"])
+    need(exact, "ooc_mesh_bf16: not bit for bit the single-device run")
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    missing = sorted(k for k in OOC16 if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in OOC16)
+    need(not missing and not stray, f"ooc_mesh_bf16: not launched {missing},"
+         f" launched from another path {stray}")
+    KEPT.setdefault("storage16", {})["mesh"] = dict(
+        wall_s=wall, bit_equal=exact, peak_gib=max(peaks.values()) / GiB,
+        planner_gib=rep["ooc"]["peak"] / GiB)
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def big16(dev):
+    """The fmax phase at BIG_N with bfloat16 storage (ooc='on'): each
+    phase's peak beside the planner's 16-bit map, the overall peak within
+    5 % of the planner's (the needed sort), the wall and the needed count
+    beside the float32 big run's (ooc_fmax_phase at BIG_N, when it ran
+    first; within 1e-3 N^3); the launch set OOC16."""
+    import gc
+
+    import numpy as np
+    import torch
+    from pinocchio_tpu_torch import fmax_ooc, kernels, planner
+    from pinocchio_tpu_torch.cosmology import Cosmology
+
+    p = params_for(BIG_N, ooc="on", ooc_dtype="bfloat16")
+    cosmo = Cosmology(p)
+    rep = planner.plan(p, dev, cosmo)
+    print(planner.format_memory_map(rep), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with HostPeak() as host:
+        res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=True,
+                                    trace_memory=True)
+        t_ret = time.perf_counter() - t0
+        res.ooc_pending.join()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peaks = ooc_peaks(res)
+    peak, pred = max(peaks.values()), rep["device_bytes"]
+    sp = res.host_products
+    count = len(sp.ci)
+    f32 = KEPT.get("big_classic")
+    print(f"  {BIG_N}^3 bfloat16 out-of-core fmax: {wall:.2f} s wall "
+          f"(returned after {t_ret:.2f} s)"
+          + (f", float32 {f32['wall_s']:.2f} s" if f32 else "")
+          + "; phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
+          flush=True)
+    print(f"  peak device memory {peak / GiB:.3f} GiB, planner "
+          f"{pred / GiB:.3f} GiB ({rep['ooc']['phase']}; measured/predicted "
+          f"{peak / pred:.3f}, need within 5 %)"
+          + (f"; float32 {f32['peak_gib']:.3f} GiB" if f32 else "") + ":\n"
+          + _phase_table(peaks, rep["ooc"]["phases"]), flush=True)
+    print(f"  needed cells {count}"
+          + (f", float32 {f32['count']} (difference {count - f32['count']},"
+             f" need <= {1e-3 * BIG_N ** 3:.0f})" if f32 else "")
+          + f"; host peak {(host.peak - host.base) / GiB:.2f} GiB above the "
+          f"start; launches: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    need(abs(peak / pred - 1.0) <= 0.05, "big_bf16: the peak is not within "
+         "5 % of the planner's")
+    need(f32 is None or abs(count - f32["count"]) <= 1e-3 * BIG_N ** 3,
+         "big_bf16: the needed count moved from the float32 run's")
+    need(all(np.all(np.isfinite(v[::997])) for v in sp.vel.values()),
+         "big_bf16: non-finite products")
+    missing = sorted(k for k in OOC16 if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in OOC16)
+    need(not missing and not stray, f"big_bf16: not launched {missing}, "
+         f"launched from another path {stray}")
+    KEPT.setdefault("storage16", {})["big"] = dict(
+        wall_s=wall, return_s=t_ret, peak_gib=peak / GiB,
+        planner_gib=pred / GiB, count=count,
+        count_f32=None if f32 is None else f32["count"],
+        peaks_gib={k: v / GiB for k, v in peaks.items()},
+        timings=res.timings)
+    del res, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def planner_cli(dev):
+    """python -m pinocchio_tpu_torch.planner on a BIG_N parameter file with
+    bfloat16 storage, in a subprocess that reads the card's memory (no
+    --device-gb): the map against the card's total memory, the out-of-core
+    engine chosen, and the storage estimate."""
+    import torch
+    pf = write_parameter_file(scratch_dir("planner_cli"), BIG_N)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pinocchio_tpu_torch.planner",
+                          pf, "--norad", "--ooc-dtype", "bfloat16"],
+                         cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    print(res.stdout, flush=True)
+    need(res.returncode == 0, f"the planner's CLI failed: "
+         f"{res.stderr[-2000:]}")
+    card = torch.cuda.get_device_properties(dev).total_memory / GiB
+    need(f"of {card:.2f} GiB (OK)" in res.stdout and "out-of-core engine"
+         in res.stdout and "ESTIMATED STORAGE REQUIREMENTS" in res.stdout,
+         "the planner's CLI did not plan the card's memory")
+    print(f"  the planner's CLI read the card's {card:.2f} GiB in {wall:.2f} "
+          "s", flush=True)
+
+
+def fits_phase(dev):
+    """scripts/torch_pinocchio2fits.py on the classic path's catalogs and
+    histories (run first if this process has not), each read back and
+    checked column by column, then scripts/torch_validate_fits.py over the
+    directory; both in this process, which holds no module of jax."""
+    import contextlib
+    import io
+    import runpy
+    if "classic_out" not in KEPT:
+        run_path(dev, "classic")
+    d = KEPT["classic_out"]
+    pf = write_parameter_file(d, PIPELINE_N)
+    files = sorted(os.path.join(d, f) for f in os.listdir(d)
+                   if f.endswith((".catalog.out", ".histories.out")))
+    need(len(files) == len(OUTPUT_Z) + 1, f"fits: the classic path's files "
+         f"{files}")
+    codes = []
+    for name, argv in (("torch_pinocchio2fits.py",
+                        files + ["--outdir", d, "--paramfile", pf]),
+                       ("torch_validate_fits.py", [pf, "--dir", d])):
+        buf = io.StringIO()
+        old = sys.argv
+        sys.argv = [name] + argv
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(os.path.join(HERE, "scripts", name),
+                               run_name="__main__")
+            codes.append(0)
+        except SystemExit as e:
+            codes.append(e.code or 0)
+        finally:
+            sys.argv = old
+        print(buf.getvalue().rstrip(), flush=True)
+        print(f"  {name}: exit {codes[-1]} in {time.perf_counter() - t0:.2f} "
+              "s", flush=True)
+        out = buf.getvalue()
+    need(codes == [0, 0] and "validation finished with 0 error(s)" in out,
+         "fits: the classic path's files did not convert and validate")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
@@ -3645,7 +4106,9 @@ def main(argv=None) -> int:
                     "hosts_exchange, "
                     "hosts, procs, modes, subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
-                    "refusal, handoff); no JSON line is printed")
+                    "refusal, handoff, storage_kernels, ooc_f16, "
+                    "ooc_mesh_bf16, big_bf16, planner_cli, fits); no JSON "
+                    "line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -3706,6 +4169,9 @@ def main(argv=None) -> int:
                 exchange_kernel_phases(N, dev, report)
             if wanted("kernels") or wanted("density_field"):
                 density_field_phase(N, dev, report)
+            if wanted("kernels") or wanted("storage_kernels"):
+                section(f"the 16-bit storage kernels K18, K19 at {N}^3:")
+                storage_kernel_phases(N, dev, report)
         if wanted("kernels"):
             c2r_check(dev)
         paths = {}
@@ -3741,6 +4207,14 @@ def main(argv=None) -> int:
                 section(f"out-of-core fmax over {OOC_MESH_FMAX[name][0]} "
                         f"shards of the card at {PIPELINE_N}^3 ({name}):")
                 paths[name] = ooc_mesh_fmax_phase(dev, name)
+        if wanted("ooc_f16"):
+            section(f"out-of-core fmax with float16 storage at "
+                    f"{OOC_F16_N}^3:")
+            paths["ooc_f16"] = ooc_f16_phase(dev)
+        if wanted("ooc_mesh_bf16"):
+            section(f"out-of-core fmax with bfloat16 storage over "
+                    f"{OOC_MESH16} shards of the card at {PIPELINE_N}^3:")
+            paths["ooc_mesh_bf16"] = ooc_mesh16_phase(dev)
         if wanted("hosts_exchange"):
             section(f"the exchange over a 2x2 pencil mesh of the card at "
                     f"{PIPELINE_N}^3, mocked hosts:")
@@ -3782,6 +4256,9 @@ def main(argv=None) -> int:
             for name, (bN, ooc, kw, own) in BIG.items():
                 section(f"fmax phase at {bN}^3 under ooc={ooc!r}, {name}:")
                 ooc_fmax_phase(dev, bN, ooc, kw, own)
+        if wanted("big_bf16"):
+            section(f"fmax phase at {BIG_N}^3 with bfloat16 storage:")
+            big16(dev)
         if wanted("ooc_mesh_big"):
             section(f"fmax phase at {BIG_N}^3 under ooc='auto' over "
                     f"{OOC_MESH_BIG} shards of the card, classic:")
@@ -3790,6 +4267,12 @@ def main(argv=None) -> int:
             section(f"the planner at {BIG_N}^3 with f(R) growth and "
                     "RECOMPUTE:")
             big_refusal(dev)
+        if wanted("planner_cli"):
+            section(f"the planner's CLI at {BIG_N}^3 on the card's memory:")
+            planner_cli(dev)
+        if wanted("fits"):
+            section("the classic path's outputs to FITS, validated:")
+            fits_phase(dev)
         jaxish = sorted(m for m in sys.modules if m == "jax"
                         or m.startswith("jax.") or m == "pinocchio_tpu"
                         or m.startswith("pinocchio_tpu."))
@@ -3853,7 +4336,8 @@ def main(argv=None) -> int:
                                     procs=KEPT.get("procs")),
                       "handoff": dict(KEPT.get("handoff", {}),
                                       big=KEPT.get("big_classic", {}).get(
-                                          "blocking"))}),
+                                          "blocking")),
+                      "storage16": KEPT.get("storage16")}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,

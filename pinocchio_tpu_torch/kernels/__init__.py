@@ -33,7 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu",
-           "exchange.cu")
+           "exchange.cu", "storage.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds op for
 # op as its plain PyTorch version does (explicit fmaf stays fused)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -45,6 +45,7 @@ _KSPACE = "pinocchio_tpu_torch/csrc/kspace.cu"
 _COMPACT = "pinocchio_tpu_torch/csrc/compact.cu"
 _LPT = "pinocchio_tpu_torch/kernels/lpt_triton.py"
 _EXCHANGE = "pinocchio_tpu_torch/csrc/exchange.cu"
+_STORAGE = "pinocchio_tpu_torch/csrc/storage.cu"
 # kernel name -> (route, source in the repo, JAX function it replaces)
 KERNELS = {
     "ic_kdensity": ("cuda", "pinocchio_tpu_torch/csrc/ic_kdensity.cu",
@@ -104,6 +105,9 @@ KERNELS = {
                       "pinocchio_tpu/parallel/exchange.py:339"),
     "exchange_paint": ("cuda", _EXCHANGE,
                        "pinocchio_tpu/parallel/exchange.py:121"),
+    # the out-of-core engine's 16-bit stacks and spectra (K18, K19)
+    "storage_store": ("cuda", _STORAGE, "pinocchio_tpu/fmax_ooc.py:389"),
+    "storage_load": ("cuda", _STORAGE, "pinocchio_tpu/fmax_ooc.py:411"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -193,6 +197,9 @@ _SIGNATURES = {
     # spheres, sphere_host, ns, block[6] (host), N, pad_boxes, pad_off,
     # t0_boxes, t0_off, rmax, map, stream
     "exchange_paint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+    # src, dst, kind, transpose, C, A, B, sc, sa, dc, da, stream
+    "storage_store": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _P],
+    "storage_load": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _P],
 }
 
 

@@ -4,25 +4,40 @@ array and phase by phase, the
 host memory of the sweep (one box, or the sub-boxes swept at once), the
 sub-box decomposition, the engine choice and the pre-flight abort (the port's counterpart of pinocchio_tpu/planner.py; the reference's
 bounded-memory contract, allocations.c:37-251, and its abort with the
-per-array map, allocations.c:274-324).
+per-array map, allocations.c:274-324); the storage estimate of the output
+files (estimate_file_size, fragment.c:964-1065) and the device-count sweep
+(run_planner.c:44-140).
 
 The arrays are the port's own (fmax.run_fmax, fmax_ooc.run_fmax_ooc,
 fragment/driver.py), counted in bytes for the grid, the number of
-displacement fields and sets, and the predicted collapsed fraction.  The card
-is read from torch (``total_memory``); a CPU device's memory is the host's.
+displacement fields and sets, the out-of-core storage type and the
+predicted collapsed fraction.  The card is read from torch
+(``total_memory``); a CPU device's memory is the host's.
+
+Usage:
+    python -m pinocchio_tpu_torch.planner <parameter_file> [--grid N]
+        [--subboxes N] [--chips N] [--sweep] [--norad] [--device-gb G]
+        [--ooc-dtype float32|bfloat16|float16]
+
+prints the memory map of the run and its storage estimate (or, with
+--sweep, the map's peak for 1, 2, 4, ... cards); --device-gb plans for a
+card of G GiB, else the memory of the card cuda:0 is read (no card and no
+--device-gb: an error).
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import os
 
 import torch
 
-from .config import Params
+from .config import Params, read_parameter_file
 from .cosmology import Cosmology
 
 GiB = float(2 ** 30)
+MB = float(2 ** 20)
 DELTA_C = 1.686
 GROWTH_NTAB = 512       # entries of a growth table (fmax.growth_k_tables)
 # torch.sort of the whole grid (ops.compact.needed_order) in units of one
@@ -113,11 +128,20 @@ def _ooc_phases(params: Params, frac: float, shards: int = 1,
     array (one card holding every shard holds the sum), and one shard's
     transient at a time: a kz batch of its window, a gathered x-slab, the
     sort of its x-block and, with several shards, the hand-off's keys and
-    merged positions (a phase of its own) and one landing chunk."""
-    from .fmax_ooc import KZ_BATCH, LAND_ROWS, slab_width, split
+    merged positions (a phase of its own) and one landing chunk.  With
+    16-bit storage (params.ooc_dtype bfloat16 or float16) the stacks and
+    spectra take 4 bytes a complex value; the kz batches and x-slabs stay
+    complex64, and the phases that read a 16-bit spectrum hold one kz batch
+    widened by K19 besides.  The fold phase is the larger of the fold and
+    the spectra that follow it (with 16-bit storage, the src32 spectrum's
+    complex64 half spectrum before it is rounded)."""
+    from .fmax_ooc import KZ_BATCH, LAND_ROWS, slab_width, split, \
+        storage_dtype
     from .ops import tabulated
     s = _sizes(params, frac)
-    N, f, h, count, nf = s["N"], s["f"], s["k"], s["count"], s["nf"]
+    N, f, k, count, nf = s["N"], s["f"], s["k"], s["count"], s["nf"]
+    sixteen = storage_dtype(params) is not None
+    h = k / 2 if sixteen else k        # one stored component or spectrum
     Nh = N // 2 + 1
     nkz = split(Nh, shards)[0][1]      # the largest kz window
     B = min(params.ooc_kz_batch or KZ_BATCH, nkz)
@@ -128,14 +152,20 @@ def _ooc_phases(params: Params, frac: float, shards: int = 1,
     rk, rx = min(1.0, per * nkz / Nh), min(1.0, per * block)
     plane = 8.0 * N * N * B            # one complex64 kz batch
     real_slab = 4.0 * Bx * N * N       # one float32 x-slab component
-    half_slab = h * Bx / N             # one complex64 x-slab component
+    half_slab = k * Bx / N             # one complex64 x-slab component
 
-    def batch(ncomp, planes):
-        # K9 planes, K10 factors, the ifft2 result and its work area
-        return dict(kz_batch=(planes + 3 * ncomp) * plane)
+    def batch(ncomp, planes, reads_spectrum=False):
+        # K9 planes, K10 factors, the ifft2 result and its work area; a
+        # 16-bit spectrum's batch widened by K19
+        widened = 1 if sixteen and reads_spectrum else 0
+        return dict(kz_batch=(planes + 3 * ncomp + widened) * plane)
 
     def slab(ncomp, extra=0):
-        return dict(slab=ncomp * half_slab + (ncomp + extra) * real_slab)
+        # the irfft's input (complex64: a copy of the stack's x-slab, and
+        # with 16-bit storage K19's widened slab before it), its output and
+        # extra real slabs
+        halves = 2 * ncomp if sixteen else ncomp
+        return dict(slab=halves * half_slab + (ncomp + extra) * real_slab)
 
     # a radius's TABULATED_CT / ELL_SNG table pair with the delta grid and
     # the aux map; the four growth tables over log10 |k| of one set
@@ -152,9 +182,17 @@ def _ooc_phases(params: Params, frac: float, shards: int = 1,
         phases["sources"] = dict(hessian_stack=6 * h * rk, fmax=f * rx,
                                  real_sources=nsrc * f * rx, **slab(6, 3))
     if order >= 3:
-        phases["fold"] = dict(fmax=f * rx, q2_spectrum=h * rk,
-                              q31_src32=2 * f * rx, pair_stack=2 * h * rk,
-                              **batch(2, 1))
+        fold = dict(fmax=f * rx, q2_spectrum=h * rk, q31_src32=2 * f * rx,
+                    pair_stack=2 * h * rk, **batch(2, 1, True))
+        # the last spectrum: src32's real field, its z rfft (complex64 with
+        # 16-bit storage, else the spectrum itself) and, with 16-bit
+        # storage, its rounded spectrum; one kz batch's fft2 in and out
+        spectra = dict(fmax=f * rx, q2_q31_spectra=2 * h * rk,
+                       src32=f * rx, src32_z_rfft=k * rk,
+                       kz_batch=2 * plane)
+        if sixteen:
+            spectra["src32_spectrum"] = h * rk
+        phases["fold"] = max(fold, spectra, key=lambda a: sum(a.values()))
     nspec = nf - 1
     base = dict(fmax=f * rx, source_spectra=nspec * h * rk)
     phases["needed sort"] = dict(base, needed_sort=SORT_FIELDS * f * block)
@@ -171,7 +209,7 @@ def _ooc_phases(params: Params, frac: float, shards: int = 1,
                                source_spectra=nspec * h * rk,
                                displacement_stack=3 * h * rk,
                                rows_of_one_field=12.0 * count * rx, **gt,
-                               **batch(3, 1))
+                               **batch(3, 1, nspec > 0))
     if shards > 1:
         # the merged positions, a landing chunk and one shard's share of
         # its positions (int64)
@@ -318,7 +356,7 @@ def host_memory() -> float:
 
 def plan(params: Params, device="cuda", cosmo: Cosmology = None,
          dense_products: bool = False, n_chips: int = 1,
-         shards: int = None) -> dict:
+         shards: int = None, limit: float = None) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
     out-of-core engine when the dense one does not fit), the sub-box
@@ -329,11 +367,13 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
     None); the device fields are per device.  The out-of-core engine over a
     mesh lands its products in the same host arrays as on one device (its
     merge runs on the devices), so the host estimate does not depend on the
-    mesh."""
+    mesh.  limit: the device's memory in bytes (read from ``device`` when
+    None)."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
-    limit = device_memory(device)
+    if limit is None:
+        limit = device_memory(device)
     dense = device_peak(params, False, frac=frac, n_chips=n_chips)
     ooc = device_peak(params, True, frac=frac, n_chips=n_chips,
                       shards=shards)
@@ -445,3 +485,171 @@ def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
     if verbose:
         print(format_memory_map(report))
     return report
+
+
+def expected_halo_number(params: Params, cosmo: Cosmology,
+                         z: float) -> float:
+    """Expected halos above MinHaloMass in the box at z: the analytic mass
+    function integrated over ln m (Integrand_MF + qags,
+    fragment.c:974-996)."""
+    from scipy.integrate import quad
+    lnm_min = math.log(params.ParticleMass * params.MinHaloMass)
+    val, _ = quad(lambda lnm: cosmo.AnalyticMassFunction(math.exp(lnm), z)
+                  * math.exp(lnm), lnm_min, 37.0, limit=100)
+    return val * params.BoxSize_htrue ** 3
+
+
+def expected_plc_halo_number(params: Params, cosmo: Cosmology) -> float:
+    """Expected halos crossing the past light cone between LastzForPLC and
+    StartingzForPLC (compute_Nhalos_in_PLC, fragment.c:922-950): the mass
+    function integrated over the cone's comoving volume."""
+    from scipy.integrate import quad
+    C_KMS = 299792.458
+    z1 = max(params.LastzForPLC, 0.0)
+    z2 = params.StartingzForPLC
+    if z2 <= z1:
+        return 0.0
+    theta = math.radians(min(params.PLCAperture, 180.0))
+    fsky = 0.5 * (1.0 - math.cos(theta))
+    lnm_min = math.log(params.ParticleMass * params.MinHaloMass)
+
+    def dNdz(z):
+        dc = float(cosmo.ComovingDistance(z))
+        dvdz = 4.0 * math.pi * C_KMS / float(cosmo.Hubble(z)) * dc * dc
+        nofm, _ = quad(lambda lnm: cosmo.AnalyticMassFunction(
+            math.exp(lnm), z) * math.exp(lnm), lnm_min, 37.0, limit=50)
+        return dvdz * fsky * nofm
+
+    val, _ = quad(dNdz, z1, z2, limit=40)
+    return val
+
+
+def estimate_file_sizes(params: Params, cosmo: Cosmology,
+                        verbose: bool = True) -> dict:
+    """The ESTIMATED STORAGE REQUIREMENTS report (estimate_file_size,
+    fragment.c:964-1065): each output's catalog from the analytic mass
+    function, the histories (1.4 times the last catalog), the PLC and the
+    timeless snapshot, in bytes: dict(catalogs={z: bytes}, histories,
+    [plc], [snapshot], total)."""
+    CATALOG_BYTES = 56          # catalog_data: u64 + 10 f32 + 2 i32
+    PLC_BYTES = 56              # plc_write_data is the same weight class
+    out = dict(catalogs={}, total=0.0)
+    lines = ["ESTIMATED STORAGE REQUIREMENTS:"]
+    number = 0.0
+    for z in params.output_z:
+        number = expected_halo_number(params, cosmo, z)
+        size = number * CATALOG_BYTES
+        out["catalogs"][z] = size
+        out["total"] += size
+        lines.append(f"  catalog, z={z:6.4f}: ~{int(number)} halos, "
+                     f"{size / MB:.1f} Mbyte"
+                     + (f" ({size / MB / params.NumFiles:.1f}/file)"
+                        if params.NumFiles > 1 else ""))
+    hist = number * CATALOG_BYTES * 1.4
+    out["histories"] = hist
+    out["total"] += hist
+    lines.append(f"  histories (order of magnitude): {hist / MB:.1f} Mbyte")
+    if params.plc_enabled and params.StartingzForPLC > 0.0:
+        nplc = expected_plc_halo_number(params, cosmo)
+        size = nplc * PLC_BYTES
+        out["plc"] = size
+        out["total"] += size
+        lines.append(f"  past light cone: ~{int(nplc)} halos, "
+                     f"{size / MB:.1f} Mbyte")
+    if params.WriteTimelessSnapshot:
+        ntot = float(params.GridSize) ** 3
+        nvel = {1: 3, 2: 6, 3: 12}[params.lpt_order]
+        nblo = {1: 4, 2: 5, 3: 7}[params.lpt_order]
+        size = (268.0 + ntot * 4 + 6.0 + (nvel + 2) * (ntot * 4 + 6.0)
+                + nblo * 40 + 6.0)
+        out["snapshot"] = size
+        out["total"] += size
+        lines.append(f"  timeless snapshot: {size / MB:.1f} Mbyte")
+    lines.append(f"  total storage: {out['total'] / MB:.1f} Mbyte")
+    if verbose:
+        print("\n".join(lines))
+    return out
+
+
+def sweep(params: Params, limit: float, max_chips: int = 256,
+          cosmo: Cosmology = None, verbose: bool = True) -> list:
+    """The device-count sweep (run_planner.c:44-140's nodes by tasks
+    scan): for 1, 2, 4, ... cards of ``limit`` bytes each (at most
+    max_chips, and no more than the N/2 + 1 kz planes the out-of-core
+    engine shards), the engine the planner picks, its peak per card and
+    whether it fits, and the host memory of the run.  Rows: dict(chips,
+    engine, device_gib, fits, host_gib)."""
+    cosmo = cosmo or Cosmology(params)
+    rows = []
+    c = 1
+    while c <= min(max_chips, params.GridSize // 2 + 1):
+        r = plan(params, "cuda", cosmo, n_chips=c, limit=limit)
+        rows.append(dict(chips=c, engine=r["engine"],
+                         device_gib=r["device_bytes"] / GiB,
+                         fits=r["fits_device"], host_gib=r["host_bytes"] / GiB))
+        c *= 2
+    if verbose:
+        print(f"DEVICE SWEEP for {params.GridSize}^3 ({limit / GiB:.2f} GiB "
+              "a card)")
+        print(f"  {'cards':>6s} {'engine':>12s} {'GiB a card':>11s} "
+              f"{'fits':>5s} {'host GiB':>9s}")
+        for r in rows:
+            print(f"  {r['chips']:>6d} {r['engine']:>12s} "
+                  f"{r['device_gib']:>11.2f} {'yes' if r['fits'] else 'NO':>5s}"
+                  f" {r['host_gib']:>9.2f}")
+    return rows
+
+
+def card_memory() -> float:
+    """The memory of the card cuda:0 in bytes; raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device to plan for: give the memory of "
+                           "one card with --device-gb G (GiB)")
+    return device_memory("cuda:0")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("parameter_file")
+    ap.add_argument("--grid", type=int, default=None,
+                    help="override GridSize")
+    ap.add_argument("--subboxes", type=int, default=None,
+                    help="fragmentation sub-domains (subbox_tasks)")
+    ap.add_argument("--chips", type=int, default=1,
+                    help="cards of a mesh run (the map is per card)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="scan 1, 2, 4, ... cards")
+    ap.add_argument("--norad", action="store_true",
+                    help="no radiation in the background")
+    ap.add_argument("--device-gb", type=float, default=None,
+                    help="memory of one card in GiB (default: read from "
+                    "the card cuda:0)")
+    ap.add_argument("--ooc-dtype", choices=("float32", "bfloat16",
+                                            "float16"), default=None,
+                    help="storage of the out-of-core stacks and spectra "
+                    "(default float32)")
+    args = ap.parse_args(argv)
+    overrides = {"norad": True} if args.norad else {}
+    for key, val in (("GridSize", args.grid), ("subbox_tasks",
+                                               args.subboxes),
+                     ("ooc_dtype", args.ooc_dtype)):
+        if val:
+            overrides[key] = val
+    params = read_parameter_file(args.parameter_file, **overrides)
+    if not args.device_gb and not torch.cuda.is_available():
+        ap.error("no CUDA device to plan for: give the memory of one card "
+                 "with --device-gb G (GiB)")
+    limit = args.device_gb * GiB if args.device_gb else card_memory()
+    cosmo = Cosmology(params)
+    if args.sweep:
+        return dict(sweep=sweep(params, limit, cosmo=cosmo))
+    report = plan(params, "cuda", cosmo, n_chips=args.chips, limit=limit)
+    print(format_memory_map(report))
+    report["storage"] = estimate_file_sizes(params, cosmo)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -37,8 +37,9 @@ the exchange cross processes, and the outputs are those of the mocked
 hosts.  The out-of-core engine over several processes is not ported
 (item 12b-iii).
 
-  initialization -> plan -> PLC geometry -> fmax (collapse times +
-  displacements, on the device; or the products read from a dump) ->
+  initialization -> plan and storage estimate -> PLC geometry -> fmax
+  (collapse times + displacements, on the device; or the products read
+  from a dump) ->
   fragmentation (host C sweep of one box or of sub-boxes on a thread
   pool, with the PLC crossings) -> catalogs / mass
   functions / histories / PLC catalog and n(z) / timeless snapshot
@@ -122,7 +123,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     from .fragment.subbox import choose_nbox, run_fragmentation_multibox
     from .io import catalogs as io_cat
     from .io import dumps
-    from .planner import enforce_budget
+    from .planner import enforce_budget, estimate_file_sizes
     from .plc import build_plc_geometry, write_nz, write_plc_catalog
 
     dev = resolve_device(device if mesh is None
@@ -175,6 +176,9 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     plan = enforce_budget(params, dev, cosmo, verbose=verbose,
                           n_chips=1 if mesh is None else mesh.n_devices(),
                           shards=1 if mesh is None else mesh.size)
+    if verbose and write_outputs:
+        # the output files' sizes from the analytic mass function
+        estimate_file_sizes(params, cosmo)
     t0 = time.perf_counter()
     plc_geom = build_plc_geometry(params, cosmo, verbose=verbose)
     if plc_geom.enabled:

@@ -41,6 +41,8 @@ paint) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap.
+K18 and K19 (the out-of-core engine's 16-bit stores and loads) equal their
+plain versions bit for bit in bfloat16 and float16.
 K1 is also held bit for bit (an int32 view of both parts, so a signed
 zero equals only itself) at 32^3, 48^3 and 96^3 with and without FixedIC
 and PairedIC; K1s on windows with odd y0 and ny and with padded planes;
@@ -63,7 +65,7 @@ from pinocchio_tpu_torch import fmax, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
 from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
 from pinocchio_tpu_torch.ops import exchange as xops
-from pinocchio_tpu_torch.ops import tabulated
+from pinocchio_tpu_torch.ops import storage, tabulated
 from torch_hessians import SPECIAL, special_hessians
 from torch_hist_cases import adversarial_F
 
@@ -920,12 +922,68 @@ def test_overlapped_handoff_on_the_card(dev, setup):
     ("exchange_pack", lambda t: xops.pack(t, t, 0, t, t, t, t, t, t, 1, t)),
     ("exchange_paint", lambda t: xops.paint(t, t, (0, 1, 0, 1, 0, 1), 4, t,
                                             t, t, t, 1)),
+    ("storage_store", lambda t: storage.store_kz(
+        _meta((1, 2, 4, 4), torch.complex64), _meta((1, 4, 4, 3, 2)), 0)),
+    ("storage_store", lambda t: storage.store_rows(
+        _meta((4, 5), torch.complex64), _meta((4, 3, 2)), 1)),
+    ("storage_load", lambda t: storage.load_kz(_meta((1, 4, 4, 3, 2)), 0,
+                                               2)),
+    ("storage_load", lambda t: storage.load_rows(_meta((2, 4, 3, 2)))),
 ])
 def test_wrappers_refuse_other_devices(name, fn):
     """A wrapper takes the plain version only for a CPU tensor: any other
     device that is not CUDA raises, whether or not a card is present."""
     with pytest.raises(ValueError, match=f"{name}: unsupported device"):
         fn(torch.empty(6, 4, 4, 4, device="meta"))
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_storage_kernels(dev, dtype):
+    """K18 and K19 exactly their plain versions at N = 50 (ragged tiles of
+    64 cells by 16 planes), on Gaussian values over some 25 binary orders of
+    magnitude (float16 overflows on some, as the plain version does): a kz
+    batch of 10 planes into planes 3..12 of a stack, z-rfft rows into a
+    spectrum's window from column 2, an x-slab of the stack widened, the
+    same slab gathered from three kz pieces (the mesh's concatenation),
+    and a spectrum's kz batch widened."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Nh = N // 2 + 1
+
+    def values(shape):
+        x = torch.randn(shape + (2,), device=dev, generator=gen)
+        x *= torch.exp(4.0 * torch.randn(shape + (2,), device=dev,
+                                         generator=gen))
+        return torch.view_as_complex(x)
+
+    def bits(t):
+        return (torch.view_as_real(t) if t.is_complex() else t).view(
+            torch.int16)
+
+    w = values((3, 10, N, N))
+    got = torch.zeros((3, N, N, Nh, 2), dtype=dtype, device=dev)
+    want = got.clone()
+    _launched("storage_store", lambda: storage.store_kz(w, got, 3))
+    storage.store_kz_plain(w, want, 3)
+    assert torch.equal(bits(got), bits(want))
+    r = values((5, N, Nh))
+    got_r = torch.zeros((5, N, 20, 2), dtype=dtype, device=dev)
+    want_r = got_r.clone()
+    _launched("storage_store", lambda: storage.store_rows(r, got_r, 2))
+    storage.store_rows_plain(r, want_r, 2)
+    assert torch.equal(bits(got_r), bits(want_r))
+    slab = want[:, 7:12]
+    a = _launched("storage_load", lambda: storage.load_rows(slab))
+    assert torch.equal(bits(a), bits(storage.load_rows_plain(slab)))
+    pieces = torch.cat([want[:, 7:12, :, k0:k1] for k0, k1 in
+                        ((0, 9), (9, 18), (18, Nh))], dim=-2)
+    assert torch.equal(bits(storage.load_rows(pieces)), bits(a))
+    b = _launched("storage_load", lambda: storage.load_kz(want[1:2], 5, 9))
+    assert torch.equal(bits(b), bits(storage.load_kz_plain(want[1:2], 5, 9)))
 
 
 def exchange_case(N, nhosts, seed=0):

@@ -151,14 +151,17 @@ def test_sparse_products_are_sweep_ordered(runs):
 def test_port_imports_no_jax(tmp_path):
     """The paths (classic; tabulated bicubic; f(R) growth with
     RECOMPUTE_DISPLACEMENTS; the out-of-core engine with each of them and
-    a product dump; a restart from that dump; the past light cone with the
+    a product dump, and with bfloat16 storage; a restart from that dump;
+    the past light cone with the
     timeless snapshot; fragmentation over sub-boxes, single-turn and
     two-turn; classic and f(R) over an 8-shard mesh, on the dense and on
     the out-of-core engine; two mocked hosts over
     a 4-shard mesh with the exchange, single-turn through run_pipeline and
     two-turn through a host slice, and scripts/torch_merge_chunks.py on
-    their chunks; special mode 2) run without importing jax or any module
-    of the JAX package."""
+    their chunks; special mode 2), the planner's CLI and the FITS scripts
+    (scripts/torch_pinocchio2fits.py and torch_validate_fits.py on the
+    merged files) run without importing jax or any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
@@ -174,6 +177,7 @@ def test_port_imports_no_jax(tmp_path):
         "            norad=True, plc_enabled=False)\n"
         "for kw in ({}, tab, fr, dict(ooc='on'), dict(tab, ooc='on'),\n"
         "           dict(fr, ooc='on', DumpProducts=True),\n"
+        "           dict(ooc='on', ooc_dtype='bfloat16'),\n"
         "           dict(fr, ReadProductsFromDumps=True), plc,\n"
         "           dict(plc, subbox_tasks=4)):\n"
         "    p = Params(**dict(base, **kw))\n"
@@ -218,6 +222,22 @@ def test_port_imports_no_jax(tmp_path):
         "run_name='__main__')\n"
         "assert os.path.exists(os.path.join(hd, "
         "'pinocchio.run.t_snapshot.out'))\n"
+        "from pinocchio_tpu_torch import planner\n"
+        "planner.main([pf, '--device-gb', '80'])\n"
+        "import glob\n"
+        "outs = [f for f in sorted(glob.glob(os.path.join(hd, "
+        "'pinocchio.*.out')))\n"
+        "        if f.endswith(('catalog.out', 'histories.out', "
+        "'plc.out'))]\n"
+        "assert len(outs) == 4, outs\n"
+        "for name, argv in (('torch_pinocchio2fits.py', outs + ['--outdir', "
+        "hd]),\n"
+        "                   ('torch_validate_fits.py', [pf, '--dir', hd])):\n"
+        "    sys.argv = [name] + argv\n"
+        "    try:\n"
+        "        runpy.run_path('scripts/' + name, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, (name, e.code)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'pinocchio_tpu'\n"
         "       or m.startswith('pinocchio_tpu.')]\n"

@@ -46,7 +46,7 @@
    none of another path's) and the planner's predicted peak against the
    measured one:
      classic     the main path: classic ellipsoid, 256^3, 1 Mpc/h cells;
-     tabulated   TABULATED_CT with the bicubic lookup, 256^3;
+     tabulated   TABULATED_CT with the bicubic lookup, 128^3;
      scaledep    f(R) scale-dependent growth with RECOMPUTE_DISPLACEMENTS,
                  256^3;
      tabulated_trilinear, tabulated_bilinear   the other two lookups, 128^3;
@@ -58,7 +58,7 @@
                  halo counts per output within max(10, 6 sqrt(n) + 5 %);
                  the fmax phase alone with each phase's peak beside the
                  planner's 16-bit map;
-     ooc_tabulated   the out-of-core engine with the bicubic lookup, 256^3;
+     ooc_tabulated   the out-of-core engine with the bicubic lookup, 128^3;
      ooc_tabulated_trilinear, ooc_tabulated_bilinear   the other two, 128^3;
      ooc_scaledep    the out-of-core engine with f(R) growth, RECOMPUTE
                  and DumpProducts, 256^3, then a ReadProductsFromDumps run
@@ -111,7 +111,7 @@
    bfloat16 storage over 4 shards of the card at 256^3, bit for bit the
    ooc_bf16 path's (ooc_mesh_bf16); then the exchange
    (hosts_exchange) on one deferred fmax over a 2x2 pencil mesh of the card
-   at 256^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
+   at 128^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
    rows held to the brute-force selection, with the count, pack, route and
    extract times, wire bytes and device peak, and the two-turn wire
    protocol for 2 hosts (K15, K16, K17 launched; the union of the hosts'
@@ -121,17 +121,32 @@
    chunks, no part file; the union of the catalogs equal to the one-process
    multibox on the same products exactly; mf.out byte-identical, or equal
    in counts with the bins' mean masses within rtol 1e-6;
-   scripts/torch_merge_chunks.py); the procs phase: the same hosts as two
-   processes of the CLI (python -m pinocchio_tpu_torch.run --hosts 2
-   --shard-devices cuda:0,cuda:0, gloo through page-locked host buffers),
-   each holding two shards of the 2x2 pencil: at 256^3 single-turn every
-   chunk and in-run file byte for byte the hosts path's and the merge its
-   merge; at 128^3 two-turn (the CLI's main with the memory-driven
-   default forced to two-turn: K17 and the spheres across processes) every
-   file byte for byte that of the mocked hosts in this process; each
-   process's line (wall, phases, launches, device peak, bytes and seconds
-   through the group) and launch set (the mesh path's kernels, K15, K16,
-   and K17 when two-turn); then the special
+   scripts/torch_merge_chunks.py); then the hosts as two processes of
+   the CLI (python -m pinocchio_tpu_torch.run --hosts 2 --shard-devices
+   cuda:0,cuda:0, gloo through page-locked host buffers), all their runs
+   in one launch of the two processes, each run with its own group (a
+   fresh process spends seconds before it reaches the card): the
+   ooc_procs phase, the out-of-core engine's hosts (--ooc on, with
+   DumpProducts) at 256^3 over 4 shards, each process holding two shards'
+   kz windows and x-blocks and landing the whole products, every file and
+   the dump byte for byte those of run_pipeline(hosts=(h, 2)) over the
+   same mesh in this process, each process's line (with the host peak
+   beside the planner's estimate for the node, within 25 % either way,
+   and the bytes and seconds of the x-slab gathers, spectrum pieces and
+   hand-off) and launch set (K9-K12, K4, K6b and no other); the procs
+   phase, the dense engine's hosts over the 2x2 pencil: at 128^3
+   single-turn every chunk and in-run file byte for byte the hosts path's
+   and the merge its merge; at 128^3 two-turn (the CLI's main with the
+   memory-driven default forced to two-turn: K17 and the spheres across
+   processes) every file byte for byte that of the mocked hosts in this
+   process; each process's line (wall, phases, launches, device peak,
+   bytes and seconds through the group) and launch set (the mesh path's
+   kernels, K15, K16, and K17 when two-turn); ooc_procs_bf16: the fmax
+   phase alone with bfloat16 storage in the same two processes over the
+   same 4 shards, each process's products (Fmax, variances, FmaxPDF
+   counts, needed cells, F, rows) bit for bit the ooc_mesh_bf16 phase's by
+   SHA-256, K18 and K19 launched; no module of jax imported in either
+   process; then the special
    modes at 256^3 through run_special_mode: 1 (the CT
    table, no kernel), 2 (the linear density: K1 and one c2r, its mean 0
    and its variance the classic path's R=0 grid variance), 3 (the LPT
@@ -183,8 +198,8 @@
    RECOMPUTE at 1024^3, which must refuse the run on host memory before
    any allocation; the fmax phase at 1024^3 with bfloat16 storage
    (big_bf16): its peak within 5 % of the planner's, its wall and needed
-   count beside the float32 run's; the planner's CLI in a subprocess on
-   the card's memory (planner_cli); the classic path's catalogs and
+   count beside the float32 run's; the planner's CLI (its main, in this
+   process) on the card's memory (planner_cli); the classic path's catalogs and
    histories through scripts/torch_pinocchio2fits.py and
    scripts/torch_validate_fits.py (fits);
 8. checks that neither jax nor any module of the JAX package was imported;
@@ -198,8 +213,8 @@ runs only the named phases (kernels, density_field, a path's name,
 mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
 subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
 ooc_mesh_big, refusal, handoff, exchange_kernels, hosts_exchange, hosts,
-procs, storage_kernels, ooc_f16, ooc_mesh_bf16, big_bf16, planner_cli,
-fits) and prints no JSON line.
+procs, ooc_procs, ooc_procs_bf16, storage_kernels, ooc_f16, ooc_mesh_bf16,
+big_bf16, planner_cli, fits) and prints no JSON line.
 """
 
 from __future__ import annotations
@@ -212,7 +227,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -282,6 +296,10 @@ CORES = len(os.sched_getaffinity(0))
 # protocol adds the sphere paint (K17)
 HOSTS = 2
 HOSTS_MESH = ("pencil", (2, 2))
+# the dense engine's hosts phases (hosts_exchange, hosts, procs) run at
+# 128^3 since the out-of-core hosts as processes (ooc_procs) joined at
+# 256^3, to keep the whole run inside its time budget
+HOSTS_N = 128
 HOSTS_LAUNCH = MESH | {"exchange_count", "exchange_pack"}
 TWO_TURN_LAUNCH = {"exchange_count", "exchange_pack", "exchange_paint"}
 # the hosts as processes (procs): the two-turn run's grid, and the process
@@ -321,11 +339,13 @@ BIG = {"classic": (BIG_N, "auto", {}, OOC),
        "tabulated": (OOC_N, "on", TAB, ooc_tab("bicubic")),
        "scaledep": (BIG_N, "auto", dict(FR, recompute_displacements=False),
                     OOC_FR)}
-# name -> (grid size, Params switches, the path's launch set)
+# name -> (grid size, Params switches, the path's launch set); the
+# out-of-core bicubic path runs at 128^3 to keep the whole run inside its
+# time budget (the ooc_mesh_fmax phases run its out-of-core fmax at 256^3,
+# K13 is timed at 256^3 and 512^3 in the kernel phases)
 PATHS = {
     "classic": (PIPELINE_N, {}, CLASSIC),
-    "tabulated": (PIPELINE_N, dict(ell_model="tabulated",
-                                   ct_interp="bicubic"),
+    "tabulated": (128, dict(ell_model="tabulated", ct_interp="bicubic"),
                   DENSE | {"collapse_update_table_bicubic",
                            "kspace_gradient"}),
     "scaledep": (PIPELINE_N, FR, DENSE | {"collapse_update",
@@ -340,7 +360,7 @@ PATHS = {
                                     "kspace_gradient"}),
     "ooc": (PIPELINE_N, dict(ooc="on"), OOC),
     "ooc_bf16": (PIPELINE_N, dict(ooc="on", ooc_dtype="bfloat16"), OOC16),
-    "ooc_tabulated": (PIPELINE_N, dict(TAB, ooc="on"), ooc_tab("bicubic")),
+    "ooc_tabulated": (128, dict(TAB, ooc="on"), ooc_tab("bicubic")),
     "ooc_tabulated_trilinear": (128, dict(ooc="on", ell_model="tabulated",
                                           ct_interp="trilinear"),
                                 ooc_tab("trilinear")),
@@ -1406,43 +1426,24 @@ def c2r_check(dev):
          "the CPU transform")
 
 
-def host_rss():
-    """This process's resident set in bytes (VmRSS of /proc/self/status)."""
-    with open("/proc/self/status") as fd:
-        for line in fd:
-            if line.startswith("VmRSS:"):
-                return float(line.split()[1]) * 1024.0
-    return 0.0
+# each phase's host peak: this process's resident set sampled every 5 ms
+HOST_PERIOD = 0.005
 
 
-class HostPeak:
-    """The largest resident set of this process while the block runs,
-    sampled every 5 ms by a thread, less its size at the start."""
+def host_peak():
+    """A multihost.ResidentPeak sampling every HOST_PERIOD seconds."""
+    from pinocchio_tpu_torch.parallel.multihost import ResidentPeak
+    return ResidentPeak(HOST_PERIOD)
 
-    def __enter__(self):
-        self.base = self.peak = host_rss()
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._sample, daemon=True)
-        self._thread.start()
-        return self
 
-    def _sample(self):
-        while not self._stop.wait(0.005):
-            self.peak = max(self.peak, host_rss())
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join(timeout=10)
-        self.peak = max(self.peak, host_rss())
-
-    def line(self, report):
-        """The run's host peak beside the planner's estimate of its largest
-        host phase."""
-        grew, pred = self.peak - self.base, report["host_bytes"]
-        return (f"host peak {grew / GiB:.2f} GiB above the start (VmRSS "
-                f"sampled every 5 ms), planner {pred / GiB:.2f} GiB "
-                f"({report['host']['phase']}; measured/predicted "
-                f"{grew / pred:.3f})")
+def host_line(host, report):
+    """A run's host peak (host_peak()) beside the planner's estimate of its
+    largest host phase."""
+    grew, pred = (host.peak - host.start) * GiB, report["host_bytes"]
+    return (f"host peak {grew / GiB:.2f} GiB above the start (VmRSS "
+            f"sampled every {1000 * HOST_PERIOD:g} ms), planner "
+            f"{pred / GiB:.2f} GiB ({report['host']['phase']}; "
+            f"measured/predicted {grew / pred:.3f})")
 
 
 def run_path(dev, name):
@@ -1461,7 +1462,7 @@ def run_path(dev, name):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with HostPeak() as host:
+        with host_peak() as host:
             res = run_pipeline(p, outdir=out, device=dev, verbose=False,
                                mesh=mesh)
             torch.cuda.synchronize()
@@ -1474,7 +1475,7 @@ def run_path(dev, name):
               f" engine, peak device memory {peak / GiB:.2f} GiB, planner "
               f"{pred / GiB:.2f} GiB ({res['plan']['ooc' if res['plan']['use_ooc'] else 'dense']['phase']}; "
               f"measured/predicted {peak / pred:.3f}); "
-              + host.line(res["plan"]), flush=True)
+              + host_line(host, res["plan"]), flush=True)
         need(res["plan"]["use_ooc"] == (p.ooc == "on"),
              f"{name}: the planner chose the {res['plan']['engine']} engine")
         # the multibox merge's counts ride in its timings, as in JAX
@@ -1922,7 +1923,7 @@ def subbox_checks(dev, p, res, host):
           f"({tp['frag_wall'] / t['frag_wall']:.2f}x); per-box sweeps "
           f"{t['frag_sweep']:.3f} s summed (slowest box {t['frag_total']:.3f}"
           f" s), the one box's sweep {tp['frag_sweep']:.3f} s", flush=True)
-    need(host.peak - host.base <= 1.25 * plan["host_bytes"],
+    need((host.peak - host.start) * GiB <= 1.25 * plan["host_bytes"],
          "subbox: the host peak exceeds the planner's by more than 25 %")
     same_halos(p, "subbox against plc", res["frag"].catalogs, cats)
     plc = res["frag"].plc
@@ -2011,7 +2012,7 @@ def special_modes(dev):
             derivatives.density_field = counted
             t0 = time.perf_counter()
             try:
-                with HostPeak() as host:
+                with host_peak() as host:
                     path = run_special_mode(p, mode, out, device=dev,
                                             verbose=False)
             finally:
@@ -2021,8 +2022,8 @@ def special_modes(dev):
             launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
             hline = ""
             if mode == 3:
-                hline = ", " + host.line(planner.plan(p, dev,
-                                                      dense_products=True))
+                hline = ", " + host_line(host, planner.plan(
+                    p, dev, dense_products=True))
             print(f"  mode {mode} {N}^3: {walls[mode]:.2f} s wall, "
                   f"{os.path.basename(path)} {os.path.getsize(path)} bytes, "
                   f"peak device memory "
@@ -2321,7 +2322,7 @@ def exchange_kernel_phases(N, dev, report):
 
 
 def hosts_products(dev):
-    """The hosts phases' shared products: the classic fmax at PIPELINE_N
+    """The hosts phases' shared products: the classic fmax at HOSTS_N
     over the 2x2 pencil mesh of the card with the hand-off deferred, the
     whole products, and the single-process multibox catalogs over one
     sub-box per core (single-turn, as run_pipeline chooses there) and
@@ -2336,7 +2337,7 @@ def hosts_products(dev):
     from pinocchio_tpu_torch.parallel.multihost import fetch_local_sparse
     if "hosts" in KEPT:
         return KEPT["hosts"]
-    p = params_for(PIPELINE_N, subbox_tasks=CORES)
+    p = params_for(HOSTS_N, subbox_tasks=CORES)
     cosmo = Cosmology(p)
     largest = largest_halo_mass(p, cosmo)
     nbox = choose_nbox(p, cosmo, largest, max(CORES, HOSTS))
@@ -2382,7 +2383,7 @@ def united(what, parts, want):
 
 
 def hosts_exchange(dev):
-    """The exchange on the deferred 256^3 mesh products (hosts_products):
+    """The exchange on the deferred HOSTS_N^3 mesh products (hosts_products):
     single-turn and turn 0 for 2 and 4 hosts, each host's rows held to the
     brute-force selection from the gathered products (cells, F, v1 rows),
     with each exchange's count, pack, route and extract times, wire bytes
@@ -2618,53 +2619,132 @@ def same_files(what, got, want):
     need(not differ, f"{what}: not byte-identical: {differ}")
 
 
-def write_parameter_file(d, N):
-    """The parameter file of params_for(N)'s run (GridSize, BoxSize and the
-    outputs file; the CLI's --norad for no radiation; no StartingzForPLC,
-    so no past light cone) in ``d``."""
+def write_parameter_file(d, N, **flags):
+    """The parameter file of params_for(N, **flags)'s run (GridSize,
+    BoxSize, the outputs file and each true flag; the CLI's --norad for no
+    radiation; no StartingzForPLC, so no past light cone) in ``d``."""
     with open(os.path.join(d, "outputs"), "w") as fd:
         fd.write("".join(f"{z}\n" for z in OUTPUT_Z))
     pf = os.path.join(d, "parameter_file")
     with open(pf, "w") as fd:
-        fd.write(f"GridSize {N}\nBoxSize {float(N)}\nOutputList outputs\n")
+        fd.write(f"GridSize {N}\nBoxSize {float(N)}\nOutputList outputs\n"
+                 + "".join(f"{k}\n" for k, v in flags.items() if v))
     return pf
 
 
-# the CLI's main with the fragmentation's memory-driven default (which picks
-# single-turn on this host) forced to two-turn, as on a host short of memory
-TWO_TURN_MAIN = ("import sys\n"
-                 "from pinocchio_tpu_torch.fragment import subbox\n"
-                 "subbox.default_two_turn = lambda *args: True\n"
-                 "from pinocchio_tpu_torch.run import main\n"
-                 "main(sys.argv[1:])\n")
+def cli_argv(pf, out, port, extra=()):
+    """The arguments of the CLI (python -m pinocchio_tpu_torch.run; each
+    process adds its --host-id) of HOSTS processes over a 2x2 pencil mesh
+    of the card, two shards each on cuda:0, one sub-box per core, its group
+    at localhost:<port>, ``extra`` added."""
+    return [pf, "--norad", "--device", "cuda", "--chips", "4", "--decomp",
+            HOSTS_MESH[0], "--shard-devices", "cuda:0,cuda:0", "--hosts",
+            str(HOSTS), "--coordinator", f"localhost:{port}", "--subboxes",
+            str(CORES), "--outdir", out, "--group-timeout",
+            str(PROCS_GROUP_TIMEOUT)] + list(extra)
 
 
-def launch_procs(what, pf, out, two_turn=False):
-    """HOSTS processes of the CLI (python -m pinocchio_tpu_torch.run, or
-    TWO_TURN_MAIN) over a 2x2 pencil mesh of the card, two shards each on
-    cuda:0, one sub-box per core, joined in a gloo group at a free
-    localhost port; each process's report ([cluster] line: wall, phase
-    timings, launches, device peak, bytes and seconds through the group),
-    printed.  Every process is stopped before this returns."""
+# one process of the processes phase (argv: its host id and the JSON list
+# of its runs; process_runs)
+PROCS_MAIN = ("import json, sys\n"
+              "import chip_smoke\n"
+              "chip_smoke.process_runs(int(sys.argv[1]), "
+              "json.loads(sys.argv[2]))\n")
+
+
+def process_runs(h, runs):
+    """Process h's runs of the processes phase, one after another, each
+    with the launch counts, the bytes through the group and the card's
+    peak set to 0 just before it, and each bringing its group up at a port
+    of its own and down again: "cli", the CLI's main on the run's argv with
+    --host-id h (``two_turn``: the fragmentation's memory-driven default,
+    which picks single-turn on this host, forced to two-turn, as on a host
+    short of memory), which prints its "[cluster] {...}" line; "bf16",
+    fmax16_process.  Then a "[jax] [...]" line: the modules of jax or of
+    the JAX package imported (none)."""
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.fragment import subbox
+    from pinocchio_tpu_torch.parallel import multihost
+    from pinocchio_tpu_torch.run import main as cli_main
+    for run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        for rec in multihost.TRAFFIC.values():
+            rec.update(bytes=0, seconds=0.0, calls=0)
+        if run["kind"] == "bf16":
+            fmax16_process(h, run["port"])
+            continue
+        default = subbox.default_two_turn
+        if run.get("two_turn"):
+            subbox.default_two_turn = lambda *args: True
+        try:
+            cli_main(run["argv"] + ["--host-id", str(h)])
+        finally:
+            subbox.default_two_turn = default
+    print("[jax] " + json.dumps(sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "pinocchio_tpu"))),
+        flush=True)
+
+
+def fmax16_process(h, port):
+    """Process h's out-of-core fmax phase alone at PIPELINE_N with bfloat16
+    storage over OOC_MESH16 shards split over the HOSTS processes (its own
+    on cuda:0), its group at localhost:<port>; prints its "[cluster]
+    {...}" line with its fmax peaks and the digest of its products."""
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.fmax_ooc import run_fmax_ooc
+    from pinocchio_tpu_torch.parallel import multihost, pfft
+    procs = multihost.initialize_cluster(HOSTS, f"localhost:{port}", h,
+                                         timeout=PROCS_GROUP_TIMEOUT)
+    try:
+        p = params_for(PIPELINE_N, ooc="on", ooc_dtype="bfloat16")
+        mesh = pfft.mesh_for(OOC_MESH16, "slab", procs=procs,
+                             devices=["cuda:0"] * (OOC_MESH16 // procs[1]))
+        cosmo = Cosmology(p)
+        t0 = time.perf_counter()
+        with multihost.ResidentPeak() as resident:
+            res = run_fmax_ooc(p, cosmo, "cuda:0", mesh=mesh,
+                               trace_memory=True)
+            res.ooc_pending.join()
+        wall = time.perf_counter() - t0
+        rep = multihost.process_report(mesh, res.timings, wall,
+                                       resident=resident)
+        rep.update(peaks=res.peaks, digest=products_digest(
+            res.products.gather()[0], res.smoothing.true_variance,
+            res.pdf_hist, res.host_products))
+        print("[cluster] " + json.dumps(rep), flush=True)
+    finally:
+        multihost.shutdown_cluster()
+
+
+def run_procs(out, runs):
+    """HOSTS processes of PROCS_MAIN, each making ``runs`` (process_runs;
+    each run's "port" filled with a free localhost port); returns each
+    run's reports (one per process, as each printed it: wall, phase
+    timings, launches, device peak, host peak, bytes and seconds through
+    the group) and the wall from the launch to the last exit.  Every
+    process is stopped before this returns."""
     import socket
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    head = (["-c", TWO_TURN_MAIN] if two_turn
-            else ["-m", "pinocchio_tpu_torch.run"])
+    socks = [socket.socket() for _ in runs]
+    try:
+        for sk in socks:
+            sk.bind(("localhost", 0))
+        ports = [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+    runs = [dict(r, port=port, argv=[a.replace("{port}", str(port))
+                                      for a in r.get("argv", [])])
+            for r, port in zip(runs, ports)]
     logs, procs = [], []
     t0 = time.perf_counter()
     try:
         for h in range(HOSTS):
             logs.append(open(os.path.join(out, f".log{h}"), "w+"))
             procs.append(subprocess.Popen(
-                [sys.executable] + head + [
-                    pf, "--norad", "--device", "cuda", "--chips", "4",
-                    "--decomp", HOSTS_MESH[0], "--shard-devices",
-                    "cuda:0,cuda:0", "--hosts", str(HOSTS), "--host-id",
-                    str(h), "--coordinator", f"localhost:{port}",
-                    "--subboxes", str(CORES), "--outdir", out,
-                    "--group-timeout", str(PROCS_GROUP_TIMEOUT)],
+                [sys.executable, "-c", PROCS_MAIN, str(h), json.dumps(runs)],
                 cwd=HERE, stdout=logs[h], stderr=subprocess.STDOUT))
         rcs = [pr.wait(timeout=2 * PROCS_GROUP_TIMEOUT) for pr in procs]
     finally:
@@ -2673,21 +2753,29 @@ def launch_procs(what, pf, out, two_turn=False):
                 pr.kill()
                 pr.wait()
     wall = time.perf_counter() - t0
-    reports = []
+    reports = [[] for _ in runs]
     for h, (rc, log) in enumerate(zip(rcs, logs)):
         log.seek(0)
         text = log.read()
         log.close()
         os.remove(log.name)
-        line = [ln for ln in text.splitlines() if ln.startswith("[cluster] {")]
-        if rc != 0 or not line:
+        lines = text.splitlines()
+        got = [json.loads(ln[len("[cluster] "):]) for ln in lines
+               if ln.startswith("[cluster] {")]
+        jax = [json.loads(ln[len("[jax] "):]) for ln in lines
+               if ln.startswith("[jax] ")]
+        if rc != 0 or len(got) != len(runs) or not jax:
             print(text[-4000:], flush=True)
-        need(rc == 0 and line, f"{what}: process {h} exited with {rc}")
-        print(f"  {what} process {h}: {line[-1][len('[cluster] '):]}",
-              flush=True)
-        reports.append(json.loads(line[-1][len("[cluster] "):]))
-    print(f"  {what}: {HOSTS} processes in {wall:.2f} s (launch to exit)",
-          flush=True)
+        need(rc == 0 and len(got) == len(runs) and jax,
+             f"process {h} exited with {rc} after {len(got)} of "
+             f"{len(runs)} runs")
+        need(not jax[0], f"process {h} imported {jax[0][:5]}")
+        for r, (run, rep) in enumerate(zip(runs, got)):
+            print(f"  {run['what']} process {h}: {json.dumps(rep)}",
+                  flush=True)
+            reports[r].append(rep)
+    print(f"  {HOSTS} processes made {len(runs)} runs each in {wall:.2f} s "
+          f"(launch to exit); no module of jax imported", flush=True)
     return reports, wall
 
 
@@ -2699,39 +2787,74 @@ def procs_launch_sets(what, reports, own):
              f"{sorted(got - own)}")
 
 
-def procs_phase(dev):
-    """The hosts path as processes: HOSTS processes of the CLI on the one
-    card (gloo, through page-locked host buffers), each holding two shards
-    of the 2x2 pencil mesh on cuda:0.  At PIPELINE_N, single-turn, one
-    sub-box per core: each host's chunks, the in-run mass functions and
-    FmaxPDF byte for byte the hosts path's (run first if this process has
-    not), and scripts/torch_merge_chunks.py's files byte for byte its
-    merge; at PROCS_TWO_TURN_N two-turn (K17 and the spheres across
-    processes), every file byte for byte that of run_pipeline(hosts=(h,
-    2)) for h = 0, 1 in this process over the same mesh with the same
-    default.  Each process launched the mesh path's kernels, K15 and K16
-    (and K17 when two-turn), and none other."""
+def traffic_line(rep):
+    """One process's bytes (GB), seconds and calls through the group, by
+    kind, and its host peak beside the planner's node estimate."""
+    kinds = ", ".join(f"{k} {v['bytes'] / 1e9:.3f} GB {v['seconds']:.2f} s "
+                      f"{v['calls']} calls"
+                      for k, v in rep["traffic"].items() if v["calls"])
+    host = (f"; host {rep['host_start_gib']:.2f} GiB at the run's start, "
+            f"peak {rep['host_peak_gib']:.2f} GiB (VmRSS every 10 ms)")
+    if rep.get("planned_host_gib") is not None:
+        host += (f"; planner {rep['planned_host_gib']:.2f} GiB for the "
+                 f"node's {rep['node_processes']} processes")
+    return f"process {rep['host']}: {kinds}{host}"
+
+
+def products_digest(F, sv, hist, sp):
+    """SHA-256 of each array of an out-of-core run's products: Fmax, the
+    variances, the FmaxPDF counts, the needed cells, F and every row of
+    every set."""
+    import hashlib
+
+    import numpy as np
+    arrays = dict(Fmax=F, variances=sv, pdf_hist=hist, ci=sp.ci, F=sp.F)
+    for s, rows in enumerate(sp.segments or [sp.vel]):
+        arrays.update({f"set{s}/{k}": v for k, v in rows.items()})
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in sorted(arrays.items())}
+
+
+def mocked_ooc_hosts(dev):
+    """run_pipeline(hosts=(h, HOSTS)) with ooc on and DumpProducts over a
+    2x2 pencil mesh of the card at PIPELINE_N, one sub-box per core, for
+    each h in this process, with the launch counts set to 0 just before
+    and read just after (the OOC set: each mocked host repeats the whole
+    fmax phase): (the output directory, the launches, each host's wall)."""
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.run import run_pipeline
+    N = PIPELINE_N
+    p = params_for(N, subbox_tasks=CORES, ooc="on", DumpProducts=True)
+    mocked = scratch_dir("ooc_procs_mocked")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    walls = []
+    for h in range(HOSTS):
+        t0 = time.perf_counter()
+        run_pipeline(p, outdir=mocked, device=dev, verbose=False,
+                     mesh=card_mesh(dev, *HOSTS_MESH), hosts=(h, HOSTS))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  {N}^3 out-of-core mocked hosts: "
+          f"{[round(w, 2) for w in walls]} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    missing = sorted(k for k in OOC if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in OOC)
+    need(not missing and not stray, f"ooc_procs mocked hosts: not launched "
+         f"{missing}, launched from another path {stray}")
+    return mocked, launches, walls
+
+
+def mocked_two_turn_hosts(dev):
+    """run_pipeline(hosts=(h, HOSTS)) at PROCS_TWO_TURN_N over the 2x2
+    pencil mesh of the card, one sub-box per core, with the memory-driven
+    default forced to two-turn, for each h in this process: (the output
+    directory, each host's wall)."""
     import torch
     from pinocchio_tpu_torch.fragment import subbox
     from pinocchio_tpu_torch.run import run_pipeline
-    sys.path.insert(0, os.path.join(HERE, "scripts"))
-    import torch_merge_chunks
-
-    if "hosts_path" not in KEPT:
-        hosts_path(dev)
-    record = {}
-    out = scratch_dir("procs")
-    pf = write_parameter_file(scratch_dir("procs_pf"), PIPELINE_N)
-    reports, wall = launch_procs("single-turn", pf, out)
-    procs_launch_sets("single-turn", reports, HOSTS_LAUNCH)
-    same_files(f"{PIPELINE_N}^3 processes against the mocked hosts", out,
-               os.path.join(KEPT["scratch"], "hosts_chunks"))
-    torch_merge_chunks.merge(params_for(PIPELINE_N, subbox_tasks=CORES), out)
-    same_files(f"{PIPELINE_N}^3 merge against the mocked hosts' merge", out,
-               os.path.join(KEPT["scratch"], "hosts"))
-    record["single_turn"] = dict(wall_s=wall, reports=reports,
-                                 mocked_walls=KEPT["hosts_path"]["walls"])
-
     N = PROCS_TWO_TURN_N
     p = params_for(N, subbox_tasks=CORES)
     mocked = scratch_dir("procs_mocked")
@@ -2752,15 +2875,134 @@ def procs_phase(dev):
         subbox.default_two_turn = default
     print(f"  {N}^3 two-turn mocked hosts: {[round(w, 2) for w in walls]} s",
           flush=True)
-    out = scratch_dir("procs_two_turn")
-    reports, wall = launch_procs("two-turn", write_parameter_file(
-        scratch_dir("procs_pf"), N), out, two_turn=True)
-    procs_launch_sets("two-turn", reports, HOSTS_LAUNCH | {"exchange_paint"})
-    same_files(f"{N}^3 two-turn processes against the mocked hosts", out,
-               mocked)
-    record["two_turn"] = dict(wall_s=wall, reports=reports,
-                              mocked_walls=walls)
-    KEPT["procs"] = record
+    return mocked, walls
+
+
+def processes_phase(dev, which):
+    """The hosts as HOSTS processes on the one card (gloo, through
+    page-locked host buffers), each holding two shards of a 4-shard mesh
+    on cuda:0: every run of ``which`` in one launch of the processes
+    (PROCS_MAIN; a fresh process costs seconds before it reaches the card),
+    the out-of-core run first, each run's references made first in this
+    process.
+      ooc_procs: the out-of-core engine's hosts (the CLI with --ooc on and
+        DumpProducts) at PIPELINE_N over a 2x2 pencil mesh, one sub-box per
+        core, each process holding two shards' kz windows and x-blocks and
+        landing the whole products: every file and the dump byte for byte
+        those of run_pipeline(hosts=(h, HOSTS)) in this process over the
+        same mesh (mocked_ooc_hosts), each process's launch set OOC, its
+        planner counting both processes of the node, and their resident
+        sets' growth within 25 % of that estimate either way.
+      procs: the dense engine's hosts (the CLI) over the 2x2 pencil mesh,
+        one sub-box per core: at HOSTS_N single-turn, each host's chunks,
+        the in-run mass functions and FmaxPDF byte for byte the hosts
+        path's (run first if this process has not), and
+        scripts/torch_merge_chunks.py's files byte for byte its merge; at
+        PROCS_TWO_TURN_N two-turn (K17 and the spheres across processes),
+        every file byte for byte that of run_pipeline(hosts=(h, HOSTS)) in
+        this process over the same mesh with the same default; each
+        process's launches the mesh path's kernels, K15 and K16 (and K17
+        when two-turn), and none other.
+      ooc_procs_bf16: the fmax phase alone with bfloat16 storage over
+        OOC_MESH16 shards (fmax16_process): each process's products, which
+        it lands whole, bit for bit (by SHA-256) the one process's
+        ooc_mesh_bf16 phase (run first if this process has not), its
+        launch set OOC16 (K18 and K19 with the out-of-core kernels).
+    No process imports a module of jax.  Returns the mocked out-of-core
+    hosts' launches (None without ooc_procs)."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_merge_chunks
+
+    runs, launches = [], None
+    if "ooc_procs" in which:
+        mocked_ooc, launches, ooc_walls = mocked_ooc_hosts(dev)
+        out_ooc = scratch_dir("ooc_procs")
+        pf = write_parameter_file(scratch_dir("ooc_procs_pf"), PIPELINE_N,
+                                  DumpProducts=True)
+        runs.append(dict(what="ooc", kind="cli", argv=cli_argv(
+            pf, out_ooc, "{port}", ["--ooc", "on"])))
+    if "procs" in which:
+        if "hosts_path" not in KEPT:
+            hosts_path(dev)
+        mocked_two, two_walls = mocked_two_turn_hosts(dev)
+        out_one, out_two = scratch_dir("procs"), scratch_dir("procs_two_turn")
+        runs.append(dict(what="single-turn", kind="cli", argv=cli_argv(
+            write_parameter_file(scratch_dir("procs_pf"), HOSTS_N), out_one,
+            "{port}")))
+        runs.append(dict(what="two-turn", kind="cli", two_turn=True,
+                         argv=cli_argv(write_parameter_file(
+                             scratch_dir("procs_two_turn_pf"),
+                             PROCS_TWO_TURN_N),
+                             out_two, "{port}")))
+    if "ooc_procs_bf16" in which:
+        if "ooc_mesh_bf16" not in KEPT:
+            ooc_mesh16_phase(dev)
+        runs.append(dict(what="bf16", kind="bf16"))
+    torch.cuda.synchronize()
+    reports, wall = run_procs(scratch_dir("procs_logs"), runs)
+    got = {run["what"]: rep for run, rep in zip(runs, reports)}
+
+    if "ooc" in got:
+        reps = got["ooc"]
+        procs_launch_sets("ooc", reps, OOC)
+        for rep in reps:
+            print(f"  ooc {traffic_line(rep)}", flush=True)
+            need(rep["node_processes"] == HOSTS, "ooc_procs: the planner "
+                 f"did not count the node's {HOSTS} processes")
+        # each process lands the whole products and sweeps its share of the
+        # sub-boxes: the node's growth against the planner's estimate for
+        # its processes, within the 25 % of the other host checks
+        grew = sum(r["host_peak_gib"] - r["host_start_gib"] for r in reps)
+        plan = reps[0]["planned_host_gib"]
+        print(f"  the node's {HOSTS} processes grew {grew:.2f} GiB in all "
+              f"during their runs, planner {plan:.2f} GiB (measured/"
+              f"predicted {grew / plan:.3f}, need 0.75 to 1.25)", flush=True)
+        need(0.75 * plan <= grew <= 1.25 * plan, "ooc_procs: the processes' "
+             "host memory is not within 25 % of the planner's estimate for "
+             "the node")
+        same_files(f"{PIPELINE_N}^3 out-of-core processes against the "
+                   "mocked hosts", out_ooc, mocked_ooc)
+        same_files(f"{PIPELINE_N}^3 out-of-core processes' dump against the "
+                   "mocked hosts'", os.path.join(out_ooc, "DumpProducts"),
+                   os.path.join(mocked_ooc, "DumpProducts"))
+        KEPT["ooc_procs"] = dict(wall_s=wall, reports=reps,
+                                 mocked_walls=ooc_walls)
+    if "single-turn" in got:
+        procs_launch_sets("single-turn", got["single-turn"], HOSTS_LAUNCH)
+        same_files(f"{HOSTS_N}^3 processes against the mocked hosts", out_one,
+                   os.path.join(KEPT["scratch"], "hosts_chunks"))
+        torch_merge_chunks.merge(params_for(HOSTS_N, subbox_tasks=CORES),
+                                 out_one)
+        same_files(f"{HOSTS_N}^3 merge against the mocked hosts' merge",
+                   out_one, os.path.join(KEPT["scratch"], "hosts"))
+        procs_launch_sets("two-turn", got["two-turn"],
+                          HOSTS_LAUNCH | {"exchange_paint"})
+        same_files(f"{PROCS_TWO_TURN_N}^3 two-turn processes against the "
+                   "mocked hosts", out_two, mocked_two)
+        KEPT["procs"] = dict(
+            launch_s=wall,
+            single_turn=dict(reports=got["single-turn"],
+                             mocked_walls=KEPT["hosts_path"]["walls"]),
+            two_turn=dict(reports=got["two-turn"], mocked_walls=two_walls))
+    if "bf16" in got:
+        want = KEPT["ooc_mesh_bf16"]
+        procs_launch_sets("bf16", got["bf16"], OOC16)
+        for rep in got["bf16"]:
+            print(f"  bf16 {traffic_line(rep)}; fmax {rep['wall_s']:.2f} s "
+                  f"(one process over the same shards "
+                  f"{KEPT['storage16']['mesh']['wall_s']:.2f} s), device "
+                  f"peak {rep['device_peak_gib']:.3f} GiB", flush=True)
+            differ = sorted(k for k in want
+                            if rep["digest"].get(k) != want[k])
+            need(not differ and sorted(rep["digest"]) == sorted(want),
+                 f"bf16 process {rep['host']}: not bit for bit the "
+                 f"one-process run: {differ}")
+        print(f"  {PIPELINE_N}^3 bfloat16 fmax over {HOSTS} processes: bit "
+              f"for bit the one-process run ({len(want)} arrays)", flush=True)
+        KEPT.setdefault("storage16", {})["procs"] = dict(
+            launch_s=wall, reports=got["bf16"])
+    return launches
 
 
 def hosts_reference_check(dev):
@@ -3295,7 +3537,7 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with HostPeak() as host:
+    with host_peak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                     verbose=N >= BIG_N, trace_memory=True)
         t_ret = time.perf_counter() - t0
@@ -3316,10 +3558,10 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
             count=count, digest=digest(sp.ci, sp.F), wall_s=wall,
             return_s=t_ret, peak_gib=peak / GiB,
             handoff_s=res.timings["handoff"],
-            host_gib=(host.peak - host.base) / GiB, timings=res.timings)
+            host_gib=host.peak - host.start, timings=res.timings)
         print(f"  (ci, F) digest {KEPT['big_classic']['digest'][:16]} in "
               f"{time.perf_counter() - t0:.2f} s; host peak "
-              f"{(host.peak - host.base) / GiB:.2f} GiB above the start",
+              f"{(host.peak - host.start):.2f} GiB above the start",
               flush=True)
     print(f"  {N}^3 out-of-core fmax: {wall:.2f} s wall"
           + (f" (set_scaledep_gm {t_gm:.2f} s before it)" if gm else "")
@@ -3377,12 +3619,12 @@ def blocking_big(dev, p, cosmo, mesh, over, earlier):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with HostPeak() as host:
+    with host_peak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, overlap=False)
     wall = time.perf_counter() - t0
     sp = res.host_products
     same = digest(sp.ci, sp.F) == over["digest"]
-    grew = (host.peak - host.base) / GiB
+    grew = host.peak - host.start
     t = over["timings"]
     print("  blocking: phases " + ", ".join(
         f"{k} {v:.3f} s" for k, v in res.timings.items()), flush=True)
@@ -3613,7 +3855,7 @@ def ooc_mesh_big(dev):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with HostPeak() as host:
+    with host_peak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, verbose=True,
                                     trace_memory=True)
         t_ret = time.perf_counter() - t0
@@ -3627,7 +3869,7 @@ def ooc_mesh_big(dev):
     t0 = time.perf_counter()
     dig = digest(sp.ci, sp.F)
     t_dig = time.perf_counter() - t0
-    grew = host.peak - host.base
+    grew = (host.peak - host.start) * GiB
     print(f"  {BIG_N}^3 out-of-core fmax over {OOC_MESH_BIG} shards: "
           f"{wall:.2f} s wall (one device {one['wall_s']:.2f} s); phases: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in res.timings.items()),
@@ -3946,6 +4188,9 @@ def ooc_mesh16_phase(dev):
                           res.smoothing.true_variance, res.host_products),
         KEPT["ooc_bf16"])
     need(exact, "ooc_mesh_bf16: not bit for bit the single-device run")
+    KEPT["ooc_mesh_bf16"] = products_digest(
+        res.products.gather()[0], res.smoothing.true_variance, res.pdf_hist,
+        res.host_products)
     print(f"  launches: { {k: v for k, v in launches.items() if v} }",
           flush=True)
     missing = sorted(k for k in OOC16 if not launches[k])
@@ -3981,7 +4226,7 @@ def big16(dev):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with HostPeak() as host:
+    with host_peak() as host:
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=True,
                                     trace_memory=True)
         t_ret = time.perf_counter() - t0
@@ -4007,7 +4252,7 @@ def big16(dev):
     print(f"  needed cells {count}"
           + (f", float32 {f32['count']} (difference {count - f32['count']},"
              f" need <= {1e-3 * BIG_N ** 3:.0f})" if f32 else "")
-          + f"; host peak {(host.peak - host.base) / GiB:.2f} GiB above the "
+          + f"; host peak {(host.peak - host.start):.2f} GiB above the "
           f"start; launches: { {k: v for k, v in launches.items() if v} }",
           flush=True)
     need(abs(peak / pred - 1.0) <= 0.05, "big_bf16: the peak is not within "
@@ -4032,24 +4277,30 @@ def big16(dev):
 
 
 def planner_cli(dev):
-    """python -m pinocchio_tpu_torch.planner on a BIG_N parameter file with
-    bfloat16 storage, in a subprocess that reads the card's memory (no
-    --device-gb): the map against the card's total memory, the out-of-core
-    engine chosen, and the storage estimate."""
+    """The planner's CLI (the main of python -m pinocchio_tpu_torch.planner,
+    in this process: a fresh process spends seconds before it reaches the
+    card) on a BIG_N parameter file with bfloat16 storage, reading the
+    card's memory (no --device-gb): the map against the card's total
+    memory, the out-of-core engine chosen, and the storage estimate."""
+    import contextlib
+    import io
     import torch
+    from pinocchio_tpu_torch import planner
     pf = write_parameter_file(scratch_dir("planner_cli"), BIG_N)
+    buf, code = io.StringIO(), 0
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "pinocchio_tpu_torch.planner",
-                          pf, "--norad", "--ooc-dtype", "bfloat16"],
-                         cwd=HERE, capture_output=True, text=True,
-                         timeout=600)
+    try:
+        with contextlib.redirect_stdout(buf):
+            planner.main([pf, "--norad", "--ooc-dtype", "bfloat16"])
+    except SystemExit as e:
+        code = e.code or 0
     wall = time.perf_counter() - t0
-    print(res.stdout, flush=True)
-    need(res.returncode == 0, f"the planner's CLI failed: "
-         f"{res.stderr[-2000:]}")
+    out = buf.getvalue()
+    print(out, flush=True)
+    need(code == 0, f"the planner's CLI exited with {code}")
     card = torch.cuda.get_device_properties(dev).total_memory / GiB
-    need(f"of {card:.2f} GiB (OK)" in res.stdout and "out-of-core engine"
-         in res.stdout and "ESTIMATED STORAGE REQUIREMENTS" in res.stdout,
+    need(f"of {card:.2f} GiB (OK)" in out and "out-of-core engine" in out
+         and "ESTIMATED STORAGE REQUIREMENTS" in out,
          "the planner's CLI did not plan the card's memory")
     print(f"  the planner's CLI read the card's {card:.2f} GiB in {wall:.2f} "
           "s", flush=True)
@@ -4104,7 +4355,8 @@ def main(argv=None) -> int:
                     "density_field, a path's name, mesh_fmax, "
                     "mesh_c2r, ooc_mesh_fmax or one of its names, "
                     "hosts_exchange, "
-                    "hosts, procs, modes, subbox_turns, reference:<path>, "
+                    "hosts, procs, ooc_procs, ooc_procs_bf16, modes, "
+                    "subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
                     "refusal, handoff, storage_kernels, ooc_f16, "
                     "ooc_mesh_bf16, big_bf16, planner_cli, fits); no JSON "
@@ -4217,17 +4469,23 @@ def main(argv=None) -> int:
             paths["ooc_mesh_bf16"] = ooc_mesh16_phase(dev)
         if wanted("hosts_exchange"):
             section(f"the exchange over a 2x2 pencil mesh of the card at "
-                    f"{PIPELINE_N}^3, mocked hosts:")
+                    f"{HOSTS_N}^3, mocked hosts:")
             paths["hosts_exchange"] = hosts_exchange(dev)
         if wanted("hosts"):
-            section(f"hosts path at {PIPELINE_N}^3: {HOSTS} mocked hosts "
+            section(f"hosts path at {HOSTS_N}^3: {HOSTS} mocked hosts "
                     f"over a 2x2 pencil mesh of the card, {CORES} sub-boxes:")
             paths["hosts"] = hosts_path(dev)
-        if wanted("procs"):
-            section(f"the hosts as {HOSTS} processes of the CLI over a 2x2 "
-                    f"pencil mesh of the card at {PIPELINE_N}^3, two-turn at "
-                    f"{PROCS_TWO_TURN_N}^3:")
-            procs_phase(dev)
+        which = {k for k in ("ooc_procs", "procs", "ooc_procs_bf16")
+                 if wanted(k)}
+        if which:
+            section(f"the hosts as {HOSTS} processes of the CLI on the card "
+                    f"({', '.join(sorted(which))}): the out-of-core engine "
+                    f"over 4 shards at {PIPELINE_N}^3 with its dump, the "
+                    f"dense one over a 2x2 pencil mesh at {HOSTS_N}^3 "
+                    f"single-turn and {PROCS_TWO_TURN_N}^3 two-turn, the "
+                    f"out-of-core fmax with bfloat16 storage over "
+                    f"{OOC_MESH16} shards at {PIPELINE_N}^3:")
+            paths["ooc_procs"] = processes_phase(dev, which)
         if wanted("modes"):
             section(f"special modes 1, 2, 3 at {PIPELINE_N}^3:")
             density_calls, _ = special_modes(dev)
@@ -4333,7 +4591,8 @@ def main(argv=None) -> int:
                                        big=KEPT.get("ooc_mesh_big")),
                       "hosts": dict(path=KEPT.get("hosts_path"),
                                     exchange=KEPT.get("hosts_exchange"),
-                                    procs=KEPT.get("procs")),
+                                    procs=KEPT.get("procs"),
+                                    ooc_procs=KEPT.get("ooc_procs")),
                       "handoff": dict(KEPT.get("handoff", {}),
                                       big=KEPT.get("big_classic", {}).get(
                                           "blocking")),

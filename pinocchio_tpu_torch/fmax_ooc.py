@@ -82,6 +82,25 @@ land on the first shard's device in chunks of LAND_ROWS positions, each
 chunk copied once into the final page-locked host array.  Every launch of a
 shard runs under kernels.on_device(its device).
 
+Over a mesh split over a process group (pfft.mesh_for(procs=), the CLI's
+--hosts) each process builds the engines of its own shards only; the kz
+windows, x-blocks and slab owners stay the global ones.  What the one
+process copies between devices crosses the group (parallel.multihost, gloo,
+staged through page-locked host buffers on a card): at step j of an x-slab
+gather every process sends each other process its shards' kz pieces of
+that process's j-th slab, in one all-to-all per step (every process takes
+part in every step, sending nothing where it owns fewer slabs), and a
+spectrum's pieces go the other way, in the storage type after K18's
+rounding on the slab's owner; the slab means are gathered and summed in
+global slab order on every process, so the variances keep the one-process
+bits, and the FmaxPDF counts are summed; the hand-off's (F, cell) keys and
+each process's merged positions are all-gathered, and every landing chunk
+takes the other processes' rows from the group, so that every process
+lands the whole products in the sweep's order.  The row streams, which run
+on the background thread, issue their collectives on a group of their own
+(multihost.rows_group): every rank issues a group's collectives in one
+order, which two threads sharing one group would not keep.
+
 Storage (params.ooc_dtype): None or "float32" keeps the stacks and spectra
 in complex64; "bfloat16" or "float16" keeps them as (re, im) pairs of that
 type ([ncomp, N, N, nkz, 2], [N, N, nkz, 2]), half the bytes, as the JAX
@@ -265,19 +284,31 @@ class OocMesh:
     """The shards of one out-of-core run: one OocEngine per device of
     ``mesh`` (its flat order, any decomposition), or one on ``device``
     without a mesh; the x-slabs and their owners, the gathered slabs, the
-    forward transforms and the hand-off's merge (module docstring)."""
+    forward transforms and the hand-off's merge (module docstring).  Over a
+    mesh split over a process group (mesh.procs) this process builds the
+    engines of its own shards only (None at the others); the kz windows,
+    x-blocks and slab owners stay the global ones, and what crosses
+    processes goes through the group (parallel.multihost)."""
 
     def __init__(self, params: Params, cosmo: Cosmology, device, mesh=None):
         devices = ([torch.device(device)] if mesh is None
-                   else [torch.device(d) for d in mesh.device_list()])
+                   else [None if d is None else torch.device(d)
+                         for d in mesh.device_list()])
         self.devices, self.p = devices, len(devices)
-        self.dev = devices[0]               # where the hand-off lands
+        # the process group (rank, size), each shard's rank, this
+        # process's shards
+        self.procs = None if mesh is None else mesh.procs
+        self.rank_of = [0 if mesh is None else mesh.owner(i)
+                        for i in range(self.p)]
+        self.local = [i for i, d in enumerate(devices) if d is not None]
+        self.dev = devices[self.local[0]]   # where the hand-off lands
         self.grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
         self.N = N = self.grid.N
         Nh = N // 2 + 1
         if self.p > Nh:
             raise ValueError(f"{self.p} shards for the {Nh} kz planes of "
                              f"GridSize {N}")
+        self.sdtype = storage_dtype(params)
         gens = {}
 
         def planes(dev):
@@ -287,9 +318,11 @@ class OocMesh:
                                            fixed=params.FixedIC,
                                            paired=params.PairedIC)
             return gens[dev]
-        self.shards = [OocEngine(params, cosmo, dev, kz_window=w,
+        self.windows = split(Nh, self.p)
+        self.shards = [None if dev is None else
+                       OocEngine(params, cosmo, dev, kz_window=w,
                                  planes=planes(dev))
-                       for dev, w in zip(devices, split(Nh, self.p))]
+                       for dev, w in zip(devices, self.windows)]
         self.Bx = params.ooc_z_batch or slab_width(N, self.p)
         if N % self.Bx or N // self.Bx < self.p:
             raise ValueError(f"ooc_z_batch={self.Bx} must divide GridSize "
@@ -305,22 +338,44 @@ class OocMesh:
         # a streamed hand-off's last copy out of one device's rows buffer
         self._rows_copy = None
 
+    def local_devices(self) -> list:
+        """This process's devices, one per shard it holds."""
+        return [self.devices[i] for i in self.local]
+
+    def row_group(self):
+        """The group of the row streams' collectives: the second group of a
+        process group (multihost.rows_group), None in one process."""
+        if self.procs is None:
+            return None
+        from .parallel.multihost import rows_group
+        return rows_group()
+
+    def _slab_steps(self) -> list:
+        """The x0 of the slabs of each rank, in global order: step j of a
+        gather or scatter moves every rank's j-th slab."""
+        P = 1 if self.procs is None else self.procs[1]
+        return [[x0 for x0 in range(0, self.N, self.Bx)
+                 if self.rank_of[self.owner[x0 // self.Bx]] == r]
+                for r in range(P)]
+
     def each(self, fn) -> list:
-        """[fn(i, shard) for every shard i], each under its device."""
-        out = []
-        for i, sh in enumerate(self.shards):
+        """[fn(i, shard) for every shard i this process holds], each under
+        its device; None at another process's shards."""
+        out = [None] * self.p
+        for i in self.local:
+            sh = self.shards[i]
             with kernels.on_device(sh.dev):
-                out.append(fn(i, sh))
+                out[i] = fn(i, sh)
         return out
 
     def per_device(self, fn) -> list:
-        """fn(device) once per distinct device, as a list over the
-        shards."""
+        """fn(device) once per distinct device of this process, as a list
+        over the shards (None at another process's)."""
         done = {}
-        for d in self.devices:
+        for d in self.local_devices():
             if d not in done:
                 done[d] = fn(d)
-        return [done[d] for d in self.devices]
+        return [None if d is None else done[d] for d in self.devices]
 
     def blocks(self, fill=None) -> list:
         """A float32 field [nx, N, N] of each shard's x-block, empty or
@@ -334,13 +389,15 @@ class OocMesh:
         return self.each(one)
 
     def stack(self, ncomp: int) -> list:
-        return [sh.stack(ncomp) for sh in self.shards]
+        return [None if sh is None else sh.stack(ncomp)
+                for sh in self.shards]
 
     def build(self, stacks: list, factors) -> list:
         """Every shard's stack filled with the half transforms of
         factors(i, kz0, B) (shard i, global planes kz0..kz0+B-1)."""
-        for i, (sh, st) in enumerate(zip(self.shards, stacks)):
-            sh.build(st, lambda kz0, B: factors(i, kz0, B))
+        for i in self.local:
+            self.shards[i].build(stacks[i],
+                                 lambda kz0, B: factors(i, kz0, B))
         return stacks
 
     def planes(self, i: int, kz0: int, B: int):
@@ -351,61 +408,116 @@ class OocMesh:
         """Global planes kz0..kz0+B-1 of shard i's piece of a spectrum."""
         return self.shards[i].spec_batch(spec[i], kz0, B)
 
-    def slabs(self, stacks: list):
+    def slabs(self, stacks: list, group=None):
         """(owner o, x0 within o's block, real slab [ncomp, Bx, N, N]) of
         every x-slab in global order: its kz pieces gathered from every
         shard onto o (in the storage type), widened to complex64 (K19) and
-        transformed there; the consumer's loop body runs under o's
-        device."""
-        N, Bx = self.N, self.Bx
-        for x0 in range(0, N, Bx):
+        transformed there; the consumer's loop body runs under o's device.
+        Over a process group only this process's slabs, in global order:
+        at step j every process sends each other process its shards' kz
+        pieces of that process's j-th slab, in one staged all-to-all of
+        ``group`` (every process takes part in every step)."""
+        Bx = self.Bx
+        kz = -1 if stacks[self.local[0]].is_complex() else -2
+        me = 0 if self.procs is None else self.procs[0]
+        steps = self._slab_steps()
+        for j in range(max(len(x) for x in steps)):
+            got = ({} if self.procs is None
+                   else self._slab_step(stacks, steps, j, kz, group))
+            if j >= len(steps[me]):
+                continue
+            x0 = steps[me][j]
             o = self.owner[x0 // Bx]
-            dev = self.devices[o]
-            with kernels.on_device(dev):
-                if self.p == 1:
-                    half = stacks[0][:, x0:x0 + Bx]
-                else:
-                    kz = -1 if stacks[0].is_complex() else -2
-                    half = torch.cat([st[:, x0:x0 + Bx].to(dev)
-                                      for st in stacks], dim=kz)
+            with kernels.on_device(self.devices[o]):
+                pieces = [stacks[i][:, x0:x0 + Bx].to(self.devices[o])
+                          if self.rank_of[i] == me
+                          else next(got[self.rank_of[i]])
+                          for i in range(self.p)]
+                del got
+                half = pieces[0] if self.p == 1 else torch.cat(pieces,
+                                                                dim=kz)
+                del pieces
                 if not half.is_complex():
                     half = storage.load_rows(half)
-                real = torch.fft.irfft(half, n=N, dim=-1).contiguous()
+                real = torch.fft.irfft(half, n=self.N, dim=-1).contiguous()
                 del half
                 yield o, x0 - self.x_blocks[o][0], real
                 del real
 
+    def _slab_step(self, stacks: list, steps: list, j: int, kz: int,
+                   group) -> dict:
+        """Step j of slabs over a process group: this process's shards' kz
+        pieces of every other process's j-th slab out, the other processes'
+        pieces of this process's j-th slab in; {rank: iterator over the
+        pieces received, in shard order}."""
+        from .parallel.multihost import all_to_all_staged
+        me, Bx = self.procs[0], self.Bx
+        some = stacks[self.local[0]]
+        send, recv = {}, {}
+        for r, xs in enumerate(steps):
+            if r != me and j < len(xs):
+                send[r] = [stacks[i][:, xs[j]:xs[j] + Bx]
+                           for i in self.local]
+        if j < len(steps[me]):
+            dev = self.devices[self.owner[steps[me][j] // Bx]]
+            for i in range(self.p):
+                if self.rank_of[i] != me:
+                    shape = list(some.shape)
+                    shape[1], shape[kz] = Bx, self.windows[i][1]
+                    recv.setdefault(self.rank_of[i], []).append(
+                        (tuple(shape), dev))
+        return {r: iter(v) for r, v in all_to_all_staged(
+            "slab", send, recv, some.dtype, group=group).items()}
+
     def to_spec(self, fields: list, round_z: bool = True) -> list:
         """A real field's rfftn spectrum as each shard's piece in the
         storage type: rfft over z per x-slab on its owner, the kz pieces
-        copied to their shards, then fft2 over (x, y) per kz batch, in
-        place.  In 16 bits the z rfft is rounded (K18, on the slab's owner,
-        so half the bytes cross) and the fft2 widens each kz batch (K19)
-        and rounds its result; with round_z False (the src32 spectrum) the
-        z rfft stays in a complex64 half spectrum and is rounded once,
-        after the fft2 (module docstring)."""
+        copied to their shards (over a process group, at step j each
+        process's j-th slab's pieces of other processes' shards in one
+        staged all-to-all), then fft2 over (x, y) per kz batch, in place.
+        In 16 bits the z rfft is rounded (K18, on the slab's owner, so half
+        the bytes cross) and the fft2 widens each kz batch (K19) and rounds
+        its result; with round_z False (the src32 spectrum) the z rfft stays
+        in a complex64 half spectrum and is rounded once, after the fft2
+        (module docstring)."""
         N, Bx = self.N, self.Bx
-        sixteen = self.shards[0].sdtype is not None
+        sixteen = self.sdtype is not None
         half32 = sixteen and not round_z
-        spec = [sh.spec(complex64=half32) for sh in self.shards]
-        for x0 in range(0, N, Bx):
-            o = self.owner[x0 // Bx]
-            lx = x0 - self.x_blocks[o][0]
-            with kernels.on_device(self.devices[o]):
-                r = torch.fft.rfft(fields[o][lx:lx + Bx], dim=-1)
-                for sh, s in zip(self.shards, spec):
-                    if s.is_complex():
-                        s[x0:x0 + Bx] = r[..., sh.k0:sh.k0 + sh.nkz]
-                    elif sh.dev == r.device:
-                        storage.store_rows(r, s[x0:x0 + Bx], sh.k0)
-                    else:
-                        s[x0:x0 + Bx] = storage.store_rows(
-                            r, torch.empty(s[x0:x0 + Bx].shape,
-                                           dtype=s.dtype, device=r.device),
-                            sh.k0)
-                del r
-        out = [sh.spec() for sh in self.shards] if half32 else spec
-        for sh, s, t in zip(self.shards, spec, out):
+        spec = [None if sh is None else sh.spec(complex64=half32)
+                for sh in self.shards]
+        me = 0 if self.procs is None else self.procs[0]
+        steps = self._slab_steps()
+        for j in range(max(len(x) for x in steps)):
+            send = {}
+            if j < len(steps[me]):
+                x0 = steps[me][j]
+                o = self.owner[x0 // Bx]
+                lx = x0 - self.x_blocks[o][0]
+                with kernels.on_device(self.devices[o]):
+                    r = torch.fft.rfft(fields[o][lx:lx + Bx], dim=-1)
+                    for i, (k0, nkz) in enumerate(self.windows):
+                        s = spec[i]
+                        if half32 or not sixteen:
+                            piece = r[..., k0:k0 + nkz]
+                        elif s is not None and s.device == r.device:
+                            storage.store_rows(r, s[x0:x0 + Bx], k0)
+                            continue
+                        else:
+                            piece = storage.store_rows(r, torch.empty(
+                                (Bx, N, nkz, 2), dtype=self.sdtype,
+                                device=r.device), k0)
+                        if self.rank_of[i] == me:
+                            s[x0:x0 + Bx] = piece
+                        else:
+                            send.setdefault(self.rank_of[i], []).append(
+                                piece)
+                    del r
+            if self.procs is not None:
+                self._spec_step(spec, steps, j, send)
+        out = ([None if sh is None else sh.spec() for sh in self.shards]
+               if half32 else spec)
+        for i in self.local:
+            sh, s, t = self.shards[i], spec[i], out[i]
             with kernels.on_device(sh.dev):
                 for kz0, B in sh.kz_sched:
                     a = kz0 - sh.k0
@@ -419,84 +531,179 @@ class OocMesh:
                     del f
         return out
 
+    def _spec_step(self, spec: list, steps: list, j: int, send: dict):
+        """Step j of to_spec over a process group: ``send`` (this process's
+        j-th slab's pieces of other processes' shards) out, and into this
+        process's spectra the pieces of every other process's j-th slab."""
+        from .parallel.multihost import all_to_all_staged
+        me, Bx = self.procs[0], self.Bx
+        some = spec[self.local[0]]
+        recv = {}
+        for r, xs in enumerate(steps):
+            if r != me and j < len(xs):
+                recv[r] = [(spec[i][xs[j]:xs[j] + Bx].shape, spec[i].device)
+                           for i in self.local]
+        got = all_to_all_staged("spec", send, recv, some.dtype)
+        for r in recv:
+            x0, pieces = steps[r][j], got[r]
+            for i, piece in zip(self.local, pieces):
+                spec[i][x0:x0 + Bx] = piece
+
     def gather(self, blocks: list) -> np.ndarray:
-        """A real field of x-blocks as one host array [N, N, N]."""
-        return np.concatenate([kernels.to_host(b).numpy() for b in blocks])
+        """A real field of x-blocks as one host array [N, N, N]; over a
+        process group in every process, the blocks crossing in one
+        all-gather of the group (a collective: every process calls it)."""
+        mine = [kernels.to_host(blocks[i]).numpy() for i in self.local]
+        if self.procs is None:
+            return np.concatenate(mine)
+        from .parallel.multihost import all_gather_rows
+        return np.concatenate(all_gather_rows("gather",
+                                              np.concatenate(mine)))
 
     def needed(self, Fmax: list, Flast: float):
         """The needed cells of every shard's block in the sweep's order
         (compact.needed_order on each block: N^3/p keys per sort), the row
         rank of each shard's cells (kept as ``rank``) and their merged
         positions; returns the merged cell indices (int64) and F (float32)
-        as host arrays."""
+        as host arrays (over a process group, the whole arrays in every
+        process)."""
         N2 = self.N * self.N
-        ci, F, self.rank = [], [], []
-        for i, sh in enumerate(self.shards):
-            with kernels.on_device(sh.dev):
+        ci, F, self.rank = [None] * self.p, [None] * self.p, [None] * self.p
+        for i in self.local:
+            with kernels.on_device(self.devices[i]):
                 idx = compact.needed_order(Fmax[i], Flast)
-                F.append(Fmax[i].reshape(-1)[idx])
-                self.rank.append(compact.needed_rank(idx, Fmax[i].numel()))
-                ci.append(idx if self.p == 1
-                          else idx + self.x_blocks[i][0] * N2)
+                F[i] = Fmax[i].reshape(-1)[idx]
+                self.rank[i] = compact.needed_rank(idx, Fmax[i].numel())
+                ci[i] = idx if self.p == 1 else idx + self.x_blocks[i][0] * N2
                 del idx
-        self.counts = [t.numel() for t in ci]
+        self.counts = [None if t is None else t.numel() for t in ci]
+        if self.procs is not None:
+            from .parallel.multihost import all_gather_rows
+            self.counts = np.concatenate(all_gather_rows(
+                "handoff", np.array([self.counts[i] for i in self.local],
+                                    np.int64))).tolist()
         self.count = sum(self.counts)
         if self.p > 1:
             self._positions(ci, F)
         return self.land(ci), self.land(F)
 
+    def _shard_rows(self, mine: list) -> list:
+        """Every shard's rows, each on the host as numpy, from this
+        process's (``mine``, host arrays over self.local) and the others'
+        through one all-gather of the group."""
+        from .parallel.multihost import all_gather_rows
+        got = all_gather_rows("handoff", np.concatenate(mine))
+        out = []
+        for r, rows in enumerate(got):
+            a = 0
+            for i in range(self.p):
+                if self.rank_of[i] == r:
+                    out.append(rows[a:a + self.counts[i]])
+                    a += self.counts[i]
+        return out
+
     def _positions(self, ci: list, F: list) -> None:
         """Each shard's merged positions (int32, ascending: a shard's cells
         keep their order) and, per shard, the bounds of its cells in every
-        landing chunk."""
+        landing chunk.  Over a process group the (F, cell) keys of the
+        other processes' shards come through the group, each process
+        computes its own shards' positions, and those cross back, so that
+        every process holds every shard's positions (on the hand-off
+        device) and bounds."""
         from .parallel.driver import merge_key
         if self.N ** 3 > 2 ** 33:
             raise ValueError("the hand-off's int64 (F, cell) keys hold cell "
                              "indices up to 2^33 (GridSize <= 2048)")
         t0 = time.perf_counter()
-        keys = [merge_key(f, c) for f, c in zip(F, ci)]
+        keys = [None] * self.p
+        for i in self.local:
+            keys[i] = merge_key(F[i], ci[i])
+        if self.procs is not None:
+            host = self._shard_rows([kernels.to_host(keys[i]).numpy()
+                                     for i in self.local])
+            keys = [keys[i] if keys[i] is not None
+                    else torch.from_numpy(host[i]) for i in range(self.p)]
         edges = list(range(0, self.count, LAND_ROWS)) + [self.count]
-        self.gpos, self.bounds = [], []
-        for i, sh in enumerate(self.shards):
-            with kernels.on_device(sh.dev):
+        self.gpos, self.bounds = [None] * self.p, [None] * self.p
+        for i in self.local:
+            dev = self.devices[i]
+            with kernels.on_device(dev):
                 pos = torch.arange(self.counts[i], dtype=torch.int64,
-                                   device=sh.dev)
+                                   device=dev)
                 for j, k in enumerate(keys):
                     if j != i and self.counts[j] and self.counts[i]:
-                        pos += torch.searchsorted(k.to(sh.dev), keys[i])
-                self.gpos.append(pos.to(torch.int32))
+                        pos += torch.searchsorted(k.to(dev), keys[i])
+                self.gpos[i] = pos.to(torch.int32)
                 del pos
-                self.bounds.append(torch.searchsorted(
-                    self.gpos[i], torch.tensor(edges, dtype=torch.int32,
-                                               device=sh.dev)).tolist())
         del keys
+        if self.procs is not None:
+            host = self._shard_rows([kernels.to_host(self.gpos[i]).numpy()
+                                     for i in self.local])
+            self.gpos = [self.gpos[i] if self.gpos[i] is not None
+                         else torch.from_numpy(host[i]).to(self.dev)
+                         for i in range(self.p)]
+        for i in range(self.p):
+            g = self.gpos[i]
+            with kernels.on_device(g.device):
+                self.bounds[i] = torch.searchsorted(
+                    g, torch.tensor(edges, dtype=torch.int32,
+                                    device=g.device)).tolist()
         self.t_handoff += time.perf_counter() - t0
 
-    def land(self, parts: list) -> np.ndarray:
+    def _chunk(self, parts: list, buf, c: int, a: int, group) -> None:
+        """Landing chunk c (merged positions a, a + LAND_ROWS) of the
+        shards' rows ``parts`` assembled in ``buf`` on the hand-off device
+        (index_copy_ at the positions); over a process group the other
+        processes' rows of the chunk come in one staged all-to-all of
+        ``group``, where this process sends every other its own."""
+        got, me = {}, 0
+        if self.procs is not None:
+            from .parallel.multihost import all_to_all_staged
+            me, P = self.procs
+            tail = tuple(buf.shape[1:])
+            mine, recv = [], {}
+            for i in range(self.p):
+                lo, hi = self.bounds[i][c], self.bounds[i][c + 1]
+                if hi <= lo:
+                    continue
+                if self.rank_of[i] == me:
+                    mine.append(parts[i][lo:hi])
+                else:
+                    recv.setdefault(self.rank_of[i], []).append(
+                        ((hi - lo,) + tail, self.dev))
+            got = {r: iter(v) for r, v in all_to_all_staged(
+                "handoff", {r: mine for r in range(P) if r != me}, recv,
+                buf.dtype, group=group).items()}
+        for i in range(self.p):
+            lo, hi = self.bounds[i][c], self.bounds[i][c + 1]
+            if hi > lo:
+                pos = self.gpos[i][lo:hi].to(self.dev, torch.int64)
+                rows = (parts[i][lo:hi].to(self.dev)
+                        if self.rank_of[i] == me
+                        else next(got[self.rank_of[i]]))
+                buf.index_copy_(0, pos - a, rows)
+
+    def land(self, parts: list, group=None) -> np.ndarray:
         """The shards' rows ``parts`` (each [count_i, ...] in its shard's
         order) as one host array in the sweep's order: one device's buffer
         copied to page-locked memory, or over a mesh each chunk of LAND_ROWS
-        merged positions assembled on the hand-off device (index_copy_ at
-        the positions) and copied into the final host array."""
+        merged positions assembled on the hand-off device (_chunk) and
+        copied into the final host array; over a process group every
+        process lands the whole array."""
         t0 = time.perf_counter()
         if self.p == 1:
             out = kernels.to_host(parts[0]).numpy()
             self.t_handoff += time.perf_counter() - t0
             return out
-        tail = tuple(parts[0].shape[1:])
-        host = kernels.host_empty((self.count,) + tail, parts[0].dtype,
-                                  self.dev)
+        some = parts[self.local[0]]
+        tail = tuple(some.shape[1:])
+        host = kernels.host_empty((self.count,) + tail, some.dtype, self.dev)
         with kernels.on_device(self.dev):
             buf = torch.empty((min(LAND_ROWS, self.count),) + tail,
-                              dtype=parts[0].dtype, device=self.dev)
+                              dtype=some.dtype, device=self.dev)
             for c, a in enumerate(range(0, self.count, LAND_ROWS)):
                 b = min(a + LAND_ROWS, self.count)
-                for i, part in enumerate(parts):
-                    lo, hi = self.bounds[i][c], self.bounds[i][c + 1]
-                    if hi > lo:
-                        pos = self.gpos[i][lo:hi].to(self.dev, torch.int64)
-                        buf.index_copy_(0, pos - a,
-                                        part[lo:hi].to(self.dev))
+                self._chunk(parts, buf, c, a, group)
                 host[a:b].copy_(buf[:b - a])
             del buf
         self.t_handoff += time.perf_counter() - t0
@@ -510,7 +717,7 @@ class OocMesh:
             self._rows_copy = None
 
     def land_stream(self, parts: list, key, host: np.ndarray,
-                    stream: _StreamState, copier) -> None:
+                    stream: _StreamState, copier, group=None) -> None:
         """land() without waiting: the rows reach ``host`` (page-locked
         [count, 3]) on the copy stream, chunk by chunk, each chunk
         enqueued under ``key`` on ``stream``, whose watermark it advances.
@@ -531,18 +738,14 @@ class OocMesh:
             return
         with kernels.on_device(self.dev):
             buf = torch.empty((min(LAND_ROWS, self.count), 3),
-                              dtype=parts[0].dtype, device=self.dev)
+                              dtype=parts[self.local[0]].dtype,
+                              device=self.dev)
             last = None
             for c, a in enumerate(range(0, self.count, LAND_ROWS)):
                 b = min(a + LAND_ROWS, self.count)
                 if last is not None:
                     last.before_reuse(self.dev)
-                for i, part in enumerate(parts):
-                    lo, hi = self.bounds[i][c], self.bounds[i][c + 1]
-                    if hi > lo:
-                        pos = self.gpos[i][lo:hi].to(self.dev, torch.int64)
-                        buf.index_copy_(0, pos - a,
-                                        part[lo:hi].to(self.dev))
+                self._chunk(parts, buf, c, a, group)
                 copier.after()
                 last = copier.copy(dst[a:b], buf[:b - a])
                 stream.enqueue(key, b, last)
@@ -642,7 +845,7 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     nsl = N // Bx
     sm = Smoothing.build(params, cosmo)
     order = params.lpt_order
-    ph = _Phases(om.devices, trace_memory)
+    ph = _Phases(om.local_devices(), trace_memory)
 
     # ---- collapse cycle ----
     radii_grid = (sm.radii / om.grid.CellSize).astype(np.float32)
@@ -670,20 +873,28 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     ph.start("fmax_loop")
     stack = om.stack(6)
     Fmax = om.blocks(fill=-10.0)
-    stats = []
+    # each radius's (mean delta, mean delta^2) of every x-slab, float64,
+    # zero where another process owns the slab
+    stats = torch.zeros((len(radii_grid), nsl, 2), dtype=torch.float64,
+                        device=om.dev)
     for ism, R in enumerate(radii_grid):
         om.build(stack, lambda i, kz0, B: derivatives.ooc_hessian(
             om.planes(i, kz0, B), kz0, float(R), N))
         update = radius_update(ism)
-        s = torch.zeros(2, dtype=torch.float64, device=om.dev)
-        # summed in global slab order on the first device: the variances
-        # do not depend on the mesh
         for o, x, sd in om.slabs(stack):
-            s += update(o, sd, Fmax[o][x:x + Bx]).to(om.dev)
+            j = (om.x_blocks[o][0] + x) // Bx
+            stats[ism, j] = update(o, sd, Fmax[o][x:x + Bx]).to(om.dev)
             del sd
-        stats.append(s)
-    # sums of slab means, normalized by the slab count
-    sm.true_variance[:] = (torch.stack(stats)[:, 1] / nsl).cpu().numpy()
+    stats = stats.cpu()
+    if om.procs is not None:
+        from .parallel.multihost import all_sum
+        stats = torch.from_numpy(all_sum("reduce", stats.numpy()))
+    # the slab means summed in global slab order, so that the variances do
+    # not depend on the mesh or the processes, normalized by the slab count
+    s = torch.zeros((len(radii_grid), 2), dtype=torch.float64)
+    for j in range(nsl):
+        s += stats[:, j]
+    sm.true_variance[:] = (s[:, 1] / nsl).numpy()
     t_cycle = time.perf_counter()
     if verbose:
         for ism in range(sm.n):
@@ -737,7 +948,10 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     ci, F = om.needed(Fmax, params.Flast)
     count = om.count
     hist = sum(h.cpu().numpy() for h in om.each(
-        lambda i, sh: compact.pdf_hist(Fmax[i])))
+        lambda i, sh: compact.pdf_hist(Fmax[i])) if h is not None)
+    if om.procs is not None:
+        from .parallel.multihost import all_sum
+        hist = all_sum("reduce", hist)
 
     # ---- displacement rows: one set per output redshift under
     # RECOMPUTE_DISPLACEMENTS (stored at output_z[0]), else one at the last
@@ -784,7 +998,7 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
                         source(i, kz0, B), kz0, g, N))
                 del spec
                 om.reuse_rows()
-                for o, x, v in om.slabs(u_v):
+                for o, x, v in om.slabs(u_v, group=rows_group):
                     compact.vrows_slab(om.rank[o][x * N2:(x + Bx) * N2],
                                        v.reshape(3, -1), rows[o])
                     del v
@@ -793,10 +1007,14 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
         om.rank = om.gpos = None
         ph.stop()
 
+    # over a process group the row phase's collectives run on a group of
+    # their own: overlapped, they run on a background thread while the
+    # caller's thread issues its own on the default group
+    rows_group = om.row_group()
     if not overlap:
         sets = [{} for _ in zs]
-        lpt_rows(lambda s, key, rows: sets[s].__setitem__(key,
-                                                          om.land(rows)))
+        lpt_rows(lambda s, key, rows: sets[s].__setitem__(
+            key, om.land(rows, rows_group)))
         vel, segments = sets[0], (sets if len(sets) > 1 else None)
     else:
         # each field's rows stream to the host while the device computes
@@ -812,7 +1030,7 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
             host = kernels.host_empty((count, 3), torch.float32,
                                       om.dev).numpy()
             stream.attach(skey, host)
-            om.land_stream(rows, skey, host, stream, copier)
+            om.land_stream(rows, skey, host, stream, copier, rows_group)
 
         box = {}
 
@@ -837,9 +1055,11 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
         print(f"  ooc products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%), {len(zs)} displacement "
               f"set(s), x-slabs of {Bx}, kz batches of "
-              f"{om.shards[0].kz_sched[0][1]}, "
+              f"{om.shards[om.local[0]].kz_sched[0][1]}, "
               f"{params.ooc_dtype or 'float32'} stacks and spectra"
               + (f", {om.p} shards" if mesh is not None else "")
+              + (f", {len(om.local)} in this process of "
+                 f"{om.procs[1]}" if om.procs is not None else "")
               + (", rows streaming behind the watermark" if overlap
                  else ""))
     timings = dict(ph.timings)
@@ -850,8 +1070,10 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
     if mesh is None:
         products = Products(Fmax=Fmax[0], Rmax=None)
     else:
-        from .parallel.driver import ShardedProducts
-        products = ShardedProducts(om, Fmax, None)
+        from .parallel.driver import RemoteShard, ShardedProducts
+        products = ShardedProducts(om, [
+            RemoteShard("Fmax", i, om.rank_of[i]) if f is None else f
+            for i, f in enumerate(Fmax)], None)
     res = FmaxResult(products=products, smoothing=sm, grid=om.grid,
                      host_products=sp, pdf_hist=hist,
                      timings=timings, peaks=dict(ph.peaks))

@@ -45,8 +45,10 @@ from ..ops import compact
 DUMP_DIR = "DumpProducts"
 
 
-def _write_summary(ddir: str, meta: dict) -> None:
-    tmp = os.path.join(ddir, ".summary.json.tmp")
+def _write_summary(ddir: str, meta: dict, host: int = 0) -> None:
+    """summary.json, replaced at once; hosts that dump together each write
+    a temporary file of their own and replace it with the same summary."""
+    tmp = os.path.join(ddir, f".summary.json.tmp{host}")
     with open(tmp, "w") as fd:
         json.dump(meta, fd)
     os.replace(tmp, os.path.join(ddir, "summary.json"))
@@ -102,7 +104,7 @@ def dump_products(params: Params, fmax_result: FmaxResult,
     path = os.path.join(ddir, f"products.{h}.npz")
     np.savez(path, **arrays)
     _write_summary(ddir, dict(meta, format="sparse", nseg=len(segs),
-                              sorted_by=sp.sorted_by))
+                              sorted_by=sp.sorted_by), h)
     return path
 
 

@@ -42,18 +42,37 @@ from ..ops import collapse, compact, lpt
 from . import pfft
 
 
+class RemoteShard:
+    """Stands in a list of shards for one that another process of the group
+    holds: any use of it raises, naming the collective that reads it."""
+
+    def __init__(self, what: str, i: int, rank: int):
+        self._what, self._i, self._rank = what, i, rank
+
+    def __getattr__(self, name):
+        raise RuntimeError(
+            f"shard {self._i}'s {self._what} is held by process "
+            f"{self._rank} of the group: read the whole grid with "
+            "products.gather(), a collective that every process calls")
+
+    def __repr__(self):
+        return f"RemoteShard({self._what!r}, {self._i}, {self._rank})"
+
+
 @dataclass
 class ShardedProducts:
     """Fmax (float32) and Rmax (int32) as real shards of ``decomp`` (a
     pfft decomposition, or the out-of-core engine's fmax_ooc.OocMesh with
-    its x-blocks and no Rmax)."""
+    its x-blocks and no Rmax, where another process's shard is a
+    RemoteShard)."""
     decomp: object
     Fmax: list
     Rmax: list
 
     def gather(self):
         """(Fmax, Rmax) of the whole grid as host numpy arrays (Rmax None
-        for the out-of-core engine, which keeps none)."""
+        for the out-of-core engine, which keeps none); over a process group
+        a collective, in every process."""
         return (self.decomp.gather(self.Fmax),
                 None if self.Rmax is None else self.decomp.gather(self.Rmax))
 

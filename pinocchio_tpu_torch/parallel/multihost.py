@@ -18,9 +18,15 @@ The group runs on gloo, on the CPU and on the card alike: every collective
 here stages its tensors through host memory (page-locked for a card's
 shards, kernels.host_empty), one explicit copy each way, and TRAFFIC counts
 each kind's bytes, seconds and calls.  NCCL, which needs a card of its own
-for every rank, is not used (ROADMAP.md, item 12b-iii).  A collective that
+for every rank, is not used (ROADMAP.md, item 12b-iv).  A collective that
 fails raises: a peer that dies or never joins fails the others within the
 group's timeout, and nothing falls back to a local result.
+
+Every rank issues the collectives of one group in the same order, so two
+threads must not share a group.  initialize_cluster therefore makes a
+second gloo group, rows_group(), for the out-of-core engine's row streams,
+which run on a background thread (fmax_ooc._OocPending) while the main
+thread's sweeps and writers use the default group.
 
 A host owns the fragmentation sub-boxes dealt to it round-robin and takes
 its products from the exchange (parallel/exchange.py), or, where the
@@ -34,6 +40,8 @@ from __future__ import annotations
 
 import datetime
 import math
+import socket
+import threading
 import time
 from typing import Callable
 
@@ -45,17 +53,23 @@ from ..fmax import ensure_host_products
 
 # bytes through the group (out of and into this process), seconds and calls
 # of each kind of collective: the mesh transposes, the exchange's route, the
-# gathers (whole fields, the spheres, the exchange's counts) and the
-# reductions
+# gathers (whole fields, the spheres, the exchange's counts), the
+# reductions, and the out-of-core engine's x-slab gathers, spectrum pieces
+# and hand-off (keys, positions and landing rows)
 TRAFFIC = {kind: dict(bytes=0, seconds=0.0, calls=0)
-           for kind in ("transpose", "route", "gather", "reduce")}
+           for kind in ("transpose", "route", "gather", "reduce", "slab",
+                        "spec", "handoff")}
+_TRAFFIC_LOCK = threading.Lock()
+# the second group of the process group (rows_group)
+_ROWS = {}
 
 
 def _count(kind: str, nbytes: int, t0: float) -> None:
-    rec = TRAFFIC[kind]
-    rec["bytes"] += int(nbytes)
-    rec["seconds"] += time.perf_counter() - t0
-    rec["calls"] += 1
+    with _TRAFFIC_LOCK:
+        rec = TRAFFIC[kind]
+        rec["bytes"] += int(nbytes)
+        rec["seconds"] += time.perf_counter() - t0
+        rec["calls"] += 1
 
 
 def initialize_cluster(nhosts: int = None, coordinator: str = None,
@@ -66,7 +80,9 @@ def initialize_cluster(nhosts: int = None, coordinator: str = None,
     nhosts processes at tcp://<coordinator> (host:port, the address of
     process 0, which serves the rendezvous), this one ranked process_id;
     every collective, the rendezvous included, raises after ``timeout``
-    seconds.  A no-op for one process.  Returns (host_id, nhosts)."""
+    seconds; then the second group of the same processes (rows_group),
+    which every rank creates here in the same order.  A no-op for one
+    process.  Returns (host_id, nhosts)."""
     import torch.distributed as dist
     if nhosts and nhosts > 1:
         if coordinator is None or process_id is None:
@@ -78,6 +94,8 @@ def initialize_cluster(nhosts: int = None, coordinator: str = None,
         dist.init_process_group(
             "gloo", init_method=f"tcp://{coordinator}", world_size=nhosts,
             rank=process_id, timeout=datetime.timedelta(seconds=timeout))
+        _ROWS["group"] = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=timeout))
     group = process_group()
     hid, n = group if group is not None else (0, 1)
     if verbose and n > 1:
@@ -85,6 +103,15 @@ def initialize_cluster(nhosts: int = None, coordinator: str = None,
         print(f"[cluster] process {hid}/{n} up, {local} local device(s)",
               flush=True)
     return hid, n
+
+
+def shutdown_cluster() -> None:
+    """Destroy the process group and its rows group (the MPI_Finalize
+    analog); a no-op outside process mode."""
+    import torch.distributed as dist
+    _ROWS.clear()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_group():
@@ -96,6 +123,15 @@ def process_group():
     return None
 
 
+def rows_group():
+    """The second gloo group of the processes (initialize_cluster), on which
+    the out-of-core engine's row streams issue their collectives."""
+    if "group" not in _ROWS:
+        raise RuntimeError("the process group has no rows group: bring it "
+                           "up with initialize_cluster")
+    return _ROWS["group"]
+
+
 def require_group(procs: tuple) -> None:
     """Raise unless this process is rank procs[0] of a group of procs[1]
     (a mesh made for a group that is not up, or for another one)."""
@@ -105,6 +141,17 @@ def require_group(procs: tuple) -> None:
                            f"rank {procs[0]}, but this process's group is "
                            + ("not initialized (initialize_cluster)"
                               if group is None else f"{group}"))
+
+
+def node_processes() -> int:
+    """The processes of the group on this process's node (host name),
+    itself included; 1 outside process mode."""
+    if process_group() is None:
+        return 1
+    name = np.frombuffer(socket.gethostname().encode()[:255].ljust(255),
+                         np.uint8)
+    return sum(bool(np.array_equal(n[0], name))
+               for n in all_gather_rows("gather", name[None]))
 
 
 def barrier() -> None:
@@ -147,14 +194,17 @@ def all_gather_rows(kind: str, rows: np.ndarray) -> list:
     return [g.numpy()[:s] for g, s in zip(got, sizes)]
 
 
-def all_to_all_staged(kind: str, send: dict, recv: dict, dtype) -> dict:
+def all_to_all_staged(kind: str, send: dict, recv: dict, dtype,
+                      group=None) -> dict:
     """One all_to_all_single of the group, staged through host memory:
     send {rank: [tensors]} (any device, any strides) goes to each rank in
     order; recv {rank: [(shape, device)]} names what each rank sends here,
     in its order.  Returns {rank: [tensors]}, each on its device.  Every
     tensor is of ``dtype``; the staging buffers are page-locked when a
     tensor lives on a card (kernels.host_empty), and the copies into and
-    out of them block."""
+    out of them block.  Every rank of ``group`` (None: the default group;
+    rows_group() for the row streams) calls it, also one that sends and
+    receives nothing."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     _, world = process_group()
@@ -174,7 +224,7 @@ def all_to_all_staged(kind: str, send: dict, recv: dict, dtype) -> dict:
             sendbuf[off:off + n].view(dtype).view(t.shape).copy_(t)
             off += n
     recvbuf = kernels.host_empty((sum(in_n),), torch.uint8, stage)
-    dist.all_to_all_single(recvbuf, sendbuf, in_n, out_n)
+    dist.all_to_all_single(recvbuf, sendbuf, in_n, out_n, group=group)
     got, off = {}, 0
     for r in range(world):
         got[r] = []
@@ -187,17 +237,61 @@ def all_to_all_staged(kind: str, send: dict, recv: dict, dtype) -> dict:
     return got
 
 
-def process_report(mesh, timings: dict, wall: float) -> dict:
+def resident_gib() -> float:
+    """This process's resident set (VmRSS), GiB."""
+    with open("/proc/self/status") as fd:
+        for line in fd:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class ResidentPeak:
+    """The resident set of this process when the block starts (``start``)
+    and its largest while the block runs (``peak``), sampled every
+    ``period`` seconds by a thread, GiB (a container's /proc may lack
+    VmHWM, and ru_maxrss keeps the forking parent's)."""
+
+    def __init__(self, period: float = 0.01):
+        self.period = period
+
+    def __enter__(self):
+        self.start = self.peak = resident_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(self.period):
+            self.peak = max(self.peak, resident_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, resident_gib())
+
+
+def process_report(mesh, timings: dict, wall: float, plan: dict = None,
+                   resident: ResidentPeak = None) -> dict:
     """One process's account of its run over the group of ``mesh``: its
     host id, wall and phase timings (seconds), the kernels it launched
     (kernels.LAUNCHES), the peak memory allocated on its cards (GiB, 0 on
-    the CPU) and TRAFFIC."""
+    the CPU), its resident set at the run's start and its peak (GiB,
+    ``resident``) beside the planner's host estimate for its node
+    (``plan``, planner.plan's report) and TRAFFIC."""
     peak = max([torch.cuda.max_memory_allocated(d)
                 for d in mesh.local_devices() if d.type == "cuda"] or [0])
     return dict(host=mesh.procs[0], nhosts=mesh.procs[1], wall_s=wall,
                 timings=timings,
                 launches={k: v for k, v in kernels.LAUNCHES.items() if v},
-                device_peak_gib=peak / 2 ** 30, traffic=TRAFFIC)
+                device_peak_gib=peak / 2 ** 30,
+                host_start_gib=None if resident is None else resident.start,
+                host_peak_gib=None if resident is None else resident.peak,
+                planned_host_gib=(None if plan is None
+                                  else plan["host_bytes"] / 2 ** 30),
+                node_processes=None if plan is None else plan["node_procs"],
+                traffic=TRAFFIC)
 
 
 def host_subboxes(geoms: list, host_id: int, nhosts: int) -> list:

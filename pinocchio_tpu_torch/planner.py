@@ -356,7 +356,8 @@ def host_memory() -> float:
 
 def plan(params: Params, device="cuda", cosmo: Cosmology = None,
          dense_products: bool = False, n_chips: int = 1,
-         shards: int = None, limit: float = None) -> dict:
+         shards: int = None, limit: float = None, procs: int = 1,
+         node_procs: int = 1) -> dict:
     """The memory forecast of a run on ``device``: both engines' peaks, the
     engine the run takes (params.ooc 'on', 'off', or 'auto': the
     out-of-core engine when the dense one does not fit), the sub-box
@@ -367,8 +368,13 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
     None); the device fields are per device.  The out-of-core engine over a
     mesh lands its products in the same host arrays as on one device (its
     merge runs on the devices), so the host estimate does not depend on the
-    mesh.  limit: the device's memory in bytes (read from ``device`` when
-    None)."""
+    mesh.  Over a mesh split over ``procs`` processes (n_chips counting
+    every process's devices) each out-of-core process lands the whole host
+    products and sweeps its round-robin share of the sub-boxes, so a
+    node's host estimate is that of the process with the largest share
+    times ``node_procs``, the processes on it; a dense process is planned
+    as one process.  limit: the device's memory in bytes (read from
+    ``device`` when None)."""
     if cosmo is None:
         cosmo = Cosmology(params)
     frac = collapsed_fraction(params, cosmo)
@@ -385,17 +391,32 @@ def plan(params: Params, device="cuda", cosmo: Cosmology = None,
         use_ooc = False
     chosen = ooc if use_ooc else dense
     sub = subbox_plan(params, cosmo)
-    hphases = host_phases(params, frac, dense_products, geoms=sub["geoms"],
+    geoms = sub["geoms"]
+    ooc_procs = use_ooc and procs > 1
+    if ooc_procs and geoms:
+        # the largest of the processes' round-robin shares
+        # (multihost.host_subboxes)
+        geoms = max((geoms[h::procs] for h in range(procs)),
+                    key=lambda g: sum(math.prod(b.L) for b in g))
+    hphases = host_phases(params, frac, dense_products, geoms=geoms,
                           two_turn=sub["two_turn"], workers=sub["workers"])
     if torch.device(device).type == "cpu":
-        # device arrays live in host memory too
+        # device arrays live in host memory too: this process's devices'
         for arrays in hphases.values():
-            arrays["device_arrays"] = chosen["peak"] * n_chips
+            arrays["device_arrays"] = chosen["peak"] * (n_chips // procs)
+    node_procs = node_procs if ooc_procs else 1
+    if node_procs > 1:
+        # the other out-of-core processes of this node, each with the same
+        # arrays
+        for arrays in hphases.values():
+            arrays["other_processes"] = (node_procs - 1) * sum(
+                arrays.values())
     htotals = {p: sum(a.values()) for p, a in hphases.items()}
     hphase = max(htotals, key=htotals.get)
     host, host_limit = htotals[hphase], host_memory()
     return dict(grid=params.GridSize, device=str(device), n_chips=n_chips,
-                shards=shards or n_chips, frac=frac,
+                shards=shards or n_chips, procs=procs,
+                node_procs=node_procs, frac=frac,
                 device_limit=limit, dense=dense, ooc=ooc, use_ooc=use_ooc,
                 engine="out-of-core" if use_ooc else "dense",
                 device_bytes=chosen["peak"],
@@ -446,7 +467,10 @@ def format_memory_map(report: dict) -> str:
             f"{'two-turn' if report['two_turn'] else 'single-turn'}, "
             f"{report['subbox_workers']} swept at once")
     host = report["host"]
-    lines.append(f"  host memory, peak phase ({host['phase']}): "
+    procs = report.get("node_procs", 1)
+    lines.append(f"  host memory, peak phase ({host['phase']})"
+                 + (f", {procs} processes on this node" if procs > 1
+                    else "") + ": "
                  f"{report['host_bytes'] / GiB:.2f} GiB of "
                  f"{report['host_limit'] / GiB:.2f} GiB "
                  f"{'(OK)' if report['fits_host'] else '(EXCEEDS HOST!)'}")
@@ -460,12 +484,14 @@ def format_memory_map(report: dict) -> str:
 
 def enforce_budget(params: Params, device="cuda", cosmo: Cosmology = None,
                    verbose: bool = True, dense_products: bool = False,
-                   n_chips: int = 1, shards: int = None) -> dict:
+                   n_chips: int = 1, shards: int = None, procs: int = 1,
+                   node_procs: int = 1) -> dict:
     """Pre-flight check, before any allocation: raise MemoryPlanError with
     the per-array map when the chosen engine's device peak or the run's
-    host memory exceeds what there is; returns the plan (n_chips and
-    shards as in plan)."""
-    report = plan(params, device, cosmo, dense_products, n_chips, shards)
+    host memory exceeds what there is; returns the plan (n_chips, shards,
+    procs and node_procs as in plan)."""
+    report = plan(params, device, cosmo, dense_products, n_chips, shards,
+                  procs=procs, node_procs=node_procs)
     problems = []
     if not report["fits_device"]:
         problems.append(

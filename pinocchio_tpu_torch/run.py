@@ -34,8 +34,15 @@ The CLI's --hosts H runs the hosts as H processes, one per host, joined in
 a torch.distributed process group (parallel/multihost.py): each computes
 only its own block of the mesh's shards, the transposes, reductions and
 the exchange cross processes, and the outputs are those of the mocked
-hosts.  The out-of-core engine over several processes is not ported
-(item 12b-iii).
+hosts.  With the out-of-core engine (ooc 'on', or 'auto' where the
+planner's per-device map picks it) each process holds its own shards' kz
+windows of the stacks and spectra and x-blocks of Fmax and the real
+fields; the x-slab gathers, the spectra's pieces, the slab means and
+histogram, and the hand-off's keys, positions and rows cross the group
+(the row streams on a group of their own), so that every process lands
+the whole host products, as each mocked host does, and sweeps its share.
+Over processes the out-of-core engine with the timeless snapshot raises
+(item 13), and the group runs on gloo, not NCCL (item 12b-iv).
 
   initialization -> plan and storage estimate -> PLC geometry -> fmax
   (collapse times + displacements, on the device; or the products read
@@ -51,11 +58,13 @@ initial conditions as a Gadget snapshot.
 Usage:
     python -m pinocchio_tpu_torch.run <parameter_file> [mode] [--norad]
         [--outdir DIR] [--device cuda] [--grid N] [--subboxes N]
+        [--ooc on|off|auto]
         [--chips N] [--decomp auto|slab|pencil|volumes]
         [--shard-devices D,D,...] [--hosts H --host-id h
         --coordinator HOST:PORT [--group-timeout S]]
 
-    e.g. two processes on the CPU, each holding 2 of 4 shards:
+    e.g. two processes on the CPU, each holding 2 of 4 shards (add --ooc on
+    for the out-of-core engine):
     python -m pinocchio_tpu_torch.run <pf> --device cpu --chips 4 \
         --hosts 2 --host-id <h> --coordinator localhost:<port> --outdir D
 """
@@ -73,12 +82,6 @@ import torch
 from .config import Params, read_parameter_file
 from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
-
-OOC_PROCESSES_GAP = (
-    "the out-of-core engine over several processes is not ported to "
-    "pinocchio_tpu_torch yet (ROADMAP.md, queue 1 item 12b-iii); run the "
-    "hosts in one process with run_pipeline(hosts=(h, H)), or the dense "
-    "engine (ooc off)")
 
 
 def check_supported(params: Params) -> None:
@@ -172,10 +175,17 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         timings["scaledep"] = time.perf_counter() - t0
 
     # the engine that fits the device (each of the mesh's devices), or an
-    # abort with the memory map before any allocation
+    # abort with the memory map before any allocation; over a process group
+    # every out-of-core process of this node lands the whole host products
+    node_procs = 1
+    if procs is not None:
+        from .parallel.multihost import node_processes
+        node_procs = node_processes()
     plan = enforce_budget(params, dev, cosmo, verbose=verbose,
                           n_chips=1 if mesh is None else mesh.n_devices(),
-                          shards=1 if mesh is None else mesh.size)
+                          shards=1 if mesh is None else mesh.size,
+                          procs=1 if procs is None else procs[1],
+                          node_procs=node_procs)
     if verbose and write_outputs:
         # the output files' sizes from the analytic mass function
         estimate_file_sizes(params, cosmo)
@@ -190,13 +200,13 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
             print("[fmax] products read from dumps")
     elif plan["use_ooc"]:
         # over a mesh, its devices in flat order shard the ledger over kz
-        # whatever the decomposition (as the JAX package's run.py)
+        # whatever the decomposition (as the JAX package's run.py), over a
+        # process group each process holding its own shards
         check_ooc_supported(params)
-        if procs is not None:
-            raise NotImplementedError(OOC_PROCESSES_GAP)
         if verbose and mesh is not None:
             print(f"[fmax] out-of-core ledger sharded over {mesh.size} "
-                  "devices")
+                  "devices" + ("" if procs is None else
+                               f" of {procs[1]} processes"))
         fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
                                 verbose=verbose, mesh=mesh, overlap=overlap)
     elif mesh is not None:
@@ -476,6 +486,10 @@ def main(argv=None):
     ap.add_argument("--subboxes", type=int, default=None,
                     help="fragmentation sub-domains, swept concurrently on "
                     "the host's cores (the subbox_tasks parameter)")
+    ap.add_argument("--ooc", default=None, choices=["on", "off", "auto"],
+                    help="the fmax engine (the ooc parameter): on = the "
+                    "out-of-core engine, auto (the default) = where the "
+                    "dense engine does not fit the device, off = dense")
     ap.add_argument("--chips", type=int, default=1,
                     help="shard IC and fmax over this many devices in all "
                     "(over every process with --hosts): cuda:0..N-1 with "
@@ -495,7 +509,8 @@ def main(argv=None):
                     help="processes of a run over several hosts, one per "
                     "host (torch.distributed over gloo; launch each with "
                     "its --host-id and the same --coordinator); each holds "
-                    "chips / hosts of the shards")
+                    "chips / hosts of the shards, of the dense or of the "
+                    "out-of-core engine, and lands the whole products")
     ap.add_argument("--host-id", type=int, default=None,
                     help="this process's id in [0, hosts)")
     ap.add_argument("--coordinator", default=None,
@@ -511,6 +526,8 @@ def main(argv=None):
         params.GridSize = args.grid
     if args.subboxes:
         params.subbox_tasks = args.subboxes
+    if args.ooc:
+        params.ooc = args.ooc
     procs = None
     if args.hosts > 1:
         if args.mode is not None:
@@ -519,8 +536,8 @@ def main(argv=None):
             raise ValueError(f"--hosts {args.hosts} needs --chips a "
                              f"multiple of it, not {args.chips}: each "
                              "process holds chips / hosts of the shards")
-        if params.ooc == "on":
-            raise NotImplementedError(OOC_PROCESSES_GAP)
+        # refused before the group's rendezvous
+        check_supported(params)
         from .parallel.multihost import initialize_cluster
         procs = initialize_cluster(args.hosts, args.coordinator,
                                    args.host_id, timeout=args.group_timeout)
@@ -528,8 +545,8 @@ def main(argv=None):
         _run_main(args, params, procs)
     finally:
         if procs is not None:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+            from .parallel.multihost import shutdown_cluster
+            shutdown_cluster()
 
 
 def _run_main(args, params, procs):
@@ -546,14 +563,18 @@ def _run_main(args, params, procs):
     if args.mode is not None:
         run_special_mode(params, args.mode, outdir=args.outdir,
                          device=args.device)
+    elif procs is None:
+        run_pipeline(params, outdir=args.outdir, device=args.device,
+                     mesh=mesh)
     else:
+        from .parallel.multihost import ResidentPeak, process_report
         t0 = time.perf_counter()
-        res = run_pipeline(params, outdir=args.outdir, device=args.device,
-                           mesh=mesh, hosts=procs)
-        if procs is not None:
-            from .parallel.multihost import process_report
-            print("[cluster] " + json.dumps(process_report(
-                mesh, res["timings"], time.perf_counter() - t0)), flush=True)
+        with ResidentPeak() as resident:
+            res = run_pipeline(params, outdir=args.outdir, device=args.device,
+                               mesh=mesh, hosts=procs)
+        print("[cluster] " + json.dumps(process_report(
+            mesh, res["timings"], time.perf_counter() - t0, res["plan"],
+            resident)), flush=True)
 
 
 if __name__ == "__main__":

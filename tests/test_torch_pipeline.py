@@ -161,7 +161,8 @@ def test_port_imports_no_jax(tmp_path):
     their chunks; special mode 2), the planner's CLI and the FITS scripts
     (scripts/torch_pinocchio2fits.py and torch_validate_fits.py on the
     merged files) run without importing jax or any module of the JAX
-    package."""
+    package; and so do two processes of the CLI with the out-of-core
+    engine over 4 CPU shards (each process checks its own modules)."""
     code = (
         "import sys\n"
         "from pinocchio_tpu_torch.config import Params\n"
@@ -238,6 +239,33 @@ def test_port_imports_no_jax(tmp_path):
         "        runpy.run_path('scripts/' + name, run_name='__main__')\n"
         "    except SystemExit as e:\n"
         "        assert not e.code, (name, e.code)\n"
+        "import socket, subprocess\n"
+        "with socket.socket() as sk:\n"
+        "    sk.bind(('localhost', 0))\n"
+        "    port = sk.getsockname()[1]\n"
+        "child = ('import runpy, sys\\n'\n"
+        "         'sys.argv = [\"run\"] + sys.argv[1:]\\n'\n"
+        "         'runpy.run_module(\"pinocchio_tpu_torch.run\", '\n"
+        "         'run_name=\"__main__\")\\n'\n"
+        "         'bad = [m for m in sys.modules if m.split(\".\")[0] in '\n"
+        "         '(\"jax\", \"pinocchio_tpu\")]\\n'\n"
+        "         'assert not bad, bad[:5]\\n'\n"
+        "         'print(\"CHILD NOJAX\")\\n')\n"
+        "od = os.path.join(hd, 'procs')\n"
+        "ppf = os.path.join(od, 'parameter_file')\n"
+        "os.makedirs(od)\n"
+        "open(ppf, 'w').write('GridSize 16\\nBoxSize 16.0\\n')\n"
+        "argv = [sys.executable, '-c', child, ppf, '--norad', '--device',\n"
+        "        'cpu', '--chips', '4', '--hosts', '2', '--coordinator',\n"
+        "        f'localhost:{port}', '--subboxes', '2', '--ooc', 'on',\n"
+        "        '--outdir', od, '--group-timeout', '120']\n"
+        "ps = [subprocess.Popen(argv + ['--host-id', str(h)],\n"
+        "                       stdout=subprocess.PIPE,\n"
+        "                       stderr=subprocess.STDOUT, text=True)\n"
+        "      for h in range(2)]\n"
+        "outs = [p.communicate(timeout=240)[0] for p in ps]\n"
+        "assert all(p.returncode == 0 and 'CHILD NOJAX' in o\n"
+        "           for p, o in zip(ps, outs)), [o[-2000:] for o in outs]\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'pinocchio_tpu'\n"
         "       or m.startswith('pinocchio_tpu.')]\n"
@@ -316,15 +344,15 @@ def test_special_mode_3_refuses_the_out_of_core_engine(tmp_path):
     # case keeps its id from when such a mesh refused the out-of-core
     # engine itself, item 12c), a mesh of more cards than the machine has
     # (this one has none), and several processes with the out-of-core
-    # engine (item 12b-iii) or with fewer shards than processes, both
-    # refused before the group's rendezvous (the two cases keep their ids
-    # from when the CLI refused --hosts itself, item 12b-ii)
+    # engine and the timeless snapshot (item 13) or with fewer shards than
+    # processes, both refused before the group's rendezvous (the two cases
+    # keep their ids from when the CLI refused --hosts itself, item 12b-ii)
     pytest.param(["--chips", "2", "--device", "cpu"], "on",
                  NotImplementedError, "item 13",
                  id="argv0-on-NotImplementedError-item 12c"),
     (["--chips", "4", "--device", "cuda"], "auto", RuntimeError, "CUDA"),
     pytest.param(["--hosts", "2", "--chips", "4", "--device", "cpu"], "on",
-                 NotImplementedError, "item 12b-iii",
+                 NotImplementedError, "item 13",
                  id="argv2-auto-NotImplementedError-item 12b-ii"),
     pytest.param(["--hosts", "2", "--subboxes", "2", "--device", "cpu"],
                  "auto", ValueError, "--chips a multiple",

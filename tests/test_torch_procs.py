@@ -166,11 +166,13 @@ def test_reductions_equal_one_process(group_runs, world, kind):
 def test_traffic_is_counted(group_runs, world):
     """Every kind of collective the worker ran moved bytes through the
     group: the transposes, gathers and sums, and with 2 processes the
-    exchange's route."""
+    exchange's route; none of the out-of-core engine's kinds (x-slab
+    gathers, spectrum pieces, hand-off)."""
     for got in group_runs[world]:
-        (tb, tc), (rb, rc), (gb, gc), (sb, sc) = got["traffic"]
+        (tb, tc), (rb, rc), (gb, gc), (sb, sc), *ooc = got["traffic"]
         assert tb > 0 and tc > 0 and gb > 0 and gc > 0 and sb > 0 and sc > 0
         assert (rb > 0 and rc > 0) == (world == 2)
+        assert len(ooc) == 3 and not np.any(ooc)
 
 
 def test_exchange_equals_one_process(group_runs, products):

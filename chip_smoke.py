@@ -34,9 +34,15 @@
    mode 2's density_field (a library c2r) beside its bound and irfftn;
    holds the 16-bit storage kernels K18 (store) and K19 (load) bit for bit
    to their plain versions in bfloat16 and float16 at the shapes of the
-   ooc_bf16 path (a Hessian kz batch into a stack and a z-rfft slab into a
-   spectrum; an x-slab of a stack and a spectrum's kz batch widened), with
-   their times beside copy_ and .to(float32) (storage_kernels);
+   ooc_bf16 path at 256^3 and 512^3 and of big_bf16 at 1024^3 (a Hessian
+   kz batch into a stack, the kz schedule's one-plane batch and a z-rfft
+   slab into a spectrum; an x-slab of a stack and a spectrum's kz batch
+   widened; at plane 33, over a 3-shard kz window and from its column),
+   with their times one call and back to back beside copy_ and
+   .to(float32), their bounds, the host's enqueue a call beside the
+   library call's, and the stack layout's ceiling for the transposing
+   forms: the larger of the bound and its 64-byte runs alone, stored or
+   read a word a thread, beside K18's own runs alone (storage_kernels);
 4. drives each path through run_pipeline (with the overlapped hand-off,
    its default: the rows stream to the host while the sweep starts on
    their watermark), with the launch counters reset
@@ -198,8 +204,10 @@
    RECOMPUTE at 1024^3, which must refuse the run on host memory before
    any allocation; the fmax phase at 1024^3 with bfloat16 storage
    (big_bf16): its peak within 5 % of the planner's, its wall and needed
-   count beside the float32 run's; the planner's CLI (its main, in this
-   process) on the card's memory (planner_cli); the classic path's catalogs and
+   count beside the float32 run's, K18's and K19's calls by shape and
+   their device time estimated from the storage phase's times; the planner's
+   CLI (its main, in this process) on the card's memory (planner_cli); the
+   classic path's catalogs and
    histories through scripts/torch_pinocchio2fits.py and
    scripts/torch_validate_fits.py (fits);
 8. checks that neither jax nor any module of the JAX package was imported;
@@ -1195,11 +1203,21 @@ def kernel_phases(N, dev, report):
     need(torch.equal(got, want), f"vrows_slab at {N}^3 is not identical to "
          "its plain version")
     in_slab = int((rk >= 0).sum())
+
+    def by_library():
+        # no one PyTorch call scatters by a rank that skips cells: the
+        # selection, its gather and index_copy_ together
+        sel = rk >= 0
+        want.index_copy_(0, rk[sel].long(), comps[:, sel].T)
+
+    lib_ms = time_ms(by_library)
     phase("vrows_slab", (got - want).abs().max().item(), 0.0,
           time_ms(lambda: compact.vrows_slab(rk, comps, got)),
           time_ms(lambda: compact.vrows_slab_plain(rk, comps, want)),
           16 * n_slab + 12 * in_slab, n_slab,
-          extra=f"identical, {in_slab} rows of a [3, {Bx}, {N}, {N}] slab, ")
+          extra=f"identical, {in_slab} rows of a [3, {Bx}, {N}, {N}] slab "
+          f"(no one library call; the mask, gather and index_copy_ "
+          f"{lib_ms:.3f} ms), ")
     del got, want, rank, rk, comps, sd_slab, idx, F0, R0
 
     k6a_path_phase(N, dev, rec, p, cosmo, grid, sm, delta)
@@ -3916,26 +3934,60 @@ def ooc_mesh_big(dev):
     return launches
 
 
-def storage_kernel_phases(N, dev, report):
-    """K18 and K19 at N^3 at the shapes of the ooc_bf16 path, bit for bit
-    their plain versions in both 16-bit types: K18 rounding a Hessian kz
-    batch [6, 16, N, N] into the planes 32..47 of a [6, N, N, Nh, 2] stack
-    (81 of its launches at 256^3; the JSON row) and a z-rfft slab
-    [Bx, N, Nh] into a spectrum's x window (rows); K19 widening an x-slab
-    [6, Bx, N, Nh, 2] of the stack (144 of its launches; the row) and a
-    spectrum's kz batch [1, 16, N, N] (kz).  Each with its time, the plain
-    version's, the one PyTorch call's that does the same work (copy_ with
-    the conversion into the window; .to(float32)) and its bound: 12 bytes
-    a complex value (8 read and 4 written, or 4 and 8) over 3.35 TB/s; and
-    the kernel's time a call 20 back to back (one call's time holds the
-    host's enqueue, which these short kernels do not hide)."""
+def host_us(fns, chunks=20, calls=50):
+    """The host's time to enqueue one call of each fn of fns, us: for each,
+    chunks x calls calls, each chunk's calls back to back with no sync
+    between them and timed on the host's clock, the fns' chunks taken in
+    turns; the card drained between chunks (untimed), so that no call waits
+    for room in the launch queue.  The median over the chunks."""
     import torch
-    from pinocchio_tpu_torch.fmax_ooc import KZ_BATCH, slab_width
+    times = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(chunks):
+        for fn, ts in zip(fns, times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return [1e6 * statistics.median(ts) / calls for ts in times]
+
+
+def storage_kernel_phases(N, dev, report):
+    """K18 and K19 at N^3 at the shapes of the ooc_bf16 path (big_bf16's at
+    BIG_N), bit for bit their plain versions in both 16-bit types: K18
+    rounding a Hessian kz batch [6, 16, N, N] into the planes k..k+15 of a
+    [6, N, N, Nh, 2] stack (the JSON row), the kz schedule's last batch of
+    one plane, and a z-rfft slab [Bx, N, Nh] into a spectrum's x window
+    (rows); K19 widening an x-slab [6, Bx, N, Nh, 2] of the stack (the
+    row), a spectrum's kz batch [1, 16, N, N] and its one-plane batch; then
+    the same at plane 33 (not a multiple of 4: every run 4 bytes past a
+    16-byte boundary), over the kz window of the middle shard of three (43
+    planes at 256^3: its whole kz schedule stored and loaded, its x-slab
+    widened) and rows from that window's column (col0 43 at 256^3).  Each
+    form with its time, one call and a call of 20 back to back (one call's
+    time holds the host's enqueue, which these short kernels do not hide),
+    the plain version's, the one PyTorch call's that does the same work
+    (copy_ with the conversion into the window; .to(float32)) one call and
+    back to back, its bound (12 bytes a complex value, 8 read and 4
+    written or 4 and 8, over 3.35 TB/s), the host's enqueue a call beside
+    the library call's (host_us), and for the transposing forms the
+    layout's ceiling: the larger of the bound and the time of the stack's
+    runs alone, stored or read plainly, a word a thread
+    (storage_runs_probe), beside (stores) the time of K18's own runs alone
+    (its tile, sector fetch and lanes, with no kz batch to read)."""
+    import torch
+    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch.fmax_ooc import (KZ_BATCH, kz_schedule,
+                                              slab_width, split)
     from pinocchio_tpu_torch.ops import storage
 
     rec = report.setdefault(N, {})
-    Nh, B, Bx = N // 2 + 1, KZ_BATCH, slab_width(N)
-    k = min(32, Nh - B)
+    Nh, B, Bx, M = N // 2 + 1, KZ_BATCH, slab_width(N), N * N
+    k, k_odd = min(32, Nh - B), min(33, Nh - B)
+    k0, nkz = split(Nh, 3)[1]
     gen = torch.Generator(device=dev).manual_seed(N)
 
     def values(shape):
@@ -3945,83 +3997,156 @@ def storage_kernel_phases(N, dev, report):
                                          generator=gen))
         return torch.view_as_complex(x)
 
-    def bits16(t):
+    def bits(t):
+        if t.is_complex():
+            return torch.view_as_real(t).view(torch.int32)
         return t.view(torch.int16)
 
-    def bits64(t):
-        return torch.view_as_real(t).view(torch.int32)
+    w, w1, r = values((6, B, N, N)), values((6, 1, N, N)), values((Bx, N, Nh))
+    window = kz_schedule(nkz, B)
+    batches = {b: values((6, b, N, N)) for _, b in window if b != B}
+    batches[B] = w
+    def stored(batch, kk, got, want):
+        storage.store_kz(batch, got, kk)
+        storage.store_kz_plain(batch, want, kk)
+        return torch.equal(bits(got), bits(want))
 
-    w = values((6, B, N, N))
-    r = values((Bx, N, Nh))
-    forms = {}
-    for name, dtype in storage.DTYPES.items():
+    def loaded(stack, kk, b):
+        return torch.equal(bits(storage.load_kz(stack, kk, b)),
+                           bits(storage.load_kz_plain(stack, kk, b)))
+
+    def rows(dst_k, dst_p, col0):
+        storage.store_rows(r, dst_k, col0)
+        storage.store_rows_plain(r, dst_p, col0)
+        return torch.equal(bits(dst_k), bits(dst_p))
+
+    def slab(stack):
+        return torch.equal(bits(storage.load_rows(stack, Bx, Bx)),
+                           bits(storage.load_rows_plain(stack, Bx, Bx)))
+
+    for name in ("float16", "bfloat16"):
+        dtype = storage.DTYPES[name]
         sk = torch.zeros((6, N, N, Nh, 2), dtype=dtype, device=dev)
         sp = torch.zeros_like(sk)
-        storage.store_kz(w, sk, k)
-        storage.store_kz_plain(w, sp, k)
-        ok_kz = torch.equal(bits16(sk), bits16(sp))
-        ck, cp = sk[0, :Bx], sp[0, :Bx].clone()
-        storage.store_rows(r, ck, 0)
-        storage.store_rows_plain(r, cp, 0)
-        ok_rows = torch.equal(bits16(ck), bits16(cp))
-        half = sp[:, Bx:2 * Bx]
-        ok_load = torch.equal(bits64(storage.load_rows(half)),
-                              bits64(storage.load_rows_plain(half)))
-        ok_kzl = torch.equal(bits64(storage.load_kz(sp[:1], k, B)),
-                             bits64(storage.load_kz_plain(sp[:1], k, B)))
-        inf = int(torch.isinf(sp.float()).sum())
-        print(f"  [{N}^3] {name}: K18 kz batch and rows, K19 x-slab and kz "
-              f"batch bit for bit their plain versions: {ok_kz}, {ok_rows}, "
-              f"{ok_load}, {ok_kzl} ({inf} values rounded to inf)",
-              flush=True)
-        need(ok_kz and ok_rows and ok_load and ok_kzl,
-             f"K18 or K19 ({name}) at {N}^3 differ from their plain "
-             "versions")
-        forms[name] = (sk, sp)
-    sk, sp = forms["bfloat16"]
-    half = sp[:, Bx:2 * Bx]
-    spec = sp[:1]
+        ok = {f"K18 kz batch at plane {k}": stored(w, k, sk, sp),
+              f"K18 kz batch at plane {k_odd}": stored(w, k_odd, sk, sp),
+              f"K18 one-plane batch at plane {Nh - 1}": stored(
+                  w1, Nh - 1, sk, sp),
+              "K18 rows": rows(sk[0, :Bx], sp[0, :Bx], 0),
+              "K19 x-slab": slab(sp),
+              f"K19 kz batch at plane {k}": loaded(sp[:1], k, B),
+              f"K19 kz batch at plane {k_odd}": loaded(sp[:1], k_odd, B),
+              f"K19 one-plane batch at plane {Nh - 1}": loaded(
+                  sp[:1], Nh - 1, 1)}
+        wk = torch.zeros((6, N, N, nkz, 2), dtype=dtype, device=dev)
+        wp = torch.zeros_like(wk)
+        ok[f"K18 the {nkz}-plane window's batches "
+           f"{[b for _, b in window]}"] = all(
+               stored(batches[b], a, wk, wp) for a, b in window)
+        ok[f"K19 the {nkz}-plane window's batches"] = all(
+            loaded(wp[:1], a, b) for a, b in window)
+        ok[f"K19 the {nkz}-plane window's x-slab"] = slab(wp)
+        ok[f"K18 rows from column {k0} into {nkz} planes"] = rows(
+            wk[0, :Bx], wp[0, :Bx], k0)
+        del wk, wp
+        inf = sum(int(torch.isinf(x).sum()) for x in sp)
+        print(f"  [{N}^3] {name}: bit for bit the plain versions: "
+              + ", ".join(f"{lab} {v}" for lab, v in ok.items())
+              + f" ({inf} values rounded to inf)", flush=True)
+        need(all(ok.values()), f"K18 or K19 ({name}) at {N}^3 differ from "
+             "their plain versions")
+        if name != "bfloat16":
+            del sk, sp
+            torch.cuda.empty_cache()
+    spec, half = sp[:1], sp[:, Bx:2 * Bx]
     ck, cp = sk[0, :Bx], sp[0, :Bx]
+    probe = kernels.lib().storage_runs_probe
 
-    def timed(fn, plain, library, nelem):
-        nbytes = 12.0 * nelem
-        return (time_ms(fn), time_ms(plain), time_ms(library),
-                bound("storage_store", nbytes, nelem)[0], batch_ms(fn))
+    def runs_ms(stack, load, form):
+        return batch_ms(lambda: kernels.check("storage_runs_probe", probe(
+            stack.data_ptr(), load, form, stack.shape[0], M, B, Nh, k,
+            kernels.stream_ptr(dev))))
 
-    kz = timed(lambda: storage.store_kz(w, sk, k),
-               lambda: storage.store_kz_plain(w, sp, k),
-               lambda: sp[:, :, :, k:k + B].copy_(
-                   torch.view_as_real(w).permute(0, 2, 3, 1, 4)),
-               w.numel())
-    rows = timed(lambda: storage.store_rows(r, ck, 0),
-                 lambda: storage.store_rows_plain(r, cp, 0),
-                 lambda: cp.copy_(torch.view_as_real(r)), r.numel())
-    xs = timed(lambda: storage.load_rows(half),
-               lambda: storage.load_rows_plain(half),
-               lambda: half.to(torch.float32), half.numel() // 2)
-    kzl = timed(lambda: storage.load_kz(spec, k, B),
-                lambda: storage.load_kz_plain(spec, k, B),
-                lambda: spec[:, :, :, k:k + B].permute(0, 3, 1, 2, 4).to(
-                    torch.float32, memory_format=torch.contiguous_format),
-                B * N * N)
-    for name, main, other, what in (
-            ("storage_store", kz, rows, "rows [Bx, N, Nh]"),
-            ("storage_load", xs, kzl, "kz batch [1, 16, N, N]")):
-        record_phase(rec, N, name, 0.0, 0.0, main[0], main[1],
-                     12.0 * (w.numel() if name == "storage_store"
-                             else half.numel() // 2),
-                     w.numel() if name == "storage_store"
-                     else half.numel() // 2, library_ms=main[2],
-                     extra=f"bit for bit (20 calls back to back "
-                     f"{main[4]:.3f} ms a call), ")
-        print(f"  [{N}^3] {name} {what}: kernel {other[0]:.3f} ms (back to "
-              f"back {other[4]:.3f}), plain {other[1]:.3f} ms, library "
-              f"{other[2]:.3f} ms, bound {other[3]:.3f} ms", flush=True)
-        rec[name].update(batch_ms=main[4], other_ms=other[0],
-                         other_batch_ms=other[4], other_plain_ms=other[1],
-                         other_library_ms=other[2], other_bound_ms=other[3],
-                         other=what)
-    del forms, sk, sp, w, r, half, spec, ck, cp
+    def kz_library(batch, kk):
+        view = sp[:, :, :, kk:kk + batch.shape[1]]
+        src = torch.view_as_real(batch).permute(0, 2, 3, 1, 4)
+        return lambda: view.copy_(src)
+
+    def kz_widen(kk, b):
+        view = spec[:, :, :, kk:kk + b].permute(0, 3, 1, 2, 4)
+        return lambda: view.to(torch.float32,
+                               memory_format=torch.contiguous_format)
+
+    # name, form, kernel, plain, library, complex values, the stack of the
+    # runs of 16 planes (None for no such runs)
+    forms = [
+        ("storage_store", "kz batch [6, 16, N, N]",
+         lambda: storage.store_kz(w, sk, k),
+         lambda: storage.store_kz_plain(w, sp, k), kz_library(w, k),
+         w.numel(), sk),
+        ("storage_store", "rows [Bx, N, Nh]",
+         lambda: storage.store_rows(r, ck, 0),
+         lambda: storage.store_rows_plain(r, cp, 0),
+         lambda: cp.copy_(torch.view_as_real(r)), r.numel(), None),
+        ("storage_store", "one plane [6, 1, N, N]",
+         lambda: storage.store_kz(w1, sk, Nh - 1),
+         lambda: storage.store_kz_plain(w1, sp, Nh - 1),
+         kz_library(w1, Nh - 1), w1.numel(), None),
+        ("storage_load", "x-slab [6, Bx, N, Nh]",
+         lambda: storage.load_rows(sk, Bx, Bx),
+         lambda: storage.load_rows_plain(sk, Bx, Bx),
+         lambda: half.to(torch.float32), half.numel() // 2, None),
+        ("storage_load", "kz batch [1, 16, N, N]",
+         lambda: storage.load_kz(spec, k, B),
+         lambda: storage.load_kz_plain(spec, k, B), kz_widen(k, B), B * M,
+         spec),
+        ("storage_load", "one plane [1, 1, N, N]",
+         lambda: storage.load_kz(spec, Nh - 1, 1),
+         lambda: storage.load_kz_plain(spec, Nh - 1, 1), kz_widen(Nh - 1, 1),
+         M, None),
+    ]
+    out = {}
+    for name, form, fn, plain, library, nelem, runs in forms:
+        host, host_lib = host_us((fn, library))
+        t = dict(nelem=nelem, ms=time_ms(fn), batch_ms=batch_ms(fn),
+                 plain_ms=time_ms(plain), library_ms=time_ms(library),
+                 library_batch_ms=batch_ms(library),
+                 bound_ms=bound(name, 12.0 * nelem, nelem)[0],
+                 host_us=host, library_host_us=host_lib)
+        line = ""
+        if runs is not None:
+            load = name == "storage_load"
+            t["runs_ms"] = runs_ms(runs, int(load), 0)
+            t["ceiling_ms"] = max(t["runs_ms"], t["bound_ms"])
+            line = (f"; the layout's ceiling {t['ceiling_ms']:.3f} ms (the "
+                    f"runs alone, {'read' if load else 'stored'} a word a "
+                    f"thread, back to back {t['runs_ms']:.3f} ms; back to "
+                    f"back {t['batch_ms'] / t['ceiling_ms']:.2f}x it)")
+            if not load:
+                t["own_runs_ms"] = runs_ms(runs, 0, 1)
+                line += (f"; K18's own runs alone {t['own_runs_ms']:.3f} "
+                         f"ms (back to back "
+                         f"{t['batch_ms'] / t['own_runs_ms']:.2f}x them)")
+        print(f"  [{N}^3] {'K18' if name == 'storage_store' else 'K19'} "
+              f"{form}: one call {t['ms']:.3f} ms, back to back "
+              f"{t['batch_ms']:.3f}; library {t['library_ms']:.3f}, back to "
+              f"back {t['library_batch_ms']:.3f}; plain {t['plain_ms']:.3f};"
+              f" bound {t['bound_ms']:.4f} ms (bytes; back to back "
+              f"{t['batch_ms'] / t['bound_ms']:.2f}x){line}; host "
+              f"{t['host_us']:.1f} us a call, library "
+              f"{t['library_host_us']:.1f} us", flush=True)
+        out[f"{name} {form}"] = t
+    for name, form in (("storage_store", "kz batch [6, 16, N, N]"),
+                       ("storage_load", "x-slab [6, Bx, N, Nh]")):
+        t = out[f"{name} {form}"]
+        record_phase(rec, N, name, 0.0, 0.0, t["ms"], t["plain_ms"],
+                     12.0 * t["nelem"], t["nelem"],
+                     library_ms=t["library_ms"], extra=f"bit for bit, {form}"
+                     f" (back to back {t['batch_ms']:.3f} ms a call), ")
+        rec[name]["forms"] = {f: v for f, v in out.items()
+                              if f.startswith(name)}
+    KEPT.setdefault("storage16", {}).setdefault("kernels", {})[N] = out
+    del sk, sp, w, w1, r, batches, half, spec, ck, cp, forms
     torch.cuda.empty_cache()
 
 
@@ -4094,12 +4219,12 @@ def ooc16_checks(dev, p, res, wall):
           f"{po['peak'] / GiB:.3f} GiB ({po['phase']}):\n"
           + _phase_table(peaks, po["phases"]), flush=True)
     need(same, "ooc_bf16: the fmax phase alone gave another Fmax")
-    KEPT["storage16"] = dict(path=dict(
+    KEPT.setdefault("storage16", {})["path"] = dict(
         wall_s=wall, fmax_s=t_fmax, halos=halos, needed=len(sp.ci),
         needed_f32=len(sp32.ci), peaks_gib={k: v / GiB
                                             for k, v in peaks.items()},
         planner_gib={k: sum(v.values()) / GiB
-                     for k, v in po["phases"].items()}, **st))
+                     for k, v in po["phases"].items()}, **st)
     del one
 
 
@@ -4191,7 +4316,9 @@ def ooc_mesh16_phase(dev):
     KEPT["ooc_mesh_bf16"] = products_digest(
         res.products.gather()[0], res.smoothing.true_variance, res.pdf_hist,
         res.host_products)
-    print(f"  launches: { {k: v for k, v in launches.items() if v} }",
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }; "
+          "SHA-256 of the products: " + ", ".join(
+              f"{k} {v[:16]}" for k, v in KEPT["ooc_mesh_bf16"].items()),
           flush=True)
     missing = sorted(k for k in OOC16 if not launches[k])
     stray = sorted(k for k, v in launches.items() if v and k not in OOC16)
@@ -4205,12 +4332,75 @@ def ooc_mesh16_phase(dev):
     return launches
 
 
+# K18's and K19's wrappers (ops/storage.py): the shape each call moves
+STORAGE_SHAPES = {
+    "store_kz": lambda batch, stack, k: tuple(batch.shape),
+    "store_rows": lambda src, dst, col0: tuple(dst.shape[:-1]),
+    "load_kz": lambda stack, k, B: (stack.shape[0], B)
+    + tuple(stack.shape[1:3]),
+    "load_rows": lambda src, x0, Bx: (src.shape[0], Bx)
+    + tuple(src.shape[2:-1])}
+
+
+def storage_tallied(run):
+    """run() with K18's and K19's wrappers tallied by form and shape:
+    returns (its result, {(form, shape): calls})."""
+    import threading
+
+    from pinocchio_tpu_torch.ops import storage
+    tally, lock, saved = {}, threading.Lock(), {}
+
+    def counted(form, fn):
+        def call(*a):
+            key = (form, STORAGE_SHAPES[form](*a))
+            with lock:
+                tally[key] = tally.get(key, 0) + 1
+            return fn(*a)
+        return call
+
+    for form in STORAGE_SHAPES:
+        saved[form] = getattr(storage, form)
+        setattr(storage, form, counted(form, saved[form]))
+    try:
+        out = run()
+    finally:
+        for form, fn in saved.items():
+            setattr(storage, form, fn)
+    return out, tally
+
+
+def storage_estimate(tally, forms):
+    """K18's and K19's device time in a run, estimated, ms: each tallied
+    call at the back-to-back time of the storage phase's form of its kind
+    (forms: KEPT["storage16"]["kernels"][N]), scaled by its complex
+    values; {(form, shape): (calls, ms)}."""
+    def measured(form, shape):
+        if form == "store_kz":
+            return forms["storage_store kz batch [6, 16, N, N]" if shape[1] > 1
+                         else "storage_store one plane [6, 1, N, N]"]
+        if form == "store_rows":
+            return forms["storage_store rows [Bx, N, Nh]"]
+        if form == "load_rows":
+            return forms["storage_load x-slab [6, Bx, N, Nh]"]
+        return forms["storage_load kz batch [1, 16, N, N]" if shape[1] > 1
+                     else "storage_load one plane [1, 1, N, N]"]
+    out = {}
+    for (form, shape), n in tally.items():
+        t = measured(form, shape)
+        out[(form, shape)] = (n, n * t["batch_ms"] * math.prod(shape)
+                              / t["nelem"])
+    return out
+
+
 def big16(dev):
     """The fmax phase at BIG_N with bfloat16 storage (ooc='on'): each
     phase's peak beside the planner's 16-bit map, the overall peak within
     5 % of the planner's (the needed sort), the wall and the needed count
     beside the float32 big run's (ooc_fmax_phase at BIG_N, when it ran
-    first; within 1e-3 N^3); the launch set OOC16."""
+    first; within 1e-3 N^3); the launch set OOC16; K18's and K19's calls
+    by form and shape (storage_tallied), and their device time estimated
+    from the storage phase's times at BIG_N when it ran first
+    (storage_estimate)."""
     import gc
 
     import numpy as np
@@ -4225,19 +4415,40 @@ def big16(dev):
     gc.collect()
     torch.cuda.empty_cache()
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    with host_peak() as host:
+
+    def run():
+        t0 = time.perf_counter()
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=True,
                                     trace_memory=True)
         t_ret = time.perf_counter() - t0
         res.ooc_pending.join()
-    wall = time.perf_counter() - t0
+        return res, t_ret, time.perf_counter() - t0
+
+    with host_peak() as host:
+        (res, t_ret, wall), tally = storage_tallied(run)
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
     peak, pred = max(peaks.values()), rep["device_bytes"]
     sp = res.host_products
     count = len(sp.ci)
     f32 = KEPT.get("big_classic")
+    forms = KEPT.get("storage16", {}).get("kernels", {}).get(BIG_N)
+    est = storage_estimate(tally, forms) if forms else {}
+    line = "  K18 and K19 calls by form and shape"
+    if est:
+        line += " (device ms estimated at the storage phase's back-to-back "
+        line += "times)"
+    line += ": " + ", ".join(
+        f"{form} {list(shape)} x{n}"
+        + (f" {est[(form, shape)][1]:.1f} ms" if est else "")
+        for (form, shape), n in sorted(tally.items()))
+    if est:
+        ms = {kind: sum(v[1] for (form, _), v in est.items()
+                        if form.startswith(kind)) for kind in ("store", "load")}
+        line += (f"; in all K18 {ms['store']:.1f} ms and K19 "
+                 f"{ms['load']:.1f} ms against fmax_loop "
+                 f"{1e3 * res.timings.get('fmax_loop', float('nan')):.1f} ms")
+    print(line, flush=True)
     print(f"  {BIG_N}^3 bfloat16 out-of-core fmax: {wall:.2f} s wall "
           f"(returned after {t_ret:.2f} s)"
           + (f", float32 {f32['wall_s']:.2f} s" if f32 else "")
@@ -4270,7 +4481,11 @@ def big16(dev):
         planner_gib=pred / GiB, count=count,
         count_f32=None if f32 is None else f32["count"],
         peaks_gib={k: v / GiB for k, v in peaks.items()},
-        timings=res.timings)
+        timings=res.timings,
+        storage_calls={f"{form} {list(shape)}": n
+                       for (form, shape), n in tally.items()},
+        storage_estimate_ms={f"{form} {list(shape)}": v[1]
+                             for (form, shape), v in est.items()})
     del res, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -4424,6 +4639,10 @@ def main(argv=None) -> int:
             if wanted("kernels") or wanted("storage_kernels"):
                 section(f"the 16-bit storage kernels K18, K19 at {N}^3:")
                 storage_kernel_phases(N, dev, report)
+        if wanted("kernels") or wanted("storage_kernels"):
+            section(f"the 16-bit storage kernels K18, K19 at big_bf16's "
+                    f"{BIG_N}^3 shapes:")
+            storage_kernel_phases(BIG_N, dev, report)
         if wanted("kernels"):
             c2r_check(dev)
         paths = {}

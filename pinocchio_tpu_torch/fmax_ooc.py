@@ -429,16 +429,18 @@ class OocMesh:
             x0 = steps[me][j]
             o = self.owner[x0 // Bx]
             with kernels.on_device(self.devices[o]):
-                pieces = [stacks[i][:, x0:x0 + Bx].to(self.devices[o])
-                          if self.rank_of[i] == me
-                          else next(got[self.rank_of[i]])
-                          for i in range(self.p)]
+                if self.p == 1:
+                    stack, x = stacks[0], x0
+                else:
+                    stack, x = torch.cat(
+                        [stacks[i][:, x0:x0 + Bx].to(self.devices[o])
+                         if self.rank_of[i] == me
+                         else next(got[self.rank_of[i]])
+                         for i in range(self.p)], dim=kz), 0
                 del got
-                half = pieces[0] if self.p == 1 else torch.cat(pieces,
-                                                                dim=kz)
-                del pieces
-                if not half.is_complex():
-                    half = storage.load_rows(half)
+                half = (stack[:, x:x + Bx] if stack.is_complex()
+                        else storage.load_rows(stack, x, Bx))
+                del stack
                 real = torch.fft.irfft(half, n=self.N, dim=-1).contiguous()
                 del half
                 yield o, x0 - self.x_blocks[o][0], real

@@ -197,9 +197,15 @@ _SIGNATURES = {
     # spheres, sphere_host, ns, block[6] (host), N, pad_boxes, pad_off,
     # t0_boxes, t0_off, rmax, map, stream
     "exchange_paint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
-    # src, dst, kind, transpose, C, A, B, sc, sa, dc, da, stream
-    "storage_store": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _P],
-    "storage_load": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _P],
+    # K18, K19 transposing: src, dst, kind, C, M, B, W, k, stream
+    "storage_store_kz": [_P, _P, _I, _L, _L, _L, _L, _L, _P],
+    "storage_load_kz": [_P, _P, _I, _L, _L, _L, _L, _L, _P],
+    # K18 straight: src, dst, kind, A, W, Ws, col0, stream
+    "storage_store_rows": [_P, _P, _I, _L, _L, _L, _L, _P],
+    # K19 straight: src, dst, kind, C, n, sc, stream
+    "storage_load_rows": [_P, _P, _I, _L, _L, _L, _P],
+    # the stack layout's runs alone: buf, load, form, C, M, B, W, k, stream
+    "storage_runs_probe": [_P, _I, _I, _L, _L, _L, _L, _L, _P],
 }
 
 
@@ -276,14 +282,18 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            so = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            so.host_alloc.restype = ctypes.c_void_p
-            _LIB = so
+            _LIB = bind(ctypes.CDLL(build()))
         return _LIB
+
+
+def bind(so: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Declare the argument and result types of so's entry points (those
+    of _SIGNATURES, or the named ones)."""
+    for name in names or _SIGNATURES:
+        fn = getattr(so, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_void_p if name == "host_alloc" else ctypes.c_int
+    return so
 
 
 # page-locked allocations are rounded up to a multiple of the host's 2 MiB

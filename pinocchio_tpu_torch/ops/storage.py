@@ -11,12 +11,17 @@ a window of it back to complex64, exactly.  ``*_kz`` move a kz batch
 planes k..k+B-1, transposing; ``*_rows`` move rows whose kz axis is last.
 The wrappers launch the kernels of ``csrc/storage.cu`` on CUDA tensors and
 run the plain PyTorch versions on CPU tensors.
+
+The engine issues these launches one at a time between cuFFT calls, so a
+wrapper's host time is part of each call: the four C entry points are
+looked up once (``_entry``) and called with plain ints (their ctypes
+argtypes declared in ``kernels``), the C side checks the alignment its
+kernel's form depends on, and the launch goes to the current stream, read
+at every call through torch's raw-stream query (a stream kept from an
+earlier call would miss a ``torch.cuda.stream`` context).
 """
 
 from __future__ import annotations
-
-import ctypes
-import math
 
 import torch
 
@@ -24,39 +29,44 @@ from .. import kernels
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _KIND = {torch.bfloat16: 0, torch.float16: 1}
+_C64 = torch.complex64
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _kind(name, t):
-    if t.dtype not in _KIND or t.shape[-1] != 2:
+def _kind(name, t, shape):
+    kind = _KIND.get(t.dtype)
+    if kind is None or shape[-1] != 2:
         raise ValueError(f"{name}: (re, im) pairs of bfloat16 or float16 "
-                         f"expected, got {t.dtype} {tuple(t.shape)}")
-    return _KIND[t.dtype]
+                         f"expected, got {t.dtype} {tuple(shape)}")
+    return kind
 
 
-def _launch(name, src, dst, kind, transpose, dims, src_off=0, dst_off=0):
-    """One launch of K18 (name storage_store) or K19 (storage_load): dims
-    (C, A, B, sc, sa, dc, da) in complex values, the pointers advanced by
-    src_off and dst_off bytes, each aligned to its element (8 bytes for
-    complex64, 4 for a pair)."""
-    sp, dp = src.data_ptr() + src_off, dst.data_ptr() + dst_off
-    for p, t in ((sp, src), (dp, dst)):
-        if p % (8 if t.is_complex() else 4):
-            raise ValueError(f"{name}: a misaligned window")
-    err = getattr(kernels.lib(), name)(
-        sp, dp, kind, int(transpose), *(ctypes.c_int64(int(d)) for d in dims),
-        kernels.stream_ptr(src.device))
-    kernels.check(name, err)
+_ENTRY = None
+
+
+def _entry():
+    """K18's and K19's C entry points, store_kz, store_rows, load_kz and
+    load_rows, looked up in the kernel library once."""
+    global _ENTRY
+    if _ENTRY is None:
+        so = kernels.lib()
+        _ENTRY = (so.storage_store_kz, so.storage_store_rows,
+                  so.storage_load_kz, so.storage_load_rows)
+    return _ENTRY
+
+
+def _stream(dev: int):
+    """The current stream of card dev."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _done(name, err):
+    """After a launch: raise on its cudaError_t, else count it."""
+    if err:
+        kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
-
-
-def _check_batch(name, batch, stack):
-    if batch.dtype != torch.complex64 or batch.dim() != 4 or stack.dim() != 5:
-        raise ValueError(f"{name}: a complex64 batch [C, B, N, N] and a stack "
-                         "[C, N, N, W, 2] expected")
-    C, B, n1, n2 = batch.shape
-    if tuple(stack.shape[:3]) != (C, n1, n2):
-        raise ValueError(f"{name}: batch {tuple(batch.shape)} does not fit "
-                         f"the stack {tuple(stack.shape)}")
 
 
 def store_kz_plain(batch, stack, k: int):
@@ -70,19 +80,29 @@ def store_kz_plain(batch, stack, k: int):
 def store_kz(batch, stack, k: int):
     """K18, transposing: the complex64 kz batch [C, B, N, N] rounded into
     the planes k..k+B-1 of the 16-bit stack [C, N, N, W, 2], IN PLACE."""
-    _check_batch("storage_store", batch, stack)
-    kind = _kind("storage_store", stack)
-    C, B = batch.shape[:2]
-    W = stack.shape[3]
+    bs, ss = batch.shape, stack.shape
+    kind = _kind("storage_store", stack, ss)
+    if batch.dtype != _C64 or len(bs) != 4 or len(ss) != 5:
+        raise ValueError("storage_store: a complex64 batch [C, B, N, N] and "
+                         "a stack [C, N, N, W, 2] expected")
+    C, B, n1, n2 = bs
+    if ss[0] != C or ss[1] != n1 or ss[2] != n2:
+        raise ValueError(f"storage_store: batch {tuple(bs)} does not fit "
+                         f"the stack {tuple(ss)}")
+    W = ss[3]
     if not 0 <= k <= k + B <= W:
         raise ValueError(f"storage_store: planes {k}..{k + B - 1} outside "
                          f"the stack's {W}")
-    if not kernels.plain_or_kernel("storage_store", batch):
+    dev = batch.get_device()
+    if dev < 0:
+        kernels.plain_or_kernel("storage_store", batch)
         return store_kz_plain(batch, stack, k)
-    kernels.require_cuda("storage_store", batch, stack)
-    M = batch.shape[2] * batch.shape[3]
-    _launch("storage_store", batch, stack, kind, True,
-            (C, M, B, B * M, M, M * W, W), dst_off=4 * k)
+    if not (stack.get_device() == dev and batch.is_contiguous()
+            and stack.is_contiguous()):
+        kernels.require_cuda("storage_store", batch, stack)
+    _done("storage_store", _entry()[0](
+        batch.data_ptr(), stack.data_ptr(), kind, C, n1 * n2, B, W, k,
+        _stream(dev)))
     return stack
 
 
@@ -97,19 +117,24 @@ def store_rows(src, dst, col0: int):
     """K18, straight: columns col0..col0+W-1 of the complex64 rows src
     [..., Ws] rounded into the 16-bit dst [..., W, 2] (the same leading
     shape), IN PLACE."""
-    kind = _kind("storage_store", dst)
-    W, Ws = dst.shape[-2], src.shape[-1]
-    if (src.dtype != torch.complex64 or src.shape[:-1] != dst.shape[:-2]
+    ss, ds = src.shape, dst.shape
+    kind = _kind("storage_store", dst, ds)
+    W, Ws = ds[-2], ss[-1]
+    if (src.dtype != _C64 or ss[:-1] != ds[:-2]
             or not 0 <= col0 <= col0 + W <= Ws):
-        raise ValueError(f"storage_store: rows {tuple(src.shape)} "
-                         f"{src.dtype} do not fit {tuple(dst.shape)} at "
+        raise ValueError(f"storage_store: rows {tuple(ss)} "
+                         f"{src.dtype} do not fit {tuple(ds)} at "
                          f"column {col0}")
-    if not kernels.plain_or_kernel("storage_store", src):
+    dev = src.get_device()
+    if dev < 0:
+        kernels.plain_or_kernel("storage_store", src)
         return store_rows_plain(src, dst, col0)
-    kernels.require_cuda("storage_store", src, dst)
-    A = math.prod(src.shape[:-1])
-    _launch("storage_store", src, dst, kind, False, (1, A, W, 0, Ws, 0, W),
-            src_off=8 * col0)
+    if not (dst.get_device() == dev and src.is_contiguous()
+            and dst.is_contiguous()):
+        kernels.require_cuda("storage_store", src, dst)
+    _done("storage_store", _entry()[1](
+        src.data_ptr(), dst.data_ptr(), kind, src.numel() // Ws if Ws else 0,
+        W, Ws, col0, _stream(dev)))
     return dst
 
 
@@ -122,45 +147,52 @@ def load_kz_plain(stack, k: int, B: int):
 def load_kz(stack, k: int, B: int):
     """K19, transposing: the planes k..k+B-1 of the 16-bit stack
     [C, N, N, W, 2] as a complex64 kz batch [C, B, N, N]."""
-    kind = _kind("storage_load", stack)
-    if stack.dim() != 5:
+    ss = stack.shape
+    kind = _kind("storage_load", stack, ss)
+    if len(ss) != 5:
         raise ValueError("storage_load: a stack [C, N, N, W, 2] expected")
-    C, n1, n2, W = stack.shape[:4]
+    C, n1, n2, W = ss[0], ss[1], ss[2], ss[3]
     if not 0 <= k <= k + B <= W:
         raise ValueError(f"storage_load: planes {k}..{k + B - 1} outside "
                          f"the stack's {W}")
-    if not kernels.plain_or_kernel("storage_load", stack):
+    dev = stack.get_device()
+    if dev < 0:
+        kernels.plain_or_kernel("storage_load", stack)
         return load_kz_plain(stack, k, B)
-    kernels.require_cuda("storage_load", stack)
-    out = torch.empty((C, B, n1, n2), dtype=torch.complex64,
-                      device=stack.device)
-    M = n1 * n2
-    _launch("storage_load", stack, out, kind, True,
-            (C, B, M, M * W, W, B * M, M), src_off=4 * k)
+    if not stack.is_contiguous():
+        kernels.require_cuda("storage_load", stack)
+    out = stack.new_empty((C, B, n1, n2), dtype=_C64)
+    _done("storage_load", _entry()[2](
+        stack.data_ptr(), out.data_ptr(), kind, C, n1 * n2, B, W, k,
+        _stream(dev)))
     return out
 
 
-def load_rows_plain(src):
+def load_rows_plain(src, x0: int, Bx: int):
     """Plain version of load_rows."""
-    return torch.view_as_complex(src.to(
+    return torch.view_as_complex(src[:, x0:x0 + Bx].to(
         torch.float32, memory_format=torch.contiguous_format))
 
 
-def load_rows(src):
-    """K19, straight: the 16-bit src [C, ..., W, 2] (each src[c]
-    contiguous, as an x-slab of a stack is) as complex64 [C, ..., W]."""
-    kind = _kind("storage_load", src)
-    if src.dim() < 3:
-        raise ValueError("storage_load: rows [C, ..., W, 2] expected")
-    if not kernels.plain_or_kernel("storage_load", src):
-        return load_rows_plain(src)
-    if not src[0].is_contiguous() or src.stride(0) % 2:
-        raise ValueError("storage_load: each src[c] must be contiguous")
-    kernels.require_cuda("storage_load", src[0])
-    C, W = src.shape[0], src.shape[-2]
-    A = math.prod(src.shape[1:-2])
-    out = torch.empty(src.shape[:-1], dtype=torch.complex64,
-                      device=src.device)
-    _launch("storage_load", src, out, kind, False,
-            (C, A, W, src.stride(0) // 2, W, A * W, W))
+def load_rows(src, x0: int, Bx: int):
+    """K19, straight: the x window x0..x0+Bx-1 of the contiguous 16-bit
+    src [C, X, ..., W, 2] (a stack, or an x-slab gathered from a stack's kz
+    pieces) as complex64 [C, Bx, ..., W]."""
+    ss = src.shape
+    kind = _kind("storage_load", src, ss)
+    if len(ss) < 3 or not 0 <= x0 <= x0 + Bx <= ss[1]:
+        raise ValueError(f"storage_load: rows [C, X, ..., W, 2] with x "
+                         f"{x0}..{x0 + Bx - 1} expected, got {tuple(ss)}")
+    dev = src.get_device()
+    if dev < 0:
+        kernels.plain_or_kernel("storage_load", src)
+        return load_rows_plain(src, x0, Bx)
+    if not src.is_contiguous():
+        kernels.require_cuda("storage_load", src)
+    C, X = ss[0], ss[1]
+    out = src.new_empty((C, Bx) + ss[2:-1], dtype=_C64)
+    row = src.numel() // (2 * C * X) if C * X else 0
+    _done("storage_load", _entry()[3](
+        src.data_ptr() + 4 * x0 * row, out.data_ptr(), kind, C, Bx * row,
+        X * row, _stream(dev)))
     return out

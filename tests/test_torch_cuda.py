@@ -42,7 +42,8 @@ exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap.
 K18 and K19 (the out-of-core engine's 16-bit stores and loads) equal their
-plain versions bit for bit in bfloat16 and float16.
+plain versions bit for bit in bfloat16 and float16 at N = 50 and 64, in
+every form and alignment the kernels distinguish.
 K1 is also held bit for bit (an int32 view of both parts, so a signed
 zero equals only itself) at 32^3, 48^3 and 96^3 with and without FixedIC
 and PairedIC; K1s on windows with odd y0 and ny and with padded planes;
@@ -928,7 +929,8 @@ def test_overlapped_handoff_on_the_card(dev, setup):
         _meta((4, 5), torch.complex64), _meta((4, 3, 2)), 1)),
     ("storage_load", lambda t: storage.load_kz(_meta((1, 4, 4, 3, 2)), 0,
                                                2)),
-    ("storage_load", lambda t: storage.load_rows(_meta((2, 4, 3, 2)))),
+    ("storage_load", lambda t: storage.load_rows(_meta((2, 4, 3, 2)), 0,
+                                                 4)),
 ])
 def test_wrappers_refuse_other_devices(name, fn):
     """A wrapper takes the plain version only for a CPU tensor: any other
@@ -941,18 +943,38 @@ def _meta(shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+def _shifted(t, nbytes):
+    """A contiguous copy of t whose data starts nbytes past a 16-byte
+    boundary."""
+    step = t.element_size()
+    buf = torch.empty(t.numel() + 16 // step, dtype=t.dtype, device=t.device)
+    out = buf[nbytes // step:nbytes // step + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_storage_kernels(dev, dtype):
-    """K18 and K19 exactly their plain versions at N = 50 (ragged tiles of
-    64 cells by 16 planes), on Gaussian values over some 25 binary orders of
-    magnitude (float16 overflows on some, as the plain version does): a kz
-    batch of 10 planes into planes 3..12 of a stack, z-rfft rows into a
-    spectrum's window from column 2, an x-slab of the stack widened, the
-    same slab gathered from three kz pieces (the mesh's concatenation),
-    and a spectrum's kz batch widened."""
+def test_storage_kernels(dev, dtype, n):
+    """K18 and K19 exactly their plain versions at n = 50 and 64 (ragged
+    tiles of 128 cells), on Gaussian values over some 25 binary orders of
+    magnitude (float16 overflows on some, as the plain version does), in
+    every form the engine takes and at every alignment: kz batches of 10,
+    16 and 16 planes into a stack at planes 3, 4 and 5 (runs 12, 0 and 4
+    bytes into the 16-byte grid), of one plane at its last, and of 16
+    planes from a batch 8 bytes off the grid; a 43-plane window (a 3-shard
+    kz window at 256^3) filled and read by its schedule 16, 16, 11; z-rfft
+    rows whole, from column 2 into 20 planes and from the middle shard's
+    window, into destinations on and 4 bytes off the grid; an x-slab of the
+    stack (also 4 bytes off the grid) and of the window widened, the same
+    slab gathered from three kz pieces (the mesh's concatenation) and 4
+    bytes off the grid; a
+    spectrum's kz batches of 9 planes at 5, 16 at 4 and 5, and 1 at its
+    last widened."""
+    from pinocchio_tpu_torch.fmax_ooc import split
     gen = torch.Generator(device=dev).manual_seed(3)
-    Nh = N // 2 + 1
+    nh = n // 2 + 1
 
     def values(shape):
         x = torch.randn(shape + (2,), device=dev, generator=gen)
@@ -964,26 +986,54 @@ def test_storage_kernels(dev, dtype):
         return (torch.view_as_real(t) if t.is_complex() else t).view(
             torch.int16)
 
-    w = values((3, 10, N, N))
-    got = torch.zeros((3, N, N, Nh, 2), dtype=dtype, device=dev)
-    want = got.clone()
-    _launched("storage_store", lambda: storage.store_kz(w, got, 3))
-    storage.store_kz_plain(w, want, 3)
-    assert torch.equal(bits(got), bits(want))
-    r = values((5, N, Nh))
-    got_r = torch.zeros((5, N, 20, 2), dtype=dtype, device=dev)
-    want_r = got_r.clone()
-    _launched("storage_store", lambda: storage.store_rows(r, got_r, 2))
-    storage.store_rows_plain(r, want_r, 2)
-    assert torch.equal(bits(got_r), bits(want_r))
-    slab = want[:, 7:12]
-    a = _launched("storage_load", lambda: storage.load_rows(slab))
-    assert torch.equal(bits(a), bits(storage.load_rows_plain(slab)))
-    pieces = torch.cat([want[:, 7:12, :, k0:k1] for k0, k1 in
-                        ((0, 9), (9, 18), (18, Nh))], dim=-2)
-    assert torch.equal(bits(storage.load_rows(pieces)), bits(a))
-    b = _launched("storage_load", lambda: storage.load_kz(want[1:2], 5, 9))
-    assert torch.equal(bits(b), bits(storage.load_kz_plain(want[1:2], 5, 9)))
+    def stored(batch, stack, k):
+        want = stack.clone()
+        _launched("storage_store", lambda: storage.store_kz(batch, stack, k))
+        storage.store_kz_plain(batch, want, k)
+        assert torch.equal(bits(stack), bits(want))
+
+    def loaded(stack, k, B):
+        got = _launched("storage_load", lambda: storage.load_kz(stack, k, B))
+        assert torch.equal(bits(got), bits(storage.load_kz_plain(stack, k,
+                                                                 B)))
+
+    def widened(src, x0, Bx, want=None):
+        got = _launched("storage_load", lambda: storage.load_rows(src, x0,
+                                                                  Bx))
+        if want is None:
+            want = storage.load_rows_plain(src, x0, Bx)
+        assert torch.equal(bits(got), bits(want))
+        return got
+
+    stack = torch.zeros((3, n, n, nh, 2), dtype=dtype, device=dev)
+    for B, k in ((10, 3), (16, 4), (16, 5), (1, nh - 1)):
+        stored(values((3, B, n, n)), stack, k)
+    stored(_shifted(values((3, 16, n, n)), 8), stack, 7)
+    window = torch.zeros((2, n, n, 43, 2), dtype=dtype, device=dev)
+    for k, B in ((0, 16), (16, 16), (32, 11)):
+        stored(values((2, B, n, n)), window, k)
+        loaded(window[1:2], k, B)
+    widened(window, 3, 2)
+
+    r = values((5, n, nh))
+    k0, nkz = split(nh, 3)[1]
+    for W, col0, off in ((nh, 0, 0), (nh, 0, 4), (20, 2, 0), (20, 2, 4),
+                         (nkz, k0, 4)):
+        dst = _shifted(torch.zeros((5, n, W, 2), dtype=dtype, device=dev),
+                       off)
+        want = dst.clone()
+        _launched("storage_store", lambda: storage.store_rows(r, dst, col0))
+        storage.store_rows_plain(r, want, col0)
+        assert torch.equal(bits(dst), bits(want))
+
+    a = widened(stack, 7, 5)
+    pieces = torch.cat([stack[:, 7:12, :, z0:z1] for z0, z1 in
+                        ((0, 9), (9, 18), (18, nh))], dim=-2)
+    widened(pieces, 0, 5, a)
+    widened(_shifted(pieces, 4), 0, 5, a)
+    widened(_shifted(stack, 4), 7, 5, a)
+    for k, B in ((5, 9), (4, 16), (5, 16), (nh - 1, 1)):
+        loaded(stack[1:2], k, B)
 
 
 def exchange_case(N, nhosts, seed=0):

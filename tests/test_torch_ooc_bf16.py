@@ -168,10 +168,78 @@ def test_spectrum_rounding_and_widening_are_jax_bits(dt, jax_engine):
     got = storage.load_kz(spec[None], kz0, B)[0].numpy()
     np.testing.assert_array_equal(got, np.asarray(jeng._read_spec(
         jspec, kz0, B)))
-    slab = storage.load_rows(spec[None, 8:12])[0]
+    slab = storage.load_rows(spec[None], 8, 4)[0]
     np.testing.assert_array_equal(
         torch.view_as_real(slab).view(torch.int32).numpy(),
         spec[8:12].float().view(torch.int32).numpy())
+
+
+# the kz window of the middle shard of three at 256^3 (43 planes) with its
+# kz schedule, a batch at plane 5 (not a multiple of 4) and the one-plane
+# batch of a schedule's end, at a small (x, y)
+WINDOW = 43
+WINDOW_BATCHES = ((0, 16), (16, 16), (32, 11), (5, 16), (WINDOW - 1, 1))
+
+
+def _jax_pairs(x, dt):
+    """The bits of the JAX package's astype of complex64 x as (re, im)
+    pairs [..., 2] of the 16-bit type dt."""
+    jx = jnp.asarray(x)
+    return _bits(jnp.stack([jnp.real(jx), jnp.imag(jx)], -1).astype(
+        JDTYPES[dt]))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_stores_at_odd_windows_are_jax_astype(dt):
+    """K18's plain versions at the forms whose kernels take other paths:
+    the batches of a 43-plane kz window (16, 16, 11 planes), a batch at
+    plane 5 and a one-plane batch into a [2, 8, 8, 43, 2] stack, and
+    z-rfft rows whole and from column 43 into 43 planes, bit for bit the
+    JAX package's astype of the same numpy values."""
+    rng = np.random.default_rng(7)
+    n = 8
+    stack = torch.zeros((2, n, n, WINDOW, 2), dtype=storage.DTYPES[dt])
+    want = np.zeros(stack.shape, np.uint16)
+    for a, B in WINDOW_BATCHES:
+        batch = _values(rng, (2, B, n, n))
+        storage.store_kz_plain(torch.from_numpy(batch), stack, a)
+        want[:, :, :, a:a + B] = _jax_pairs(batch, dt).transpose(0, 2, 3, 1,
+                                                                 4)
+        np.testing.assert_array_equal(_bits(stack), want)
+    r = _values(rng, (3, n, 3 * WINDOW))
+    for col0, W in ((0, 3 * WINDOW), (WINDOW, WINDOW)):
+        dst = torch.zeros((3, n, W, 2), dtype=storage.DTYPES[dt])
+        storage.store_rows_plain(torch.from_numpy(r), dst, col0)
+        np.testing.assert_array_equal(
+            _bits(dst), _jax_pairs(r[..., col0:col0 + W], dt))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_loads_at_odd_windows_are_jax_astype(dt):
+    """K19's plain versions at the same windows of a stack of 16-bit
+    patterns (all but NaNs and subnormals, which XLA's CPU flushes), and
+    an x-slab of it, bit for bit the JAX package's astype to float32 of
+    the same pairs (compared part by part: JAX's re + 1j * im would take
+    the infinities to NaN)."""
+    rng = np.random.default_rng(8)
+    n = 8
+    raw = rng.integers(0, 2 ** 16, (2, n, n, WINDOW, 2), dtype=np.uint16)
+    stack = torch.from_numpy(raw.view(np.int16)).view(storage.DTYPES[dt])
+    x = stack.float()
+    stack = torch.where(~torch.isnan(x) & ((x == 0) | torch.isinf(x) | (
+        x.abs() >= torch.finfo(torch.float32).tiny)), stack, 0)
+    jstack = jax.lax.bitcast_convert_type(jnp.asarray(_bits(stack)),
+                                          JDTYPES[dt]).astype(jnp.float32)
+
+    def same(got, want):
+        np.testing.assert_array_equal(
+            torch.view_as_real(got).numpy().view(np.int32),
+            np.asarray(want).view(np.int32))
+
+    for a, B in WINDOW_BATCHES:
+        same(storage.load_kz_plain(stack, a, B),
+             jnp.transpose(jstack[:, :, :, a:a + B], (0, 3, 1, 2, 4)))
+    same(storage.load_rows_plain(stack, 2, 3), jstack[:, 2:5])
 
 
 def test_store_and_load_refuse_other_types():

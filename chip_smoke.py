@@ -30,7 +30,10 @@
    K8s on the (1, 1) shard of a 2x2 pencil mesh's k layout, and the
    exchange's K15, K16 and K17 on the (1, 1) shard of its real layout (2
    hosts with the main path's sub-box boxes, timed; 16 hosts with wrapped
-   boxes, a host with none, spheres across edges), exactly; times special
+   boxes, a host with none, spheres across edges), exactly; K14 and K17
+   also as their first call, 20 calls back to back and the host's enqueue
+   (K14 on the kz schedule's one-plane batch too, K17 with its plan's host
+   time); times special
    mode 2's density_field (a library c2r) beside its bound and irfftn;
    holds the 16-bit storage kernels K18 (store) and K19 (load) bit for bit
    to their plain versions in bfloat16 and float16 at the shapes of the
@@ -120,8 +123,9 @@
    at 128^3: single-turn and turn 0 for 2 and 4 mocked hosts, each host's
    rows held to the brute-force selection, with the count, pack, route and
    extract times, wire bytes and device peak, and the two-turn wire
-   protocol for 2 hosts (K15, K16, K17 launched; the union of the hosts'
-   catalogs equal to the one-process two-turn multibox); the hosts path:
+   protocol for 2 hosts (K15, K16, K17 launched; the spheres K17 paints
+   counted by radius; the union of the hosts' catalogs equal to the
+   one-process two-turn multibox); the hosts path:
    run_pipeline(hosts=(h, 2)) for h = 0, 1 over that mesh, one sub-box per
    core, into one outdir (the mesh kernels, K15 and K16 launched; the
    chunks, no part file; the union of the catalogs equal to the one-process
@@ -1239,27 +1243,58 @@ def kernel_phases(N, dev, report):
           32 * modes + 4 * gtabs[0].numel(), modes, extra="identical, ")
 
     # ---- K14: the same growth table on a [B, N, N] kz batch of delta, as a
-    # contiguous copy of its planes and as a strided view (a resident
-    # spectrum's batch), against its plain version and K8's values ----
-    kz0 = 1
-    view = delta[:, :, kz0:kz0 + B].permute(2, 0, 1)
-    k8 = got[..., kz0:kz0 + B].permute(0, 3, 1, 2)
-    for what, src in (("contiguous", view.contiguous()), ("strided", view)):
-        g14 = derivatives.ooc_gradient_tab(src, kz0, gtabs[0], glo, gdx, N)
-        ref = derivatives.ooc_gradient_tab_plain(src, kz0, gtabs[0], glo,
-                                                 gdx, N)
-        need(same(g14, ref) and same(g14, k8), f"ooc_factors_gradient_tab "
-             f"({what}) at {N}^3 is not identical to its plain version and "
-             "K8")
-    phase("ooc_factors_gradient_tab", (g14 - ref).abs().max().item(), 0.0,
-          time_ms(lambda: derivatives.ooc_gradient_tab(
-              view, kz0, gtabs[0], glo, gdx, N)),
+    # contiguous copy of its planes (the contiguous form) and as a strided
+    # view (a resident spectrum's batch: the kz-fastest form), and on the
+    # one-plane batch kz = N/2 that ends the kz schedule, both ways, against
+    # its plain version and K8's values; timed on the strided batch (its
+    # first call, one call, 20 back to back, the host's enqueue) and on the
+    # strided one-plane batch ----
+    table = derivatives.GrowthTable(gtabs[0], glo, gdx)
+    last = fmax_ooc.kz_schedule(Nh, fmax_ooc.KZ_BATCH)[-1]
+    views = {}
+    for kz0, nb in ((1, B), last):
+        view = delta[:, :, kz0:kz0 + nb].permute(2, 0, 1)
+        views[nb] = view
+        k8 = got[..., kz0:kz0 + nb].permute(0, 3, 1, 2)
+        for what, src in (("contiguous", view.contiguous()),
+                          ("strided", view)):
+            if nb == B and what == "strided":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                derivatives.ooc_gradient_tab(src, kz0, table, N)
+                torch.cuda.synchronize()
+                first = 1e3 * (time.perf_counter() - t0)
+            g14 = derivatives.ooc_gradient_tab(src, kz0, table, N)
+            ref = derivatives.ooc_gradient_tab_plain(src, kz0, table, N)
+            need(same(g14, ref) and same(g14, k8),
+                 f"ooc_factors_gradient_tab ({what}, [{nb}, {N}, {N}] at "
+                 f"kz {kz0}) at {N}^3 is not identical to its plain version "
+                 "and K8")
+
+    def k14(nb=B):
+        return derivatives.ooc_gradient_tab(views[nb], 1 if nb == B
+                                            else last[0], table, N)
+    ms, batch, host = time_ms(k14), batch_ms(k14), host_ms(k14)
+    one = dict(ms=time_ms(lambda: k14(last[1])),
+               batch_ms=batch_ms(lambda: k14(last[1])),
+               plain_ms=time_ms(lambda: derivatives.ooc_gradient_tab_plain(
+                   views[last[1]], last[0], table, N)),
+               bound_ms=bound("ooc_factors_gradient_tab",
+                              32 * N * N + 4 * gtabs[0].numel(), N * N)[0])
+    phase("ooc_factors_gradient_tab", 0.0, 0.0, ms,
           time_ms(lambda: derivatives.ooc_gradient_tab_plain(
-              view, kz0, gtabs[0], glo, gdx, N)),
+              views[B], 1, table, N)),
           32 * B * N * N + 4 * gtabs[0].numel(), B * N * N,
-          extra=f"identical to the plain version and to K8, contiguous and "
-          f"strided [{B}, {N}, {N}], ")
-    del got, ref, g14, k8, view
+          extra=f"identical to its plain version and K8, contiguous and "
+          f"strided [{B}, {N}, {N}] and the last batch [1, {N}, {N}] at kz "
+          f"{last[0]}; strided: first call {first:.3f} ms, 20 calls back to "
+          f"back {batch:.4f} ms a call, the host's enqueue {host:.4f} ms; "
+          f"one plane {one['ms']:.4f} ms, back to back "
+          f"{one['batch_ms']:.4f}, plain {one['plain_ms']:.3f}, bound "
+          f"{one['bound_ms']:.4f}; ")
+    rec["ooc_factors_gradient_tab"].update(first_ms=first, batch_ms=batch,
+                                           host_ms=host, one_plane=one)
+    del got, ref, g14, k8, views
 
     # ---- K4: the two LPT passes on the R=0 stack, and the accumulation of
     # one component pair on an x-slab (the out-of-core fold) ----
@@ -2180,8 +2215,9 @@ def exchange_inputs(N, dev, nhosts, seed=0):
     hosts the padded and turn-0 boxes of the main path's 8 sub-boxes
     (wrapped across the grid's edge), with more hosts random boxes, some
     wrapped, one wider than the grid, the last host none; 400 boundary
-    spheres of radius 0 to 40 centred anywhere, so that some cross the
-    shard's edge and the periodic wrap, and one of radius N/2; a 4-channel
+    spheres of radius 0 to 40 centred anywhere (numpy, as the exchange
+    holds them), so that some cross the shard's edge and the periodic wrap,
+    and one of radius N/2; a 4-channel
     hand-off buffer (the classic path's v1, v2, v31, v32) in a random row
     order."""
     import numpy as np
@@ -2226,9 +2262,8 @@ def exchange_inputs(N, dev, nhosts, seed=0):
     return dict(block=(h2, h2, h2, h2, 0, N), cells=cells,
                 tables=(*region_tables(pad, dev), *region_tables(t0, dev)),
                 nboxes=sum(len(h) for h in pad),
-                spheres=torch.from_numpy(sph).to(dev),
-                owner=torch.from_numpy(rng.integers(0, nhosts, len(sph))
-                                       .astype(np.int32)).to(dev),
+                spheres=sph,
+                owner=rng.integers(0, nhosts, len(sph)).astype(np.int32),
                 buf=torch.randn(n * (2 + 3 * nch), generator=gen, device=dev),
                 perm=torch.randperm(n, generator=gen, device=dev), nch=nch)
 
@@ -2266,8 +2301,16 @@ def exchange_kernel_phases(N, dev, report):
                          n * case["nboxes"],
                          extra=f"identical, {shard}{members} memberships "
                          f"of {n} rows, ")
-        paint_args = (case["spheres"], case["owner"], block, N, pb, po, tb,
-                      to, nhosts)
+        sph, owner = case["spheres"], case["owner"]
+        plan = xops.PaintSpheres(sph, owner, N).plan(block)
+        if timed:
+            # the first call of a plan uploads it (page-locked, no wait)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xops.paint(plan, pb, po, tb, to, nhosts)
+            torch.cuda.synchronize()
+            first = 1e3 * (time.perf_counter() - t0)
+        paint_args = (plan, pb, po, tb, to, nhosts)
         hmap = xops.paint(*paint_args)
         need(torch.equal(hmap, xops.paint_plain(*paint_args)),
              f"exchange_paint at {N}^3 ({nhosts} hosts) differs")
@@ -2280,7 +2323,7 @@ def exchange_kernel_phases(N, dev, report):
             # once (the rest of the cube needs no box test)
             h2 = N // 2
             inside = cube = 0
-            for cx, cy, cz, r in case["spheres"].tolist():
+            for cx, cy, cz, r in sph.tolist():
                 s = int(r)
                 if s <= 0:
                     continue
@@ -2293,15 +2336,44 @@ def exchange_kernel_phases(N, dev, report):
                 rest = s * s - (ox[:, None] ** 2 + oy[None, :] ** 2)
                 inside += int(np.searchsorted(np.sort(oz ** 2), rest,
                                               side="right").sum())
-            record_phase(rec, N, "exchange_paint", 0.0, 0.0,
-                         time_ms(lambda: xops.paint(*paint_args)),
+
+            def k17():
+                return xops.paint(*paint_args)
+            # the caller's host work: the spheres' shared part once per
+            # exchange, then the shard's plan
+            set_reps, plan_reps = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                balls = xops.PaintSpheres(sph, owner, N)
+                t1 = time.perf_counter()
+                balls.plan(block)
+                set_reps.append(1e3 * (t1 - t0))
+                plan_reps.append(1e3 * (time.perf_counter() - t1))
+            set_ms = statistics.median(set_reps)
+            plan_ms = statistics.median(plan_reps)
+            ms, batch, host = time_ms(k17), batch_ms(k17), host_ms(k17)
+            record_phase(rec, N, "exchange_paint", 0.0, 0.0, ms,
                          time_ms(lambda: xops.paint_plain(*paint_args),
                                  reps=2),
-                         hmap.numel() + case["spheres"].numel() * 4, inside,
-                         extra=f"identical, {shard}"
-                         f"{case['spheres'].shape[0]} spheres, {painted} "
-                         f"cells painted of {inside} in the spheres "
-                         f"({cube} in their cubes), ")
+                         hmap.numel() + sph.size * 4, inside,
+                         extra=f"identical, {shard}{sph.shape[0]} spheres "
+                         f"(radii {int(sph[:, 3].min())}-"
+                         f"{int(sph[:, 3].max())}), {plan.ncols} columns "
+                         f"in {plan.nrows} rows, {painted} cells painted of "
+                         f"{inside} in the spheres ({cube} in their cubes);"
+                         f" on the host the spheres' set {set_ms:.3f} ms "
+                         f"once per exchange and the shard's plan "
+                         f"{plan_ms:.3f} ms, so plan and call "
+                         f"{plan_ms + ms:.3f} ms for the caller; the first "
+                         f"call {first:.3f} ms, 20 calls back to back "
+                         f"{batch:.4f} ms a call, the host's enqueue "
+                         f"{host:.4f} ms; ")
+            rec["exchange_paint"].update(first_ms=first, batch_ms=batch,
+                                         host_ms=host, set_ms=set_ms,
+                                         plan_ms=plan_ms,
+                                         plan_call_ms=plan_ms + ms,
+                                         painted=painted, inside=inside,
+                                         cube=cube)
         tot = counts.sum(0, dtype=torch.int64).tolist()
         nd = 2
         seg_n = np.array([max(0, -(-(tot[h] - j) // nd))
@@ -2415,6 +2487,7 @@ def hosts_exchange(dev):
     from pinocchio_tpu_torch import kernels
     from pinocchio_tpu_torch.fragment.subbox import (
         run_fragmentation_multibox, subbox_geometries)
+    from pinocchio_tpu_torch.parallel import exchange as xchg
     from pinocchio_tpu_torch.parallel.exchange import (build_host_regions,
                                                        exchange_products)
     d = hosts_products(dev)
@@ -2475,16 +2548,42 @@ def hosts_exchange(dev):
             del got
     need(copies[(HOSTS, 0)] < copies[(HOSTS, None)],
          "turn 0 does not ship fewer copies than single-turn")
+    # the spheres each turn-1 exchange paints (K17's real workload) and
+    # the time of its maps, plans included (the card synchronized around)
+    painted, paint_ms = [], []
+    build = xchg.build_turn1_maps
+
+    def recorded(spheres, *a, **kw):
+        painted.append({h: np.asarray(v) for h, v in spheres.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = build(spheres, *a, **kw)
+        torch.cuda.synchronize()
+        paint_ms.append(1e3 * (time.perf_counter() - t0))
+        return maps
+    xchg.build_turn1_maps = recorded
     kernels.reset_launches()
     t0 = time.perf_counter()
-    parts = [run_fragmentation_multibox(p, d["cosmo"], fr, d["nbox"],
-                                        largest_mass=d["largest"],
-                                        two_turn=True,
-                                        host_slice=(h, HOSTS), verbose=False)
-             for h in range(HOSTS)]
-    torch.cuda.synchronize()
+    try:
+        parts = [run_fragmentation_multibox(
+            p, d["cosmo"], fr, d["nbox"], largest_mass=d["largest"],
+            two_turn=True, host_slice=(h, HOSTS), verbose=False)
+            for h in range(HOSTS)]
+        torch.cuda.synchronize()
+    finally:
+        xchg.build_turn1_maps = build
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    radii = np.concatenate([v[:, 3] for x in painted for v in x.values()]
+                           or [np.zeros(0)]).astype(int)
+    print(f"  K17's spheres in the two-turn run: {len(painted)} paints of "
+          f"{[sum(len(v) for v in x.values()) for x in painted]} spheres; "
+          f"radii (cells) min {radii.min() if radii.size else '-'}, median "
+          f"{int(np.median(radii)) if radii.size else '-'}, max "
+          f"{radii.max() if radii.size else '-'}, {int((radii <= 0).sum())} "
+          f"of radius 0; K17 launches {launches['exchange_paint']}; "
+          f"build_turn1_maps (plans, uploads and paints of every shard) "
+          f"{[round(x, 3) for x in paint_ms]} ms", flush=True)
     t = [r.timings for r in parts]
     print(f"  two-turn wire protocol, {HOSTS} hosts: {wall:.2f} s for both "
           f"hosts; turn 0 {[int(x['turn0_copies']) for x in t]} and turn 1 "
@@ -2502,7 +2601,12 @@ def hosts_exchange(dev):
     fr.handoff.release()
     out["two_turn"] = dict(wall_s=wall,
                            turn0=[x["turn0_copies"] for x in t],
-                           turn1=[x["turn1_copies"] for x in t])
+                           turn1=[x["turn1_copies"] for x in t],
+                           paint_spheres=[sum(len(v) for v in x.values())
+                                          for x in painted],
+                           paint_ms=paint_ms,
+                           paint_radii=np.bincount(
+                               np.maximum(radii, 0)).tolist())
     KEPT["hosts_exchange"] = out
     return launches
 
@@ -4788,7 +4892,10 @@ def main(argv=None) -> int:
                          library_ms_512=big["library_ms"],
                          max_abs_err_512=big["max_abs_err"],
                          **{k: r[k] for k in ("pair_ms", "pair_plain_ms",
-                                              "pair_bound_ms") if k in r}))
+                                              "pair_bound_ms", "first_ms",
+                                              "batch_ms", "host_ms",
+                                              "one_plane", "plan_ms")
+                            if k in r}))
     # the library call of special mode 2 (no kernel of the port's own)
     dfs = {N: report[N]["density_field"] for N in KERNEL_SIZES}
     library = [dict(name="density_field", route="library (cuFFT)",

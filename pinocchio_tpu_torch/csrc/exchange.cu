@@ -35,13 +35,34 @@
 // shard's [H, nx, ny, nz] uint8 map over the offsets [-r, r) of each
 // dimension with ox^2 + oy^2 + oz^2 <= r^2, wrapped periodically, clipped
 // to h's padded boxes and excluding its turn-0 boxes.  What bounds it: the
-// box tests of each cell of the sphere's cube that falls in the shard.
-// Design: a row of blocks per sphere (grid y), sized by the largest cube so
-// that one big sphere does not leave the card to a single block; in each,
-// three threads list the offsets of each dimension that land in the shard
-// (in shared memory), and the row's threads stride over the product of the
-// three lists.  The write of 1 is idempotent, so overlapping spheres race
-// harmlessly.  All three results are exact: bits, integer counts, copies.
+// map's bytes (zeroed by the entry point, then the painted cells written)
+// and a few integer operations per column of the balls in the shard.
+// Design: the work is the ball, not the cube, sized per sphere.  The host's
+// plan (ops/exchange.PaintSpheres, built once per exchange, cut to a
+// PaintPlan per shard: work per sphere, none per cell) gives each sphere
+// one row: the (gx, gy) columns of its bounding square [c - r, c + r) that
+// fall in the shard, as at most two runs a dimension, with an exclusive
+// scan of their counts; a block takes 32 consecutive columns
+// and reads their rows (at most one more) into shared memory together, so
+// no block does serial set-up and none waits on another sphere's size.  Its
+// first warp sets the columns up, a lane each: the row by a binary search,
+// the column's (gx, gy) from its rank in the rectangle, kept when it lies
+// in the ball's disc (mx^2 + my^2 <= r^2, mx, my the periodic distances to
+// the centre, about 3/4 of a square), the ball's z cells as the periodic
+// interval [cz - zr, cz + min(zr, r - 1)] with zr the exact integer square
+// root of r^2 - mx^2 - my^2, cut to the shard in at most two runs;
+// the host's padded and turn-0 boxes that hold (gx, gy) as masks (a box's
+// wrap by compare and add).  Where the padded boxes' z union is one
+// interval (one box, or one spanning z) and at most one turn-0 box holds
+// the column, the column's runs are cut to it exactly, with no test per
+// cell; otherwise its runs are tested cell by cell.  The block's runs are
+// listed in shared memory and its warps take them in turn, lanes on
+// consecutive z, writing consecutive bytes of the map.  The write of 1 is
+// idempotent, so
+// overlapping spheres race harmlessly.  All three results are exact: bits,
+// integer counts, copies.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,54 +169,241 @@ pack_kernel(const int64_t* __restrict__ perm, const float* __restrict__ buf,
   }
 }
 
+// K17's columns per block, set up a lane each by its first warp
+constexpr int kPaintCols = 32;
+static_assert(kPaintCols == 32, "K17's set-up scans its columns in one warp");
+
+// d mod N by compare and add when |d| < N (box origins in [0, N), as
+// build_host_regions gives them), else by %
+__device__ __forceinline__ int ring(int d, int N) {
+  d += d < 0 ? N : 0;
+  return (unsigned)d < (unsigned)N ? d : wrap(d, N);
+}
+
+// whether box b ([6] ints) holds the column (gx, gy)
+__device__ __forceinline__ bool holds_xy(const int* __restrict__ b, int gx,
+                                         int gy, int N) {
+  return ring(gx - b[0], N) < b[1] && ring(gy - b[2], N) < b[3];
+}
+
+// whether gz (in [0, N)) lies in the z interval of box b
+__device__ __forceinline__ bool holds_z(const int* __restrict__ b, int gz,
+                                        int N) {
+  int rel = gz - ring(b[4], N);
+  rel += rel < 0 ? N : 0;
+  return rel < b[5];
+}
+
+// one column of the block: its map (offset by the shard's z0), its z runs
+// [a0, b0) and [a1, b1), the column (gx, gy), and the host's padded and
+// turn-0 boxes (pad, t0: the host's first; pm, tm: masks of the first 32
+// that hold the column; pn, tn: how many the host has)
+struct PaintCol {
+  uint8_t* col;
+  int a0, b0, a1, b1, gx, gy;
+  const int* pad;
+  const int* t0;
+  unsigned pm, tm;
+  int pn, tn;
+};
+
+// whether z lies in a box of boxes[0..n) that holds the column: the masked
+// ones among the first 32, then any beyond
+__device__ __forceinline__ bool in_any(const int* __restrict__ boxes,
+                                       unsigned m, int n, int gx, int gy,
+                                       int z, int N) {
+  bool in = false;
+  for (; m; m &= m - 1) in |= holds_z(boxes + 6 * (__ffs(m) - 1), z, N);
+  for (int t = 32; t < n; ++t)
+    in |= holds_xy(boxes + 6 * t, gx, gy, N) && holds_z(boxes + 6 * t, z, N);
+  return in;
+}
+
+// the lanes' cells z0 + lane, z0 + 32 + lane, ... of [z0, z1), painted
+// where they lie in a padded box and in no turn-0 box of the column; the
+// tests are skipped where the caller's run already ensures them
+__device__ __forceinline__ void paint_run(const PaintCol& p, int z0, int z1,
+                                          bool test_pad, bool test_t0, int N,
+                                          int lane) {
+  for (int z = z0 + lane; z < z1; z += 32) {
+    bool paint = true;
+    if (test_pad) paint = in_any(p.pad, p.pm, p.pn, p.gx, p.gy, z, N);
+    if (test_t0) paint &= !in_any(p.t0, p.tm, p.tn, p.gx, p.gy, z, N);
+    if (paint) p.col[z] = 1;
+  }
+}
+
+// the z runs [s, e) and [0, f) of box b's interval in [0, N); [0, 0) when
+// it is empty
+__device__ __forceinline__ void box_z(const int* __restrict__ b, int N,
+                                      int& s, int& e, int& f) {
+  s = ring(b[4], N);
+  const int l = max(min(b[5], N), 0);
+  e = min(s + l, N);
+  f = max(s + l - N, 0);
+}
+
+// the plan (ops/exchange.PaintPlan): rows [nrows][kPaintRow], one a
+// sphere (x run 1 start and length, x run 2 start, the same of y, the
+// columns a rectangle's x holds, its first column, cx, cy, cz, r, host,
+// 0, 0, 0), first [nblocks] (the row of each block's first column)
+constexpr int kPaintRow = 16;
+// runs a column lists: its two z runs, each cut by the padded boxes' union
+// where it is one interval (two runs), each cut by one turn-0 box
+constexpr int kColRuns = 8;
+
 __global__ void __launch_bounds__(kThreads)
-paint_kernel(const float* __restrict__ spheres,
-             const int* __restrict__ sphere_host, Block blk,
-             const int* __restrict__ pad_boxes,
+paint_kernel(const int* __restrict__ rows, int nrows,
+             const int* __restrict__ first, int nblocks, int ncols,
+             Block blk, const int* __restrict__ pad_boxes,
              const int* __restrict__ pad_off,
              const int* __restrict__ t0_boxes,
-             const int* __restrict__ t0_off, int cap,
-             uint8_t* __restrict__ map) {
-  extern __shared__ int offs[];                 // [3][cap]
-  __shared__ int cnt[3];
-  const int si = blockIdx.x;
-  const int r = (int)spheres[4 * si + 3];
-  if (r <= 0) return;                           // uniform over the block
-  const int h = sphere_host[si];
-  const int org[3] = {blk.x0, blk.y0, blk.z0};
-  const int ext[3] = {blk.nx, blk.ny, blk.nz};
-  if (threadIdx.x < 3) {
-    const int d = threadIdx.x;
-    const int c = (int)spheres[4 * si + d];
-    int k = 0;
-    for (int o = -r; o < r; ++o) {
-      const int l = wrap(c + o, blk.N) - org[d];
-      if (l >= 0 && l < ext[d]) offs[d * cap + k++] = o;
+             const int* __restrict__ t0_off, uint8_t* __restrict__ map) {
+  // the block's columns lie in the rows r0..r1 (every row has one), read
+  // once, together, into shared memory
+  __shared__ int srows[(kPaintCols + 1) * kPaintRow];
+  __shared__ PaintCol cols[kPaintCols];
+  // column l's runs at slots l * kColRuns.., roff[l] of the block's before
+  // them; a run's flags: bit 0 test the padded boxes, bit 1 the turn-0 ones
+  __shared__ int run_s[kPaintCols * kColRuns], run_e[kPaintCols * kColRuns];
+  __shared__ unsigned char run_f[kPaintCols * kColRuns];
+  __shared__ int roff[kPaintCols + 1];
+  const int N = blk.N, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = first[blockIdx.x];
+  const int r1 =
+      (int)blockIdx.x + 1 < nblocks ? first[blockIdx.x + 1] : nrows - 1;
+  const int nr = r1 - r0 + 1;
+  for (int i = threadIdx.x; i < nr * kPaintRow; i += kThreads)
+    srows[i] = rows[(int64_t)r0 * kPaintRow + i];
+  __syncthreads();
+
+  // ---- set-up, the first warp, a lane a column: its row
+  // (a binary search), its z runs (global z, cut to the shard), the host's
+  // boxes that hold it, and its runs to paint, listed for the block ----
+  if (threadIdx.x < kPaintCols) {
+    const int c = blockIdx.x * kPaintCols + threadIdx.x;
+    const int slot = threadIdx.x * kColRuns;
+    int n = 0;
+    if (c < ncols) {
+      int lo = 0, hi = nr - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (srows[mid * kPaintRow + 7] <= c)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      // the column's place in the sphere's rectangle, then in the shard
+      const int* rw = srows + lo * kPaintRow;
+      const int j = c - rw[7], ix = j / rw[6], iy = j - ix * rw[6];
+      const int lx = ix < rw[1] ? rw[0] + ix : rw[2] + (ix - rw[1]);
+      const int ly = iy < rw[4] ? rw[3] + iy : rw[5] + (iy - rw[4]);
+      const int cz = rw[10], r = rw[11], h = rw[12];
+      PaintCol p;
+      p.gx = blk.x0 + lx;
+      p.gy = blk.y0 + ly;
+      int dx = p.gx - rw[8], dy = p.gy - rw[9];
+      dx += dx < 0 ? N : 0;
+      dy += dy < 0 ? N : 0;
+      const int mx = min(dx, N - dx), my = min(dy, N - dy);
+      const int q = r * r - mx * mx - my * my;
+      if (q >= 0) {                               // in the ball's disc
+        int zr = (int)sqrtf((float)q);
+        if (zr * zr > q)
+          --zr;
+        else if ((zr + 1) * (zr + 1) <= q)
+          ++zr;
+        // the periodic interval [a, a + zlen): the runs [a, end) and
+        // [0, end - N) of [0, N)
+        const int zlen = zr + min(zr, r - 1) + 1;
+        int a = cz - zr;
+        a += a < 0 ? N : 0;
+        const bool whole = zlen >= N;
+        const int zend = blk.z0 + blk.nz;
+        p.a0 = max(whole ? 0 : a, blk.z0);
+        p.b0 = min(whole ? N : min(a + zlen, N), zend);
+        p.a1 = blk.z0;
+        p.b1 = min(whole ? 0 : max(a + zlen - N, 0), zend);
+        p.pad = pad_boxes + 6 * pad_off[h];
+        p.pn = pad_off[h + 1] - pad_off[h];
+        p.t0 = t0_boxes + 6 * t0_off[h];
+        p.tn = t0_off[h + 1] - t0_off[h];
+        p.pm = p.tm = 0;
+        bool pwhole = false;                       // a box holds all z
+        for (int k = 0; k < min(p.pn, 32); ++k) {
+          const int* b = p.pad + 6 * k;
+          if (holds_xy(b, p.gx, p.gy, N)) {
+            p.pm |= 1u << k;
+            pwhole |= b[5] >= N;
+          }
+        }
+        for (int k = 0; k < min(p.tn, 32); ++k)
+          p.tm |= (unsigned)holds_xy(p.t0 + 6 * k, p.gx, p.gy, N) << k;
+        p.col = map + ((((int64_t)h * blk.nx + lx) * blk.ny + ly) * blk.nz -
+                       blk.z0);
+        cols[threadIdx.x] = p;
+        // the padded boxes' z union: all of [0, N), or the one box's runs,
+        // or (several boxes, or more than 32) tested cell by cell
+        const bool pad_one = p.pn <= 32 && (pwhole || __popc(p.pm) == 1);
+        int ps = 0, pe = N, pf = 0;
+        if (pad_one && !pwhole)
+          box_z(p.pad + 6 * (__ffs(p.pm) - 1), N, ps, pe, pf);
+        // one turn-0 box (or none) is cut out; several are tested
+        const bool t0_one = p.tn <= 32 && (p.tm & (p.tm - 1)) == 0;
+        int ts = N, te = N, tf = 0;
+        if (t0_one && p.tm)
+          box_z(p.t0 + 6 * (__ffs(p.tm) - 1), N, ts, te, tf);
+        const bool any = p.pm != 0 || p.pn > 32;
+        const int s4[4] = {max(p.a0, ps), p.a0, max(p.a1, ps), p.a1};
+        const int e4[4] = {min(p.b0, pe), min(p.b0, pf), min(p.b1, pe),
+                           min(p.b1, pf)};
+        const unsigned char flags = (pad_one ? 0 : 1) | (t0_one ? 0 : 2);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          // without one union the column's own two runs, tested (u = 0, 2)
+          const int s0 = pad_one ? s4[u] : (u == 0 ? p.a0 : p.a1);
+          const int e0 =
+              pad_one ? e4[u] : (u == 0 ? p.b0 : u == 2 ? p.b1 : 0);
+          if (!any || s0 >= e0) continue;
+          if (!t0_one) {
+            run_s[slot + n] = s0;
+            run_e[slot + n] = e0;
+            run_f[slot + n++] = flags;
+            continue;
+          }
+          const int s1 = max(s0, tf);                // cut out [0, tf)
+          if (s1 < min(e0, ts)) {                    // and [ts, te)
+            run_s[slot + n] = s1;
+            run_e[slot + n] = min(e0, ts);
+            run_f[slot + n++] = flags;
+          }
+          if (max(s1, te) < e0) {
+            run_s[slot + n] = max(s1, te);
+            run_e[slot + n] = e0;
+            run_f[slot + n++] = flags;
+          }
+        }
+      }
     }
-    cnt[d] = k;
+    int upto = n;                                   // inclusive scan
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, upto, d);
+      if (lane >= d) upto += v;
+    }
+    roff[threadIdx.x + 1] = upto;
+    if (threadIdx.x == 0) roff[0] = 0;
   }
   __syncthreads();
-  const int c0 = cnt[0], c1 = cnt[1], c2 = cnt[2];
-  const int64_t total = (int64_t)c0 * c1 * c2;
-  const int cx = (int)spheres[4 * si], cy = (int)spheres[4 * si + 1],
-            cz = (int)spheres[4 * si + 2];
-  const int64_t r2 = (int64_t)r * r;
-  for (int64_t q = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; q < total;
-       q += (int64_t)gridDim.y * blockDim.x) {
-    const int ox = offs[(int)(q / ((int64_t)c1 * c2))];
-    const int oy = offs[cap + (int)((q / c2) % c1)];
-    const int oz = offs[2 * cap + (int)(q % c2)];
-    if ((int64_t)ox * ox + (int64_t)oy * oy + (int64_t)oz * oz > r2)
-      continue;
-    const int gx = wrap(cx + ox, blk.N), gy = wrap(cy + oy, blk.N),
-              gz = wrap(cz + oz, blk.N);
-    if (!member(pad_boxes, pad_off[h], pad_off[h + 1], gx, gy, gz, blk.N))
-      continue;
-    if (member(t0_boxes, t0_off[h], t0_off[h + 1], gx, gy, gz, blk.N))
-      continue;
-    map[(((int64_t)h * blk.nx + (gx - blk.x0)) * blk.ny + (gy - blk.y0)) *
-            blk.nz +
-        (gz - blk.z0)] = 1;
+
+  // ---- cells: the warps take the block's runs in turn, lanes on
+  // consecutive z ----
+  for (int i = warp; i < roff[kPaintCols]; i += kWarps) {
+    int l = 0;                                        // roff[l] <= i
+    for (int step = kPaintCols / 2; step; step >>= 1)
+      if (roff[l + step] <= i) l += step;
+    const int k = l * kColRuns + i - roff[l];
+    const unsigned f = run_f[k];
+    paint_run(cols[l], run_s[k], run_e[k], f & 1, f & 2, N, lane);
   }
 }
 
@@ -246,32 +454,24 @@ extern "C" int exchange_pack(const void* perm, const void* buf, int64_t count,
   return (int)cudaGetLastError();
 }
 
-// spheres [ns, 4] float32 (cx, cy, cz, r), sphere_host [ns] int32; the
-// padded and turn-0 boxes with their per-host offsets as K15's; rmax the
-// largest radius (it sizes the offset lists); map [H, nx, ny, nz] uint8,
-// zeroed by the caller
-extern "C" int exchange_paint(const void* spheres, const void* sphere_host,
-                              int ns, const void* block_host, int N,
-                              const void* pad_boxes, const void* pad_off,
-                              const void* t0_boxes, const void* t0_off,
-                              int rmax, void* map, void* stream) {
-  if (ns == 0 || rmax <= 0) return 0;
-  const int cap = 2 * rmax;
-  const size_t shared = 3 * (size_t)cap * sizeof(int);
-  if (shared > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shared);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // blocks per sphere: about 64 cells per thread of the largest cube
-  const int64_t cube = 8 * (int64_t)rmax * rmax * rmax;
-  const int64_t rows = (cube + 64 * kThreads - 1) / (64 * kThreads);
-  const dim3 grid((unsigned)ns, (unsigned)(rows < 1024 ? rows : 1024));
-  paint_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
-      (const float*)spheres, (const int*)sphere_host,
+// the plan's rows [nrows, kPaintRow] and first blocks (int32, see
+// paint_kernel) for ncols columns in nblocks blocks of kPaintCols; the padded
+// and turn-0 boxes with their per-host offsets as K15's; map [H, nx, ny, nz]
+// uint8 of nmap bytes, zeroed here, then painted
+extern "C" int exchange_paint(const void* rows, int nrows, const void* first,
+                              int nblocks, int ncols, const void* block_host,
+                              int N, const void* pad_boxes,
+                              const void* pad_off, const void* t0_boxes,
+                              const void* t0_off, void* map, int64_t nmap,
+                              void* stream) {
+  if (nblocks != (ncols + kPaintCols - 1) / kPaintCols || N > (1 << 15))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(map, 0, (size_t)nmap, (cudaStream_t)stream);
+  if (e != cudaSuccess || ncols == 0) return (int)e;
+  paint_kernel<<<(unsigned)nblocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)rows, nrows, (const int*)first, nblocks, ncols,
       make_block((const int*)block_host, N), (const int*)pad_boxes,
-      (const int*)pad_off, (const int*)t0_boxes, (const int*)t0_off, cap,
+      (const int*)pad_off, (const int*)t0_boxes, (const int*)t0_off,
       (uint8_t*)map);
   return (int)cudaGetLastError();
 }

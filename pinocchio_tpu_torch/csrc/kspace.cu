@@ -50,15 +50,21 @@
 // strides, so a batch of a resident [N, N, Nh] spectrum needs no copy: there
 // consecutive threads read 8 B apart by Nh (one sector each), which makes
 // the gradient and pair modes on a spectrum slower than the hessian mode on
-// K9's contiguous planes.  K14 is the gradient mode with K8's lookup: its
-// table is copied to shared memory by each block and every float operation
-// is K8's, so its rows are the dense engine's (it is bound as K10's gradient
-// mode, by bytes).
+// K9's contiguous planes.  K14 is the gradient mode with K8's lookup, every
+// float operation K8's, so its rows are the dense engine's; it is bound as
+// K10's gradient mode, by bytes.  It has one form per source layout: on a
+// spectrum's window (kz fastest) a block reads a tile of (ix, 64 iy) x 16 kz
+// with lanes on consecutive kz, so each (ix, iy)'s run is one read, and
+// writes it through shared memory with lanes on consecutive iy; on
+// contiguous planes a block takes a (kz, ix) row.  Its table is read
+// through the read-only path (no per-block copy or barrier).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 struct KMode {
   float kx, ky, kz, k2, inv_k2;
@@ -145,8 +151,9 @@ __global__ void gradient_kernel(const float2* __restrict__ src,
 
 // the growth of a mode, interpolated linearly in a table over log10 |k|
 // (|k| in grid units) from glo in steps of gdx, the coordinate clipped to
-// [0, tmax]
-__device__ __forceinline__ float growth_at(const float* s_tab, float k2,
+// [0, tmax]; tab is K8's shared-memory copy or K14's read-only view
+template <typename Tab>
+__device__ __forceinline__ float growth_at(const Tab& tab, float k2,
                                            float glo, float gdx,
                                            float tmax) {
   const float logk = __fmul_rn(0.5f, log10f(fmaxf(k2, 1e-12f)));
@@ -154,9 +161,17 @@ __device__ __forceinline__ float growth_at(const float* s_tab, float k2,
   t = t < 0.0f ? 0.0f : (t > tmax ? tmax : t);
   const int i = (int)t;
   const float w = __fsub_rn(t, (float)i);
-  return __fadd_rn(__fmul_rn(s_tab[i], __fsub_rn(1.0f, w)),
-                   __fmul_rn(s_tab[i + 1], w));
+  return __fadd_rn(__fmul_rn(tab[i], __fsub_rn(1.0f, w)),
+                   __fmul_rn(tab[i + 1], w));
 }
+
+// a table in device memory read through the read-only path
+struct LdgTable {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const {
+    return __ldg(p + i);
+  }
+};
 
 __global__ void gradient_tab_kernel(const float2* __restrict__ src,
                                     float2* __restrict__ out, Window w,
@@ -170,7 +185,8 @@ __global__ void gradient_tab_kernel(const float2* __restrict__ src,
   if (idx >= nmodes) return;
   KMode k;
   if (!kmode(w, idx, k)) return zero_out(out, 3, nmodes, idx);
-  const float growth = growth_at(s_tab, k.k2, glo, gdx, tmax);
+  const float* tab = s_tab;
+  const float growth = growth_at(tab, k.k2, glo, gdx, tmax);
   const float2 d = __ldg(src + idx);
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
   base = cscale(base, k.inv_k2);
@@ -241,27 +257,69 @@ __global__ void ooc_gradient_kernel(Batch src, float2* __restrict__ out,
   out[2 * n + idx] = cscale(base, k.kz);
 }
 
-// K14: the gradient mode with the per-mode growth of a table, as K8
-__global__ void ooc_gradient_tab_kernel(Batch src, float2* __restrict__ out,
-                                        int N, int kz0, int64_t n,
-                                        const float* __restrict__ gtab,
-                                        int ntab, float glo, float gdx,
-                                        float tmax) {
-  extern __shared__ float s_tab[];
-  for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = gtab[i];
-  __syncthreads();
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  int b, ix, iy;
-  KMode k;
-  batch_mode(idx, N, kz0, b, ix, iy, k);
-  const float growth = growth_at(s_tab, k.k2, glo, gdx, tmax);
-  const float2 d = batch_at(src, b, ix, iy);
+// K14: the gradient mode with the per-mode growth of a table, as K8, every
+// float operation K8's; out[c][b][ix][iy] for b < B from the source mode
+// (b, ix, iy).  Two forms, by the source's layout.
+__device__ __forceinline__ void gradient_tab_mode(
+    float2 d, int N, int kz, int ix, int iy, const LdgTable& tab, float glo,
+    float gdx, float tmax, float2* __restrict__ out, int64_t n, int64_t o) {
+  const KMode k = kmode_at(N, ix, iy, kz);
+  const float growth = growth_at(tab, k.k2, glo, gdx, tmax);
   float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
   base = cscale(base, k.inv_k2);
-  out[idx] = cscale(base, k.kx);
-  out[n + idx] = cscale(base, k.ky);
-  out[2 * n + idx] = cscale(base, k.kz);
+  out[o] = cscale(base, k.kx);
+  out[n + o] = cscale(base, k.ky);
+  out[2 * n + o] = cscale(base, k.kz);
+}
+
+// The kz-fastest form: a resident spectrum's window, element (b, ix, iy) at
+// src[b + ix * sx + iy * sy].  A block takes one ix, kTabTY iy and up to
+// kTabBZ kz: lanes read consecutive kz, so each (ix, iy)'s run of 8 B a kz
+// is one coalesced read, into a tile padded against bank conflicts; then
+// lanes take consecutive iy of one kz and write each component's row.
+constexpr int kTabTY = 64;
+constexpr int kTabBZ = 16;
+
+__global__ void __launch_bounds__(kThreads)
+ooc_gradient_tab_kz_kernel(const float2* __restrict__ src, int64_t sx,
+                           int64_t sy, float2* __restrict__ out, int N,
+                           int kz0, int B, LdgTable tab, float glo,
+                           float gdx, float tmax) {
+  __shared__ float2 tile[kTabBZ][kTabTY + 1];
+  const int iy0 = blockIdx.x * kTabTY, ix = blockIdx.y;
+  const int b0 = blockIdx.z * kTabBZ;
+  const int nb = min(kTabBZ, B - b0), ny = min(kTabTY, N - iy0);
+  const float2* s = src + (int64_t)ix * sx + (int64_t)iy0 * sy + b0;
+  for (int e = threadIdx.x; e < ny * nb; e += kThreads) {
+    const int y = e / nb, b = e - y * nb;
+    tile[b][y] = __ldg(s + (int64_t)y * sy + b);
+  }
+  __syncthreads();
+  const int64_t n = (int64_t)B * N * N;
+  for (int e = threadIdx.x; e < nb * kTabTY; e += kThreads) {
+    const int b = e / kTabTY, y = e % kTabTY;
+    if (y >= ny) continue;
+    gradient_tab_mode(tile[b][y], N, kz0 + b0 + b, ix, iy0 + y, tab, glo,
+                      gdx, tmax, out, n,
+                      ((int64_t)(b0 + b) * N + ix) * N + iy0 + y);
+  }
+}
+
+// The contiguous form: iy contiguous, element (b, ix, iy) at src[b * sb +
+// ix * sx + iy] (K9's planes, K19's widened batches).  A block takes one
+// (b, ix) row, its lanes consecutive iy: reads and writes are rows.
+__global__ void __launch_bounds__(kThreads)
+ooc_gradient_tab_rows_kernel(const float2* __restrict__ src, int64_t sb,
+                             int64_t sx, float2* __restrict__ out, int N,
+                             int kz0, int B, LdgTable tab, float glo,
+                             float gdx, float tmax) {
+  const int row = blockIdx.x;
+  const int b = row / N, ix = row - b * N;
+  const float2* s = src + (int64_t)b * sb + (int64_t)ix * sx;
+  const int64_t n = (int64_t)B * N * N, o = (int64_t)row * N;
+  for (int iy = threadIdx.x; iy < N; iy += kThreads)
+    gradient_tab_mode(__ldg(s + iy), N, kz0 + b, ix, iy, tab, glo, gdx,
+                      tmax, out, n, o + iy);
 }
 
 // the 3LPT-b fold operands of one Hessian component (a, b): k_a k_b / k^2
@@ -279,8 +337,6 @@ __global__ void ooc_pair_kernel(Batch src0, Batch src1,
   out[idx] = cscale(cscale(batch_at(src0, b, ix, iy), k.inv_k2), f);
   out[n + idx] = cscale(cscale(batch_at(src1, b, ix, iy), k.inv_k2), f);
 }
-
-constexpr int kThreads = 256;
 
 // the window's mode count, or -1 for a window outside the k layout
 int64_t window_modes(const Window& w) {
@@ -398,20 +454,35 @@ extern "C" int ooc_factors_gradient(const void* src, int64_t sb, int64_t sx,
   return (int)cudaGetLastError();
 }
 
-// gtab: [ntab] growth over log10 |k| (see kspace_gradient_tab)
-extern "C" int ooc_factors_gradient_tab(const void* src, int64_t sb,
-                                        int64_t sx, int64_t sy, void* out,
-                                        int N, int kz0, int B,
-                                        const void* gtab, int ntab,
-                                        float glo, float gdx, float tmax,
-                                        void* stream) {
-  const int64_t n = (int64_t)B * N * N;
-  if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  ooc_gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
-                            (cudaStream_t)stream>>>(
-      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n,
-      (const float*)gtab, ntab, glo, gdx, tmax);
+// K14: gtab [ntab] growth over log10 |k| (see kspace_gradient_tab); out
+// [3, B, N, N].  The kz-fastest form (the source's kz stride 1) takes the
+// source's x and y strides, the contiguous form (y stride 1) its kz and x
+// strides, in complex elements.
+extern "C" int ooc_gradient_tab_kz(const void* src, int64_t sx, int64_t sy,
+                                   void* out, int N, int kz0, int B,
+                                   const void* gtab, int ntab, float glo,
+                                   float gdx, float tmax, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  if (ntab < 2 || N > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kTabTY - 1) / kTabTY, N, (B + kTabBZ - 1) / kTabBZ);
+  ooc_gradient_tab_kz_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)src, sx, sy, (float2*)out, N, kz0, B,
+      LdgTable{(const float*)gtab}, glo, gdx, tmax);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ooc_gradient_tab_rows(const void* src, int64_t sb,
+                                     int64_t sx, void* out, int N, int kz0,
+                                     int B, const void* gtab, int ntab,
+                                     float glo, float gdx, float tmax,
+                                     void* stream) {
+  if (B == 0 || N == 0) return 0;
+  if (ntab < 2 || (int64_t)B * N > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  ooc_gradient_tab_rows_kernel<<<(unsigned)(B * N), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      (const float2*)src, sb, sx, (float2*)out, N, kz0, B,
+      LdgTable{(const float*)gtab}, glo, gdx, tmax);
   return (int)cudaGetLastError();
 }
 

@@ -974,8 +974,8 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
         for s, z in enumerate(zs):
             last = s == len(zs) - 1
             if scaledep:
-                gk = om.per_device(lambda dev: growth_k_tables(cosmo, z, N,
-                                                               dev))
+                gk = om.per_device(lambda dev: derivatives.growth_tables(
+                    *growth_k_tables(cosmo, z, N, dev)))
             else:
                 growth = (cosmo.GrowingMode(z), cosmo.GrowingMode_2LPT(z),
                           cosmo.GrowingMode_3LPT_1(z),
@@ -992,8 +992,7 @@ def run_fmax_ooc(params: Params, cosmo: Cosmology, device,
                 if scaledep:
                     om.build(u_v, lambda i, kz0, B:
                              derivatives.ooc_gradient_tab(
-                                 source(i, kz0, B), kz0, gk[i][0][i_g],
-                                 gk[i][1], gk[i][2], N))
+                                 source(i, kz0, B), kz0, gk[i][i_g], N))
                 else:
                     g = float(growth[i_g])
                     om.build(u_v, lambda i, kz0, B: derivatives.ooc_gradient(

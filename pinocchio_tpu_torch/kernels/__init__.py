@@ -176,9 +176,12 @@ _SIGNATURES = {
     # collapse_update
     "collapse_update_slab_table": [_P, _P, _L, _P, _P, _P, _P, _F, _I, _P,
                                    _I, _P, _P, _P],
-    # src, sb, sx, sy, out, N, kz0, B, gtab, ntab, glo, gdx, tmax, stream
-    "ooc_factors_gradient_tab": [_P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _F,
-                                 _F, _F, _P],
+    # K14 kz-fastest: src, sx, sy, out, N, kz0, B, gtab, ntab, glo, gdx,
+    # tmax, stream; contiguous: src, sb, sx, then the same
+    "ooc_gradient_tab_kz": [_P, _L, _L, _P, _I, _I, _I, _P, _I, _F, _F, _F,
+                            _P],
+    "ooc_gradient_tab_rows": [_P, _L, _L, _P, _I, _I, _I, _P, _I, _F, _F,
+                              _F, _P],
     # K1's arguments with the window y0, ny, z0, nz after N
     "ic_kdensity_shard": [_P, _P, _P, _P, _I, _U, _U, _U, _U, _F, _F, _I, _I,
                           _I, _I, _I, _I, _I, _P],
@@ -194,9 +197,10 @@ _SIGNATURES = {
     # seg_base, seg_n, nch, out, stream
     "exchange_pack": [_P, _P, _L, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I,
                       _P, _P],
-    # spheres, sphere_host, ns, block[6] (host), N, pad_boxes, pad_off,
-    # t0_boxes, t0_off, rmax, map, stream
-    "exchange_paint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+    # rows, nrows, first, nblocks, ncols, block[6] (host), N, pad_boxes,
+    # pad_off, t0_boxes, t0_off, map, its bytes, stream
+    "exchange_paint": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _L,
+                       _P],
     # K18, K19 transposing: src, dst, kind, C, M, B, W, k, stream
     "storage_store_kz": [_P, _P, _I, _L, _L, _L, _L, _L, _P],
     "storage_load_kz": [_P, _P, _I, _L, _L, _L, _L, _L, _P],
@@ -453,8 +457,17 @@ def check(name: str, err: int) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of ``device`` (a torch.device or a card's index),
+    read at every launch, as a stream kept from an earlier call would miss
+    a ``torch.cuda.stream`` context: through torch's raw query where it has
+    one."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if query is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    if not isinstance(device, int):
+        device = torch.device(device).index
+    return query(torch.cuda.current_device() if device is None else device)
 
 
 def on_device(device):

@@ -18,7 +18,7 @@ transforms are ``torch.fft`` (cuFFT on the card) in the two-step
 decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
 the wrappers of the out-of-core engine's per-kz-batch factors (K10, also in
 ``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its gradient with a growth
-table (K14).
+table (K14, a ``GrowthTable``).
 """
 
 from __future__ import annotations
@@ -162,8 +162,15 @@ def _table_args(name, gtab, glo: float, gdx: float, device):
     if gtab.device != device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device, "
                          f"got {gtab.device} and {device}")
+    return _table_scalars(name, gtab, glo, gdx)
+
+
+def _table_scalars(name, gtab, glo: float, gdx: float):
+    """_table_args without the device checks."""
     if gtab.dtype != torch.float32 or gtab.dim() != 1 or gtab.numel() < 2:
         raise ValueError(f"{name}: gtab must be f32[ntab], ntab >= 2")
+    if not gtab.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous")
     ntab = gtab.numel()
     return (gtab.data_ptr(), ntab, float(np.float32(glo)),
             float(np.float32(gdx)), float(np.float32(ntab - 1.001)))
@@ -290,10 +297,33 @@ def ooc_gradient_plain(src, kz0: int, growth: float, N: int):
     return torch.stack([base * kx, base * ky, base * kz])
 
 
-def ooc_gradient_tab_plain(src, kz0: int, gtab, glo: float, gdx: float,
-                           N: int):
+class GrowthTable:
+    """One growth table of K14: gtab [ntab] float32 over log10 |k| (|k|
+    in grid units) from glo in steps of gdx, with the kernel's scalars (the
+    float32 glo, gdx and coordinate clip ntab - 1.001) made once, on the
+    first launch, for every launch after it."""
+
+    def __init__(self, gtab, glo: float, gdx: float):
+        self.gtab, self.glo, self.gdx = gtab, glo, gdx
+        self._args = None
+
+    def args(self):
+        """(gtab pointer, ntab, glo, gdx, tmax) in the C prototype's order
+        (_table_args'; the launch checks the table's device)."""
+        if self._args is None:
+            self._args = _table_scalars("ooc_factors_gradient_tab",
+                                        self.gtab, self.glo, self.gdx)
+        return self._args
+
+
+def growth_tables(gtabs, glo: float, gdx: float) -> list:
+    """The GrowthTable of each row of growth_k_tables' [4, ntab] tables."""
+    return [GrowthTable(gtabs[i], glo, gdx) for i in range(gtabs.shape[0])]
+
+
+def ooc_gradient_tab_plain(src, kz0: int, table: GrowthTable, N: int):
     kx, ky, kz, k2, inv_k2 = k_batch(N, kz0, src.shape[0], src.device)
-    growth = _growth_lookup(k2, gtab, glo, gdx)
+    growth = _growth_lookup(k2, table.gtab, table.glo, table.gdx)
     base = src * (1j * growth) * inv_k2
     return torch.stack([base * kx, base * ky, base * kz])
 
@@ -351,15 +381,64 @@ def ooc_gradient(src, kz0: int, growth: float, N: int):
                          float(growth))
 
 
-def ooc_gradient_tab(src, kz0: int, gtab, glo: float, gdx: float, N: int):
+def ooc_gradient_tab(src, kz0: int, table: GrowthTable, N: int):
     """i k_a / k^2 * growth(|k|) on a source batch, the growth interpolated
-    linearly in a table gtab [ntab] float32 over log10 |k| (as
-    gradient_kspace_tab): complex64 [3, B, N, N]."""
-    if not kernels.plain_or_kernel("ooc_factors_gradient_tab", src):
-        return ooc_gradient_tab_plain(src, kz0, gtab, glo, gdx, N)
-    return _launch_batch("ooc_factors_gradient_tab", [src], 3, kz0, N,
-                         *_table_args("ooc_factors_gradient_tab", gtab, glo,
-                                      gdx, src.device))
+    linearly in a GrowthTable (as gradient_kspace_tab): complex64
+    [3, B, N, N].  The source's strides pick the kernel's form: its iy axis
+    contiguous (K9's planes, a 16-bit spectrum's widened batch) or its kz
+    axis (a resident spectrum's window); any other layout raises."""
+    dev = src.get_device()
+    if dev < 0:
+        kernels.plain_or_kernel("ooc_factors_gradient_tab", src)
+        return ooc_gradient_tab_plain(src, kz0, table, N)
+    shape = src.shape
+    if (src.dtype != torch.complex64 or len(shape) != 3
+            or shape[1] != N or shape[2] != N
+            or not 0 <= kz0 <= kz0 + shape[0] <= N // 2 + 1
+            or table.gtab.get_device() != dev):
+        raise ValueError(f"ooc_factors_gradient_tab: a complex64 [B, {N}, "
+                         f"{N}] source batch of planes in 0..{N // 2} and "
+                         f"its table on one CUDA device expected, got "
+                         f"{src.dtype} {tuple(shape)} at kz {kz0} on "
+                         f"{src.device}, the table on {table.gtab.device}")
+    out = src.new_empty((3,) + tuple(shape))
+    err = launch_gradient_tab(src, kz0, table.args(), N, out,
+                              kernels.stream_ptr(dev))
+    if err:
+        kernels.check("ooc_factors_gradient_tab", err)
+    kernels.LAUNCHES["ooc_factors_gradient_tab"] += 1
+    return out
+
+
+_TAB = None
+
+
+def _tab_entry():
+    """K14's C entry points, its kz-fastest and contiguous forms, looked up
+    in the kernel library once."""
+    global _TAB
+    if _TAB is None:
+        so = kernels.lib()
+        _TAB = (so.ooc_gradient_tab_kz, so.ooc_gradient_tab_rows)
+    return _TAB
+
+
+def launch_gradient_tab(src, kz0: int, table_args, N: int, out,
+                        stream: int) -> int:
+    """Hand K14's form for the strides of src [B, N, N] its arguments:
+    the source pointer and strides, out, N, kz0, B, the table's
+    (GrowthTable.args) and the stream; returns the cudaError_t."""
+    sb, sx, sy = src.stride()
+    B = src.shape[0]
+    if sy == 1:
+        return _tab_entry()[1](src.data_ptr(), sb, sx, out.data_ptr(), N,
+                               kz0, B, *table_args, stream)
+    if sb == 1:
+        return _tab_entry()[0](src.data_ptr(), sx, sy, out.data_ptr(), N,
+                               kz0, B, *table_args, stream)
+    raise ValueError(f"ooc_factors_gradient_tab: a source batch with its iy "
+                     f"or its kz axis contiguous expected, got strides "
+                     f"{tuple(src.stride())}")
 
 
 def ooc_pair(src0, src1, kz0: int, ia: int, ib: int, N: int):

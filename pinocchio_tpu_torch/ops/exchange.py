@@ -8,6 +8,10 @@ kernel, on a CPU tensor they run the plain PyTorch version beside it.
 Boxes are int32 rows (x0, Lx, y0, Ly, z0, Lz), a box holding the cells
 [x0, x0 + L) mod N of each dimension, with the rows of host h at
 box_off[h]:box_off[h + 1].  A shard's block is (x0, nx, y0, ny, z0, nz).
+``paint`` takes its spheres as a ``PaintPlan``, cut for one shard from a
+``PaintSpheres`` that the caller builds on the host, once per exchange,
+from the numpy spheres it holds; it dispatches on the device of the box
+tables.
 """
 
 from __future__ import annotations
@@ -178,17 +182,142 @@ def pack(perm, buf, count, bits, block_off, host_nd, host_devs, seg_base,
     return out
 
 
-def paint_plain(spheres, sphere_host, block, N, pad_boxes, pad_off,
-                t0_boxes, t0_off, nhosts):
+PAINT_COLS = 32       # K17's columns per block (csrc/exchange.cu)
+PAINT_ROW = 16        # ints per row of K17's plan
+PAINT_MAX_N = 1 << 15  # r <= N keeps r * r in an int32
+
+
+def _ring_runs(a, length, o, e, N):
+    """The cells of the periodic interval [a, a + length) mod N (a in
+    [0, N)) that fall in the window [o, o + e) of [0, N), as at most two
+    runs in window coordinates: (s1, n1, s2, n2), each an array over the
+    intervals."""
+    full = length >= N
+    end = a + length
+    lo1 = np.where(full, 0, a)
+    hi1 = np.where(full, N, np.minimum(end, N))
+    hi2 = np.where(full, 0, np.maximum(end - N, 0))
+    s1 = np.maximum(lo1, o)
+    s2 = np.full_like(s1, o)
+    return (s1 - o, np.maximum(np.minimum(hi1, o + e) - s1, 0),
+            s2 - o, np.maximum(np.minimum(hi2, o + e) - s2, 0))
+
+
+class PaintSpheres:
+    """The part of K17's plan that every shard shares, built once per
+    exchange on the host from the caller's numpy spheres (float32 [ns, 4]:
+    cx, cy, cz, r in cells) and their hosts (int32 [ns]) on an N^3 grid;
+    ``plan(block)`` cuts it to one shard.
+
+    A sphere of radius r (truncated; r <= 0 paints nothing, r > N paints
+    as r = N: every cell) covers the offsets [-r, r) of each dimension with
+    ox^2 + oy^2 + oz^2 <= r^2, wrapped.  Offsets that wrap onto one cell
+    (2r > N) leave it painted once, and the least |o| among them decides
+    whether it is in the ball, so each dimension reduces to the periodic
+    interval [c - r, c + r - 1] with the periodic distance to the centre.
+    A column (gx, gy) of that square is in the ball when mx^2 + my^2 <=
+    r^2; its cells are the interval [cz - zr, cz + min(zr, r - 1)] with
+    zr = isqrt(r^2 - mx^2 - my^2).  Held here: the kept spheres' integer
+    centres (mod N), radii and hosts."""
+
+    def __init__(self, spheres, sphere_host, N: int):
+        if N > PAINT_MAX_N:
+            raise ValueError(f"exchange_paint: N {N} above {PAINT_MAX_N}")
+        self.spheres = np.asarray(spheres, np.float32).reshape(-1, 4)
+        self.host = np.asarray(sphere_host, np.int32).reshape(-1)
+        if len(self.host) != len(self.spheres):
+            raise ValueError("exchange_paint: one host per sphere expected")
+        self.N = N
+        r = np.trunc(self.spheres[:, 3].astype(np.float64)).astype(np.int64)
+        keep = np.flatnonzero(r > 0)
+        r = np.minimum(r[keep], N)
+        c = np.trunc(self.spheres[keep, :3].astype(np.float64)).astype(
+            np.int64) % N
+        # the squares' corners and sides; cx, cy, cz, r, host as the rows
+        # hold them
+        self.x, self.y, self.side = (c[:, 0] - r) % N, (c[:, 1] - r) % N, 2 * r
+        self.tail = np.column_stack([c, r, self.host[keep]]).astype(np.int32)
+        h = self.host[keep]
+        self.hosts = (int(h.min()), int(h.max())) if len(h) else (0, -1)
+
+    def plan(self, block) -> "PaintPlan":
+        """The plan of the shard ``block`` (x0, nx, y0, ny, z0, nz), a
+        window of the grid that does not wrap."""
+        return PaintPlan(self, block)
+
+
+class PaintPlan:
+    """K17's work list for one shard: a row of PAINT_ROW ints for each
+    sphere whose square meets the block, with the square's x cells in the
+    block as two runs (local start and length of the first, local start of
+    the second), its y cells likewise, the number of y cells, the row's
+    first column in the flat column order (x major), the sphere's cx, cy,
+    cz, r and host; and per block of PAINT_COLS columns the row of its
+    first column.  ``table(device)`` is that list as one int32 tensor on
+    the device, uploaded once per device."""
+
+    def __init__(self, sph: PaintSpheres, block):
+        self.spheres, self.host, self.N = sph.spheres, sph.host, sph.N
+        self.block = tuple(int(b) for b in block)
+        x0, nx, y0, ny, z0, nz = self.block
+        N = self.N
+        if not (0 <= x0 and x0 + nx <= N and 0 <= y0 and y0 + ny <= N
+                and 0 <= z0 and z0 + nz <= N):
+            raise ValueError(f"exchange_paint: block {self.block} is not a "
+                             f"window of the {N}^3 grid")
+        xs, xn, xt, xm = _ring_runs(sph.x, sph.side, x0, nx, N)
+        at = np.flatnonzero(xn + xm)
+        ys, yn, yt, ym = _ring_runs(sph.y[at], sph.side[at], y0, ny, N)
+        cols = (xn[at] + xm[at]) * (yn + ym)
+        live = np.flatnonzero(cols)
+        cols = cols[live]
+        col0 = np.cumsum(cols) - cols
+        self.ncols = int(cols.sum())
+        if self.ncols >= 2 ** 31:
+            raise ValueError("exchange_paint: over 2^31 columns")
+        self.nrows = len(live)
+        self.nblocks = -(-self.ncols // PAINT_COLS)
+        # rows and first blocks in one int32 buffer, the upload's
+        self.flat = np.empty(self.nrows * PAINT_ROW + self.nblocks, np.int32)
+        self.rows = self.flat[:self.nrows * PAINT_ROW].reshape(-1, PAINT_ROW)
+        xl = at[live]
+        for k, v in enumerate((xs[xl], xn[xl], xt[xl], ys[live], yn[live],
+                               yt[live], yn[live] + ym[live], col0)):
+            self.rows[:, k] = v
+        self.rows[:, 8:13] = sph.tail[xl]
+        self.rows[:, 13:] = 0
+        # the row of each block's first column: a row holds the starts of
+        # the blocks from ceil(col0 / 32) to ceil((col0 + cols) / 32)
+        starts = -(-(col0 + cols) // PAINT_COLS) + (col0 // -PAINT_COLS)
+        self.first = self.flat[self.nrows * PAINT_ROW:]
+        self.first[:] = np.repeat(np.arange(self.nrows), starts)
+        self.hosts = sph.hosts
+        self.c_block = (ctypes.c_int * 6)(*self.block)
+        self._tables = {}
+
+    def table(self, device):
+        """The plan as one int32 tensor [rows | blocks] on
+        ``device``: copied from page-locked memory, without a wait."""
+        t = self._tables.get(device)
+        if t is None:
+            host = torch.from_numpy(self.flat)
+            if device.type == "cuda":
+                host = host.pin_memory()
+            t = self._tables[device] = host.to(device, non_blocking=True)
+        return t
+
+
+def paint_plain(plan, pad_boxes, pad_off, t0_boxes, t0_off, nhosts):
     """Plain version of K17: see paint (the JAX package's _paint_block, on
-    tensors)."""
-    x0, nx, y0, ny, z0, nz = block
-    dev = spheres.device
+    tensors: each sphere's cube of offsets, tested cell by cell)."""
+    x0, nx, y0, ny, z0, nz = plan.block
+    N = plan.N
+    dev = pad_boxes.device
     out = torch.zeros((nhosts, nx, ny, nz), dtype=torch.uint8, device=dev)
     pad, poff = pad_boxes.tolist(), pad_off.tolist()
     t0, toff = t0_boxes.tolist(), t0_off.tolist()
     org, ext = (x0, y0, z0), (nx, ny, nz)
-    for (cx, cy, cz, r), h in zip(spheres.tolist(), sphere_host.tolist()):
+    for (cx, cy, cz, r), h in zip(plan.spheres.tolist(), plan.host.tolist()):
         s = int(r)
         if s <= 0:
             continue
@@ -215,37 +344,49 @@ def paint_plain(spheres, sphere_host, block, N, pad_boxes, pad_off,
     return out
 
 
-def paint(spheres, sphere_host, block, N, pad_boxes, pad_off, t0_boxes,
-          t0_off, nhosts):
-    """The turn-1 request maps of one shard: uint8 [H, nx, ny, nz], 1 where
-    a boundary sphere of host h (spheres float32 [ns, 4]: cx, cy, cz and
-    the radius r in cells; sphere_host int32 [ns]) covers a cell at the
-    offsets [-r, r) of each dimension with ox^2 + oy^2 + oz^2 <= r^2,
-    wrapped periodically, that lies in one of h's padded boxes and in none
-    of its turn-0 boxes (both as count's boxes)."""
-    if not kernels.plain_or_kernel("exchange_paint", spheres):
-        return paint_plain(spheres, sphere_host, block, N, pad_boxes,
-                           pad_off, t0_boxes, t0_off, nhosts)
-    kernels.require_cuda("exchange_paint", spheres, sphere_host, pad_boxes,
-                         pad_off, t0_boxes, t0_off)
-    if (spheres.dtype != torch.float32 or spheres.dim() != 2
-            or spheres.shape[1] != 4 or sphere_host.dtype != torch.int32
-            or sphere_host.numel() != spheres.shape[0]):
-        raise ValueError("exchange_paint: spheres f32[ns, 4] and "
-                         "sphere_host i32[ns] expected")
-    x0, nx, y0, ny, z0, nz = block
-    out = torch.zeros((nhosts, nx, ny, nz), dtype=torch.uint8,
-                      device=spheres.device)
-    ns = spheres.shape[0]
-    if ns == 0:
-        return out
-    rmax = int(np.floor(float(spheres[:, 3].max())))
-    blk = (ctypes.c_int * 6)(*block)
-    err = kernels.lib().exchange_paint(
-        spheres.data_ptr(), sphere_host.data_ptr(), ns, blk, N,
-        pad_boxes.data_ptr(), pad_off.data_ptr(), t0_boxes.data_ptr(),
-        t0_off.data_ptr(), rmax, out.data_ptr(),
-        kernels.stream_ptr(spheres.device))
+def paint(plan, pad_boxes, pad_off, t0_boxes, t0_off, nhosts):
+    """The turn-1 request maps of one shard: uint8 [H, nx, ny, nz] on the
+    device of the box tables, 1 where a boundary sphere of host h (the
+    plan's, see PaintSpheres) covers a cell at the offsets [-r, r) of each
+    dimension with ox^2 + oy^2 + oz^2 <= r^2, wrapped periodically, that
+    lies in one of h's padded boxes and in none of its turn-0 boxes (both
+    as count's boxes; their origins in [0, N) keep the kernel's wrap to a
+    compare).  The map is zeroed and painted in one call on the current
+    stream; nothing waits for the card."""
+    if not kernels.plain_or_kernel("exchange_paint", pad_boxes):
+        return paint_plain(plan, pad_boxes, pad_off, t0_boxes, t0_off,
+                           nhosts)
+    kernels.require_cuda("exchange_paint", pad_boxes, pad_off, t0_boxes,
+                         t0_off)
+    if (any(t.dtype != torch.int32 for t in (pad_boxes, pad_off, t0_boxes,
+                                              t0_off))
+            or pad_boxes.dim() != 2 or pad_boxes.shape[1] != 6
+            or t0_boxes.dim() != 2 or t0_boxes.shape[1] != 6
+            or pad_off.numel() != nhosts + 1 or t0_off.numel() != nhosts + 1
+            or plan.hosts[0] < 0 or plan.hosts[1] >= nhosts):
+        raise ValueError("exchange_paint: boxes i32[nb, 6], box offsets "
+                         "i32[H + 1] and sphere hosts in [0, H) expected")
+    x0, nx, y0, ny, z0, nz = plan.block
+    dev = pad_boxes.device
+    out = pad_boxes.new_empty((nhosts, nx, ny, nz), dtype=torch.uint8)
+    t = plan.table(dev).data_ptr() if plan.ncols else 0
+    err = _paint_entry()(
+        t, plan.nrows, t + 4 * PAINT_ROW * plan.nrows, plan.nblocks,
+        plan.ncols, plan.c_block, plan.N, pad_boxes.data_ptr(),
+        pad_off.data_ptr(), t0_boxes.data_ptr(), t0_off.data_ptr(),
+        out.data_ptr(), out.numel(), kernels.stream_ptr(dev))
     kernels.check("exchange_paint", err)
-    kernels.LAUNCHES["exchange_paint"] += 1
+    if plan.ncols:
+        kernels.LAUNCHES["exchange_paint"] += 1
     return out
+
+
+_PAINT = None
+
+
+def _paint_entry():
+    """K17's C entry point, looked up in the kernel library once."""
+    global _PAINT
+    if _PAINT is None:
+        _PAINT = kernels.lib().exchange_paint
+    return _PAINT

@@ -30,7 +30,6 @@ from .. import kernels
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _KIND = {torch.bfloat16: 0, torch.float16: 1}
 _C64 = torch.complex64
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _kind(name, t, shape):
@@ -53,13 +52,6 @@ def _entry():
         _ENTRY = (so.storage_store_kz, so.storage_store_rows,
                   so.storage_load_kz, so.storage_load_rows)
     return _ENTRY
-
-
-def _stream(dev: int):
-    """The current stream of card dev."""
-    if _RAW_STREAM is not None:
-        return _RAW_STREAM(dev)
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _done(name, err):
@@ -102,7 +94,7 @@ def store_kz(batch, stack, k: int):
         kernels.require_cuda("storage_store", batch, stack)
     _done("storage_store", _entry()[0](
         batch.data_ptr(), stack.data_ptr(), kind, C, n1 * n2, B, W, k,
-        _stream(dev)))
+        kernels.stream_ptr(dev)))
     return stack
 
 
@@ -134,7 +126,7 @@ def store_rows(src, dst, col0: int):
         kernels.require_cuda("storage_store", src, dst)
     _done("storage_store", _entry()[1](
         src.data_ptr(), dst.data_ptr(), kind, src.numel() // Ws if Ws else 0,
-        W, Ws, col0, _stream(dev)))
+        W, Ws, col0, kernels.stream_ptr(dev)))
     return dst
 
 
@@ -164,7 +156,7 @@ def load_kz(stack, k: int, B: int):
     out = stack.new_empty((C, B, n1, n2), dtype=_C64)
     _done("storage_load", _entry()[2](
         stack.data_ptr(), out.data_ptr(), kind, C, n1 * n2, B, W, k,
-        _stream(dev)))
+        kernels.stream_ptr(dev)))
     return out
 
 
@@ -194,5 +186,5 @@ def load_rows(src, x0: int, Bx: int):
     row = src.numel() // (2 * C * X) if C * X else 0
     _done("storage_load", _entry()[3](
         src.data_ptr() + 4 * x0 * row, out.data_ptr(), kind, C, Bx * row,
-        X * row, _stream(dev)))
+        X * row, kernels.stream_ptr(dev)))
     return out

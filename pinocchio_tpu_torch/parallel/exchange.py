@@ -129,15 +129,13 @@ def build_turn1_maps(spheres: Dict[int, np.ndarray], geoms, nhosts: int,
            else np.zeros((0, 4), np.float32))
     owner = np.concatenate([np.full(len(spheres[h]), h, np.int32)
                             for h in hosts] or [np.zeros(0, np.int32)])
+    balls = ops.PaintSpheres(sph, owner, N)
     tables = {}
 
     def one(i, dev):
         if dev not in tables:
-            tables[dev] = (torch.from_numpy(sph).to(dev),
-                           torch.from_numpy(owner).to(dev),
-                           *region_tables(pad, dev), *region_tables(t0, dev))
-        s, o, pb, po, tb, to = tables[dev]
-        return ops.paint(s, o, decomp.real_block(i), N, pb, po, tb, to,
+            tables[dev] = (*region_tables(pad, dev), *region_tables(t0, dev))
+        return ops.paint(balls.plan(decomp.real_block(i)), *tables[dev],
                          nhosts)
     return decomp.map(one, decomp.devices)
 

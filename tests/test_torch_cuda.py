@@ -25,9 +25,11 @@ batches), K11 (K3 on a slab, no Rmax) and K12 (the slab row scatter) are
 exactly equal to their plain versions; K4's one-pair accumulation is within
 1e-5 of the maximum.  K13 (K7 on a slab, no Rmax; three lookups) is
 exactly equal to its plain version and to K7 on the rare-branch batches and
-on Gaussian Hessians; K14 (the gradient mode with a growth table, on
-contiguous and strided batches) is exactly equal to its plain version and
-to K8's values at the same modes.  The shard kernels K1s, K2s, K5s and K8s
+on Gaussian Hessians; K14 (the gradient mode with a growth table, in its
+contiguous and kz-fastest forms, on the first, a middle and the last batch
+of the kz schedule at N = 50, 256 and 512, the last one plane) is exactly
+equal to its plain version and to K8's values at the same modes, and
+refuses any other layout.  The shard kernels K1s, K2s, K5s and K8s
 on a mesh shard's window are exactly equal to their plain versions and to
 the full-grid kernels on that window; the fmax phase over a 2x2 pencil
 mesh of the one card launches the mesh's kernels and holds the
@@ -37,10 +39,13 @@ equals the blocking one bit for bit on both engines, and its copies land
 their source's values when the source is freed and its memory reused
 before they run.  The exchange's kernels
 K15 (count, with boxes and with request maps), K16 (pack) and K17 (sphere
-paint) are
+paint, from its plan) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
-with no box, and spheres across the shard's edge and the periodic wrap.
+with no box, and spheres across the shard's edge and the periodic wrap;
+K17 also on adversarial spheres (2r = N, 2r > N, r >= N, fractional and
+negative radii, spheres outside the shard) on that shard, a slab and an
+odd window.
 K18 and K19 (the out-of-core engine's 16-bit stores and loads) equal their
 plain versions bit for bit in bfloat16 and float16 at N = 50 and 64, in
 every form and alignment the kernels distinguish.
@@ -62,7 +67,7 @@ import torch
 
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
-from pinocchio_tpu_torch import fmax, ic, kernels
+from pinocchio_tpu_torch import fmax, fmax_ooc, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
 from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
 from pinocchio_tpu_torch.ops import exchange as xops
@@ -674,29 +679,40 @@ def test_collapse_update_slab_table(dev, tables, interp):
 
 
 @pytest.mark.cuda
-def test_ooc_factors_gradient_tab(dev):
-    """K14 on a contiguous plane batch and on a strided batch of a resident
-    spectrum: exactly its plain version, and K8's values at those modes."""
-    p = Params(GridSize=N, BoxSize=float(N), output_z=[0.0], norad=True,
+@pytest.mark.parametrize("n", [N, 256, 512])
+def test_ooc_factors_gradient_tab(dev, n):
+    """K14 in its forms: on a contiguous plane batch (the contiguous form)
+    and on a resident spectrum's strided batch (the kz-fastest form), for
+    the first, a middle and the last batch of the kz schedule (at 256 and
+    512 the one-plane batch kz = N/2): exactly its plain version, and K8's
+    values at those modes."""
+    p = Params(GridSize=n, BoxSize=float(n), output_z=[0.0], norad=True,
                plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
                scale_dependent=True)
-    spec = rfft3(_hessians(dev)[0])
-    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(p), 0.5, N, dev)
-    dense = derivatives.gradient_kspace_tab(spec, gtabs[2], glo, gdx, N)
-    for kz0, B in ((0, 16), (16, 10)):
-        planes = spec[:, :, kz0:kz0 + B].permute(2, 0, 1).contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    spec = rfft3(torch.randn((n, n, n), generator=gen, device=dev))
+    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(p), 0.5, n, dev)
+    table = derivatives.GrowthTable(gtabs[2], glo, gdx)
+    dense = derivatives.gradient_kspace_tab(spec, gtabs[2], glo, gdx, n)
+    sched = fmax_ooc.kz_schedule(n // 2 + 1, fmax_ooc.KZ_BATCH)
+    assert n == N or sched[-1] == (n // 2, 1)
+    for kz0, B in (sched[0], sched[len(sched) // 2], sched[-1]):
         view = spec[:, :, kz0:kz0 + B].permute(2, 0, 1)
-        for src in (planes, view):
+        for src in (view.contiguous(), view):
             got = _launched("ooc_factors_gradient_tab",
                             lambda: derivatives.ooc_gradient_tab(
-                                src, kz0, gtabs[2], glo, gdx, N))
-            want = derivatives.ooc_gradient_tab_plain(src, kz0, gtabs[2],
-                                                      glo, gdx, N)
+                                src, kz0, table, n))
+            want = derivatives.ooc_gradient_tab_plain(src, kz0, table, n)
             assert torch.equal(torch.view_as_real(got),
                                torch.view_as_real(want))
             k8 = dense[..., kz0:kz0 + B].permute(0, 3, 1, 2)
             assert torch.equal(torch.view_as_real(got),
                                torch.view_as_real(k8))
+    with pytest.raises(ValueError, match="iy or its kz axis"):
+        derivatives.ooc_gradient_tab(
+            spec[:, :, :4].permute(2, 0, 1).contiguous().transpose(1, 2), 0,
+            table, n)
 
 
 # (y0, ny, z0, nz) windows of an [N, N, Nhp] mesh layout: the whole grid, a
@@ -907,7 +923,7 @@ def test_overlapped_handoff_on_the_card(dev, setup):
      lambda t: collapse.collapse_update_slab_table(t, t, t, t, t, t, 1.0,
                                                    "bilinear")),
     ("ooc_factors_gradient_tab", lambda t: derivatives.ooc_gradient_tab(
-        t, 0, t, 0.0, 1.0, 4)),
+        t, 0, derivatives.GrowthTable(t, 0.0, 1.0), 4)),
     ("kspace_hessian", lambda t: derivatives.hessian_kspace(t, 0.0, 4)),
     ("collapse_update", lambda t: collapse.collapse_update(t, t, t, 0, [])),
     ("lpt_sources_pointwise", lambda t: lpt.sources_pointwise(t)),
@@ -921,8 +937,10 @@ def test_overlapped_handoff_on_the_card(dev, setup):
     ("exchange_count", lambda t: xops.count(t, (0, 1, 0, 1, 0, 1), 4, t, t,
                                             1)),
     ("exchange_pack", lambda t: xops.pack(t, t, 0, t, t, t, t, t, t, 1, t)),
-    ("exchange_paint", lambda t: xops.paint(t, t, (0, 1, 0, 1, 0, 1), 4, t,
-                                            t, t, t, 1)),
+    ("exchange_paint", lambda t: xops.paint(
+        xops.PaintSpheres(np.zeros((1, 4), np.float32),
+                          np.zeros(1, np.int32), 4).plan((0, 1, 0, 1, 0, 1)),
+        t, t, t, t, 1)),
     ("storage_store", lambda t: storage.store_kz(
         _meta((1, 2, 4, 4), torch.complex64), _meta((1, 4, 4, 3, 2)), 0)),
     ("storage_store", lambda t: storage.store_rows(
@@ -1089,9 +1107,9 @@ def test_exchange_count(dev, nhosts):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[1].sum()) > 0 and int(got[1][:, -1].sum()) == 0
-    hmap = xops.paint(torch.from_numpy(case["spheres"]).to(dev),
-                      torch.from_numpy(case["owner"]).to(dev),
-                      case["block"], N, pb, po, tb, to, nhosts)
+    hmap = xops.paint(xops.PaintSpheres(case["spheres"], case["owner"],
+                                        N).plan(case["block"]), pb, po, tb,
+                      to, nhosts)
     got = xops.count(cells, case["block"], N, pb, po, nhosts, hmap=hmap)
     want = xops.count_plain(cells, case["block"], N, pb, po, nhosts,
                             hmap=hmap)
@@ -1133,14 +1151,35 @@ def test_exchange_pack(dev, nhosts):
     assert torch.equal(got, want)
 
 
+# K17's adversarial spheres at N = 50 (cx, cy, cz, r): 2r = N, 2r > N, r >= N
+# (several wraps), fractional radii (truncated), r in (0, 1), centres on the
+# grid's edge, and spheres wholly outside the (1, 1) shard
+PAINT_SPHERES = np.array([
+    [10, 30, 20, 25], [40, 5, 48, 26], [0, 0, 0, 50], [49, 49, 49, 123],
+    [7, 31, 3, 4.99], [26, 27, 0, 1.5], [30, 30, 30, 0.7], [0, 49, 25, 9],
+    [2, 2, 25, 10], [5, 10, 40, 4], [25, 25, 25, 1], [33, 44, 12, -3]],
+    np.float32)
+
+
 @pytest.mark.cuda
-def test_exchange_paint(dev):
+@pytest.mark.parametrize("adversarial", [False, True])
+def test_exchange_paint(dev, adversarial):
+    """K17 from its plan equals the plain cube walk exactly: the spheres of
+    exchange_case, and the adversarial ones (with the shard's own
+    block, a slab and a pencil block), each host's boxes as there."""
     nhosts = 5
     case = exchange_case(N, nhosts, seed=3)
     pb, po, tb, to = _tables(case, dev)
-    args = (torch.from_numpy(case["spheres"]).to(dev),
-            torch.from_numpy(case["owner"]).to(dev), case["block"], N, pb,
-            po, tb, to, nhosts)
-    got = xops.paint(*args)
-    assert torch.equal(got, xops.paint_plain(*args))
-    assert int(got.sum()) > 0
+    if not adversarial:
+        cases = [(case["spheres"], case["owner"], case["block"])]
+    else:
+        owner = np.arange(len(PAINT_SPHERES), dtype=np.int32) % (nhosts - 1)
+        cases = [(PAINT_SPHERES, owner, blk) for blk in (
+            case["block"], (10, 7, 0, N, 0, N), (0, N, 3, 17, 41, 9))]
+    for sph, owner, block in cases:
+        plan = xops.PaintSpheres(sph, owner, N).plan(block)
+        got = _launched("exchange_paint", lambda: xops.paint(
+            plan, pb, po, tb, to, nhosts))
+        assert torch.equal(got, xops.paint_plain(plan, pb, po, tb, to,
+                                                 nhosts))
+        assert int(got.sum()) > 0

@@ -177,9 +177,9 @@ def test_ooc_factors_match_jax(setup, gen, mode):
         g = jt[it] * (1.0 - wt) + jt[it + 1] * wt
         base = dj * (1j * (inv * g))
         want = [base * kc for kc in kv]
-        got = derivatives.ooc_gradient_tab(torch.from_numpy(d), kz0,
-                                           torch.from_numpy(gtab), float(glo),
-                                           float(gdx), N)
+        got = derivatives.ooc_gradient_tab(
+            torch.from_numpy(d), kz0, derivatives.GrowthTable(
+                torch.from_numpy(gtab), float(glo), float(gdx)), N)
     else:
         d2 = np.conj(d[:, ::-1]).copy()
         want, got = [], []

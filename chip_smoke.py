@@ -19,9 +19,11 @@
    ell_classic and with direct loads; K11 and K13 also 20 calls back to
    back and the host's enqueue of one), holds each against its plain
    PyTorch version on the same inputs, with the tolerance printed (K3, K7,
-   K11 and K13 exactly; K1, K1s and K9 bit for bit, signed zeros included,
-   K1 also with FixedIC and PairedIC, K1s also on a ragged window, K9 also
-   on the batch that ends at Nh; K6b also on adversarial F), and times the
+   K11 and K13 exactly; K1, K1s, K2, K2s, K5, K5s, K8, K8s, K9, K10 and
+   K14 bit for bit, signed zeros included, K1 also with FixedIC and
+   PairedIC, K1s also on a ragged window, K9 also on the batch that ends
+   at Nh, K10's three modes in their forms on the first, a middle and the
+   last kz batch; K6b also on adversarial F), and times the
    kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
    same function (median of 5, CUDA events); each kernel's bound is the
@@ -33,7 +35,11 @@
    boxes, a host with none, spheres across edges), exactly; K14 and K17
    also as their first call, 20 calls back to back and the host's enqueue
    (K14 on the kz schedule's one-plane batch too, K17 with its plan's host
-   time); times special
+   time), K10 and K16 as one call, 20 back to back and the host's enqueue
+   (the gradient and pair modes' rows form back to back; K16 beside its sector floor and a
+   gather of its payload by perm alone);
+   in the big phase, K10's and K14's calls by mode, form and planes with
+   their device time estimated from the back-to-back times; times special
    mode 2's density_field (a library c2r) beside its bound and irfftn;
    holds the 16-bit storage kernels K18 (store) and K19 (load) bit for bit
    to their plain versions in bfloat16 and float16 at the shapes of the
@@ -255,14 +261,15 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 # operations per element of each kernel, counted from its source: a mode
 # (K1, K9: two threefry2x32 evaluations of 20 rounds, six transcendentals,
-# a 12-step table search; K2/K5/K8/K10: the mode's k, one exponential or
-# table read, a few multiplies per output), a cell (K3/K7/K11: the
+# a 12-step table search; K2/K5/K8/K10/K14: the mode's k, one exponential
+# or table read, a complex product by a real or imaginary factor, four
+# multiplies and two adds, per output), a cell (K3/K7/K11: the
 # eigenvalues with acos and cos, the ellipsoid root, the growth fit, the
 # running max; K4: the products of its expression) or a row (K6a, K12)
-OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
-       "kspace_gradient": 20, "kspace_gradient_tab": 40,
-       "ooc_factors_hessian": 40, "ooc_factors_gradient": 20,
-       "ooc_factors_pair": 20, "collapse_update": 400,
+OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 68,
+       "kspace_gradient": 40, "kspace_gradient_tab": 60,
+       "ooc_factors_hessian": 68, "ooc_factors_gradient": 40,
+       "ooc_factors_pair": 36, "collapse_update": 400,
        "collapse_update_slab": 400, "collapse_update_table_trilinear": 330,
        "collapse_update_table_bilinear": 450,
        "collapse_update_table_bicubic": 900, "lpt_sources_pointwise": 35,
@@ -271,9 +278,9 @@ OPS = {"ic_kdensity": 380, "ic_kdensity_planes": 380, "kspace_hessian": 40,
        "vrows_slab": 1, "collapse_update_slab_table_trilinear": 330,
        "collapse_update_slab_table_bilinear": 450,
        "collapse_update_slab_table_bicubic": 900,
-       "ooc_factors_gradient_tab": 40, "ic_kdensity_shard": 380,
-       "kspace_hessian_shard": 40, "kspace_gradient_shard": 20,
-       "kspace_gradient_tab_shard": 40, "exchange_count": 12,
+       "ooc_factors_gradient_tab": 60, "ic_kdensity_shard": 380,
+       "kspace_hessian_shard": 68, "kspace_gradient_shard": 40,
+       "kspace_gradient_tab_shard": 60, "exchange_count": 12,
        "exchange_pack": 4, "exchange_paint": 20, "storage_store": 0,
        "storage_load": 0}
 FR = dict(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
@@ -833,6 +840,18 @@ def compiled_report(dev):
     return out
 
 
+def k10_cases(derivatives, kz0, R, growth, N):
+    """K10's three modes as (launch name, call(f, src0, src), kernel,
+    plain): the Hessian and gradient modes on src, the pair mode (component
+    xy) on (src0, src), each at the batch's first plane kz0."""
+    return (("ooc_factors_hessian", lambda f, s0, s: f(s, kz0, R, N),
+             derivatives.ooc_hessian, derivatives.ooc_hessian_plain),
+            ("ooc_factors_gradient", lambda f, s0, s: f(s, kz0, growth, N),
+             derivatives.ooc_gradient, derivatives.ooc_gradient_plain),
+            ("ooc_factors_pair", lambda f, s0, s: f(s0, s, kz0, 0, 1, N),
+             derivatives.ooc_pair, derivatives.ooc_pair_plain))
+
+
 def kernel_phases(N, dev, report):
     """Every kernel at N^3 against its plain version; fills report[N][name]
     with max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms of
@@ -892,34 +911,41 @@ def kernel_phases(N, dev, report):
     rec["ic_kdensity"].update(dead_modes=zeros, batch_ms=batch,
                               host_ms=host)
 
-    # ---- K2: Hessian multiply (a mid radius and R=0) ----
+    # ---- K2: Hessian multiply (a mid radius and R=0), bit for bit its
+    # plain version (an int32 view: signed zeros count) ----
     R_mid = float(np.float32(sm.radii[sm.n // 2] / grid.CellSize))
     for R in (R_mid, 0.0):
         got = derivatives.hessian_kspace(delta, R, N)
         ref = derivatives.hessian_kspace_plain(delta, R, N)
         err = (got - ref).abs().max().item()
-        tol = 1e-6 * ref.abs().max().item()
+        need(same_bits(got, ref), f"kspace_hessian at {N}^3, R={R}, is not "
+             "bit for bit its plain version")
         if R == 0.0:
-            phase("kspace_hessian", err, tol,
-                  time_ms(lambda: derivatives.hessian_kspace(delta, R, N)),
+            def k2():
+                return derivatives.hessian_kspace(delta, R, N)
+            batch = batch_ms(k2)
+            phase("kspace_hessian", err, 0.0, time_ms(k2),
                   time_ms(lambda: derivatives.hessian_kspace_plain(
                       delta, R, N)), 56 * modes, modes,
-                  extra=f"R={R:g} ")
-        else:
-            need(err <= tol, f"kspace_hessian at R={R} disagrees")
-            print(f"  [{N}^3] kspace_hessian R={R:.4f}: max_abs_err "
-                  f"{err:.3e} (tolerance {tol:.3e}) -> ok", flush=True)
+                  extra=f"bit for bit (and at R={R_mid:.4f}), R={R:g}, 20 "
+                  f"calls back to back {batch:.4f} ms a call, ")
+            rec["kspace_hessian"].update(batch_ms=batch)
         del got, ref
 
-    # ---- K5: gradient multiply ----
+    # ---- K5: gradient multiply, bit for bit ----
     D1 = float(cosmo.GrowingMode(0.0))
     got = derivatives.gradient_kspace(delta, D1, N)
     ref = derivatives.gradient_kspace_plain(delta, D1, N)
-    phase("kspace_gradient", (got - ref).abs().max().item(),
-          1e-6 * ref.abs().max().item(),
-          time_ms(lambda: derivatives.gradient_kspace(delta, D1, N)),
+    need(same_bits(got, ref), f"kspace_gradient at {N}^3 is not bit for bit "
+         "its plain version")
+    def k5():
+        return derivatives.gradient_kspace(delta, D1, N)
+    batch = batch_ms(k5)
+    phase("kspace_gradient", (got - ref).abs().max().item(), 0.0, time_ms(k5),
           time_ms(lambda: derivatives.gradient_kspace_plain(delta, D1, N)),
-          32 * modes, modes)
+          32 * modes, modes, extra=f"bit for bit, 20 calls back to back "
+          f"{batch:.4f} ms a call, ")
+    rec["kspace_gradient"].update(batch_ms=batch)
     del got, ref
 
     # ---- K3: collapse update on the mid-radius stack, from a state
@@ -1102,21 +1128,58 @@ def kernel_phases(N, dev, report):
     rec["ic_kdensity_planes"].update(with_table_ms=with_table,
                                      batch_ms=batch, host_ms=host)
     del ref
+    # ---- K10: each mode bit for bit its plain version in every form and
+    # source layout, on the first, a middle and the last batch of the kz
+    # schedule (the last one plane, kz = N/2): gradient on a resident
+    # spectrum's window (the kz-fastest form) and on a contiguous copy of
+    # its planes (the rows form), Hessian on the planes (its one form), pair
+    # on (planes, window) and (planes, planes); timed on the path's sources
+    # (Hessian on K9's planes, gradient on the window, pair on (K9's
+    # planes, the window): one call, 20 back to back, the host's enqueue),
+    # the rows form of the other two back to back ----
+    sched = fmax_ooc.kz_schedule(Nh, fmax_ooc.KZ_BATCH)
+    for kz0, nb in (sched[0], sched[len(sched) // 2], sched[-1]):
+        window = delta[:, :, kz0:kz0 + nb].permute(2, 0, 1)
+        flat = window.contiguous()
+        for name, call, kern, plain in k10_cases(derivatives, kz0, R_mid, D1,
+                                                 N):
+            for what, srcs in (("window", (flat, window)),
+                               ("planes", (flat, flat))):
+                if what == "window" and name.endswith("hessian"):
+                    continue
+                got, ref = call(kern, *srcs), call(plain, *srcs)
+                need(same_bits(got, ref), f"{name} on the {what} "
+                     f"[{nb}, {N}, {N}] at kz {kz0} at {N}^3 is not bit "
+                     "for bit its plain version")
+        del window, flat, got, ref
     spec = delta[:, :, 1:1 + B].permute(2, 0, 1)      # a strided batch
-    kz_cases = (
-        ("ooc_factors_hessian", lambda f: f(planes, 0, R_mid, N),
-         derivatives.ooc_hessian, derivatives.ooc_hessian_plain, 56),
-        ("ooc_factors_gradient", lambda f: f(spec, 1, D1, N),
-         derivatives.ooc_gradient, derivatives.ooc_gradient_plain, 32),
-        ("ooc_factors_pair", lambda f: f(planes, spec, 0, 0, 1, N),
-         derivatives.ooc_pair, derivatives.ooc_pair_plain, 32))
-    for name, call, kern, plain, per_mode in kz_cases:
-        got, ref = call(kern), call(plain)
-        ident = same(got, ref)
-        phase(name, (got - ref).abs().max().item(),
-              1e-6 * ref.abs().max().item(), time_ms(lambda: call(kern)),
-              time_ms(lambda: call(plain)), per_mode * B * N * N, B * N * N,
-              extra=("identical, " if ident else ""))
+    forms_ms = KEPT.setdefault("factors", {}).setdefault(N, {})
+    for name, call, kern, plain in k10_cases(derivatives, 1, R_mid, D1, N):
+        srcs = (planes, planes if name.endswith("hessian") else spec)
+        per_mode = {"ooc_factors_hessian": 56, "ooc_factors_gradient": 32,
+                    "ooc_factors_pair": 32}[name]
+        got, ref = call(kern, *srcs), call(plain, *srcs)
+        need(same_bits(got, ref), f"{name} at {N}^3 is not bit for bit its "
+             "plain version")
+
+        def k10():
+            return call(kern, *srcs)
+        ms, batch, host = time_ms(k10), batch_ms(k10), host_ms(k10)
+        mode = name[len("ooc_factors_"):]
+        form = "rows" if mode == "hessian" else "kz"
+        forms_ms[(mode, form)] = batch
+        other = ""
+        if mode != "hessian":
+            forms_ms[(mode, "rows")] = other_ms = batch_ms(
+                lambda: call(kern, planes, planes))
+            other = f"the rows form back to back {other_ms:.4f} ms; "
+        phase(name, (got - ref).abs().max().item(), 0.0, ms,
+              time_ms(lambda: call(plain, *srcs)), per_mode * B * N * N,
+              B * N * N, extra=f"bit for bit in its forms (first, middle "
+              f"and last kz batch); [{B}, {N}, {N}] {form} form: 20 calls "
+              f"back to back {batch:.4f} ms a call, the host's enqueue "
+              f"{host:.4f} ms; {other}")
+        rec[name].update(batch_ms=batch, host_ms=host)
         del got, ref
     del planes, spec
 
@@ -1233,14 +1296,18 @@ def kernel_phases(N, dev, report):
     gtabs, glo, gdx = fmax.growth_k_tables(cosmo_fr, 0.0, N, dev)
     got = derivatives.gradient_kspace_tab(delta, gtabs[0], glo, gdx, N)
     ref = derivatives.gradient_kspace_tab_plain(delta, gtabs[0], glo, gdx, N)
-    need(same(got, ref), f"kspace_gradient_tab at {N}^3 is not identical to "
-         "its plain version")
+    need(same_bits(got, ref), f"kspace_gradient_tab at {N}^3 is not bit for "
+         "bit its plain version")
+    def k8():
+        return derivatives.gradient_kspace_tab(delta, gtabs[0], glo, gdx, N)
+    batch = batch_ms(k8)
     phase("kspace_gradient_tab", (got - ref).abs().max().item(), 0.0,
-          time_ms(lambda: derivatives.gradient_kspace_tab(
-              delta, gtabs[0], glo, gdx, N)),
+          time_ms(k8),
           time_ms(lambda: derivatives.gradient_kspace_tab_plain(
               delta, gtabs[0], glo, gdx, N)),
-          32 * modes + 4 * gtabs[0].numel(), modes, extra="identical, ")
+          32 * modes + 4 * gtabs[0].numel(), modes,
+          extra=f"bit for bit, 20 calls back to back {batch:.4f} ms a call, ")
+    rec["kspace_gradient_tab"].update(batch_ms=batch)
 
     # ---- K14: the same growth table on a [B, N, N] kz batch of delta, as a
     # contiguous copy of its planes (the contiguous form) and as a strided
@@ -1266,15 +1333,20 @@ def kernel_phases(N, dev, report):
                 first = 1e3 * (time.perf_counter() - t0)
             g14 = derivatives.ooc_gradient_tab(src, kz0, table, N)
             ref = derivatives.ooc_gradient_tab_plain(src, kz0, table, N)
-            need(same(g14, ref) and same(g14, k8),
+            need(same_bits(g14, ref) and same_bits(g14, k8.contiguous()),
                  f"ooc_factors_gradient_tab ({what}, [{nb}, {N}, {N}] at "
-                 f"kz {kz0}) at {N}^3 is not identical to its plain version "
+                 f"kz {kz0}) at {N}^3 is not bit for bit its plain version "
                  "and K8")
 
     def k14(nb=B):
         return derivatives.ooc_gradient_tab(views[nb], 1 if nb == B
                                             else last[0], table, N)
     ms, batch, host = time_ms(k14), batch_ms(k14), host_ms(k14)
+    rows_src = views[B].contiguous()
+    forms_ms = KEPT["factors"][N]
+    forms_ms[("gradient_tab", "kz")] = batch
+    forms_ms[("gradient_tab", "rows")] = batch_ms(
+        lambda: derivatives.ooc_gradient_tab(rows_src, 1, table, N))
     one = dict(ms=time_ms(lambda: k14(last[1])),
                batch_ms=batch_ms(lambda: k14(last[1])),
                plain_ms=time_ms(lambda: derivatives.ooc_gradient_tab_plain(
@@ -1285,16 +1357,17 @@ def kernel_phases(N, dev, report):
           time_ms(lambda: derivatives.ooc_gradient_tab_plain(
               views[B], 1, table, N)),
           32 * B * N * N + 4 * gtabs[0].numel(), B * N * N,
-          extra=f"identical to its plain version and K8, contiguous and "
+          extra=f"bit for bit its plain version and K8, contiguous and "
           f"strided [{B}, {N}, {N}] and the last batch [1, {N}, {N}] at kz "
           f"{last[0]}; strided: first call {first:.3f} ms, 20 calls back to "
           f"back {batch:.4f} ms a call, the host's enqueue {host:.4f} ms; "
           f"one plane {one['ms']:.4f} ms, back to back "
           f"{one['batch_ms']:.4f}, plain {one['plain_ms']:.3f}, bound "
-          f"{one['bound_ms']:.4f}; ")
+          f"{one['bound_ms']:.4f}; contiguous back to back "
+          f"{forms_ms[('gradient_tab', 'rows')]:.4f} ms; ")
     rec["ooc_factors_gradient_tab"].update(first_ms=first, batch_ms=batch,
                                            host_ms=host, one_plane=one)
-    del got, ref, g14, k8, views
+    del got, ref, g14, k8, views, rows_src
 
     # ---- K4: the two LPT passes on the R=0 stack, and the accumulation of
     # one component pair on an x-slab (the out-of-core fold) ----
@@ -1404,14 +1477,14 @@ def shard_kernel_phases(N, dev, report):
         def call(f):
             return f(shard, *extra, N, y0, z0)
         got, ref = call(kern), call(plain)
-        need(same_values(got, ref), f"{name} at {N}^3 {extra[:1]} is not "
-             "identical to its plain version")
+        need(same_bits(got, ref), f"{name} at {N}^3 {extra[:1]} is not "
+             "bit for bit its plain version")
         if timed:
             tab = 4 * gtabs[0].numel() if "tab" in name else 0
             record_phase(rec, N, name, 0.0, 0.0, time_ms(lambda: call(kern)),
                          time_ms(lambda: call(plain)),
                          per_mode * modes + tab, modes,
-                         extra="identical, " + win)
+                         extra="bit for bit, " + win)
         del got, ref
     del shard
     torch.cuda.empty_cache()
@@ -2396,19 +2469,61 @@ def exchange_kernel_phases(N, dev, report):
         need(torch.equal(out_k, out_p),
              f"exchange_pack at {N}^3 ({nhosts} hosts) differs")
         if timed:
-            record_phase(rec, N, "exchange_pack", 0.0, 0.0,
-                         time_ms(lambda: xops.pack(*args, out_k)),
+            def k16():
+                return xops.pack(*args, out_k)
+            ms, batch, host = time_ms(k16), batch_ms(k16), host_ms(k16)
+            floor = pack_sector_floor(case, bits, n, W, rowf, members)
+            # a yardstick, not K16's function: the payload's arrays (cell
+            # bits, F, 3 floats a channel) gathered by perm alone, each by
+            # its own index_select into a contiguous copy
+            buf, perm = case["buf"], case["perm"]
+            arrays = [buf[:n], buf[n:2 * n]] + [
+                buf[(2 + 3 * c) * n:(5 + 3 * c) * n].view(n, 3)
+                for c in range(case["nch"])]
+            copies = [torch.empty_like(a) for a in arrays]
+
+            def gather():
+                for a, o in zip(arrays, copies):
+                    torch.index_select(a, 0, perm, out=o)
+            gather_ms = batch_ms(gather)
+            del arrays, copies
+            record_phase(rec, N, "exchange_pack", 0.0, 0.0, ms,
                          time_ms(lambda: xops.pack_plain(*args, out_p)),
                          n * (8 + 4 * W + 4 * rowf) + 8 * counts.numel()
                          + 4 * rowf * members, members,
-                         extra=f"identical, {shard}{members} rows of "
-                         f"{4 * rowf} B packed, ")
+                         extra=f"identical, {shard}{members} memberships "
+                         f"of {n} rows of {4 * rowf} B packed; 20 calls "
+                         f"back to back {batch:.4f} ms a call, the host's "
+                         f"enqueue {host:.4f} ms; the sector floor "
+                         f"{floor[0]:.4f} ms "
+                         f"({floor[1] / 1e9:.3f} GB: {floor[2]} sectors of "
+                         f"the rows' payloads read once); the payload's "
+                         f"arrays gathered by perm alone (index_select "
+                         f"each, back to back) {gather_ms:.4f} ms, ")
+            rec["exchange_pack"].update(batch_ms=batch, host_ms=host)
         else:
             print(f"  [{N}^3] exchange_count, exchange_pack, exchange_paint:"
                   f" identical with {shard}{members} memberships, "
                   f"{painted} cells painted", flush=True)
         del case, got, want, bits, counts, hmap, args, out_k, out_p
         torch.cuda.empty_cache()
+
+
+def pack_sector_floor(case, bits, n, W, rowf, members):
+    """K16's sector floor for the rows of an exchange case: each member
+    row's payload read once in whole 32-byte sectors where it lies in the
+    hand-off buffer (its cell bits and F one each, its 3 floats a channel
+    one or two), the memberships' rows written once, perm and the bitmask
+    words read once: (ms at PEAK_BYTES, bytes, payload sectors).  Byte
+    offsets count from the buffer's start, which the allocator puts on a
+    whole sector."""
+    rows = case["perm"][(bits != 0).any(1)]
+    sectors = 2 * rows.numel()
+    for ch in range(case["nch"]):
+        start = 4 * (2 * n + 3 * n * ch) + 12 * rows
+        sectors += int(((start + 11) // 32 - start // 32 + 1).sum())
+    nbytes = 32 * sectors + 4 * rowf * members + n * (8 + 4 * W)
+    return 1e3 * nbytes / PEAK_BYTES, nbytes, sectors
 
 
 def hosts_products(dev):
@@ -3659,12 +3774,17 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with host_peak() as host:
+
+    def run():
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                     verbose=N >= BIG_N, trace_memory=True)
         t_ret = time.perf_counter() - t0
         res.ooc_pending.join()
+        return res, t_ret
+    with host_peak() as host:
+        (res, t_ret), tally = factors_tallied(run)
     wall = time.perf_counter() - t0
+    print(factors_line(tally, N, res), flush=True)
     peaks = ooc_peaks(res)
     peak = max(peaks.values())
     sp = res.host_products
@@ -3717,6 +3837,61 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     if N == BIG_N and not kw:
         KEPT["big_classic"]["blocking"] = blocking_big(
             dev, p, cosmo, None, KEPT["big_classic"], HANDOFF_D64C30C)
+
+
+def factors_tallied(run):
+    """run() with K10's and K14's launches (derivatives.launch_factors)
+    tallied by mode, form and batch planes: returns (its result,
+    {(mode, form, B): calls})."""
+    import threading
+
+    from pinocchio_tpu_torch.ops import derivatives
+    tally, lock = {}, threading.Lock()
+    launch = derivatives.launch_factors
+
+    def counted(mode, src, *rest):
+        key = (mode, "rows" if src.stride(2) == 1 else "kz", src.shape[0])
+        with lock:
+            tally[key] = tally.get(key, 0) + 1
+        return launch(mode, src, *rest)
+
+    derivatives.launch_factors = counted
+    try:
+        out = run()
+    finally:
+        derivatives.launch_factors = launch
+    return out, tally
+
+
+def factors_line(tally, N, res):
+    """K10's and K14's calls in a run at N^3 by mode, form and batch
+    planes, and their device time estimated: each call at the back-to-back
+    time of its mode and form on the [16, n, n] batch of the kernel phases
+    at their largest n (KEPT["factors"], when they ran first), scaled by
+    its modes (a one-plane batch, whose fixed costs do not shrink, is
+    underestimated)."""
+    from pinocchio_tpu_torch import fmax_ooc
+    forms = KEPT.get("factors", {})
+    n = max(forms) if forms else None
+    est = {}
+    for (mode, form, B), calls in tally.items():
+        t = forms[n].get((mode, form)) if n else None
+        if t is not None:
+            est[(mode, form, B)] = calls * t * B * N * N / (
+                fmax_ooc.KZ_BATCH * n * n)
+    line = (f"  K10 and K14 calls at {N}^3 by mode, form and planes"
+            + (f" (device ms estimated from the {n}^3 back-to-back times)"
+               if est else "") + ": " + ", ".join(
+                f"{mode} {form} [{B}] x{calls}"
+                + (f" {est[(mode, form, B)]:.1f} ms"
+                   if (mode, form, B) in est else "")
+                for (mode, form, B), calls in sorted(tally.items())))
+    if est:
+        spent = {k: 1e3 * res.timings.get(k, float("nan"))
+                 for k in ("fmax_loop", "fold", "lpt_rows")}
+        line += (f"; in all {sum(est.values()):.1f} ms against "
+                 + ", ".join(f"{k} {v:.1f} ms" for k, v in spent.items()))
+    return line
 
 
 def tables_line(res):

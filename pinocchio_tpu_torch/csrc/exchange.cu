@@ -27,8 +27,20 @@
 // 3 floats per row and channel), so the receiver unpacks it as a hand-off
 // buffer.  What bounds it: the scattered reads of each row's payload from
 // the hand-off buffer (it is in the sweep's -F order, the rows are visited
-// in cell order) and the writes.  Design: one thread per row, the rows in
-// K15's thread layout so that its counts give the block offsets.
+// in cell order, so a row of 2 + 3 nch floats touches about 2 + 1.25 nch
+// sectors whatever the kernel does) and the writes: random 32-byte reads,
+// which run well below the card's peak rate, so the kernel's aim is to
+// keep them in flight.  Design: one thread a row, in K15's thread layout
+// so that its counts give the block offsets.  Each thread loads its perm
+// entry and host words, then its whole payload into registers before any
+// barrier, so a row's payload is read once however many hosts take it and
+// all its loads are in flight together; the warps ballot every host of a
+// bitmask word into shared memory, one scan over the warps a host gives
+// each warp's offset (two barriers a word, so two in all up to 32 hosts),
+// and each membership is stored from the registers, its rank divided by
+// its host's destinations in 32 bits.  More rows a thread, or a warp's
+// stores gathered into runs through shared memory, gained nothing on the
+// H100: the reads hold it.
 //
 // exchange_paint (K17) replaces build_turn1_maps (121) with _paint_block
 // (86): host h's boundary spheres (cx, cy, cz, r in cells) painted into the
@@ -126,6 +138,14 @@ count_kernel(const int64_t* __restrict__ cells, int64_t n, Block blk,
   }
 }
 
+// K16: the payload of kRegCh row channels is held in registers, any
+// further channel is copied straight from the hand-off buffer.  A rank is
+// below count, which the wrapper holds under 2^32, so the ranks and their
+// division by a host's destinations are 32-bit; the float offsets in buf
+// and in a segment (up to count * (2 + 3 nch)) are 64-bit.
+constexpr int kRegCh = 4;
+constexpr int kPay = 2 + 3 * kRegCh;
+
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const int64_t* __restrict__ perm, const float* __restrict__ buf,
             int64_t count, const uint32_t* __restrict__ bits, int W,
@@ -135,37 +155,84 @@ pack_kernel(const int64_t* __restrict__ perm, const float* __restrict__ buf,
             const int64_t* __restrict__ seg_base,
             const int64_t* __restrict__ seg_n, int nch,
             float* __restrict__ out) {
-  __shared__ int warp_tot[kWarps];
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = t < count;
-  const int64_t row = valid ? perm[t] : 0;
+  __shared__ uint32_t s_bal[32][kWarps];      // each warp's ballot a host
+  __shared__ int s_off[32][kWarps];           // the warps before it
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int h = 0; h < H; ++h) {
-    const bool m = valid && ((bits[t * W + (h >> 5)] >> (h & 31)) & 1u);
-    const unsigned ballot = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) warp_tot[warp] = __popc(ballot);
+  const uint32_t below = (1u << lane) - 1u;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = t < count;
+  const int64_t n = count;
+  // ---- the row's perm entry and host word, then its whole payload: all
+  // its loads in flight together, before any barrier; a row that no host
+  // takes loads no payload ----
+  const int64_t row = valid ? perm[t] : 0;
+  const uint32_t word0 = valid ? bits[t * W] : 0u;
+  uint32_t any = word0;
+  for (int w = 1; w < W && valid; ++w) any |= bits[t * W + w];
+  float pay[kPay] = {};
+  if (any) {
+    pay[0] = __ldg(buf + row);                       // the local cell's bits
+    pay[1] = __ldg(buf + n + row);                   // F
+    const float* src = buf + 2 * n + 3 * row;
+#pragma unroll
+    for (int ch = 0; ch < kRegCh; ++ch) {
+      if (ch < nch) {
+        pay[2 + 3 * ch] = __ldg(src);
+        pay[3 + 3 * ch] = __ldg(src + 1);
+        pay[4 + 3 * ch] = __ldg(src + 2);
+      }
+      src += 3 * n;
+    }
+  }
+  // ---- 32 hosts at a time (one bitmask word): the warps' ballots of every
+  // host, one scan over the warps a host, then each membership's rank and
+  // its stores from the registers ----
+  const int64_t* off = block_off + (int64_t)blockIdx.x * H;
+  for (int w = 0; w < W; ++w) {
+    const int h0 = 32 * w, nh = min(32, H - h0);
+    const uint32_t wd = w == 0 ? word0 : (valid ? bits[t * W + w] : 0u);
+    for (int hb = 0; hb < nh; ++hb) {
+      const uint32_t bal = __ballot_sync(0xffffffffu, (wd >> hb) & 1u);
+      if (lane == 0) s_bal[hb][warp] = bal;
+    }
     __syncthreads();
-    if (m) {
-      int before = __popc(ballot & ((1u << lane) - 1u));
-      for (int k = 0; k < warp; ++k) before += warp_tot[k];
-      const int64_t i = block_off[(int64_t)blockIdx.x * H + h] + before;
-      const int nd = host_nd[h];
+    if (threadIdx.x < nh) {
+      int before = 0;
+      for (int k = 0; k < kWarps; ++k) {
+        s_off[threadIdx.x][k] = before;
+        before += __popc(s_bal[threadIdx.x][k]);
+      }
+    }
+    __syncthreads();
+    for (uint32_t m = wd; m; m &= m - 1u) {
+      const int hb = __ffs(m) - 1, h = h0 + hb;
+      const uint32_t i = (uint32_t)off[h] + (uint32_t)s_off[hb][warp] +
+                         (uint32_t)__popc(s_bal[hb][warp] & below);
+      const uint32_t nd = (uint32_t)host_nd[h];
       const int p = host_devs[h * ndmax + (int)(i % nd)];
       const int64_t slot = i / nd, ns = seg_n[p];
       float* o = out + seg_base[p];
-      o[slot] = buf[row];                       // the local cell's bits
-      o[ns + slot] = buf[count + row];          // F
-      const float* src = buf + 2 * count + 3 * row;
+      o[slot] = pay[0];
+      o[ns + slot] = pay[1];
       float* dst = o + 2 * ns + 3 * slot;
-      for (int ch = 0; ch < nch; ++ch) {
-        dst[0] = src[0];
-        dst[1] = src[1];
-        dst[2] = src[2];
-        src += 3 * count;
+#pragma unroll
+      for (int ch = 0; ch < kRegCh; ++ch) {
+        if (ch < nch) {
+          dst[0] = pay[2 + 3 * ch];
+          dst[1] = pay[3 + 3 * ch];
+          dst[2] = pay[4 + 3 * ch];
+        }
+        dst += 3 * ns;
+      }
+      for (int ch = kRegCh; ch < nch; ++ch) {
+        const float* src = buf + (2 + 3 * ch) * n + 3 * row;
+        dst[0] = __ldg(src);
+        dst[1] = __ldg(src + 1);
+        dst[2] = __ldg(src + 2);
         dst += 3 * ns;
       }
     }
-    __syncthreads();                            // warp_tot is reused
+    if (w + 1 < W) __syncthreads();             // s_bal, s_off are reused
   }
 }
 
@@ -437,7 +504,8 @@ extern "C" int exchange_count(const void* cells, int64_t n,
 // shard's packed hand-off buffer of count rows and nch row channels; bits
 // and block_off ([nblocks, H] int64) from K15; host_nd [H], host_devs
 // [H, ndmax] int32 (destination mesh positions); seg_base, seg_n [p] int64
-// (each destination segment's float offset in out and its row count)
+// (each destination segment's float offset in out and its row count);
+// count < 2^32
 extern "C" int exchange_pack(const void* perm, const void* buf, int64_t count,
                              const void* bits, int W, const void* block_off,
                              int H, const void* host_nd,
@@ -445,6 +513,8 @@ extern "C" int exchange_pack(const void* perm, const void* buf, int64_t count,
                              const void* seg_base, const void* seg_n,
                              int nch, void* out, void* stream) {
   if (count == 0) return 0;
+  if (H < 1 || W != (H + 31) / 32 || nch < 0 || count >= (int64_t{1} << 32))
+    return (int)cudaErrorInvalidValue;
   const int64_t blocks = (count + kThreads - 1) / kThreads;
   pack_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int64_t*)perm, (const float*)buf, count, (const uint32_t*)bits,

@@ -36,28 +36,32 @@
 // What bounds it on the H100: device memory bytes.  The Hessian mode reads
 // one complex64 mode and writes six (56 B per mode, 0.48 GB at 256^3); the
 // gradient mode reads one and writes three (32 B).  The arithmetic (one
-// expf, a dozen multiplies) is far below the memory line.  Design: one
-// thread per mode reads delta(k) once and writes every output from
-// registers; k_x, k_y, k_z come from the thread's own mode indices (no
-// tables), with consecutive threads on consecutive kz so that loads and
-// each of the output planes are coalesced.  The float operations keep the
-// JAX order: base = delta * (smooth * inv_k2), then base * (k_a * k_b).
+// expf, a few dozen multiplies and adds) is far below the memory line.
+// Each mode is one operation on a source value and its k (HessianOp,
+// GradientOp, PairOp), shared by the dense, shard and out-of-core kernels,
+// and its float operations keep the JAX order: base = delta * (smooth *
+// inv_k2), then base * (k_a * k_b), each product of a complex value by a
+// real or an imaginary one the complex product (cscale, cmul_i), so that a
+// zero carries the plain version's sign.  K2, K5 and K8: one thread per
+// mode reads delta(k) once and writes every output from registers; k_x,
+// k_y, k_z come from the thread's own mode indices (no tables), with
+// consecutive threads on consecutive kz so that loads and each of the
+// output planes are coalesced.
 // The tabulated-growth mode adds a log10f and a two-entry table read per
-// mode (still far below the memory line); its table (512 floats) is copied
-// to shared memory by each block.  K10 works on one batch of B kz planes
-// ([B, N, N], a few MB) and is bound the same way: 8 B (16 B in pair mode)
-// read and 48, 24 or 16 B written per mode.  Its source is read through
-// strides, so a batch of a resident [N, N, Nh] spectrum needs no copy: there
-// consecutive threads read 8 B apart by Nh (one sector each), which makes
-// the gradient and pair modes on a spectrum slower than the hessian mode on
-// K9's contiguous planes.  K14 is the gradient mode with K8's lookup, every
-// float operation K8's, so its rows are the dense engine's; it is bound as
-// K10's gradient mode, by bytes.  It has one form per source layout: on a
-// spectrum's window (kz fastest) a block reads a tile of (ix, 64 iy) x 16 kz
-// with lanes on consecutive kz, so each (ix, iy)'s run is one read, and
-// writes it through shared memory with lanes on consecutive iy; on
-// contiguous planes a block takes a (kz, ix) row.  Its table is read
-// through the read-only path (no per-block copy or barrier).
+// mode (still far below the memory line); K8 copies its table (512 floats)
+// to shared memory in each block, K14 reads it through the read-only path.
+// K10 and K14 work on one batch of B kz planes ([B, N, N], a few MB) and are
+// bound the same way: 8 B (16 B in pair mode) read and 48, 24 or 16 B
+// written per mode.  Their sources come in two layouts, and each layout has
+// its form, picked by the wrapper from the strides: a resident [N, N, Nh]
+// spectrum's window (kz fastest) is read with no copy by tiles of (ix, 64
+// iy) x 16 kz, lanes on consecutive kz so that each (ix, iy)'s run is one
+// read, and written through shared memory with lanes on consecutive iy;
+// contiguous planes (K9's, K19's widened batches) by (kz, ix) rows, lanes
+// on iy.  Both set up a block's indices and k_x once, with no 64-bit
+// division.  The pair mode's first source, K9's planes, is read in the
+// write phase by rows; the Hessian mode only ever reads K9's planes, so it
+// has the rows form alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,20 +76,29 @@ struct KMode {
 
 // k in grid units: 2*pi/N * m computed in double and rounded once, which is
 // what the JAX package's float64 numpy table cast to float32 holds
+__device__ __forceinline__ double kstep(int N) {
+  return 6.283185307179586 / (double)N;
+}
+
 __device__ __forceinline__ float kunit(int N, int m) {
-  return (float)(6.283185307179586 / (double)N * (double)m);
+  return (float)(kstep(N) * (double)m);
+}
+
+__device__ __forceinline__ KMode kmode_of(float kx, float ky, float kz) {
+  KMode k;
+  k.kx = kx;
+  k.ky = ky;
+  k.kz = kz;
+  k.k2 = __fadd_rn(__fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky)),
+                   __fmul_rn(kz, kz));
+  k.inv_k2 = k.k2 > 0.0f ? __fdiv_rn(1.0f, k.k2) : 0.0f;
+  return k;
 }
 
 __device__ __forceinline__ KMode kmode_at(int N, int ix, int iy, int iz) {
   const int half = N / 2;
-  KMode k;
-  k.kx = kunit(N, ix <= half ? ix : ix - N);
-  k.ky = kunit(N, iy <= half ? iy : iy - N);
-  k.kz = fabsf(kunit(N, iz));
-  k.k2 = __fadd_rn(__fadd_rn(__fmul_rn(k.kx, k.kx), __fmul_rn(k.ky, k.ky)),
-                   __fmul_rn(k.kz, k.kz));
-  k.inv_k2 = k.k2 > 0.0f ? __fdiv_rn(1.0f, k.k2) : 0.0f;
-  return k;
+  return kmode_of(kunit(N, ix <= half ? ix : ix - N),
+                  kunit(N, iy <= half ? iy : iy - N), fabsf(kunit(N, iz)));
 }
 
 // a window [N, y0:y0+ny, z0:z0+nz] of the k layout; the full grid is
@@ -110,43 +123,17 @@ __device__ __forceinline__ void zero_out(float2* __restrict__ out, int ncomp,
     out[c * nmodes + idx] = make_float2(0.0f, 0.0f);
 }
 
+// a * s for a real s as the complex product with (s, 0), and a * (i g) as
+// the one with (0, g), the way PyTorch's and XLA's complex multiplies
+// compute them: a zero carries the sign that the plain version's does
 __device__ __forceinline__ float2 cscale(float2 a, float s) {
-  return make_float2(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
+  return make_float2(__fsub_rn(__fmul_rn(a.x, s), __fmul_rn(a.y, 0.0f)),
+                     __fadd_rn(__fmul_rn(a.x, 0.0f), __fmul_rn(a.y, s)));
 }
 
-__global__ void hessian_kernel(const float2* __restrict__ delta,
-                               float2* __restrict__ out, Window w,
-                               int64_t nmodes, float R) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nmodes) return;
-  KMode k;
-  if (!kmode(w, idx, k)) return zero_out(out, 6, nmodes, idx);
-  // exp(-0.5 * k2 * R * R), evaluated left to right like the JAX expression
-  const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
-  const float s = __fmul_rn(expf(arg), k.inv_k2);
-  const float2 base = cscale(__ldg(delta + idx), s);
-  out[idx] = cscale(base, __fmul_rn(k.kx, k.kx));
-  out[nmodes + idx] = cscale(base, __fmul_rn(k.ky, k.ky));
-  out[2 * nmodes + idx] = cscale(base, __fmul_rn(k.kz, k.kz));
-  out[3 * nmodes + idx] = cscale(base, __fmul_rn(k.kx, k.ky));
-  out[4 * nmodes + idx] = cscale(base, __fmul_rn(k.kx, k.kz));
-  out[5 * nmodes + idx] = cscale(base, __fmul_rn(k.ky, k.kz));
-}
-
-__global__ void gradient_kernel(const float2* __restrict__ src,
-                                float2* __restrict__ out, Window w,
-                                int64_t nmodes, float growth) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nmodes) return;
-  KMode k;
-  if (!kmode(w, idx, k)) return zero_out(out, 3, nmodes, idx);
-  const float2 d = __ldg(src + idx);
-  // (a + ib) * (i g) = (-b g, a g), then * inv_k2, then * k_a
-  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
-  base = cscale(base, k.inv_k2);
-  out[idx] = cscale(base, k.kx);
-  out[nmodes + idx] = cscale(base, k.ky);
-  out[2 * nmodes + idx] = cscale(base, k.kz);
+__device__ __forceinline__ float2 cmul_i(float2 a, float g) {
+  return make_float2(__fsub_rn(__fmul_rn(a.x, 0.0f), __fmul_rn(a.y, g)),
+                     __fadd_rn(__fmul_rn(a.x, g), __fmul_rn(a.y, 0.0f)));
 }
 
 // the growth of a mode, interpolated linearly in a table over log10 |k|
@@ -173,6 +160,104 @@ struct LdgTable {
   }
 };
 
+// Each mode is an operation on one source value d and its KMode k that
+// writes component c of out at c * n + o (b, ix, iy: the mode's batch
+// indices, read by the pair mode alone).
+
+// The Hessian mode (K2, K10): the 6 smoothed factors k_a k_b
+// exp(-k^2 R^2/2) / k^2 in ider order, exp(-0.5 * k2 * R * R) evaluated
+// left to right like the JAX expression.
+struct HessianOp {
+  float R;
+  __device__ __forceinline__ void operator()(float2 d, const KMode& k, int,
+                                             int, int,
+                                             float2* __restrict__ out,
+                                             int64_t n, int64_t o) const {
+    const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
+    const float2 base = cscale(d, __fmul_rn(expf(arg), k.inv_k2));
+    out[o] = cscale(base, __fmul_rn(k.kx, k.kx));
+    out[n + o] = cscale(base, __fmul_rn(k.ky, k.ky));
+    out[2 * n + o] = cscale(base, __fmul_rn(k.kz, k.kz));
+    out[3 * n + o] = cscale(base, __fmul_rn(k.kx, k.ky));
+    out[4 * n + o] = cscale(base, __fmul_rn(k.kx, k.kz));
+    out[5 * n + o] = cscale(base, __fmul_rn(k.ky, k.kz));
+  }
+};
+
+// where a gradient's growth comes from: K5's and K10's scalar, K8's and
+// K14's table (K8's copy in shared memory, K14's read-only view)
+struct ScalarGrowth {
+  float g;
+  __device__ __forceinline__ float operator()(float) const { return g; }
+};
+
+template <class Tab>
+struct TableGrowth {
+  Tab tab;
+  float glo, gdx, tmax;
+  __device__ __forceinline__ float operator()(float k2) const {
+    return growth_at(tab, k2, glo, gdx, tmax);
+  }
+};
+
+// The gradient mode (K5, K8, K10, K14): i k_a / k^2 * growth.
+template <class Growth>
+struct GradientOp {
+  Growth growth;
+  __device__ __forceinline__ void operator()(float2 d, const KMode& k, int,
+                                             int, int,
+                                             float2* __restrict__ out,
+                                             int64_t n, int64_t o) const {
+    // (a + ib) * (i g), then * inv_k2, then * k_a
+    const float2 base = cscale(cmul_i(d, growth(k.k2)), k.inv_k2);
+    out[o] = cscale(base, k.kx);
+    out[n + o] = cscale(base, k.ky);
+    out[2 * n + o] = cscale(base, k.kz);
+  }
+};
+
+// The pair mode: the 3LPT-b fold operands of one Hessian component (a, b),
+// k_a k_b / k^2 on two sources: the form's source is src1 (the 2LPT source
+// spectrum's batch), src0 (K9's planes, iy contiguous: element (b, ix, iy)
+// at s0[b * sb + ix * sx + iy]) is read here, lanes on consecutive iy.
+struct PairOp {
+  const float2* s0;
+  int64_t sb, sx;
+  int ia, ib;
+  __device__ __forceinline__ void operator()(float2 d1, const KMode& k,
+                                             int b, int ix, int iy,
+                                             float2* __restrict__ out,
+                                             int64_t n, int64_t o) const {
+    const float ka = ia == 0 ? k.kx : (ia == 1 ? k.ky : k.kz);
+    const float kb = ib == 0 ? k.kx : (ib == 1 ? k.ky : k.kz);
+    const float f = __fmul_rn(ka, kb);
+    const float2 d0 = __ldg(s0 + (int64_t)b * sb + (int64_t)ix * sx + iy);
+    out[o] = cscale(cscale(d0, k.inv_k2), f);
+    out[n + o] = cscale(cscale(d1, k.inv_k2), f);
+  }
+};
+
+// K2, K5, K8 over a window: one thread a mode, the padded planes zero
+template <int NC, class Op>
+__device__ __forceinline__ void window_mode(const float2* __restrict__ src,
+                                            float2* __restrict__ out,
+                                            const Window& w, int64_t nmodes,
+                                            const Op& op) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nmodes) return;
+  KMode k;
+  if (!kmode(w, idx, k)) return zero_out(out, NC, nmodes, idx);
+  op(__ldg(src + idx), k, 0, 0, 0, out, nmodes, idx);
+}
+
+template <int NC, class Op>
+__global__ void window_kernel(const float2* __restrict__ src,
+                              float2* __restrict__ out, Window w,
+                              int64_t nmodes, Op op) {
+  window_mode<NC>(src, out, w, nmodes, op);
+}
+
+// K8's table is copied to shared memory by each block
 __global__ void gradient_tab_kernel(const float2* __restrict__ src,
                                     float2* __restrict__ out, Window w,
                                     int64_t nmodes,
@@ -181,161 +266,80 @@ __global__ void gradient_tab_kernel(const float2* __restrict__ src,
   extern __shared__ float s_tab[];
   for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = gtab[i];
   __syncthreads();
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nmodes) return;
-  KMode k;
-  if (!kmode(w, idx, k)) return zero_out(out, 3, nmodes, idx);
   const float* tab = s_tab;
-  const float growth = growth_at(tab, k.k2, glo, gdx, tmax);
-  const float2 d = __ldg(src + idx);
-  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
-  base = cscale(base, k.inv_k2);
-  out[idx] = cscale(base, k.kx);
-  out[nmodes + idx] = cscale(base, k.ky);
-  out[2 * nmodes + idx] = cscale(base, k.kz);
+  window_mode<3>(src, out, w, nmodes,
+                 GradientOp<TableGrowth<const float*>>{{tab, glo, gdx, tmax}});
 }
 
-// ---- K10: the out-of-core engine's factors on one batch of kz planes ----
-// A source batch is [B, N, N] in (kz, x, y) order: K9's planes, or the
-// planes kz0..kz0+B-1 of a resident [N, N, Nh] spectrum, read through its
-// strides (element (b, ix, iy) at src[b * sb + ix * sx + iy * sy]).  The
-// output is the contiguous [ncomp, B, N, N] input of one batched ifft2.
-// Each mode's factor is computed as in K2, K5 and the R=0 Hessian, op for
-// op, so a half transform holds the dense engine's values.
+// ---- K10 and K14: the out-of-core engine's factors on one batch of kz
+// planes ----
+// A source batch is [B, N, N] in (kz, x, y) order: K9's planes, K19's
+// widened batches, or the planes kz0..kz0+B-1 of a resident [N, N, Nh]
+// spectrum.  The output is the contiguous [ncomp, B, N, N] input of one
+// batched ifft2: out[c][b][ix][iy] from the source mode (b, ix, iy), at
+// kz0 + b.  Each mode is an operation on one source value and its KMode,
+// every float operation K2's, K5's, K8's and the R=0 Hessian's, op for op,
+// so a half transform holds the dense engine's values; a form runs it over
+// the batch in the order that the source's layout reads best.
 
-struct Batch {
-  const float2* p;
-  int64_t sb, sx, sy;
-};
-
-__device__ __forceinline__ float2 batch_at(const Batch& s, int b, int ix,
-                                           int iy) {
-  return __ldg(s.p + b * s.sb + ix * s.sx + iy * s.sy);
-}
-
-__device__ __forceinline__ void batch_mode(int64_t idx, int N, int kz0,
-                                           int& b, int& ix, int& iy,
-                                           KMode& k) {
-  iy = (int)(idx % N);
-  const int64_t rest = idx / N;
-  ix = (int)(rest % N);
-  b = (int)(rest / N);
-  k = kmode_at(N, ix, iy, kz0 + b);
-}
-
-__global__ void ooc_hessian_kernel(Batch src, float2* __restrict__ out,
-                                   int N, int kz0, int64_t n, float R) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  int b, ix, iy;
-  KMode k;
-  batch_mode(idx, N, kz0, b, ix, iy, k);
-  const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
-  const float s = __fmul_rn(expf(arg), k.inv_k2);
-  const float2 base = cscale(batch_at(src, b, ix, iy), s);
-  out[idx] = cscale(base, __fmul_rn(k.kx, k.kx));
-  out[n + idx] = cscale(base, __fmul_rn(k.ky, k.ky));
-  out[2 * n + idx] = cscale(base, __fmul_rn(k.kz, k.kz));
-  out[3 * n + idx] = cscale(base, __fmul_rn(k.kx, k.ky));
-  out[4 * n + idx] = cscale(base, __fmul_rn(k.kx, k.kz));
-  out[5 * n + idx] = cscale(base, __fmul_rn(k.ky, k.kz));
-}
-
-__global__ void ooc_gradient_kernel(Batch src, float2* __restrict__ out,
-                                    int N, int kz0, int64_t n,
-                                    float growth) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  int b, ix, iy;
-  KMode k;
-  batch_mode(idx, N, kz0, b, ix, iy, k);
-  const float2 d = batch_at(src, b, ix, iy);
-  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
-  base = cscale(base, k.inv_k2);
-  out[idx] = cscale(base, k.kx);
-  out[n + idx] = cscale(base, k.ky);
-  out[2 * n + idx] = cscale(base, k.kz);
-}
-
-// K14: the gradient mode with the per-mode growth of a table, as K8, every
-// float operation K8's; out[c][b][ix][iy] for b < B from the source mode
-// (b, ix, iy).  Two forms, by the source's layout.
-__device__ __forceinline__ void gradient_tab_mode(
-    float2 d, int N, int kz, int ix, int iy, const LdgTable& tab, float glo,
-    float gdx, float tmax, float2* __restrict__ out, int64_t n, int64_t o) {
-  const KMode k = kmode_at(N, ix, iy, kz);
-  const float growth = growth_at(tab, k.k2, glo, gdx, tmax);
-  float2 base = make_float2(-__fmul_rn(d.y, growth), __fmul_rn(d.x, growth));
-  base = cscale(base, k.inv_k2);
-  out[o] = cscale(base, k.kx);
-  out[n + o] = cscale(base, k.ky);
-  out[2 * n + o] = cscale(base, k.kz);
+// k of the signed mode of index m (m <= N/2 or m - N) in grid units, as
+// kunit computes it, with 2*pi/N (step = kstep(N)) computed once a thread
+__device__ __forceinline__ float kgrid(double step, int N, int m) {
+  return (float)(step * (double)(m <= N / 2 ? m : m - N));
 }
 
 // The kz-fastest form: a resident spectrum's window, element (b, ix, iy) at
-// src[b + ix * sx + iy * sy].  A block takes one ix, kTabTY iy and up to
-// kTabBZ kz: lanes read consecutive kz, so each (ix, iy)'s run of 8 B a kz
+// src[b + ix * sx + iy * sy].  A block takes one ix, kTileY iy and up to
+// kTileZ kz: lanes read consecutive kz, so each (ix, iy)'s run of 8 B a kz
 // is one coalesced read, into a tile padded against bank conflicts; then
 // lanes take consecutive iy of one kz and write each component's row.
-constexpr int kTabTY = 64;
-constexpr int kTabBZ = 16;
+constexpr int kTileY = 64;
+constexpr int kTileZ = 16;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads)
-ooc_gradient_tab_kz_kernel(const float2* __restrict__ src, int64_t sx,
-                           int64_t sy, float2* __restrict__ out, int N,
-                           int kz0, int B, LdgTable tab, float glo,
-                           float gdx, float tmax) {
-  __shared__ float2 tile[kTabBZ][kTabTY + 1];
-  const int iy0 = blockIdx.x * kTabTY, ix = blockIdx.y;
-  const int b0 = blockIdx.z * kTabBZ;
-  const int nb = min(kTabBZ, B - b0), ny = min(kTabTY, N - iy0);
+factors_kz_kernel(const float2* __restrict__ src, int64_t sx, int64_t sy,
+                  float2* __restrict__ out, int N, int kz0, int B, Op op) {
+  __shared__ float2 tile[kTileZ][kTileY + 1];
+  const int iy0 = blockIdx.x * kTileY, ix = blockIdx.y;
+  const int b0 = blockIdx.z * kTileZ;
+  const int nb = min(kTileZ, B - b0), ny = min(kTileY, N - iy0);
   const float2* s = src + (int64_t)ix * sx + (int64_t)iy0 * sy + b0;
   for (int e = threadIdx.x; e < ny * nb; e += kThreads) {
     const int y = e / nb, b = e - y * nb;
     tile[b][y] = __ldg(s + (int64_t)y * sy + b);
   }
   __syncthreads();
+  const double step = kstep(N);
+  const float kx = kgrid(step, N, ix);
   const int64_t n = (int64_t)B * N * N;
-  for (int e = threadIdx.x; e < nb * kTabTY; e += kThreads) {
-    const int b = e / kTabTY, y = e % kTabTY;
+  for (int e = threadIdx.x; e < nb * kTileY; e += kThreads) {
+    const int b = b0 + e / kTileY, y = e % kTileY;
     if (y >= ny) continue;
-    gradient_tab_mode(tile[b][y], N, kz0 + b0 + b, ix, iy0 + y, tab, glo,
-                      gdx, tmax, out, n,
-                      ((int64_t)(b0 + b) * N + ix) * N + iy0 + y);
+    const int iy = iy0 + y;
+    op(tile[b - b0][y],
+       kmode_of(kx, kgrid(step, N, iy), (float)(step * (double)(kz0 + b))),
+       b, ix, iy, out, n, ((int64_t)b * N + ix) * N + iy);
   }
 }
 
-// The contiguous form: iy contiguous, element (b, ix, iy) at src[b * sb +
-// ix * sx + iy] (K9's planes, K19's widened batches).  A block takes one
-// (b, ix) row, its lanes consecutive iy: reads and writes are rows.
+// The rows form: iy contiguous, element (b, ix, iy) at src[b * sb + ix * sx
+// + iy] (K9's planes, K19's widened batches).  A block takes one (b, ix)
+// row, its lanes consecutive iy: reads and writes are rows; the row's
+// indices, k_x and k_z are set up once, with no 64-bit division.
+template <class Op>
 __global__ void __launch_bounds__(kThreads)
-ooc_gradient_tab_rows_kernel(const float2* __restrict__ src, int64_t sb,
-                             int64_t sx, float2* __restrict__ out, int N,
-                             int kz0, int B, LdgTable tab, float glo,
-                             float gdx, float tmax) {
+factors_rows_kernel(const float2* __restrict__ src, int64_t sb, int64_t sx,
+                    float2* __restrict__ out, int N, int kz0, int B, Op op) {
   const int row = blockIdx.x;
   const int b = row / N, ix = row - b * N;
   const float2* s = src + (int64_t)b * sb + (int64_t)ix * sx;
   const int64_t n = (int64_t)B * N * N, o = (int64_t)row * N;
+  const double step = kstep(N);
+  const float kx = kgrid(step, N, ix), kz = (float)(step * (double)(kz0 + b));
   for (int iy = threadIdx.x; iy < N; iy += kThreads)
-    gradient_tab_mode(__ldg(s + iy), N, kz0 + b, ix, iy, tab, glo, gdx,
-                      tmax, out, n, o + iy);
-}
-
-// the 3LPT-b fold operands of one Hessian component (a, b): k_a k_b / k^2
-// on two sources (the density and the 2LPT source spectrum)
-__global__ void ooc_pair_kernel(Batch src0, Batch src1,
-                                float2* __restrict__ out, int N, int kz0,
-                                int64_t n, int ia, int ib) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  int b, ix, iy;
-  KMode k;
-  batch_mode(idx, N, kz0, b, ix, iy, k);
-  const float kv[3] = {k.kx, k.ky, k.kz};
-  const float f = __fmul_rn(kv[ia], kv[ib]);
-  out[idx] = cscale(cscale(batch_at(src0, b, ix, iy), k.inv_k2), f);
-  out[n + idx] = cscale(cscale(batch_at(src1, b, ix, iy), k.inv_k2), f);
+    op(__ldg(s + iy), kmode_of(kx, kgrid(step, N, iy), kz), b, ix, iy, out,
+       n, o + iy);
 }
 
 // the window's mode count, or -1 for a window outside the k layout
@@ -345,25 +349,15 @@ int64_t window_modes(const Window& w) {
   return (int64_t)w.N * w.ny * w.nz;
 }
 
-int launch_hessian(const void* delta, void* out, Window w, float R_grid,
-                   void* stream) {
+template <int NC, class Op>
+int launch_window(const void* src, void* out, Window w, Op op,
+                  void* stream) {
   const int64_t nmodes = window_modes(w);
   if (nmodes < 0) return (int)cudaErrorInvalidValue;
   if (nmodes == 0) return 0;
   const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  hessian_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)delta, (float2*)out, w, nmodes, R_grid);
-  return (int)cudaGetLastError();
-}
-
-int launch_gradient(const void* src, void* out, Window w, float growth,
-                    void* stream) {
-  const int64_t nmodes = window_modes(w);
-  if (nmodes < 0) return (int)cudaErrorInvalidValue;
-  if (nmodes == 0) return 0;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  gradient_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)src, (float2*)out, w, nmodes, growth);
+  window_kernel<NC><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)src, (float2*)out, w, nmodes, op);
   return (int)cudaGetLastError();
 }
 
@@ -381,18 +375,45 @@ int launch_gradient_tab(const void* src, void* out, Window w,
   return (int)cudaGetLastError();
 }
 
+// K10 and K14: one entry point a mode and form.  The kz-fastest form (the
+// source's kz stride 1) takes the source's x and y strides, the rows form
+// (its y stride 1) its kz and x strides, in complex elements; out [ncomp,
+// B, N, N] for the planes kz0..kz0+B-1.
+template <class Op>
+int launch_factors_kz(const void* src, int64_t sx, int64_t sy, void* out,
+                      int N, int kz0, int B, Op op, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  if (B < 0 || N < 0 || N > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kTileY - 1) / kTileY, N, (B + kTileZ - 1) / kTileZ);
+  factors_kz_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)src, sx, sy, (float2*)out, N, kz0, B, op);
+  return (int)cudaGetLastError();
+}
+
+template <class Op>
+int launch_factors_rows(const void* src, int64_t sb, int64_t sx, void* out,
+                        int N, int kz0, int B, Op op, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  if (B < 0 || N < 0 || (int64_t)B * N > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  factors_rows_kernel<<<(unsigned)(B * N), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float2*)src, sb, sx, (float2*)out, N, kz0, B, op);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kspace_hessian(const void* delta, void* out, int N,
                               float R_grid, void* stream) {
-  return launch_hessian(delta, out, Window{N, 0, N, 0, N / 2 + 1}, R_grid,
-                        stream);
+  return launch_window<6>(delta, out, Window{N, 0, N, 0, N / 2 + 1},
+                          HessianOp{R_grid}, stream);
 }
 
 extern "C" int kspace_gradient(const void* src, void* out, int N,
                                float growth, void* stream) {
-  return launch_gradient(src, out, Window{N, 0, N, 0, N / 2 + 1}, growth,
-                         stream);
+  return launch_window<3>(src, out, Window{N, 0, N, 0, N / 2 + 1},
+                          GradientOp<ScalarGrowth>{{growth}}, stream);
 }
 
 // gtab: [ntab] growth over log10 |k| from glo in steps of gdx; tmax: the
@@ -409,15 +430,15 @@ extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
 extern "C" int kspace_hessian_shard(const void* delta, void* out, int N,
                                     int y0, int ny, int z0, int nz,
                                     float R_grid, void* stream) {
-  return launch_hessian(delta, out, Window{N, y0, ny, z0, nz}, R_grid,
-                        stream);
+  return launch_window<6>(delta, out, Window{N, y0, ny, z0, nz},
+                          HessianOp{R_grid}, stream);
 }
 
 extern "C" int kspace_gradient_shard(const void* src, void* out, int N,
                                      int y0, int ny, int z0, int nz,
                                      float growth, void* stream) {
-  return launch_gradient(src, out, Window{N, y0, ny, z0, nz}, growth,
-                         stream);
+  return launch_window<3>(src, out, Window{N, y0, ny, z0, nz},
+                          GradientOp<ScalarGrowth>{{growth}}, stream);
 }
 
 extern "C" int kspace_gradient_tab_shard(const void* src, void* out, int N,
@@ -429,46 +450,38 @@ extern "C" int kspace_gradient_tab_shard(const void* src, void* out, int N,
                              glo, gdx, tmax, stream);
 }
 
-// K10 entry points: src* and its strides s*b, s*x, s*y (in complex
-// elements); out [ncomp, B, N, N]
-extern "C" int ooc_factors_hessian(const void* src, int64_t sb, int64_t sx,
-                                   int64_t sy, void* out, int N, int kz0,
-                                   int B, float R_grid, void* stream) {
-  const int64_t n = (int64_t)B * N * N;
-  if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  ooc_hessian_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n, R_grid);
-  return (int)cudaGetLastError();
+extern "C" int ooc_hessian_rows(const void* src, int64_t sb, int64_t sx,
+                                void* out, int N, int kz0, int B,
+                                float R_grid, void* stream) {
+  return launch_factors_rows(src, sb, sx, out, N, kz0, B, HessianOp{R_grid},
+                             stream);
 }
 
-extern "C" int ooc_factors_gradient(const void* src, int64_t sb, int64_t sx,
-                                    int64_t sy, void* out, int N, int kz0,
-                                    int B, float growth, void* stream) {
-  const int64_t n = (int64_t)B * N * N;
-  if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  ooc_gradient_kernel<<<(unsigned)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      Batch{(const float2*)src, sb, sx, sy}, (float2*)out, N, kz0, n, growth);
-  return (int)cudaGetLastError();
+extern "C" int ooc_gradient_kz(const void* src, int64_t sx, int64_t sy,
+                               void* out, int N, int kz0, int B,
+                               float growth, void* stream) {
+  return launch_factors_kz(src, sx, sy, out, N, kz0, B,
+                           GradientOp<ScalarGrowth>{{growth}}, stream);
 }
 
-// K14: gtab [ntab] growth over log10 |k| (see kspace_gradient_tab); out
-// [3, B, N, N].  The kz-fastest form (the source's kz stride 1) takes the
-// source's x and y strides, the contiguous form (y stride 1) its kz and x
-// strides, in complex elements.
+extern "C" int ooc_gradient_rows(const void* src, int64_t sb, int64_t sx,
+                                 void* out, int N, int kz0, int B,
+                                 float growth, void* stream) {
+  return launch_factors_rows(src, sb, sx, out, N, kz0, B,
+                             GradientOp<ScalarGrowth>{{growth}}, stream);
+}
+
+// K14: gtab [ntab] growth over log10 |k| (see kspace_gradient_tab)
 extern "C" int ooc_gradient_tab_kz(const void* src, int64_t sx, int64_t sy,
                                    void* out, int N, int kz0, int B,
                                    const void* gtab, int ntab, float glo,
                                    float gdx, float tmax, void* stream) {
-  if (B == 0 || N == 0) return 0;
-  if (ntab < 2 || N > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kTabTY - 1) / kTabTY, N, (B + kTabBZ - 1) / kTabBZ);
-  ooc_gradient_tab_kz_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)src, sx, sy, (float2*)out, N, kz0, B,
-      LdgTable{(const float*)gtab}, glo, gdx, tmax);
-  return (int)cudaGetLastError();
+  if (ntab < 2) return (int)cudaErrorInvalidValue;
+  return launch_factors_kz(
+      src, sx, sy, out, N, kz0, B,
+      GradientOp<TableGrowth<LdgTable>>{
+          {LdgTable{(const float*)gtab}, glo, gdx, tmax}},
+      stream);
 }
 
 extern "C" int ooc_gradient_tab_rows(const void* src, int64_t sb,
@@ -476,28 +489,32 @@ extern "C" int ooc_gradient_tab_rows(const void* src, int64_t sb,
                                      int B, const void* gtab, int ntab,
                                      float glo, float gdx, float tmax,
                                      void* stream) {
-  if (B == 0 || N == 0) return 0;
-  if (ntab < 2 || (int64_t)B * N > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  ooc_gradient_tab_rows_kernel<<<(unsigned)(B * N), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      (const float2*)src, sb, sx, (float2*)out, N, kz0, B,
-      LdgTable{(const float*)gtab}, glo, gdx, tmax);
-  return (int)cudaGetLastError();
+  if (ntab < 2) return (int)cudaErrorInvalidValue;
+  return launch_factors_rows(
+      src, sb, sx, out, N, kz0, B,
+      GradientOp<TableGrowth<LdgTable>>{
+          {LdgTable{(const float*)gtab}, glo, gdx, tmax}},
+      stream);
 }
 
-extern "C" int ooc_factors_pair(const void* src0, int64_t s0b, int64_t s0x,
-                                int64_t s0y, const void* src1, int64_t s1b,
-                                int64_t s1x, int64_t s1y, void* out, int N,
-                                int kz0, int B, int ia, int ib,
-                                void* stream) {
-  const int64_t n = (int64_t)B * N * N;
-  if (n == 0) return 0;
+// the pair mode: src0 (iy contiguous) with its kz and x strides, then src1
+// with the strides of its form; ia, ib in 0..2
+extern "C" int ooc_pair_kz(const void* src0, int64_t s0b, int64_t s0x,
+                           const void* src1, int64_t s1x, int64_t s1y,
+                           void* out, int N, int kz0, int B, int ia, int ib,
+                           void* stream) {
   if (ia < 0 || ia > 2 || ib < 0 || ib > 2) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  ooc_pair_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Batch{(const float2*)src0, s0b, s0x, s0y},
-      Batch{(const float2*)src1, s1b, s1x, s1y}, (float2*)out, N, kz0, n, ia,
-      ib);
-  return (int)cudaGetLastError();
+  return launch_factors_kz(src1, s1x, s1y, out, N, kz0, B,
+                           PairOp{(const float2*)src0, s0b, s0x, ia, ib},
+                           stream);
+}
+
+extern "C" int ooc_pair_rows(const void* src0, int64_t s0b, int64_t s0x,
+                             const void* src1, int64_t s1b, int64_t s1x,
+                             void* out, int N, int kz0, int B, int ia,
+                             int ib, void* stream) {
+  if (ia < 0 || ia > 2 || ib < 0 || ib > 2) return (int)cudaErrorInvalidValue;
+  return launch_factors_rows(src1, s1b, s1x, out, N, kz0, B,
+                             PairOp{(const float2*)src0, s0b, s0x, ia, ib},
+                             stream);
 }

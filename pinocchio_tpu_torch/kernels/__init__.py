@@ -159,12 +159,15 @@ _SIGNATURES = {
     # paired, stream
     "ic_kdensity_planes": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F, _I,
                            _I, _I, _P],
-    # src, sb, sx, sy, out, N, kz0, B, R_grid (or growth), stream
-    "ooc_factors_hessian": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
-    "ooc_factors_gradient": [_P, _L, _L, _L, _P, _I, _I, _I, _F, _P],
-    # src0 and src1 with their strides, out, N, kz0, B, ia, ib, stream
-    "ooc_factors_pair": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I,
-                         _I, _P],
+    # K10 rows: src, sb, sx, out, N, kz0, B, R_grid (or growth), stream;
+    # kz-fastest: src, sx, sy, then the same
+    "ooc_hessian_rows": [_P, _L, _L, _P, _I, _I, _I, _F, _P],
+    "ooc_gradient_kz": [_P, _L, _L, _P, _I, _I, _I, _F, _P],
+    "ooc_gradient_rows": [_P, _L, _L, _P, _I, _I, _I, _F, _P],
+    # src0, s0b, s0x (its iy axis contiguous), then src1 and its form's two
+    # strides, out, N, kz0, B, ia, ib, stream
+    "ooc_pair_kz": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    "ooc_pair_rows": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     # derivs, Fmax, n, pack[23] (host), then as collapse_update
     "collapse_update_slab": [_P, _P, _L, _P, _P, _I, _P, _P, _P],
     # rank, comps, n, rows, stream

@@ -15,15 +15,17 @@ mesh's k layout, the window [N, y0:y0+ny, z0:z0+nz] of [N, N, Nhp] (Nhp >=
 N//2+1 pads the kz axis so that it splits evenly; the padded planes are
 zero in and out); the full-grid functions are the window (0, 0).  The c2r
 transforms are ``torch.fft`` (cuFFT on the card) in the two-step
-decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and ``ooc_pair`` are
-the wrappers of the out-of-core engine's per-kz-batch factors (K10, also in
-``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its gradient with a growth
-table (K14, a ``GrowthTable``).
+decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and
+``ooc_pair`` are the wrappers of the out-of-core engine's per-kz-batch
+factors (K10, also in ``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its
+gradient with a growth table (K14, a ``GrowthTable``).  Each of their modes
+has two forms, picked by ``launch_factors`` from the strides of the source
+batch: a resident spectrum's window (kz contiguous) or contiguous planes
+(iy contiguous); the Hessian mode, which only reads K9's planes, has the
+planes' form alone; any other layout raises.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -274,10 +276,11 @@ def density_field(kdensity, N: int):
 
 
 # ------------------------------------------------------------------
-# K10: the out-of-core engine's factors on one batch of kz planes.  A source
-# batch is a complex64 [B, N, N] tensor or view in (kz, x, y) order: K9's
-# planes, or spectrum[:, :, kz0:kz0+B].permute(2, 0, 1) of a resident
-# [N, N, N//2+1] spectrum.  The result, [ncomp, B, N, N], is the input of
+# K10 and K14: the out-of-core engine's factors on one batch of kz planes.
+# A source batch is a complex64 [B, N, N] tensor or view in (kz, x, y)
+# order: K9's planes and K19's widened batches (iy contiguous), or
+# spectrum[:, :, kz0:kz0+B].permute(2, 0, 1) of a resident [N, N, N//2+1]
+# spectrum (kz contiguous).  The result, [ncomp, B, N, N], is the input of
 # one batched ifft2 over (x, y).
 # ------------------------------------------------------------------
 
@@ -334,51 +337,58 @@ def ooc_pair_plain(src0, src1, kz0: int, ia: int, ib: int, N: int):
     return torch.stack([src0 * kvec[4] * f, src1 * kvec[4] * f])
 
 
-def _batch_args(name, src, N):
-    if src.device.type != "cuda":
-        raise ValueError(f"{name}: all tensors must be on one CUDA device, "
-                         f"got {src.device}")
-    if (src.dtype != torch.complex64 or src.dim() != 3
-            or tuple(src.shape[1:]) != (N, N)):
+def _check_batch(name, src, kz0: int, N: int) -> None:
+    """Raise unless src is a complex64 [B, N, N] batch of the planes
+    kz0..kz0+B-1 of 0..N/2."""
+    shape = src.shape
+    if (src.dtype != torch.complex64 or len(shape) != 3
+            or shape[1] != N or shape[2] != N
+            or not 0 <= kz0 <= kz0 + shape[0] <= N // 2 + 1):
         raise ValueError(f"{name}: a complex64 [B, {N}, {N}] source batch "
-                         f"expected, got {src.dtype} {tuple(src.shape)}")
-    return [src.data_ptr()] + [ctypes.c_int64(s) for s in src.stride()]
+                         f"of planes in 0..{N // 2} expected, got "
+                         f"{src.dtype} {tuple(shape)} at kz {kz0}")
 
 
-def _launch_batch(name, srcs, ncomp, kz0, N, *tail):
-    dev = srcs[0].device
-    B = srcs[0].shape[0]
-    if any(s.device != dev or s.shape[0] != B for s in srcs):
-        raise ValueError(f"{name}: sources of one batch on one device "
-                         "expected")
-    if not 0 <= kz0 <= kz0 + B <= N // 2 + 1:
-        raise ValueError(f"{name}: planes {kz0}..{kz0 + B - 1} outside "
-                         f"0..{N // 2}")
-    args = [a for s in srcs for a in _batch_args(name, s, N)]
-    out = torch.empty((ncomp, B, N, N), dtype=torch.complex64, device=dev)
-    err = getattr(kernels.lib(), name)(*args, out.data_ptr(), N, int(kz0),
-                                       int(B), *tail,
-                                       kernels.stream_ptr(dev))
-    kernels.check(name, err)
+def _launch(name, mode, src, kz0: int, N: int, ncomp: int, tail,
+            src0=None):
+    """Check a CUDA source batch (and the pair mode's src0), launch the
+    form of ``mode`` that its strides pick and count the launch: the
+    complex64 [ncomp, B, N, N] factors."""
+    dev = src.get_device()
+    _check_batch(name, src, kz0, N)
+    if src0 is not None:
+        _check_batch(name, src0, kz0, N)
+        if src0.get_device() != dev or src0.shape[0] != src.shape[0]:
+            raise ValueError(f"{name}: sources of one batch on one device "
+                             "expected")
+    out = src.new_empty((ncomp,) + tuple(src.shape))
+    err = launch_factors(mode, src, kz0, N, out, tail,
+                         kernels.stream_ptr(dev), src0)
+    if err:
+        kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out
 
 
 def ooc_hessian(src, kz0: int, R_grid: float, N: int):
     """The 6 smoothed Hessian factors k_a k_b exp(-k^2 R^2/2) / k^2 on a
-    source batch: complex64 [6, B, N, N] in ider order."""
-    if not kernels.plain_or_kernel("ooc_factors_hessian", src):
+    source batch: complex64 [6, B, N, N] in ider order.  The source (K9's
+    planes) has its iy axis contiguous; any other layout raises."""
+    if src.get_device() < 0:
+        kernels.plain_or_kernel("ooc_factors_hessian", src)
         return ooc_hessian_plain(src, kz0, R_grid, N)
-    return _launch_batch("ooc_factors_hessian", [src], 6, kz0, N,
-                         float(R_grid))
+    return _launch("ooc_factors_hessian", "hessian", src, kz0, N, 6,
+                   (float(R_grid),))
 
 
 def ooc_gradient(src, kz0: int, growth: float, N: int):
-    """i k_a / k^2 * growth on a source batch: complex64 [3, B, N, N]."""
-    if not kernels.plain_or_kernel("ooc_factors_gradient", src):
+    """i k_a / k^2 * growth on a source batch: complex64 [3, B, N, N].  The
+    source's strides pick the kernel's form (see ooc_gradient_tab)."""
+    if src.get_device() < 0:
+        kernels.plain_or_kernel("ooc_factors_gradient", src)
         return ooc_gradient_plain(src, kz0, growth, N)
-    return _launch_batch("ooc_factors_gradient", [src], 3, kz0, N,
-                         float(growth))
+    return _launch("ooc_factors_gradient", "gradient", src, kz0, N, 3,
+                   (float(growth),))
 
 
 def ooc_gradient_tab(src, kz0: int, table: GrowthTable, N: int):
@@ -387,64 +397,73 @@ def ooc_gradient_tab(src, kz0: int, table: GrowthTable, N: int):
     [3, B, N, N].  The source's strides pick the kernel's form: its iy axis
     contiguous (K9's planes, a 16-bit spectrum's widened batch) or its kz
     axis (a resident spectrum's window); any other layout raises."""
-    dev = src.get_device()
-    if dev < 0:
+    if src.get_device() < 0:
         kernels.plain_or_kernel("ooc_factors_gradient_tab", src)
         return ooc_gradient_tab_plain(src, kz0, table, N)
-    shape = src.shape
-    if (src.dtype != torch.complex64 or len(shape) != 3
-            or shape[1] != N or shape[2] != N
-            or not 0 <= kz0 <= kz0 + shape[0] <= N // 2 + 1
-            or table.gtab.get_device() != dev):
-        raise ValueError(f"ooc_factors_gradient_tab: a complex64 [B, {N}, "
-                         f"{N}] source batch of planes in 0..{N // 2} and "
+    if table.gtab.get_device() != src.get_device():
+        raise ValueError(f"ooc_factors_gradient_tab: the source batch and "
                          f"its table on one CUDA device expected, got "
-                         f"{src.dtype} {tuple(shape)} at kz {kz0} on "
-                         f"{src.device}, the table on {table.gtab.device}")
-    out = src.new_empty((3,) + tuple(shape))
-    err = launch_gradient_tab(src, kz0, table.args(), N, out,
-                              kernels.stream_ptr(dev))
-    if err:
-        kernels.check("ooc_factors_gradient_tab", err)
-    kernels.LAUNCHES["ooc_factors_gradient_tab"] += 1
-    return out
-
-
-_TAB = None
-
-
-def _tab_entry():
-    """K14's C entry points, its kz-fastest and contiguous forms, looked up
-    in the kernel library once."""
-    global _TAB
-    if _TAB is None:
-        so = kernels.lib()
-        _TAB = (so.ooc_gradient_tab_kz, so.ooc_gradient_tab_rows)
-    return _TAB
-
-
-def launch_gradient_tab(src, kz0: int, table_args, N: int, out,
-                        stream: int) -> int:
-    """Hand K14's form for the strides of src [B, N, N] its arguments:
-    the source pointer and strides, out, N, kz0, B, the table's
-    (GrowthTable.args) and the stream; returns the cudaError_t."""
-    sb, sx, sy = src.stride()
-    B = src.shape[0]
-    if sy == 1:
-        return _tab_entry()[1](src.data_ptr(), sb, sx, out.data_ptr(), N,
-                               kz0, B, *table_args, stream)
-    if sb == 1:
-        return _tab_entry()[0](src.data_ptr(), sx, sy, out.data_ptr(), N,
-                               kz0, B, *table_args, stream)
-    raise ValueError(f"ooc_factors_gradient_tab: a source batch with its iy "
-                     f"or its kz axis contiguous expected, got strides "
-                     f"{tuple(src.stride())}")
+                         f"{src.device} and {table.gtab.device}")
+    return _launch("ooc_factors_gradient_tab", "gradient_tab", src, kz0, N,
+                   3, table.args())
 
 
 def ooc_pair(src0, src1, kz0: int, ia: int, ib: int, N: int):
     """k_a k_b / k^2 of one Hessian component (ia, ib in 0..2) on two
-    source batches: complex64 [2, B, N, N]."""
-    if not kernels.plain_or_kernel("ooc_factors_pair", src0):
+    source batches: complex64 [2, B, N, N].  src0 (K9's planes) has its iy
+    axis contiguous; src1's strides pick the kernel's form (see
+    ooc_gradient_tab)."""
+    if src0.get_device() < 0:
+        kernels.plain_or_kernel("ooc_factors_pair", src0)
         return ooc_pair_plain(src0, src1, kz0, ia, ib, N)
-    return _launch_batch("ooc_factors_pair", [src0, src1], 2, kz0, N,
-                         int(ia), int(ib))
+    return _launch("ooc_factors_pair", "pair", src1, kz0, N, 2,
+                   (int(ia), int(ib)), src0)
+
+
+# each mode's C entry points: its kz-fastest form, its rows form (the
+# Hessian mode only ever reads K9's planes: rows alone)
+FORMS = {"hessian": (None, "ooc_hessian_rows"),
+         "gradient": ("ooc_gradient_kz", "ooc_gradient_rows"),
+         "gradient_tab": ("ooc_gradient_tab_kz", "ooc_gradient_tab_rows"),
+         "pair": ("ooc_pair_kz", "ooc_pair_rows")}
+_ENTRIES = {}
+
+
+def _entry(mode: str):
+    """The C entry points of a K10 or K14 mode, (kz-fastest, rows), looked
+    up in the kernel library once (None for a form the mode lacks)."""
+    got = _ENTRIES.get(mode)
+    if got is None:
+        so = kernels.lib()
+        got = _ENTRIES[mode] = tuple(nm and getattr(so, nm)
+                                     for nm in FORMS[mode])
+    return got
+
+
+def launch_factors(mode: str, src, kz0: int, N: int, out, tail,
+                   stream: int, src0=None) -> int:
+    """Hand the form of a K10 or K14 mode that the strides of src [B, N, N]
+    pick its arguments: the pair mode's src0 pointer and its kz and x
+    strides (its iy axis contiguous), the source pointer and strides, out,
+    N, kz0, B, the mode's own (tail) and the stream; returns the
+    cudaError_t."""
+    head = ()
+    if src0 is not None:
+        sb0, sx0, sy0 = src0.stride()
+        if sy0 != 1:
+            raise ValueError(f"ooc_factors_{mode}: a first source batch with "
+                             f"its iy axis contiguous expected, got strides "
+                             f"{tuple(src0.stride())}")
+        head = (src0.data_ptr(), sb0, sx0)
+    sb, sx, sy = src.stride()
+    B = src.shape[0]
+    if sy == 1:
+        return _entry(mode)[1](*head, src.data_ptr(), sb, sx, out.data_ptr(),
+                               N, kz0, B, *tail, stream)
+    if sb == 1 and FORMS[mode][0]:
+        return _entry(mode)[0](*head, src.data_ptr(), sx, sy, out.data_ptr(),
+                               N, kz0, B, *tail, stream)
+    axes = "iy or its kz axis" if FORMS[mode][0] else "iy axis"
+    raise ValueError(f"ooc_factors_{mode}: a source batch with its {axes} "
+                     f"contiguous expected, got strides "
+                     f"{tuple(src.stride())}")

@@ -170,16 +170,35 @@ def pack(perm, buf, count, bits, block_off, host_nd, host_devs, seg_base,
         raise ValueError("exchange_pack: perm i64[count], buf f32[count * (2"
                          " + 3 nch)], bits i32, block_off i64, host tables "
                          "i32, segment tables i64 and out f32 expected")
-    nhosts = host_nd.numel()
-    err = kernels.lib().exchange_pack(
-        perm.data_ptr(), buf.data_ptr(), ctypes.c_int64(count),
-        bits.data_ptr(), bits.shape[1], block_off.data_ptr(), nhosts,
-        host_nd.data_ptr(), host_devs.data_ptr(), host_devs.shape[1],
-        seg_base.data_ptr(), seg_n.data_ptr(), nch, out.data_ptr(),
-        kernels.stream_ptr(buf.device))
-    kernels.check("exchange_pack", err)
+    err = launch_pack(perm, buf, count, bits, block_off, host_nd, host_devs,
+                      seg_base, seg_n, nch, out,
+                      kernels.stream_ptr(buf.device))
+    if err:
+        kernels.check("exchange_pack", err)
     kernels.LAUNCHES["exchange_pack"] += 1
     return out
+
+
+_PACK = None
+
+
+def launch_pack(perm, buf, count, bits, block_off, host_nd, host_devs,
+                seg_base, seg_n, nch, out, stream: int) -> int:
+    """Hand K16's entry point (looked up in the kernel library once) its
+    arguments: the tensors' pointers, count, the bitmask words W, H, ndmax,
+    nch, then the stream; returns the cudaError_t.  The kernel ranks the
+    rows in 32 bits, so count must be below 2^32."""
+    global _PACK
+    if count >= 2 ** 32:
+        raise ValueError(f"exchange_pack: {count} rows, at most 2^32 - 1 "
+                         "expected")
+    if _PACK is None:
+        _PACK = kernels.lib().exchange_pack
+    return _PACK(perm.data_ptr(), buf.data_ptr(), count, bits.data_ptr(),
+                 bits.shape[1], block_off.data_ptr(), host_nd.numel(),
+                 host_nd.data_ptr(), host_devs.data_ptr(), host_devs.shape[1],
+                 seg_base.data_ptr(), seg_n.data_ptr(), nch, out.data_ptr(),
+                 stream)
 
 
 PAINT_COLS = 32       # K17's columns per block (csrc/exchange.cu)

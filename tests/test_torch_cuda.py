@@ -20,9 +20,11 @@ batches and on cells far beyond the table, and within the K3 criteria on
 Gaussian Hessians; K8 (tabulated growth), K6a (the row rank and the row
 scatter, on some, every and no needed cell) and K6b (the FmaxPDF
 histogram) are exactly equal.  The out-of-core engine's kernels:
-K9 (kz planes), K10 (the three factor modes, on contiguous and strided
-batches), K11 (K3 on a slab, no Rmax) and K12 (the slab row scatter) are
-exactly equal to their plain versions; K4's one-pair accumulation is within
+K9 (kz planes), K10 (the three factor modes in their rows and kz-fastest
+forms, on contiguous planes and a spectrum's window, bit for bit, on the
+kz schedule's first and last batch and one over two kz tiles), K11 (K3 on
+a slab, no Rmax) and K12 (the slab row scatter) are exactly equal to their
+plain versions; K4's one-pair accumulation is within
 1e-5 of the maximum.  K13 (K7 on a slab, no Rmax; three lookups) is
 exactly equal to its plain version and to K7 on the rare-branch batches and
 on Gaussian Hessians; K14 (the gradient mode with a growth table, in its
@@ -43,6 +45,8 @@ paint, from its plan) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap;
+K16 also with 1, 3 and 33 hosts, rows that are members of every host, 4
+and 8 row channels;
 K17 also on adversarial spheres (2r = N, 2r > N, r >= N, fractional and
 negative radii, spheres outside the shard) on that shard, a slab and an
 odd window.
@@ -559,29 +563,49 @@ def test_kdensity_planes(dev, setup):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["hessian", "gradient", "pair"])
 def test_ooc_factors(dev, mode):
-    """K10 on a contiguous plane batch and on a strided batch of a resident
-    spectrum, exactly equal to its plain version."""
+    """K10 in its forms, bit for bit its plain version: on a resident
+    spectrum's window (the kz-fastest form) and on a contiguous copy of its
+    planes (the rows form); the pair mode on (planes, window) and (planes,
+    planes); the Hessian mode, which only reads K9's planes, on planes (a
+    window raises).  At N = 50 the tiles of 64 iy are partly outside; the
+    batches are the kz schedule's first (16 planes) and last (10, not a
+    multiple of 16, up to kz = N/2) and planes 3..22 (20, over two kz
+    tiles, the second partial).  A layout that no form takes raises."""
     spec = rfft3(_hessians(dev)[0])
-    planes = spec[:, :, 3:10].permute(2, 0, 1).contiguous()
-    view = spec[:, :, 3:10].permute(2, 0, 1)
+    sched = fmax_ooc.kz_schedule(N // 2 + 1, fmax_ooc.KZ_BATCH)
+    assert sched[-1] == (16, 10)
     name = f"ooc_factors_{mode}"
+    for kz0, B in (sched[0], sched[-1], (3, 20)):
+        view = spec[:, :, kz0:kz0 + B].permute(2, 0, 1)
+        planes = view.contiguous()
+        if mode == "hessian":
+            fns = [lambda f, s, R=R: f(s, kz0, R, N) for R in (1.7, 0.0)]
+            kern, plain = (derivatives.ooc_hessian,
+                           derivatives.ooc_hessian_plain)
+        elif mode == "gradient":
+            fns = [lambda f, s: f(s, kz0, 0.8, N)]
+            kern, plain = (derivatives.ooc_gradient,
+                           derivatives.ooc_gradient_plain)
+        else:
+            fns = [lambda f, s, a=a, b=b: f(planes, s, kz0, a, b, N)
+                   for a, b in derivatives.SECOND_DERIV_PAIRS]
+            kern, plain = derivatives.ooc_pair, derivatives.ooc_pair_plain
+        for fn in fns:
+            for src in (planes,) if mode == "hessian" else (planes, view):
+                got = _launched(name, lambda: fn(kern, src))
+                want = fn(plain, src)
+                assert got.is_contiguous()
+                assert _same_bits(got, want)
+    bad = planes.transpose(1, 2)
+    with pytest.raises(ValueError, match="its iy axis" if mode == "hessian"
+                       else "iy or its kz axis"):
+        fns[0](kern, bad)
     if mode == "hessian":
-        fns = [lambda f, s: f(s, 3, 1.7, N)]
-        kern, plain = derivatives.ooc_hessian, derivatives.ooc_hessian_plain
-    elif mode == "gradient":
-        fns = [lambda f, s: f(s, 3, 0.8, N)]
-        kern, plain = derivatives.ooc_gradient, derivatives.ooc_gradient_plain
-    else:
-        fns = [lambda f, s, a=a, b=b: f(planes, s, 3, a, b, N)
-               for a, b in derivatives.SECOND_DERIV_PAIRS]
-        kern, plain = derivatives.ooc_pair, derivatives.ooc_pair_plain
-    for fn in fns:
-        for src in (planes, view):
-            got = _launched(name, lambda: fn(kern, src))
-            want = fn(plain, src)
-            assert got.is_contiguous()
-            assert torch.equal(torch.view_as_real(got),
-                               torch.view_as_real(want))
+        with pytest.raises(ValueError, match="its iy axis"):
+            fns[0](kern, view)
+    if mode == "pair":
+        with pytest.raises(ValueError, match="first source batch"):
+            kern(view, view, kz0, 0, 1, N)
 
 
 @pytest.mark.cuda
@@ -1118,37 +1142,85 @@ def test_exchange_count(dev, nhosts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nhosts", [3, 16])
-def test_exchange_pack(dev, nhosts):
+@pytest.mark.parametrize("nhosts,every", [(1, False), (3, False),
+                                          (16, False), (33, False),
+                                          (3, True), (33, True)])
+def test_exchange_pack(dev, nhosts, every):
+    """K16 equals its plain version exactly, every slot of out written,
+    with 4 row channels (all held in registers) and 8: 1, 3, 16 and 33
+    hosts (a second bitmask word), 1-3 destinations a host, a host with no
+    member and, with every, rows that are members of every host."""
     case = exchange_case(N, nhosts, seed=1)
+    if every:
+        case["pad"] = tuple((((0, N), (0, N), (0, N)),)
+                            for _ in range(nhosts))
     pb, po, _, _ = _tables(case, dev)
     cells = torch.from_numpy(case["cells"]).to(dev)
     bits, counts = xops.count(cells, case["block"], N, pb, po, nhosts)
+    n = len(cells)
+    tot = counts.sum(0).tolist()
+    if every:
+        assert tot == [n] * nhosts
+    elif nhosts > 1:
+        assert tot[-1] == 0 and sum(tot) > 0
     rng = np.random.default_rng(2)
-    n, nch = len(cells), 8
-    buf = torch.from_numpy(rng.standard_normal(n * (2 + 3 * nch))
-                           .astype(np.float32)).to(dev)
     perm = torch.from_numpy(rng.permutation(n)).to(dev)
     nd = [1 + h % 3 for h in range(nhosts)]
     devs, q = [], 0
     for h in range(nhosts):
         devs.append(list(range(q, q + nd[h])) + [0] * (3 - nd[h]))
         q += nd[h]
-    tot = counts.sum(0).tolist()
     seg_n = np.array([max(0, -(-(tot[h] - j) // nd[h])) for h in
                       range(nhosts) for j in range(nd[h])], np.int64)
+    for nch in (4, 8):
+        buf = torch.from_numpy(rng.standard_normal(n * (2 + 3 * nch))
+                               .astype(np.float32)).to(dev)
+        rowf = 2 + 3 * nch
+        seg_base = np.concatenate([[0], np.cumsum(seg_n * rowf)[:-1]])
+        args = (perm, buf, n, bits,
+                torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+                torch.tensor(nd, dtype=torch.int32, device=dev),
+                torch.tensor(devs, dtype=torch.int32, device=dev),
+                torch.from_numpy(seg_base).to(dev),
+                torch.from_numpy(seg_n).to(dev), nch)
+        total = int(seg_n.sum()) * rowf
+        want = xops.pack_plain(*args, torch.zeros(total, device=dev))
+        got = _launched("exchange_pack", lambda: xops.pack(
+            *args, torch.full((total,), np.nan, device=dev)))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_exchange_pack_past_2_31_floats(dev):
+    """K16's 64-bit float offsets: a shard of 16 row channels (4 in
+    registers, 12 read in the store loop) whose buf and segment reach past
+    2^31 floats, every row a member of one host with two destinations;
+    every float of buf a distinct bit pattern, so out must equal the plain
+    version's bit for bit."""
+    nch = 16
     rowf = 2 + 3 * nch
-    seg_base = np.concatenate([[0], np.cumsum(seg_n * rowf)[:-1]])
-    args = (perm, buf, n, bits,
-            torch.cumsum(counts, 0, dtype=torch.int64) - counts,
-            torch.tensor(nd, dtype=torch.int32, device=dev),
-            torch.tensor(devs, dtype=torch.int32, device=dev),
-            torch.from_numpy(seg_base).to(dev),
+    n = -(-2 ** 31 // rowf) + 1000               # offsets past 2^31 - 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    buf = torch.arange(-2 ** 31, n * rowf - 2 ** 31, dtype=torch.int32,
+                       device=dev).view(torch.float32)
+    bits = torch.ones((n, 1), dtype=torch.int32, device=dev)
+    nblocks = -(-n // xops.THREADS)
+    block_off = (torch.arange(nblocks, dtype=torch.int64, device=dev)
+                 * xops.THREADS)[:, None]
+    seg_n = np.array([-(-n // 2), n // 2], np.int64)
+    args = (perm, buf, n, bits, block_off,
+            torch.tensor([2], dtype=torch.int32, device=dev),
+            torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
+            torch.tensor([0, seg_n[0] * rowf], dtype=torch.int64,
+                         device=dev),
             torch.from_numpy(seg_n).to(dev), nch)
-    total = int(seg_n.sum()) * rowf
-    got = xops.pack(*args, torch.zeros(total, device=dev))
-    want = xops.pack_plain(*args, torch.zeros(total, device=dev))
-    assert torch.equal(got, want)
+    got = _launched("exchange_pack", lambda: xops.pack(
+        *args, torch.full((n * rowf,), -1, dtype=torch.int32,
+                          device=dev).view(torch.float32)))
+    want = xops.pack_plain(*args, torch.zeros(n * rowf, device=dev))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # K17's adversarial spheres at N = 50 (cx, cy, cz, r): 2r = N, 2r > N, r >= N

@@ -1,7 +1,8 @@
 """K14's launch path (ops/derivatives.py) on the CPU: the form that the
 strides of a source batch pick, and the hand-over of its arguments to the
-two C entry points of csrc/kspace.cu, looked up in the kernel library once
-and called through ctypes against the argtypes of kernels._SIGNATURES.
+two C entry points of csrc/kspace.cu (derivatives.launch_factors' mode
+"gradient_tab"), looked up in the kernel library once and called through
+ctypes against the argtypes of kernels._SIGNATURES.
 
 The kernel library needs nvcc, so here a stub of the same two entry points
 stands in for it and records the arguments each call receives: a
@@ -65,7 +66,7 @@ def stub(tmp_path, monkeypatch):
                     str(src)], check=True)
     lib = kernels.bind(ctypes.CDLL(str(so)), NAMES)
     monkeypatch.setattr(kernels, "lib", lambda: lib)
-    monkeypatch.setattr(derivatives, "_TAB", None)
+    monkeypatch.setattr(derivatives, "_ENTRIES", {})
     return lib
 
 
@@ -98,12 +99,12 @@ def _sources():
 def test_each_source_reaches_its_form(stub, case):
     what, src, kz0, form, strides = _sources()[case]
     table = _table()
-    entry = derivatives._tab_entry()
-    assert derivatives._tab_entry() is entry
+    entry = derivatives._entry("gradient_tab")
+    assert derivatives._entry("gradient_tab") is entry
     assert [e.__name__ for e in entry] == list(NAMES)
     out = torch.empty((3, src.shape[0], N, N), dtype=torch.complex64)
-    assert derivatives.launch_gradient_tab(src, kz0, table.args(), N, out,
-                                           STREAM) == 0
+    assert derivatives.launch_factors("gradient_tab", src, kz0, N, out,
+                                      table.args(), STREAM) == 0
     seen = list((ctypes.c_int64 * 12).in_dll(stub, "seen"))
     seen_f = list((ctypes.c_float * 3).in_dll(stub, "seen_f"))
     gtab = table.gtab
@@ -141,6 +142,6 @@ def test_other_layouts_are_refused(stub):
     src = spec[:, :, :4].permute(2, 0, 1).contiguous().transpose(1, 2)
     out = torch.empty((3, 4, N, N), dtype=torch.complex64)
     with pytest.raises(ValueError, match="iy or its kz axis contiguous"):
-        derivatives.launch_gradient_tab(src, 0, _table().args(), N, out,
-                                        STREAM)
+        derivatives.launch_factors("gradient_tab", src, 0, N, out,
+                                   _table().args(), STREAM)
     assert (ctypes.c_int64 * 12).in_dll(stub, "seen")[10] == 0

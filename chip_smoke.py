@@ -1257,35 +1257,94 @@ def kernel_phases(N, dev, report):
         del Fk, Fp, F7, R7, Ft, dF
     del tabs, targs, F_slab
 
-    # K12: the needed rows of the first x-slab of a displacement-like
-    # stack, into the rows buffer of all needed cells
+    # K12: the needed rows of the first, a middle and the last x-slab of a
+    # displacement-like stack, into the rows buffer of all needed cells;
+    # then slab views off the 16-byte grid: rank and components one cell
+    # past it (the head and tail cells beside the quads) and rank alone
+    # (one cell a thread)
     rank = compact.needed_rank(idx, cells)
     n_slab = Bx * N * N
-    rk = rank[:n_slab]
-    comps = sd[:3, :Bx].reshape(3, -1).contiguous()
+    nsl = N // Bx
     got = torch.zeros((count, 3), device=dev)
     want = torch.zeros((count, 3), device=dev)
-    compact.vrows_slab(rk, comps, got)
-    compact.vrows_slab_plain(rk, comps, want)
-    need(torch.equal(got, want), f"vrows_slab at {N}^3 is not identical to "
-         "its plain version")
-    in_slab = int((rk >= 0).sum())
+
+    def slab(j):
+        return (rank[j * n_slab:(j + 1) * n_slab],
+                sd[:3, j * Bx:(j + 1) * Bx].reshape(3, -1).contiguous())
+
+    for j in (0, nsl // 2, nsl - 1):
+        compact.vrows_slab(*slab(j), got)
+        compact.vrows_slab_plain(*slab(j), want)
+        need(torch.equal(got, want), f"vrows_slab at {N}^3 on slab {j} of "
+             f"{nsl} is not identical to its plain version")
+    rk_off = rank[1:1 + n_slab]
+    comps_off = misaligned(sd[:3].reshape(3, -1)[:, 1:1 + n_slab])
+    for r_, c_ in ((rk_off, comps_off), (rk_off, slab(0)[1])):
+        compact.vrows_slab(r_, c_, got)
+        compact.vrows_slab_plain(r_, c_, want)
+        need(torch.equal(got, want), f"vrows_slab at {N}^3 on a slab view "
+             "off the 16-byte grid is not identical to its plain version")
+    err = (got - want).abs().max().item()
+    del rk_off, comps_off, want
+    # timed on the path's share: the out-of-core path needs about two
+    # thirds of the cells (0.66 N^3 rows of 12 B, past L2 from 256^3 on;
+    # the state above needs fewer, whose rows L2 holds at 256^3), in the
+    # sweep's order, which is random in the cells; both timed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N)
+    need_path = torch.randperm(cells, generator=gen,
+                               device=dev)[:2 * cells // 3]
+    rank_path = compact.needed_rank(need_path, cells)
+    rows_path = torch.zeros((need_path.numel(), 3), device=dev)
+    del need_path
+    comps = slab(0)[1]
+    times = {}
+    for what, rk, rows in (("state", slab(0)[0], got),
+                           ("path", rank_path[:n_slab], rows_path)):
+        r64 = rk[rk >= 0].long()
+        # the sector floor: each 32-byte sector that the slab's needed
+        # rows touch read and written once, beside the slab's coalesced
+        # 16 B a cell
+        sectors = torch.unique(torch.cat([(12 * r64) // 32,
+                                          (12 * r64 + 11) // 32])).numel()
+
+        def k12():
+            return compact.vrows_slab(rk, comps, rows)
+        times[what] = dict(rows=r64.numel(), count=rows.shape[0],
+                           sectors=sectors,
+                           floor=1e3 * (64 * sectors + 16 * n_slab)
+                           / PEAK_BYTES, ms=time_ms(k12), batch=batch_ms(k12),
+                           host=host_ms(k12))
+        del r64
+    rk = rank_path[:n_slab]
+    in_slab = times["path"]["rows"]
 
     def by_library():
         # no one PyTorch call scatters by a rank that skips cells: the
         # selection, its gather and index_copy_ together
         sel = rk >= 0
-        want.index_copy_(0, rk[sel].long(), comps[:, sel].T)
+        rows_path.index_copy_(0, rk[sel].long(), comps[:, sel].T)
 
     lib_ms = time_ms(by_library)
-    phase("vrows_slab", (got - want).abs().max().item(), 0.0,
-          time_ms(lambda: compact.vrows_slab(rk, comps, got)),
-          time_ms(lambda: compact.vrows_slab_plain(rk, comps, want)),
+    t = times["path"]
+    ms, batch, host = t["ms"], t["batch"], t["host"]
+    parts = [f"{w}: {t['rows']} rows of {t['count']} touching "
+             f"{t['sectors']} sectors, sector floor {t['floor']:.4f} ms, one "
+             f"call {t['ms']:.4f}, 20 back to back {t['batch']:.4f} ms a call "
+             f"({t['batch'] / t['floor']:.2f}x the floor), host "
+             f"{1e3 * t['host']:.1f} us" for w, t in times.items()]
+    phase("vrows_slab", err, 0.0, ms,
+          time_ms(lambda: compact.vrows_slab_plain(rk, comps, rows_path)),
           16 * n_slab + 12 * in_slab, n_slab,
-          extra=f"identical, {in_slab} rows of a [3, {Bx}, {N}, {N}] slab "
-          f"(no one library call; the mask, gather and index_copy_ "
-          f"{lib_ms:.3f} ms), ")
-    del got, want, rank, rk, comps, sd_slab, idx, F0, R0
+          extra=f"identical on slabs 0, {nsl // 2}, {nsl - 1} and off the "
+          f"16-byte grid; a [3, {Bx}, {N}, {N}] slab, timed on the path's "
+          f"share (2/3 of the cells needed, random order) and on the "
+          f"state's: {'; '.join(parts)}; the plain version and, as no one "
+          f"library call scatters by a rank that skips cells, the mask, "
+          f"gather and index_copy_ ({lib_ms:.3f} ms) on the path's; ")
+    del rank_path, rows_path
+    rec["vrows_slab"].update(batch_ms=batch, host_ms=host)
+    del got, rank, rk, comps, sd_slab, idx, F0, R0
 
     k6a_path_phase(N, dev, rec, p, cosmo, grid, sm, delta)
     rec["gather_rows"].update({f"mid_{k}": v for k, v in mid.items()})
@@ -1462,31 +1521,49 @@ def shard_kernel_phases(N, dev, report):
     R_mid = float(np.float32(sm.radii[sm.n // 2] / grid.CellSize))
     cosmo_fr = Cosmology(params_for(N, **FR))
     gtabs, glo, gdx = fmax.growth_k_tables(cosmo_fr, 0.0, N, dev)
+    # K8s as the mesh path calls it: one GrowthTable for the shards of a
+    # device (its scalars made on the first launch)
+    table = derivatives.GrowthTable(gtabs[0], glo, gdx)
     D1 = float(cosmo.GrowingMode(0.0))
+    ragged = ic.kdensity_shard(*odd)
     cases = (
         ("kspace_hessian_shard", derivatives.hessian_kspace_shard,
-         derivatives.hessian_kspace_shard_plain, (R_mid,), 56, False),
+         derivatives.hessian_kspace_shard_plain, (R_mid,), (R_mid,), 56,
+         False),
         ("kspace_hessian_shard", derivatives.hessian_kspace_shard,
-         derivatives.hessian_kspace_shard_plain, (0.0,), 56, True),
+         derivatives.hessian_kspace_shard_plain, (0.0,), (0.0,), 56, True),
         ("kspace_gradient_shard", derivatives.gradient_kspace_shard,
-         derivatives.gradient_kspace_shard_plain, (D1,), 32, True),
+         derivatives.gradient_kspace_shard_plain, (D1,), (D1,), 32, True),
         ("kspace_gradient_tab_shard", derivatives.gradient_kspace_tab_shard,
-         derivatives.gradient_kspace_tab_shard_plain, (gtabs[0], glo, gdx),
-         32, True))
-    for name, kern, plain, extra, per_mode, timed in cases:
-        def call(f):
-            return f(shard, *extra, N, y0, z0)
-        got, ref = call(kern), call(plain)
-        need(same_bits(got, ref), f"{name} at {N}^3 {extra[:1]} is not "
-             "bit for bit its plain version")
+         derivatives.gradient_kspace_tab_shard_plain, (table, glo, gdx),
+         (gtabs[0], glo, gdx), 32, True))
+    for name, kern, plain, extra, plain_extra, per_mode, timed in cases:
+        def call(f, src=shard, at=(y0, z0), args=extra):
+            return f(src, *args, N, *at)
+        got, ref = call(kern), call(plain, args=plain_extra)
+        need(same_bits(got, ref), f"{name} at {N}^3 {plain_extra[:1]} is "
+             "not bit for bit its plain version")
+        # the ragged window (odd y0 and ny, reaching into the padded
+        # planes) and the table handed over as a tensor
+        got = call(kern, ragged, (odd[9], odd[11]), plain_extra)
+        ref = call(plain, ragged, (odd[9], odd[11]), plain_extra)
+        need(same_bits(got, ref), f"{name} at {N}^3 {plain_extra[:1]} on "
+             f"the window {odd[9:]} is not bit for bit its plain version")
         if timed:
             tab = 4 * gtabs[0].numel() if "tab" in name else 0
-            record_phase(rec, N, name, 0.0, 0.0, time_ms(lambda: call(kern)),
-                         time_ms(lambda: call(plain)),
+
+            def k():
+                return call(kern)
+            ms, batch, host = time_ms(k), batch_ms(k), host_ms(k)
+            record_phase(rec, N, name, 0.0, 0.0, ms,
+                         time_ms(lambda: call(plain, args=plain_extra)),
                          per_mode * modes + tab, modes,
-                         extra="bit for bit, " + win)
+                         extra=f"bit for bit (and on the window {odd[9:]}), "
+                         f"20 calls back to back {batch:.4f} ms a call, the "
+                         f"host's enqueue {1e3 * host:.1f} us, " + win)
+            rec[name].update(batch_ms=batch, host_ms=host)
         del got, ref
-    del shard
+    del shard, ragged
     torch.cuda.empty_cache()
 
 

@@ -36,7 +36,24 @@
 // straight to that row of the field's [count, 3] rows buffer.  What bounds
 // it: the slab's bytes (4 B of rank and 12 B of components read per cell,
 // coalesced), then the scattered 12-byte row writes of the needed cells.
-// Design: one thread per slab cell.
+// The rows buffer (0.66 N^3 x 12 B: 133 MB at 256^3) never stays in L2, so
+// each 32-byte sector a row touches is partly written and the memory reads
+// it back to merge: the sector floor (chip_smoke.py) prices every touched
+// sector as one read and one write.  Design: a thread takes quads of four
+// cells with 16-byte loads of rank and of each component, marked
+// evict-first (a quad none of whose cells is needed reads nothing past its
+// ranks), and writes each needed row with two stores, the row's
+// 8-byte-aligned pair as one (row r starts at float 3r: the pair is (0, 1)
+// for an even r, (1, 2) for an odd one) and the other float alone, where
+// the first design issued three.  The quads are walked by a grid-stride
+// loop of kVrowsBlocksPerSM blocks an SM, a thread loading its next quad
+// before it stores the current one's rows, so the loads run under the
+// stores' read-backs (scripts/torch_kernel_variants.py times it against
+// one quad a thread).  The cells before the first 16-byte boundary of
+// rank and after the last whole quad (an unaligned slab view) are taken
+// one by one by block 0, as K6b does; a view whose rank and components
+// sit at other offsets from the 16-byte grid takes a kernel of one cell a
+// thread.
 //
 // pdf_hist (K6b) replaces fmax.py:_pdf_bincount (110-112): counts of
 // clamp(int(F * 10), 0, 209) over the grid.  What bounds it: the bytes of F
@@ -77,6 +94,8 @@ constexpr int kHistLoads = 4;
 constexpr size_t kHistSmem =
     (size_t)(kHistThreads / 32) * kBins * 32 * sizeof(uint16_t);
 constexpr int64_t kHistMaxQuads = 16383;
+// K12's resident blocks an SM
+constexpr int kVrowsBlocksPerSM = 2;
 
 __global__ void rank_kernel(const int64_t* __restrict__ idx, int64_t count,
                             int* __restrict__ rank) {
@@ -174,17 +193,94 @@ column_kernel(const float* __restrict__ rec, int64_t count, Group g) {
     if (c < g.ncol) g.dst[c][r * g.stride[c]] = v[c];
 }
 
-__global__ void vrows_kernel(const int* __restrict__ rank,
-                             const float* __restrict__ comps, int64_t n,
-                             float* __restrict__ rows) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = __ldg(rank + i);
-  if (r < 0) return;
+// one needed row: two stores where the rows buffer is 8-byte aligned
+// (pairs), the row's floats one by one where it is not
+__device__ __forceinline__ void vrow_store(float* __restrict__ rows, int r,
+                                          float a, float b, float c,
+                                          bool pairs) {
   float* row = rows + 3 * (int64_t)r;
-  row[0] = __ldg(comps + i);
-  row[1] = __ldg(comps + n + i);
-  row[2] = __ldg(comps + 2 * n + i);
+  if (!pairs) {
+    row[0] = a;
+    row[1] = b;
+    row[2] = c;
+  } else if ((r & 1) == 0) {
+    *reinterpret_cast<float2*>(row) = make_float2(a, b);
+    row[2] = c;
+  } else {
+    row[0] = a;
+    *reinterpret_cast<float2*>(row + 1) = make_float2(b, c);
+  }
+}
+
+__device__ __forceinline__ void vrow_cell(const int* __restrict__ rank,
+                                          const float* __restrict__ comps,
+                                          int64_t n, int64_t i,
+                                          float* __restrict__ rows,
+                                          bool pairs) {
+  const int r = __ldcs(rank + i);
+  if (r >= 0)
+    vrow_store(rows, r, __ldcs(comps + i), __ldcs(comps + n + i),
+               __ldcs(comps + 2 * n + i), pairs);
+}
+
+// quad q of rank and comps: its ranks, and its components where one of the
+// four cells is needed
+__device__ __forceinline__ void vrows_load(const int* __restrict__ rank,
+                                           const float* __restrict__ comps,
+                                           int64_t n, int64_t i, int4& r,
+                                           float4& a, float4& b, float4& c) {
+  r = __ldcs(reinterpret_cast<const int4*>(rank + i));
+  if ((r.x & r.y & r.z & r.w) < 0) return;    // none of the four needed
+  a = __ldcs(reinterpret_cast<const float4*>(comps + i));
+  b = __ldcs(reinterpret_cast<const float4*>(comps + n + i));
+  c = __ldcs(reinterpret_cast<const float4*>(comps + 2 * n + i));
+}
+
+// rank [n] and comps [3, n]: head cells before rank's first 16-byte
+// boundary (comps + head on it too, n a multiple of 4), then nquad quads,
+// then the tail (fewer than 4 cells)
+__global__ void __launch_bounds__(kThreads)
+vrows_quad_kernel(const int* __restrict__ rank,
+                  const float* __restrict__ comps, int64_t n, int head,
+                  int64_t nquad, float* __restrict__ rows, bool pairs) {
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int t = threadIdx.x;
+    const int64_t tail0 = head + 4 * nquad;
+    int64_t i = -1;
+    if (t < head) i = t;
+    else if (t >= 4 && tail0 + (t - 4) < n) i = tail0 + (t - 4);
+    if (i >= 0) vrow_cell(rank, comps, n, i, rows, pairs);
+  }
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  int4 r = make_int4(-1, -1, -1, -1);
+  float4 a{}, b{}, c{};
+  if (q < nquad) vrows_load(rank, comps, n, head + 4 * q, r, a, b, c);
+  while (q < nquad) {
+    // the next quad's loads in flight before this one's stores
+    const int64_t qn = q + stride;
+    int4 rn = make_int4(-1, -1, -1, -1);
+    float4 an{}, bn{}, cn{};
+    if (qn < nquad) vrows_load(rank, comps, n, head + 4 * qn, rn, an, bn, cn);
+    if (r.x >= 0) vrow_store(rows, r.x, a.x, b.x, c.x, pairs);
+    if (r.y >= 0) vrow_store(rows, r.y, a.y, b.y, c.y, pairs);
+    if (r.z >= 0) vrow_store(rows, r.z, a.z, b.z, c.z, pairs);
+    if (r.w >= 0) vrow_store(rows, r.w, a.w, b.w, c.w, pairs);
+    q = qn;
+    r = rn;
+    a = an;
+    b = bn;
+    c = cn;
+  }
+}
+
+// one thread a cell (rank and comps off the 16-byte grid by other offsets)
+__global__ void __launch_bounds__(kThreads)
+vrows_cell_kernel(const int* __restrict__ rank,
+                  const float* __restrict__ comps, int64_t n,
+                  float* __restrict__ rows, bool pairs) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) vrow_cell(rank, comps, n, i, rows, pairs);
 }
 
 // the bin of one F: clamp, then truncate toward zero; NaN gives bin 0
@@ -267,11 +363,23 @@ hist_kernel(const float* __restrict__ F, int64_t n, int head, int64_t nquad,
     if (total[b]) atomicAdd(counts + b, (unsigned long long)total[b]);
 }
 
+// the SMs of device dev, queried once per device (0 when the query fails)
+int sm_count(int dev) {
+  static int count[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    count[dev] = 0;
+  return count[dev];
+}
+
 // resident hist_kernel blocks per SM and the SMs of device dev, queried
 // once per device (0 when the query fails)
 int hist_blocks(int dev, int* sms) {
-  static int blocks[kMaxDevices] = {}, count[kMaxDevices] = {};
-  if (dev < 0 || dev >= kMaxDevices) return 0;
+  static int blocks[kMaxDevices] = {};
+  *sms = sm_count(dev);
+  if (*sms <= 0) return 0;
   if (blocks[dev] == 0) {
     if (cudaFuncSetAttribute(hist_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -279,9 +387,7 @@ int hist_blocks(int dev, int* sms) {
         cudaFuncSetAttribute(hist_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess)
+            cudaSuccess)
       return 0;
     int b = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -289,7 +395,6 @@ int hist_blocks(int dev, int* sms) {
       return 0;
     blocks[dev] = b;
   }
-  *sms = count[dev];
   return blocks[dev];
 }
 
@@ -400,13 +505,37 @@ extern "C" int compact_kernel_info(int which, int* out) {
                                                             kThreads, 0);
 }
 
-// rank [n] int32, comps [3, n] float32 of one slab, rows [count, 3]
+// rank [n] int32, comps [3, n] float32 of one slab, rows [count, 3]: the
+// quad kernel (kVrowsBlocksPerSM blocks an SM) where rank and comps sit at
+// one offset from the 16-byte grid and n is a multiple of 4 (so every
+// component does), else the cell kernel; rows stored by pairs where the
+// buffer is 8-byte aligned
 extern "C" int vrows_slab(const void* rank, const void* comps, int64_t n,
                           void* rows, void* stream) {
   if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  vrows_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)rank, (const float*)comps, n, (float*)rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t pr = (uintptr_t)rank, pc = (uintptr_t)comps;
+  if ((pr & 3) || (pc & 3) || ((uintptr_t)rows & 3))
+    return (int)cudaErrorMisalignedAddress;
+  const bool pairs = ((uintptr_t)rows & 7) == 0;
+  if ((pr & 15) == (pc & 15) && n % 4 == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const int sms = sm_count(dev);
+    if (sms <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int head = (int)std::min<int64_t>(((16 - (pr & 15)) & 15) / 4, n);
+    const int64_t nquad = (n - head) / 4;
+    const int64_t blocks = std::max<int64_t>(
+        1, std::min<int64_t>((nquad + kThreads - 1) / kThreads,
+                             (int64_t)kVrowsBlocksPerSM * sms));
+    vrows_quad_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const int*)rank, (const float*)comps, n, head, nquad, (float*)rows,
+        pairs);
+  } else {
+    vrows_cell_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                        0, s>>>((const int*)rank, (const float*)comps, n,
+                                (float*)rows, pairs);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -42,14 +42,21 @@
 // and its float operations keep the JAX order: base = delta * (smooth *
 // inv_k2), then base * (k_a * k_b), each product of a complex value by a
 // real or an imaginary one the complex product (cscale, cmul_i), so that a
-// zero carries the plain version's sign.  K2, K5 and K8: one thread per
-// mode reads delta(k) once and writes every output from registers; k_x,
-// k_y, k_z come from the thread's own mode indices (no tables), with
-// consecutive threads on consecutive kz so that loads and each of the
-// output planes are coalesced.
+// zero carries the plain version's sign.  K2, K5 and K8 and their shard
+// forms (one window kernel): a block takes kChunk consecutive modes of the
+// window in its flat (ix, iy, iz) order, and sets up the (row, iz) of its
+// first mode once from its index with 32-bit divisions (no 64-bit division
+// a mode, which the first design paid four times); each thread takes
+// kPairs pairs of consecutive modes, loads all of them (one 16-byte load a
+// pair) before it computes, and writes each component of a pair as one
+// 16-byte store, so a warp's loads and each output plane's stores are
+// coalesced 512-byte runs.  k_x, k_y, k_z come from the mode's own indices
+// (no tables).  A window whose pointers or mode count break the 16-byte
+// grid takes the same kernel with 8-byte accesses.
 // The tabulated-growth mode adds a log10f and a two-entry table read per
-// mode (still far below the memory line); K8 copies its table (512 floats)
-// to shared memory in each block, K14 reads it through the read-only path.
+// mode (still far below the memory line); K8, K8s and K14 read the table
+// (512 floats) through the read-only path (K8 copied it to shared memory
+// in each of its blocks until PR 19).
 // K10 and K14 work on one batch of B kz planes ([B, N, N], a few MB) and are
 // bound the same way: 8 B (16 B in pair mode) read and 48, 24 or 16 B
 // written per mode.  Their sources come in two layouts, and each layout has
@@ -107,22 +114,6 @@ struct Window {
   int N, y0, ny, z0, nz;
 };
 
-// the mode of the window's flat index idx; false on a padded plane iz >= Nh
-__device__ __forceinline__ bool kmode(const Window& w, int64_t idx,
-                                      KMode& k) {
-  const int iz = w.z0 + (int)(idx % w.nz);
-  const int64_t rest = idx / w.nz;
-  if (iz > w.N / 2) return false;
-  k = kmode_at(w.N, (int)(rest / w.ny), w.y0 + (int)(rest % w.ny), iz);
-  return true;
-}
-
-__device__ __forceinline__ void zero_out(float2* __restrict__ out, int ncomp,
-                                         int64_t nmodes, int64_t idx) {
-  for (int c = 0; c < ncomp; ++c)
-    out[c * nmodes + idx] = make_float2(0.0f, 0.0f);
-}
-
 // a * s for a real s as the complex product with (s, 0), and a * (i g) as
 // the one with (0, g), the way PyTorch's and XLA's complex multiplies
 // compute them: a zero carries the sign that the plain version's does
@@ -167,25 +158,35 @@ struct LdgTable {
 // The Hessian mode (K2, K10): the 6 smoothed factors k_a k_b
 // exp(-k^2 R^2/2) / k^2 in ider order, exp(-0.5 * k2 * R * R) evaluated
 // left to right like the JAX expression.
+// eval writes the mode's components to v (the window kernel stores them);
+// the call operator stores them at out[c * n + o] (K10's forms).
 struct HessianOp {
+  static constexpr int kComps = 6;
   float R;
+  __device__ __forceinline__ void eval(float2 d, const KMode& k,
+                                       float2 (&v)[kComps]) const {
+    const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
+    const float2 base = cscale(d, __fmul_rn(expf(arg), k.inv_k2));
+    v[0] = cscale(base, __fmul_rn(k.kx, k.kx));
+    v[1] = cscale(base, __fmul_rn(k.ky, k.ky));
+    v[2] = cscale(base, __fmul_rn(k.kz, k.kz));
+    v[3] = cscale(base, __fmul_rn(k.kx, k.ky));
+    v[4] = cscale(base, __fmul_rn(k.kx, k.kz));
+    v[5] = cscale(base, __fmul_rn(k.ky, k.kz));
+  }
   __device__ __forceinline__ void operator()(float2 d, const KMode& k, int,
                                              int, int,
                                              float2* __restrict__ out,
                                              int64_t n, int64_t o) const {
-    const float arg = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, k.k2), R), R);
-    const float2 base = cscale(d, __fmul_rn(expf(arg), k.inv_k2));
-    out[o] = cscale(base, __fmul_rn(k.kx, k.kx));
-    out[n + o] = cscale(base, __fmul_rn(k.ky, k.ky));
-    out[2 * n + o] = cscale(base, __fmul_rn(k.kz, k.kz));
-    out[3 * n + o] = cscale(base, __fmul_rn(k.kx, k.ky));
-    out[4 * n + o] = cscale(base, __fmul_rn(k.kx, k.kz));
-    out[5 * n + o] = cscale(base, __fmul_rn(k.ky, k.kz));
+    float2 v[kComps];
+    eval(d, k, v);
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) out[c * n + o] = v[c];
   }
 };
 
 // where a gradient's growth comes from: K5's and K10's scalar, K8's and
-// K14's table (K8's copy in shared memory, K14's read-only view)
+// K14's table (read-only)
 struct ScalarGrowth {
   float g;
   __device__ __forceinline__ float operator()(float) const { return g; }
@@ -203,16 +204,24 @@ struct TableGrowth {
 // The gradient mode (K5, K8, K10, K14): i k_a / k^2 * growth.
 template <class Growth>
 struct GradientOp {
+  static constexpr int kComps = 3;
   Growth growth;
+  __device__ __forceinline__ void eval(float2 d, const KMode& k,
+                                       float2 (&v)[kComps]) const {
+    // (a + ib) * (i g), then * inv_k2, then * k_a
+    const float2 base = cscale(cmul_i(d, growth(k.k2)), k.inv_k2);
+    v[0] = cscale(base, k.kx);
+    v[1] = cscale(base, k.ky);
+    v[2] = cscale(base, k.kz);
+  }
   __device__ __forceinline__ void operator()(float2 d, const KMode& k, int,
                                              int, int,
                                              float2* __restrict__ out,
                                              int64_t n, int64_t o) const {
-    // (a + ib) * (i g), then * inv_k2, then * k_a
-    const float2 base = cscale(cmul_i(d, growth(k.k2)), k.inv_k2);
-    out[o] = cscale(base, k.kx);
-    out[n + o] = cscale(base, k.ky);
-    out[2 * n + o] = cscale(base, k.kz);
+    float2 v[kComps];
+    eval(d, k, v);
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) out[c * n + o] = v[c];
   }
 };
 
@@ -237,38 +246,92 @@ struct PairOp {
   }
 };
 
-// K2, K5, K8 over a window: one thread a mode, the padded planes zero
-template <int NC, class Op>
-__device__ __forceinline__ void window_mode(const float2* __restrict__ src,
-                                            float2* __restrict__ out,
-                                            const Window& w, int64_t nmodes,
-                                            const Op& op) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nmodes) return;
-  KMode k;
-  if (!kmode(w, idx, k)) return zero_out(out, NC, nmodes, idx);
-  op(__ldg(src + idx), k, 0, 0, 0, out, nmodes, idx);
-}
+// K2, K5, K8 and their shard forms over a window [N, ny, nz], flat in
+// (ix, iy, iz) order (row = ix * ny + iy): block b takes the kChunk modes
+// from b * kChunk, thread t the pairs (2 (t + p kThreads), + 1) of them for
+// p < kPairs.  The block's first (row, iz) comes from b with 32-bit
+// divisions (b * kChunk = (q nz + r) kChunk, so its row is q kChunk +
+// r kChunk / nz), each pair's from the block's with two more.  Every
+// pair's source is loaded before any is computed; a padded plane (global
+// kz > N/2) is written as exact zeros and not read.  kVec: 16-byte loads
+// and stores a pair (the source, the output and nmodes on the 16-byte
+// grid), else 8-byte ones a mode.
+constexpr int kPairs = 2;
+constexpr int kChunk = 2 * kPairs * kThreads;
 
-template <int NC, class Op>
-__global__ void window_kernel(const float2* __restrict__ src,
-                              float2* __restrict__ out, Window w,
-                              int64_t nmodes, Op op) {
-  window_mode<NC>(src, out, w, nmodes, op);
-}
-
-// K8's table is copied to shared memory by each block
-__global__ void gradient_tab_kernel(const float2* __restrict__ src,
-                                    float2* __restrict__ out, Window w,
-                                    int64_t nmodes,
-                                    const float* __restrict__ gtab, int ntab,
-                                    float glo, float gdx, float tmax) {
-  extern __shared__ float s_tab[];
-  for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = gtab[i];
-  __syncthreads();
-  const float* tab = s_tab;
-  window_mode<3>(src, out, w, nmodes,
-                 GradientOp<TableGrowth<const float*>>{{tab, glo, gdx, tmax}});
+template <bool kVec, class Op>
+__global__ void __launch_bounds__(kThreads)
+window_kernel(const float2* __restrict__ src, float2* __restrict__ out,
+              Window w, int64_t nmodes, Op op) {
+  constexpr int NC = Op::kComps;
+  const unsigned nz = w.nz, ny = w.ny, b = blockIdx.x;
+  const unsigned q = b / nz, rc = (b - q * nz) * (unsigned)kChunk;
+  const unsigned row0 = q * (unsigned)kChunk + rc / nz, iz0 = rc % nz;
+  const int64_t base = (int64_t)b * kChunk;
+  const int nh = w.N / 2;
+  // each pair's first mode: flat index, ix, iy, iz (window indices); the
+  // second is at iz + 1 of the same row, or at iz 0 of the next
+  int64_t f[kPairs];
+  unsigned ix[kPairs][2], iy[kPairs][2], iz[kPairs][2];
+  bool live[kPairs][2];
+  float2 d[kPairs][2];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const unsigned off = 2u * (threadIdx.x + p * kThreads);
+    f[p] = base + off;
+    const unsigned t = iz0 + off, dr = t / nz;
+    const unsigned row = row0 + dr;
+    iz[p][0] = t - dr * nz;
+    ix[p][0] = row / ny;
+    iy[p][0] = row - ix[p][0] * ny;
+    const bool wrap = iz[p][0] + 1 == nz;
+    iz[p][1] = wrap ? 0u : iz[p][0] + 1;
+    const bool wrap_y = wrap && iy[p][0] + 1 == ny;
+    iy[p][1] = wrap ? (wrap_y ? 0u : iy[p][0] + 1) : iy[p][0];
+    ix[p][1] = ix[p][0] + (wrap_y ? 1u : 0u);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      live[p][e] = f[p] + e < nmodes && w.z0 + (int)iz[p][e] <= nh;
+    d[p][0] = d[p][1] = make_float2(0.0f, 0.0f);
+    if (kVec && live[p][0] && live[p][1]) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src + f[p]));
+      d[p][0] = make_float2(v.x, v.y);
+      d[p][1] = make_float2(v.z, v.w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (live[p][e]) d[p][e] = __ldg(src + f[p] + e);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    if (f[p] >= nmodes) return;
+    float2 v[2][NC];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (live[p][e]) {
+        op.eval(d[p][e],
+                kmode_at(w.N, (int)ix[p][e], w.y0 + (int)iy[p][e],
+                         w.z0 + (int)iz[p][e]),
+                v[e]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[e][c] = make_float2(0.0f, 0.0f);
+      }
+    }
+    const bool both = f[p] + 1 < nmodes;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float2* o = out + c * nmodes + f[p];
+      if (kVec && both) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(v[0][c].x, v[0][c].y, v[1][c].x, v[1][c].y);
+      } else {
+        o[0] = v[0][c];
+        if (both) o[1] = v[1][c];
+      }
+    }
+  }
 }
 
 // ---- K10 and K14: the out-of-core engine's factors on one batch of kz
@@ -349,30 +412,38 @@ int64_t window_modes(const Window& w) {
   return (int64_t)w.N * w.ny * w.nz;
 }
 
-template <int NC, class Op>
+static bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// at most 2^31 - 1 blocks; rows (N ny) and a row's modes fit 31 bits
+template <class Op>
 int launch_window(const void* src, void* out, Window w, Op op,
                   void* stream) {
   const int64_t nmodes = window_modes(w);
-  if (nmodes < 0) return (int)cudaErrorInvalidValue;
+  if (nmodes < 0 || (int64_t)w.N * w.ny > INT32_MAX ||
+      nmodes / kChunk >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   if (nmodes == 0) return 0;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  window_kernel<NC><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)src, (float2*)out, w, nmodes, op);
+  const unsigned blocks = (unsigned)((nmodes + kChunk - 1) / kChunk);
+  if (aligned16(src) && aligned16(out) && nmodes % 2 == 0)
+    window_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)src, (float2*)out, w, nmodes, op);
+  else
+    window_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)src, (float2*)out, w, nmodes, op);
   return (int)cudaGetLastError();
 }
+
+using TabGradientOp = GradientOp<TableGrowth<LdgTable>>;
 
 int launch_gradient_tab(const void* src, void* out, Window w,
                         const void* gtab, int ntab, float glo, float gdx,
                         float tmax, void* stream) {
-  const int64_t nmodes = window_modes(w);
-  if (nmodes < 0) return (int)cudaErrorInvalidValue;
-  if (nmodes == 0) return 0;
-  const int64_t blocks = (nmodes + kThreads - 1) / kThreads;
-  gradient_tab_kernel<<<(unsigned)blocks, kThreads, ntab * sizeof(float),
-                        (cudaStream_t)stream>>>(
-      (const float2*)src, (float2*)out, w, nmodes, (const float*)gtab, ntab,
-      glo, gdx, tmax);
-  return (int)cudaGetLastError();
+  if (ntab < 2) return (int)cudaErrorInvalidValue;
+  return launch_window(
+      src, out, w,
+      TabGradientOp{{LdgTable{(const float*)gtab}, glo, gdx, tmax}}, stream);
 }
 
 // K10 and K14: one entry point a mode and form.  The kz-fastest form (the
@@ -406,13 +477,13 @@ int launch_factors_rows(const void* src, int64_t sb, int64_t sx, void* out,
 
 extern "C" int kspace_hessian(const void* delta, void* out, int N,
                               float R_grid, void* stream) {
-  return launch_window<6>(delta, out, Window{N, 0, N, 0, N / 2 + 1},
+  return launch_window(delta, out, Window{N, 0, N, 0, N / 2 + 1},
                           HessianOp{R_grid}, stream);
 }
 
 extern "C" int kspace_gradient(const void* src, void* out, int N,
                                float growth, void* stream) {
-  return launch_window<3>(src, out, Window{N, 0, N, 0, N / 2 + 1},
+  return launch_window(src, out, Window{N, 0, N, 0, N / 2 + 1},
                           GradientOp<ScalarGrowth>{{growth}}, stream);
 }
 
@@ -430,14 +501,14 @@ extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
 extern "C" int kspace_hessian_shard(const void* delta, void* out, int N,
                                     int y0, int ny, int z0, int nz,
                                     float R_grid, void* stream) {
-  return launch_window<6>(delta, out, Window{N, y0, ny, z0, nz},
+  return launch_window(delta, out, Window{N, y0, ny, z0, nz},
                           HessianOp{R_grid}, stream);
 }
 
 extern "C" int kspace_gradient_shard(const void* src, void* out, int N,
                                      int y0, int ny, int z0, int nz,
                                      float growth, void* stream) {
-  return launch_window<3>(src, out, Window{N, y0, ny, z0, nz},
+  return launch_window(src, out, Window{N, y0, ny, z0, nz},
                           GradientOp<ScalarGrowth>{{growth}}, stream);
 }
 
@@ -479,8 +550,7 @@ extern "C" int ooc_gradient_tab_kz(const void* src, int64_t sx, int64_t sy,
   if (ntab < 2) return (int)cudaErrorInvalidValue;
   return launch_factors_kz(
       src, sx, sy, out, N, kz0, B,
-      GradientOp<TableGrowth<LdgTable>>{
-          {LdgTable{(const float*)gtab}, glo, gdx, tmax}},
+      TabGradientOp{{LdgTable{(const float*)gtab}, glo, gdx, tmax}},
       stream);
 }
 
@@ -492,8 +562,7 @@ extern "C" int ooc_gradient_tab_rows(const void* src, int64_t sb,
   if (ntab < 2) return (int)cudaErrorInvalidValue;
   return launch_factors_rows(
       src, sb, sx, out, N, kz0, B,
-      GradientOp<TableGrowth<LdgTable>>{
-          {LdgTable{(const float*)gtab}, glo, gdx, tmax}},
+      TabGradientOp{{LdgTable{(const float*)gtab}, glo, gdx, tmax}},
       stream);
 }
 

@@ -473,6 +473,13 @@ def stream_ptr(device) -> int:
     return query(torch.cuda.current_device() if device is None else device)
 
 
+def current_device() -> int:
+    """The index of the current card, on which the C library's kernels
+    launch."""
+    import torch
+    return torch.cuda.current_device()
+
+
 def on_device(device):
     """A context that makes ``device`` current for the launches inside it:
     a kernel of the C library launches on the current device, so a launch

@@ -157,19 +157,44 @@ def vrows_slab(rank, comps, rows):
     their rows: rows[rank[i]] = comps[:, i] for every i with rank[i] >= 0
     (rank int32 [n] from needed_rank, comps float32 [3, n], rows float32
     [count, 3], written IN PLACE)."""
-    if not kernels.plain_or_kernel("vrows_slab", comps):
+    if not comps.is_cuda:
+        kernels.plain_or_kernel("vrows_slab", comps)
         return vrows_slab_plain(rank, comps, rows)
-    kernels.require_cuda("vrows_slab", rank, comps, rows)
+    return launch_vrows(rank, comps, rows)
+
+
+_VROWS = []
+
+
+def _vrows_entry():
+    """K12's C entry point, looked up in the kernel library once."""
+    if not _VROWS:
+        _VROWS.append(kernels.lib().vrows_slab)
+    return _VROWS[0]
+
+
+def launch_vrows(rank, comps, rows):
+    """K12's launch: check the three tensors (one device, contiguous, their
+    types and shapes), hand the C entry point their pointers, n and the
+    comps device's current stream, and count the launch."""
     n = rank.numel()
-    if (rank.dtype != torch.int32 or comps.dtype != torch.float32
-            or rows.dtype != torch.float32 or tuple(comps.shape) != (3, n)
-            or rows.dim() != 2 or rows.shape[1] != 3):
-        raise ValueError("vrows_slab: rank i32[n], comps f32[3, n] and rows "
-                         "f32[count, 3] expected")
-    err = kernels.lib().vrows_slab(rank.data_ptr(), comps.data_ptr(),
-                                   ctypes.c_int64(n), rows.data_ptr(),
-                                   kernels.stream_ptr(comps.device))
-    kernels.check("vrows_slab", err)
+    dev = comps.device
+    if (rank.device != dev or rows.device != dev
+            or rank.dtype != torch.int32 or comps.dtype != torch.float32
+            or rows.dtype != torch.float32 or rank.dim() != 1
+            or comps.shape != (3, n) or rows.dim() != 2
+            or rows.shape[1] != 3 or not rank.is_contiguous()
+            or not comps.is_contiguous() or not rows.is_contiguous()):
+        raise ValueError("vrows_slab: contiguous rank i32[n], comps "
+                         "f32[3, n] and rows f32[count, 3] on one device "
+                         f"expected, got {rank.dtype} {tuple(rank.shape)} "
+                         f"on {rank.device}, {comps.dtype} "
+                         f"{tuple(comps.shape)} on {dev}, {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    err = _vrows_entry()(rank.data_ptr(), comps.data_ptr(), n,
+                         rows.data_ptr(), kernels.stream_ptr(dev))
+    if err:
+        kernels.check("vrows_slab", err)
     kernels.LAUNCHES["vrows_slab"] += 1
     return rows
 

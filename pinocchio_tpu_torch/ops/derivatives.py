@@ -13,7 +13,11 @@ on a CPU tensor they run the plain PyTorch multiply.  Their ``*_shard``
 versions (K2s, K5s, K8s) apply the same multipliers to one shard of a
 mesh's k layout, the window [N, y0:y0+ny, z0:z0+nz] of [N, N, Nhp] (Nhp >=
 N//2+1 pads the kz axis so that it splits evenly; the padded planes are
-zero in and out); the full-grid functions are the window (0, 0).  The c2r
+zero in and out); the full-grid functions are the window (0, 0).  The
+shard wrappers look their entry point up once (``_shard_entry``) and hand
+it plain ints and floats; K8s takes its table as a tensor or as a
+``GrowthTable`` whose scalars are made once (``pfft`` makes one per device
+for the shards of a call).  The c2r
 transforms are ``torch.fft`` (cuFFT on the card) in the two-step
 decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and
 ``ooc_pair`` are the wrappers of the out-of-core engine's per-kz-batch
@@ -197,23 +201,44 @@ def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
     return out
 
 
-def _shard_launch(name, src, ncomp, N, y0, z0, *tail):
+# the shard window kernels' C entry points, each looked up once
+_SHARD_ENTRIES = {}
+
+
+def _shard_entry(name: str):
+    """The C entry point ``name`` of K2s, K5s or K8s, looked up in the
+    kernel library once."""
+    fn = _SHARD_ENTRIES.get(name)
+    if fn is None:
+        fn = _SHARD_ENTRIES[name] = getattr(kernels.lib(), name)
+    return fn
+
+
+def _shard_launch(name, src, ncomp: int, N: int, y0: int, z0: int, tail):
     """Launch the window kernel ``name`` on the shard src [N, ny, nz] at
-    (y0, z0) of a mesh's k layout, on the shard's device and stream: a
-    complex64 [ncomp, N, ny, nz] result."""
-    kernels.require_cuda(name, src)
-    if (src.dtype != torch.complex64 or src.dim() != 3 or src.shape[0] != N
-            or not 0 <= y0 <= y0 + src.shape[1] <= N or z0 < 0):
-        raise ValueError(f"{name}: a complex64 [{N}, ny, nz] shard inside "
-                         f"the k layout expected, got {src.dtype} "
-                         f"{tuple(src.shape)} at ({y0}, {z0})")
-    out = torch.empty((ncomp,) + tuple(src.shape), dtype=torch.complex64,
-                      device=src.device)
-    with kernels.on_device(src.device):
-        err = getattr(kernels.lib(), name)(
-            src.data_ptr(), out.data_ptr(), N, int(y0), src.shape[1],
-            int(z0), src.shape[2], *tail, kernels.stream_ptr(src.device))
-    kernels.check(name, err)
+    (y0, z0) of a mesh's k layout, on the shard's device and its current
+    stream, with the kernel's own arguments ``tail`` (plain floats and
+    ints): a complex64 [ncomp, N, ny, nz] result.  The device guard is
+    entered only where another card is current."""
+    shape = src.shape
+    if (src.dtype != torch.complex64 or len(shape) != 3 or shape[0] != N
+            or not 0 <= y0 <= y0 + shape[1] <= N or z0 < 0
+            or not src.is_contiguous()):
+        raise ValueError(f"{name}: a contiguous complex64 [{N}, ny, nz] "
+                         f"shard inside the k layout expected, got "
+                         f"{src.dtype} {tuple(shape)} at ({y0}, {z0})")
+    dev = src.get_device()
+    out = src.new_empty((ncomp, N, shape[1], shape[2]))
+    args = (src.data_ptr(), out.data_ptr(), N, y0, shape[1], z0, shape[2],
+            *tail, kernels.stream_ptr(dev))
+    fn = _shard_entry(name)
+    if dev == kernels.current_device():
+        err = fn(*args)
+    else:
+        with kernels.on_device(src.device):
+            err = fn(*args)
+    if err:
+        kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out
 
@@ -223,32 +248,48 @@ def hessian_kspace_shard(src, R_grid: float, N: int, y0: int, z0: int):
     window of modes (all kx, ky y0..y0+ny-1, kz z0..z0+nz-1), gives the 6
     smoothed second-derivative multipliers [6, N, ny, nz] in ider order,
     zero on the padded planes kz > N/2."""
-    if not kernels.plain_or_kernel("kspace_hessian_shard", src):
+    if not src.is_cuda:
+        kernels.plain_or_kernel("kspace_hessian_shard", src)
         return hessian_kspace_shard_plain(src, R_grid, N, y0, z0)
-    return _shard_launch("kspace_hessian_shard", src, 6, N, y0, z0,
-                         float(R_grid))
+    return _shard_launch("kspace_hessian_shard", src, 6, N, int(y0),
+                         int(z0), (float(R_grid),))
 
 
 def gradient_kspace_shard(src, growth: float, N: int, y0: int, z0: int):
     """K5 on one shard (see hessian_kspace_shard): i k_a / k^2 * growth,
     complex64 [3, N, ny, nz]."""
-    if not kernels.plain_or_kernel("kspace_gradient_shard", src):
+    if not src.is_cuda:
+        kernels.plain_or_kernel("kspace_gradient_shard", src)
         return gradient_kspace_shard_plain(src, growth, N, y0, z0)
-    return _shard_launch("kspace_gradient_shard", src, 3, N, y0, z0,
-                         float(growth))
+    return _shard_launch("kspace_gradient_shard", src, 3, N, int(y0),
+                         int(z0), (float(growth),))
 
 
 def gradient_kspace_tab_shard(src, gtab, glo: float, gdx: float, N: int,
                               y0: int, z0: int):
     """K8 on one shard (see hessian_kspace_shard): i k_a / k^2 *
     growth(|k|) with the growth table gtab [ntab] on the shard's device,
-    complex64 [3, N, ny, nz]."""
-    if not kernels.plain_or_kernel("kspace_gradient_tab_shard", src):
-        return gradient_kspace_tab_shard_plain(src, gtab, glo, gdx, N, y0,
-                                               z0)
-    return _shard_launch("kspace_gradient_tab_shard", src, 3, N, y0, z0,
-                         *_table_args("kspace_gradient_tab_shard", gtab, glo,
-                                      gdx, src.device))
+    complex64 [3, N, ny, nz].  gtab may be a GrowthTable of glo and gdx,
+    made once for the shards of a call: its float32 scalars are then
+    computed on its first launch only."""
+    if isinstance(gtab, GrowthTable):
+        table = gtab
+        if (table.glo, table.gdx) != (glo, gdx):
+            raise ValueError("kspace_gradient_tab_shard: the GrowthTable's "
+                             f"(glo, gdx) {(table.glo, table.gdx)} differ "
+                             f"from {(glo, gdx)}")
+    else:
+        table = GrowthTable(gtab, glo, gdx)
+    if not src.is_cuda:
+        kernels.plain_or_kernel("kspace_gradient_tab_shard", src)
+        return gradient_kspace_tab_shard_plain(src, table.gtab, glo, gdx, N,
+                                               y0, z0)
+    if table.gtab.device != src.device:
+        raise ValueError(f"kspace_gradient_tab_shard: the shard and its "
+                         f"table on one CUDA device expected, got "
+                         f"{src.device} and {table.gtab.device}")
+    return _shard_launch("kspace_gradient_tab_shard", src, 3, N, int(y0),
+                         int(z0), table.args("kspace_gradient_tab_shard"))
 
 
 def second_derivatives(kdensity, R_grid: float, N: int):
@@ -301,21 +342,21 @@ def ooc_gradient_plain(src, kz0: int, growth: float, N: int):
 
 
 class GrowthTable:
-    """One growth table of K14: gtab [ntab] float32 over log10 |k| (|k|
-    in grid units) from glo in steps of gdx, with the kernel's scalars (the
-    float32 glo, gdx and coordinate clip ntab - 1.001) made once, on the
-    first launch, for every launch after it."""
+    """One growth table of K14 or K8s: gtab [ntab] float32 over log10 |k|
+    (|k| in grid units) from glo in steps of gdx, with the kernel's scalars
+    (the float32 glo, gdx and coordinate clip ntab - 1.001) made once, on
+    the first launch, for every launch after it."""
 
     def __init__(self, gtab, glo: float, gdx: float):
         self.gtab, self.glo, self.gdx = gtab, glo, gdx
         self._args = None
 
-    def args(self):
+    def args(self, name: str = "ooc_factors_gradient_tab"):
         """(gtab pointer, ntab, glo, gdx, tmax) in the C prototype's order
-        (_table_args'; the launch checks the table's device)."""
+        (_table_args'; the launch checks the table's device); ``name``
+        names the kernel in the error of a table it refuses."""
         if self._args is None:
-            self._args = _table_scalars("ooc_factors_gradient_tab",
-                                        self.gtab, self.glo, self.gdx)
+            self._args = _table_scalars(name, self.gtab, self.glo, self.gdx)
         return self._args
 
 

@@ -539,13 +539,15 @@ def distributed_first_derivatives_tab(decomp, kvec, gtab, glo: float,
                                       gdx: float) -> list:
     """distributed_first_derivatives with a per-mode growth interpolated in
     the table gtab [ntab] over log10 |k| (K8s; the table is copied to each
-    shard's device): real shards [3, *block]."""
+    shard's device once, as a GrowthTable whose scalars serve every shard
+    there): real shards [3, *block]."""
     N = decomp.N
     tabs = {}
 
     def one(i, k):
         if k.device not in tabs:
-            tabs[k.device] = gtab.to(k.device)
+            tabs[k.device] = derivatives.GrowthTable(gtab.to(k.device), glo,
+                                                     gdx)
         return derivatives.gradient_kspace_tab_shard(
             k, tabs[k.device], glo, gdx, N, *_origin(decomp, i))
     return decomp.inv(decomp.map(one, kvec))

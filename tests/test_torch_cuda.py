@@ -660,6 +660,64 @@ def test_vrows_slab(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shifts", [(4, 4, 0), (8, 8, 0), (4, 0, 0),
+                                    (0, 0, 4)],
+                         ids=["rank-comps-4", "rank-comps-8", "rank-4",
+                              "rows-4"])
+def test_vrows_slab_off_the_grid(dev, shifts):
+    """K12 on slab views off the 16-byte grid, exactly its plain version:
+    rank and the components at one offset (the head and tail cells beside
+    the quads), rank alone (one cell a thread), and a rows buffer off the
+    8-byte grid (a row's floats stored one by one)."""
+    rng = np.random.default_rng(6)
+    F = torch.from_numpy(rng.uniform(-2.0, 3.0, (N, N, N))
+                         .astype(np.float32)).to(dev)
+    idx = compact.needed_order(F, 1.0)
+    rank = compact.needed_rank(idx, N ** 3)
+    v = _hessians(dev, seed=7)[:3].contiguous()
+    sr, sc, so = shifts
+    got = torch.zeros((idx.numel(), 3), device=dev)
+    if so:
+        got = _shifted(got, so)
+    want = torch.zeros((idx.numel(), 3), device=dev)
+    for x0 in (0, 20, N - 10):
+        sl = slice(x0 * N * N, (x0 + 10) * N * N)
+        r = _shifted(rank[sl], sr) if sr else rank[sl]
+        comps = v[:, x0:x0 + 10].reshape(3, -1).contiguous()
+        if sc:
+            comps = _shifted(comps, sc)
+        _launched("vrows_slab", lambda: compact.vrows_slab(r, comps, got))
+        compact.vrows_slab_plain(r, comps, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_vrows_slab_several_quads_a_thread(dev, shift):
+    """K12 on slabs of 600,000 cells, two thirds of a field's cells needed
+    in a random order (the out-of-core path's share): more quads than its
+    grid has threads, so each thread walks several; exactly its plain
+    version, aligned and with rank and components 4 bytes off the 16-byte
+    grid."""
+    cells, n = 2_000_000, 600_000
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    need = torch.randperm(cells, generator=gen, device=dev)[:2 * cells // 3]
+    rank = compact.needed_rank(need, cells)
+    comps = torch.randn((3, cells), generator=gen, device=dev)
+    got = torch.zeros((need.numel(), 3), device=dev)
+    want = torch.zeros_like(got)
+    for x0 in (0, 700_000, cells - n):
+        r = rank[x0:x0 + n]
+        c = comps[:, x0:x0 + n].contiguous()
+        if shift:
+            r, c = _shifted(r, shift), _shifted(c, shift)
+        _launched("vrows_slab", lambda: compact.vrows_slab(r, c, got))
+        compact.vrows_slab_plain(r, c, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_src32_accumulate_one_pair(dev):
     """K4's accumulation of one component pair (the out-of-core fold) on a
     ragged slab, within 1e-5 of the maximum; the six pairs one at a time
@@ -794,6 +852,43 @@ def test_shard_kernels(dev, setup, window):
     for name, call, kern, plain, dense in cases:
         got = _launched(name, lambda: call(kern))
         exact(got, call(plain), dense()[(slice(None),) + sl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", SHARD_WINDOWS[1:] + [(7, 13, 9, 19)])
+@pytest.mark.parametrize("shift", [0, 8])
+def test_shard_kernels_bit_for_bit(dev, window, shift):
+    """K2s (two radii), K5s and K8s (its table as a tensor and as a
+    GrowthTable) on ragged shards, odd ny and nz among them, reaching into
+    the padded planes: bit for bit their plain versions on an int32 view
+    (signed zeros count, some source modes are -0.0); shift 8 puts the
+    shard 8 bytes off the 16-byte grid (the kernel's 8-byte accesses)."""
+    y0, ny, z0, nz = window
+    rng = np.random.default_rng(ny * nz + shift)
+    z = (rng.standard_normal((N, ny, nz))
+         + 1j * rng.standard_normal((N, ny, nz))).astype(np.complex64)
+    z.real[::7, ::3, ::2] = -0.0
+    src = torch.from_numpy(z).to(dev)
+    if shift:
+        src = _shifted(src, shift)
+    gp = Params(GridSize=N, BoxSize=float(N), output_z=[0.0], norad=True,
+                plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
+                scale_dependent=True)
+    gtabs, glo, gdx = fmax.growth_k_tables(Cosmology(gp), 0.5, N, dev)
+    table = derivatives.GrowthTable(gtabs[1], glo, gdx)
+    cases = [("kspace_hessian_shard", derivatives.hessian_kspace_shard,
+              derivatives.hessian_kspace_shard_plain, (R,), (R,))
+             for R in (2.5, 0.0)]
+    cases += [("kspace_gradient_shard", derivatives.gradient_kspace_shard,
+               derivatives.gradient_kspace_shard_plain, (0.7,), (0.7,))]
+    cases += [("kspace_gradient_tab_shard",
+               derivatives.gradient_kspace_tab_shard,
+               derivatives.gradient_kspace_tab_shard_plain, t,
+               (gtabs[1], glo, gdx))
+              for t in ((gtabs[1], glo, gdx), (table, glo, gdx))]
+    for name, kern, plain, args, plain_args in cases:
+        got = _launched(name, lambda: kern(src, *args, N, y0, z0))
+        assert _same_bits(got, plain(src, *plain_args, N, y0, z0)), name
 
 
 @pytest.mark.cuda

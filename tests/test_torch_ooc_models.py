@@ -4,7 +4,10 @@ against the JAX package and against the port's dense engine, on the CPU.
 
 JAX's run_fmax_ooc runs at float32 with overlap=False, as in
 tests/test_torch_ooc.py, and the tolerances are that file's: |dF| > 0.01 on
-fewer than 0.1 % of cells, median |dF| < 1e-4, grid variances within 1e-4,
+fewer than 0.1 % of cells (for the f(R) run, as there, of the cells JAX's
+float32 resolves against a float64 evaluation: 99.69 % of them; measured
+29-33 cells off JAX on all cells at one to four threads, 3-6 on the
+resolved ones), median |dF| < 1e-4, grid variances within 1e-4,
 the needed set equal up to max(2, 0.1 %) borderline cells, the rows of the
 common cells within rtol = atol = 3e-3, for every displacement set.  The
 collapse tables come from one CT table file that both packages read, so
@@ -42,6 +45,7 @@ from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
 from pinocchio_tpu_torch.ops import sng, tabulated
 from pinocchio_tpu_torch.run import run_pipeline
 from pinocchio_tpu_torch.scaledep import set_scaledep_gm
+from torch_fmax64 import fmax_float64, held_on_resolved
 from torch_params import bench_kwargs, params_pair
 
 torch.set_num_threads(2)
@@ -91,15 +95,18 @@ def tab_runs(ct_file):
 
 @pytest.fixture(scope="module")
 def fr_runs():
-    """(JAX's run, the port's run, the port's dense run, port Params) of
-    f(R) growth with RECOMPUTE_DISPLACEMENTS."""
+    """(JAX's run, the port's run, the port's dense run, port Params, the
+    float64 Fmax of the port's planes) of f(R) growth with
+    RECOMPUTE_DISPLACEMENTS."""
     jp, p = params_pair(**bench_kwargs(N, **FR), ooc_dtype="float32")
     jc, cosmo = JaxCosmology(jp), Cosmology(p)
     jgm = jax_set_scaledep_gm(jp, jc, jfmax.Smoothing.build(jp, jc),
                               jlargest(jp, jc), verbose=False)
     gm = set_scaledep_gm(p, cosmo, fmax.Smoothing.build(p, cosmo),
                          largest_halo_mass(p, cosmo), verbose=False)
-    return (_jax(jp, jc, jgm),) + _port(p, cosmo, gm) + (p,)
+    kd = fmax_ooc.OocEngine(p, cosmo, "cpu").planes.assemble()
+    return (_jax(jp, jc, jgm),) + _port(p, cosmo, gm) + (
+        p, fmax_float64(p, cosmo, kd, gm))
 
 
 def _sets(sp):
@@ -111,10 +118,17 @@ def _jax_sets(jres):
     return jres.vel_segments if jres.vel_segments is not None else [vel]
 
 
-def _held_to_jax(ooc, jres, nsets):
-    d = np.abs(ooc.products.Fmax.numpy() - np.asarray(jres.products.Fmax))
-    assert (d > 0.01).mean() < 1e-3
-    assert np.median(d) < 1e-4
+def _held_to_jax(ooc, jres, nsets, fmax64=None):
+    """fmax64: the float64 Fmax of the port's planes; with it, |dF| > 0.01
+    is counted on the cells JAX's float32 resolves (tests/torch_fmax64.py)."""
+    if fmax64 is not None:
+        held_on_resolved(ooc.products.Fmax.numpy(), jres.products.Fmax,
+                         fmax64)
+    else:
+        d = np.abs(ooc.products.Fmax.numpy()
+                   - np.asarray(jres.products.Fmax))
+        assert (d > 0.01).mean() < 1e-3
+        assert np.median(d) < 1e-4
     np.testing.assert_allclose(ooc.smoothing.true_variance,
                                jres.smoothing.true_variance, rtol=1e-4)
     sp, jsp = ooc.host_products, jres.host_products
@@ -179,12 +193,12 @@ def test_sng_reads_the_table_file_without_solving(tab_runs, ct_file,
 
 
 def test_scaledep_recompute_ooc_matches_jax(fr_runs):
-    jres, ooc, _, p = fr_runs
-    _held_to_jax(ooc, jres, len(p.output_z))
+    jres, ooc, _, p, fmax64 = fr_runs
+    _held_to_jax(ooc, jres, len(p.output_z), fmax64)
 
 
 def test_scaledep_recompute_ooc_matches_dense(fr_runs):
-    _, ooc, dense, p = fr_runs
+    _, ooc, dense, p, _ = fr_runs
     _held_to_dense(ooc, dense, p)
     # the sets differ by their growth: the first is stored at output_z[0]
     v0, v3 = (ooc.host_products.segments[i]["v1"] for i in (0, 3))
@@ -194,7 +208,7 @@ def test_scaledep_recompute_ooc_matches_dense(fr_runs):
 def test_run_fmax_ooc_takes_the_scaledep_packs(fr_runs, monkeypatch):
     """The cycle takes the per-radius inverse growth of a scale-dependent
     cosmology, as the dense engine does (fmax.py run_fmax)."""
-    _, ooc, _, p = fr_runs
+    _, ooc, _, p, _ = fr_runs
     seen = []
     real = fmax_ooc.inverse_growth_packs
 
@@ -230,7 +244,7 @@ def test_pipeline_ooc_against_dense(tmp_path, kw):
 
 
 def test_port_dump_read_by_jax(fr_runs, tmp_path):
-    _, ooc, _, p = fr_runs
+    _, ooc, _, p, _ = fr_runs
     dumps.dump_products(p, ooc, str(tmp_path))
     jp = params_pair(**bench_kwargs(N, **FR))[0]
     got = jdumps.read_dumps(jp, str(tmp_path))
@@ -298,7 +312,7 @@ def test_restart_from_a_dump_gives_the_same_catalogs(tmp_path):
     ("GridSize", dict(GridSize=64)), ("RandomSeed", dict(RandomSeed=7)),
     ("BoxSize", dict(BoxSize=30.0)), ("lpt_order", dict(three_lpt=False))])
 def test_dump_of_another_run_raises(fr_runs, tmp_path, key, change):
-    _, ooc, _, p = fr_runs
+    _, ooc, _, p, _ = fr_runs
     dumps.dump_products(p, ooc, str(tmp_path))
     with pytest.raises(ValueError, match=f"dump mismatch for {key}"):
         dumps.read_dumps(dataclasses.replace(p, **change), str(tmp_path))

@@ -700,6 +700,12 @@ COMPILED = {r"rank_kernel": "needed_rank",
             r"kdensity_kernel": "ic modes (K1, K1s)",
             r"kdensity_planes_kernel": "ic planes (K9)",
             r"pk_table_kernel": "ic P(k) table",
+            r"quad_kernelI\w*9Pointwise": "lpt pointwise",
+            r"quad_kernelI\w*13AccumulateOne": "lpt one pair",
+            r"quad_kernelI\w*10Accumulate": "lpt six pairs",
+            r"count_kernelILb0ELi1E": "count box masks",
+            r"count_kernelILb0ELi0E": "count box loop",
+            r"count_kernelILb0ELi2E": "count maps",
             r"collapse_kernelILi(\d)E(?:Lb([01])E)?": None}
 COLLAPSE_MODES = ("classic", "trilinear", "bilinear", "bicubic")
 FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DEPBAR.F64", "F2F.F64",
@@ -783,12 +789,15 @@ def compiled_report(dev):
     dict}."""
     import torch
     from pinocchio_tpu_torch import ic, kernels
-    from pinocchio_tpu_torch.ops import collapse, compact
+    from pinocchio_tpu_torch.ops import collapse, compact, lpt
+    from pinocchio_tpu_torch.ops import exchange as xops
     lib = kernels.library_path()
     ptx = _ptxas_report(kernels.ptxas_path(lib))
     sass = _sass_report(lib)
     runtime = dict(compact.kernel_info())
     runtime.update(ic.kernel_info())
+    runtime.update(lpt.kernel_info())
+    runtime.update(xops.kernel_info())
     for m, mode in enumerate(COLLAPSE_MODES):
         for ring in ((True, False) if m == 0 else (False,)):
             label = (f"collapse_kernel<{mode}, "
@@ -1428,51 +1437,97 @@ def kernel_phases(N, dev, report):
                                            host_ms=host, one_plane=one)
     del got, ref, g14, k8, views, rows_src
 
-    # ---- K4: the two LPT passes on the R=0 stack, and the accumulation of
-    # one component pair on an x-slab (the out-of-core fold) ----
+    # ---- K4: the sources and the six-pair accumulation on the R=0 stack,
+    # the sources on an x-slab and one component pair on an x-slab of a
+    # field (the out-of-core engine's sources and fold), each bit for bit
+    # its plain version; one call, 20 back to back and the host's enqueue
+    # of every form, torch.addcmul_ beside the pair ----
     sd = derivatives.second_derivatives(delta, 0.0, N)
-    got = lpt.sources_pointwise(sd)
     ref = lpt.sources_pointwise_plain(sd)
-    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-    tol = 1e-5 * max(b.abs().max().item() for b in ref)
-    phase("lpt_sources_pointwise", err, tol,
-          time_ms(lambda: lpt.sources_pointwise(sd)),
-          time_ms(lambda: lpt.sources_pointwise_plain(sd)), 36 * cells,
-          cells)
-    src32 = ref[2]
     phi2 = irfft3(derivatives.hessian_kspace(rfft3(ref[0]), 0.0, N), N)
-    del got, ref
-    want = lpt.src32_accumulate_plain(phi2, sd, src32)
-    acc = lpt.src32_accumulate(phi2, sd, src32.clone())
-    err = (acc - want).abs().max().item()
-    tol = 1e-5 * want.abs().max().item()
-    scratch = src32.clone()
-    phase("lpt_src32_accumulate", err, tol,
-          time_ms(lambda: lpt.src32_accumulate(phi2, sd, scratch)),
-          time_ms(lambda: lpt.src32_accumulate_plain(phi2, sd, src32)),
-          56 * cells, cells)
-    a = phi2[3:4, :Bx].contiguous()
-    b = sd[3:4, :Bx].contiguous()
-    s_slab = src32[:Bx].contiguous()
+    src32 = ref[2]
+    n_slab = Bx * N * N
+    sd_slab = sd[:, Bx:2 * Bx].contiguous()
+    # the fold's pair: u = (sd, phi2) of one component on an x-slab, the
+    # accumulator a slab view of the field (fmax_ooc: src32[o][x:x + Bx])
+    u = torch.stack([sd[3, Bx:2 * Bx], phi2[3, Bx:2 * Bx]])
     w = (lpt.PHI2_WEIGHTS[3],)
-    want = lpt.src32_accumulate_plain(a, b, s_slab, w)
-    acc = lpt.src32_accumulate(a, b, s_slab.clone(), weights=w)
-    err = (acc - want).abs().max().item()
-    tol = 1e-5 * want.abs().max().item()
-    scratch = s_slab.clone()
-    ms = time_ms(lambda: lpt.src32_accumulate(a, b, scratch, weights=w))
-    plain_ms = time_ms(lambda: lpt.src32_accumulate_plain(a, b, s_slab, w))
+    field = src32.clone()
+    out = field[Bx:2 * Bx]
+    forms = {}
+
+    def k4_form(name, kernel, plain, check, nbytes, nelem, extra=None):
+        """Time one form (kernel and plain version are callables), after
+        check() held its bits; extra: (library call, its name)."""
+        need(check(), f"K4 {name} at {N}^3 is not bit for bit its plain "
+             "version")
+        kname = ("lpt_sources_pointwise" if name.startswith("sources")
+                 else "lpt_src32_accumulate")
+        f = dict(ms=time_ms(kernel), batch_ms=batch_ms(kernel),
+                 host_ms=host_ms(kernel), plain_ms=time_ms(plain),
+                 bound_ms=bound(kname, nbytes, nelem)[0])
+        lib = ""
+        if extra is not None:
+            f.update(library_ms=time_ms(extra[0]),
+                     library_batch_ms=batch_ms(extra[0]))
+            lib = (f", {extra[1]} {f['library_ms']:.4f} ms one call, "
+                   f"{f['library_batch_ms']:.4f} back to back")
+        print(f"  [{N}^3] K4 {name:<28s} bit for bit; one call "
+              f"{f['ms']:.4f} ms, back to back {f['batch_ms']:.4f} "
+              f"({f['batch_ms'] / f['bound_ms']:.2f}x the bound "
+              f"{f['bound_ms']:.4f}), host {1e3 * f['host_ms']:.1f} us, "
+              f"plain {f['plain_ms']:.4f}{lib}", flush=True)
+        forms[name] = f
+        return f
+
+    def sources_equal(stack):
+        return all(same_bits(g, r) for g, r in zip(
+            lpt.sources_pointwise(stack), lpt.sources_pointwise_plain(stack)))
+    dense = k4_form("sources [6, N, N, N]",
+                    lambda: lpt.sources_pointwise(sd),
+                    lambda: lpt.sources_pointwise_plain(sd),
+                    lambda: sources_equal(sd), 36 * cells, cells)
+    phase("lpt_sources_pointwise", 0.0, 0.0, dense["ms"], dense["plain_ms"],
+          36 * cells, cells, extra="bit for bit (an int32 view), ")
+    k4_form(f"sources [6, {Bx}, N, N] slab",
+            lambda: lpt.sources_pointwise(sd_slab),
+            lambda: lpt.sources_pointwise_plain(sd_slab),
+            lambda: sources_equal(sd_slab), 36 * n_slab, n_slab)
+    want = lpt.src32_accumulate_plain(phi2, sd, src32)
+    scratch = src32.clone()
+    six = k4_form("six pairs [6, N, N, N]",
+                  lambda: lpt.src32_accumulate(phi2, sd, scratch),
+                  lambda: lpt.src32_accumulate_plain(phi2, sd, src32),
+                  lambda: same_bits(lpt.src32_accumulate(
+                      phi2, sd, src32.clone()), want), 56 * cells, cells)
+    phase("lpt_src32_accumulate", 0.0, 0.0, six["ms"], six["plain_ms"],
+          56 * cells, cells, extra="bit for bit (an int32 view), ")
+    p1, s1 = u[1:2], u[0:1]
+    want = lpt.src32_accumulate_plain(p1, s1, out, w)
+    value = -2.0 * w[0]
+
+    def pair_check():
+        # in place on the card; the plain version (a CPU rehearsal) is not
+        got = lpt.src32_accumulate(p1, s1, out, weights=w)
+        return same_bits(got, want) and (got is out or not out.is_cuda)
     # one pair: 16 B and 3 of the six-pair pass's 18 operations per cell
-    pb, pby = bound("lpt_src32_accumulate", 16 * s_slab.numel(),
-                    s_slab.numel() / 6)
-    print(f"  [{N}^3] lpt_src32_accumulate, one pair on a [{Bx}, {N}, {N}] "
-          f"slab: max_abs_err {err:.3e} (tolerance {tol:.3e}) kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {pb:.3f} ms ({pby}) "
-          f"-> {'ok' if err <= tol else 'FAIL'}", flush=True)
-    need(err <= tol, f"lpt_src32_accumulate (one pair) at {N}^3 disagrees")
-    rec["lpt_src32_accumulate"].update(pair_ms=ms, pair_plain_ms=plain_ms,
-                                       pair_bound_ms=pb)
-    del sd, phi2, src32, want, acc, scratch, delta, a, b, s_slab
+    pair = k4_form(f"one pair on a [{Bx}, N, N] slab",
+                   lambda: lpt.src32_accumulate(p1, s1, out, weights=w),
+                   lambda: lpt.src32_accumulate_plain(p1, s1, out, w),
+                   pair_check, 16 * n_slab, n_slab / 6,
+                   extra=(lambda: out.addcmul_(u[1], u[0], value=value),
+                          "torch.addcmul_"))
+    rec["lpt_sources_pointwise"].update(
+        batch_ms=dense["batch_ms"], host_ms=dense["host_ms"],
+        forms={k: v for k, v in forms.items() if k.startswith("sources")})
+    rec["lpt_src32_accumulate"].update(
+        batch_ms=six["batch_ms"], host_ms=six["host_ms"],
+        pair_ms=pair["ms"], pair_plain_ms=pair["plain_ms"],
+        pair_bound_ms=pair["bound_ms"],
+        forms={k: v for k, v in forms.items()
+               if not k.startswith("sources")})
+    del sd, phi2, src32, want, scratch, delta, u, p1, s1, field, out, sd_slab
+    del ref
     torch.cuda.empty_cache()
     report[N] = rec
 
@@ -2443,14 +2498,25 @@ def exchange_kernel_phases(N, dev, report):
         bits, counts = got
         members = int(counts.sum())
         W = xops.words(nhosts)
+        # K15 one call, back to back and the host's enqueue: 8 B of cell
+        # read and the bitmask written a row, the counts written
+        rowbytes = n * (8 + 4 * W) + 4 * counts.numel()
+        form = k15_times(lambda: count(xops.count), rowbytes,
+                         n * case["nboxes"])
         if timed:
-            record_phase(rec, N, "exchange_count", 0.0, 0.0,
-                         time_ms(lambda: count(xops.count)),
+            record_phase(rec, N, "exchange_count", 0.0, 0.0, form["ms"],
                          time_ms(lambda: count(xops.count_plain), reps=2),
-                         n * (8 + 4 * W) + 4 * counts.numel(),
-                         n * case["nboxes"],
+                         rowbytes, n * case["nboxes"],
                          extra=f"identical, {shard}{members} memberships "
-                         f"of {n} rows, ")
+                         f"of {n} rows; 20 calls back to back "
+                         f"{form['batch_ms']:.4f} ms a call, the host's "
+                         f"enqueue {form['host_ms']:.4f} ms; ")
+            rec["exchange_count"].update(batch_ms=form["batch_ms"],
+                                         host_ms=form["host_ms"], forms={})
+        else:
+            k15_line(N, f"boxes, {shard}{members} memberships of {n} rows",
+                     form)
+        rec["exchange_count"]["forms"][f"boxes, {nhosts} hosts"] = form
         sph, owner = case["spheres"], case["owner"]
         plan = xops.PaintSpheres(sph, owner, N).plan(block)
         if timed:
@@ -2468,6 +2534,19 @@ def exchange_kernel_phases(N, dev, report):
             count(xops.count, hmap), count(xops.count_plain, hmap))),
             f"exchange_count with request maps at {N}^3 differs")
         painted = int(hmap.sum())
+        if timed:
+            # the map form's floor: each 32-byte sector of the maps that a
+            # row and host reads, beside the rows' own bytes
+            ncell = hmap[0].numel()
+            sectors = sum(int(torch.unique((h * ncell + cells) // 32).numel())
+                          for h in range(nhosts))
+            form = k15_times(lambda: count(xops.count, hmap),
+                             rowbytes + 32 * sectors, n * nhosts)
+            form.update(sectors=sectors)
+            k15_line(N, f"request maps, {shard}{sectors} map sectors read "
+                     f"(a floor of {form['bound_ms']:.4f} ms with the rows)",
+                     form)
+            rec["exchange_count"]["forms"][f"map, {nhosts} hosts"] = form
         if timed:
             # the cells of each sphere that fall in the shard, each tested
             # once (the rest of the cube needs no box test)
@@ -2584,6 +2663,21 @@ def exchange_kernel_phases(N, dev, report):
                   f"{painted} cells painted", flush=True)
         del case, got, want, bits, counts, hmap, args, out_k, out_p
         torch.cuda.empty_cache()
+
+
+def k15_times(fn, nbytes, nelem):
+    """K15's times of fn on the card: one call, 20 back to back and the
+    host's enqueue, beside its bound for nbytes and nelem box tests."""
+    return dict(ms=time_ms(fn), batch_ms=batch_ms(fn), host_ms=host_ms(fn),
+                bound_ms=bound("exchange_count", nbytes, nelem)[0])
+
+
+def k15_line(N, what, form):
+    print(f"  [{N}^3] exchange_count, {what}: identical; one call "
+          f"{form['ms']:.4f} ms, back to back {form['batch_ms']:.4f} "
+          f"({form['batch_ms'] / form['bound_ms']:.2f}x the bound "
+          f"{form['bound_ms']:.4f}), host {1e3 * form['host_ms']:.1f} us",
+          flush=True)
 
 
 def pack_sector_floor(case, bits, n, W, rowf, members):
@@ -5146,7 +5240,8 @@ def main(argv=None) -> int:
                          **{k: r[k] for k in ("pair_ms", "pair_plain_ms",
                                               "pair_bound_ms", "first_ms",
                                               "batch_ms", "host_ms",
-                                              "one_plane", "plan_ms")
+                                              "one_plane", "plan_ms",
+                                              "forms")
                             if k in r}))
     # the library call of special mode 2 (no kernel of the port's own)
     dfs = {N: report[N]["density_field"] for N in KERNEL_SIZES}

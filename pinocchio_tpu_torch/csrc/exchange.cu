@@ -9,12 +9,34 @@
 // needed row of a shard (its local cell, in ascending cell order) it tests
 // every host's wrapped boxes, or reads the host's turn-1 request map, and
 // writes a bitmask of ceil(H/32) words per row and the member count per
-// (thread block, host).  A box [x0, x0 + L) mod N holds g when
-// ((g - x0) % N + N) % N < L (C's % of a negative is negative), so a box
-// with L >= N covers its whole dimension.  What bounds it on the H100: the
-// 8-byte cell read and the bitmask write per row, coalesced; the box tests
-// are a few integer operations per box.  Design: one thread per row, and
-// __syncthreads_count gives each block's count per host.
+// (run of 256 rows, host), the block offsets K16 scans.  A box [x0, x0 + L)
+// mod N holds g when ((g - x0) % N + N) % N < L, so a box with L >= N
+// covers its whole dimension.  What bounds it on the H100: the 8-byte cell
+// read and the bitmask write per row, coalesced, 12 B a row; the first
+// design (one row a thread) was issue-bound instead, on a row's 64-bit
+// divisions, two 32-bit % per box test and a block-wide
+// __syncthreads_count per host.  Design: a row's local cell splits into
+// (lx, ly, lz) by 32-bit multiplies with magic numbers made on the host
+// (Granlund-Montgomery: for x < 2^31 and 1 <= d < 2^31, x / d = (x m) >>
+// (31 + l) with l = ceil(log2 d), m = ceil(2^(31 + l) / d) < 2^32), where
+// the shard holds fewer than 2^31 cells (every grid the planner admits on
+// one card); the wrapper picks a 64-bit form with divisions otherwise.
+// Each block first builds its box tables in shared memory: where they fit,
+// each host's boxes as masks over the shard's coordinates (for every x,
+// y and z of the shard a word whose bit j says whether the host's box j
+// holds it in that dimension; 32 boxes a word, more in further words), so
+// a row's test for a host is three shared loads and two ANDs whatever its
+// boxes; else the boxes themselves with their origins taken into [0, N),
+// tested in turn, each dimension's wrap one compare and add (a shard's
+// coordinates lie in [0, N): the wrapper holds its block inside the grid).
+// A warp takes a run of 256 rows, eight a lane by four 16-byte loads of
+// the cells, and counts the run's members of each host by ballots and
+// __popc, lane h writing host h's count: no block barrier after the
+// tables, so the warps of a block drift apart and their loads overlap the
+// others' tests.  The blocks, as many as the card holds at once, walk the
+// runs in a grid-stride loop, so a block builds its tables once.  Map mode
+// reads map[h ncell + c], a byte of a sector per row and host, and needs
+// no coordinates.
 //
 // exchange_pack (K16) replaces pack_local (339): the rank i of a row among
 // the shard's members of host h is its block's offset (the exclusive scan
@@ -74,6 +96,7 @@
 // overlapping spheres race harmlessly.  All three results are exact: bits,
 // integer counts, copies.
 
+#include <algorithm>
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -86,55 +109,252 @@ constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ int wrap(int d, int N) { return ((d % N) + N) % N; }
 
-// whether (gx, gy, gz) lies in any box of boxes[lo:hi] ([nb, 6]: x0, Lx,
-// y0, Ly, z0, Lz)
-__device__ __forceinline__ bool member(const int* __restrict__ boxes, int lo,
-                                       int hi, int gx, int gy, int gz,
-                                       int N) {
+struct Block {
+  int x0, nx, y0, ny, z0, nz, N;
+};
+
+// K15: x / d = (x m) >> s for every x < 2^31 (see above)
+struct Magic {
+  uint32_t m;
+  int s;
+};
+
+__device__ __forceinline__ uint32_t divide(uint32_t x, Magic d) {
+  return (uint32_t)(((uint64_t)x * d.m) >> d.s);
+}
+
+Magic magic(uint32_t d) {
+  int l = 0;
+  while ((uint64_t{1} << l) < d) ++l;
+  const uint64_t p = uint64_t{1} << (31 + l);
+  return Magic{(uint32_t)((p + d - 1) / d), 31 + l};
+}
+
+constexpr int kCountLoads = 4;                       // 16-byte loads a lane
+constexpr int kCountRows = 2 * kCountLoads;          // rows a lane
+constexpr int kCountRun = 32 * kCountRows;           // rows a warp, a count
+static_assert(kCountRun == 256, "a warp's rows are one 256-row count");
+// ints of the box tables a block keeps in shared memory
+// (ops/exchange.COUNT_TABLE_INTS)
+constexpr int kCountTableInts = 51200;
+constexpr int kMaxDevices = 64;
+// how a row's hosts are found: each host's boxes tested in turn, the
+// boxes' masks per coordinate (a word of up to 32 boxes of one host, a
+// chunk, per x, y and z of the shard), or the request maps
+enum CountMode { kBoxLoop, kBoxMasks, kMaps };
+
+// d = g - x0 in (-N, N) taken into [0, N)
+__device__ __forceinline__ int near_wrap(int d, int N) {
+  return d < 0 ? d + N : d;
+}
+
+// the local cell c's coordinates in the shard's block: 32-bit magic
+// divisions (kWide false), or 64-bit divisions
+template <bool kWide>
+__device__ __forceinline__ void local_coords(int64_t c, const Block& blk,
+                                             Magic dnz, Magic dny, int& lx,
+                                             int& ly, int& lz) {
+  if (kWide) {
+    const int64_t q = c / blk.nz;
+    lz = (int)(c - q * blk.nz);
+    const int64_t x = q / blk.ny;
+    ly = (int)(q - x * blk.ny);
+    lx = (int)x;
+  } else {
+    const uint32_t c32 = (uint32_t)c;
+    const uint32_t q = divide(c32, dnz);
+    lz = (int)(c32 - q * (uint32_t)blk.nz);
+    const uint32_t x = divide(q, dny);
+    ly = (int)(q - x * (uint32_t)blk.ny);
+    lx = (int)x;
+  }
+}
+
+// whether (gx, gy, gz) lies in a box of s_box[lo:hi] (rows x0, Lx, y0,
+// Ly, z0, Lz, the origins in [0, N))
+__device__ __forceinline__ bool member(const int* s_box, int lo, int hi,
+                                       int gx, int gy, int gz, int N) {
   for (int k = lo; k < hi; ++k) {
-    const int* b = boxes + 6 * k;
-    if (wrap(gx - b[0], N) < b[1] && wrap(gy - b[2], N) < b[3] &&
-        wrap(gz - b[4], N) < b[5])
+    const int* b = s_box + 6 * k;
+    if (near_wrap(gx - b[0], N) < b[1] && near_wrap(gy - b[2], N) < b[3] &&
+        near_wrap(gz - b[4], N) < b[5])
       return true;
   }
   return false;
 }
 
-struct Block {
-  int x0, nx, y0, ny, z0, nz, N;
-};
+// the ints of shared memory a mode's tables take, the masks' chunks at
+// most H + nb / 32
+int64_t count_table_ints(CountMode mode, int nb, int H, const Block& blk) {
+  if (mode == kMaps) return 0;
+  if (mode == kBoxLoop) return 6 * (int64_t)nb + H + 1;
+  const int64_t chunks = H + nb / 32;
+  return H + 1 + chunks * (2 + (int64_t)blk.nx + blk.ny + blk.nz);
+}
 
+// The block's tables.  kBoxLoop: the boxes [nb, 6] with their origins in
+// [0, N), then off [H + 1].  kBoxMasks: each host's first chunk coff
+// [H + 1], each chunk's boxes [cbox, cend), then each chunk's masks over
+// the shard's x, y and z (nx + ny + nz words: bit j of the word of
+// coordinate g set when box cbox + j holds g in that dimension).
+template <int kMode>
+__device__ void count_tables(int* s_table, const Block& blk,
+                             const int* __restrict__ boxes, int nb,
+                             const int* __restrict__ box_off, int H,
+                             int cmax) {
+  const int N = blk.N;
+  if (kMode == kBoxLoop) {
+    int* s_off = s_table + 6 * nb;
+    for (int i = threadIdx.x; i < 6 * nb; i += kThreads) {
+      const int v = boxes[i];
+      s_table[i] = (i & 1) ? v : wrap(v, N);
+    }
+    for (int i = threadIdx.x; i <= H; i += kThreads) s_off[i] = box_off[i];
+  } else if (kMode == kBoxMasks) {
+    int* s_coff = s_table;
+    int* s_cbox = s_coff + H + 1;
+    int* s_cend = s_cbox + cmax;
+    uint32_t* s_mask = (uint32_t*)(s_cend + cmax);
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int h = 0; h < H; ++h) {
+        s_coff[h] = c;
+        const int hi = box_off[h + 1];
+        for (int k = box_off[h]; k < hi; k += 32, ++c) {
+          s_cbox[c] = k;
+          s_cend[c] = min(k + 32, hi);
+        }
+      }
+      s_coff[H] = c;
+    }
+    __syncthreads();
+    const int S = blk.nx + blk.ny + blk.nz;
+    const int chunks = s_coff[H];
+    for (int e = threadIdx.x; e < chunks * S; e += kThreads) {
+      const int c = e / S, i = e - c * S;
+      const int d = i < blk.nx ? 0 : i < blk.nx + blk.ny ? 1 : 2;
+      const int g = d == 0   ? blk.x0 + i
+                    : d == 1 ? blk.y0 + i - blk.nx
+                             : blk.z0 + i - blk.nx - blk.ny;
+      uint32_t m = 0;
+      for (int k = s_cbox[c]; k < s_cend[c]; ++k) {
+        const int o = wrap(boxes[6 * k + 2 * d], N);
+        m |= (uint32_t)(near_wrap(g - o, N) < boxes[6 * k + 2 * d + 1])
+             << (k - s_cbox[c]);
+      }
+      s_mask[e] = m;
+    }
+  }
+}
+
+// the cells of a run's rows that lane l holds: c[2k], c[2k + 1] the rows
+// 64 k + 2 l and 64 k + 2 l + 1 (0 past n), by 16-byte loads where vec
+// (cells 16-byte aligned)
+__device__ __forceinline__ void load_run(const int64_t* __restrict__ cells,
+                                         int64_t n, bool vec, int64_t run,
+                                         int lane, int64_t* c) {
+#pragma unroll
+  for (int k = 0; k < kCountLoads; ++k) {
+    const int64_t r = run * kCountRun + 64 * k + 2 * lane;
+    if (vec && r + 1 < n) {
+      const longlong2 v =
+          __ldcs(reinterpret_cast<const longlong2*>(cells + r));
+      c[2 * k] = v.x;
+      c[2 * k + 1] = v.y;
+    } else {
+      c[2 * k] = r < n ? __ldcs(cells + r) : 0;
+      c[2 * k + 1] = r + 1 < n ? __ldcs(cells + r + 1) : 0;
+    }
+  }
+}
+
+// warp w of block b takes the runs b kWarps + w, then every gridDim.x
+// kWarps runs on, of kCountRun rows (loading a warp's next run before it
+// tests the current one measured slower for 2 hosts:
+// scripts/torch_kernel_variants.py)
+template <bool kWide, int kMode>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const int64_t* __restrict__ cells, int64_t n, Block blk,
-             const int* __restrict__ boxes, const int* __restrict__ box_off,
-             const uint8_t* __restrict__ map, int H, int W,
-             uint32_t* __restrict__ bits, int* __restrict__ counts) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = t < n;
-  const int64_t c = valid ? cells[t] : 0;
-  const int lz = (int)(c % blk.nz);
-  const int ly = (int)((c / blk.nz) % blk.ny);
-  const int lx = (int)(c / ((int64_t)blk.nz * blk.ny));
-  const int gx = blk.x0 + lx, gy = blk.y0 + ly, gz = blk.z0 + lz;
+             Magic dnz, Magic dny, const int* __restrict__ boxes, int nb,
+             const int* __restrict__ box_off,
+             const uint8_t* __restrict__ map, int H, int W, int cmax,
+             bool vec, uint32_t* __restrict__ bits,
+             int* __restrict__ counts) {
+  extern __shared__ int s_table[];
+  const int lane = threadIdx.x & 31;
+  const int N = blk.N;
+  count_tables<kMode>(s_table, blk, boxes, nb, box_off, H, cmax);
+  if (kMode != kMaps) __syncthreads();        // the tables are in
+  const int* s_off = s_table + 6 * nb;                    // kBoxLoop
+  const int* s_coff = s_table;                            // kBoxMasks
+  const uint32_t* s_mask = (const uint32_t*)(s_table + H + 1 + 2 * cmax);
+  const int S = blk.nx + blk.ny + blk.nz;
   const int64_t ncell = (int64_t)blk.nx * blk.ny * blk.nz;
-  // every thread of the block runs every iteration: the counts below are
-  // block-wide barriers
-  for (int w = 0; w < W; ++w) {
-    uint32_t word = 0;
-    for (int b = 0; b < 32 && w * 32 + b < H; ++b) {
-      const int h = w * 32 + b;
-      bool m = false;
-      if (valid) {
-        m = map != nullptr
-                ? map[(int64_t)h * ncell + c] != 0
-                : member(boxes, box_off[h], box_off[h + 1], gx, gy, gz,
-                         blk.N);
-      }
-      word |= (uint32_t)m << b;
-      const int cnt = __syncthreads_count(m);
-      if (threadIdx.x == 0) counts[(int64_t)blockIdx.x * H + h] = cnt;
+  const int64_t nruns = (n + kCountRun - 1) / kCountRun;
+  for (int64_t run = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       run < nruns; run += (int64_t)gridDim.x * kWarps) {
+    int64_t c[kCountRows];
+    load_run(cells, n, vec, run, lane, c);
+    int64_t row[kCountRows];
+#pragma unroll
+    for (int k = 0; k < kCountLoads; ++k) {
+      row[2 * k] = run * kCountRun + 64 * k + 2 * lane;
+      row[2 * k + 1] = row[2 * k] + 1;
     }
-    if (valid) bits[t * W + w] = word;
+    int l[kCountRows][3];
+    if (kMode != kMaps) {
+#pragma unroll
+      for (int j = 0; j < kCountRows; ++j)
+        local_coords<kWide>(c[j], blk, dnz, dny, l[j][0], l[j][1], l[j][2]);
+    }
+    for (int w = 0; w < W; ++w) {
+      const int hw = min(32, H - 32 * w);     // hosts of this word
+      uint32_t word[kCountRows] = {};
+      int mine = 0;                           // lane h: host h's count
+      for (int b = 0; b < hw; ++b) {
+        const int h = 32 * w + b;
+        const int q0 = kMode == kBoxMasks ? s_coff[h] : 0;
+        const int q1 = kMode == kBoxMasks ? s_coff[h + 1] : 0;
+        int cnt = 0;
+#pragma unroll
+        for (int j = 0; j < kCountRows; ++j) {
+          bool m = false;
+          if (row[j] < n) {
+            if (kMode == kMaps) {
+              m = map[(int64_t)h * ncell + c[j]] != 0;
+            } else if (kMode == kBoxMasks) {
+              for (int q = q0; q < q1 && !m; ++q) {
+                const uint32_t* t = s_mask + q * S;
+                m = (t[l[j][0]] & t[blk.nx + l[j][1]] &
+                     t[blk.nx + blk.ny + l[j][2]]) != 0;
+              }
+            } else {
+              m = member(s_table, s_off[h], s_off[h + 1], blk.x0 + l[j][0],
+                         blk.y0 + l[j][1], blk.z0 + l[j][2], N);
+            }
+          }
+          word[j] |= (uint32_t)m << b;
+          cnt += __popc(__ballot_sync(0xffffffffu, m));
+        }
+        if (lane == b) mine = cnt;
+      }
+      if (W == 1) {
+#pragma unroll
+        for (int k = 0; k < kCountLoads; ++k) {
+          const int64_t r = row[2 * k];
+          if (r + 1 < n)
+            *reinterpret_cast<uint2*>(bits + r) =
+                make_uint2(word[2 * k], word[2 * k + 1]);
+          else if (r < n)
+            bits[r] = word[2 * k];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCountRows; ++j)
+          if (row[j] < n) bits[row[j] * W + w] = word[j];
+      }
+      if (lane < hw) counts[run * H + 32 * w + lane] = mine;
+    }
   }
 }
 
@@ -478,26 +698,126 @@ Block make_block(const int* b, int N) {
   return Block{b[0], b[1], b[2], b[3], b[4], b[5], N};
 }
 
+int sm_count(int dev) {
+  static int count[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    count[dev] = 0;
+  return count[dev];
+}
+
+// K15 on the blocks resident on the device at once (a warp for every run
+// when fewer), each warp walking its runs; the residency is queried once
+// per device and shared memory size (a run's shards share one)
+template <bool kWide, int kMode>
+int count_launch(size_t smem, cudaStream_t s, const int64_t* cells,
+                 int64_t n, const Block& blk, const int* boxes, int nb,
+                 const int* box_off, const uint8_t* map, int H, int W,
+                 int cmax, bool vec, uint32_t* bits, int* counts) {
+  static size_t seen_smem[kMaxDevices];
+  static int64_t seen_most[kMaxDevices];
+  auto fn = count_kernel<kWide, kMode>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (seen_most[dev] == 0 || seen_smem[dev] != smem) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
+    if (e != cudaSuccess) return (int)e;
+    seen_smem[dev] = smem;
+    seen_most[dev] = (int64_t)per_sm * sm_count(dev);
+  }
+  const int64_t most = seen_most[dev];
+  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int64_t blocks = (n + kCountRun * kWarps - 1) / (kCountRun * kWarps);
+  fn<<<(unsigned)std::min(blocks, most), kThreads, smem, s>>>(
+      cells, n, blk, magic((uint32_t)blk.nz), magic((uint32_t)blk.ny), boxes,
+      nb, box_off, map, H, W, cmax, vec, bits, counts);
+  return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int count_launch(bool wide, size_t smem, cudaStream_t s,
+                 const int64_t* cells, int64_t n, const Block& blk,
+                 const int* boxes, int nb, const int* box_off,
+                 const uint8_t* map, int H, int W, int cmax, bool vec,
+                 uint32_t* bits, int* counts) {
+  return wide ? count_launch<true, kMode>(smem, s, cells, n, blk, boxes, nb,
+                                          box_off, map, H, W, cmax, vec,
+                                          bits, counts)
+              : count_launch<false, kMode>(smem, s, cells, n, blk, boxes, nb,
+                                           box_off, map, H, W, cmax, vec,
+                                           bits, counts);
+}
+
 }  // namespace
 
 // cells [n] int64 local cells (ascending), block (host) [6] = x0, nx, y0,
-// ny, z0, nz; boxes [nb, 6] int32 and box_off [H + 1] int32, or map
-// [H, nx*ny*nz] uint8 (boxes unused when map is set); bits [n, W] uint32,
-// counts [ceil(n / 256), H] int32
+// ny, z0, nz inside [0, N) each; boxes [nb, 6] int32 and box_off [H + 1]
+// int32, or map [H, nx*ny*nz] uint8 (boxes unused when map is set); bits
+// [n, W] uint32 (8-byte aligned), counts [ceil(n / 256), H] int32; wide: the
+// 64-bit coordinate form, needed from 2^31 cells in the shard.  Boxes take
+// the masks where their tables fit kCountTableInts, else the loop.
 extern "C" int exchange_count(const void* cells, int64_t n,
                               const void* block_host, int N,
-                              const void* boxes, const void* box_off,
+                              const void* boxes, int nb, const void* box_off,
                               const void* map, int H, void* bits,
-                              void* counts, void* stream) {
+                              void* counts, int wide, void* stream) {
   if (n == 0) return 0;
-  if (H < 1) return (int)cudaErrorInvalidValue;
-  const int W = (H + 31) / 32;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  count_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)cells, n, make_block((const int*)block_host, N),
-      (const int*)boxes, (const int*)box_off, (const uint8_t*)map, H, W,
-      (uint32_t*)bits, (int*)counts);
-  return (int)cudaGetLastError();
+  const Block blk = make_block((const int*)block_host, N);
+  const int64_t ncell = (int64_t)blk.nx * blk.ny * blk.nz;
+  if (H < 1 || nb < 0 || blk.nx < 1 || blk.ny < 1 || blk.nz < 1 ||
+      (!wide && ncell >= (int64_t{1} << 31)))
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)bits & 7) return (int)cudaErrorMisalignedAddress;
+  CountMode mode = map != nullptr ? kMaps : kBoxMasks;
+  if (count_table_ints(mode, nb, H, blk) > kCountTableInts) mode = kBoxLoop;
+  const int64_t ints = count_table_ints(mode, nb, H, blk);
+  if (ints > kCountTableInts) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)ints * sizeof(int);
+  const int W = (H + 31) / 32, cmax = H + nb / 32;
+  const bool vec = ((uintptr_t)cells & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* c = (const int64_t*)cells;
+  const auto* bx = (const int*)boxes;
+  const auto* off = (const int*)box_off;
+  const auto* m = (const uint8_t*)map;
+  auto* b = (uint32_t*)bits;
+  auto* k = (int*)counts;
+  if (mode == kMaps)
+    return count_launch<kMaps>(wide, smem, s, c, n, blk, bx, nb, off, m, H,
+                               W, cmax, vec, b, k);
+  if (mode == kBoxMasks)
+    return count_launch<kBoxMasks>(wide, smem, s, c, n, blk, bx, nb, off, m,
+                                   H, W, cmax, vec, b, k);
+  return count_launch<kBoxLoop>(wide, smem, s, c, n, blk, bx, nb, off, m, H,
+                                W, cmax, vec, b, k);
+}
+
+// which: 0 the box masks, 1 the box loop, 2 the maps (32-bit coordinates);
+// out[4] (host): registers, local bytes, shared bytes, resident blocks a SM
+// (without dynamic shared memory)
+extern "C" int exchange_kernel_info(int which, int* out) {
+  cudaFuncAttributes a;
+  const void* fn = which == 0   ? (const void*)count_kernel<false, kBoxMasks>
+                   : which == 1 ? (const void*)count_kernel<false, kBoxLoop>
+                                : (const void*)count_kernel<false, kMaps>;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, fn,
+                                                            kThreads, 0);
 }
 
 // perm [count] int64: the hand-off row of each cell-ordered row; buf the

@@ -5,8 +5,9 @@ into one shared library with a plain C interface, at first use, and loaded
 with ctypes (no PyTorch headers: the build takes seconds).  Each source is
 compiled by its own nvcc process, all started together, and the objects are
 linked into the library.  The library name carries a hash of the sources
-and flags, so an edited source is rebuilt.  The Triton kernels live in
-``lpt_triton.py`` and are imported only by the function that launches them.
+and flags, so an edited source is rebuilt.  Every kernel of the port is in
+this library: a wrapper looks its entry point up once and calls it with
+plain ints, pointers and the stream.
 
 Every wrapper adds one to its entry in ``LAUNCHES`` where it launches its
 kernel, and nowhere else; a run resets the counts with ``reset_launches``
@@ -33,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu",
-           "exchange.cu", "storage.cu")
+           "exchange.cu", "storage.cu", "lpt.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds op for
 # op as its plain PyTorch version does (explicit fmaf stays fused)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -43,7 +44,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 _COLLAPSE = "pinocchio_tpu_torch/csrc/collapse.cu"
 _KSPACE = "pinocchio_tpu_torch/csrc/kspace.cu"
 _COMPACT = "pinocchio_tpu_torch/csrc/compact.cu"
-_LPT = "pinocchio_tpu_torch/kernels/lpt_triton.py"
+_LPT = "pinocchio_tpu_torch/csrc/lpt.cu"
 _EXCHANGE = "pinocchio_tpu_torch/csrc/exchange.cu"
 _STORAGE = "pinocchio_tpu_torch/csrc/storage.cu"
 # kernel name -> (route, source in the repo, JAX function it replaces)
@@ -64,8 +65,8 @@ KERNELS = {
         "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
     "collapse_update_table_bicubic": (
         "cuda", _COLLAPSE, "pinocchio_tpu/ops/collapse.py:255"),
-    "lpt_sources_pointwise": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
-    "lpt_src32_accumulate": ("triton", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
+    "lpt_sources_pointwise": ("cuda", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
+    "lpt_src32_accumulate": ("cuda", _LPT, "pinocchio_tpu/ops/lpt.py:34"),
     "needed_rank": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "gather_rows": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:153"),
     "pdf_hist": ("cuda", _COMPACT, "pinocchio_tpu/fmax.py:110"),
@@ -193,9 +194,11 @@ _SIGNATURES = {
     "kspace_gradient_shard": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "kspace_gradient_tab_shard": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _F,
                                   _F, _P],
-    # cells, n, block[6] (host), N, boxes, box_off, map (or null), H, bits,
-    # counts, stream
-    "exchange_count": [_P, _L, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # cells, n, block[6] (host), N, boxes, nb, box_off, map (or null), H,
+    # bits, counts, wide, stream
+    "exchange_count": [_P, _L, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+    # which, out[4] (host)
+    "exchange_kernel_info": [_I, _P],
     # perm, buf, count, bits, W, block_off, H, host_nd, host_devs, ndmax,
     # seg_base, seg_n, nch, out, stream
     "exchange_pack": [_P, _P, _L, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I,
@@ -213,6 +216,12 @@ _SIGNATURES = {
     "storage_load_rows": [_P, _P, _I, _L, _L, _L, _P],
     # the stack layout's runs alone: buf, load, form, C, M, B, W, k, stream
     "storage_runs_probe": [_P, _I, _I, _L, _L, _L, _L, _L, _P],
+    # K4: sd, out, n, stream; phi2, sd, src32, n, stream; phi2, sd, src32,
+    # n, w2, stream; which, out[4] (host)
+    "lpt_pointwise": [_P, _P, _L, _P],
+    "lpt_accumulate": [_P, _P, _P, _L, _P],
+    "lpt_accumulate_one": [_P, _P, _P, _L, _F, _P],
+    "lpt_kernel_info": [_I, _P],
 }
 
 
@@ -494,12 +503,15 @@ def on_device(device):
 
 
 def require_cuda(name: str, *tensors) -> None:
-    """Wrapper guard: every tensor on one CUDA device and contiguous."""
-    dev = tensors[0].device
+    """Wrapper guard: every tensor on one CUDA device and contiguous (read
+    through is_cuda and get_device, which make no device object: the guard
+    runs at every launch)."""
+    first = tensors[0]
+    dev = first.get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and {first.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
 
@@ -507,7 +519,7 @@ def require_cuda(name: str, *tensors) -> None:
 def plain_or_kernel(name: str, t) -> bool:
     """True when ``t`` lies on a CUDA device (launch the kernel), False on
     the CPU (run the plain PyTorch version); any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False

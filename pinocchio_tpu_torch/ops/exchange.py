@@ -23,7 +23,7 @@ import torch
 
 from .. import kernels
 
-THREADS = 256         # the kernels' block size: K15's counts are per block
+THREADS = 256         # the kernels' block size, and K15's rows a count
 
 
 def words(nhosts: int) -> int:
@@ -99,19 +99,68 @@ def count(cells, block, N, boxes, box_off, nhosts, hmap=None):
                          "box_off i32[H + 1] and hmap u8[H, nx, ny, nz] "
                          "expected")
     n = cells.numel()
-    W = words(nhosts)
-    bits = torch.empty((n, W), dtype=torch.int32, device=cells.device)
+    bits = torch.empty((n, words(nhosts)), dtype=torch.int32,
+                       device=cells.device)
     counts = torch.empty((-(-n // THREADS), nhosts), dtype=torch.int32,
                          device=cells.device)
-    blk = (ctypes.c_int * 6)(*block)
-    err = kernels.lib().exchange_count(
-        cells.data_ptr(), ctypes.c_int64(n), blk, N, boxes.data_ptr(),
-        box_off.data_ptr(), hmap.data_ptr() if hmap is not None else None,
-        nhosts, bits.data_ptr(), counts.data_ptr(),
-        kernels.stream_ptr(cells.device))
-    kernels.check("exchange_count", err)
+    err = launch_count(cells, block, N, boxes, box_off, nhosts, hmap, bits,
+                       counts, kernels.stream_ptr(cells.get_device()))
+    if err:
+        kernels.check("exchange_count", err)
     kernels.LAUNCHES["exchange_count"] += 1
     return bits, counts
+
+
+# ints of K15's box tables a block holds in shared memory (kCountTableInts
+# in csrc/exchange.cu)
+COUNT_TABLE_INTS = 51200
+_COUNT = None
+
+
+def launch_count(cells, block, N, boxes, box_off, nhosts, hmap, bits,
+                 counts, stream: int) -> int:
+    """Hand K15's entry point (looked up in the kernel library once) its
+    arguments: cells and n, the block, N, the box table, its rows nb and
+    offsets, the map (None in boxes mode), H, bits, counts, the coordinate
+    form and the stream; returns the cudaError_t.  The kernel splits a
+    local cell into coordinates in 32 bits where the shard holds fewer than
+    2^31 cells, else in 64 (wide); it wraps a box by one compare, so the
+    block must lie inside the grid.  It holds its box tables in a block's
+    shared memory, at most COUNT_TABLE_INTS ints: each host's boxes as
+    masks over the shard's x, y and z (a word of up to 32 boxes, a chunk,
+    per coordinate) where they fit, else the boxes themselves, tested in
+    turn."""
+    global _COUNT
+    x0, nx, y0, ny, z0, nz = block
+    if not all(0 <= o and e >= 1 and o + e <= N
+               for o, e in ((x0, nx), (y0, ny), (z0, nz))):
+        raise ValueError(f"exchange_count: block {tuple(block)} not inside "
+                         f"the {N}^3 grid")
+    nb = boxes.shape[0]
+    masks = nhosts + 1 + (nhosts + nb // 32) * (2 + nx + ny + nz)
+    if hmap is None and min(masks, 6 * nb + nhosts + 1) > COUNT_TABLE_INTS:
+        raise ValueError(f"exchange_count: {nb} boxes and {nhosts} hosts, "
+                         f"at most {COUNT_TABLE_INTS} ints of table")
+    if _COUNT is None:
+        _COUNT = kernels.lib().exchange_count
+    return _COUNT(cells.data_ptr(), cells.numel(), (ctypes.c_int * 6)(*block),
+                  N, boxes.data_ptr(), nb, box_off.data_ptr(),
+                  hmap.data_ptr() if hmap is not None else None, nhosts,
+                  bits.data_ptr(), counts.data_ptr(),
+                  int(nx * ny * nz >= 2 ** 31), stream)
+
+
+def kernel_info() -> dict:
+    """{label: (registers, local bytes, shared bytes, resident 256-thread
+    blocks per SM)} of K15's boxes and map forms on the current card."""
+    out = {}
+    for which, name in enumerate(("count box masks", "count box loop",
+                                  "count maps")):
+        info = (ctypes.c_int * 4)()
+        kernels.check("exchange_kernel_info",
+                      kernels.lib().exchange_kernel_info(which, info))
+        out[name] = tuple(info)
+    return out
 
 
 def pack_plain(perm, buf, count, bits, block_off, host_nd, host_devs,

@@ -5,13 +5,18 @@
   source_3LPT_2 = 2 nabla^2(phi) * source_2LPT
                   - 2 sum_{ij} w_ij phi2,ij phi,ij               (LPT.c:89-141)
 
-The two pointwise passes are the Triton kernels of
-``kernels/lpt_triton.py`` on the card; the second derivatives of the 2LPT
-potential reuse the CUDA Hessian multiply at R=0, where exp(0) = 1 makes it
-exactly the JAX package's ``kvec2 * inv_k2 * k_a k_b``.
+The pointwise passes (K4) are the kernels of ``csrc/lpt.cu`` on the card,
+in three forms: the sources from a Hessian stack, the src32 accumulation
+of the six pairs, and of one pair (the out-of-core fold); their entry
+points are looked up once (``_entry``) and called with plain ints.  The
+second derivatives of the 2LPT potential reuse the CUDA Hessian multiply
+at R=0, where exp(0) = 1 makes it exactly the JAX package's
+``kvec2 * inv_k2 * k_a k_b``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -58,10 +63,11 @@ def sources_pointwise(sd):
     if not kernels.plain_or_kernel("lpt_sources_pointwise", sd):
         return sources_pointwise_plain(sd)
     _check_stack("lpt_sources_pointwise", sd)
-    from ..kernels import lpt_triton
     out = torch.empty((3,) + tuple(sd.shape[1:]), dtype=torch.float32,
                       device=sd.device)
-    lpt_triton.launch_pointwise(sd, out)
+    err = launch_pointwise(sd, out, kernels.stream_ptr(sd.get_device()))
+    if err:
+        kernels.check("lpt_sources_pointwise", err)
     kernels.LAUNCHES["lpt_sources_pointwise"] += 1
     return out[0], out[1], out[2]
 
@@ -80,14 +86,66 @@ def src32_accumulate(phi2, sd, src32, weights=PHI2_WEIGHTS):
         raise ValueError("lpt_src32_accumulate: phi2 and sd [6, *S] with "
                          "the weights PHI2_WEIGHTS, or [1, *S] with one "
                          "weight, and src32 [*S] expected")
-    from ..kernels import lpt_triton
+    stream = kernels.stream_ptr(sd.get_device())
     if sd.shape[0] == 6:
-        lpt_triton.launch_accumulate(phi2, sd, src32)
+        err = launch_accumulate(phi2, sd, src32, stream)
     else:
-        lpt_triton.launch_accumulate_one(phi2, sd, src32,
-                                         2.0 * float(weights[0]))
+        err = launch_accumulate_one(phi2, sd, src32, 2.0 * float(weights[0]),
+                                    stream)
+    if err:
+        kernels.check("lpt_src32_accumulate", err)
     kernels.LAUNCHES["lpt_src32_accumulate"] += 1
     return src32
+
+
+_ENTRIES = {}
+
+
+def _entry(name: str):
+    """K4's C entry point ``name``, looked up in the kernel library once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(kernels.lib(), name)
+    return fn
+
+
+# The launches hand the C entry points of csrc/lpt.cu the tensors'
+# pointers, the cells n of one component (64-bit) and the stream, and
+# return the cudaError_t; the kernel takes any 4-byte aligned base and any
+# n (a slab view off the 16-byte grid, an odd count), so nothing here
+# refuses one.
+
+def launch_pointwise(sd, out, stream: int) -> int:
+    """lpt_pointwise: sd [6, *S] in, out [3, *S] written."""
+    return _entry("lpt_pointwise")(sd.data_ptr(), out.data_ptr(),
+                                   sd.numel() // 6, stream)
+
+
+def launch_accumulate(phi2, sd, src32, stream: int) -> int:
+    """lpt_accumulate: the six pairs of phi2, sd [6, *S] into src32 [*S]."""
+    return _entry("lpt_accumulate")(phi2.data_ptr(), sd.data_ptr(),
+                                    src32.data_ptr(), src32.numel(), stream)
+
+
+def launch_accumulate_one(phi2, sd, src32, w2: float, stream: int) -> int:
+    """lpt_accumulate_one: src32 -= w2 phi2 sd, one pair ([1, *S] or [*S]
+    each), w2 = 2 w as a float."""
+    return _entry("lpt_accumulate_one")(phi2.data_ptr(), sd.data_ptr(),
+                                        src32.data_ptr(), src32.numel(), w2,
+                                        stream)
+
+
+def kernel_info() -> dict:
+    """{label: (registers, local bytes, shared bytes, resident 256-thread
+    blocks per SM)} of K4's quad kernels on the current card."""
+    out = {}
+    for which, name in enumerate(("lpt pointwise", "lpt six pairs",
+                                  "lpt one pair")):
+        info = (ctypes.c_int * 4)()
+        kernels.check("lpt_kernel_info",
+                      kernels.lib().lpt_kernel_info(which, info))
+        out[name] = tuple(info)
+    return out
 
 
 def lpt_sources(sd, N: int):

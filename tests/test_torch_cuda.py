@@ -8,11 +8,12 @@ package's test configuration,
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 N = 50 leaves every kernel's last block partly empty (50 * 50 * 26 modes
-is not a multiple of the 256-thread CUDA blocks, 50^3 cells not one of the
-1024-element Triton blocks).  Tolerances are chip_smoke.py's: K1 within
-1e-5 of max|delta| with identical draws, K2/K5 within 1e-6 of the maximum,
-K3 |dF| <= 1e-4 max(1, |F|) on 99.99 % of cells with Rmax equal on 99.9 %,
-K4 within 1e-5 of the maximum.  On the Hessians that reach K3's rare
+is not a multiple of the 256-thread CUDA blocks).  Tolerances are
+chip_smoke.py's: K1 within 1e-5 of max|delta| with identical draws, K2/K5
+within 1e-6 of the maximum, K3 |dF| <= 1e-4 max(1, |F|) on 99.99 % of
+cells with Rmax equal on 99.9 %; K4 (the sources, the six pairs and one
+pair) is bit for bit its plain version, also on odd cell counts and
+copies 4 bytes off the 16-byte grid.  On the Hessians that reach K3's rare
 branches (tests/torch_hessians.py) F and Rmax must be exactly equal, and
 K3 through its bulk-copy ring and with direct loads gives the same bits.  K7
 (the three table lookups) is exactly equal to its plain version on those
@@ -24,8 +25,8 @@ K9 (kz planes), K10 (the three factor modes in their rows and kz-fastest
 forms, on contiguous planes and a spectrum's window, bit for bit, on the
 kz schedule's first and last batch and one over two kz tiles), K11 (K3 on
 a slab, no Rmax) and K12 (the slab row scatter) are exactly equal to their
-plain versions; K4's one-pair accumulation is within
-1e-5 of the maximum.  K13 (K7 on a slab, no Rmax; three lookups) is
+plain versions; K4's one-pair accumulation, pair by pair, gives the
+six-pair pass's bits.  K13 (K7 on a slab, no Rmax; three lookups) is
 exactly equal to its plain version and to K7 on the rare-branch batches and
 on Gaussian Hessians; K14 (the gradient mode with a growth table, in its
 contiguous and kz-fastest forms, on the first, a middle and the last batch
@@ -45,6 +46,10 @@ paint, from its plan) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
 layout, with 16 hosts, wrapped boxes, a box wider than the grid, a host
 with no box, and spheres across the shard's edge and the periodic wrap;
+K15 also with 1, 2, 16 and 33 hosts on one row, ragged row counts, every
+cell of the shard and cells off the 16-byte grid, boxes from x0 = N - 1,
+a host of 40 boxes (two words of masks) and 50 hosts over the 512^3 shard
+(the boxes tested in turn);
 K16 also with 1, 3 and 33 hosts, rows that are members of every host, 4
 and 8 row channels;
 K17 also on adversarial spheres (2r = N, 2r > N, r >= N, fractional and
@@ -380,12 +385,43 @@ def test_lpt_passes(dev):
                     lambda: lpt.sources_pointwise(sd))
     want = lpt.sources_pointwise_plain(sd)
     for g, w in zip(got, want):
-        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+        assert _same_bits(g, w)
     phi2 = _hessians(dev, seed=3)
     want = lpt.src32_accumulate_plain(phi2, sd, want[2])
     got = _launched("lpt_src32_accumulate",
                     lambda: lpt.src32_accumulate(phi2, sd, got[2].clone()))
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4099, 16 * 50 * 50])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_lpt_forms_bit_for_bit(dev, n, shift):
+    """Every K4 form bit for bit its plain version on n cells a component
+    (odd counts put a stack's components at different offsets from the
+    16-byte grid; 16 x 50^2 is the fold's slab at N = 50), with every
+    tensor a copy 0 or 4 bytes past a 16-byte boundary: the sources, the
+    six pairs, and one pair with each weight and a weight that is not a
+    power of two."""
+    gen = torch.Generator(device=dev).manual_seed(n + shift)
+    sd = _shifted(torch.randn((6, n), generator=gen, device=dev) * 10, shift)
+    phi2 = _shifted(torch.randn((6, n), generator=gen, device=dev), shift)
+    got = _launched("lpt_sources_pointwise",
+                    lambda: lpt.sources_pointwise(sd))
+    want = lpt.sources_pointwise_plain(sd)
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+    src = _shifted(want[2], shift)
+    _launched("lpt_src32_accumulate",
+              lambda: lpt.src32_accumulate(phi2, sd, src))
+    assert _same_bits(src, lpt.src32_accumulate_plain(phi2, sd, want[2]))
+    for c, w in ((0, 1.0), (4, 2.0), (5, 0.3)):
+        p1, s1 = _shifted(phi2[c:c + 1], shift), _shifted(sd[c:c + 1], shift)
+        acc = _shifted(want[2], shift)
+        _launched("lpt_src32_accumulate", lambda: lpt.src32_accumulate(
+            p1, s1, acc, weights=(w,)))
+        assert _same_bits(acc, lpt.src32_accumulate_plain(p1, s1, want[2],
+                                                          (w,)))
 
 
 @pytest.mark.cuda
@@ -720,8 +756,8 @@ def test_vrows_slab_several_quads_a_thread(dev, shift):
 @pytest.mark.cuda
 def test_src32_accumulate_one_pair(dev):
     """K4's accumulation of one component pair (the out-of-core fold) on a
-    ragged slab, within 1e-5 of the maximum; the six pairs one at a time
-    give the six-component pass's result."""
+    ragged slab: the six pairs one at a time give the six-component pass's
+    result bit for bit."""
     sd, phi2 = _hessians(dev, seed=2), _hessians(dev, seed=3)
     src = _hessians(dev, seed=4)[0]
     want = lpt.src32_accumulate_plain(phi2, sd, src)
@@ -729,7 +765,7 @@ def test_src32_accumulate_one_pair(dev):
     for c, w in enumerate(lpt.PHI2_WEIGHTS):
         _launched("lpt_src32_accumulate", lambda: lpt.src32_accumulate(
             phi2[c:c + 1], sd[c:c + 1], acc, weights=(w,)))
-    assert (acc - want).abs().max() <= 1e-5 * want.abs().max()
+    assert _same_bits(acc, want)
 
 
 @pytest.mark.cuda
@@ -1234,6 +1270,80 @@ def test_exchange_count(dev, nhosts):
                             hmap=hmap)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nhosts", [1, 2, 16, 33])
+@pytest.mark.parametrize("n", [1, 2 * 256 + 3, 5 * 1024 + 7, None])
+def test_exchange_count_edge_cases(dev, nhosts, n):
+    """K15 exactly its plain version on the (1, 1) shard of a 2x2 pencil
+    at N: one row, counts not a multiple of 4 or 256 (the last run of 256
+    rows and the last block ragged) and every cell of the shard; the cells
+    8 bytes off the 16-byte grid too; boxes with x0 = N - 1 and L >= N, a
+    host with no box (the last, unless H = 1); with boxes and with request
+    maps (H = 33: two bitmask words)."""
+    h2 = N // 2
+    block = (h2, h2, h2, h2, 0, N)
+    ncell = h2 * h2 * N
+    rng = np.random.default_rng(nhosts)
+    cells = np.arange(ncell) if n is None else np.sort(
+        rng.choice(ncell, n, replace=False))
+    rows, off = [], [0]
+    for h in range(nhosts):
+        if h < nhosts - 1 or nhosts == 1:
+            rows.append([N - 1, N + 3, int(rng.integers(0, N)), N // 3,
+                         int(rng.integers(0, N)), N])
+            rows.append([int(rng.integers(0, N)), N // 2, N - 1, 2, 0, N])
+        off.append(len(rows))
+    boxes = torch.tensor(rows, dtype=torch.int32, device=dev)
+    box_off = torch.tensor(off, dtype=torch.int32, device=dev)
+    hmap = torch.from_numpy(rng.random((nhosts, h2, h2, N)) < 0.4).to(
+        torch.uint8).to(dev)
+    c = torch.from_numpy(cells).to(dev)
+    for cc in (c, _shifted(c, 8)):
+        for m in (None, hmap):
+            got = _launched("exchange_count", lambda: xops.count(
+                cc, block, N, boxes, box_off, nhosts, hmap=m))
+            want = xops.count_plain(cc, block, N, boxes, box_off, nhosts,
+                                    hmap=m)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            assert int(got[1].sum()) > 0 or len(cells) < 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nhosts,nbox", [(N, 3, 40), (512, 50, 2)])
+def test_exchange_count_mask_chunks_and_box_loop(dev, n, nhosts, nbox):
+    """K15 exactly its plain version where a host has more than 32 boxes
+    (its masks take two words) and where the masks' tables outgrow shared
+    memory (50 hosts over the 512^3 shard: (H + nb / 32)(2 + 1024) ints
+    above COUNT_TABLE_INTS), so the boxes are tested in turn; some thousand
+    random needed rows of the (1, 1) shard of a 2x2 pencil, boxes wrapped
+    and wider than the grid, the last host none."""
+    h2 = n // 2
+    block = (h2, h2, h2, h2, 0, n)
+    rng = np.random.default_rng(n)
+    cells = np.sort(rng.choice(h2 * h2 * n, 3001, replace=False))
+    rows, off = [], [0]
+    for h in range(nhosts):
+        for _ in range(nbox if h < nhosts - 1 else 0):
+            rows.append([int(v) for v in (
+                rng.integers(0, n), rng.integers(1, n + 5),
+                rng.integers(0, n), rng.integers(1, n + 5),
+                rng.integers(0, n), rng.integers(1, n + 5))])
+        off.append(len(rows))
+    nb = len(rows)
+    masks = nhosts + 1 + (nhosts + nb // 32) * (2 + 2 * n)
+    assert (masks > xops.COUNT_TABLE_INTS) == (nhosts == 50)
+    boxes = torch.tensor(rows, dtype=torch.int32, device=dev)
+    box_off = torch.tensor(off, dtype=torch.int32, device=dev)
+    c = torch.from_numpy(cells).to(dev)
+    got = _launched("exchange_count", lambda: xops.count(
+        c, block, n, boxes, box_off, nhosts))
+    want = xops.count_plain(c, block, n, boxes, box_off, nhosts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 0
 
 
 @pytest.mark.cuda

@@ -76,7 +76,7 @@
      ooc_tabulated   the out-of-core engine with the bicubic lookup, 128^3;
      ooc_tabulated_trilinear, ooc_tabulated_bilinear   the other two, 128^3;
      ooc_scaledep    the out-of-core engine with f(R) growth, RECOMPUTE
-                 and DumpProducts, 256^3, then a ReadProductsFromDumps run
+                 and DumpProducts, 128^3, then a ReadProductsFromDumps run
                  that must launch no kernel and give the same catalogs;
      plc         the classic path with the past light cone (z 0.3 to 0,
                  30 degrees) and the timeless snapshot with RMAX, 256^3:
@@ -99,6 +99,11 @@
                  run), held to the classic path: at most 1e-3 N^3 cells
                  with |dF| > 0.1, variances within rtol 1e-4, halo counts
                  per output within 0.5 %;
+     camb        the CAMB-table configuration (FileWithInputSpectrum
+                 CAMBTable: READ_PK_TABLE, SCALE_DEPENDENT and
+                 RECOMPUTE_DISPLACEMENTS, with HubbleTableFile), 128^3, on
+                 the file set scripts/torch_make_camb_inputs.py writes at
+                 run time: K8 with four displacement sets;
      ooc_mesh    the ooc path with the out-of-core ledger sharded over kz
                  on 4 shards of the one card (K9, K10, K11, K4, K12, K6b on
                  every shard; none of K1-K3, K5, the shard kernels or
@@ -186,15 +191,18 @@
    128^3 with the PLC and a dump both ways, every output file equal;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
    and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, the mesh path
-   at 48^3 and the hosts path at 48^3 (each device's hosts united equal to
-   its one-process run), on the card and on the CPU (the plain versions)
-   and holds the halo catalogs and the PLC crossings to each other;
+   at 48^3, the hosts path at 48^3 (each device's hosts united equal to
+   its one-process run) and the camb path at 48^3, on the card and on the
+   CPU (the plain versions) and holds the halo catalogs and the PLC
+   crossings to each other;
 6. holds the out-of-core engine to the dense engine, the dense one fed the
    delta assembled from the engine's kz planes (Fmax, variances, the needed
-   set and its order, the rows of every displacement set, halo counts),
-   for the classic ellipsoid with the PLC at 256^3 (the crossings must be
-   identical), the bicubic lookup and f(R) growth with RECOMPUTE at 128^3,
-   with each engine's peak memory beside the planner's;
+   set and its order, the rows of every displacement set, halo counts,
+   each engine's launch set), for the classic ellipsoid with the PLC at
+   256^3 (the crossings must be identical), the bicubic lookup, f(R)
+   growth with RECOMPUTE and the CAMB-table configuration (K14 on its
+   growth tables) at 128^3, with each engine's peak memory beside the
+   planner's;
 7. runs the out-of-core fmax phase at 512^3 (ooc='on'; classic, and the
    bicubic lookup) and at 1024^3 under ooc='auto' (classic, f(R) growth),
    where the planner must choose the out-of-core engine; prints its map,
@@ -219,8 +227,12 @@
    CLI (its main, in this process) on the card's memory (planner_cli); the
    classic path's catalogs and
    histories through scripts/torch_pinocchio2fits.py and
-   scripts/torch_validate_fits.py (fits);
-8. checks that neither jax nor any module of the JAX package was imported;
+   scripts/torch_validate_fits.py (fits); the classic path's mass functions
+   through scripts/torch_hmf_validation.py's validate_run (the residual of
+   each output, z=0's beside the reference's 0.206) and its files through
+   scripts/torch_plot_example.py (mf.png, lss.png) (scripts);
+8. checks that neither jax nor any module of the JAX package was imported,
+   and prints the script's seconds, the builds included;
 9. prints one JSON line of the kernels (with the hand-off's timelines and
    traces under "handoff"), then {"ok": true, "device": ...} as the last
    line.  Any failed check exits non-zero before that.
@@ -232,7 +244,10 @@ mesh_fmax, mesh_c2r, ooc_mesh_fmax or one of its names, modes,
 subbox_turns, reference:<path>, ooc_dense:<name>, ooc_fmax, big,
 ooc_mesh_big, refusal, handoff, exchange_kernels, hosts_exchange, hosts,
 procs, ooc_procs, ooc_procs_bf16, storage_kernels, ooc_f16, ooc_mesh_bf16,
-big_bf16, planner_cli, fits) and prints no JSON line.
+big_bf16, planner_cli, fits, scripts) and prints no JSON line, e.g. the
+CAMB-table configuration and the user scripts' twins:
+
+    python3 chip_smoke.py --only camb,ooc_dense:camb,reference:camb,scripts
 """
 
 from __future__ import annotations
@@ -295,6 +310,12 @@ OOC_COMMON = {"ic_kdensity_planes", "ooc_factors_hessian", "ooc_factors_pair",
 OOC = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient"}
 OOC_FR = OOC_COMMON | {"collapse_update_slab", "ooc_factors_gradient_tab"}
 TAB = dict(ell_model="tabulated", ct_interp="bicubic")
+# the CAMB-table configuration (FileWithInputSpectrum CAMBTable: READ_PK_TABLE,
+# SCALE_DEPENDENT and RECOMPUTE_DISPLACEMENTS, with the Hubble table of
+# READ_HUBBLE_TABLE) on the file set scripts/torch_make_camb_inputs.py
+# writes at run time into this run's scratch directory (params_for adds the
+# files' absolute paths; camb_files)
+CAMB = dict(FileWithInputSpectrum="CAMBTable", MaxMemPerParticle=400)
 # the past light cone from the default vertex along the default axis, and
 # the timeless snapshot with its RMAX block
 PLC = dict(plc_enabled=True, StartingzForPLC=0.3, LastzForPLC=0.0,
@@ -344,11 +365,14 @@ OOC_MESH16 = 4
 
 OOC_N = 512
 BIG_N = 1024
-# out-of-core against dense: name -> (grid size, switches); the bicubic
-# and f(R) checks run at 128^3 to keep the whole run inside its time budget
-# (the ooc_mesh_fmax phases hold both models' out-of-core runs at 256^3)
-OOC_CHECKS = {"classic": (256, PLC), "tabulated": (128, TAB),
-              "scaledep": (128, FR)}
+# out-of-core against dense: name -> (grid size, switches, the out-of-core
+# run's launch set; the dense run's is its path's without K1, as it takes
+# the engine's delta); the bicubic, f(R) and CAMB-table checks run at 128^3
+# to keep the whole run inside its time budget (the ooc_mesh_fmax phases
+# hold the first two models' out-of-core runs at 256^3)
+OOC_CHECKS = {"classic": (256, PLC, OOC),
+              "tabulated": (128, TAB, ooc_tab("bicubic")),
+              "scaledep": (128, FR, OOC_FR), "camb": (128, CAMB, OOC_FR)}
 # the big out-of-core fmax phases: name -> (grid size, ooc, switches,
 # launch set); at BIG_N under ooc='auto', where the planner must choose the
 # out-of-core engine; the bicubic lookup runs at OOC_N with ooc='on' (cut
@@ -369,6 +393,8 @@ PATHS = {
                            "kspace_gradient"}),
     "scaledep": (PIPELINE_N, FR, DENSE | {"collapse_update",
                                           "kspace_gradient_tab"}),
+    # the CAMB-table configuration: K8 with four RECOMPUTE sets
+    "camb": (128, CAMB, DENSE | {"collapse_update", "kspace_gradient_tab"}),
     "tabulated_trilinear": (128, dict(ell_model="tabulated",
                                       ct_interp="trilinear"),
                             DENSE | {"collapse_update_table_trilinear",
@@ -386,7 +412,11 @@ PATHS = {
     "ooc_tabulated_bilinear": (128, dict(ooc="on", ell_model="tabulated",
                                          ct_interp="bilinear"),
                                ooc_tab("bilinear")),
-    "ooc_scaledep": (PIPELINE_N, dict(FR, ooc="on", DumpProducts=True),
+    # at 128^3 since the CAMB-table phases joined, to keep the whole run
+    # inside its time budget: at 256^3 its two sweeps (the run and the
+    # restart) took 58 s; the ooc_mesh_fmax phases run its out-of-core fmax
+    # at 256^3 and K14 is timed at 256^3 and 512^3 in the kernel phases
+    "ooc_scaledep": (128, dict(FR, ooc="on", DumpProducts=True),
                      OOC_FR),
     "plc": (PIPELINE_N, dict(PLC, **SNAPSHOT), CLASSIC),
     "subbox": (PIPELINE_N, dict(PLC, subbox_tasks=CORES, **SNAPSHOT),
@@ -420,7 +450,8 @@ OOC_MESH_BIG = 4
 REFERENCE = {"classic": (48, {}), "tabulated": (64, {}), "scaledep": (64, {}),
              "plc": (64, dict(StartingzForPLC=0.1)),
              "subbox": (64, dict(StartingzForPLC=0.1, subbox_tasks=4)),
-             "mesh": (48, {}), "hosts": (48, dict(subbox_tasks=4))}
+             "mesh": (48, {}), "hosts": (48, dict(subbox_tasks=4)),
+             "camb": (48, {})}
 # the classic path's halos at PIPELINE_N per output (z = 2, 1, 0.5, 0),
 # recorded on an NVIDIA H100 80GB HBM3 with the kernels of commit a7598f1,
 # before K1 and K6b were redesigned: the redesigned kernels give the same
@@ -571,7 +602,53 @@ def params_for(N, **kw):
     args = dict(GridSize=N, BoxSize=float(N), output_z=list(OUTPUT_Z),
                 norad=True, plc_enabled=False)
     args.update(kw)
+    if args.get("FileWithInputSpectrum") == "CAMBTable":
+        args.update(camb_files())
+        p = Params(**args)
+        # CAMBTable implies READ_PK_TABLE, SCALE_DEPENDENT and
+        # RECOMPUTE_DISPLACEMENTS, as a parameter file's reader sets them
+        p.validate()
+        return p
     return Params(**args)
+
+
+def script_module(name):
+    """The module of scripts/<name>.py, loaded from its file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def camb_files():
+    """The CAMB-table keys (absolute paths) of the file set that
+    scripts/torch_make_camb_inputs.py writes, on this run's first call,
+    into the scratch directory: 100 spectra uniform in 1/(1+z) to z 99, the
+    redshifts and the Hubble table, from the default cosmology with no
+    radiation (the paths' own)."""
+    import contextlib
+    import io
+    if "camb_files" not in KEPT:
+        d = scratch_dir("camb_inputs")
+        pf = write_parameter_file(d, PIPELINE_N)
+        out = os.path.join(d, "CAMBFiles")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = script_module("torch_make_camb_inputs").main(
+                [pf, "--outdir", out, "--norad"])
+        need(code == 0 and len(os.listdir(out)) == 102,
+             f"the CAMB inputs were not written: {buf.getvalue()}")
+        print(f"  scripts/torch_make_camb_inputs.py wrote "
+              f"{len(os.listdir(out))} files in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        KEPT["camb_files"] = dict(
+            CAMBMatterFile=os.path.join(out, "pk_cb"),
+            CAMBRedshiftsFile=os.path.join(out, "redshifts.dat"),
+            HubbleTableFile=os.path.join(out, "hubble.dat"))
+    return KEPT["camb_files"]
 
 
 def collapse_branches(sd, pack, cells):
@@ -3808,14 +3885,14 @@ def ooc_dense_check(dev, name):
     memory beside the planner's."""
     import numpy as np
     import torch
-    from pinocchio_tpu_torch import fmax, fmax_ooc, planner
+    from pinocchio_tpu_torch import fmax, fmax_ooc, kernels, planner
     from pinocchio_tpu_torch.cosmology import Cosmology
     from pinocchio_tpu_torch.fragment.driver import run_fragmentation
     from pinocchio_tpu_torch.grids import Grid
     from pinocchio_tpu_torch.ic import PlaneGenerator
     from pinocchio_tpu_torch.plc import build_plc_geometry
 
-    N, kw = OOC_CHECKS[name]
+    N, kw, own = OOC_CHECKS[name]
     p = params_for(N, **kw)
     cosmo = Cosmology(p)
     gm = scaledep_gm_for(p, cosmo)
@@ -3823,18 +3900,31 @@ def ooc_dense_check(dev, name):
     torch.cuda.reset_peak_memory_stats()
     kd = PlaneGenerator(Grid(N, p.BoxSize_htrue), cosmo, p.RandomSeed,
                         dev).assemble()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     dense = fmax.run_fmax(p, cosmo, dev, kdensity=kd, scaledep_gm=gm)
+    if dense.pending_fetch is not None:
+        dense.pending_fetch.join()
     torch.cuda.synchronize()
     t_dense = time.perf_counter() - t0
+    launched = {"dense": dict(kernels.LAUNCHES)}
     peak_dense = torch.cuda.max_memory_allocated()
     del kd
     torch.cuda.empty_cache()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                 trace_memory=True)
     ooc.ooc_pending.join()
     t_ooc = time.perf_counter() - t0
+    launched["out-of-core"] = dict(kernels.LAUNCHES)
+    for engine, want in (("dense", PATHS[name][2] - {"ic_kdensity"}),
+                         ("out-of-core", own)):
+        got = {k: v for k, v in launched[engine].items() if v}
+        print(f"  launches of the {engine} engine: {got}", flush=True)
+        need(set(got) == want, f"{name}: the {engine} engine's launch set "
+             f"{sorted(got)} is not {sorted(want)}")
     frac = planner.collapsed_fraction(p, cosmo)
     pd = planner.device_peak(p, False, frac=frac)
     po = planner.device_peak(p, True, frac=frac)
@@ -5012,6 +5102,58 @@ def fits_phase(dev):
          "fits: the classic path's files did not convert and validate")
 
 
+# the reference's HMF Average Residual (HMF_Validation/VALIDATION_log.txt:
+# 27-29), which the scripts phase prints beside the classic path's
+HMF_REFERENCE_RESIDUAL = 0.206
+
+
+def scripts_phase(dev):
+    """The user scripts' twins on the classic path's files at PIPELINE_N
+    (run first if this process has not): scripts/torch_hmf_validation.py's
+    validate_run (its VALIDATION_log.txt, one residual per output, printed
+    beside the reference's; no reference files, so no count compared and no
+    figure) and scripts/torch_plot_example.py (mf.png and lss.png must
+    exist; the path has no PLC) where matplotlib is installed; both in this
+    process."""
+    import contextlib
+    import importlib.util
+    import io
+    if "classic_out" not in KEPT:
+        run_path(dev, "classic")
+    d = KEPT["classic_out"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = script_module("torch_hmf_validation").validate_run(
+            d, params_for(PIPELINE_N))
+    print(buf.getvalue().rstrip(), flush=True)
+    with open(os.path.join(d, "VALIDATION_log.txt")) as fd:
+        logged = fd.read().splitlines()
+    need(len(rows) == len(OUTPUT_Z) == len(logged)
+         and all(math.isfinite(r[1]) for r in rows)
+         and "plotting skipped" in buf.getvalue(),
+         f"scripts: the HMF validation of the classic path: {rows}")
+    print(f"  scripts/torch_hmf_validation.py: z=0 HMF Average Residual "
+          f"(mean |n/n_fit - 1| over the bins with halos) {rows[-1][1]:.4f}, "
+          f"the reference's {HMF_REFERENCE_RESIDUAL}", flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        # the plot twin draws with matplotlib, which the CPU tests run
+        # (tests/test_torch_scripts.py); a machine without it cannot plot
+        print("  scripts/torch_plot_example.py: not run, matplotlib is not "
+              "installed here", flush=True)
+        return
+    pf = write_parameter_file(d, PIPELINE_N)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = script_module("torch_plot_example").main([pf, "--outdir", d])
+    pngs = {f: os.path.getsize(os.path.join(d, f))
+            for f in ("mf.png", "lss.png") if os.path.exists(
+                os.path.join(d, f))}
+    print(f"  scripts/torch_plot_example.py: exit {code}, "
+          f"{buf.getvalue().strip()!r}, {pngs} bytes", flush=True)
+    need(code == 0 and len(pngs) == 2 and all(pngs.values()),
+         "scripts: the plot twin did not write mf.png and lss.png")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
@@ -5024,10 +5166,11 @@ def main(argv=None) -> int:
                     "subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
                     "refusal, handoff, storage_kernels, ooc_f16, "
-                    "ooc_mesh_bf16, big_bf16, planner_cli, fits); no JSON "
-                    "line is printed")
+                    "ooc_mesh_bf16, big_bf16, planner_cli, fits, "
+                    "scripts); no JSON line is printed")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
+    t_main = time.perf_counter()
 
     def wanted(phase):
         return only is None or phase in only
@@ -5099,7 +5242,10 @@ def main(argv=None) -> int:
         for path in PATHS:
             if wanted(path):
                 section(f"{path} path at {PATHS[path][0]}^3:")
+                t0 = time.perf_counter()
                 paths[path] = run_path(dev, path)[0]
+                print(f"  the {path} phase took "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
         if wanted("handoff"):
             section(f"the overlapped hand-off against the blocking one at "
                     f"{PIPELINE_N}^3 and {HANDOFF_N}^3:")
@@ -5166,16 +5312,22 @@ def main(argv=None) -> int:
             if wanted(f"reference:{path}"):
                 section(f"{path} path at {REFERENCE[path][0]}^3 on the card "
                         "and on the CPU:")
+                t0 = time.perf_counter()
                 if path == "hosts":
                     hosts_reference_check(dev)
                 else:
                     reference_check(dev, path)
+                print(f"  the reference:{path} phase took "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
         for name in OOC_CHECKS:
             if wanted(f"ooc_dense:{name}"):
                 section(f"out-of-core against dense at "
                         f"{OOC_CHECKS[name][0]}^3, "
                         f"{name}:")
+                t0 = time.perf_counter()
                 ooc_dense_check(dev, name)
+                print(f"  the ooc_dense:{name} phase took "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
         if wanted("ooc_fmax"):
             section(f"out-of-core fmax phase at {OOC_N}^3, phase by phase:")
             ooc_fmax_phase(dev, OOC_N, "on", {}, OOC)
@@ -5200,12 +5352,20 @@ def main(argv=None) -> int:
         if wanted("fits"):
             section("the classic path's outputs to FITS, validated:")
             fits_phase(dev)
+        if wanted("scripts"):
+            section("the user scripts' twins on the classic path's outputs:")
+            t0 = time.perf_counter()
+            scripts_phase(dev)
+            print(f"  the scripts phase took {time.perf_counter() - t0:.2f} "
+                  "s", flush=True)
         jaxish = sorted(m for m in sys.modules if m == "jax"
                         or m.startswith("jax.") or m == "pinocchio_tpu"
                         or m.startswith("pinocchio_tpu."))
         need(not jaxish, f"modules of jax or the JAX package imported: "
              f"{jaxish[:5]}")
         section("no module of jax or of the JAX package was imported; done")
+        print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s of "
+              "script, the builds included", flush=True)
     except CheckFailed as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

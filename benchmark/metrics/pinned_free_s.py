@@ -1,0 +1,14 @@
+"""pinned_free_s: seconds of page-locked release (cudaFreeHost) per
+realization, from the program's process total
+kernels.HOST_COUNTS["pinned_free"]["seconds"], which each record's
+timings["pinned_free_seconds_total"] holds from the join of its hand-off:
+the last record's total less the first's, over the records between them.
+None with one record, or from a program without the counter."""
+
+
+def read(run):
+    vals = [r["timings"].get("pinned_free_seconds_total")
+            for r in run["records"]]
+    if len(vals) < 2 or vals[0] is None or vals[-1] is None:
+        return None
+    return (vals[-1] - vals[0]) / (len(vals) - 1)

@@ -20,6 +20,10 @@ on (_StreamState, StreamingVel).  With overlap=False they cross in one
 blocking copy after the last set.  With keep_dense_products (the timeless
 snapshot, special mode 3, a dense dump) Fmax, Rmax and each [3, N, N, N]
 stack of the first displacement set are also copied whole to the host.
+
+Each layer of a call opens a span of torch.profiler.record_function, on
+the profiler's clock: fmax.ic, fmax.cycle, fmax.sort, fmax.lpt,
+handoff.alloc (each page-locked buffer of PendingFetch) and handoff.finish.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import kernels
 from .config import Params
@@ -124,6 +129,14 @@ class FmaxResult:
     grid: Grid
     host_products: SparseProducts
     pdf_hist: np.ndarray               # FmaxPDF counts, PDF_BINS bins
+    # seconds of each phase (dens, fmax_loop, lpt, products, ... and the
+    # out-of-core engine's phases); handoff_alloc_s, the seconds of
+    # page-locked allocation on the caller's thread from the end of the
+    # collapse cycle to the return; after the hand-off's join (or at the
+    # return of a blocking one) its handoff_* times and a snapshot of
+    # kernels.HOST_COUNTS as <kind>_<field>_total keys.  The dense
+    # engine's lpt, overlapped on a card, is the device's time between two
+    # CUDA events, present after the join; else a synced host time
     timings: Dict[str, float] = field(default_factory=dict)
     # peak device bytes per phase (the out-of-core engine's trace_memory)
     peaks: Dict[str, int] = field(default_factory=dict)
@@ -556,7 +569,8 @@ class PendingFetch:
     back instead.  finish() waits for the counts, the cell indices and F only;
     the tables stream behind the watermark of a _StreamState.  join() waits for
     the last row, drops the device buffer and adds the hand-off's times to
-    ``timings``."""
+    ``timings``.  lpt_events: the pair of timing events around the LPT on
+    the compute stream (run_fmax sets it on a card), read in join()."""
 
     def __init__(self, device, N: int, count: int, keys, nsets: int,
                  t0: float, timings: dict):
@@ -568,11 +582,15 @@ class PendingFetch:
         self.buf = self._hist = self._ci_F = None
         self._notes = {}               # name -> event set once it landed
         self.timings = timings
+        self.lpt_events = None
+
+    def _host_empty(self, shape, dtype, **kw):
+        with record_function("handoff.alloc"):
+            return kernels.host_empty(shape, dtype, self.device, **kw)
 
     def add_hist(self, counts) -> None:
         """The FmaxPDF counts (int64 [PDF_BINS] on the device)."""
-        host = kernels.host_empty((PDF_BINS,), torch.int64, self.device,
-                                  align=4096)
+        host = self._host_empty((PDF_BINS,), torch.int64, align=4096)
         self.copier.after()
         self._hist = host
         self._notes["hist"] = self.stream.note("hist",
@@ -584,15 +602,14 @@ class PendingFetch:
         c = self.count
         self.copier.after()
         if s == 0:
-            self._ci_F = kernels.host_empty((2 * c,), torch.float32,
-                                            self.device)
+            self._ci_F = self._host_empty((2 * c,), torch.float32)
             self._notes["ci_F"] = self.stream.note(
                 "ci_F", self.copier.copy(self._ci_F, buf[off:off + 2 * c]))
             off += 2 * c
         tables = []
         for j, k in enumerate(self.keys):
             key = _stream_key(s, k)
-            rows = kernels.host_empty((c, 3), torch.float32, self.device)
+            rows = self._host_empty((c, 3), torch.float32)
             self.stream.attach(key, rows.numpy())
             tables.append((key, rows.reshape(-1), off + 3 * c * j))
         b = _chunk_bounds(c)
@@ -627,12 +644,19 @@ class PendingFetch:
         device buffer; adds to ``timings`` and returns the hand-off's times
         in seconds from the end of the collapse cycle: handoff_ci_F (the
         cell indices and F landed), handoff_first (the watermark's first
-        advance), handoff_last (the last row)."""
+        advance), handoff_last (the last row); with lpt_events, lpt (the
+        device's seconds between the two events, which the last row's copy
+        waited for); and the kernels.host_totals() snapshot."""
         try:
             times = self.stream.join()
         finally:
             self.buf = None
         out = {f"handoff_{k}": v for k, v in times.items() if k != "hist"}
+        if self.lpt_events is not None:
+            start, end = self.lpt_events
+            end.synchronize()          # done: the last copy waited for it
+            out["lpt"] = start.elapsed_time(end) * 1e-3
+        out.update(kernels.host_totals())
         self.timings.update(out)
         return out
 
@@ -664,27 +688,30 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     timings = {}
 
     t0 = time.perf_counter()
-    if kdensity is None:
-        kdensity = generate_kdensity(grid, cosmo, params.RandomSeed, device,
-                                     fixed=params.FixedIC,
-                                     paired=params.PairedIC)
-    kdensity = kdensity.to(device)
-    _sync(device)
+    with record_function("fmax.ic"):
+        if kdensity is None:
+            kdensity = generate_kdensity(grid, cosmo, params.RandomSeed,
+                                         device, fixed=params.FixedIC,
+                                         paired=params.PairedIC)
+        kdensity = kdensity.to(device)
+        _sync(device)
     timings["dens"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     radii_grid = (sm.radii / grid.CellSize).astype(np.float32)
-    if params.ell_model != "classic":
-        ct = prepare_ct_tables(params, cosmo, sm, verbose=verbose)
-        timings["ct_tables"] = time.perf_counter() - t0
-        Fmax, Rmax, stats, sd = fmax_loop_tab(
-            kdensity, radii_grid, load_jax_state(ct, device), N,
-            interp=params.ct_interp)
-    else:
-        packs = inverse_growth_packs(cosmo, sm, scaledep_gm)
-        Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
-    sm.true_variance[:] = stats[:, 1].cpu().numpy()      # device sync
+    with record_function("fmax.cycle"):
+        if params.ell_model != "classic":
+            ct = prepare_ct_tables(params, cosmo, sm, verbose=verbose)
+            timings["ct_tables"] = time.perf_counter() - t0
+            Fmax, Rmax, stats, sd = fmax_loop_tab(
+                kdensity, radii_grid, load_jax_state(ct, device), N,
+                interp=params.ct_interp)
+        else:
+            packs = inverse_growth_packs(cosmo, sm, scaledep_gm)
+            Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
+        sm.true_variance[:] = stats[:, 1].cpu().numpy()      # device sync
     t_cycle = time.perf_counter()
+    alloc0 = kernels.thread_alloc_seconds()
     timings["fmax_loop"] = t_cycle - t0
     if verbose:
         for ism in range(sm.n):
@@ -696,7 +723,8 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     # the needed particles in the sweep's order (one sort, used by every
     # displacement set)
     t0 = time.perf_counter()
-    idx = compact.needed_order(Fmax, params.Flast)
+    with record_function("fmax.sort"):
+        idx = compact.needed_order(Fmax, params.Flast)
     t_sort = time.perf_counter() - t0
 
     # displacements at R=0 (fmax.c:152-169, LPT.c): stored at output_z[0]
@@ -728,38 +756,53 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
         if pending is not None:
             # the histogram before LPT, so that its copy does not wait
             pending.add_hist(compact.pdf_hist(Fmax))
-        sources = displacement_sources(kdensity, sd, N, params.lpt_order)
-        del sd
-        sizes = [compact.packed_size(count, len(keys), s == 0)
-                 for s in range(len(zs))]
-        buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-        # each cell's row, built once for every displacement set
-        rank = compact.needed_rank(idx, N ** 3)
-        off = 0
-        for s, z in enumerate(zs):
-            vel = displacement_fields(sources, growths_at(z), N, scaledep)
-            # the needed rows of this set, then its stacks are freed
-            compact.gather_rows(idx, [vel[k] for k in keys],
-                                buf[off:off + sizes[s]],
-                                F=Fmax if s == 0 else None, rank=rank)
-            if pending is not None:
-                pending.add_set(s, buf, off)
-            off += sizes[s]
-            if keep_dense and s == 0:
-                for k in keys:
-                    dense_vel[k] = kernels.to_host(vel[k]).numpy()
-            del vel
-        del sources, rank
-        if pending is None:
-            _sync(device)
-        timings["lpt"] = time.perf_counter() - t0
+        # on a card under overlap the LPT is timed by two events on the
+        # compute stream, read once the last row has landed (join)
+        events = None
+        if pending is not None and pending.device.type == "cuda":
+            compute = torch.cuda.current_stream(pending.device)
+            events = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+            events[0].record(compute)
+        with record_function("fmax.lpt"):
+            sources = displacement_sources(kdensity, sd, N, params.lpt_order)
+            del sd
+            sizes = [compact.packed_size(count, len(keys), s == 0)
+                     for s in range(len(zs))]
+            buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+            # each cell's row, built once for every displacement set
+            rank = compact.needed_rank(idx, N ** 3)
+            off = 0
+            for s, z in enumerate(zs):
+                vel = displacement_fields(sources, growths_at(z), N,
+                                          scaledep)
+                # the needed rows of this set, then its stacks are freed
+                compact.gather_rows(idx, [vel[k] for k in keys],
+                                    buf[off:off + sizes[s]],
+                                    F=Fmax if s == 0 else None, rank=rank)
+                if events is not None and s == len(zs) - 1:
+                    events[1].record(compute)
+                    pending.lpt_events = tuple(events)
+                if pending is not None:
+                    pending.add_set(s, buf, off)
+                off += sizes[s]
+                if keep_dense and s == 0:
+                    for k in keys:
+                        dense_vel[k] = kernels.to_host(vel[k]).numpy()
+                del vel
+            del sources, rank
+            if pending is None:
+                _sync(device)
+        if events is None:
+            timings["lpt"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        if pending is None:
-            sp = unpack_products(buf.cpu().numpy(), N, count, keys, len(zs))
-            hist = compact.pdf_hist(Fmax).cpu().numpy()
-        else:
-            sp, hist = pending.finish()
+        with record_function("handoff.finish"):
+            if pending is None:
+                sp = unpack_products(buf.cpu().numpy(), N, count, keys,
+                                     len(zs))
+                hist = compact.pdf_hist(Fmax).cpu().numpy()
+            else:
+                sp, hist = pending.finish()
         del buf
     except BaseException as e:
         if pending is not None:
@@ -771,8 +814,11 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                               Rmax=kernels.to_host(Rmax).numpy(),
                               vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
+    timings["handoff_alloc_s"] = kernels.thread_alloc_seconds() - alloc0
     if pending is not None:
         timings["handoff_return"] = time.perf_counter() - t_cycle
+    else:
+        timings.update(kernels.host_totals())
     if verbose:
         print(f"  products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%), {len(zs)} displacement "

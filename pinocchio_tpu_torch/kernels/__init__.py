@@ -16,7 +16,14 @@ and reads them afterwards to show which kernels the path went through.
 The module also keeps the device-to-host copy machinery of the hand-off:
 page-locked host buffers (``pinned_empty``), one copy stream per card
 (``copy_stream``) and copies that each end in an event (``HostCopy``,
-``CopyStream``).
+``CopyStream``).  ``HOST_COUNTS`` counts that machinery's work, in the
+shape of ``parallel.multihost.TRAFFIC`` (bytes, seconds, calls per kind),
+as process totals that are never reset (a rate is the difference of two
+readings, ``host_totals``): ``pinned_alloc`` and ``pinned_free`` each
+page-locked block (bytes after the 2 MiB rounding, host seconds inside
+cudaHostAlloc and cudaFreeHost), ``d2h`` each device-to-host copy made by
+``HostCopy`` or ``to_host`` or counted by a caller that copies on its own
+(bytes and calls).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -112,6 +120,14 @@ KERNELS = {
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
+
+HOST_COUNTS = {kind: dict(bytes=0, seconds=0.0, calls=0)
+               for kind in ("pinned_alloc", "pinned_free", "d2h")}
+# re-entrant: a page-locked block's __del__ may run from gc on any thread,
+# also on one that holds the lock inside count_host
+_HOST_LOCK = threading.RLock()
+# per thread: seconds in page-locked allocation (thread_alloc_seconds)
+_THREAD = threading.local()
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -230,6 +246,30 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def count_host(kind: str, nbytes: int, seconds: float = 0.0) -> None:
+    """Add one call of ``nbytes`` and ``seconds`` to HOST_COUNTS[kind]."""
+    with _HOST_LOCK:
+        rec = HOST_COUNTS[kind]
+        rec["bytes"] += int(nbytes)
+        rec["seconds"] += seconds
+        rec["calls"] += 1
+
+
+def host_totals() -> dict:
+    """A snapshot of HOST_COUNTS as flat ``<kind>_<field>_total`` keys (the
+    engines copy it into their timings when the hand-off is joined)."""
+    with _HOST_LOCK:
+        return {f"{kind}_{k}_total": v for kind, rec in HOST_COUNTS.items()
+                for k, v in rec.items()}
+
+
+def thread_alloc_seconds() -> float:
+    """The seconds the calling thread has spent in page-locked allocation
+    since it started (a difference of two readings times a stretch of the
+    thread's own work)."""
+    return getattr(_THREAD, "alloc_s", 0.0)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -321,18 +361,30 @@ PINNED_ALIGN = 2 ** 21
 
 class _PinnedBlock:
     """nbytes of page-locked host memory (cudaHostAlloc through the kernel
-    library) as a numpy buffer, freed when the last array over it goes."""
+    library) as a numpy buffer, freed when the last array over it goes.
+    Each allocation and free is counted in HOST_COUNTS (pinned_alloc,
+    pinned_free), the allocation's seconds also in the calling thread's
+    thread_alloc_seconds."""
 
     def __init__(self, nbytes: int):
         self._lib = lib()
+        t0 = time.perf_counter()
         self.ptr = self._lib.host_alloc(nbytes)
+        dt = time.perf_counter() - t0
         if not self.ptr:
             raise MemoryError(f"cudaHostAlloc of {nbytes} bytes failed")
+        self.nbytes = nbytes
+        _THREAD.alloc_s = thread_alloc_seconds() + dt
+        count_host("pinned_alloc", nbytes, dt)
         self.__array_interface__ = dict(shape=(nbytes,), typestr="|u1",
                                         data=(self.ptr, False), version=3)
 
     def __del__(self):
+        if not getattr(self, "ptr", None):      # __init__ raised
+            return
+        t0 = time.perf_counter()
         self._lib.host_free(self.ptr)
+        count_host("pinned_free", self.nbytes, time.perf_counter() - t0)
 
 
 def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
@@ -384,10 +436,12 @@ class HostCopy:
     has read it.  On the CPU it waits in its CopyStream's queue, and a
     wait() makes it and every copy queued before it, in order, on the
     waiting thread: in both cases a copy that has landed means that every
-    earlier copy of its stream has."""
+    earlier copy of its stream has.  Counted in HOST_COUNTS["d2h"] when
+    made."""
 
     def __init__(self, dst, src, copier: "CopyStream"):
         import torch
+        count_host("d2h", src.numel() * src.element_size())
         self.event = None
         self._copier = copier
         if copier.stream is None:
@@ -454,7 +508,9 @@ class CopyStream:
 
 def to_host(t):
     """A host copy of a tensor: from a card, in page-locked memory of its
-    own size rounded up to 2 MiB (pinned_empty); a CPU tensor's clone."""
+    own size rounded up to 2 MiB (pinned_empty); a CPU tensor's clone.
+    Counted in HOST_COUNTS["d2h"]."""
+    count_host("d2h", t.numel() * t.element_size())
     if t.device.type != "cuda":
         return t.clone()
     host = host_empty(t.shape, t.dtype, t.device)

@@ -79,6 +79,7 @@ import time
 
 import torch
 
+from . import kernels
 from .config import Params, read_parameter_file
 from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
@@ -133,6 +134,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                          else mesh.local_devices()[0])
     check_supported(params)
     t_total = time.perf_counter()
+    host0 = kernels.host_totals()
     timings = {}
     host_id, nhosts = hosts if hosts else (0, 1)
     procs = None if mesh is None else mesh.procs
@@ -339,6 +341,14 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         timings["io"] = time.perf_counter() - t0
 
     timings["total"] = time.perf_counter() - t_total
+    # the run's page-locked allocations and releases and its copies to the
+    # host, from the process totals of kernels.HOST_COUNTS
+    host1 = kernels.host_totals()
+    for kind in ("pinned_alloc", "pinned_free", "d2h"):
+        key = f"{kind}_bytes_total"
+        timings[f"{kind}_gib"] = (host1[key] - host0[key]) / 2 ** 30
+        key = f"{kind}_seconds_total"
+        timings[kind] = host1[key] - host0[key]
     if verbose:
         write_cputimes(timings)
     return dict(cosmo=cosmo, plan=plan, fmax=fmax_res, frag=frag_res,
@@ -378,7 +388,10 @@ def greetings(params: Params, device: torch.device, mesh=None):
 
 
 def write_cputimes(t: dict):
-    """Wall-clock report at exit (write_cputimes, pinocchio.c:266-292)."""
+    """Wall-clock report at exit (write_cputimes, pinocchio.c:266-292),
+    then the run's page-locked host memory and copies to the host
+    (kernels.HOST_COUNTS): seconds in allocation and release, GiB
+    allocated, released and copied."""
     fd = sys.stdout
     total = t.get("total", 0.0) or 1e-30
 
@@ -386,6 +399,10 @@ def write_cputimes(t: dict):
         if key in t:
             fd.write(f"{'  ' * depth}{label:<28s}{t[key]:10.2f} s"
                      f"  ({100.0 * t[key] / total:5.1f}%)\n")
+
+    def gib(label, key, depth=0):
+        if key in t:
+            fd.write(f"{'  ' * depth}{label:<28s}{t[key]:10.2f} GiB\n")
 
     fd.write("\nCPU TIMES\n")
     line("total", "total")
@@ -409,6 +426,12 @@ def write_cputimes(t: dict):
     line("I/O", "io", 1)
     line("PLC", "io_plc", 2)
     line("snapshot", "io_snapshot", 2)
+    fd.write("\nHOST MEMORY\n")
+    line("page-locked allocation", "pinned_alloc", 1)
+    line("page-locked release", "pinned_free", 1)
+    gib("page-locked allocated", "pinned_alloc_gib", 1)
+    gib("page-locked released", "pinned_free_gib", 1)
+    gib("copied to the host", "d2h_gib", 1)
 
 
 def run_special_mode(params: Params, mode: int, outdir: str = ".",

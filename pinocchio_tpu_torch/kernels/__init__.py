@@ -14,16 +14,19 @@ kernel, and nowhere else; a run resets the counts with ``reset_launches``
 and reads them afterwards to show which kernels the path went through.
 
 The module also keeps the device-to-host copy machinery of the hand-off:
-page-locked host buffers (``pinned_empty``), one copy stream per card
+page-locked host buffers (``pinned_empty``, served from a pool of blocks
+that the last array over them gave back), one copy stream per card
 (``copy_stream``) and copies that each end in an event (``HostCopy``,
 ``CopyStream``).  ``HOST_COUNTS`` counts that machinery's work, in the
 shape of ``parallel.multihost.TRAFFIC`` (bytes, seconds, calls per kind),
 as process totals that are never reset (a rate is the difference of two
 readings, ``host_totals``): ``pinned_alloc`` and ``pinned_free`` each
-page-locked block (bytes after the 2 MiB rounding, host seconds inside
-cudaHostAlloc and cudaFreeHost), ``d2h`` each device-to-host copy made by
-``HostCopy`` or ``to_host`` or counted by a caller that copies on its own
-(bytes and calls).
+page-locked block allocated or released (bytes after the 2 MiB rounding,
+host seconds inside cudaHostAlloc and cudaFreeHost), ``pinned_reuse``
+each block handed out again from the pool (its bytes, host seconds in the
+search), ``d2h`` each device-to-host copy made by ``HostCopy`` or
+``to_host`` or counted by a caller that copies on its own (bytes and
+calls).
 """
 
 from __future__ import annotations
@@ -122,9 +125,9 @@ KERNELS = {
 LAUNCHES = {name: 0 for name in KERNELS}
 
 HOST_COUNTS = {kind: dict(bytes=0, seconds=0.0, calls=0)
-               for kind in ("pinned_alloc", "pinned_free", "d2h")}
-# re-entrant: a page-locked block's __del__ may run from gc on any thread,
-# also on one that holds the lock inside count_host
+               for kind in ("pinned_alloc", "pinned_free", "pinned_reuse",
+                            "d2h")}
+# re-entrant: the page-locked pool counts (count_host) under it
 _HOST_LOCK = threading.RLock()
 # per thread: seconds in page-locked allocation (thread_alloc_seconds)
 _THREAD = threading.local()
@@ -359,42 +362,164 @@ def bind(so: ctypes.CDLL, names=None) -> ctypes.CDLL:
 PINNED_ALIGN = 2 ** 21
 
 
-class _PinnedBlock:
-    """nbytes of page-locked host memory (cudaHostAlloc through the kernel
-    library) as a numpy buffer, freed when the last array over it goes.
-    Each allocation and free is counted in HOST_COUNTS (pinned_alloc,
-    pinned_free), the allocation's seconds also in the calling thread's
-    thread_alloc_seconds."""
+# a miss allocates the request plus this share of it, rounded down to the
+# request's alignment, so that realizations whose needed count differs by
+# less reuse the block: the needed count of 512^3 realizations spread by up
+# to 0.5 % over a window (benchmark records on an H100)
+PINNED_HEADROOM = 1 / 32
 
-    def __init__(self, nbytes: int):
-        self._lib = lib()
-        t0 = time.perf_counter()
-        self.ptr = self._lib.host_alloc(nbytes)
-        dt = time.perf_counter() - t0
-        if not self.ptr:
-            raise MemoryError(f"cudaHostAlloc of {nbytes} bytes failed")
-        self.nbytes = nbytes
-        _THREAD.alloc_s = thread_alloc_seconds() + dt
-        count_host("pinned_alloc", nbytes, dt)
-        self.__array_interface__ = dict(shape=(nbytes,), typestr="|u1",
-                                        data=(self.ptr, False), version=3)
 
-    def __del__(self):
-        if not getattr(self, "ptr", None):      # __init__ raised
-            return
+class _Pinned:
+    """One page-locked allocation (cudaHostAlloc through ``lib``) of
+    ``nbytes`` at ``ptr``, with the last copy event enqueued into it on
+    each stream (HostCopy)."""
+
+    __slots__ = ("lib", "ptr", "nbytes", "events")
+
+    def __init__(self, lib, ptr: int, nbytes: int):
+        self.lib, self.ptr, self.nbytes = lib, ptr, nbytes
+        self.events = {}
+
+    def landed(self) -> bool:
+        """Whether every copy into the block has completed (a query of each
+        stream's last event, never a wait)."""
+        if not all(ev.query() for ev in self.events.values()):
+            return False
+        self.events.clear()
+        return True
+
+    def free(self) -> None:
         t0 = time.perf_counter()
-        self._lib.host_free(self.ptr)
+        self.lib.host_free(self.ptr)
         count_host("pinned_free", self.nbytes, time.perf_counter() - t0)
 
 
+class _PinnedPool:
+    """The process's page-locked blocks: those handed out (``live``) and
+    the idle ones given back when the last array over them went, oldest
+    first.  A request of n bytes takes the smallest idle block of n to
+    n + n/8 bytes whose copies have landed.  On a miss, idle blocks are
+    released, oldest first, until the idle and live bytes with the new
+    block come to no more than the larger of the live bytes' high-water
+    mark and the live bytes with the new block, so the footprint follows
+    the live peak and not every size ever asked for.  A block comes back
+    through ``give``, from a __del__ on any thread and under gc: a deque
+    append, no lock and no CUDA call; ``take`` and ``release`` move the
+    returns to the idle list under _HOST_LOCK and allocate and release
+    outside it."""
+
+    def __init__(self):
+        import collections
+        self.returns = collections.deque()
+        self.idle = []
+        self.live = {}                 # ptr -> _Pinned
+        self.live_bytes = self.high = 0
+
+    def give(self, mem: _Pinned) -> None:
+        self.returns.append(mem)
+
+    def _drain(self) -> None:
+        while self.returns:
+            mem = self.returns.popleft()
+            del self.live[mem.ptr]
+            self.live_bytes -= mem.nbytes
+            self.idle.append(mem)
+
+    def _hand_out(self, mem: _Pinned) -> None:
+        self.live[mem.ptr] = mem
+        self.live_bytes += mem.nbytes
+        self.high = max(self.high, self.live_bytes)
+
+    def take(self, n: int, align: int) -> _Pinned:
+        """A block of at least ``n`` bytes (a multiple of ``align``)."""
+        t0 = time.perf_counter()
+        with _HOST_LOCK:
+            self._drain()
+            best = None
+            for mem in self.idle:
+                if (n <= mem.nbytes <= n + n // 8
+                        and (best is None or mem.nbytes < best.nbytes)
+                        and mem.landed()):
+                    best = mem
+            if best is not None:
+                self.idle.remove(best)
+                self._hand_out(best)
+                count_host("pinned_reuse", best.nbytes,
+                           time.perf_counter() - t0)
+                return best
+            size = n + int(n * PINNED_HEADROOM) // align * align
+            stale = []
+            while self.idle and (
+                    sum(m.nbytes for m in self.idle) + self.live_bytes
+                    + size > max(self.high, self.live_bytes + size)):
+                stale.append(self.idle.pop(0))
+            self.live_bytes += size            # held for the new block
+        for mem in stale:
+            mem.free()
+        lib_ = lib()
+        t0 = time.perf_counter()
+        ptr = lib_.host_alloc(size)
+        dt = time.perf_counter() - t0
+        with _HOST_LOCK:
+            self.live_bytes -= size
+            if not ptr:
+                raise MemoryError(f"cudaHostAlloc of {size} bytes failed")
+            mem = _Pinned(lib_, ptr, size)
+            self._hand_out(mem)
+        _THREAD.alloc_s = thread_alloc_seconds() + dt
+        count_host("pinned_alloc", size, dt)
+        return mem
+
+    def note_copy(self, ptr: int, stream, event) -> None:
+        """Record ``event`` as the last copy on ``stream`` into the live
+        block that holds address ``ptr`` (none: not page-locked here)."""
+        with _HOST_LOCK:
+            for mem in self.live.values():
+                if mem.ptr <= ptr < mem.ptr + mem.nbytes:
+                    mem.events[stream] = event
+                    return
+
+    def release(self) -> None:
+        with _HOST_LOCK:
+            self._drain()
+            stale, self.idle = self.idle, []
+            self.high = self.live_bytes
+        for mem in stale:
+            mem.free()
+
+
+_POOL = _PinnedPool()
+
+
+class _PinnedBlock:
+    """A pool block as a numpy buffer, given back to the pool when the
+    last array over it goes."""
+
+    def __init__(self, mem: _Pinned):
+        self.mem, self._give = mem, _POOL.give
+        self.__array_interface__ = dict(shape=(mem.nbytes,), typestr="|u1",
+                                        data=(mem.ptr, False), version=3)
+
+    def __del__(self):
+        self._give(self.mem)
+
+
+def release_pinned() -> None:
+    """Release every idle page-locked block of the pool (cudaFreeHost,
+    counted as pinned_free); the live bytes' high-water mark starts again
+    from the blocks still held."""
+    _POOL.release()
+
+
 def pinned_empty(shape, dtype, align: int = PINNED_ALIGN) -> np.ndarray:
-    """An uninitialized numpy array in page-locked host memory of its own
-    size rounded up to a multiple of ``align`` (PyTorch's pinned allocator
-    rounds each buffer up to a power of two and keeps it cached after
-    use)."""
+    """An uninitialized numpy array in page-locked host memory: a block of
+    the pool of at least its size rounded up to a multiple of ``align``
+    (_PinnedPool; PyTorch's pinned allocator rounds each buffer up to a
+    power of two instead)."""
     dtype = np.dtype(dtype)
     nbytes = int(np.prod(shape)) * dtype.itemsize
-    raw = np.asarray(_PinnedBlock(-(-max(nbytes, 1) // align) * align))
+    mem = _POOL.take(-(-max(nbytes, 1) // align) * align, align)
+    raw = np.asarray(_PinnedBlock(mem))
     return raw[:nbytes].view(dtype).reshape(shape)
 
 
@@ -456,6 +581,8 @@ class HostCopy:
             # than spins beside the sweep
             self.event = torch.cuda.Event(blocking=True)
             self.event.record(copier.stream)
+        # the pool hands dst's block out again only once this has landed
+        _POOL.note_copy(dst.data_ptr(), copier.stream, self.event)
 
     def wait(self) -> None:
         """Return once the copy has landed in ``dst``."""

@@ -341,10 +341,11 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         timings["io"] = time.perf_counter() - t0
 
     timings["total"] = time.perf_counter() - t_total
-    # the run's page-locked allocations and releases and its copies to the
-    # host, from the process totals of kernels.HOST_COUNTS
+    # the run's page-locked allocations, releases and blocks reused from the
+    # pool and its copies to the host, from the process totals of
+    # kernels.HOST_COUNTS
     host1 = kernels.host_totals()
-    for kind in ("pinned_alloc", "pinned_free", "d2h"):
+    for kind in ("pinned_alloc", "pinned_free", "pinned_reuse", "d2h"):
         key = f"{kind}_bytes_total"
         timings[f"{kind}_gib"] = (host1[key] - host0[key]) / 2 ** 30
         key = f"{kind}_seconds_total"
@@ -390,8 +391,8 @@ def greetings(params: Params, device: torch.device, mesh=None):
 def write_cputimes(t: dict):
     """Wall-clock report at exit (write_cputimes, pinocchio.c:266-292),
     then the run's page-locked host memory and copies to the host
-    (kernels.HOST_COUNTS): seconds in allocation and release, GiB
-    allocated, released and copied."""
+    (kernels.HOST_COUNTS): seconds in allocation, in reuse from the pool
+    and in release, GiB allocated, reused, released and copied."""
     fd = sys.stdout
     total = t.get("total", 0.0) or 1e-30
 
@@ -428,8 +429,10 @@ def write_cputimes(t: dict):
     line("snapshot", "io_snapshot", 2)
     fd.write("\nHOST MEMORY\n")
     line("page-locked allocation", "pinned_alloc", 1)
+    line("page-locked reuse", "pinned_reuse", 1)
     line("page-locked release", "pinned_free", 1)
     gib("page-locked allocated", "pinned_alloc_gib", 1)
+    gib("page-locked reused", "pinned_reuse_gib", 1)
     gib("page-locked released", "pinned_free_gib", 1)
     gib("copied to the host", "d2h_gib", 1)
 

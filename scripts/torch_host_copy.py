@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Device-to-host copies of the out-of-core engine's products on one GPU,
-five ways.
+six ways.
 
 The engine ends with the needed cells' products on the card: the cell
 indices (int64), F (float32) and the [count, 3] float32 rows of each
@@ -9,20 +9,26 @@ pinocchio_tpu_torch/kernels/__init__.py:to_host does, into
 
   engine    page-locked memory of the buffer's size rounded up to 2 MiB
             (cudaHostAlloc through the port's kernel library,
-            kernels.pinned_empty), the engine's way;
+            kernels.pinned_empty), the engine's way on its first
+            realization: the pool's idle blocks are released after the
+            round (kernels.release_pinned), so each round allocates;
   exact     the same, allocated at the buffer's exact size;
   pow2      the same, allocated at the next power of two;
+  pool      the engine's way with the pool kept after the round, as the
+            engine runs an ensemble: a second pool round takes the first
+            one's blocks again, with no cudaHostAlloc;
   pageable  ordinary host memory (Tensor.cpu());
   cached    PyTorch's pinned allocator (torch.empty(pin_memory=True)),
             which rounds each buffer up to a power of two and keeps it
             cached after it is freed, so a second round reuses it.
 
 Each way named in --ways runs in turn, in that order; a round copies every
-buffer and frees the host copies.  Prints seconds, GB/s and the host's
+buffer and drops the host copies (a pool round's blocks stay in the pool
+for the next).  Prints seconds, GB/s and the host's
 MemAvailable per round, then one JSON line.
 
     python3 scripts/torch_host_copy.py [--count 704237034] [--fields 4]
-        [--ways engine,exact,pow2,pageable,cached,cached]
+        [--ways engine,exact,pow2,pageable,cached,cached,pool,pool]
 
 The default count is the needed cells of the 1024^3 classic run.
 """
@@ -55,7 +61,7 @@ def main() -> int:
     ap.add_argument("--count", type=int, default=704237034)
     ap.add_argument("--fields", type=int, default=4)
     ap.add_argument("--ways", default="engine,exact,pow2,pageable,cached,"
-                    "cached")
+                    "cached,pool,pool")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_host_copy.py: no CUDA device", file=sys.stderr)
@@ -92,6 +98,7 @@ def main() -> int:
             "exact": lambda t: pinned(t, lambda b: 1),
             "pow2": lambda t: pinned(t, lambda b: 1 << (b - 1).bit_length()),
             "pageable": lambda t: t.cpu(), "cached": cached}
+    ways["pool"] = ways["engine"]
     rounds = []
     for name in args.ways.split(","):
         before = mem_available()
@@ -100,6 +107,8 @@ def main() -> int:
         secs = time.perf_counter() - t0
         held = before - mem_available()
         del hosts
+        if name != "pool":
+            kernels.release_pinned()
         rounds.append(dict(way=name, seconds=secs,
                            gb_per_s=nbytes / secs / 1e9,
                            host_bytes_held=held,

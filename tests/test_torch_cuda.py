@@ -1055,6 +1055,76 @@ def test_overlapped_handoff_on_the_card(dev, setup):
             np.testing.assert_array_equal(np.sort(x.name), np.sort(y.name))
 
 
+def _host_arrays(res):
+    """Every host array of a realization's products, in page-locked
+    memory: the FmaxPDF counts, the cell indices, F and each set's rows."""
+    sp = res.host_products
+    sets = sp.segments if sp.segments is not None else [sp.vel]
+    return [res.pdf_hist, sp.ci, sp.F] + [
+        s.buffer(k) if hasattr(s, "buffer") else s[k]
+        for s in sets for k in s.keys()]
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "ooc"])
+def test_pinned_pool_across_realizations(dev, engine):
+    """Three 64^3 realizations, seeds 1, 2, 3, the first's products kept
+    and the second's dropped: the third's page-locked buffers all come
+    from the pool (on the out-of-core engine also the lpt_rows thread's),
+    the first's products keep their bits through the third, and the
+    third's equal its seed's run into fresh memory after
+    release_pinned()."""
+    import dataclasses
+    import gc
+    p = Params(GridSize=64, BoxSize=64.0, output_z=[2.0, 1.0, 0.5, 0.0],
+               norad=True, plc_enabled=False,
+               ooc="on" if engine == "ooc" else "off")
+    cosmo = Cosmology(p)
+    run = fmax_ooc.run_fmax_ooc if engine == "ooc" else fmax.run_fmax
+
+    def realize(seed):
+        res = run(dataclasses.replace(p, RandomSeed=seed), cosmo, dev)
+        (res.pending_fetch or res.ooc_pending).join()
+        return res
+
+    gc.collect()
+    kernels.release_pinned()
+    res = realize(1)
+    first = _host_arrays(res)
+    want = [_bits(a).copy() for a in first]
+    del res
+    res = realize(2)
+    del res
+    gc.collect()
+    before = kernels.host_totals()
+    res = realize(3)
+    after = kernels.host_totals()
+    third = [_bits(a).copy() for a in _host_arrays(res)]
+    del res
+    gc.collect()
+    assert after["pinned_alloc_calls_total"] == before[
+        "pinned_alloc_calls_total"]
+    assert after["pinned_reuse_calls_total"] > before[
+        "pinned_reuse_calls_total"]
+    for a, w in zip(first, want):
+        np.testing.assert_array_equal(_bits(a), w)
+    del first
+    gc.collect()
+    kernels.release_pinned()
+    before = kernels.host_totals()
+    res = realize(3)
+    assert kernels.host_totals()["pinned_reuse_calls_total"] == before[
+        "pinned_reuse_calls_total"]
+    fresh = _host_arrays(res)
+    assert len(fresh) == len(third)
+    for a, w in zip(fresh, third):
+        np.testing.assert_array_equal(_bits(a), w)
+
+
 @pytest.mark.parametrize("name,fn", [
     ("ic_kdensity_shard", lambda t: ic.kdensity_shard(
         4, t, t, (0, 0), (0, 0), 0.0, 1.0, False, False, 0, 2, 0, 3)),

@@ -8,10 +8,10 @@ unless marked ``cuda``.
   handoff.alloc inside ooc.products and inside ooc.lpt_rows, which runs on
   a thread of its own (seen with the profiler's profile_all_threads).
 - The counters through a stub kernel library: page-locked bytes rounded up
-  to 2 MiB, one call per block, its release on the block's last
-  reference, the calling thread's allocation seconds, and a block's
-  __del__ run by gc on a thread that holds the counters' lock, which must
-  not deadlock.
+  to 2 MiB, one call per block, its release by kernels.release_pinned()
+  once its last reference went (the block waits in the pool until then),
+  the calling thread's allocation seconds, and a block's __del__ run by gc
+  on a thread that holds the counters' lock, which must not deadlock.
 - d2h bytes equal to the products' bytes on the CPU copy path, on both
   engines (the out-of-core one on one device and on 2 CPU shards).
 - After the join (or the return of a blocking run) every ``_total`` key
@@ -204,9 +204,14 @@ class _StubLib:
 
 @pytest.fixture
 def stub(monkeypatch):
+    """The stub library, over a pool with no idle block (released before
+    and after)."""
+    kernels.release_pinned()
     lib = _StubLib()
     monkeypatch.setattr(kernels, "_LIB", lib)
-    return lib
+    yield lib
+    gc.collect()
+    kernels.release_pinned()
 
 
 def _totals():
@@ -235,6 +240,8 @@ def test_pinned_counters_round_and_count(stub, nbytes, rounded):
     del arr
     assert _delta(before, "pinned_free_calls_total") == 0   # a view holds it
     del view
+    assert _delta(before, "pinned_free_calls_total") == 0   # in the pool
+    kernels.release_pinned()
     assert not stub.live
     assert _delta(before, "pinned_free_bytes_total") == rounded
     assert _delta(before, "pinned_free_calls_total") == 1
@@ -258,9 +265,10 @@ def test_thread_alloc_seconds_is_per_thread(stub):
 
 
 def test_del_from_gc_under_the_counters_lock(stub):
-    """A block in a reference cycle is freed by gc.collect() on a thread
-    that holds the counters' lock: its __del__ counts under that lock
-    again, which a plain Lock would deadlock on."""
+    """A block in a reference cycle is given back to the pool by
+    gc.collect() on a thread that holds the counters' lock (a plain Lock
+    around the pool would deadlock there), and release_pinned() frees
+    it."""
     before = _totals()
     was = gc.isenabled()
     gc.disable()
@@ -283,6 +291,8 @@ def test_del_from_gc_under_the_counters_lock(stub):
     finally:
         if was:
             gc.enable()
+    assert _delta(before, "pinned_free_calls_total") == 0
+    kernels.release_pinned()
     assert _delta(before, "pinned_free_calls_total") == 1
     assert _delta(before, "pinned_free_bytes_total") == MIB2
     assert not stub.live
@@ -380,13 +390,16 @@ def test_join_resolves_the_lpt_events(classic):
 
 def test_write_cputimes_host_lines(capsys):
     write_cputimes(dict(total=10.0, pinned_alloc=2.5, pinned_free=1.25,
-                        pinned_alloc_gib=4.5, pinned_free_gib=4.25,
+                        pinned_reuse=0.0625, pinned_alloc_gib=4.5,
+                        pinned_free_gib=4.25, pinned_reuse_gib=9.25,
                         d2h_gib=4.5))
     out = capsys.readouterr().out
     assert "HOST MEMORY" in out
     for label, text in (("page-locked allocation", "2.50 s"),
+                        ("page-locked reuse", "0.06 s"),
                         ("page-locked release", "1.25 s"),
                         ("page-locked allocated", "4.50 GiB"),
+                        ("page-locked reused", "9.25 GiB"),
                         ("page-locked released", "4.25 GiB"),
                         ("copied to the host", "4.50 GiB")):
         line = next(x for x in out.splitlines() if label in x)
@@ -414,6 +427,8 @@ def _rounded(nbytes):
 def test_card_counters_and_lpt(dev, engine):
     setup = _setup(64)
     _join(_run(engine, setup, device=dev))        # warm: plans, library
+    gc.collect()
+    kernels.release_pinned()        # so that every buffer is allocated
     before = _totals()
     res = _run(engine, setup, device=dev)
     _join(res)
@@ -432,6 +447,7 @@ def test_card_counters_and_lpt(dev, engine):
     assert _delta(before, "d2h_bytes_total") > 0
     del res
     gc.collect()
+    kernels.release_pinned()
     assert _delta(before, "pinned_free_bytes_total") >= expected
 
 

@@ -146,6 +146,9 @@ def test_ooc_overlap_equals_blocking(model, shards, classic, fr):
     _same_products(res, blocking)
     timings = res.ooc_pending.join()
     assert "lpt_rows" in timings
+    # the row phase is timed on a card's events alone
+    assert "rows_device_s" not in timings
+    assert "rows_device_s" not in blocking.timings
     assert timings["handoff_return"] <= timings["handoff_last"]
 
 

@@ -5,8 +5,9 @@ unless marked ``cuda``.
   their nesting, under a CPU profiler of a 32^3 run: fmax.ic, fmax.cycle,
   fmax.sort, fmax.lpt (holding each table's handoff.alloc), handoff.finish
   on the dense engine; ooc.<phase> per phase of the out-of-core engine,
-  handoff.alloc inside ooc.products and inside ooc.lpt_rows, which runs on
-  a thread of its own (seen with the profiler's profile_all_threads).
+  handoff.alloc inside ooc.products and inside each displacement set's
+  ooc.rows_set of ooc.lpt_rows, which runs on a thread of its own (seen
+  with the profiler's profile_all_threads).
 - The counters through a stub kernel library: page-locked bytes rounded up
   to 2 MiB, one call per block, its release by kernels.release_pinned()
   once its last reference went (the block waits in the pool until then),
@@ -16,10 +17,12 @@ unless marked ``cuda``.
   engines (the out-of-core one on one device and on 2 CPU shards).
 - After the join (or the return of a blocking run) every ``_total`` key
   and handoff_alloc_s are in the result's timings; the dense LPT's event
-  pair resolved into timings["lpt"]; run.write_cputimes's host lines.
+  pair resolved into timings["lpt"], the out-of-core row phase's into
+  timings["rows_device_s"]; run.write_cputimes's host lines.
 - On the card (``cuda``): a 64^3 realization of each engine reads
   positive page-locked counters, their bytes the products' rounded up to
-  2 MiB per buffer, and the dense engine a positive device-timed lpt.
+  2 MiB per buffer, and the dense engine a positive device-timed lpt; the
+  out-of-core f(R) row phase a device time within its synced wall time.
 """
 
 import ctypes
@@ -147,19 +150,23 @@ def test_dense_blocking_spans(classic):
         "handoff.finish"]
 
 
+@pytest.mark.parametrize("model", ["classic", "fr"])
 @pytest.mark.parametrize("overlap", [True, False])
-def test_ooc_spans_and_nesting(overlap, classic):
+def test_ooc_spans_and_nesting(overlap, model, classic, fr):
     from torch._C._profiler import _ExperimentalConfig
     with profile(activities=[ProfilerActivity.CPU],
                  experimental_config=_ExperimentalConfig(
                      profile_all_threads=True)) as prof:
         with record_function("test.entry"):
-            res = _run("ooc", classic, overlap=overlap)
+            res = _run("ooc", classic if model == "classic" else fr,
+                       overlap=overlap)
         _join(res)
     spans = _spans(prof)
     nkeys = len(res.host_products.vel)
     main = spans[0][1]
-    phases = [s for s in spans if s[0].startswith("ooc.")]
+    sets = [s for s in spans if s[0] == "ooc.rows_set"]
+    phases = [s for s in spans if s[0].startswith("ooc.")
+              and s[0] != "ooc.rows_set"]
     assert [s[0] for s in phases] == ["ooc.fmax_loop", "ooc.sources",
                                       "ooc.fold", "ooc.spectra",
                                       "ooc.products", "ooc.lpt_rows"]
@@ -171,11 +178,14 @@ def test_ooc_spans_and_nesting(overlap, classic):
         assert rows[1] != main and rows[2] is None
     else:
         assert rows[1] == main and rows[2] == "test.entry"
+    # a span a displacement set inside the row phase, on its thread
+    assert len(sets) == _nsets(res) == (4 if model == "fr" else 1)
+    assert {(s[1], s[2]) for s in sets} == {(rows[1], "ooc.lpt_rows")}
     allocs = [s for s in spans if s[0] == "handoff.alloc"]
-    # the cell indices and F in ooc.products, a table a field in
-    # ooc.lpt_rows, each on its phase's thread
+    # the cell indices and F in ooc.products, a table a field and set in
+    # its set's ooc.rows_set, each on its phase's thread
     assert [s[2] for s in allocs] == (["ooc.products"] * 2
-                                      + ["ooc.lpt_rows"] * nkeys)
+                                      + ["ooc.rows_set"] * nkeys * len(sets))
     assert {s[1] for s in allocs[:2]} == {main}
     assert {s[1] for s in allocs[2:]} == {rows[1]}
     assert len(spans) <= 50
@@ -388,6 +398,28 @@ def test_join_resolves_the_lpt_events(classic):
     assert res.timings["lpt"] == 0.25 != cpu_lpt
 
 
+def test_join_resolves_the_row_events(classic):
+    """_OocPending.join reads the row phase's device time from its
+    _RowEvents, the longest of its cards' event pairs (stand-ins here for
+    the card's timing events)."""
+
+    class Event:
+        def __init__(self, ms):
+            self.ms = ms
+
+        def elapsed_time(self, other):
+            return other.ms - self.ms
+
+    res = _run("ooc", classic)
+    res.ooc_pending.thread.join()
+    rows = res.ooc_pending._box["rows"]
+    assert rows.devs == [] and rows.timings() == {}
+    rows.marks = [[Event(0.0), Event(10.0)], [Event(150.0), Event(260.0)]]
+    out = res.ooc_pending.join()
+    assert out["rows_device_s"] == pytest.approx(0.25)
+    assert res.timings["rows_device_s"] == out["rows_device_s"]
+
+
 def test_write_cputimes_host_lines(capsys):
     write_cputimes(dict(total=10.0, pinned_alloc=2.5, pinned_free=1.25,
                         pinned_reuse=0.0625, pinned_alloc_gib=4.5,
@@ -449,6 +481,23 @@ def test_card_counters_and_lpt(dev, engine):
     gc.collect()
     kernels.release_pinned()
     assert _delta(before, "pinned_free_bytes_total") >= expected
+
+
+@pytest.mark.cuda
+def test_card_rows_device_s(dev):
+    """f(R) at 64^3 on the out-of-core engine: the row phase's device time,
+    read at the join, is positive and within the phase's synced wall
+    time."""
+    setup = _setup(64, **FR)
+    _join(_run("ooc", setup, device=dev))         # warm: plans, library
+    res = _run("ooc", setup, device=dev)
+    assert "rows_device_s" not in res.timings
+    t = res.ooc_pending.join()
+    assert _nsets(res) == 4
+    assert 0.0 < t["rows_device_s"] <= t["lpt_rows"]
+    blocking = _run("ooc", setup, device=dev, overlap=False)
+    b = blocking.timings
+    assert 0.0 < b["rows_device_s"] <= b["lpt_rows"]
 
 
 # ------------------------------------------------------------------

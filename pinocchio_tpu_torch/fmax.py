@@ -12,14 +12,15 @@ device in the sweep's (-F, cell) order; their rows of every displacement
 set (one set, or one per output redshift with RECOMPUTE_DISPLACEMENTS) are
 gathered into one packed buffer (K6a) and handed to the host with the
 FmaxPDF histogram (K6b).  By default the hand-off overlaps the device's
-work (PendingFetch): the histogram is binned before LPT, and each set's
-rows cross to page-locked memory on a copy stream of their own, in
-N_CHUNKS prefix chunks per table, as soon as K6a has gathered them; a
-waiter thread advances the rows_ready watermark that the C sweep starts
-on (_StreamState, StreamingVel).  With overlap=False they cross in one
-blocking copy after the last set.  With keep_dense_products (the timeless
-snapshot, special mode 3, a dense dump) Fmax, Rmax and each [3, N, N, N]
-stack of the first displacement set are also copied whole to the host.
+work (PendingFetch): the histogram is binned and the sort's int64 cell
+indices cross before LPT, and each set's rows cross to page-locked memory
+on a copy stream of their own, in N_CHUNKS prefix chunks per table, as
+soon as K6a has gathered them; a waiter thread advances the rows_ready
+watermark that the C sweep starts on (_StreamState, StreamingVel).  With
+overlap=False they cross in one blocking copy after the last set.  With
+keep_dense_products (the timeless snapshot, special mode 3, a dense dump)
+Fmax, Rmax and each [3, N, N, N] stack of the first displacement set are
+also copied whole to the host.
 
 Each layer of a call opens a span of torch.profiler.record_function, on
 the profiler's clock: fmax.ic, fmax.cycle, fmax.sort, fmax.lpt,
@@ -557,20 +558,24 @@ def streaming_sets(stream: _StreamState, keys, nsets: int, n: int):
 class PendingFetch:
     """The dense engine's overlapped hand-off (counterpart of the JAX
     package's PendingFetch).  On the device's copy stream, into
-    page-locked host buffers: the FmaxPDF counts, then each displacement
-    set as soon as K6a has gathered its rows into the packed device
-    buffer, while the device goes on with the next set; the first set's
-    cell indices and F first, then each table's rows in N_CHUNKS prefix
+    page-locked host buffers: the FmaxPDF counts and the sort's int64 cell
+    indices before LPT, then each displacement set as soon as K6a has
+    gathered its rows into the packed device buffer, while the device goes
+    on with the next set; the first set's F first (K6a's packed int32
+    indices are not copied), then each table's rows in N_CHUNKS prefix
     chunks interleaved by (chunk, table), so the watermark advances
-    evenly.  A set's host buffers are allocated when its gather has been
-    enqueued, so that the device runs the set's work meanwhile: the CUDA
-    driver serializes page-locked allocations with every other CUDA call of the
-    process, so an allocation on a thread of its own would hold the launches
-    back instead.  finish() waits for the counts, the cell indices and F only;
-    the tables stream behind the watermark of a _StreamState.  join() waits for
-    the last row, drops the device buffer and adds the hand-off's times to
-    ``timings``.  lpt_events: the pair of timing events around the LPT on
-    the compute stream (run_fmax sets it on a card), read in join()."""
+    evenly.  The cell indices and F share one block of 12 bytes a row,
+    int64 then float32, a table's size.  A set's host buffers are
+    allocated when its gather has been enqueued, so that the device runs
+    the set's work meanwhile: the CUDA driver serializes page-locked
+    allocations with every other CUDA call of the process, so an
+    allocation on a thread of its own would hold the launches back
+    instead.  finish() waits for the counts, the cell indices and F only,
+    and returns views of their host buffers; the tables stream behind the
+    watermark of a _StreamState.  join() waits for the last row, drops the
+    device buffer and adds the hand-off's times to ``timings``.
+    lpt_events: the pair of timing events around the LPT on the compute
+    stream (run_fmax sets it on a card), read in join()."""
 
     def __init__(self, device, N: int, count: int, keys, nsets: int,
                  t0: float, timings: dict):
@@ -596,15 +601,25 @@ class PendingFetch:
         self._notes["hist"] = self.stream.note("hist",
                                                self.copier.copy(host, counts))
 
+    def add_ci(self, idx) -> None:
+        """The needed cells' indices (int64 [count] on the device, the
+        sort's order), into the first 8 bytes a row of the block that F
+        joins."""
+        c = self.count
+        self._ci_F = self._host_empty((3 * c,), torch.float32)
+        self.copier.after()
+        self._notes["ci"] = self.stream.note("ci", self.copier.copy(
+            self._ci_F[:2 * c].view(torch.int64), idx))
+
     def add_set(self, s: int, buf, off: int) -> None:
         """Set s's rows, just gathered into buf[off:] (packed layout)."""
         self.buf = buf
         c = self.count
         self.copier.after()
         if s == 0:
-            self._ci_F = self._host_empty((2 * c,), torch.float32)
-            self._notes["ci_F"] = self.stream.note(
-                "ci_F", self.copier.copy(self._ci_F, buf[off:off + 2 * c]))
+            # F after the cell indices; the note's name says both landed
+            self._notes["ci_F"] = self.stream.note("ci_F", self.copier.copy(
+                self._ci_F[2 * c:], buf[off + c:off + 2 * c]))
             off += 2 * c
         tables = []
         for j, k in enumerate(self.keys):
@@ -630,9 +645,9 @@ class PendingFetch:
         c = self.count
         host = self._ci_F.numpy()
         vel, segments = streaming_sets(self.stream, self.keys, self.nsets, c)
-        sp = SparseProducts(N=self.N, ci=host[:c].view(np.int32)
-                            .astype(np.int64), F=host[c:2 * c], vel=vel,
-                            sorted_by="F", segments=segments)
+        sp = SparseProducts(N=self.N, ci=host[:2 * c].view(np.int64),
+                            F=host[2 * c:], vel=vel, sorted_by="F",
+                            segments=segments)
         return sp, self._hist.numpy()
 
     def abort(self, err: BaseException) -> None:
@@ -642,11 +657,12 @@ class PendingFetch:
     def join(self) -> dict:
         """Wait for the last row (re-raising a failed copy) and drop the
         device buffer; adds to ``timings`` and returns the hand-off's times
-        in seconds from the end of the collapse cycle: handoff_ci_F (the
-        cell indices and F landed), handoff_first (the watermark's first
-        advance), handoff_last (the last row); with lpt_events, lpt (the
-        device's seconds between the two events, which the last row's copy
-        waited for); and the kernels.host_totals() snapshot."""
+        in seconds from the end of the collapse cycle: handoff_ci (the
+        cell indices landed), handoff_ci_F (F landed, after them),
+        handoff_first (the watermark's first advance), handoff_last (the
+        last row); with lpt_events, lpt (the device's seconds between the
+        two events, which the last row's copy waited for); and the
+        kernels.host_totals() snapshot."""
         try:
             times = self.stream.join()
         finally:
@@ -674,11 +690,12 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     params.WriteTimelessSnapshot: also the whole grid's products on the
     host (FmaxResult.dense); each displacement stack is copied after its
     rows are gathered and before it is freed, so the device peak does not
-    grow.  overlap (the default): the FmaxPDF counts are binned before
-    LPT, and each displacement set's rows stream to the host behind the
-    device's work (PendingFetch); the call returns once the counts, the
-    cell indices and F have landed, with the tables as StreamingVel views
-    that fragmentation sweeps behind their watermark, and
+    grow.  overlap (the default): the FmaxPDF counts are binned and the
+    sort's int64 cell indices copied before LPT, and each displacement
+    set's rows stream to the host behind the device's work
+    (PendingFetch); the call returns once the counts, the cell indices
+    and F have landed, with the tables as StreamingVel views that
+    fragmentation sweeps behind their watermark, and
     FmaxResult.pending_fetch to join() afterwards.  overlap=False: one
     blocking copy of every set after the last, the same products bit for
     bit."""
@@ -754,8 +771,10 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                                timings)
     try:
         if pending is not None:
-            # the histogram before LPT, so that its copy does not wait
+            # the histogram and the cell indices before LPT, so that their
+            # copies do not wait for it
             pending.add_hist(compact.pdf_hist(Fmax))
+            pending.add_ci(idx)
         # on a card under overlap the LPT is timed by two events on the
         # compute stream, read once the last row has landed (join)
         events = None

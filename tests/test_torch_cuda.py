@@ -40,7 +40,9 @@ single-device run's results, and the out-of-core engine over 3 shards of
 the card equals the single-device engine exactly; the overlapped hand-off
 equals the blocking one bit for bit on both engines, and its copies land
 their source's values when the source is freed and its memory reused
-before they run.  The exchange's kernels
+before they run; the dense one's bytes to the host at 256^3 are the
+sort's int64 cell indices, F, the tables and the counts, and its entry
+returns before the last table lands.  The exchange's kernels
 K15 (count, with boxes and with request maps), K16 (pack) and K17 (sphere
 paint, from its plan) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
@@ -1053,6 +1055,42 @@ def test_overlapped_handoff_on_the_card(dev, setup):
         np.testing.assert_array_equal(fa.counters, fb.counters)
         for x, y in zip(fa.catalogs, fb.catalogs):
             np.testing.assert_array_equal(np.sort(x.name), np.sort(y.name))
+
+
+@pytest.mark.cuda
+def test_dense_handoff_lands_int64_cell_indices(dev):
+    """A 256^3 f(R) realization (four displacement sets) on the dense
+    engine, after a warm one: the overlapped hand-off's bytes to the host
+    are the sort's int64 cell indices, F, every table's rows and the
+    FmaxPDF counts, 8 + 4 + 12 x keys x sets bytes a row and 8 a bin;
+    its cell indices equal the blocking path's; the entry returns before
+    the last table has landed."""
+    import gc
+    from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
+    from pinocchio_tpu_torch.scaledep import set_scaledep_gm
+    p = Params(GridSize=256, BoxSize=256.0, output_z=[2.0, 1.0, 0.5, 0.0],
+               norad=True, plc_enabled=False, mod_grav_fr=True, fr0=1e-5,
+               scale_dependent=True, recompute_displacements=True,
+               MaxMemPerParticle=400)
+    cosmo = Cosmology(p)
+    gm = set_scaledep_gm(p, cosmo, fmax.Smoothing.build(p, cosmo),
+                         largest_halo_mass(p, cosmo), verbose=False)
+    fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm).pending_fetch.join()
+    gc.collect()
+    before = kernels.host_totals()["d2h_bytes_total"]
+    res = fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm)
+    times = res.pending_fetch.join()
+    sp = res.host_products
+    c, nkeys, nsets = sp.ci.size, len(sp.vel), len(sp.segments)
+    assert (c, nkeys, nsets) == (len(sp.F), 4, 4)
+    assert sp.ci.dtype == np.int64 and not sp.ci.flags.owndata
+    assert (times["d2h_bytes_total"] - before
+            == 8 * c + 4 * c + 12 * c * nkeys * nsets
+            + 8 * compact.PDF_BINS)
+    assert res.timings["handoff_return"] < times["handoff_last"]
+    blocking = fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm, overlap=False)
+    np.testing.assert_array_equal(sp.ci, blocking.host_products.ci)
+    np.testing.assert_array_equal(sp.F, blocking.host_products.F)
 
 
 def _host_arrays(res):

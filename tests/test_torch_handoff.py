@@ -11,6 +11,10 @@ code as a card does.
   the out-of-core engine (one device, 2 CPU shards, f(R) with RECOMPUTE);
   run_pipeline's files (with the past light cone) and dump arrays byte for
   byte.
+- The dense hand-off's cell indices land as the sort's int64: sp.ci is
+  int64, C-contiguous and a view of the page-locked block beside F (no
+  array made on the host), equal element for element to the blocking
+  path's and to the JAX package's PendingFetch on the same Fmax.
 - The watermark gates the sweep: with _STREAM_TEST_DELAY seconds before
   each chunk lands, the catalogs of one box and of 2x1x1 sub-boxes,
   single- and two-turn, equal the blocking run's (counters, names and
@@ -126,9 +130,37 @@ def test_dense_overlap_equals_blocking(model, classic, fr):
     assert len(_sets(res.host_products)) == (4 if model == "fr" else 1)
     _same_products(res, blocking)
     times = res.pending_fetch.join()
-    assert (0.0 < times["handoff_ci_F"] <= times["handoff_first"]
-            <= times["handoff_last"])
+    assert (0.0 < times["handoff_ci"] <= times["handoff_ci_F"]
+            <= times["handoff_first"] <= times["handoff_last"])
     assert res.pending_fetch.buf is None
+
+
+@pytest.mark.parametrize("model", ["classic", "fr"])
+def test_dense_overlap_lands_int64_cell_indices(model, classic, fr):
+    """The overlapped dense hand-off's cell indices land as the sort's
+    int64: sp.ci is int64, C-contiguous and a view of the page-locked
+    block they landed in (no array made on the host), equal element for
+    element to the blocking path's and to the JAX package's PendingFetch
+    on the same Fmax; F lands in the same block."""
+    import jax.numpy as jnp
+    from pinocchio_tpu.fmax import PendingFetch as JaxPendingFetch
+    p, cosmo, gm = classic if model == "classic" else fr
+    blocking = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm, overlap=False)
+    res = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm)
+    sp = res.host_products
+    block = res.pending_fetch._ci_F.numpy()
+    assert sp.ci.dtype == np.int64 and sp.ci.flags.c_contiguous
+    assert not sp.ci.flags.owndata
+    assert np.shares_memory(sp.ci, block) and np.shares_memory(sp.F, block)
+    assert len(sp.ci) > 0
+    np.testing.assert_array_equal(sp.ci, blocking.host_products.ci)
+    jp, _ = params_pair(**bench_kwargs(N, **(FR if model == "fr" else {})))
+    jsp = JaxPendingFetch(jp, jnp.asarray(res.products.Fmax.numpy()), N,
+                          expected_keys=[]).finish()
+    assert jsp.ci.dtype == np.int64
+    np.testing.assert_array_equal(sp.ci, jsp.ci)
+    np.testing.assert_array_equal(sp.F, np.asarray(jsp.F))
+    res.pending_fetch.join()
 
 
 @pytest.mark.parametrize("model,shards", [("classic", 1), ("classic", 2),

@@ -3,11 +3,12 @@ unless marked ``cuda``.
 
 - The spans of torch.profiler.record_function that each engine opens, and
   their nesting, under a CPU profiler of a 32^3 run: fmax.ic, fmax.cycle,
-  fmax.sort, fmax.lpt (holding each table's handoff.alloc), handoff.finish
-  on the dense engine; ooc.<phase> per phase of the out-of-core engine,
-  handoff.alloc inside ooc.products and inside each displacement set's
-  ooc.rows_set of ooc.lpt_rows, which runs on a thread of its own (seen
-  with the profiler's profile_all_threads).
+  fmax.sort, the counts' and the cell indices' handoff.alloc, fmax.lpt
+  (holding each table's handoff.alloc), handoff.finish on the dense
+  engine; ooc.<phase> per phase of the out-of-core engine, handoff.alloc
+  inside ooc.products and inside each displacement set's ooc.rows_set of
+  ooc.lpt_rows, which runs on a thread of its own (seen with the
+  profiler's profile_all_threads).
 - The counters through a stub kernel library: page-locked bytes rounded up
   to 2 MiB, one call per block, its release by kernels.release_pinned()
   once its last reference went (the block waits in the pool until then),
@@ -128,12 +129,13 @@ def test_dense_spans_and_nesting(model, classic, fr):
     nkeys = len(res.host_products.vel)
     nsets = _nsets(res)
     top = [s for s in spans if s[2] == "test.entry"]
+    # before fmax.lpt: the counts, then the cell indices and F
     assert [s[0] for s in top] == ["fmax.ic", "fmax.cycle", "fmax.sort",
-                                   "handoff.alloc", "fmax.lpt",
-                                   "handoff.finish"]
-    # inside fmax.lpt: the cell indices and F, then every set's tables
+                                   "handoff.alloc", "handoff.alloc",
+                                   "fmax.lpt", "handoff.finish"]
+    # inside fmax.lpt: every set's tables
     inner = [s[0] for s in spans if s[2] == "fmax.lpt"]
-    assert inner == ["handoff.alloc"] * (1 + nkeys * nsets)
+    assert inner == ["handoff.alloc"] * (nkeys * nsets)
     assert len(spans) == 1 + len(top) + len(inner)
     assert len({s[1] for s in spans}) == 1
     # a realization opens about 50 spans or fewer
@@ -347,12 +349,9 @@ def test_d2h_bytes_equal_the_products(engine, shards, classic):
     _join(res)
     c = res.host_products.ci.size
     tables = _nsets(res) * len(res.host_products.vel) * 12 * c
-    if engine == "dense":
-        # the FmaxPDF counts, the packed cell indices and F, the tables
-        expected = PDF_BINS * 8 + 8 * c + tables
-    else:
-        # int64 cell indices and float32 F, then the tables
-        expected = 12 * c + tables
+    # int64 cell indices and float32 F, then the tables; the dense
+    # engine's FmaxPDF counts besides
+    expected = 12 * c + tables + (PDF_BINS * 8 if engine == "dense" else 0)
     assert _delta(before, "d2h_bytes_total") == expected
     # no page-locked memory on the CPU
     assert _delta(before, "pinned_alloc_calls_total") == 0
@@ -468,7 +467,9 @@ def test_card_counters_and_lpt(dev, engine):
     c = res.host_products.ci.size
     tables = _nsets(res) * len(res.host_products.vel)
     if engine == "dense":
-        expected = 4096 + _rounded(8 * c) + tables * _rounded(12 * c)
+        # the counts, then the cell indices with F and each table, 12
+        # bytes a row
+        expected = 4096 + (1 + tables) * _rounded(12 * c)
         assert t["lpt"] > 0.0
     else:
         expected = _rounded(8 * c) + _rounded(4 * c) + tables * _rounded(

@@ -52,12 +52,11 @@
    library call's, and the stack layout's ceiling for the transposing
    forms: the larger of the bound and its 64-byte runs alone, stored or
    read a word a thread, beside K18's own runs alone (storage_kernels);
-4. drives each path through run_pipeline (with the overlapped hand-off,
-   its default: the rows stream to the host while the sweep starts on
-   their watermark), with the launch counters reset
-   just before it and read just after, and checks its outputs (catalogs and
-   mass functions at 4 redshifts with halos, FmaxPDF, histories, the
-   cosmology table), its own launch set (every kernel of the path launched,
+4. drives each path through run_pipeline (the rows stream to the host
+   while the sweep starts on their watermark), with the launch counters
+   reset just before it and read just after, and checks its outputs
+   (catalogs and mass functions at 4 redshifts with halos, FmaxPDF,
+   histories, the cosmology table), its own launch set (every kernel of the path launched,
    none of another path's) and the planner's predicted peak against the
    measured one:
      classic     the main path: classic ellipsoid, 256^3, 1 Mpc/h cells;
@@ -176,19 +175,21 @@
    classic path's products, single-turn and two-turn (subbox_turns), each
    with its wall, quick-pass seconds, boundary particles requested and
    beyond-boundary count, held to the classic path's one-box catalogs;
-   then the hand-off (handoff): the overlapped hand-off against the
-   blocking one (overlap=False) on the classic fmax at 256^3 on one delta,
-   the cell indices, F, rows and FmaxPDF counts bit for bit, its timeline
+   then the hand-off (handoff): the products read through the views
+   before the join against a joined run's on the classic fmax at 256^3 on
+   one delta, the cell indices, F, rows and FmaxPDF counts bit for bit,
+   its timeline
    from the end of the collapse cycle (return, ci/F landed, first and last
    chunk, each table's host buffer allocated and landed), its rate on the
    host's clock and, from a torch.profiler trace, the copies' device time,
    rate and the part of it beside a kernel; the
    watermark proof at 128^3 (0.02 s before each chunk lands; one box and
-   2x1x1 sub-boxes single- and two-turn: the blocking run's catalogs, the
-   sweeps waiting on the watermark, the run longer than 0.02 x 16 / 2 s);
-   f(R) with RECOMPUTE (4 sets, traced) and the out-of-core engine at
-   128^3, bit for bit, with the blocking run's catalogs; run_pipeline at
-   128^3 with the PLC and a dump both ways, every output file equal;
+   2x1x1 sub-boxes single- and two-turn: the catalogs of a run joined
+   before its sweep, the sweeps waiting on the watermark, the run longer
+   than 0.02 x 16 / 2 s); f(R) with RECOMPUTE (4 sets, traced) and the
+   out-of-core engine at 128^3, bit for bit, with the joined run's
+   catalogs; run_pipeline at 128^3 with the PLC and a dump written after
+   the join, and a restart from the dump, every output file equal;
 5. runs the classic path at 48^3, the tabulated and scaledep paths at 64^3
    and the plc path at 64^3 (z 0.1), also over 4 sub-boxes, the mesh path
    at 48^3, the hosts path at 48^3 (each device's hosts united equal to
@@ -210,8 +211,8 @@
    memory beside the planner's host estimate, the needed count and the
    phase times, when run_fmax_ooc returned, when each table's host buffer
    was allocated and when its last row landed;
-   at 1024^3 classic also one blocking run (overlap=False) with the same
-   (ci, F), its wall, hand-off and host peak; then the classic fmax phase
+   at 1024^3 classic also a second run, joined at its return, with the
+   same (ci, F), its wall and host peak; then the classic fmax phase
    at 1024^3 under ooc='auto'
    over 4 shards of the card (ooc_mesh_big): the planner's per-device map
    must choose the out-of-core engine, the needed count and a SHA-256 of
@@ -3192,7 +3193,7 @@ def fmax16_process(h, port):
         with multihost.ResidentPeak() as resident:
             res = run_fmax_ooc(p, cosmo, "cuda:0", mesh=mesh,
                                trace_memory=True)
-            res.ooc_pending.join()
+            res.pending_fetch.join()
         wall = time.perf_counter() - t0
         rep = multihost.process_report(mesh, res.timings, wall,
                                        resident=resident)
@@ -3535,15 +3536,13 @@ def hosts_reference_check(dev):
                    per_dev[0][h].catalogs, per_dev[1][h].catalogs)
 
 
-# the overlapped hand-off (handoff): the watermark proof and the
-# overlapped-against-blocking checks of the f(R) and out-of-core engines at
-# HANDOFF_N; the per-chunk delay of the proof
+# the hand-off (handoff): the watermark proof and the views-against-joined
+# checks of the f(R) and out-of-core engines at HANDOFF_N; the per-chunk
+# delay of the proof, long enough that rows are still landing when the
+# sweeps start (at 0.02 s the last row of a 128^3 run landed 1.36 s after
+# the cycle, before the 2x1x1 sweeps started on an H100's host)
 HANDOFF_N = 128
-HANDOFF_DELAY = 0.02
-# the blocking hand-off at BIG_N on one device measured with the code of
-# commit d64c30c on an H100 80GB HBM3 at 700 W, s (printed beside this
-# run's)
-HANDOFF_D64C30C = 9.98
+HANDOFF_DELAY = 0.1
 
 
 def products_bytes(sp):
@@ -3556,7 +3555,9 @@ def products_bytes(sp):
 def same_products(what, a, b):
     """Two FmaxResults' cell indices, F, every row of every displacement
     set (float32 compared through an int32 view) and FmaxPDF counts, bit
-    for bit; returns the hand-off's bytes."""
+    for bit: a's read through its views (before its join, where it has
+    not been joined), b's those of a joined run; returns the hand-off's
+    bytes."""
     import numpy as np
     sa, sb = a.host_products, b.host_products
     sets_a, sets_b = sa.segments or [sa.vel], sb.segments or [sb.vel]
@@ -3571,10 +3572,10 @@ def same_products(what, a, b):
                   and all(np.array_equal(bits(x[k]), bits(y[k])) for k in x)
                   for x, y in zip(sets_a, sets_b)))
     print(f"  {what}: {len(sa.ci)} needed cells, {len(sets_a)} displacement "
-          f"set(s); overlapped and blocking products bit for bit: {ok}",
-          flush=True)
-    need(ok, f"{what}: the overlapped products differ from the blocking "
-         "ones")
+          f"set(s); the views and the joined run's products bit for bit: "
+          f"{ok}", flush=True)
+    need(ok, f"{what}: the products read through the views differ from "
+         "the joined run's")
     return products_bytes(sa)
 
 
@@ -3590,9 +3591,9 @@ def same_catalogs(what, got, want):
               and np.array_equal(g.mass[og], w.mass[ow])
               and np.allclose(g.x[og], w.x[ow], atol=1e-5))
     print(f"  {what}: catalogs at {len(got.catalogs)} outputs equal to the "
-          f"blocking run's: {ok} ({[len(c.name) for c in got.catalogs]} "
+          f"joined run's: {ok} ({[len(c.name) for c in got.catalogs]} "
           "groups)", flush=True)
-    need(ok, f"{what}: the catalogs differ from the blocking run's")
+    need(ok, f"{what}: the catalogs differ from the joined run's")
 
 
 def copy_overlap(run):
@@ -3643,10 +3644,10 @@ def copy_overlap(run):
 
 
 def handoff_timeline(what, t, nbytes, trace, stream=None):
-    """One line of an overlapped hand-off's times from the end of the
-    collapse cycle (FmaxResult.timings after the join) and its rates; with
-    its _StreamState, when each table's host buffer was allocated and when
-    its last row landed."""
+    """One line of a hand-off's times from the end of the collapse cycle
+    (FmaxResult.timings after the join) and its rates; with its
+    handoff.StreamState, when each table's host buffer was allocated and
+    when its last row landed."""
     span = t["handoff_last"] - t.get("handoff_ci_F", t["handoff_return"])
     line = (f"  {what}: returned {t['handoff_return']:.4f} s after the "
             f"cycle"
@@ -3672,20 +3673,28 @@ def handoff_timeline(what, t, nbytes, trace, stream=None):
     print(line, flush=True)
 
 
+def joined_run(run, *args, **kw):
+    """run(*args, **kw), its hand-off joined before it is read."""
+    res = run(*args, **kw)
+    res.pending_fetch.join()
+    return res
+
+
 def handoff_phase(dev):
-    """The overlapped hand-off against the blocking one (run_fmax and
-    run_fmax_ooc with overlap True and False): the classic fmax at
-    PIPELINE_N on one delta, bit for bit, with its timeline from the end
-    of the collapse cycle and a torch.profiler trace of its copies; the
-    watermark proof at HANDOFF_N (HANDOFF_DELAY seconds before each chunk
-    lands, one box and 2x1x1 sub-boxes single- and two-turn: the catalogs
-    of the blocking products, the sweeps waiting on the watermark, the
-    run longer than the delay x N_CHUNKS / 2); f(R) with RECOMPUTE (4
-    sets, traced: the copies of a set beside the next set's LPT kernels)
-    and the out-of-core engine at HANDOFF_N, bit for bit, with equal
-    catalogs; run_pipeline's outputs both ways (same_outputs)."""
+    """The hand-off of run_fmax and run_fmax_ooc: the classic fmax at
+    PIPELINE_N on one delta, its products read through the views before
+    the join against a joined run's, bit for bit, with its timeline from
+    the end of the collapse cycle and a torch.profiler trace of its
+    copies; the watermark proof at HANDOFF_N (HANDOFF_DELAY seconds before
+    each chunk lands, one box and 2x1x1 sub-boxes single- and two-turn:
+    the catalogs of a run joined before its sweep, the sweeps waiting on
+    the watermark, the run longer than the delay x N_CHUNKS / 2); f(R)
+    with RECOMPUTE (4 sets, traced: the copies of a set beside the next
+    set's LPT kernels) and the out-of-core engine at HANDOFF_N, bit for
+    bit, with equal catalogs; run_pipeline's outputs against a restart
+    from its dump (same_outputs)."""
     import torch
-    from pinocchio_tpu_torch import fmax, fmax_ooc
+    from pinocchio_tpu_torch import fmax, fmax_ooc, handoff
     from pinocchio_tpu_torch.cosmology import Cosmology
     from pinocchio_tpu_torch.fragment.driver import run_fragmentation
     from pinocchio_tpu_torch.fragment.subbox import (
@@ -3698,35 +3707,35 @@ def handoff_phase(dev):
     cosmo = Cosmology(p)
     kd = generate_kdensity(Grid(PIPELINE_N, p.BoxSize_htrue), cosmo,
                            p.RandomSeed, dev)
-    # a first run compiles the Triton kernel and plans the FFTs
-    fmax.run_fmax(p, cosmo, dev, kdensity=kd, overlap=False)
+    # a first run builds the kernels and plans the FFTs
+    joined_run(fmax.run_fmax, p, cosmo, dev, kdensity=kd)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    blocking = fmax.run_fmax(p, cosmo, dev, kdensity=kd, overlap=False)
-    wall_b = time.perf_counter() - t0
+    joined = joined_run(fmax.run_fmax, p, cosmo, dev, kdensity=kd)
+    wall_j = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = fmax.run_fmax(p, cosmo, dev, kdensity=kd)
     wall_r = time.perf_counter() - t0
+    nbytes = same_products(f"classic {PIPELINE_N}^3", res, joined)
     res.pending_fetch.join()
-    nbytes = same_products(f"classic {PIPELINE_N}^3", res, blocking)
-    tb = blocking.timings
-    print(f"  blocking: fmax {wall_b:.3f} s; from the end of the cycle "
-          f"{tb['lpt'] + tb['products']:.4f} s to its return (lpt "
-          f"{tb['lpt']:.4f} s, sort + d2h + histogram {tb['products']:.4f}"
-          f" s); overlapped: fmax {wall_r:.3f} s to its return", flush=True)
-    del res, blocking
+    tj = joined.timings
+    print(f"  joined at once: fmax {wall_j:.3f} s, the last row "
+          f"{tj['handoff_last']:.4f} s after the cycle (lpt "
+          f"{tj['lpt']:.4f} s on the device); read through the views: fmax "
+          f"{wall_r:.3f} s to its return", flush=True)
+    del res, joined
     res, trace = copy_overlap(lambda: fmax.run_fmax(p, cosmo, dev,
                                                     kdensity=kd))
     res.pending_fetch.join()
-    handoff_timeline(f"overlapped classic {PIPELINE_N}^3 (traced)",
-                     res.timings, nbytes, trace, res.pending_fetch.stream)
+    handoff_timeline(f"classic {PIPELINE_N}^3 (traced)", res.timings,
+                     nbytes, trace, res.pending_fetch.stream)
     report["classic"] = dict(timings=res.timings, bytes=nbytes, trace=trace,
-                             blocking_s=tb["lpt"] + tb["products"])
+                             joined_s=wall_j)
     del res, kd
 
     q = params_for(HANDOFF_N)
     cosmo = Cosmology(q)
-    base = fmax.run_fmax(q, cosmo, dev, overlap=False)
+    base = joined_run(fmax.run_fmax, q, cosmo, dev)
     for boxes in ("one box", "2x1x1 single-turn", "2x1x1 two-turn"):
         def frag(r):
             if boxes == "one box":
@@ -3735,7 +3744,7 @@ def handoff_phase(dev):
                 q, cosmo, r, (2, 1, 1), two_turn=boxes.endswith("two-turn"),
                 verbose=False)
         want = frag(base)
-        fmax._STREAM_TEST_DELAY = HANDOFF_DELAY
+        handoff._STREAM_TEST_DELAY = HANDOFF_DELAY
         try:
             t0 = time.perf_counter()
             r = fmax.run_fmax(q, cosmo, dev)
@@ -3743,8 +3752,8 @@ def handoff_phase(dev):
             elapsed = time.perf_counter() - t0
             r.pending_fetch.join()
         finally:
-            fmax._STREAM_TEST_DELAY = 0.0
-        floor = HANDOFF_DELAY * fmax.N_CHUNKS / 2
+            handoff._STREAM_TEST_DELAY = 0.0
+        floor = HANDOFF_DELAY * handoff.N_CHUNKS / 2
         wait = got.timings["stream_wait"]
         print(f"  watermark, {boxes} at {HANDOFF_N}^3, {HANDOFF_DELAY} s a "
               f"chunk: fmax + fragmentation {elapsed:.3f} s (need > "
@@ -3764,28 +3773,22 @@ def handoff_phase(dev):
         cosmo = Cosmology(q)
         gm = scaledep_gm_for(q, cosmo)
         run = fmax_ooc.run_fmax_ooc if q.ooc == "on" else fmax.run_fmax
-        blocking = run(q, cosmo, dev, scaledep_gm=gm, overlap=False)
+        joined = joined_run(run, q, cosmo, dev, scaledep_gm=gm)
         r = run(q, cosmo, dev, scaledep_gm=gm)
         got = run_fragmentation(q, cosmo, r, scaledep_gm=gm, verbose=False)
-        (r.pending_fetch or r.ooc_pending).join()
-        same_products(f"{name} {HANDOFF_N}^3, swept", r, blocking)
+        same_products(f"{name} {HANDOFF_N}^3, swept", r, joined)
+        r.pending_fetch.join()
         del r
-
-        def joined():
-            r = run(q, cosmo, dev, scaledep_gm=gm)
-            pending = r.pending_fetch or r.ooc_pending
-            pending.join()
-            return r, pending.stream
-        (res, stream), trace = copy_overlap(joined)
-        nbytes = same_products(f"{name} {HANDOFF_N}^3, traced", res,
-                               blocking)
-        handoff_timeline(f"overlapped {name} {HANDOFF_N}^3 (traced, "
-                         "joined inside the trace)", res.timings, nbytes,
-                         trace, stream)
+        res, trace = copy_overlap(
+            lambda: joined_run(run, q, cosmo, dev, scaledep_gm=gm))
+        nbytes = same_products(f"{name} {HANDOFF_N}^3, traced", res, joined)
+        handoff_timeline(f"{name} {HANDOFF_N}^3 (traced, joined inside the "
+                         "trace)", res.timings, nbytes, trace,
+                         res.pending_fetch.stream)
         same_catalogs(f"{name} {HANDOFF_N}^3", got, run_fragmentation(
-            q, cosmo, blocking, scaledep_gm=gm, verbose=False))
+            q, cosmo, joined, scaledep_gm=gm, verbose=False))
         report[name] = dict(timings=res.timings, bytes=nbytes, trace=trace)
-        del res, blocking, got
+        del res, joined, got
     report["files"] = same_outputs(dev)
     torch.cuda.empty_cache()
     KEPT["handoff"] = report
@@ -3793,41 +3796,44 @@ def handoff_phase(dev):
 
 def same_outputs(dev):
     """run_pipeline at HANDOFF_N with the past light cone (z 0.1 to 0) and
-    a dump, overlap=False then True: every output file equal, byte for
-    byte (a dump's npz array by array: the archive stamps its time);
+    a dump, written after the hand-off's join, then a restart from the dump
+    (ReadProductsFromDumps): every file the restart writes equal to the
+    first run's, byte for byte (the FmaxPDF is the dumping run's alone);
     returns the count of files compared."""
-    import numpy as np
+    import dataclasses
+    import shutil
     from pinocchio_tpu_torch.run import run_pipeline
 
     p = params_for(HANDOFF_N, DumpProducts=True, plc_enabled=True,
                    StartingzForPLC=0.1, LastzForPLC=0.0, PLCAperture=30.0,
                    PLCProvideConeData=True)
-    files = []
     with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() \
             as b:
-        for out, overlap in ((a, False), (b, True)):
-            run_pipeline(p, outdir=out, device=dev, verbose=False,
-                         overlap=overlap)
-        for root, _, names in os.walk(a):
-            for nm in names:
-                rel = os.path.relpath(os.path.join(root, nm), a)
-                fa, fb = os.path.join(a, rel), os.path.join(b, rel)
-                if not os.path.exists(fb):
-                    same = False
-                elif nm.endswith(".npz"):
-                    with np.load(fa) as x, np.load(fb) as y:
-                        same = sorted(x.files) == sorted(y.files) and all(
-                            np.array_equal(x[k], y[k]) for k in x.files)
-                else:
-                    with open(fa, "rb") as x, open(fb, "rb") as y:
-                        same = x.read() == y.read()
-                files.append((rel, same))
-    bad = [rel for rel, same in files if not same]
-    print(f"  run_pipeline at {HANDOFF_N}^3 with the PLC and a dump, "
-          f"overlapped against blocking: {len(files)} files "
-          f"{sorted(rel for rel, _ in files)}, differing: {bad}",
-          flush=True)
-    need(files and not bad, f"overlapped outputs differ: {bad}")
+        run_pipeline(p, outdir=a, device=dev, verbose=False)
+        shutil.copytree(os.path.join(a, "DumpProducts"),
+                        os.path.join(b, "DumpProducts"))
+        run_pipeline(dataclasses.replace(p, DumpProducts=False,
+                                         ReadProductsFromDumps=True),
+                     outdir=b, device=dev, verbose=False)
+        names = sorted(nm for nm in os.listdir(a)
+                       if os.path.isfile(os.path.join(a, nm))
+                       and not nm.endswith(".FmaxPDF.out"))
+        files = []
+        for nm in names:
+            fa, fb = os.path.join(a, nm), os.path.join(b, nm)
+            same = os.path.exists(fb)
+            if same:
+                with open(fa, "rb") as x, open(fb, "rb") as y:
+                    same = x.read() == y.read()
+            files.append((nm, same))
+        extra = sorted(set(nm for nm in os.listdir(b)
+                           if os.path.isfile(os.path.join(b, nm)))
+                       - set(names))
+    bad = [nm for nm, same in files if not same] + extra
+    print(f"  run_pipeline at {HANDOFF_N}^3 with the PLC and a dump, against "
+          f"a restart from the dump: {len(files)} files {names}, differing "
+          f"or extra: {bad}", flush=True)
+    need(files and not bad, f"the restart's outputs differ: {bad}")
     return len(files)
 
 
@@ -3916,7 +3922,7 @@ def ooc_dense_check(dev, name):
     t0 = time.perf_counter()
     ooc = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                 trace_memory=True)
-    ooc.ooc_pending.join()
+    ooc.pending_fetch.join()
     t_ooc = time.perf_counter() - t0
     launched["out-of-core"] = dict(kernels.LAUNCHES)
     for engine, want in (("dense", PATHS[name][2] - {"ic_kdensity"}),
@@ -4040,7 +4046,7 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm,
                                     verbose=N >= BIG_N, trace_memory=True)
         t_ret = time.perf_counter() - t0
-        res.ooc_pending.join()
+        res.pending_fetch.join()
         return res, t_ret
     with host_peak() as host:
         (res, t_ret), tally = factors_tallied(run)
@@ -4096,8 +4102,8 @@ def ooc_fmax_phase(dev, N, ooc, kw, own):
     del res, sp
     torch.cuda.empty_cache()
     if N == BIG_N and not kw:
-        KEPT["big_classic"]["blocking"] = blocking_big(
-            dev, p, cosmo, None, KEPT["big_classic"], HANDOFF_D64C30C)
+        KEPT["big_classic"]["joined"] = joined_big(
+            dev, p, cosmo, None, KEPT["big_classic"])
 
 
 def factors_tallied(run):
@@ -4159,17 +4165,16 @@ def tables_line(res):
     """When each table's host buffer of an out-of-core run's joined
     streams was allocated and when its last row landed, s after the
     cycle."""
-    st = res.ooc_pending.stream
+    st = res.pending_fetch.stream
     return "tables allocated / landed, s after the cycle: " + ", ".join(
         f"{k}: {st.allocated.get(k, 0.0):.3f} / {st.landed.get(k, 0.0):.3f}"
         for k in st.keys)
 
 
-def blocking_big(dev, p, cosmo, mesh, over, earlier):
-    """One blocking run (overlap=False) of the fmax phase at BIG_N beside
-    the overlapped one ``over`` (its digest, times and host peak): the
-    same needed cells and F, its wall, hand-off and host peak, and the
-    blocking hand-off of commit d64c30c, ``earlier`` seconds."""
+def joined_big(dev, p, cosmo, mesh, over):
+    """A second run of the fmax phase at BIG_N, joined at its return,
+    beside the first ``over`` (its digest, times and host peak): the same
+    needed cells and F, its wall to the join and its host peak."""
     import gc
 
     import torch
@@ -4178,24 +4183,24 @@ def blocking_big(dev, p, cosmo, mesh, over, earlier):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with host_peak() as host:
-        res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, overlap=False)
+        res = joined_run(fmax_ooc.run_fmax_ooc, p, cosmo, dev, mesh=mesh)
     wall = time.perf_counter() - t0
     sp = res.host_products
     same = digest(sp.ci, sp.F) == over["digest"]
     grew = host.peak - host.start
     t = over["timings"]
-    print("  blocking: phases " + ", ".join(
+    print("  joined at once: phases " + ", ".join(
         f"{k} {v:.3f} s" for k, v in res.timings.items()), flush=True)
-    print(f"  blocking: {wall:.2f} s to its return with every row landed "
-          f"(hand-off {res.timings['handoff']:.3f} s, d64c30c's {earlier} s; "
-          f"lpt_rows {res.timings['lpt_rows']:.3f} s), host peak "
-          f"{grew:.2f} GiB above the start; overlapped: returned after "
+    print(f"  joined at once: {wall:.2f} s to the join (last row "
+          f"{res.timings['handoff_last']:.3f} s after the cycle; lpt_rows "
+          f"{res.timings['lpt_rows']:.3f} s), host peak {grew:.2f} GiB "
+          f"above the start; the first run: returned after "
           f"{over['return_s']:.2f} s, last row {t['handoff_last']:.3f} s "
           f"after the cycle, joined after {over['wall_s']:.2f} s, host "
           f"peak {over['host_gib']:.2f} GiB; the same (ci, F): {same}",
           flush=True)
-    need(same, "the blocking run's needed cells or F differ from the "
-         "overlapped run's")
+    need(same, "the second run's needed cells or F differ from the first "
+         "run's")
     out = dict(wall_s=wall, handoff_s=res.timings["handoff"],
                lpt_rows_s=res.timings["lpt_rows"], host_gib=grew)
     del res, sp
@@ -4338,7 +4343,7 @@ def ooc_mesh_fmax_phase(dev, name):
     if model not in ones:
         t0 = time.perf_counter()
         one = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm)
-        one.ooc_pending.join()
+        one.pending_fetch.join()
         ones[model] = ((one.products.Fmax.cpu().numpy(),
                         one.smoothing.true_variance, one.host_products),
                        time.perf_counter() - t0, one.timings["handoff"])
@@ -4352,7 +4357,7 @@ def ooc_mesh_fmax_phase(dev, name):
     t0 = time.perf_counter()
     res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, scaledep_gm=gm, mesh=mesh,
                                 trace_memory=True)
-    res.ooc_pending.join()
+    res.pending_fetch.join()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
@@ -4417,7 +4422,7 @@ def ooc_mesh_big(dev):
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, verbose=True,
                                     trace_memory=True)
         t_ret = time.perf_counter() - t0
-        res.ooc_pending.join()
+        res.pending_fetch.join()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
@@ -4748,7 +4753,7 @@ def ooc16_checks(dev, p, res, wall):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     one = fmax_ooc.run_fmax_ooc(p, cosmo, dev, trace_memory=True)
-    one.ooc_pending.join()
+    one.pending_fetch.join()
     t_fmax = time.perf_counter() - t0
     same = np.array_equal(one.products.Fmax.cpu().numpy(), F)
     po = planner.device_peak(p, True, frac=planner.collapsed_fraction(
@@ -4784,11 +4789,11 @@ def ooc_f16_phase(dev):
     p32 = params_for(N, ooc="on")
     p16 = params_for(N, ooc="on", ooc_dtype="float16")
     cosmo = Cosmology(p32)
-    r32 = fmax_ooc.run_fmax_ooc(p32, cosmo, dev, overlap=False)
+    r32 = joined_run(fmax_ooc.run_fmax_ooc, p32, cosmo, dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    r16 = fmax_ooc.run_fmax_ooc(p16, cosmo, dev, overlap=False)
+    r16 = joined_run(fmax_ooc.run_fmax_ooc, p16, cosmo, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -4840,7 +4845,7 @@ def ooc_mesh16_phase(dev):
     kernels.reset_launches()
     t0 = time.perf_counter()
     res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, mesh=mesh, trace_memory=True)
-    res.ooc_pending.join()
+    res.pending_fetch.join()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peaks = ooc_peaks(res)
@@ -4961,7 +4966,7 @@ def big16(dev):
         res = fmax_ooc.run_fmax_ooc(p, cosmo, dev, verbose=True,
                                     trace_memory=True)
         t_ret = time.perf_counter() - t0
-        res.ooc_pending.join()
+        res.pending_fetch.join()
         return res, t_ret, time.perf_counter() - t0
 
     with host_peak() as host:
@@ -5247,8 +5252,8 @@ def main(argv=None) -> int:
                 print(f"  the {path} phase took "
                       f"{time.perf_counter() - t0:.2f} s", flush=True)
         if wanted("handoff"):
-            section(f"the overlapped hand-off against the blocking one at "
-                    f"{PIPELINE_N}^3 and {HANDOFF_N}^3:")
+            section(f"the hand-off read through its views against joined "
+                    f"runs at {PIPELINE_N}^3 and {HANDOFF_N}^3:")
             handoff_phase(dev)
         mesh_report = {}
         if wanted("mesh_fmax"):
@@ -5382,11 +5387,11 @@ def main(argv=None) -> int:
     owners = {nm: own for nm, (_, _, own) in PATHS.items()}
     owners.update({nm: v[3] for nm, v in MESH_FMAX.items()})
     owners.update(hosts=HOSTS_LAUNCH, hosts_exchange=TWO_TURN_LAUNCH)
-    for kname, (route, source, replaces) in kernels.KERNELS.items():
+    for kname, (source, replaces) in kernels.KERNELS.items():
         owner = next(nm for nm, own in owners.items() if kname in own)
         r = report[PIPELINE_N][kname]
         big = report[max(KERNEL_SIZES)][kname]
-        rows.append(dict(name=kname, route=route, source=source,
+        rows.append(dict(name=kname, source=source,
                          replaces=replaces, launches=paths[owner][kname],
                          path=owner, max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"],
@@ -5428,7 +5433,7 @@ def main(argv=None) -> int:
                                     ooc_procs=KEPT.get("ooc_procs")),
                       "handoff": dict(KEPT.get("handoff", {}),
                                       big=KEPT.get("big_classic", {}).get(
-                                          "blocking")),
+                                          "joined")),
                       "storage16": KEPT.get("storage16")}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

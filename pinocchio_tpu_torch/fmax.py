@@ -11,27 +11,25 @@ growth, + c2r).  The needed particles (Fmax >= Flast) are sorted on the
 device in the sweep's (-F, cell) order; their rows of every displacement
 set (one set, or one per output redshift with RECOMPUTE_DISPLACEMENTS) are
 gathered into one packed buffer (K6a) and handed to the host with the
-FmaxPDF histogram (K6b).  By default the hand-off overlaps the device's
-work (PendingFetch): the histogram is binned and the sort's int64 cell
+FmaxPDF histogram (K6b).  The hand-off overlaps the device's work
+(handoff.PendingFetch): the histogram is binned and the sort's int64 cell
 indices cross before LPT, and each set's rows cross to page-locked memory
 on a copy stream of their own, in N_CHUNKS prefix chunks per table, as
 soon as K6a has gathered them; a waiter thread advances the rows_ready
-watermark that the C sweep starts on (_StreamState, StreamingVel).  With
-overlap=False they cross in one blocking copy after the last set.  With
-keep_dense_products (the timeless snapshot, special mode 3, a dense dump)
-Fmax, Rmax and each [3, N, N, N] stack of the first displacement set are
-also copied whole to the host.
+watermark that the C sweep starts on (handoff.StreamState, StreamingVel).
+With keep_dense_products (the timeless snapshot, special mode 3, a dense
+dump) Fmax, Rmax and each [3, N, N, N] stack of the first displacement set
+are also copied whole to the host.
 
 Each layer of a call opens a span of torch.profiler.record_function, on
 the profiler's clock: fmax.ic, fmax.cycle, fmax.sort, fmax.lpt,
-handoff.alloc (each page-locked buffer of PendingFetch) and handoff.finish.
+handoff.alloc (each page-locked buffer of the hand-off) and
+handoff.finish.
 """
 
 from __future__ import annotations
 
 import math
-import queue
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -40,11 +38,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import kernels
 from .config import Params
 from .cosmology import Cosmology
 
 from .grids import Grid
+from .handoff import (N_CHUNKS, EventTimer, PendingFetch, chunk_bounds,
+                      thread_alloc_seconds, to_host)
 from .ic import generate_kdensity
 from .ops import collapse, compact, derivatives, lpt, tabulated
 from .ops.compact import PDF_BINS
@@ -131,13 +130,11 @@ class FmaxResult:
     host_products: SparseProducts
     pdf_hist: np.ndarray               # FmaxPDF counts, PDF_BINS bins
     # seconds of each phase (dens, fmax_loop, lpt, products, ... and the
-    # out-of-core engine's phases); handoff_alloc_s, the seconds of
-    # page-locked allocation on the caller's thread from the end of the
-    # collapse cycle to the return; after the hand-off's join (or at the
-    # return of a blocking one) its handoff_* times and a snapshot of
-    # kernels.HOST_COUNTS as <kind>_<field>_total keys.  The dense
-    # engine's lpt, overlapped on a card, is the device's time between two
-    # CUDA events, present after the join; else a synced host time
+    # out-of-core engine's phases) and the hand-off's times
+    # (handoff.PendingFetch: handoff_return and handoff_alloc_s at the
+    # return, the rest after its join).  The dense engine's lpt on a card
+    # is the device's time between two CUDA events, present after the
+    # join; else a synced host time
     timings: Dict[str, float] = field(default_factory=dict)
     # peak device bytes per phase (the out-of-core engine's trace_memory)
     peaks: Dict[str, int] = field(default_factory=dict)
@@ -147,11 +144,15 @@ class FmaxResult:
     # shard's needed rows still on its device): host_products stays None
     # until ensure_host_products, the exchange or the local fetch reads it
     handoff: object = None
-    # the dense engine's overlapped hand-off (PendingFetch): its rows are
-    # still landing behind the watermark; join() it after fragmentation
+    # either engine's hand-off in flight (handoff.PendingFetch): its rows
+    # are still landing behind the watermark; join() it after
+    # fragmentation
     pending_fetch: object = None
-    # the out-of-core engine's background row streams (fmax_ooc._OocPending)
-    ooc_pending: object = None
+
+    @property
+    def ooc_pending(self):
+        """pending_fetch, under the name the benchmark harness reads."""
+        return self.pending_fetch
 
 
 def ensure_host_products(fmax_result: FmaxResult) -> SparseProducts:
@@ -361,326 +362,38 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-N_CHUNKS = 16       # d2h chunks per displacement table (the watermark's grain)
-_STREAM_TEST_DELAY = 0.0    # tests: seconds added before each chunk lands
-
-
-def _chunk_bounds(n: int, k: int = N_CHUNKS):
-    return [n * i // k for i in range(k + 1)]
-
-
-class _StreamState:
-    """The host side of the displacement tables' streams.
-
-    Each expected table (a key of the first displacement set, ("seg", s,
-    key) of set s) lands in a float32 [count, 3] host buffer, chunk after
-    chunk in row order.  A waiter thread waits for the chunks' copies
-    (kernels.HostCopy) in the order they were enqueued, which is the order
-    the copy stream runs them in, and advances ``ready[0]``: the rows
-    delivered in every expected table, the pointer the C sweep spin-waits
-    on (groupsweep.c rows_ready).  note() adds a copy that is not a table
-    (cell indices and F): the waiter records when it landed.  ``times``:
-    seconds from t0 to each note, to the watermark's first advance
-    ("first") and to the last row ("last"); ``allocated`` and ``landed``:
-    seconds from t0 to each table's host buffer attached and to its last
-    row landed."""
-
-    def __init__(self, count: int, keys, t0: float = None):
-        self.count = count
-        self.keys = list(keys)
-        self.buffers = {}
-        self._delivered = dict.fromkeys(self.keys, 0)
-        self._events = {k: threading.Event() for k in self.keys}
-        self._attached = {k: threading.Event() for k in self.keys}
-        self._notes = {}
-        self.ready = np.zeros(1, np.int64)
-        self.error = None
-        self.times, self.allocated, self.landed = {}, {}, {}
-        self._t0 = time.perf_counter() if t0 is None else t0
-        self._lock = threading.Lock()
-        self._queue = queue.SimpleQueue()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-
-    def attach(self, key, rows: np.ndarray) -> None:
-        """The host buffer [count, 3] that ``key``'s chunks land in."""
-        self.buffers[key] = rows
-        self.allocated[key] = time.perf_counter() - self._t0
-        self._attached[key].set()
-
-    def buffer(self, key) -> np.ndarray:
-        """``key``'s host buffer, possibly still filling; waits until it is
-        attached."""
-        self._attached[key].wait()
-        if key not in self.buffers:
-            self.check()
-        return self.buffers[key]
-
-    def enqueue(self, key, i1: int, copy) -> None:
-        """A chunk of ``key`` whose copy ends at row i1."""
-        self._queue.put((key, i1, copy))
-
-    def note(self, name: str, copy) -> threading.Event:
-        """A copy that is not a table; the event is set once it landed."""
-        ev = self._notes[name] = threading.Event()
-        self._queue.put((name, None, copy))
-        return ev
-
-    def _run(self):
-        while True:
-            item = self._queue.get()
-            if item is None:
-                return
-            key, i1, copy = item
-            try:
-                if _STREAM_TEST_DELAY and i1 is not None:
-                    time.sleep(_STREAM_TEST_DELAY)
-                copy.wait()
-            except BaseException as e:       # noqa: BLE001 - check() raises
-                self.fail(e)
-                return
-            if self._advance(key, i1):
-                return
-
-    def _advance(self, key, i1) -> bool:
-        now = time.perf_counter() - self._t0
-        with self._lock:
-            if i1 is None:
-                self.times[key] = now
-                self._notes[key].set()
-                return False
-            self._delivered[key] = i1
-            ready = min(self._delivered.values())
-            if ready > self.ready[0] and "first" not in self.times:
-                self.times["first"] = now
-            self.ready[0] = ready
-            if i1 >= self.count:
-                self.landed[key] = now
-                self._events[key].set()
-            done = all(ev.is_set() for ev in self._events.values())
-            if done:
-                self.times.setdefault("first", now)
-                self.times["last"] = now
-            return done
-
-    def fail(self, err: BaseException) -> None:
-        """Record the error and release every waiter: the sweep reads on
-        to its end, and the fragmentation driver re-raises through
-        check()."""
-        with self._lock:
-            if self.error is None:
-                self.error = err
-            self.ready[0] = self.count
-            for evs in (self._events, self._attached, self._notes):
-                for ev in evs.values():
-                    ev.set()
-        self._queue.put(None)
-
-    def wait(self, key) -> None:
-        self._events[key].wait()
-        self.check()
-
-    def check(self) -> None:
-        if self.error is not None:
-            raise self.error
-
-    def join(self) -> dict:
-        """Wait for every table, re-raise a failed copy, return times."""
-        for ev in self._events.values():
-            ev.wait()
-        self._thread.join()
-        self.check()
-        return dict(self.times)
-
-
-class StreamingVel:
-    """Dict-like view of one displacement set over a _StreamState:
-    __getitem__ (and items, values) BLOCKS until that table has
-    landed, so the dumps, the snapshot and any other reader keep their
-    semantics; the fragmentation driver reads buffer() instead, which does
-    not block, and hands the C sweep the rows_ready watermark."""
-
-    def __init__(self, stream: _StreamState, keymap: dict, n: int):
-        self.stream = stream
-        self._keymap = keymap          # public key -> stream key
-        self._n = n
-
-    def __contains__(self, k):
-        return k in self._keymap
-
-    def __iter__(self):
-        return iter(self._keymap)
-
-    def __len__(self):
-        return len(self._keymap)
-
-    def keys(self):
-        return self._keymap.keys()
-
-    def __getitem__(self, k):
-        sk = self._keymap[k]
-        self.stream.wait(sk)
-        return self.stream.buffer(sk)[:self._n]
-
-    def items(self):
-        return [(k, self[k]) for k in self._keymap]
-
-    def values(self):
-        return [self[k] for k in self._keymap]
-
-    def buffer(self, k):
-        """The table's host buffer, possibly still filling (rows below the
-        watermark have landed)."""
-        return self.stream.buffer(self._keymap[k])[:self._n]
-
-
-def _stream_key(s: int, key: str):
-    """The stream key of displacement set s's table ``key``."""
-    return key if s == 0 else ("seg", s, key)
-
-
-def _expected_stream_keys(keys, nsets: int) -> list:
-    """The tables a streamed hand-off delivers: ``keys`` of the first
-    displacement set, then ("seg", s, key) of each further set.  The
-    watermark is the least delivered prefix over them, so the list must be
-    what is enqueued, or the sweep never starts."""
-    return [_stream_key(s, k) for s in range(nsets) for k in keys]
-
-
-def streaming_sets(stream: _StreamState, keys, nsets: int, n: int):
-    """(vel, segments) over ``stream``: the first set's StreamingVel, and
-    with several sets the list of all (segments[0] is vel), else None."""
-    sets = [StreamingVel(stream, {k: _stream_key(s, k) for k in keys}, n)
-            for s in range(nsets)]
-    return sets[0], (sets if nsets > 1 else None)
-
-
-class PendingFetch:
-    """The dense engine's overlapped hand-off (counterpart of the JAX
-    package's PendingFetch).  On the device's copy stream, into
-    page-locked host buffers: the FmaxPDF counts and the sort's int64 cell
-    indices before LPT, then each displacement set as soon as K6a has
-    gathered its rows into the packed device buffer, while the device goes
-    on with the next set; the first set's F first (K6a's packed int32
-    indices are not copied), then each table's rows in N_CHUNKS prefix
-    chunks interleaved by (chunk, table), so the watermark advances
-    evenly.  The cell indices and F share one block of 12 bytes a row,
-    int64 then float32, a table's size.  A set's host buffers are
-    allocated when its gather has been enqueued, so that the device runs
-    the set's work meanwhile: the CUDA driver serializes page-locked
-    allocations with every other CUDA call of the process, so an
-    allocation on a thread of its own would hold the launches back
-    instead.  finish() waits for the counts, the cell indices and F only,
-    and returns views of their host buffers; the tables stream behind the
-    watermark of a _StreamState.  join() waits for the last row, drops the
-    device buffer and adds the hand-off's times to ``timings``.
-    lpt_events: the pair of timing events around the LPT on the compute
-    stream (run_fmax sets it on a card), read in join()."""
-
-    def __init__(self, device, N: int, count: int, keys, nsets: int,
-                 t0: float, timings: dict):
-        self.device = torch.device(device)
-        self.N, self.count, self.keys, self.nsets = N, count, list(keys), nsets
-        self.copier = kernels.CopyStream(self.device)
-        self.stream = _StreamState(count, _expected_stream_keys(keys, nsets),
-                                   t0)
-        self.buf = self._hist = self._ci_F = None
-        self._notes = {}               # name -> event set once it landed
-        self.timings = timings
-        self.lpt_events = None
-
-    def _host_empty(self, shape, dtype, **kw):
-        with record_function("handoff.alloc"):
-            return kernels.host_empty(shape, dtype, self.device, **kw)
-
-    def add_hist(self, counts) -> None:
-        """The FmaxPDF counts (int64 [PDF_BINS] on the device)."""
-        host = self._host_empty((PDF_BINS,), torch.int64, align=4096)
-        self.copier.after()
-        self._hist = host
-        self._notes["hist"] = self.stream.note("hist",
-                                               self.copier.copy(host, counts))
-
-    def add_ci(self, idx) -> None:
-        """The needed cells' indices (int64 [count] on the device, the
-        sort's order), into the first 8 bytes a row of the block that F
-        joins."""
-        c = self.count
-        self._ci_F = self._host_empty((3 * c,), torch.float32)
-        self.copier.after()
-        self._notes["ci"] = self.stream.note("ci", self.copier.copy(
-            self._ci_F[:2 * c].view(torch.int64), idx))
-
-    def add_set(self, s: int, buf, off: int) -> None:
-        """Set s's rows, just gathered into buf[off:] (packed layout)."""
-        self.buf = buf
-        c = self.count
-        self.copier.after()
-        if s == 0:
-            # F after the cell indices; the note's name says both landed
-            self._notes["ci_F"] = self.stream.note("ci_F", self.copier.copy(
-                self._ci_F[2 * c:], buf[off + c:off + 2 * c]))
-            off += 2 * c
-        tables = []
-        for j, k in enumerate(self.keys):
-            key = _stream_key(s, k)
-            rows = self._host_empty((c, 3), torch.float32)
-            self.stream.attach(key, rows.numpy())
-            tables.append((key, rows.reshape(-1), off + 3 * c * j))
-        b = _chunk_bounds(c)
-        for i in range(N_CHUNKS):
-            lo, hi = 3 * b[i], 3 * b[i + 1]
-            for key, rows, o in tables:
-                self.stream.enqueue(key, b[i + 1], self.copier.copy(
-                    rows[lo:hi], buf[o + lo:o + hi]))
-
-    def finish(self):
-        """(SparseProducts with streaming tables, FmaxPDF counts), once the
-        counts, cell indices and F have landed."""
-        for ev in self._notes.values():
-            ev.wait()
-        if not self._notes.keys() <= self.stream.times.keys():
-            self.stream.check()        # a note's copy failed
-        # (a table's failed copy raises from the sweep or join())
-        c = self.count
-        host = self._ci_F.numpy()
-        vel, segments = streaming_sets(self.stream, self.keys, self.nsets, c)
-        sp = SparseProducts(N=self.N, ci=host[:2 * c].view(np.int64),
-                            F=host[2 * c:], vel=vel, sorted_by="F",
-                            segments=segments)
-        return sp, self._hist.numpy()
-
-    def abort(self, err: BaseException) -> None:
-        """Release the waiters after a failure on the enqueuing side."""
-        self.stream.fail(err)
-
-    def join(self) -> dict:
-        """Wait for the last row (re-raising a failed copy) and drop the
-        device buffer; adds to ``timings`` and returns the hand-off's times
-        in seconds from the end of the collapse cycle: handoff_ci (the
-        cell indices landed), handoff_ci_F (F landed, after them),
-        handoff_first (the watermark's first advance), handoff_last (the
-        last row); with lpt_events, lpt (the device's seconds between the
-        two events, which the last row's copy waited for); and the
-        kernels.host_totals() snapshot."""
-        try:
-            times = self.stream.join()
-        finally:
-            self.buf = None
-        out = {f"handoff_{k}": v for k, v in times.items() if k != "hist"}
-        if self.lpt_events is not None:
-            start, end = self.lpt_events
-            end.synchronize()          # done: the last copy waited for it
-            out["lpt"] = start.elapsed_time(end) * 1e-3
-        out.update(kernels.host_totals())
-        self.timings.update(out)
-        return out
+def _stream_set(pending: PendingFetch, s: int, buf, off: int,
+                block) -> None:
+    """Set s's rows, just gathered into buf[off:] (packed layout), onto
+    the copy stream: the first set's F after the cell indices in ``block``
+    (K6a's packed int32 indices are not copied), then each table's rows in
+    N_CHUNKS prefix chunks interleaved by (chunk, table), so the watermark
+    advances evenly.  The tables' host buffers are allocated after the
+    copy stream's wait, so that the device runs the set's work meanwhile:
+    the CUDA driver serializes page-locked allocations with every other
+    CUDA call of the process, so an allocation on a thread of its own
+    would hold the launches back instead."""
+    pending.buf = buf
+    c = pending.count
+    pending.after()
+    if s == 0:
+        # F after the cell indices; the note's name says both landed
+        pending.note("ci_F", block[2 * c:], buf[off + c:off + 2 * c])
+        off += 2 * c
+    tables = []
+    for j, k in enumerate(pending.keys):
+        key, rows = pending.table(s, k)
+        tables.append((key, rows.reshape(-1), off + 3 * c * j))
+    b = chunk_bounds(c)
+    for i in range(N_CHUNKS):
+        lo, hi = 3 * b[i], 3 * b[i + 1]
+        for key, rows, o in tables:
+            pending.enqueue(key, b[i + 1], rows[lo:hi], buf[o + lo:o + hi])
 
 
 def run_fmax(params: Params, cosmo: Cosmology, device,
              kdensity=None, scaledep_gm=None, verbose: bool = False,
-             keep_dense_products: bool = False,
-             overlap: bool = True) -> FmaxResult:
+             keep_dense_products: bool = False) -> FmaxResult:
     """Collapse times, displacements and the needed-particle products on
     ``device``.  kdensity: an optional complex64 [N, N, N//2+1] tensor
     (e.g. the JAX package's, through load_jax_state) used instead of
@@ -690,15 +403,12 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     params.WriteTimelessSnapshot: also the whole grid's products on the
     host (FmaxResult.dense); each displacement stack is copied after its
     rows are gathered and before it is freed, so the device peak does not
-    grow.  overlap (the default): the FmaxPDF counts are binned and the
-    sort's int64 cell indices copied before LPT, and each displacement
-    set's rows stream to the host behind the device's work
-    (PendingFetch); the call returns once the counts, the cell indices
-    and F have landed, with the tables as StreamingVel views that
-    fragmentation sweeps behind their watermark, and
-    FmaxResult.pending_fetch to join() afterwards.  overlap=False: one
-    blocking copy of every set after the last, the same products bit for
-    bit."""
+    grow.  The FmaxPDF counts are binned and the sort's int64 cell indices
+    copied before LPT, and each displacement set's rows stream to the host
+    behind the device's work (module docstring); the call returns once the
+    counts, the cell indices and F have landed, with the tables as
+    StreamingVel views that fragmentation sweeps behind their watermark,
+    and FmaxResult.pending_fetch to join() afterwards."""
     grid = Grid(N=params.GridSize, BoxSize=params.BoxSize_htrue)
     N = grid.N
     sm = Smoothing.build(params, cosmo)
@@ -728,7 +438,7 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
             Fmax, Rmax, stats, sd = fmax_loop(kdensity, radii_grid, packs, N)
         sm.true_variance[:] = stats[:, 1].cpu().numpy()      # device sync
     t_cycle = time.perf_counter()
-    alloc0 = kernels.thread_alloc_seconds()
+    alloc0 = thread_alloc_seconds()
     timings["fmax_loop"] = t_cycle - t0
     if verbose:
         for ism in range(sm.n):
@@ -765,23 +475,23 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     dense_vel = {}
     keys = sorted(GROWTH_INDEX)[:{1: 1, 2: 2, 3: 4}[params.lpt_order]]
     count = idx.numel()
-    pending = None
-    if overlap:
-        pending = PendingFetch(device, N, count, keys, len(zs), t_cycle,
-                               timings)
+    # on a card the LPT is timed by two events on the compute stream, read
+    # once the last row has landed (join)
+    lpt_events = EventTimer([device], "lpt")
+    pending = PendingFetch(device, count, keys, len(zs), t_cycle, alloc0,
+                           timings, resolve=lpt_events.timings)
     try:
-        if pending is not None:
-            # the histogram and the cell indices before LPT, so that their
-            # copies do not wait for it
-            pending.add_hist(compact.pdf_hist(Fmax))
-            pending.add_ci(idx)
-        # on a card under overlap the LPT is timed by two events on the
-        # compute stream, read once the last row has landed (join)
-        events = None
-        if pending is not None and pending.device.type == "cuda":
-            compute = torch.cuda.current_stream(pending.device)
-            events = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
-            events[0].record(compute)
+        # the histogram and the cell indices before LPT, so that their
+        # copies do not wait for it; the cell indices and F share one
+        # block of 12 bytes a row, int64 then float32, a table's size
+        counts = compact.pdf_hist(Fmax)
+        hist = pending.host_empty((PDF_BINS,), torch.int64, align=4096)
+        pending.after()
+        pending.note("hist", hist, counts)
+        block = pending.host_empty((3 * count,), torch.float32)
+        pending.after()
+        pending.note("ci", block[:2 * count].view(torch.int64), idx)
+        lpt_events.record()
         with record_function("fmax.lpt"):
             sources = displacement_sources(kdensity, sd, N, params.lpt_order)
             del sd
@@ -798,53 +508,39 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
                 compact.gather_rows(idx, [vel[k] for k in keys],
                                     buf[off:off + sizes[s]],
                                     F=Fmax if s == 0 else None, rank=rank)
-                if events is not None and s == len(zs) - 1:
-                    events[1].record(compute)
-                    pending.lpt_events = tuple(events)
-                if pending is not None:
-                    pending.add_set(s, buf, off)
+                if s == len(zs) - 1:
+                    lpt_events.record()
+                _stream_set(pending, s, buf, off, block)
                 off += sizes[s]
                 if keep_dense and s == 0:
                     for k in keys:
-                        dense_vel[k] = kernels.to_host(vel[k]).numpy()
+                        dense_vel[k] = to_host(vel[k]).numpy()
                 del vel
             del sources, rank
-            if pending is None:
-                _sync(device)
-        if events is None:
+        if not lpt_events.devs:
             timings["lpt"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         with record_function("handoff.finish"):
-            if pending is None:
-                sp = unpack_products(buf.cpu().numpy(), N, count, keys,
-                                     len(zs))
-                hist = compact.pdf_hist(Fmax).cpu().numpy()
-            else:
-                sp, hist = pending.finish()
+            host, vel, segments = pending.finish()
         del buf
     except BaseException as e:
-        if pending is not None:
-            pending.abort(e)
+        pending.abort(e)
         raise
+    sp = SparseProducts(N=N, ci=host["ci"], F=host["ci_F"], vel=vel,
+                        sorted_by="F", segments=segments)
     dense = None
     if keep_dense:
-        dense = DenseProducts(Fmax=kernels.to_host(Fmax).numpy(),
-                              Rmax=kernels.to_host(Rmax).numpy(),
-                              vel=dense_vel)
+        dense = DenseProducts(Fmax=to_host(Fmax).numpy(),
+                              Rmax=to_host(Rmax).numpy(), vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
-    timings["handoff_alloc_s"] = kernels.thread_alloc_seconds() - alloc0
-    if pending is not None:
-        timings["handoff_return"] = time.perf_counter() - t_cycle
-    else:
-        timings.update(kernels.host_totals())
+    pending.returned()
     if verbose:
         print(f"  products: {count}/{N ** 3} needed particles "
               f"({100.0 * count / N ** 3:.1f}%), {len(zs)} displacement "
-              f"set(s)" + (", rows streaming behind the watermark"
-                           if overlap else ""))
+              f"set(s), rows streaming behind the watermark")
     return FmaxResult(products=Products(Fmax=Fmax, Rmax=Rmax), smoothing=sm,
-                      grid=grid, host_products=sp, pdf_hist=hist,
+                      grid=grid, host_products=sp, pdf_hist=host["hist"],
                       timings=timings, dense=dense, pending_fetch=pending)
 
 

@@ -13,7 +13,7 @@ from the shared products by one C pass (subbox_select), filtered in order by
 an optional cell mask (the two-turn scheme's needed-particle map), and the
 sweep reads the shared displacement rows through a row map, so threads
 sweeping other sub-boxes share them.  Rows that still stream from the device
-(fmax.StreamingVel, from either engine's overlapped hand-off) are read from
+(handoff.StreamingVel, from either engine's hand-off) are read from
 their host buffers while they fill: the sweep gets the stream's rows_ready
 watermark and waits on it before it reads a row past the delivered prefix (the
 products are in the sweep's order, so the prefix is all it needs); a failed
@@ -39,7 +39,8 @@ from .. import native
 from ..config import Params
 from ..cosmology import DELTALOGK, LOGKMIN, NK_BINS, Cosmology
 
-from ..fmax import FmaxResult, StreamingVel, ensure_host_products
+from ..fmax import FmaxResult, ensure_host_products
+from ..handoff import StreamingVel
 
 FILAMENT = 1
 NCOUNTERS = 16
@@ -428,7 +429,7 @@ def run_fragmentation(params: Params, cosmo: Cosmology,
             rowmap.ctypes.data_as(_i32p), ctypes.c_int64(n),
             Fs.ctypes.data_as(_f32p))
     keys = ("v1", "v2", "v31", "v32")
-    # streamed tables (fmax.StreamingVel): the sweep reads their host
+    # streamed tables (handoff.StreamingVel): the sweep reads their host
     # buffers while they fill, behind the rows_ready watermark
     stream = sp.vel.stream if isinstance(sp.vel, StreamingVel) else None
 

@@ -274,9 +274,9 @@ def write_timeless_chunk(params: Params, fmax_result, frag_result,
         if i is None:
             F, R = d.Fmax, d.Rmax
         else:
-            from .. import kernels
-            F = kernels.to_host(fmax_result.products.Fmax[i]).numpy()
-            R = kernels.to_host(fmax_result.products.Rmax[i]).numpy()
+            from ..handoff import to_host
+            F = to_host(fmax_result.products.Fmax[i]).numpy()
+            R = to_host(fmax_result.products.Rmax[i]).numpy()
         arrays[f"F_{j}_data"], arrays[f"F_{j}_start"] = F, start
         if rmax:
             arrays[f"rmax_{j}_data"], arrays[f"rmax_{j}_start"] = R, start

@@ -37,6 +37,7 @@ from ..fmax import (FmaxResult, GROWTH_INDEX, DenseProducts, SparseProducts,
                     inverse_growth_packs, load_jax_state,
                     prepare_ct_tables, unpack_products)
 from ..grids import Grid
+from ..handoff import to_host
 from ..ic import kdensity_args, kdensity_shard
 from ..ops import collapse, compact, lpt
 from . import pfft
@@ -312,7 +313,7 @@ class ShardedHandoff:
     def shard_products(self, i: int) -> SparseProducts:
         """Shard i's needed rows on the host (one page-locked copy), with
         global cell indices, in the sweep's order."""
-        host = kernels.to_host(self.bufs[i]).numpy()
+        host = to_host(self.bufs[i]).numpy()
         sp = unpack_products(host, self.decomp.N, self.counts[i], self.keys,
                              self.nsets)
         sp.ci = global_cells(self.decomp.real_block(i), self.decomp.N, sp.ci)
@@ -600,7 +601,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
                     output_z=[2.0, 1.0, 0.5, 0.0], norad=True,
                     plc_enabled=False)
     cosmo = Cosmology(params)
-    one = run_fmax(params, cosmo, meshes[0].device_list()[0], overlap=False)
+    one = run_fmax(params, cosmo, meshes[0].device_list()[0])
+    one.pending_fetch.join()
     F1 = one.products.Fmax.cpu().numpy()
     sp1 = one.host_products
     for mesh in meshes:

@@ -52,8 +52,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .. import kernels
 from ..fmax import SparseProducts, unpack_products
+from ..handoff import to_host
 from ..ops import exchange as ops
 from . import pfft
 from .driver import _sync, global_cells, group_sum, merge_parts
@@ -296,7 +296,7 @@ def exchange_products(fmax_result, geoms, nhosts: int, turn: int = None,
     for h in want:
         parts = []
         for q in host_devs[h]:
-            host = kernels.to_host(recv_rows[q]).numpy()
+            host = to_host(recv_rows[q]).numpy()
             recv_rows[q] = None
             off = 0
             for s in range(p):

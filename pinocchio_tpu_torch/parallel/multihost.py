@@ -16,7 +16,7 @@ global array.
 
 The group runs on gloo, on the CPU and on the card alike: every collective
 here stages its tensors through host memory (page-locked for a card's
-shards, kernels.host_empty), one explicit copy each way, and TRAFFIC counts
+shards, handoff.host_empty), one explicit copy each way, and TRAFFIC counts
 each kind's bytes, seconds and calls.  NCCL, which needs a card of its own
 for every rank, is not used (ROADMAP.md, item 12b-iv).  A collective that
 fails raises: a peer that dies or never joins fails the others within the
@@ -25,7 +25,7 @@ group's timeout, and nothing falls back to a local result.
 Every rank issues the collectives of one group in the same order, so two
 threads must not share a group.  initialize_cluster therefore makes a
 second gloo group, rows_group(), for the out-of-core engine's row streams,
-which run on a background thread (fmax_ooc._OocPending) while the main
+which run on a background thread (handoff.PendingFetch) while the main
 thread's sweeps and writers use the default group.
 
 A host owns the fragmentation sub-boxes dealt to it round-robin and takes
@@ -50,6 +50,7 @@ import torch
 
 from .. import kernels
 from ..fmax import ensure_host_products
+from ..handoff import host_empty
 
 # bytes through the group (out of and into this process), seconds and calls
 # of each kind of collective: the mesh transposes, the exchange's route, the
@@ -201,7 +202,7 @@ def all_to_all_staged(kind: str, send: dict, recv: dict, dtype,
     order; recv {rank: [(shape, device)]} names what each rank sends here,
     in its order.  Returns {rank: [tensors]}, each on its device.  Every
     tensor is of ``dtype``; the staging buffers are page-locked when a
-    tensor lives on a card (kernels.host_empty), and the copies into and
+    tensor lives on a card (handoff.host_empty), and the copies into and
     out of them block.  Every rank of ``group`` (None: the default group;
     rows_group() for the row streams) calls it, also one that sends and
     receives nothing."""
@@ -216,14 +217,14 @@ def all_to_all_staged(kind: str, send: dict, recv: dict, dtype,
     devs = [t.device for ts in send.values() for t in ts] + \
         [d for specs in recv.values() for _, d in specs]
     stage = next((d for d in devs if d.type == "cuda"), "cpu")
-    sendbuf = kernels.host_empty((sum(out_n),), torch.uint8, stage)
+    sendbuf = host_empty((sum(out_n),), torch.uint8, stage)
     off = 0
     for r in range(world):
         for t in send.get(r, ()):
             n = t.numel() * esize
             sendbuf[off:off + n].view(dtype).view(t.shape).copy_(t)
             off += n
-    recvbuf = kernels.host_empty((sum(in_n),), torch.uint8, stage)
+    recvbuf = host_empty((sum(in_n),), torch.uint8, stage)
     dist.all_to_all_single(recvbuf, sendbuf, in_n, out_n, group=group)
     got, off = {}, 0
     for r in range(world):

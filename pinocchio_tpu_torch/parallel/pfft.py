@@ -41,6 +41,7 @@ import torch
 
 from .. import kernels
 from ..grids import irfft_z
+from ..handoff import to_host
 from ..ops import derivatives
 
 AX = "x"    # mesh axis of the slab decomposition
@@ -339,12 +340,12 @@ class _Decomp:
     def gather(self, shards: list, kspace: bool = False) -> np.ndarray:
         """The whole field on the host as numpy, [..., N, N, N] (real) or
         [..., N, N, Nhp] (k), from each shard's page-locked host copy
-        (kernels.to_host); over a mesh split over processes, in every
+        (handoff.to_host); over a mesh split over processes, in every
         process, the blocks crossing in one all_gather of the group."""
         some = next(s for s in shards if s is not None)
         lead = tuple(some.shape[:-3])
         last = self.Nhp if kspace else self.N
-        host = {i: kernels.to_host(shards[i]).numpy() for i in self.local}
+        host = {i: to_host(shards[i]).numpy() for i in self.local}
         dtype = host[self.local[0]].dtype
         if self.mesh.procs is not None:
             from .multihost import all_gather_rows

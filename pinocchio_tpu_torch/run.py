@@ -8,11 +8,11 @@ RECOMPUTE_DISPLACEMENTS, the past light cone and the timeless snapshot.  The
 planner picks the fmax engine: the dense one, or, with ooc 'on', or 'auto'
 when the dense engine does not fit the device, the out-of-core one; it
 aborts with the memory map when the chosen engine does not fit.  Either
-engine hands its rows to the host overlapped (overlap, the default): they
-stream while fragmentation sweeps behind their watermark, and the run
-joins the streams after it.  DumpProducts writes the products after fmax,
-or after fragmentation when they stream; ReadProductsFromDumps reads them
-instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
+engine hands its rows to the host overlapped: they stream while
+fragmentation sweeps behind their watermark, and the run joins the
+streams after it.  DumpProducts writes the products once they are all on
+the host (after fragmentation when they stream); ReadProductsFromDumps
+reads them instead of running IC and fmax.  With subbox_tasks > 1 (--subboxes) the
 fragmentation runs over that many padded sub-boxes, swept concurrently on
 the host's cores and merged (fragment/subbox.py).  With a mesh (--chips N:
 cuda:0..N-1, or N CPU shards with --device cpu; --decomp slab, pencil,
@@ -79,10 +79,10 @@ import time
 
 import torch
 
-from . import kernels
 from .config import Params, read_parameter_file
 from .cosmology import Cosmology
 from .fmax_ooc import check_ooc_supported
+from .handoff import host_totals
 
 
 def check_supported(params: Params) -> None:
@@ -110,17 +110,16 @@ def resolve_device(device) -> torch.device:
 
 def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                  verbose: bool = True, write_outputs: bool = True,
-                 mesh=None, hosts: tuple = None, overlap: bool = True):
+                 mesh=None, hosts: tuple = None):
     """The run on ``device``, or with IC and fmax sharded over ``mesh``
     (parallel.pfft.Mesh; its devices replace ``device``); hosts=(h, H):
     host h's share of a run over H hosts (the module docstring), which over
     a mesh split over a process group (pfft.mesh_for(procs=)) must be the
     process's (rank, size), every process of the group calling it alike.
-    overlap (the default): either engine's overlapped hand-off, the rows
-    streaming to the host while fragmentation sweeps behind their watermark
-    (the dense mesh engine does not stream); False: the blocking hand-off,
-    the same outputs.  Returns dict(cosmo, plan (the planner's report),
-    fmax, frag, timings, files)."""
+    Either engine's rows stream to the host while fragmentation sweeps
+    behind their watermark (the dense mesh engine does not stream).
+    Returns dict(cosmo, plan (the planner's report), fmax, frag, timings,
+    files)."""
     from .fmax import fmax_pdf, run_fmax
     from .fmax_ooc import run_fmax_ooc
     from .fragment.driver import run_fragmentation
@@ -134,7 +133,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                          else mesh.local_devices()[0])
     check_supported(params)
     t_total = time.perf_counter()
-    host0 = kernels.host_totals()
+    host0 = host_totals()
     timings = {}
     host_id, nhosts = hosts if hosts else (0, 1)
     procs = None if mesh is None else mesh.procs
@@ -210,7 +209,7 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                   "devices" + ("" if procs is None else
                                f" of {procs[1]} processes"))
         fmax_res = run_fmax_ooc(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                                verbose=verbose, mesh=mesh, overlap=overlap)
+                                verbose=verbose, mesh=mesh)
     elif mesh is not None:
         from .parallel.driver import run_fmax_distributed
         if verbose:
@@ -222,22 +221,11 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
                                         defer_handoff=nhosts > 1)
     else:
         fmax_res = run_fmax(params, cosmo, dev, scaledep_gm=scaledep_gm,
-                            verbose=verbose, overlap=overlap)
+                            verbose=verbose)
     timings.update({"fmax_" + k: v for k, v in fmax_res.timings.items()})
-    # the rows of an overlapped hand-off are still streaming: no device
-    # sync before fragmentation, and the dump (which reads every row)
-    # after it
-    pending = fmax_res.pending_fetch or fmax_res.ooc_pending
-    dump_wanted = (params.DumpProducts and write_outputs
-                   and not params.ReadProductsFromDumps)
-
-    def dump():
-        t0 = time.perf_counter()
-        dumps.dump_products(params, fmax_res, outdir,
-                            hosts=(host_id, nhosts))
-        timings["dump"] = time.perf_counter() - t0
-    if dump_wanted and pending is None:
-        dump()
+    # the rows of a streamed hand-off are still landing: no device sync
+    # before fragmentation, and the dump (which reads every row) after it
+    pending = fmax_res.pending_fetch
 
     t_frag = time.perf_counter()
     if params.subbox_tasks > 1 or nhosts > 1:
@@ -262,8 +250,12 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
         pending.join()
         timings.update({"fmax_" + k: v
                         for k, v in fmax_res.timings.items()})
-        if dump_wanted:
-            dump()
+    if (params.DumpProducts and write_outputs
+            and not params.ReadProductsFromDumps):
+        t0 = time.perf_counter()
+        dumps.dump_products(params, fmax_res, outdir,
+                            hosts=(host_id, nhosts))
+        timings["dump"] = time.perf_counter() - t0
     if fmax_res.handoff is not None:
         # the exchanges are done: free the deferred device buffers
         fmax_res.handoff.release()
@@ -343,8 +335,8 @@ def run_pipeline(params: Params, outdir: str = ".", device="cuda",
     timings["total"] = time.perf_counter() - t_total
     # the run's page-locked allocations, releases and blocks reused from the
     # pool and its copies to the host, from the process totals of
-    # kernels.HOST_COUNTS
-    host1 = kernels.host_totals()
+    # handoff.HOST_COUNTS
+    host1 = host_totals()
     for kind in ("pinned_alloc", "pinned_free", "pinned_reuse", "d2h"):
         key = f"{kind}_bytes_total"
         timings[f"{kind}_gib"] = (host1[key] - host0[key]) / 2 ** 30
@@ -391,7 +383,7 @@ def greetings(params: Params, device: torch.device, mesh=None):
 def write_cputimes(t: dict):
     """Wall-clock report at exit (write_cputimes, pinocchio.c:266-292),
     then the run's page-locked host memory and copies to the host
-    (kernels.HOST_COUNTS): seconds in allocation, in reuse from the pool
+    (handoff.HOST_COUNTS): seconds in allocation, in reuse from the pool
     and in release, GiB allocated, reused, released and copied."""
     fd = sys.stdout
     total = t.get("total", 0.0) or 1e-30

@@ -5,13 +5,13 @@ six ways.
 The engine ends with the needed cells' products on the card: the cell
 indices (int64), F (float32) and the [count, 3] float32 rows of each
 displacement field.  Each buffer is copied to the host, as
-pinocchio_tpu_torch/kernels/__init__.py:to_host does, into
+pinocchio_tpu_torch/handoff.py:to_host does, into
 
   engine    page-locked memory of the buffer's size rounded up to 2 MiB
             (cudaHostAlloc through the port's kernel library,
-            kernels.pinned_empty), the engine's way on its first
+            handoff.pinned_empty), the engine's way on its first
             realization: the pool's idle blocks are released after the
-            round (kernels.release_pinned), so each round allocates;
+            round (handoff.release_pinned), so each round allocates;
   exact     the same, allocated at the buffer's exact size;
   pow2      the same, allocated at the next power of two;
   pool      the engine's way with the pool kept after the round, as the
@@ -55,7 +55,7 @@ def mem_available() -> float:
 
 def main() -> int:
     import torch
-    from pinocchio_tpu_torch import kernels
+    from pinocchio_tpu_torch import handoff, kernels
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--count", type=int, default=704237034)
@@ -84,7 +84,7 @@ def main() -> int:
     def pinned(t, align):
         dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
         size = t.numel() * t.element_size()
-        host = torch.from_numpy(kernels.pinned_empty(tuple(t.shape), dtype,
+        host = torch.from_numpy(handoff.pinned_empty(tuple(t.shape), dtype,
                                                      align(size)))
         host.copy_(t)
         return host
@@ -94,7 +94,7 @@ def main() -> int:
         host.copy_(t)
         return host
 
-    ways = {"engine": lambda t: pinned(t, lambda b: kernels.PINNED_ALIGN),
+    ways = {"engine": lambda t: pinned(t, lambda b: handoff.PINNED_ALIGN),
             "exact": lambda t: pinned(t, lambda b: 1),
             "pow2": lambda t: pinned(t, lambda b: 1 << (b - 1).bit_length()),
             "pageable": lambda t: t.cpu(), "cached": cached}
@@ -108,7 +108,7 @@ def main() -> int:
         held = before - mem_available()
         del hosts
         if name != "pool":
-            kernels.release_pinned()
+            handoff.release_pinned()
         rounds.append(dict(way=name, seconds=secs,
                            gb_per_s=nbytes / secs / 1e9,
                            host_bytes_held=held,

@@ -229,7 +229,7 @@ def split(dev, sizes, ooc_n):
         cosmo = Cosmology(p)
         for run in range(2):
             res = fmax_ooc.run_fmax_ooc(p, cosmo, dev)
-            res.ooc_pending.join()
+            res.pending_fetch.join()
             t = {k: res.timings.get(k, float("nan"))
                  for k in ("sources", "fold", "spectra", "lpt_rows", "lpt")}
             print(f"[{ooc_n}^3] run_fmax_ooc {run + 1}: "

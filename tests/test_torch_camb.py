@@ -16,7 +16,8 @@ byte for byte the same.
   to float64 round-off, rtol 1e-12: the same numpy code.
 - Fmax, the RECOMPUTE sets and halos on both engines: each package's
   run_pipeline at 32^3 with MaxMemPerParticle 400, the dense engine and
-  ooc='on' (float32 storage, the blocking hand-off), one torch thread.
+  ooc='on' (float32 storage, the hand-off joined in the run), one torch
+  thread.
   Fmax is held on the cells JAX's float32 resolves against a float64
   evaluation of the port's delta (tests/torch_fmax64.py: |dF| > 0.01 on
   fewer than 0.1 % of them, the median |dF| below 1e-4); the grid
@@ -174,7 +175,7 @@ def engines(camb_set, tmp_path_factory):
             jres = jax_run_pipeline(jp, outdir=d, verbose=False,
                                     write_outputs=False)
             res = run_pipeline(p, outdir=d, device="cpu", verbose=False,
-                               write_outputs=False, overlap=False)
+                               write_outputs=False)
             assert res["plan"]["engine"] == ("out-of-core" if ooc == "on"
                                              else "dense")
             cosmo = res["cosmo"]

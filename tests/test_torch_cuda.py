@@ -37,12 +37,13 @@ on a mesh shard's window are exactly equal to their plain versions and to
 the full-grid kernels on that window; the fmax phase over a 2x2 pencil
 mesh of the one card launches the mesh's kernels and holds the
 single-device run's results, and the out-of-core engine over 3 shards of
-the card equals the single-device engine exactly; the overlapped hand-off
-equals the blocking one bit for bit on both engines, and its copies land
-their source's values when the source is freed and its memory reused
-before they run; the dense one's bytes to the host at 256^3 are the
-sort's int64 cell indices, F, the tables and the counts, and its entry
-returns before the last table lands.  The exchange's kernels
+the card equals the single-device engine exactly; the hand-off's products
+read through its views before the join equal a joined run's bit for bit
+on both engines, and its copies land their source's values when the
+source is freed and its memory reused before they run; the dense one's
+bytes to the host at 256^3 are the sort's int64 cell indices, F, the
+tables and the counts, its cell indices the needed cells of its Fmax in
+(-F, cell) order, and its entry returns before the last table lands.  The exchange's kernels
 K15 (count, with boxes and with request maps), K16 (pack) and K17 (sphere
 paint, from its plan) are
 exactly equal to their plain versions on the (1, 1) shard of a 2x2 pencil
@@ -78,7 +79,7 @@ import torch
 
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
-from pinocchio_tpu_torch import fmax, fmax_ooc, ic, kernels
+from pinocchio_tpu_torch import fmax, fmax_ooc, handoff, ic, kernels
 from pinocchio_tpu_torch.grids import Grid, rfft3
 from pinocchio_tpu_torch.ops import collapse, compact, derivatives, lpt
 from pinocchio_tpu_torch.ops import exchange as xops
@@ -977,11 +978,11 @@ def test_ooc_mesh_on_one_card(dev, setup):
     from pinocchio_tpu_torch.parallel import pfft
     p, cosmo = setup
     one = fmax_ooc.run_fmax_ooc(p, cosmo, dev)
-    one.ooc_pending.join()
+    one.pending_fetch.join()
     kernels.reset_launches()
     res = fmax_ooc.run_fmax_ooc(p, cosmo, dev,
                                 mesh=pfft.make_mesh(devices=[dev] * 3))
-    res.ooc_pending.join()
+    res.pending_fetch.join()
     torch.cuda.synchronize()
     launched = {k for k, v in kernels.LAUNCHES.items() if v}
     want = {"ic_kdensity_planes", "ooc_factors_hessian",
@@ -1003,7 +1004,7 @@ def test_ooc_mesh_on_one_card(dev, setup):
 
 @pytest.mark.cuda
 def test_copies_land_after_their_source_is_freed_and_reused(dev):
-    """The hand-off's copies (kernels.CopyStream) held back on the copy
+    """The hand-off's copies (handoff.CopyStream) held back on the copy
     stream behind a sleep: their source tensor is freed and a tensor of the
     same size is allocated and overwritten before they run; they still
     land the source's values, because each copy marks its source as used
@@ -1011,14 +1012,14 @@ def test_copies_land_after_their_source_is_freed_and_reused(dev):
     n = 1 << 24
     src = torch.arange(n, dtype=torch.float32, device=dev)
     want = src.cpu().numpy()
-    host = kernels.host_empty((n,), torch.float32, dev)
-    copier = kernels.CopyStream(dev)
+    host = handoff.host_empty((n,), torch.float32, dev)
+    copier = handoff.CopyStream(dev)
     copier.after()
     with torch.cuda.stream(copier.stream):
         torch.cuda._sleep(200_000_000)
-    b = fmax._chunk_bounds(n)
+    b = handoff.chunk_bounds(n)
     copies = [copier.copy(host[b[i]:b[i + 1]], src[b[i]:b[i + 1]])
-              for i in range(fmax.N_CHUNKS)]
+              for i in range(handoff.N_CHUNKS)]
     ptr = src.data_ptr()
     del src
     other = torch.empty(n, dtype=torch.float32, device=dev)
@@ -1034,23 +1035,25 @@ def test_copies_land_after_their_source_is_freed_and_reused(dev):
 
 @pytest.mark.cuda
 def test_overlapped_handoff_on_the_card(dev, setup):
-    """The dense and out-of-core engines' overlapped hand-off on the card
-    against the blocking one: the same products bit for bit and the same
-    catalogs, the copies landing on the copy stream behind events."""
+    """The dense and out-of-core engines' hand-off on the card: the
+    products read through the views before the join against a run joined
+    before it is read, bit for bit, and the same catalogs, the copies
+    landing on the copy stream behind events."""
     from pinocchio_tpu_torch import fmax_ooc
     from pinocchio_tpu_torch.fragment.driver import run_fragmentation
     p, cosmo = setup
     for run in (fmax.run_fmax, fmax_ooc.run_fmax_ooc):
-        a = run(p, cosmo, dev, overlap=False)
-        b = run(p, cosmo, dev)
+        a = run(p, cosmo, dev)
+        a.pending_fetch.join()
         fa = run_fragmentation(p, cosmo, a, verbose=False)
+        b = run(p, cosmo, dev)
         fb = run_fragmentation(p, cosmo, b, verbose=False)
-        (b.pending_fetch or b.ooc_pending).join()
         sa, sb = a.host_products, b.host_products
         np.testing.assert_array_equal(sa.ci, sb.ci)
         np.testing.assert_array_equal(sa.F, sb.F)
         for k in sa.vel:
             np.testing.assert_array_equal(sa.vel[k], sb.vel[k])
+        b.pending_fetch.join()
         np.testing.assert_array_equal(a.pdf_hist, b.pdf_hist)
         np.testing.assert_array_equal(fa.counters, fb.counters)
         for x, y in zip(fa.catalogs, fb.catalogs):
@@ -1063,8 +1066,9 @@ def test_dense_handoff_lands_int64_cell_indices(dev):
     engine, after a warm one: the overlapped hand-off's bytes to the host
     are the sort's int64 cell indices, F, every table's rows and the
     FmaxPDF counts, 8 + 4 + 12 x keys x sets bytes a row and 8 a bin;
-    its cell indices equal the blocking path's; the entry returns before
-    the last table has landed."""
+    its cell indices are the needed cells of its Fmax in (-F, cell) order
+    and F their values; the entry returns before the last table has
+    landed."""
     import gc
     from pinocchio_tpu_torch.io.catalogs import largest_halo_mass
     from pinocchio_tpu_torch.scaledep import set_scaledep_gm
@@ -1077,7 +1081,7 @@ def test_dense_handoff_lands_int64_cell_indices(dev):
                          largest_halo_mass(p, cosmo), verbose=False)
     fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm).pending_fetch.join()
     gc.collect()
-    before = kernels.host_totals()["d2h_bytes_total"]
+    before = handoff.host_totals()["d2h_bytes_total"]
     res = fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm)
     times = res.pending_fetch.join()
     sp = res.host_products
@@ -1088,9 +1092,10 @@ def test_dense_handoff_lands_int64_cell_indices(dev):
             == 8 * c + 4 * c + 12 * c * nkeys * nsets
             + 8 * compact.PDF_BINS)
     assert res.timings["handoff_return"] < times["handoff_last"]
-    blocking = fmax.run_fmax(p, cosmo, dev, scaledep_gm=gm, overlap=False)
-    np.testing.assert_array_equal(sp.ci, blocking.host_products.ci)
-    np.testing.assert_array_equal(sp.F, blocking.host_products.F)
+    F = res.products.Fmax.cpu().numpy().ravel()
+    want = np.flatnonzero(F >= p.Flast)
+    np.testing.assert_array_equal(sp.ci, want[np.lexsort((want, -F[want]))])
+    np.testing.assert_array_equal(sp.F, F[sp.ci])
 
 
 def _host_arrays(res):
@@ -1126,11 +1131,11 @@ def test_pinned_pool_across_realizations(dev, engine):
 
     def realize(seed):
         res = run(dataclasses.replace(p, RandomSeed=seed), cosmo, dev)
-        (res.pending_fetch or res.ooc_pending).join()
+        res.pending_fetch.join()
         return res
 
     gc.collect()
-    kernels.release_pinned()
+    handoff.release_pinned()
     res = realize(1)
     first = _host_arrays(res)
     want = [_bits(a).copy() for a in first]
@@ -1138,9 +1143,9 @@ def test_pinned_pool_across_realizations(dev, engine):
     res = realize(2)
     del res
     gc.collect()
-    before = kernels.host_totals()
+    before = handoff.host_totals()
     res = realize(3)
-    after = kernels.host_totals()
+    after = handoff.host_totals()
     third = [_bits(a).copy() for a in _host_arrays(res)]
     del res
     gc.collect()
@@ -1152,10 +1157,10 @@ def test_pinned_pool_across_realizations(dev, engine):
         np.testing.assert_array_equal(_bits(a), w)
     del first
     gc.collect()
-    kernels.release_pinned()
-    before = kernels.host_totals()
+    handoff.release_pinned()
+    before = handoff.host_totals()
     res = realize(3)
-    assert kernels.host_totals()["pinned_reuse_calls_total"] == before[
+    assert handoff.host_totals()["pinned_reuse_calls_total"] == before[
         "pinned_reuse_calls_total"]
     fresh = _host_arrays(res)
     assert len(fresh) == len(third)

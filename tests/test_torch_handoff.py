@@ -1,43 +1,46 @@
-"""The port's overlapped hand-off on the CPU: the needed rows stream to the
-host in chunks (fmax.PendingFetch, fmax_ooc.OocMesh.land_stream), a waiter
-thread advances the rows_ready watermark (fmax._StreamState), and the C
+"""The port's hand-off on the CPU: the needed rows stream to the host in
+chunks (handoff.PendingFetch, fmax_ooc.OocMesh.land_stream), a waiter
+thread advances the rows_ready watermark (handoff.StreamState), and the C
 sweep starts on the delivered prefix.  On the CPU a copy is made by the
-thread that waits for it (kernels.HostCopy), so these tests drive the same
+thread that waits for it (handoff.HostCopy), so these tests drive the same
 code as a card does.
 
-- Overlapped against blocking (overlap=False), bit for bit: the cell
-  indices, F, every row of every displacement set and the FmaxPDF counts,
-  on the dense engine (classic, and f(R) with RECOMPUTE: 4 sets) and on
-  the out-of-core engine (one device, 2 CPU shards, f(R) with RECOMPUTE);
-  run_pipeline's files (with the past light cone) and dump arrays byte for
-  byte.
+- The products read through the StreamingVel views before the join,
+  against the JAX package's: on the dense engine (classic, and f(R) with
+  RECOMPUTE: 4 sets) on JAX's delta, against its run_fmax with
+  sparse_transfer=True; on the out-of-core engine (one device, 2 CPU
+  shards; classic and f(R) with RECOMPUTE) against its run_fmax_ooc; every
+  set, with the tolerances below.  run_pipeline's dump, written after the
+  join, holds the products, and a restart from it (ReadProductsFromDumps)
+  writes the first run's files byte for byte (catalogs, mass functions,
+  histories, the past light cone and n(z)).
 - The dense hand-off's cell indices land as the sort's int64: sp.ci is
-  int64, C-contiguous and a view of the page-locked block beside F (no
-  array made on the host), equal element for element to the blocking
-  path's and to the JAX package's PendingFetch on the same Fmax.
+  int64, C-contiguous and a view of the page-locked block that F follows
+  (no array made on the host), equal element for element to the needed
+  cells of the run's Fmax in (-F, cell) order and to the JAX package's
+  PendingFetch on the same Fmax.
 - The watermark gates the sweep: with _STREAM_TEST_DELAY seconds before
   each chunk lands, the catalogs of one box and of 2x1x1 sub-boxes,
-  single- and two-turn, equal the blocking run's (counters, names and
-  masses exactly, positions within 1e-5), the run takes longer than
-  delay x N_CHUNKS / 2, and the sweeps report time spent waiting on the
-  watermark.
+  single- and two-turn, equal those of a run joined before its sweep
+  (counters, names and masses exactly, positions within 1e-5), the run
+  takes longer than delay x N_CHUNKS / 2, and the sweeps report time
+  spent waiting on the watermark.
 - Against the JAX package: its run_fmax with sparse_transfer=True and
   transfer_f16=False (its PendingFetch on the CPU) against the port's
-  overlapped run_fmax on JAX's delta, and its run_fmax_ooc(overlap=True)
-  against the port's, with the tolerances of test_torch_ooc.py: the needed
-  set equal up to max(2, 0.1 %) borderline cells, the common cells in the
-  same order (among the cells whose F the two agree on within
-  1e-3 max(1, |F|), over 99 % of them, the two orders differ only where F
-  differs by at most twice that: near ties), rows within rtol = atol =
-  3e-3; the
-  catalogs of test_torch_pipeline.py: halo counts per output within
-  max(5, 0.5 %).
+  run_fmax on JAX's delta, and its run_fmax_ooc(overlap=True) against the
+  port's, with the tolerances of test_torch_ooc.py: the needed set equal
+  up to max(2, 0.1 %) borderline cells, the common cells in the same order
+  (among the cells whose F the two agree on within 1e-3 max(1, |F|), over
+  99 % of them, the two orders differ only where F differs by at most
+  twice that: near ties), rows within rtol = atol = 3e-3; the catalogs of
+  test_torch_pipeline.py: halo counts per output within max(5, 0.5 %).
 - A chunk copy that raises makes run_fragmentation and run_pipeline raise
   that error, within a bounded join.
 """
 
 import dataclasses
 import os
+import shutil
 import threading
 import time
 
@@ -45,13 +48,16 @@ import numpy as np
 import pytest
 import torch
 
+from pinocchio_tpu import fmax as jfmax
 from pinocchio_tpu.cosmology import Cosmology as JaxCosmology
 from pinocchio_tpu.fmax import fetch_products_host
 from pinocchio_tpu.fmax import run_fmax as jax_run_fmax
 from pinocchio_tpu.fmax_ooc import run_fmax_ooc as jax_run_fmax_ooc
 from pinocchio_tpu.fragment.driver import \
     run_fragmentation as jax_run_fragmentation
-from pinocchio_tpu_torch import fmax, fmax_ooc, kernels
+from pinocchio_tpu.io.catalogs import largest_halo_mass as jlargest
+from pinocchio_tpu.scaledep import set_scaledep_gm as jax_set_scaledep_gm
+from pinocchio_tpu_torch import fmax, fmax_ooc, handoff
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.fmax import Smoothing
@@ -96,19 +102,6 @@ def _sets(sp):
     return sp.segments if sp.segments is not None else [sp.vel]
 
 
-def _same_products(a, b):
-    """Two FmaxResults' host products and FmaxPDF counts, bit for bit."""
-    sa, sb = a.host_products, b.host_products
-    np.testing.assert_array_equal(sa.ci, sb.ci)
-    np.testing.assert_array_equal(sa.F, sb.F)
-    assert len(_sets(sa)) == len(_sets(sb))
-    for x, y in zip(_sets(sa), _sets(sb)):
-        assert sorted(x) == sorted(y)
-        for k in x:
-            np.testing.assert_array_equal(x[k], y[k])
-    np.testing.assert_array_equal(a.pdf_hist, b.pdf_hist)
-
-
 def _same_catalogs(fa, fb):
     np.testing.assert_array_equal(fa.counters, fb.counters)
     assert len(fa.catalogs) == len(fb.catalogs)
@@ -120,15 +113,62 @@ def _same_catalogs(fa, fb):
         np.testing.assert_allclose(c0.x[o0], c1.x[o1], atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def jax_runs():
+    """(engine, model) -> (JAX's run of the model, the port's Params,
+    cosmology and scaledep_gm): its dense run_fmax with sparse_transfer
+    (its PendingFetch) fetched to the host, or its run_fmax_ooc; each made
+    once."""
+    cache = {}
+
+    def get(engine, model):
+        if (engine, model) not in cache:
+            jp, p = params_pair(**bench_kwargs(N, **(FR if model == "fr"
+                                                     else {})),
+                                ooc_dtype="float32")
+            jc, cosmo = JaxCosmology(jp), Cosmology(p)
+            jgm = gm = None
+            if model == "fr":
+                jgm = jax_set_scaledep_gm(jp, jc, jfmax.Smoothing.build(jp, jc),
+                                          jlargest(jp, jc), verbose=False)
+                gm = set_scaledep_gm(p, cosmo, Smoothing.build(p, cosmo),
+                                     largest_halo_mass(p, cosmo),
+                                     verbose=False)
+            if engine == "dense":
+                jp = dataclasses.replace(jp, sparse_transfer=True,
+                                         transfer_f16=False)
+                jres = fetch_products_host(jp, jax_run_fmax(
+                    jp, jc, scaledep_gm=jgm, verbose=False))
+            else:
+                jres = jax_run_fmax_ooc(dataclasses.replace(
+                    jp, sparse_transfer=False, transfer_f16=False), jc,
+                    scaledep_gm=jgm, verbose=False, overlap=False)
+            cache[engine, model] = jres, p, cosmo, gm
+        return cache[engine, model]
+    return get
+
+
+def _jax_sets(jres):
+    vel = jres.host_products.vel
+    return jres.vel_segments if jres.vel_segments is not None else [vel]
+
+
 @pytest.mark.parametrize("model", ["classic", "fr"])
-def test_dense_overlap_equals_blocking(model, classic, fr):
-    p, cosmo, gm = classic if model == "classic" else fr
-    blocking = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm, overlap=False)
-    res = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm)
-    assert blocking.pending_fetch is None
-    assert isinstance(res.host_products.vel, fmax.StreamingVel)
-    assert len(_sets(res.host_products)) == (4 if model == "fr" else 1)
-    _same_products(res, blocking)
+def test_dense_overlap_equals_blocking(model, jax_runs):
+    """The dense engine's products read through the StreamingVel views
+    before the join, every set, against the JAX package's on its delta;
+    the join's times in order and the device buffer dropped."""
+    jres, p, cosmo, gm = jax_runs("dense", model)
+    state = fmax.load_jax_state({"kdensity": np.asarray(jres.kdensity)},
+                                "cpu")
+    res = fmax.run_fmax(p, cosmo, "cpu", kdensity=state["kdensity"],
+                        scaledep_gm=gm)
+    sp = res.host_products
+    assert isinstance(sp.vel, handoff.StreamingVel)
+    assert len(_sets(sp)) == len(_jax_sets(jres)) == (4 if model == "fr"
+                                                      else 1)
+    _held_to_jax(sp, jres.host_products, ordered=True,
+                 sets=(_sets(sp), _jax_sets(jres)))
     times = res.pending_fetch.join()
     assert (0.0 < times["handoff_ci"] <= times["handoff_ci_F"]
             <= times["handoff_first"] <= times["handoff_last"])
@@ -137,23 +177,23 @@ def test_dense_overlap_equals_blocking(model, classic, fr):
 
 @pytest.mark.parametrize("model", ["classic", "fr"])
 def test_dense_overlap_lands_int64_cell_indices(model, classic, fr):
-    """The overlapped dense hand-off's cell indices land as the sort's
-    int64: sp.ci is int64, C-contiguous and a view of the page-locked
-    block they landed in (no array made on the host), equal element for
-    element to the blocking path's and to the JAX package's PendingFetch
-    on the same Fmax; F lands in the same block."""
+    """The dense hand-off's cell indices land as the sort's int64: sp.ci
+    is int64, C-contiguous and a view of the page-locked block that F
+    follows in (no array made on the host), equal element for element to
+    the needed cells of the run's Fmax in (-F, cell) order and to the JAX
+    package's PendingFetch on the same Fmax."""
     import jax.numpy as jnp
     from pinocchio_tpu.fmax import PendingFetch as JaxPendingFetch
     p, cosmo, gm = classic if model == "classic" else fr
-    blocking = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm, overlap=False)
     res = fmax.run_fmax(p, cosmo, "cpu", scaledep_gm=gm)
     sp = res.host_products
-    block = res.pending_fetch._ci_F.numpy()
     assert sp.ci.dtype == np.int64 and sp.ci.flags.c_contiguous
-    assert not sp.ci.flags.owndata
-    assert np.shares_memory(sp.ci, block) and np.shares_memory(sp.F, block)
+    assert not sp.ci.flags.owndata and not sp.F.flags.owndata
+    assert sp.F.ctypes.data == sp.ci.ctypes.data + sp.ci.nbytes
     assert len(sp.ci) > 0
-    np.testing.assert_array_equal(sp.ci, blocking.host_products.ci)
+    F = res.products.Fmax.numpy().ravel()
+    want = np.flatnonzero(F >= p.Flast)
+    np.testing.assert_array_equal(sp.ci, want[np.lexsort((want, -F[want]))])
     jp, _ = params_pair(**bench_kwargs(N, **(FR if model == "fr" else {})))
     jsp = JaxPendingFetch(jp, jnp.asarray(res.products.Fmax.numpy()), N,
                           expected_keys=[]).finish()
@@ -165,22 +205,28 @@ def test_dense_overlap_lands_int64_cell_indices(model, classic, fr):
 
 @pytest.mark.parametrize("model,shards", [("classic", 1), ("classic", 2),
                                           ("fr", 1), ("fr", 2)])
-def test_ooc_overlap_equals_blocking(model, shards, classic, fr):
-    p, cosmo, gm = classic if model == "classic" else fr
+def test_ooc_overlap_equals_blocking(model, shards, jax_runs):
+    """The out-of-core engine's products read through the StreamingVel
+    views before the join, every set, against the JAX package's
+    run_fmax_ooc (one device); the row phase's timings arrive with the
+    join."""
+    jres, p, cosmo, gm = jax_runs("ooc", model)
     p = dataclasses.replace(p, ooc="on")
     mesh = None if shards == 1 else make_mesh(shards,
                                               devices=["cpu"] * shards)
-    blocking = fmax_ooc.run_fmax_ooc(p, cosmo, "cpu", scaledep_gm=gm,
-                                     mesh=mesh, overlap=False)
     res = fmax_ooc.run_fmax_ooc(p, cosmo, "cpu", scaledep_gm=gm, mesh=mesh)
-    assert blocking.ooc_pending is None and "lpt_rows" in blocking.timings
+    assert res.ooc_pending is res.pending_fetch
     assert "lpt_rows" not in res.timings
-    _same_products(res, blocking)
-    timings = res.ooc_pending.join()
+    sp = res.host_products
+    assert isinstance(sp.vel, handoff.StreamingVel)
+    assert len(_sets(sp)) == len(_jax_sets(jres)) == (4 if model == "fr"
+                                                      else 1)
+    _held_to_jax(sp, jres.host_products, ordered=False,
+                 sets=(_sets(sp), _jax_sets(jres)))
+    timings = res.pending_fetch.join()
     assert "lpt_rows" in timings
     # the row phase is timed on a card's events alone
     assert "rows_device_s" not in timings
-    assert "rows_device_s" not in blocking.timings
     assert timings["handoff_return"] <= timings["handoff_last"]
 
 
@@ -208,49 +254,51 @@ def test_watermark_gates_the_sweep(engine, boxes, classic, monkeypatch):
                                           two_turn=boxes == "two_turn",
                                           verbose=False)
 
-    want = frag(run_fmax(p, cosmo, "cpu", overlap=False))
-    monkeypatch.setattr(fmax, "_STREAM_TEST_DELAY", DELAY)
+    joined = run_fmax(p, cosmo, "cpu")
+    joined.pending_fetch.join()
+    want = frag(joined)
+    monkeypatch.setattr(handoff, "_STREAM_TEST_DELAY", DELAY)
     got, elapsed = _timed(lambda: frag(run_fmax(p, cosmo, "cpu")))
-    assert elapsed > DELAY * fmax.N_CHUNKS / 2
+    assert elapsed > DELAY * handoff.N_CHUNKS / 2
     assert got.timings["stream_wait"] > 0.0
     _same_catalogs(want, got)
 
 
 @pytest.mark.parametrize("engine", ["dense", "ooc"])
 def test_pipeline_files_and_dump_equal_blocking(engine, tmp_path):
-    """run_pipeline overlapped writes the blocking run's files byte for
-    byte (catalogs, mass functions, histories, FmaxPDF, the past light
-    cone and n(z)), the dump (written after fragmentation) with the same
-    arrays."""
-    kw = dict(bench_kwargs(N), subbox_tasks=2, DumpProducts=True,
-              plc_enabled=True, StartingzForPLC=0.05,
-              PLCProvideConeData=True)
+    """run_pipeline's dump, written after the join, holds the run's
+    products, and a restart from it writes the run's files byte for byte
+    (catalogs, mass functions, histories, the past light cone and n(z);
+    the FmaxPDF is the dumping run's alone)."""
+    kw = dict(bench_kwargs(N), subbox_tasks=2, plc_enabled=True,
+              StartingzForPLC=0.05, PLCProvideConeData=True)
     if engine == "ooc":
         kw.update(FR, ooc="on")
-    p = Params(**kw)
-    outs = {}
-    for overlap in (False, True):
-        out = tmp_path / str(overlap)
-        out.mkdir()
-        res = run_pipeline(p, outdir=str(out), device="cpu", verbose=False,
-                           overlap=overlap)
-        outs[overlap] = out
-        assert ("fmax_handoff_last" in res["timings"]) == overlap
-    files = sorted(f for f in os.listdir(outs[False])
-                   if (outs[False] / f).is_file())
-    assert files == sorted(f for f in os.listdir(outs[True])
-                           if (outs[True] / f).is_file())
-    assert any(f.endswith(".plc.out") for f in files)
-    for f in files:
-        assert ((outs[False] / f).read_bytes()
-                == (outs[True] / f).read_bytes()), f
-    with np.load(outs[False] / "DumpProducts" / "products.0.npz") as a, \
-            np.load(outs[True] / "DumpProducts" / "products.0.npz") as b:
-        assert sorted(a.files) == sorted(b.files)
+    first, again = tmp_path / "first", tmp_path / "again"
+    first.mkdir()
+    res = run_pipeline(Params(**kw, DumpProducts=True), outdir=str(first),
+                       device="cpu", verbose=False)
+    assert "fmax_handoff_last" in res["timings"]
+    sp = res["fmax"].host_products
+    with np.load(first / "DumpProducts" / "products.0.npz") as a:
         if engine == "ooc":
             assert "seg3_v1" in a.files
-        for k in a.files:
-            np.testing.assert_array_equal(a[k], b[k])
+        np.testing.assert_array_equal(a["ci"], sp.ci)
+        np.testing.assert_array_equal(a["F"], sp.F)
+        for s, rows in enumerate(_sets(sp)):
+            for k in rows:
+                name = f"vel_{k}" if s == 0 else f"seg{s}_{k}"
+                np.testing.assert_array_equal(a[name], rows[k])
+    shutil.copytree(first / "DumpProducts", again / "DumpProducts")
+    run_pipeline(Params(**kw, ReadProductsFromDumps=True), outdir=str(again),
+                 device="cpu", verbose=False)
+    files = sorted(f for f in os.listdir(again) if (again / f).is_file())
+    assert files == sorted(f for f in os.listdir(first)
+                           if (first / f).is_file()
+                           and not f.endswith(".FmaxPDF.out"))
+    assert any(f.endswith(".plc.out") for f in files)
+    for f in files:
+        assert (first / f).read_bytes() == (again / f).read_bytes(), f
 
 
 def _in_thread(fn):
@@ -275,7 +323,7 @@ class Injected(RuntimeError):
 
 def _fail_after(monkeypatch, calls: int):
     """HostCopy.wait raises from its calls-th call on."""
-    wait = kernels.HostCopy.wait
+    wait = handoff.HostCopy.wait
     seen = [0]
 
     def failing(self):
@@ -283,7 +331,7 @@ def _fail_after(monkeypatch, calls: int):
         if seen[0] >= calls:
             raise Injected("injected copy failure")
         return wait(self)
-    monkeypatch.setattr(kernels.HostCopy, "wait", failing)
+    monkeypatch.setattr(handoff.HostCopy, "wait", failing)
 
 
 @pytest.mark.parametrize("engine", ["dense", "ooc"])
@@ -300,8 +348,7 @@ def test_failed_copy_raises_from_the_fragmentation(engine, classic,
     _, err = _in_thread(lambda: run_fragmentation(p, cosmo, res,
                                                   verbose=False))
     assert isinstance(err, Injected)
-    pending = res.pending_fetch or res.ooc_pending
-    _, err = _in_thread(pending.join)
+    _, err = _in_thread(res.pending_fetch.join)
     assert isinstance(err, Injected)
 
 
@@ -321,13 +368,17 @@ def jax_pair():
     return jp, JaxCosmology(jp), p, Cosmology(p)
 
 
-def _held_to_jax(sp, jsp, ordered: bool):
-    """The port's products against the JAX package's (module docstring)."""
+def _held_to_jax(sp, jsp, ordered: bool, sets=None):
+    """The port's products against the JAX package's (module docstring);
+    sets: the pairs of displacement sets to hold (default the first)."""
     assert len(np.setxor1d(sp.ci, jsp.ci)) <= max(2, 1e-3 * len(jsp.ci))
     _, io, ij = np.intersect1d(sp.ci, jsp.ci, return_indices=True)
-    for k in sp.vel:
-        np.testing.assert_allclose(sp.vel[k][io], np.asarray(jsp.vel[k])[ij],
-                                   rtol=3e-3, atol=3e-3)
+    for mine, theirs in zip(*(sets or ([sp.vel], [jsp.vel]))):
+        assert sorted(mine) == sorted(theirs)
+        for k in mine:
+            np.testing.assert_allclose(mine[k][io],
+                                       np.asarray(theirs[k])[ij],
+                                       rtol=3e-3, atol=3e-3)
     if ordered:
         # the common cells whose F the two packages agree on, in the
         # port's order and in JAX's: where the two differ, only near-ties
@@ -377,11 +428,11 @@ def test_ooc_overlap_against_jax_overlap(jax_pair):
         overlap=True)
     res = fmax_ooc.run_fmax_ooc(dataclasses.replace(p, ooc="on"), cosmo,
                                 "cpu")
-    assert jres.ooc_pending is not None and res.ooc_pending is not None
+    assert jres.ooc_pending is not None and res.pending_fetch is not None
     jfrag = jax_run_fragmentation(jp, jc, jres, verbose=False)
     jres.ooc_pending.join()
     frag = run_fragmentation(p, cosmo, res, verbose=False)
-    res.ooc_pending.join()
+    res.pending_fetch.join()
     # JAX's out-of-core rows are in storage order, the port's in the
     # sweep's
     _held_to_jax(res.host_products, jres.host_products, ordered=False)
@@ -394,11 +445,11 @@ def test_stream_state_watermark_is_the_least_prefix():
     join() returns once both have landed whole."""
     src = {k: torch.arange(30, dtype=torch.float32).reshape(10, 3) + i
            for i, k in enumerate(("a", "b"))}
-    copier = kernels.CopyStream("cpu")
-    st = fmax._StreamState(10, ["a", "b"])
+    copier = handoff.CopyStream("cpu")
+    st = handoff.StreamState(10, ["a", "b"])
     for k in src:
         st.attach(k, np.zeros((10, 3), np.float32))
-    b = fmax._chunk_bounds(10, 2)
+    b = handoff.chunk_bounds(10, 2)
     copies = []
     for i in range(2):
         for k in ("a", "b"):

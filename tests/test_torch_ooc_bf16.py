@@ -112,8 +112,8 @@ def port_runs():
     def get(dt):
         if dt not in cache:
             p = Params(**bench_kwargs(N), ooc_dtype=dt)
-            cache[dt] = fmax_ooc.run_fmax_ooc(p, Cosmology(p), "cpu",
-                                              overlap=False)
+            cache[dt] = fmax_ooc.run_fmax_ooc(p, Cosmology(p), "cpu")
+            cache[dt].pending_fetch.join()
         return cache[dt]
     return get
 
@@ -333,8 +333,8 @@ def test_shards_equal_one_device_bit_for_bit():
     one = fmax_ooc.run_fmax_ooc(p, cosmo, "cpu")
     three = fmax_ooc.run_fmax_ooc(p, cosmo, "cpu", mesh=pfft.make_mesh(
         3, devices=["cpu"] * 3))
-    one.ooc_pending.join()
-    three.ooc_pending.join()
+    one.pending_fetch.join()
+    three.pending_fetch.join()
     np.testing.assert_array_equal(three.products.gather()[0],
                                   one.products.Fmax.numpy())
     np.testing.assert_array_equal(three.smoothing.true_variance,

@@ -25,7 +25,8 @@ def _nonfinite_rows(sp):
 def test_float16_overflows_the_src32_spectrum_like_jax():
     jp, p = params_pair(**bench_kwargs(64), ooc_dtype="float16")
     jres = jax_run_fmax_ooc(jp)
-    res = fmax_ooc.run_fmax_ooc(p, Cosmology(p), "cpu", overlap=False)
+    res = fmax_ooc.run_fmax_ooc(p, Cosmology(p), "cpu")
+    res.pending_fetch.join()
     got, want = _nonfinite_rows(res.host_products), _nonfinite_rows(
         jres.host_products)
     assert want == {"v1": 0, "v2": 0, "v31": 0,

@@ -5,13 +5,14 @@ a group timeout and a communicate() timeout.
 - The engine (tests/torch_ooc_procs_worker.py) over a 4-shard mesh split
   over 2 processes (2 shards each) and over 4 (1 each), for the classic
   ellipsoid, the bicubic table lookup (K13), f(R) growth with
-  RECOMPUTE_DISPLACEMENTS (K14, 4 sets) and bfloat16 storage, each
-  overlapped and blocking, with landing chunks of 5000 rows: every process
+  RECOMPUTE_DISPLACEMENTS (K14, 4 sets) and bfloat16 storage, each read
+  through the views before the join and joined before it is read, with
+  landing chunks of 5000 rows: every process
   holds Fmax, the grid variances, the FmaxPDF counts, the needed (ci, F)
   and every row set bit for bit those of one process's OocMesh over the
   same 4 shards.
 - Two busy threads, over 3 processes of one shard each, whose kz windows
-  and x-blocks are uneven: the overlapped row streams, slowed, while the
+  and x-blocks are uneven: the row streams, slowed, while the
   main thread sums arrays over the default group until the last row
   landed; the products bit for bit one process's over 3 shards, and sums
   ran while rows streamed (the row streams use a group of their own).
@@ -140,10 +141,9 @@ def group_runs(started):
     to, made meanwhile: (results {(mode, world): [result per rank]},
     one-process products {name: dict})."""
     want = {"jax": _jax_catalogs()}
-    want.update({name: worker.case_products(worker.run_case(name, 4), name)
-                 for name in worker.CASES})
-    want["busy"] = worker.case_products(
-        worker.run_case("classic", worker.SHARDS["busy"]), "busy")
+    want.update({name: worker.run_case(name, 4) for name in worker.CASES})
+    want["busy"] = worker.run_case("classic", worker.SHARDS["busy"],
+                                   prefix="busy")
     done = [_wait(p, 240) for p, _, _ in started["workers"]]
     for r, (rc, out) in enumerate(done):
         assert rc == 0, f"worker {r}:\n{out[-3000:]}"
@@ -165,13 +165,15 @@ def _held(got: dict, prefix: str, want: dict, name: str):
         assert a.tobytes() == b.tobytes(), (prefix, k)
 
 
-@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("streamed", [True, False])
 @pytest.mark.parametrize("name", list(worker.CASES))
 @pytest.mark.parametrize("world", [2, 4])
-def test_processes_equal_one_process(group_runs, world, name, overlap):
+def test_processes_equal_one_process(group_runs, world, name, streamed):
+    """streamed: each process's products read through the views before
+    the join; else read after it."""
     got, want = group_runs
     for res in got["cases", world]:
-        _held(res, f"{name}/{overlap}", want[name], name)
+        _held(res, f"{name}/{streamed}", want[name], name)
     if name == "fr_recompute":
         assert "fr_recompute/set3/v1" in want[name]
 
@@ -474,7 +476,7 @@ def test_a_peer_that_dies_while_the_rows_stream(tmp_path):
     """Host 1 exits at its first collective on the rows group, an x-slab
     gather of a row field on the background thread, after its main thread
     went on to the sweep: host 0's row streams fail, the failure comes out
-    of the sweep or of _OocPending.join(), and host 0 exits nonzero within
+    of the sweep or of PendingFetch.join(), and host 0 exits nonzero within
     its 20 s group timeout, writing no catalog."""
     rc0, out0, rc1, out1, wall = _peer_dies(tmp_path, "rows")
     assert rc1 == 4, out1[-2000:]

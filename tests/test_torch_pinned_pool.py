@@ -1,4 +1,4 @@
-"""The pool of page-locked blocks behind kernels.pinned_empty, on the CPU
+"""The pool of page-locked blocks behind handoff.pinned_empty, on the CPU
 through a stub kernel library (host_alloc / host_free over ctypes
 buffers, in place of cudaHostAlloc and cudaFreeHost):
 
@@ -6,7 +6,7 @@ buffers, in place of cudaHostAlloc and cudaFreeHost):
   counted as pinned_reuse and not as pinned_alloc, and not while a view of
   it lives or a copy event recorded against it has not completed;
 - a request of n bytes takes the smallest idle block of n to n + n/8
-  bytes; a miss allocates n plus kernels.PINNED_HEADROOM of it, rounded
+  bytes; a miss allocates n plus handoff.PINNED_HEADROOM of it, rounded
   down to the alignment;
 - idle and live bytes never pass the live bytes' high-water mark: a miss
   releases idle blocks first; release_pinned() frees every idle block;
@@ -22,9 +22,9 @@ import threading
 import numpy as np
 import pytest
 
-from pinocchio_tpu_torch import kernels
+from pinocchio_tpu_torch import handoff, kernels
 
-MIB2 = kernels.PINNED_ALIGN
+MIB2 = handoff.PINNED_ALIGN
 JOIN_TIMEOUT = 60.0
 
 
@@ -57,16 +57,16 @@ class _Event:
 
 @pytest.fixture
 def stub(monkeypatch):
-    kernels.release_pinned()
+    handoff.release_pinned()
     lib = _StubLib()
     monkeypatch.setattr(kernels, "_LIB", lib)
     yield lib
     gc.collect()
-    kernels.release_pinned()
+    handoff.release_pinned()
 
 
 def _totals():
-    return kernels.host_totals()
+    return handoff.host_totals()
 
 
 def _delta(before, key):
@@ -78,18 +78,18 @@ def _ptr(arr):
 
 
 def _footprint():
-    pool = kernels._POOL
-    with kernels._HOST_LOCK:
+    pool = handoff._POOL
+    with handoff._HOST_LOCK:
         pool._drain()
         return sum(m.nbytes for m in pool.idle) + pool.live_bytes, pool.high
 
 
 def test_a_dropped_block_is_handed_out_again(stub):
     before = _totals()
-    a = kernels.pinned_empty((MIB2,), np.uint8)
+    a = handoff.pinned_empty((MIB2,), np.uint8)
     ptr = _ptr(a)
     del a
-    b = kernels.pinned_empty((1000, 3), np.float32)     # 12,000 bytes
+    b = handoff.pinned_empty((1000, 3), np.float32)     # 12,000 bytes
     assert _ptr(b) == ptr and b.shape == (1000, 3)
     assert len(stub.live) == 1
     assert _delta(before, "pinned_alloc_calls_total") == 1
@@ -100,14 +100,14 @@ def test_a_dropped_block_is_handed_out_again(stub):
 
 
 def test_no_reuse_while_a_view_lives(stub):
-    a = kernels.pinned_empty((MIB2,), np.uint8)
+    a = handoff.pinned_empty((MIB2,), np.uint8)
     view = a[10:20]
     ptr = _ptr(a)
     del a
-    b = kernels.pinned_empty((MIB2,), np.uint8)
+    b = handoff.pinned_empty((MIB2,), np.uint8)
     assert _ptr(b) != ptr and len(stub.live) == 2
     del view
-    c = kernels.pinned_empty((MIB2,), np.uint8)
+    c = handoff.pinned_empty((MIB2,), np.uint8)
     assert _ptr(c) == ptr
 
 
@@ -116,35 +116,35 @@ def test_no_reuse_before_the_copies_land(stub):
     dropped before its join) is skipped until the last event of every
     stream has completed (a query, never a wait), though it is the
     smallest fit."""
-    spare = kernels.pinned_empty((18 * MIB2,), np.uint8)
-    a = kernels.pinned_empty((16 * MIB2,), np.uint8)
+    spare = handoff.pinned_empty((18 * MIB2,), np.uint8)
+    a = handoff.pinned_empty((16 * MIB2,), np.uint8)
     ptr, ptr_spare = _ptr(a), _ptr(spare)
     first, last = _Event(), _Event()
-    kernels._POOL.note_copy(ptr + 100, "copy", first)
-    kernels._POOL.note_copy(ptr + 16 * MIB2 - 1, "copy", last)  # replaces
-    kernels._POOL.note_copy(ptr, "other", _Event(done=True))
+    handoff._POOL.note_copy(ptr + 100, "copy", first)
+    handoff._POOL.note_copy(ptr + 16 * MIB2 - 1, "copy", last)  # replaces
+    handoff._POOL.note_copy(ptr, "other", _Event(done=True))
     del a, spare
     before = _totals()
-    b = kernels.pinned_empty((16 * MIB2,), np.uint8)
+    b = handoff.pinned_empty((16 * MIB2,), np.uint8)
     assert _ptr(b) == ptr_spare
     del b
-    c = kernels.pinned_empty((16 * MIB2,), np.uint8)
+    c = handoff.pinned_empty((16 * MIB2,), np.uint8)
     assert _ptr(c) == ptr_spare
     last.done = True
-    d = kernels.pinned_empty((16 * MIB2,), np.uint8)
+    d = handoff.pinned_empty((16 * MIB2,), np.uint8)
     assert _ptr(d) == ptr
     assert _delta(before, "pinned_alloc_calls_total") == 0
     assert _delta(before, "pinned_reuse_calls_total") == 3
 
 
 def test_note_copy_outside_the_pool_is_ignored(stub):
-    a = kernels.pinned_empty((MIB2,), np.uint8)
-    kernels._POOL.note_copy(_ptr(a) + MIB2, "copy", _Event())  # past it
+    a = handoff.pinned_empty((MIB2,), np.uint8)
+    handoff._POOL.note_copy(_ptr(a) + MIB2, "copy", _Event())  # past it
     plain = np.empty(10)
-    kernels._POOL.note_copy(plain.ctypes.data, "copy", _Event())
+    handoff._POOL.note_copy(plain.ctypes.data, "copy", _Event())
     ptr = _ptr(a)
     del a
-    assert _ptr(kernels.pinned_empty((MIB2,), np.uint8)) == ptr
+    assert _ptr(handoff.pinned_empty((MIB2,), np.uint8)) == ptr
 
 
 @pytest.mark.parametrize("size,request_,fits", [
@@ -156,11 +156,11 @@ def test_note_copy_outside_the_pool_is_ignored(stub):
     (4096 * 10, 4096 * 8, False)])
 def test_the_waste_bound(stub, size, request_, fits):
     align = 4096 if size < MIB2 else MIB2
-    a = kernels.pinned_empty((size,), np.uint8, align)
+    a = handoff.pinned_empty((size,), np.uint8, align)
     ptr = _ptr(a)
     del a
     before = _totals()
-    b = kernels.pinned_empty((request_,), np.uint8, align)
+    b = handoff.pinned_empty((request_,), np.uint8, align)
     if fits:
         assert _ptr(b) == ptr
     assert _delta(before, "pinned_reuse_calls_total") == int(fits)
@@ -169,7 +169,7 @@ def test_the_waste_bound(stub, size, request_, fits):
 
 def test_the_smallest_fit(stub):
     sizes = (20, 17, 18, 16)   # in 2 MiB units, under the headroom's 32
-    arrs = [kernels.pinned_empty((s * MIB2,), np.uint8) for s in sizes]
+    arrs = [handoff.pinned_empty((s * MIB2,), np.uint8) for s in sizes]
     ptrs = {s: _ptr(a) for s, a in zip(sizes, arrs)}
     del arrs
     before = _totals()
@@ -177,7 +177,7 @@ def test_the_smallest_fit(stub):
     held = []
     for _ in range(3):
         # 17 units: 17 and 18 fit, 20 passes 17 + 17/8, 16 is too small
-        held.append(kernels.pinned_empty((17 * MIB2 - 5,), np.uint8))
+        held.append(handoff.pinned_empty((17 * MIB2 - 5,), np.uint8))
         got.append(next((s for s, p in ptrs.items()
                          if p == _ptr(held[-1])), None))
     assert got[:2] == [17, 18]
@@ -194,26 +194,26 @@ def test_the_smallest_fit(stub):
     (1000, 4096, 4096)])
 def test_the_headroom_on_a_miss(stub, nbytes, align, size):
     before = _totals()
-    arr = kernels.pinned_empty((nbytes,), np.uint8, align)
+    arr = handoff.pinned_empty((nbytes,), np.uint8, align)
     assert arr.nbytes == nbytes
     assert _delta(before, "pinned_alloc_bytes_total") == size
     assert size - -(-nbytes // align) * align <= (
-        kernels.PINNED_HEADROOM * nbytes + align)
+        handoff.PINNED_HEADROOM * nbytes + align)
     # the block serves its own size again
     ptr = _ptr(arr)
     del arr
-    assert _ptr(kernels.pinned_empty((nbytes,), np.uint8, align)) == ptr
+    assert _ptr(handoff.pinned_empty((nbytes,), np.uint8, align)) == ptr
 
 
 def test_a_miss_releases_idle_blocks_first(stub):
-    a = kernels.pinned_empty((4 * MIB2,), np.uint8)
-    b = kernels.pinned_empty((4 * MIB2,), np.uint8)
-    c = kernels.pinned_empty((2 * MIB2,), np.uint8)
+    a = handoff.pinned_empty((4 * MIB2,), np.uint8)
+    b = handoff.pinned_empty((4 * MIB2,), np.uint8)
+    c = handoff.pinned_empty((2 * MIB2,), np.uint8)
     assert _footprint() == (10 * MIB2, 10 * MIB2)
     del a, b
     before = _totals()
     # 8 units with both idle blocks kept would pass the mark of 10
-    d = kernels.pinned_empty((8 * MIB2,), np.uint8)
+    d = handoff.pinned_empty((8 * MIB2,), np.uint8)
     assert _delta(before, "pinned_free_calls_total") == 2
     assert _delta(before, "pinned_free_bytes_total") == 8 * MIB2
     assert len(stub.live) == 2
@@ -222,20 +222,20 @@ def test_a_miss_releases_idle_blocks_first(stub):
 
 
 def test_a_miss_keeps_what_fits_under_the_mark(stub):
-    a = kernels.pinned_empty((4 * MIB2,), np.uint8)
-    b = kernels.pinned_empty((4 * MIB2,), np.uint8)
-    c = kernels.pinned_empty((2 * MIB2,), np.uint8)
+    a = handoff.pinned_empty((4 * MIB2,), np.uint8)
+    b = handoff.pinned_empty((4 * MIB2,), np.uint8)
+    c = handoff.pinned_empty((2 * MIB2,), np.uint8)
     ptr_c = _ptr(c)
     del a, c                          # idle: a's, then c's
     before = _totals()
     # neither fits one unit; a's, the older, goes and c's stays: 7 <= 10
-    d = kernels.pinned_empty((MIB2,), np.uint8)
+    d = handoff.pinned_empty((MIB2,), np.uint8)
     assert _delta(before, "pinned_free_calls_total") == 1
     assert _delta(before, "pinned_free_bytes_total") == 4 * MIB2
     assert _footprint() == (7 * MIB2, 10 * MIB2)
     assert ptr_c in stub.live
     # a miss that passes the mark raises it
-    e = kernels.pinned_empty((9 * MIB2,), np.uint8)
+    e = handoff.pinned_empty((9 * MIB2,), np.uint8)
     assert _footprint() == (14 * MIB2, 14 * MIB2)
     del b, d, e
 
@@ -255,29 +255,29 @@ def test_the_footprint_follows_the_live_peak(stub):
         else:
             units = int(rng.integers(1, 80)) if rng.random() < 0.3 else 48
             drift = int(rng.integers(0, 3 * unit))
-            held.append(kernels.pinned_empty((units * unit - drift,),
+            held.append(handoff.pinned_empty((units * unit - drift,),
                                              np.uint8, unit))
         total, high = _footprint()
-        peak = max(peak, kernels._POOL.live_bytes)
+        peak = max(peak, handoff._POOL.live_bytes)
         assert total <= high == peak
         assert total == sum(len(b) for b in stub.live.values())
-        assert kernels._POOL.live_bytes >= sum(
+        assert handoff._POOL.live_bytes >= sum(
             -(-a.nbytes // unit) * unit for a in held)
     del held
 
 
 def test_release_pinned_frees_every_idle_block(stub):
-    arrs = [kernels.pinned_empty((n * MIB2,), np.uint8) for n in (1, 2, 3)]
+    arrs = [handoff.pinned_empty((n * MIB2,), np.uint8) for n in (1, 2, 3)]
     kept = arrs.pop()
     del arrs
     before = _totals()
-    kernels.release_pinned()
+    handoff.release_pinned()
     assert _delta(before, "pinned_free_calls_total") == 2
     assert _delta(before, "pinned_free_bytes_total") == 3 * MIB2
     assert list(stub.live) == [_ptr(kept)]
     assert _footprint() == (3 * MIB2, 3 * MIB2)
     del kept
-    kernels.release_pinned()
+    handoff.release_pinned()
     assert not stub.live and _footprint() == (0, 0)
 
 
@@ -297,7 +297,7 @@ def test_takes_and_returns_from_many_threads(stub):
         try:
             for _ in range(rounds):
                 n = int(rng.choice([MIB2, 2 * MIB2, 2 * MIB2 - 99]))
-                a = kernels.pinned_empty((n,), np.uint8)
+                a = handoff.pinned_empty((n,), np.uint8)
                 p = _ptr(a)
                 with owners_lock:
                     assert p not in owners, "a block handed out twice"
@@ -312,10 +312,10 @@ def test_takes_and_returns_from_many_threads(stub):
 
     def cycles():
         for _ in range(rounds // 2):
-            holder = [kernels.pinned_empty((MIB2,), np.uint8)]
+            holder = [handoff.pinned_empty((MIB2,), np.uint8)]
             holder.append(holder)
             del holder
-            with kernels._HOST_LOCK:
+            with handoff._HOST_LOCK:
                 gc.collect()
 
     interval = sys.getswitchinterval()
@@ -337,8 +337,8 @@ def test_takes_and_returns_from_many_threads(stub):
     assert (_delta(before, "pinned_alloc_calls_total")
             + _delta(before, "pinned_reuse_calls_total")) == takes
     total, high = _footprint()
-    assert kernels._POOL.live_bytes == 0 and total <= high
-    kernels.release_pinned()
+    assert handoff._POOL.live_bytes == 0 and total <= high
+    handoff.release_pinned()
     assert not stub.live
     assert (_delta(before, "pinned_alloc_bytes_total")
             == _delta(before, "pinned_free_bytes_total"))

@@ -1,4 +1,4 @@
-"""The port's own spans and host counters (kernels.HOST_COUNTS), on the CPU
+"""The port's own spans and host counters (handoff.HOST_COUNTS), on the CPU
 unless marked ``cuda``.
 
 - The spans of torch.profiler.record_function that each engine opens, and
@@ -8,18 +8,19 @@ unless marked ``cuda``.
   engine; ooc.<phase> per phase of the out-of-core engine, handoff.alloc
   inside ooc.products and inside each displacement set's ooc.rows_set of
   ooc.lpt_rows, which runs on a thread of its own (seen with the
-  profiler's profile_all_threads).
+  profiler's profile_all_threads); a join inside the entry's span opens
+  no span of its own.
 - The counters through a stub kernel library: page-locked bytes rounded up
-  to 2 MiB, one call per block, its release by kernels.release_pinned()
+  to 2 MiB, one call per block, its release by handoff.release_pinned()
   once its last reference went (the block waits in the pool until then),
   the calling thread's allocation seconds, and a block's __del__ run by gc
   on a thread that holds the counters' lock, which must not deadlock.
 - d2h bytes equal to the products' bytes on the CPU copy path, on both
   engines (the out-of-core one on one device and on 2 CPU shards).
-- After the join (or the return of a blocking run) every ``_total`` key
-  and handoff_alloc_s are in the result's timings; the dense LPT's event
-  pair resolved into timings["lpt"], the out-of-core row phase's into
-  timings["rows_device_s"]; run.write_cputimes's host lines.
+- handoff_alloc_s at the return, every ``_total`` key after the join
+  (read after the entry or joined at once); the dense LPT's event pair
+  resolved into timings["lpt"] at the join, the out-of-core row phase's
+  into timings["rows_device_s"]; run.write_cputimes's host lines.
 - On the card (``cuda``): a 64^3 realization of each engine reads
   positive page-locked counters, their bytes the products' rounded up to
   2 MiB per buffer, and the dense engine a positive device-timed lpt; the
@@ -36,7 +37,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from pinocchio_tpu_torch import fmax, fmax_ooc, kernels
+from pinocchio_tpu_torch import fmax, fmax_ooc, handoff, kernels
 from pinocchio_tpu_torch.config import Params
 from pinocchio_tpu_torch.cosmology import Cosmology
 from pinocchio_tpu_torch.fmax import Smoothing
@@ -49,7 +50,7 @@ from pinocchio_tpu_torch.scaledep import set_scaledep_gm
 torch.set_num_threads(2)
 
 N = 32
-MIB2 = kernels.PINNED_ALIGN
+MIB2 = handoff.PINNED_ALIGN
 KINDS = ("pinned_alloc", "pinned_free", "d2h")
 TOTALS = {f"{k}_{f}_total" for k in KINDS
           for f in ("bytes", "seconds", "calls")}
@@ -79,19 +80,16 @@ def fr():
     return _setup(**FR)
 
 
-def _run(engine, setup, device="cpu", overlap=True, mesh=None):
+def _run(engine, setup, device="cpu", mesh=None):
     p, cosmo, gm = setup
     if engine == "ooc":
         return fmax_ooc.run_fmax_ooc(dataclasses.replace(p, ooc="on"), cosmo,
-                                     device, scaledep_gm=gm, mesh=mesh,
-                                     overlap=overlap)
-    return fmax.run_fmax(p, cosmo, device, scaledep_gm=gm, overlap=overlap)
+                                     device, scaledep_gm=gm, mesh=mesh)
+    return fmax.run_fmax(p, cosmo, device, scaledep_gm=gm)
 
 
 def _join(res):
-    pending = res.pending_fetch or res.ooc_pending
-    if pending is not None:
-        pending.join()
+    res.pending_fetch.join()
 
 
 def _nsets(res):
@@ -143,26 +141,33 @@ def test_dense_spans_and_nesting(model, classic, fr):
 
 
 def test_dense_blocking_spans(classic):
+    """A run joined inside the entry's span: the join opens no span, and
+    the entry's spans are those of the run alone."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with record_function("test.entry"):
-            res = _run("dense", classic, overlap=False)
-    assert res.pending_fetch is None
-    assert [s[0] for s in _spans(prof)] == [
-        "test.entry", "fmax.ic", "fmax.cycle", "fmax.sort", "fmax.lpt",
-        "handoff.finish"]
+            res = _run("dense", classic)
+            _join(res)
+    assert res.pending_fetch.buf is None
+    assert [s[0] for s in _spans(prof) if s[2] in (None, "test.entry")] == [
+        "test.entry", "fmax.ic", "fmax.cycle", "fmax.sort", "handoff.alloc",
+        "handoff.alloc", "fmax.lpt", "handoff.finish"]
 
 
 @pytest.mark.parametrize("model", ["classic", "fr"])
-@pytest.mark.parametrize("overlap", [True, False])
-def test_ooc_spans_and_nesting(overlap, model, classic, fr):
+@pytest.mark.parametrize("streamed", [True, False])
+def test_ooc_spans_and_nesting(streamed, model, classic, fr):
+    """streamed: the entry returns before the row phase ends, joined
+    after the entry's span; else joined inside it."""
     from torch._C._profiler import _ExperimentalConfig
     with profile(activities=[ProfilerActivity.CPU],
                  experimental_config=_ExperimentalConfig(
                      profile_all_threads=True)) as prof:
         with record_function("test.entry"):
-            res = _run("ooc", classic if model == "classic" else fr,
-                       overlap=overlap)
-        _join(res)
+            res = _run("ooc", classic if model == "classic" else fr)
+            if not streamed:
+                _join(res)
+        if streamed:
+            _join(res)
     spans = _spans(prof)
     nkeys = len(res.host_products.vel)
     main = spans[0][1]
@@ -175,11 +180,8 @@ def test_ooc_spans_and_nesting(overlap, model, classic, fr):
     for name, thread, parent in phases[:-1]:
         assert thread == main and parent == "test.entry"
     rows = phases[-1]
-    if overlap:
-        # the row phase runs on its own thread, outside the entry's span
-        assert rows[1] != main and rows[2] is None
-    else:
-        assert rows[1] == main and rows[2] == "test.entry"
+    # the row phase runs on its own thread, outside the entry's span
+    assert rows[1] != main and rows[2] is None
     # a span a displacement set inside the row phase, on its thread
     assert len(sets) == _nsets(res) == (4 if model == "fr" else 1)
     assert {(s[1], s[2]) for s in sets} == {(rows[1], "ooc.lpt_rows")}
@@ -218,16 +220,16 @@ class _StubLib:
 def stub(monkeypatch):
     """The stub library, over a pool with no idle block (released before
     and after)."""
-    kernels.release_pinned()
+    handoff.release_pinned()
     lib = _StubLib()
     monkeypatch.setattr(kernels, "_LIB", lib)
     yield lib
     gc.collect()
-    kernels.release_pinned()
+    handoff.release_pinned()
 
 
 def _totals():
-    return kernels.host_totals()
+    return handoff.host_totals()
 
 
 def _delta(before, key):
@@ -239,21 +241,21 @@ def _delta(before, key):
     (5 * MIB2 + 12, 6 * MIB2)])
 def test_pinned_counters_round_and_count(stub, nbytes, rounded):
     before = _totals()
-    t0 = kernels.thread_alloc_seconds()
-    arr = kernels.pinned_empty((nbytes,), np.uint8)
+    t0 = handoff.thread_alloc_seconds()
+    arr = handoff.pinned_empty((nbytes,), np.uint8)
     assert arr.nbytes == nbytes and len(stub.live) == 1
     assert _delta(before, "pinned_alloc_bytes_total") == rounded
     assert _delta(before, "pinned_alloc_calls_total") == 1
     dt = _delta(before, "pinned_alloc_seconds_total")
     assert dt >= 0.0
-    assert kernels.thread_alloc_seconds() - t0 == pytest.approx(dt)
+    assert handoff.thread_alloc_seconds() - t0 == pytest.approx(dt)
     assert _delta(before, "pinned_free_calls_total") == 0
     view = arr[1:]
     del arr
     assert _delta(before, "pinned_free_calls_total") == 0   # a view holds it
     del view
     assert _delta(before, "pinned_free_calls_total") == 0   # in the pool
-    kernels.release_pinned()
+    handoff.release_pinned()
     assert not stub.live
     assert _delta(before, "pinned_free_bytes_total") == rounded
     assert _delta(before, "pinned_free_calls_total") == 1
@@ -261,19 +263,19 @@ def test_pinned_counters_round_and_count(stub, nbytes, rounded):
 
 
 def test_thread_alloc_seconds_is_per_thread(stub):
-    mine = kernels.thread_alloc_seconds()
+    mine = handoff.thread_alloc_seconds()
     got = {}
 
     def other():
-        a = kernels.pinned_empty((MIB2 * 3,), np.uint8)
-        got["s"] = kernels.thread_alloc_seconds()
+        a = handoff.pinned_empty((MIB2 * 3,), np.uint8)
+        got["s"] = handoff.thread_alloc_seconds()
         del a
 
     t = threading.Thread(target=other)
     t.start()
     t.join(JOIN_TIMEOUT)
     assert not t.is_alive() and got["s"] > 0.0
-    assert kernels.thread_alloc_seconds() == mine
+    assert handoff.thread_alloc_seconds() == mine
 
 
 def test_del_from_gc_under_the_counters_lock(stub):
@@ -285,14 +287,14 @@ def test_del_from_gc_under_the_counters_lock(stub):
     was = gc.isenabled()
     gc.disable()
     try:
-        holder = [kernels.pinned_empty((100,), np.float32)]
+        holder = [handoff.pinned_empty((100,), np.float32)]
         holder.append(holder)
         del holder
         assert _delta(before, "pinned_free_calls_total") == 0
         done = threading.Event()
 
         def collect():
-            with kernels._HOST_LOCK:
+            with handoff._HOST_LOCK:
                 gc.collect()
                 done.set()
 
@@ -304,7 +306,7 @@ def test_del_from_gc_under_the_counters_lock(stub):
         if was:
             gc.enable()
     assert _delta(before, "pinned_free_calls_total") == 0
-    kernels.release_pinned()
+    handoff.release_pinned()
     assert _delta(before, "pinned_free_calls_total") == 1
     assert _delta(before, "pinned_free_bytes_total") == MIB2
     assert not stub.live
@@ -317,7 +319,7 @@ def test_count_host_from_many_threads():
 
     def work():
         for _ in range(each):
-            kernels.count_host("d2h", 3)
+            handoff.count_host("d2h", 3)
 
     import sys
     interval = sys.getswitchinterval()
@@ -361,60 +363,73 @@ def test_d2h_bytes_equal_the_products(engine, shards, classic):
 # timings
 # ------------------------------------------------------------------
 
-@pytest.mark.parametrize("engine,overlap", [("dense", True),
-                                            ("dense", False),
-                                            ("ooc", True), ("ooc", False)])
-def test_timings_after_join(engine, overlap, classic):
-    res = _run(engine, classic, overlap=overlap)
-    assert res.timings["handoff_alloc_s"] == 0.0       # nothing page-locked
-    if overlap:
+@pytest.mark.parametrize("engine,streamed", [("dense", True),
+                                             ("dense", False),
+                                             ("ooc", True), ("ooc", False)])
+def test_timings_after_join(engine, streamed, classic):
+    """streamed: read at the return, then after the join; else joined at
+    once."""
+    res = _run(engine, classic)
+    if streamed:
+        assert res.timings["handoff_alloc_s"] == 0.0   # nothing page-locked
         assert not TOTALS & res.timings.keys()
     _join(res)
+    assert res.timings["handoff_alloc_s"] == 0.0
     t = res.timings
     assert TOTALS <= t.keys()
     assert t["d2h_bytes_total"] > 0 and t["d2h_calls_total"] > 0
     assert t["lpt"] > 0.0
 
 
-def test_join_resolves_the_lpt_events(classic):
-    """PendingFetch.join reads the device's LPT time from its event pair
-    (stand-ins here for the card's timing events)."""
+class _Event:
+    """A stand-in for a card's timing event, at ``ms``."""
+    synced = 0
 
-    class Event:
-        synced = False
+    def __init__(self, ms):
+        self.ms = ms
 
-        def synchronize(self):
-            Event.synced = True
+    def synchronize(self):
+        _Event.synced += 1
 
-        def elapsed_time(self, other):
-            return 250.0
+    def elapsed_time(self, other):
+        return other.ms - self.ms
 
+
+def _stand_in_timer(marks):
+    """An EventTimer whose records append the stand-ins of ``marks`` (one
+    list of cards' events each), as it would on cards."""
+    todo = list(marks)
+
+    class Timer(handoff.EventTimer):
+        def record(self):
+            self.marks.append(todo.pop(0))
+    return Timer
+
+
+def test_join_resolves_the_lpt_events(classic, monkeypatch):
+    """The dense engine's join reads the device's LPT time from the event
+    pair recorded around the LPT (stand-ins here for the card's timing
+    events), once the end has synchronized."""
+    monkeypatch.setattr(fmax, "EventTimer",
+                        _stand_in_timer([[_Event(0.0)], [_Event(250.0)]]))
+    synced = _Event.synced
     res = _run("dense", classic)
     cpu_lpt = res.timings["lpt"]
-    res.pending_fetch.lpt_events = (Event(), Event())
     out = res.pending_fetch.join()
-    assert Event.synced and out["lpt"] == 0.25
+    assert _Event.synced == synced + 1 and out["lpt"] == 0.25
     assert res.timings["lpt"] == 0.25 != cpu_lpt
 
 
-def test_join_resolves_the_row_events(classic):
-    """_OocPending.join reads the row phase's device time from its
-    _RowEvents, the longest of its cards' event pairs (stand-ins here for
-    the card's timing events)."""
-
-    class Event:
-        def __init__(self, ms):
-            self.ms = ms
-
-        def elapsed_time(self, other):
-            return other.ms - self.ms
-
+def test_join_resolves_the_row_events(classic, monkeypatch):
+    """The out-of-core engine's join reads the row phase's device time
+    from the events recorded on its thread, the longest of its cards'
+    event pairs (stand-ins here for the card's timing events)."""
+    assert handoff.EventTimer(["cpu"], "k").timings() == {}
+    monkeypatch.setattr(fmax_ooc, "EventTimer", _stand_in_timer(
+        [[_Event(0.0), _Event(10.0)], [_Event(150.0), _Event(260.0)]]))
     res = _run("ooc", classic)
-    res.ooc_pending.thread.join()
-    rows = res.ooc_pending._box["rows"]
-    assert rows.devs == [] and rows.timings() == {}
-    rows.marks = [[Event(0.0), Event(10.0)], [Event(150.0), Event(260.0)]]
-    out = res.ooc_pending.join()
+    assert "rows_device_s" not in res.timings
+    out = res.pending_fetch.join()
     assert out["rows_device_s"] == pytest.approx(0.25)
     assert res.timings["rows_device_s"] == out["rows_device_s"]
 
@@ -459,7 +474,7 @@ def test_card_counters_and_lpt(dev, engine):
     setup = _setup(64)
     _join(_run(engine, setup, device=dev))        # warm: plans, library
     gc.collect()
-    kernels.release_pinned()        # so that every buffer is allocated
+    handoff.release_pinned()        # so that every buffer is allocated
     before = _totals()
     res = _run(engine, setup, device=dev)
     _join(res)
@@ -480,7 +495,7 @@ def test_card_counters_and_lpt(dev, engine):
     assert _delta(before, "d2h_bytes_total") > 0
     del res
     gc.collect()
-    kernels.release_pinned()
+    handoff.release_pinned()
     assert _delta(before, "pinned_free_bytes_total") >= expected
 
 
@@ -493,11 +508,12 @@ def test_card_rows_device_s(dev):
     _join(_run("ooc", setup, device=dev))         # warm: plans, library
     res = _run("ooc", setup, device=dev)
     assert "rows_device_s" not in res.timings
-    t = res.ooc_pending.join()
+    t = res.pending_fetch.join()
     assert _nsets(res) == 4
     assert 0.0 < t["rows_device_s"] <= t["lpt_rows"]
-    blocking = _run("ooc", setup, device=dev, overlap=False)
-    b = blocking.timings
+    joined = _run("ooc", setup, device=dev)
+    _join(joined)
+    b = joined.timings
     assert 0.0 < b["rows_device_s"] <= b["lpt_rows"]
 
 

@@ -7,12 +7,13 @@ out-of-core fmax engine over a mesh of SHARDS[mode] CPU shards split over
 the group (each process holding shards / world of them), with inputs from
 fixed seeds:
 
-  cases   every case of CASES, overlapped and blocking, with the landing
-          chunks cut to LAND_ROWS rows so that the hand-off lands in
-          several chunks; writes each case's products (case_products)
+  cases   every case of CASES, its products read through the views
+          before the join and read after a join, with the landing chunks
+          cut to LAND_ROWS rows so that the hand-off lands in several
+          chunks; writes each case's products (case_products)
   busy    the classic case over 3 shards, whose kz windows and x-blocks
-          are uneven (6/6/5 kz planes, 2/1/1 x-slabs of 8), overlapped,
-          the row streams slowed, while this thread issues collectives of
+          are uneven (6/6/5 kz planes, 2/1/1 x-slabs of 8), the row
+          streams slowed, while this thread issues collectives of
           the default group until the last row landed; writes the
           products and how many of those collectives ran while the rows
           streamed
@@ -61,20 +62,24 @@ def case_inputs(name: str):
     return p, cosmo, gm
 
 
-def run_case(name: str, shards: int, procs=None, overlap: bool = True):
+def run_case(name: str, shards: int, procs=None, prefix: str = None,
+             streamed: bool = False):
     """run_fmax_ooc of case ``name`` over ``shards`` CPU shards (split over
-    the group when procs), its row streams joined."""
+    the group when procs): its products (case_products under ``prefix``,
+    default the name), read after its row streams are joined, or with
+    streamed read through the views before the join."""
     from pinocchio_tpu_torch.fmax_ooc import run_fmax_ooc
     from pinocchio_tpu_torch.parallel import pfft
     p, cosmo, gm = case_inputs(name)
     local = shards if procs is None else shards // procs[1]
     mesh = pfft.mesh_for(shards, "slab", devices=["cpu"] * local,
                          procs=procs)
-    res = run_fmax_ooc(p, cosmo, "cpu", scaledep_gm=gm, mesh=mesh,
-                       overlap=overlap)
-    if res.ooc_pending is not None:
-        res.ooc_pending.join()
-    return res
+    res = run_fmax_ooc(p, cosmo, "cpu", scaledep_gm=gm, mesh=mesh)
+    if not streamed:
+        res.pending_fetch.join()
+    out = case_products(res, prefix or name)
+    res.pending_fetch.join()
+    return out
 
 
 def case_products(res, prefix: str) -> dict:
@@ -93,7 +98,7 @@ def case_products(res, prefix: str) -> dict:
 
 
 def busy(procs) -> dict:
-    """The classic case over SHARDS["busy"] shards overlapped, each slab
+    """The classic case over SHARDS["busy"] shards, each slab
     step of the row streams slowed by 20 ms, while this thread sums arrays
     over the default group until the streams ended: the products and the
     count of sums made while rows were still streaming (every rank makes
@@ -112,8 +117,8 @@ def busy(procs) -> dict:
         n = SHARDS["busy"]
         mesh = pfft.mesh_for(n, "slab", devices=["cpu"] * (n // procs[1]),
                              procs=procs)
-        res = run_fmax_ooc(p, cosmo, "cpu", mesh=mesh, overlap=True)
-        stream = res.ooc_pending.stream
+        res = run_fmax_ooc(p, cosmo, "cpu", mesh=mesh)
+        stream = res.pending_fetch.stream
         during = 0
         while True:
             streaming = int(stream.ready[0] < stream.count)
@@ -121,7 +126,7 @@ def busy(procs) -> dict:
             if not go:
                 break
             during += 1
-        res.ooc_pending.join()
+        res.pending_fetch.join()
     finally:
         multihost.all_to_all_staged = staged
     out = case_products(res, "busy")
@@ -142,10 +147,9 @@ def main():
         if mode == "cases":
             fmax_ooc.LAND_ROWS = LAND_ROWS
             for name in CASES:
-                for overlap in (True, False):
-                    out.update(case_products(
-                        run_case(name, SHARDS[mode], procs, overlap),
-                        f"{name}/{overlap}"))
+                for streamed in (True, False):
+                    out.update(run_case(name, SHARDS[mode], procs,
+                                        f"{name}/{streamed}", streamed))
         else:
             out.update(busy(procs))
         out["traffic"] = np.array([[r["bytes"], r["calls"]] for r in

@@ -1762,6 +1762,238 @@ def c2r_check(dev):
          "the CPU transform")
 
 
+def _device_split(fn, calls=3):
+    """Device ms a call of fn by kind of kernel, from torch.profiler over
+    ``calls`` calls: cuFFT's ("fft" in the name), PyTorch's multiplies
+    (MulFunctor, AUnaryFunctor), fills, copies (any other elementwise
+    kernel), and the rest; and the kernels' names with their ms a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kinds, names = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if not us or ev.key.startswith(("aten::", "cuda", "cudaLaunch")):
+            continue
+        name = ev.key
+        low = name.lower()
+        kind = ("cufft" if "fft" in low else
+                "multiply" if ("mulfunctor" in low or "aunaryfunctor" in low)
+                else "fill" if "fill" in low else
+                "copy" if ("elementwise" in low or "copy" in low)
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3 / calls
+        names[name[:90]] = us / 1e3 / calls
+    return kinds, names
+
+
+def loaded_libraries(part):
+    """The files mapped into this process whose name holds ``part``."""
+    with open("/proc/self/maps") as fd:
+        return sorted({ln.split()[-1] for ln in fd if part in ln
+                       and "/" in ln})
+
+
+def strided_geometry(N, c):
+    """The plans of the layout that the port did not take, timed here
+    alone (grids.plan_geometry's form): the spectrum [c, N, N, N/2+1] as K2
+    wrote it before the port's plans, its 2-D c2c over (x, y) in place at
+    element stride N/2+1 and batch distance 1, a call a component; the c2r
+    over z contiguous, one call."""
+    Nh = N // 2 + 1
+    c2c = dict(rank=2, n=(N, N), inembed=(N, N), istride=Nh, idist=1,
+               onembed=(N, N), ostride=Nh, odist=1, batch=Nh, calls=c,
+               step_in=N * N * Nh, step_out=N * N * Nh)
+    z = dict(rank=1, n=(N,), inembed=(Nh,), istride=1, idist=Nh,
+             onembed=(N,), ostride=1, odist=N, batch=c * N * N, calls=1,
+             step_in=0, step_out=0)
+    return dict(c2c=c2c, z=z)
+
+
+def grid_fft_phase(dev, report):
+    """The dense engine's 3-D transforms at 512^3 for c = 6 and c = 3: the
+    torch.fft two-step c2r (the grids.irfft3 of before the port's plans)
+    split into its copies, multiplies and cuFFT by the profiler
+    (library_ms, its whole time); the port's plans (grids.irfft3_ on a
+    spectrum kz outermost, [c, N/2+1, N, N]): the contiguous 2-D c2c, the
+    zeroing of the kz = 0, N/2 imaginary parts, the c2r reading z at stride
+    N^2, and the whole; the other candidate layout, K2's former [c, N, N,
+    N/2+1]: its strided in-place 2-D c2c and its contiguous c2r; the forward
+    (grids.rfft3) against torch.fft's.  Each direct result against
+    torch.fft's (max |diff| over max, share of equal values); K2 (the
+    kz-fastest tiles, with its scale 2^-27) against its plain twin bit for
+    bit and its time beside the window kernel's on the whole grid (K2s at
+    the window (0, 0)); K2 scaled then irfft3_ against the window kernel's
+    K2 then the torch.fft c2r; the device peak of one inverse against
+    spectrum + output + the plans' work area.  Bound: the spectrum read and
+    written by the in-place c2c and read by the c2r, and the real stack
+    written once, over 3.35 TB/s."""
+    import torch
+    from pinocchio_tpu_torch import grids, kernels
+    from pinocchio_tpu_torch.ops import derivatives
+    N = 512
+    Nh = N // 2 + 1
+    print(f"  libcufft mapped: {loaded_libraries('libcufft')}", flush=True)
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+
+    def stream():
+        return kernels.stream_ptr(dev)
+
+    def torch_c2r(k):
+        return grids.irfft_z(torch.fft.ifft2(k, dim=(-3, -2)), N)
+
+    def torch_r2c(x):
+        return torch.fft.fft2(torch.fft.rfft(x, dim=-1),
+                              dim=(-3, -2)).contiguous()
+
+    def compare(a, b):
+        a, b = (torch.view_as_real(t) if t.is_complex() else t
+                for t in (a, b))
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        return err, (a == b).float().mean().item()
+
+    def plans(g):
+        xy = grids.PLANS.get(0, grids.CUFFT_C2C, g["c2c"])
+        z = grids.PLANS.get(0, grids.CUFFT_C2R, g["z"])
+        return g, xy, z, grids._work((xy, z), dev)
+
+    for c in (6, 3):
+        spec = torch.randn((c, N, N, Nh), dtype=torch.complex64,
+                           device=dev, generator=gen)
+        ref = torch_c2r(spec)
+        kz = spec.permute(0, 3, 1, 2).contiguous()       # [c, Nh, N, N]
+        scaled = torch.view_as_complex(torch.view_as_real(kz).mul(
+            grids.irfft3_scale(spec, N)))
+        got = grids.irfft3_(scaled.permute(0, 2, 3, 1), N)
+        err, same = compare(got, ref)
+        del got, scaled
+        got = grids.irfft3(spec, N)                     # a contiguous input
+        need(compare(got, ref)[0] <= 1e-5, f"grid_fft c={c}: irfft3 of a "
+             "contiguous spectrum disagrees with torch.fft")
+        del got, ref
+        split, names = _device_split(lambda: torch_c2r(spec))
+        rec = dict(max_rel_err=err, equal_share=same, torch_split=split,
+                   torch_kernels=names,
+                   library_ms=time_ms(lambda: torch_c2r(spec)))
+        real = torch.empty((c, N, N, N), dtype=torch.float32, device=dev)
+        g, xy, z, wa = plans(grids.plan_geometry(N, c))
+        rec["work_bytes"] = max(xy[1], z[1])
+        rec["c2c_ms"] = time_ms(lambda: grids._run(
+            xy, grids.CUFFT_C2C, grids.INVERSE, g["c2c"], kz, kz, wa,
+            stream()))
+        rec["zero_ms"] = time_ms(lambda: grids._zero_real_planes(kz, N, 1))
+        rec["c2r_ms"] = time_ms(lambda: grids._run(
+            z, grids.CUFFT_C2R, 0, g["z"], kz, real, wa, stream()))
+        rec["direct_ms"] = time_ms(lambda: grids.irfft3_(
+            kz.permute(0, 2, 3, 1), N))
+        del kz, wa
+        gs, sxy, sz, ws = plans(strided_geometry(N, c))
+        buf = spec.clone()
+        rec["strided_c2c_ms"] = time_ms(lambda: grids._run(
+            sxy, grids.CUFFT_C2C, grids.INVERSE, gs["c2c"], buf, buf, ws,
+            stream()))
+        rec["strided_c2r_ms"] = time_ms(lambda: grids._run(
+            sz, grids.CUFFT_C2R, 0, gs["z"], buf, real, ws, stream()))
+        rec["strided_work_bytes"] = max(sxy[1], sz[1])
+        del buf, ws, spec
+        # the forward way
+        x = torch.randn((c, N, N, N), dtype=torch.float32, device=dev,
+                        generator=gen)
+        xk = x.clone()
+        fwd = grids.rfft3(x)
+        need(torch.equal(x, xk), f"grid_fft c={c}: rfft3 changed its input")
+        rec["rfft3_max_rel_err"], rec["rfft3_equal_share"] = compare(
+            fwd, torch_r2c(x))
+        del fwd, xk
+        rec["rfft3_ms"] = time_ms(lambda: grids.rfft3(x))
+        rec["rfft3_library_ms"] = time_ms(lambda: torch_r2c(x))
+        rec["rfft3_split"] = _device_split(lambda: grids.rfft3(x))[0]
+        rec["rfft3_torch_split"] = _device_split(lambda: torch_r2c(x))[0]
+        del x, real
+        nbytes = 3 * 8 * c * N * N * Nh + 4 * c * N ** 3
+        rec["bound_ms"] = 1e3 * nbytes / PEAK_BYTES
+        # the device peak of one inverse
+        spec = torch.randn((c, Nh, N, N), dtype=torch.complex64, device=dev,
+                           generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = grids.irfft3_(spec.permute(0, 2, 3, 1), N)
+        torch.cuda.synchronize()
+        rec["peak_over_spectrum_bytes"] = (
+            torch.cuda.max_memory_allocated(dev) - base)
+        # the caching allocator rounds a block up to 512 bytes
+        rec["allowed_bytes"] = (got.numel() * 4
+                                + -(-rec["work_bytes"] // 512) * 512)
+        del spec, got
+        print(f"  [512^3, c={c}] irfft3_ (kz outermost) {rec['direct_ms']:.3f}"
+              f" ms: c2c {rec['c2c_ms']:.3f}, zero {rec['zero_ms']:.3f}, c2r "
+              f"{rec['c2r_ms']:.3f}; strided layout c2c "
+              f"{rec['strided_c2c_ms']:.3f}, c2r {rec['strided_c2r_ms']:.3f};"
+              f" torch.fft {rec['library_ms']:.3f} ms split {split}; bound "
+              f"{rec['bound_ms']:.3f} ms; vs torch max rel {err:.2e}, equal "
+              f"{same:.4f}; rfft3 direct {rec['rfft3_ms']:.3f} ms split "
+              f"{rec['rfft3_split']}, torch {rec['rfft3_library_ms']:.3f} ms "
+              f"split {rec['rfft3_torch_split']}, max rel "
+              f"{rec['rfft3_max_rel_err']:.2e}, equal "
+              f"{rec['rfft3_equal_share']:.4f}; work {rec['work_bytes']} B "
+              f"(strided {rec['strided_work_bytes']} B), peak over the "
+              f"spectrum {rec['peak_over_spectrum_bytes']} B (output + work "
+              f"{rec['allowed_bytes']} B)", flush=True)
+        print(f"    torch.fft kernels (ms a call): {names}", flush=True)
+        need(rec["peak_over_spectrum_bytes"] <= rec["allowed_bytes"],
+             f"grid_fft c={c}: the inverse's peak over its spectrum exceeds "
+             "output + work area")
+        need(err <= 1e-5 and rec["rfft3_max_rel_err"] <= 1e-5,
+             f"grid_fft c={c}: the direct transforms disagree with torch.fft")
+        torch.cuda.empty_cache()
+        out[c] = rec
+    # K2 with its scale: the plain twin's bits; its time beside the window
+    # kernel's; K2 scaled + irfft3_ against the window kernel + torch.fft
+    from pinocchio_tpu_torch import ic
+    from pinocchio_tpu_torch.cosmology import Cosmology
+    from pinocchio_tpu_torch.grids import Grid
+    p = params_for(N)
+    delta = ic.generate_kdensity(Grid(N, p.BoxSize_htrue), Cosmology(p),
+                                 p.RandomSeed, dev)
+    scale = grids.irfft3_scale(delta, N)
+    for R in (0.0, 2.0):
+        hk = derivatives.hessian_kspace(delta, R, N, scale)
+        need(same_bits(hk, derivatives.hessian_kspace_plain(delta, R, N,
+                                                            scale)),
+             f"K2 with scale at R={R}: not its plain twin's bits")
+        new = grids.irfft3_(hk, N)
+        del hk
+        old = torch_c2r(derivatives.hessian_kspace_shard(delta, R, N, 0, 0))
+        err, same = compare(new, old)
+        rec = dict(max_rel_err=err, equal_share=same,
+                   k2_ms=time_ms(lambda: derivatives.hessian_kspace(
+                       delta, R, N, scale)),
+                   window_ms=time_ms(lambda: derivatives.hessian_kspace_shard(
+                       delta, R, N, 0, 0)))
+        out[f"k2_R{R}"] = rec
+        print(f"  [512^3] K2 (R={R}) kz tiles {rec['k2_ms']:.3f} ms, the flat "
+              f"window kernel (K2s at (0, 0)) {rec['window_ms']:.3f} ms; "
+              f"scaled + irfft3_ vs the flat one + torch.fft: max rel {err:.2e}, equal "
+              f"{same:.4f}", flush=True)
+        del new, old
+    del delta
+    torch.cuda.empty_cache()
+    report["grid_fft"] = out
+    KEPT["grid_fft"] = out
+
+
 # each phase's host peak: this process's resident set sampled every 5 ms
 HOST_PERIOD = 0.005
 
@@ -5170,7 +5402,8 @@ def main(argv=None) -> int:
                     "hosts, procs, ooc_procs, ooc_procs_bf16, modes, "
                     "subbox_turns, reference:<path>, "
                     "ooc_dense:<name>, ooc_fmax, big, ooc_mesh_big, "
-                    "refusal, handoff, storage_kernels, ooc_f16, "
+                    "refusal, handoff, storage_kernels, grid_fft, "
+                    "ooc_f16, "
                     "ooc_mesh_bf16, big_bf16, planner_cli, fits, "
                     "scripts); no JSON line is printed")
     args = ap.parse_args(argv)
@@ -5243,6 +5476,9 @@ def main(argv=None) -> int:
             storage_kernel_phases(BIG_N, dev, report)
         if wanted("kernels"):
             c2r_check(dev)
+        if wanted("grid_fft"):
+            section("the dense engine's grid transforms at 512^3:")
+            grid_fft_phase(dev, report)
         paths = {}
         for path in PATHS:
             if wanted(path):

@@ -30,8 +30,17 @@
 //                           (438-465; the tables of growth_k_tables,
 //                           1286-1297): K10's gradient mode with K8's
 //                           per-mode growth lookup
-// The c2r transforms that follow stay torch.fft (cuFFT), as the JAX package
-// leaves them to XLA's FFT.
+// The c2r transforms that follow are cuFFT's, as the JAX package leaves
+// them to XLA's FFT.  The full-grid K2, K5 and K8 feed the port's own plans
+// (gridfft.cu, driven by grids.irfft3_), which read the spectrum kz
+// outermost, [ncomp, Nh, N, N], and do not normalize: each writes that
+// layout through K10's kz-fastest form (the tiles below; their source is a
+// resident [N, N, Nh] spectrum, kz fastest) and takes the c2r's 1/N^3 as
+// one more real factor ``scale`` of each output (Scaled: both parts times
+// it, exact at a power-of-two N, so the transform's result is the
+// scale-after's bit for bit).  That kernel keeps the name window_kernel;
+// the shard forms (K2s, K5s, K8s) keep the flat window kernel below and
+// the [ncomp, N, ny, nz] layout of their torch.fft transforms.
 //
 // What bounds it on the H100: device memory bytes.  The Hessian mode reads
 // one complex64 mode and writes six (56 B per mode, 0.48 GB at 256^3); the
@@ -42,8 +51,8 @@
 // and its float operations keep the JAX order: base = delta * (smooth *
 // inv_k2), then base * (k_a * k_b), each product of a complex value by a
 // real or an imaginary one the complex product (cscale, cmul_i), so that a
-// zero carries the plain version's sign.  K2, K5 and K8 and their shard
-// forms (one window kernel): a block takes kChunk consecutive modes of the
+// zero carries the plain version's sign.  K2s, K5s and K8s (one window
+// kernel): a block takes kChunk consecutive modes of the
 // window in its flat (ix, iy, iz) order, and sets up the (row, iz) of its
 // first mode once from its index with 32-bit divisions (no 64-bit division
 // a mode, which the first design paid four times); each thread takes
@@ -67,8 +76,9 @@
 // contiguous planes (K9's, K19's widened batches) by (kz, ix) rows, lanes
 // on iy.  Both set up a block's indices and k_x once, with no 64-bit
 // division.  The pair mode's first source, K9's planes, is read in the
-// write phase by rows; the Hessian mode only ever reads K9's planes, so it
-// has the rows form alone.
+// write phase by rows; K10's Hessian mode only ever reads K9's planes, so
+// it has the rows form alone (K2's whole-grid Hessian takes the kz-fastest
+// form, on a resident spectrum).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +123,13 @@ __device__ __forceinline__ KMode kmode_at(int N, int ix, int iy, int iz) {
 struct Window {
   int N, y0, ny, z0, nz;
 };
+
+// both parts of a times a real s: exact for a power of two, and the
+// identity, signed zeros included, for s = 1 (cscale would turn a -0 part
+// into +0 there)
+__device__ __forceinline__ float2 rscale(float2 a, float s) {
+  return make_float2(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
+}
 
 // a * s for a real s as the complex product with (s, 0), and a * (i g) as
 // the one with (0, g), the way PyTorch's and XLA's complex multiplies
@@ -246,7 +263,25 @@ struct PairOp {
   }
 };
 
-// K2, K5, K8 and their shard forms over a window [N, ny, nz], flat in
+// K2, K5 and K8 on the whole grid: a mode's components (Op::eval) times the
+// real scale, stored at out[c * n + o] as K10's forms store theirs
+template <class Op>
+struct Scaled {
+  static constexpr int kComps = Op::kComps;
+  Op op;
+  float scale;
+  __device__ __forceinline__ void operator()(float2 d, const KMode& k, int,
+                                             int, int,
+                                             float2* __restrict__ out,
+                                             int64_t n, int64_t o) const {
+    float2 v[kComps];
+    op.eval(d, k, v);
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) out[c * n + o] = rscale(v[c], scale);
+  }
+};
+
+// K2s, K5s, K8s over a window [N, ny, nz], flat in
 // (ix, iy, iz) order (row = ix * ny + iy): block b takes the kChunk modes
 // from b * kChunk, thread t the pairs (2 (t + p kThreads), + 1) of them for
 // p < kPairs.  The block's first (row, iz) comes from b with 32-bit
@@ -360,9 +395,10 @@ constexpr int kTileY = 64;
 constexpr int kTileZ = 16;
 
 template <class Op>
-__global__ void __launch_bounds__(kThreads)
-factors_kz_kernel(const float2* __restrict__ src, int64_t sx, int64_t sy,
-                  float2* __restrict__ out, int N, int kz0, int B, Op op) {
+__device__ __forceinline__ void kz_tile(const float2* __restrict__ src,
+                                        int64_t sx, int64_t sy,
+                                        float2* __restrict__ out, int N,
+                                        int kz0, int B, const Op& op) {
   __shared__ float2 tile[kTileZ][kTileY + 1];
   const int iy0 = blockIdx.x * kTileY, ix = blockIdx.y;
   const int b0 = blockIdx.z * kTileZ;
@@ -384,6 +420,26 @@ factors_kz_kernel(const float2* __restrict__ src, int64_t sx, int64_t sy,
        kmode_of(kx, kgrid(step, N, iy), (float)(step * (double)(kz0 + b))),
        b, ix, iy, out, n, ((int64_t)b * N + ix) * N + iy);
   }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+factors_kz_kernel(const float2* __restrict__ src, int64_t sx, int64_t sy,
+                  float2* __restrict__ out, int N, int kz0, int B, Op op) {
+  kz_tile(src, sx, sy, out, N, kz0, B, op);
+}
+
+// K2, K5 and K8 on the whole grid: the kz-fastest form over every kz plane
+// of a resident [N, N, Nh] spectrum, each value times scale, into [ncomp,
+// Nh, N, N].  It carries the window kernel's name, as these three kernels
+// always have: benchmark/roofline/kspace_{hessian,gradient,gradient_tab}
+// find their device time by it.
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+window_kernel(const float2* __restrict__ src, float2* __restrict__ out,
+              int N, Op op, float scale) {
+  const int nh = N / 2 + 1;
+  kz_tile(src, (int64_t)N * nh, nh, out, N, 0, nh, Scaled<Op>{op, scale});
 }
 
 // The rows form: iy contiguous, element (b, ix, iy) at src[b * sb + ix * sx
@@ -473,27 +529,44 @@ int launch_factors_rows(const void* src, int64_t sb, int64_t sx, void* out,
   return (int)cudaGetLastError();
 }
 
+// K2, K5, K8: src the contiguous [N, N, Nh] spectrum, out [ncomp, Nh, N, N]
+// (every kz plane, as K10's kz-fastest form lays out a batch of them)
+template <class Op>
+int launch_spectrum(const void* src, void* out, int N, Op op, float scale,
+                    void* stream) {
+  if (N == 0) return 0;
+  if (N < 0 || N > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kTileY - 1) / kTileY, N,
+                  (N / 2 + 1 + kTileZ - 1) / kTileZ);
+  window_kernel<Op><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)src, (float2*)out, N, op, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kspace_hessian(const void* delta, void* out, int N,
-                              float R_grid, void* stream) {
-  return launch_window(delta, out, Window{N, 0, N, 0, N / 2 + 1},
-                          HessianOp{R_grid}, stream);
+                              float R_grid, float scale, void* stream) {
+  return launch_spectrum(delta, out, N, HessianOp{R_grid}, scale, stream);
 }
 
 extern "C" int kspace_gradient(const void* src, void* out, int N,
-                               float growth, void* stream) {
-  return launch_window(src, out, Window{N, 0, N, 0, N / 2 + 1},
-                          GradientOp<ScalarGrowth>{{growth}}, stream);
+                               float growth, float scale, void* stream) {
+  return launch_spectrum(src, out, N, GradientOp<ScalarGrowth>{{growth}},
+                         scale, stream);
 }
 
 // gtab: [ntab] growth over log10 |k| from glo in steps of gdx; tmax: the
 // float32 clip of the table coordinate, ntab - 1.001
 extern "C" int kspace_gradient_tab(const void* src, void* out, int N,
                                    const void* gtab, int ntab, float glo,
-                                   float gdx, float tmax, void* stream) {
-  return launch_gradient_tab(src, out, Window{N, 0, N, 0, N / 2 + 1}, gtab,
-                             ntab, glo, gdx, tmax, stream);
+                                   float gdx, float tmax, float scale,
+                                   void* stream) {
+  if (ntab < 2) return (int)cudaErrorInvalidValue;
+  return launch_spectrum(
+      src, out, N,
+      TabGradientOp{{LdgTable{(const float*)gtab}, glo, gdx, tmax}}, scale,
+      stream);
 }
 
 // K2s, K5s, K8s: src [N, ny, nz], the window at (y0, z0) of a mesh's k

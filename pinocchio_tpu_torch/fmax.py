@@ -21,6 +21,10 @@ With keep_dense_products (the timeless snapshot, special mode 3, a dense
 dump) Fmax, Rmax and each [3, N, N, N] stack of the first displacement set
 are also copied whole to the host.
 
+The 3-D transforms go through the port's cuFFT plans on a card
+(``grids``); ``timings["fft_direct"]`` and ``["fft_torch"]`` count this
+call's by route.
+
 Each layer of a call opens a span of torch.profiler.record_function, on
 the profiler's clock: fmax.ic, fmax.cycle, fmax.sort, fmax.lpt,
 handoff.alloc (each page-locked buffer of the hand-off) and
@@ -41,7 +45,7 @@ from torch.profiler import record_function
 from .config import Params
 from .cosmology import Cosmology
 
-from .grids import Grid
+from .grids import FFT_COUNTS, Grid
 from .handoff import (N_CHUNKS, EventTimer, PendingFetch, chunk_bounds,
                       thread_alloc_seconds, to_host)
 from .ic import generate_kdensity
@@ -413,6 +417,7 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
     N = grid.N
     sm = Smoothing.build(params, cosmo)
     timings = {}
+    ffts = dict(FFT_COUNTS)
 
     t0 = time.perf_counter()
     with record_function("fmax.ic"):
@@ -534,6 +539,9 @@ def run_fmax(params: Params, cosmo: Cosmology, device,
         dense = DenseProducts(Fmax=to_host(Fmax).numpy(),
                               Rmax=to_host(Rmax).numpy(), vel=dense_vel)
     timings["products"] = t_sort + time.perf_counter() - t0
+    # this call's 3-D transforms by route (grids.FFT_COUNTS)
+    for route in ("direct", "torch"):
+        timings[f"fft_{route}"] = FFT_COUNTS[route] - ffts[route]
     pending.returned()
     if verbose:
         print(f"  products: {count}/{N ** 3} needed particles "

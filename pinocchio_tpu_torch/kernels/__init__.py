@@ -15,6 +15,10 @@ and reads them afterwards to show which kernels the path went through.
 
 The device-to-host copies and page-locked memory of the hand-off are in
 ``handoff``, which loads this library for cudaHostAlloc and cudaFreeHost.
+The library links cuFFT for the dense engine's grid transforms
+(``csrc/gridfft.cu``, driven by ``grids``); those are cuFFT's kernels, not
+the port's, and ``LAUNCHES`` does not count them (``grids.FFT_COUNTS``
+does).
 """
 
 from __future__ import annotations
@@ -31,12 +35,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("ic_kdensity.cu", "kspace.cu", "collapse.cu", "compact.cu",
-           "exchange.cu", "storage.cu", "lpt.cu")
+           "exchange.cu", "storage.cu", "lpt.cu", "gridfft.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds op for
 # op as its plain PyTorch version does (explicit fmaf stays fused)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC"]
+# gridfft.cu's plans: the toolkit's libcufft, whose soname (libcufft.so.11
+# in CUDA 12) is the one PyTorch has loaded by then, so the process runs
+# PyTorch's copy; the toolkit's directory is the run path where it has not
+LINK_FLAGS = ["-lcufft"]
 
 _COLLAPSE = "pinocchio_tpu_torch/csrc/collapse.cu"
 _KSPACE = "pinocchio_tpu_torch/csrc/kspace.cu"
@@ -114,12 +122,12 @@ _SIGNATURES = {
     "ic_phase_check": [_P, _P, _P, _P, _P],
     # which, out[4] (host)
     "ic_kernel_info": [_I, _P],
-    # delta, out, N, R_grid, stream
-    "kspace_hessian": [_P, _P, _I, _F, _P],
-    # src, out, N, growth, stream
-    "kspace_gradient": [_P, _P, _I, _F, _P],
-    # src, out, N, gtab, ntab, glo, gdx, tmax, stream
-    "kspace_gradient_tab": [_P, _P, _I, _P, _I, _F, _F, _F, _P],
+    # delta, out, N, R_grid, scale, stream
+    "kspace_hessian": [_P, _P, _I, _F, _F, _P],
+    # src, out, N, growth, scale, stream
+    "kspace_gradient": [_P, _P, _I, _F, _F, _P],
+    # src, out, N, gtab, ntab, glo, gdx, tmax, scale, stream
+    "kspace_gradient_tab": [_P, _P, _I, _P, _I, _F, _F, _F, _F, _P],
     # derivs, Fmax, Rmax, ncell, ismooth, pack[23] (host), then the
     # reduction's partials, max_blocks, ticket, means, stream
     "collapse_update": [_P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P],
@@ -206,6 +214,12 @@ _SIGNATURES = {
     "lpt_accumulate": [_P, _P, _P, _L, _P],
     "lpt_accumulate_one": [_P, _P, _P, _L, _F, _P],
     "lpt_kernel_info": [_I, _P],
+    # the grid transforms' cuFFT plans: rank, n, inembed (host int64
+    # arrays), istride, idist, onembed, ostride, odist, type, batch, then
+    # the handle and the work area's bytes (host out); handle, type,
+    # direction, in, out, work, stream
+    "gridfft_plan": [_I, _P, _P, _L, _L, _P, _L, _L, _I, _L, _P, _P],
+    "gridfft_exec": [_I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -227,7 +241,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as fd:
             h.update(name.encode() + fd.read())
@@ -267,7 +281,9 @@ def build() -> str:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     with open(ptxas_path(path), "w") as fd:
         fd.write("".join(report))
-    link = [nvcc] + ARCH + ["-shared", "-o", f"{tmp}.so"] + objs
+    libdir = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")
+    link = ([nvcc] + ARCH + ["-shared", "-o", f"{tmp}.so"] + objs
+            + LINK_FLAGS + ["-Xlinker", f"-rpath={libdir}"])
     res = subprocess.run(link, capture_output=True, text=True)
     for o in objs:
         os.remove(o)

@@ -9,17 +9,23 @@ Hessian component order ('ider'): xx yy zz xy xz yz.
 
 ``hessian_kspace``, ``gradient_kspace`` and ``gradient_kspace_tab`` are the
 wrappers of the three entry points of the CUDA kernels ``csrc/kspace.cu``;
-on a CPU tensor they run the plain PyTorch multiply.  Their ``*_shard``
-versions (K2s, K5s, K8s) apply the same multipliers to one shard of a
-mesh's k layout, the window [N, y0:y0+ny, z0:z0+nz] of [N, N, Nhp] (Nhp >=
-N//2+1 pads the kz axis so that it splits evenly; the padded planes are
-zero in and out); the full-grid functions are the window (0, 0).  The
-shard wrappers look their entry point up once (``_shard_entry``) and hand
+on a CPU tensor they run the plain PyTorch multiply.  On the card their
+output lies kz outermost in memory (the [ncomp, N, N, N//2+1] result is a
+view of [ncomp, N//2+1, N, N]), which is what the c2r plans read.  Their
+``*_shard`` versions (K2s, K5s, K8s) apply the same multipliers to one
+shard of a mesh's k layout, the window [N, y0:y0+ny, z0:z0+nz] of [N, N,
+Nhp] (Nhp >= N//2+1 pads the kz axis so that it splits evenly; the padded
+planes are zero in and out); the full-grid plain twins are the window
+(0, 0).  The shard wrappers look their entry point up once (``_shard_entry``) and hand
 it plain ints and floats; K8s takes its table as a tensor or as a
 ``GrowthTable`` whose scalars are made once (``pfft`` makes one per device
 for the shards of a call).  The c2r
-transforms are ``torch.fft`` (cuFFT on the card) in the two-step
-decomposition of ``grids.irfft3``.  ``ooc_hessian``, ``ooc_gradient`` and
+transforms are ``grids.irfft3_`` (the port's cuFFT plans on the card, in
+the two-step decomposition), which consumes the multipliers' output: the
+full-grid multipliers take its normalization as their ``scale``
+(``grids.irfft3_scale``: 1/N^3 on the card, folded into the kernel's
+multiply; 1 on the CPU); the shard forms keep 1 (their transforms are
+``parallel.pfft``'s).  ``ooc_hessian``, ``ooc_gradient`` and
 ``ooc_pair`` are the wrappers of the out-of-core engine's per-kz-batch
 factors (K10, also in ``csrc/kspace.cu``), ``ooc_gradient_tab`` that of its
 gradient with a growth table (K14, a ``GrowthTable``).  Each of their modes
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..grids import irfft3, k_batch, k_window
+from ..grids import irfft3, irfft3_, irfft3_scale, k_batch, k_window
 
 SECOND_DERIV_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
@@ -67,8 +73,18 @@ def hessian_kspace_shard_plain(src, R_grid: float, N: int, y0: int,
     return _plain_window(src, N, y0, z0, 6, fn)
 
 
-def hessian_kspace_plain(kdensity, R_grid: float, N: int):
-    return hessian_kspace_shard_plain(kdensity, R_grid, N, 0, 0)
+def _scaled(out, scale: float):
+    """out with both parts of every value times the real ``scale`` (the
+    kernels' last multiply; the identity at 1), in place."""
+    if scale != 1.0:
+        torch.view_as_real(out).mul_(float(np.float32(scale)))
+    return out
+
+
+def hessian_kspace_plain(kdensity, R_grid: float, N: int,
+                         scale: float = 1.0):
+    return _scaled(hessian_kspace_shard_plain(kdensity, R_grid, N, 0, 0),
+                   scale)
 
 
 def gradient_kspace_shard_plain(src, growth: float, N: int, y0: int,
@@ -82,8 +98,10 @@ def gradient_kspace_shard_plain(src, growth: float, N: int, y0: int,
     return _plain_window(src, N, y0, z0, 3, fn)
 
 
-def gradient_kspace_plain(kvector, growth: float, N: int):
-    return gradient_kspace_shard_plain(kvector, growth, N, 0, 0)
+def gradient_kspace_plain(kvector, growth: float, N: int,
+                          scale: float = 1.0):
+    return _scaled(gradient_kspace_shard_plain(kvector, growth, N, 0, 0),
+                   scale)
 
 
 def _scalar(x, device):
@@ -115,8 +133,10 @@ def gradient_kspace_tab_shard_plain(src, gtab, glo: float, gdx: float,
     return _plain_window(src, N, y0, z0, 3, fn)
 
 
-def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int):
-    return gradient_kspace_tab_shard_plain(kvector, gtab, glo, gdx, N, 0, 0)
+def gradient_kspace_tab_plain(kvector, gtab, glo: float, gdx: float, N: int,
+                              scale: float = 1.0):
+    return _scaled(gradient_kspace_tab_shard_plain(kvector, gtab, glo, gdx, N,
+                                                   0, 0), scale)
 
 
 def _check_kspace(name, src, N):
@@ -128,36 +148,43 @@ def _check_kspace(name, src, N):
                          f"{tuple(src.shape)}")
 
 
-def hessian_kspace(kdensity, R_grid: float, N: int):
-    """The 6 smoothed second-derivative multipliers applied to delta(k):
-    complex64 [6, N, N, N//2+1] in ider order."""
+def _kz_first_out(ncomp: int, src, N: int):
+    """The [ncomp, N//2+1, N, N] output of K2, K5 or K8 (kz outermost, the
+    layout grids.irfft3_ transforms in place); the wrappers hand it back as
+    its [ncomp, N, N, N//2+1] view."""
+    return torch.empty((ncomp, N // 2 + 1, N, N), dtype=torch.complex64,
+                       device=src.device)
+
+
+def hessian_kspace(kdensity, R_grid: float, N: int, scale: float = 1.0):
+    """The 6 smoothed second-derivative multipliers applied to delta(k),
+    each value's parts times the real ``scale`` last: complex64
+    [6, N, N, N//2+1] in ider order."""
     if not kernels.plain_or_kernel("kspace_hessian", kdensity):
-        return hessian_kspace_plain(kdensity, R_grid, N)
+        return hessian_kspace_plain(kdensity, R_grid, N, scale)
     _check_kspace("kspace_hessian", kdensity, N)
-    out = torch.empty((6,) + tuple(kdensity.shape), dtype=torch.complex64,
-                      device=kdensity.device)
+    out = _kz_first_out(6, kdensity, N)
     err = kernels.lib().kspace_hessian(
-        kdensity.data_ptr(), out.data_ptr(), N, float(R_grid),
+        kdensity.data_ptr(), out.data_ptr(), N, float(R_grid), float(scale),
         kernels.stream_ptr(kdensity.device))
     kernels.check("kspace_hessian", err)
     kernels.LAUNCHES["kspace_hessian"] += 1
-    return out
+    return out.permute(0, 2, 3, 1)
 
 
-def gradient_kspace(kvector, growth: float, N: int):
-    """i k_a / k^2 * growth applied to a k-space source: complex64
-    [3, N, N, N//2+1]."""
+def gradient_kspace(kvector, growth: float, N: int, scale: float = 1.0):
+    """i k_a / k^2 * growth applied to a k-space source, times the real
+    ``scale`` last: complex64 [3, N, N, N//2+1]."""
     if not kernels.plain_or_kernel("kspace_gradient", kvector):
-        return gradient_kspace_plain(kvector, growth, N)
+        return gradient_kspace_plain(kvector, growth, N, scale)
     _check_kspace("kspace_gradient", kvector, N)
-    out = torch.empty((3,) + tuple(kvector.shape), dtype=torch.complex64,
-                      device=kvector.device)
+    out = _kz_first_out(3, kvector, N)
     err = kernels.lib().kspace_gradient(
-        kvector.data_ptr(), out.data_ptr(), N, float(growth),
+        kvector.data_ptr(), out.data_ptr(), N, float(growth), float(scale),
         kernels.stream_ptr(kvector.device))
     kernels.check("kspace_gradient", err)
     kernels.LAUNCHES["kspace_gradient"] += 1
-    return out
+    return out.permute(0, 2, 3, 1)
 
 
 def _table_args(name, gtab, glo: float, gdx: float, device):
@@ -182,23 +209,23 @@ def _table_scalars(name, gtab, glo: float, gdx: float):
             float(np.float32(gdx)), float(np.float32(ntab - 1.001)))
 
 
-def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int):
+def gradient_kspace_tab(kvector, gtab, glo: float, gdx: float, N: int,
+                        scale: float = 1.0):
     """i k_a / k^2 * growth(|k|) applied to a k-space source, the growth
     interpolated linearly in a table gtab [ntab] float32 over log10 |k|
-    (|k| in grid units) from glo in steps of gdx: complex64
-    [3, N, N, N//2+1]."""
+    (|k| in grid units) from glo in steps of gdx, times the real ``scale``
+    last: complex64 [3, N, N, N//2+1]."""
     if not kernels.plain_or_kernel("kspace_gradient_tab", kvector):
-        return gradient_kspace_tab_plain(kvector, gtab, glo, gdx, N)
+        return gradient_kspace_tab_plain(kvector, gtab, glo, gdx, N, scale)
     _check_kspace("kspace_gradient_tab", kvector, N)
-    out = torch.empty((3,) + tuple(kvector.shape), dtype=torch.complex64,
-                      device=kvector.device)
+    out = _kz_first_out(3, kvector, N)
     err = kernels.lib().kspace_gradient_tab(
         kvector.data_ptr(), out.data_ptr(), N,
         *_table_args("kspace_gradient_tab", gtab, glo, gdx, kvector.device),
-        kernels.stream_ptr(kvector.device))
+        float(scale), kernels.stream_ptr(kvector.device))
     kernels.check("kspace_gradient_tab", err)
     kernels.LAUNCHES["kspace_gradient_tab"] += 1
-    return out
+    return out.permute(0, 2, 3, 1)
 
 
 # the shard window kernels' C entry points, each looked up once
@@ -295,24 +322,27 @@ def gradient_kspace_tab_shard(src, gtab, glo: float, gdx: float, N: int,
 def second_derivatives(kdensity, R_grid: float, N: int):
     """All 6 second derivatives of the smoothed inverse-Laplacian
     potential: float32 [6, N, N, N] in ider order (one batched c2r)."""
-    return irfft3(hessian_kspace(kdensity, R_grid, N), N)
+    return irfft3_(hessian_kspace(kdensity, R_grid, N,
+                                  irfft3_scale(kdensity, N)), N)
 
 
 def first_derivatives(kvector, growth: float, N: int):
     """The 3 first derivatives i k_a/k^2 of a k-space source scaled by a
     scalar growth factor: one displacement field float32 [3, N, N, N]."""
-    return irfft3(gradient_kspace(kvector, growth, N), N)
+    return irfft3_(gradient_kspace(kvector, growth, N,
+                                   irfft3_scale(kvector, N)), N)
 
 
 def first_derivatives_tab(kvector, gtab, glo: float, gdx: float, N: int):
     """first_derivatives with a per-mode growth factor from a table over
     log10 |k| (scale-dependent growth, fmax-pfft.c:344-364)."""
-    return irfft3(gradient_kspace_tab(kvector, gtab, glo, gdx, N), N)
+    return irfft3_(gradient_kspace_tab(kvector, gtab, glo, gdx, N,
+                                       irfft3_scale(kvector, N)), N)
 
 
 def density_field(kdensity, N: int):
     """The real-space linear density contrast, float32 [N, N, N]: the c2r
-    transform of delta(k) (a library call, cuFFT on the card)."""
+    transform of delta(k), which is left as it was (cuFFT on the card)."""
     return irfft3(kdensity, N)
 
 

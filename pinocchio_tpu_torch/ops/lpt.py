@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import kernels
-from ..grids import irfft3, rfft3
+from ..grids import irfft3_, irfft3_scale, rfft3
 from .derivatives import hessian_kspace
 
 # ider order: 0:xx 1:yy 2:zz 3:xy 4:xz 5:yz
@@ -155,7 +155,7 @@ def lpt_sources(sd, N: int):
     kvec2 = rfft3(src2)
     del src2
     # second derivatives of the 2LPT potential (LPT.c:116-141)
-    phi2 = irfft3(hessian_kspace(kvec2, 0.0, N), N)
+    phi2 = irfft3_(hessian_kspace(kvec2, 0.0, N, irfft3_scale(kvec2, N)), N)
     src32 = src32_accumulate(phi2, sd, src32)
     del phi2
     return kvec2, rfft3(src31), rfft3(src32)
